@@ -1,0 +1,180 @@
+"""Gradient/error clipping (reference python/paddle/fluid/clip.py:
+ErrorClipByValue, GradientClipByValue, GradientClipByNorm,
+GradientClipByGlobalNorm, set_gradient_clip, append_gradient_clip_ops)."""
+
+import copy
+
+from .core.framework import default_main_program
+
+__all__ = [
+    "ErrorClipByValue",
+    "GradientClipByValue",
+    "GradientClipByNorm",
+    "GradientClipByGlobalNorm",
+    "set_gradient_clip",
+    "append_gradient_clip_ops",
+    "error_clip_callback",
+]
+
+
+class BaseErrorClipAttr:
+    def _append_clip_op(self, block, grad_name):
+        raise NotImplementedError
+
+
+class ErrorClipByValue(BaseErrorClipAttr):
+    def __init__(self, max, min=None):
+        max = float(max)
+        self.max = max
+        self.min = float(min) if min is not None else -max
+
+    def _append_clip_op(self, block, grad_name):
+        block.append_op(
+            "clip", {"X": [grad_name]}, {"Out": [grad_name]}, {"min": self.min, "max": self.max}
+        )
+
+
+def error_clip_callback(block, context):
+    for grad_n, var in list(block.vars.items()):
+        pass  # error clip applied at append_backward in this build
+
+
+class BaseGradientClipAttr:
+    def _process_context(self, context, param, grad):
+        pass
+
+    def _create_operators(self, param, grad):
+        raise NotImplementedError
+
+
+class NullGradientClipAttr(BaseGradientClipAttr):
+    def _create_operators(self, param, grad):
+        return param, grad
+
+
+class GradientClipByValue(BaseGradientClipAttr):
+    def __init__(self, max, min=None):
+        max = float(max)
+        self.max = max
+        self.min = float(min) if min is not None else -max
+
+    def _create_operators(self, param, grad):
+        block = grad.block
+        new_grad = block.create_var(
+            name=grad.name + "_clipped", shape=grad.shape, dtype=grad.dtype
+        )
+        block.append_op(
+            "clip", {"X": [grad]}, {"Out": [new_grad]}, {"min": self.min, "max": self.max}
+        )
+        return param, new_grad
+
+
+class GradientClipByNorm(BaseGradientClipAttr):
+    def __init__(self, clip_norm):
+        self.clip_norm = float(clip_norm)
+
+    def _create_operators(self, param, grad):
+        block = grad.block
+        new_grad = block.create_var(
+            name=grad.name + "_clipped", shape=grad.shape, dtype=grad.dtype
+        )
+        block.append_op(
+            "clip_by_norm", {"X": [grad]}, {"Out": [new_grad]}, {"max_norm": self.clip_norm}
+        )
+        return param, new_grad
+
+
+class GradientClipByGlobalNorm(BaseGradientClipAttr):
+    def __init__(self, clip_norm, group_name="default_group"):
+        self.clip_norm = float(clip_norm)
+        self.group_name = group_name
+
+    def _process_context(self, context, param, grad):
+        if self.group_name not in context:
+            context[self.group_name] = []
+            context[self.group_name + "_clip"] = self.clip_norm
+        elif context[self.group_name + "_clip"] != self.clip_norm:
+            raise ValueError("All parameters' clip_norm in one group should be the same")
+        block = grad.block
+        sq = block.create_var(
+            name=grad.name + "_sq", shape=(1,), dtype="float32"
+        )
+        block.append_op("squared_l2_norm", {"X": [grad]}, {"Out": [sq]})
+        context[self.group_name].append(sq)
+        self.context = context
+
+    def _create_operators(self, param, grad):
+        block = grad.block
+        group = self.context[self.group_name]
+        if not hasattr(self, "_group_scale_var_cache"):
+            self._group_scale_var_cache = {}
+        key = (id(block.program), self.group_name)
+        scale_var = self._group_scale_var_cache.get(key)
+        if scale_var is None:
+            from . import unique_name
+
+            gsum = block.create_var(
+                name=unique_name.generate(self.group_name + "_gsum"), shape=(1,), dtype="float32"
+            )
+            block.append_op("sum", {"X": group}, {"Out": [gsum]})
+            gnorm = block.create_var(
+                name=unique_name.generate(self.group_name + "_gnorm"), shape=(1,), dtype="float32"
+            )
+            block.append_op("sqrt", {"X": [gsum]}, {"Out": [gnorm]})
+            clipped_norm = block.create_var(
+                name=unique_name.generate(self.group_name + "_cnorm"), shape=(1,), dtype="float32"
+            )
+            block.append_op(
+                "clip", {"X": [gnorm]}, {"Out": [clipped_norm]},
+                {"min": 0.0, "max": self.clip_norm},
+            )
+            # scale = clip_norm / max(norm, clip_norm)
+            denom = block.create_var(
+                name=unique_name.generate(self.group_name + "_denom"), shape=(1,), dtype="float32"
+            )
+            block.append_op(
+                "elementwise_max",
+                {"X": [gnorm], "Y": [clipped_norm]},
+                {"Out": [denom]},
+            )
+            scale_var = block.create_var(
+                name=unique_name.generate(self.group_name + "_scale"), shape=(1,), dtype="float32"
+            )
+            block.append_op(
+                "elementwise_div", {"X": [clipped_norm], "Y": [denom]}, {"Out": [scale_var]}
+            )
+            self._group_scale_var_cache[key] = scale_var
+        new_grad = block.create_var(
+            name=grad.name + "_clipped", shape=grad.shape, dtype=grad.dtype
+        )
+        block.append_op(
+            "elementwise_mul", {"X": [grad], "Y": [scale_var]}, {"Out": [new_grad]}, {"axis": -1}
+        )
+        return param, new_grad
+
+
+def set_gradient_clip(clip, param_list=None, program=None):
+    if not isinstance(clip, BaseGradientClipAttr):
+        raise TypeError("clip should be an instance of BaseGradientClipAttr")
+    if program is None:
+        program = default_main_program()
+    if param_list is None:
+        param_list = program.global_block().all_parameters()
+    param_list = [
+        program.global_block().var(p) if isinstance(p, str) else p for p in param_list
+    ]
+    for param in param_list:
+        param.gradient_clip_attr = copy.deepcopy(clip)
+
+
+def append_gradient_clip_ops(param_grad):
+    context = {}
+    clips = []
+    for p, g in param_grad:
+        clip_attr = getattr(p, "gradient_clip_attr", None) or NullGradientClipAttr()
+        clips.append(clip_attr)
+        clip_attr._process_context(context, p, g)
+    res = []
+    for clip_attr, (p, g) in zip(clips, param_grad):
+        res.append(clip_attr._create_operators(p, g))
+    return res

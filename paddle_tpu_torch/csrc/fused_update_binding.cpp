@@ -1,0 +1,109 @@
+// PyTorch binding of the fused bucket updates in fused_update.cu, built
+// together with it by torch.utils.cpp_extension.load
+// (paddle_tpu_torch/cuda_build.py). This is the one translation unit that
+// includes PyTorch's headers; the kernels' own file keeps a plain C
+// interface, so nvcc compiles it without them.
+//
+// Each function checks what the kernel relies on, allocates fresh outputs,
+// launches on PyTorch's current stream of the operands' device and raises
+// if the launch was refused. It does not synchronise.
+
+#include <torch/extension.h>
+
+#include <c10/cuda/CUDAGuard.h>
+#include <c10/cuda/CUDAStream.h>
+
+#include <cuda_runtime.h>
+
+extern "C" {
+int momentum_bucket_launch(const float* p, const float* g, const float* v,
+                           const float* lr, float mu, int nesterov,
+                           float* p_out, float* v_out, int64_t n,
+                           void* stream);
+int adam_bucket_launch(const float* p, const float* g, const float* m1,
+                       const float* m2, const float* lr_t, float b1,
+                       float omb1, float b2, float omb2, float eps,
+                       float* p_out, float* m1_out, float* m2_out, int64_t n,
+                       void* stream);
+}
+
+namespace {
+
+// Lanes: contiguous 1-D f32 of one length on one CUDA device; the scalar
+// (lr or lr_t): one f32 element on the same device.
+void check(const std::vector<torch::Tensor>& lanes,
+           const torch::Tensor& scalar) {
+  const auto& first = lanes.front();
+  for (const auto& t : lanes) {
+    TORCH_CHECK(t.is_cuda() && t.device() == first.device(),
+                "every lane must be on one CUDA device");
+    TORCH_CHECK(t.scalar_type() == torch::kFloat32, "float32 lanes only");
+    TORCH_CHECK(t.dim() == 1 && t.is_contiguous() &&
+                    t.numel() == first.numel(),
+                "lanes must be contiguous 1-D of one length");
+  }
+  TORCH_CHECK(scalar.device() == first.device() &&
+                  scalar.scalar_type() == torch::kFloat32 &&
+                  scalar.numel() == 1,
+              "the scalar operand must be one f32 element on the lanes' "
+              "device");
+}
+
+void check_launch(int err) {
+  TORCH_CHECK(err == cudaSuccess, "kernel launch failed: ",
+              cudaGetErrorString(static_cast<cudaError_t>(err)));
+}
+
+}  // namespace
+
+std::vector<torch::Tensor> momentum_bucket(torch::Tensor p, torch::Tensor g,
+                                           torch::Tensor v, torch::Tensor lr,
+                                           double mu, bool nesterov) {
+  check({p, g, v}, lr);
+  const c10::cuda::CUDAGuard guard(p.device());
+  auto p_out = torch::empty_like(p);
+  auto v_out = torch::empty_like(v);
+  if (p.numel() > 0) {
+    check_launch(momentum_bucket_launch(
+        p.data_ptr<float>(), g.data_ptr<float>(), v.data_ptr<float>(),
+        lr.data_ptr<float>(), static_cast<float>(mu), nesterov ? 1 : 0,
+        p_out.data_ptr<float>(), v_out.data_ptr<float>(), p.numel(),
+        c10::cuda::getCurrentCUDAStream().stream()));
+  }
+  return {p_out, v_out};
+}
+
+// b1, b2, eps and the complements omb1 = 1 - b1, omb2 = 1 - b2 arrive as
+// python doubles (the complements taken there, as the scalar op takes
+// them) and are rounded to f32 here, as torch rounds a python scalar for
+// an f32 tensor.
+std::vector<torch::Tensor> adam_bucket(torch::Tensor p, torch::Tensor g,
+                                       torch::Tensor m1, torch::Tensor m2,
+                                       torch::Tensor lr_t, double b1,
+                                       double omb1, double b2, double omb2,
+                                       double eps) {
+  check({p, g, m1, m2}, lr_t);
+  const c10::cuda::CUDAGuard guard(p.device());
+  auto p_out = torch::empty_like(p);
+  auto m1_out = torch::empty_like(m1);
+  auto m2_out = torch::empty_like(m2);
+  if (p.numel() > 0) {
+    check_launch(adam_bucket_launch(
+        p.data_ptr<float>(), g.data_ptr<float>(), m1.data_ptr<float>(),
+        m2.data_ptr<float>(), lr_t.data_ptr<float>(), static_cast<float>(b1),
+        static_cast<float>(omb1), static_cast<float>(b2),
+        static_cast<float>(omb2), static_cast<float>(eps),
+        p_out.data_ptr<float>(), m1_out.data_ptr<float>(),
+        m2_out.data_ptr<float>(), p.numel(),
+        c10::cuda::getCurrentCUDAStream().stream()));
+  }
+  return {p_out, m1_out, m2_out};
+}
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("momentum_bucket", &momentum_bucket,
+        "v' = mu*v + g; p' = p - lr*v' (Nesterov: p - (g + mu*v')*lr)");
+  m.def("adam_bucket", &adam_bucket,
+        "m1' = b1*m1 + (1-b1)*g; m2' = b2*m2 + (1-b2)*g*g; "
+        "p' = p - lr_t*m1'/(sqrt(m2') + eps)");
+}

@@ -1,0 +1,1271 @@
+"""Neural-net layers (reference python/paddle/fluid/layers/nn.py — 61 layers).
+
+Each function builds IR ops; shapes are propagated best-effort at build time
+(the compiled trace is the source of truth at runtime).
+"""
+
+import math
+
+from ..layer_helper import LayerHelper
+from ..core.framework import Variable
+from ..param_attr import ParamAttr
+from ..initializer import Constant, Normal, Xavier
+from . import tensor as tensor_layers
+
+__all__ = [
+    "fc", "embedding", "dynamic_lstm", "dynamic_lstmp", "dynamic_gru",
+    "gru_unit", "lstm_unit", "cos_sim", "cross_entropy", "square_error_cost",
+    "accuracy", "auc", "chunk_eval", "sequence_conv", "conv2d", "conv3d",
+    "sequence_concat",
+    "sequence_pool", "sequence_softmax", "softmax", "pool2d", "batch_norm",
+    "layer_norm", "beam_search_decode", "conv2d_transpose", "sequence_expand",
+    "beam_search", "reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+    "reduce_prod", "sequence_first_step", "sequence_last_step", "dropout",
+    "l2_normalize", "matmul", "topk", "warpctc", "sequence_reshape",
+    "transpose", "im2sequence", "nce", "hsigmoid", "row_conv", "multiplex",
+    "softmax_with_cross_entropy", "smooth_l1", "one_hot",
+    "autoincreased_step_counter", "reshape", "lod_reset", "lrn", "pad",
+    "label_smooth", "roi_pool", "dice_loss", "upsampling_bilinear2d",
+    "random_crop", "linear_chain_crf", "crf_decoding", "edit_distance",
+    "ctc_greedy_decoder", "sigmoid_cross_entropy_with_logits", "squeeze",
+    "attention_lstm_decoder",
+]
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       use_mkldnn=False, act=None, is_test=False, name=None):
+    """Fully connected (reference layers/nn.py:88): mul per input + sum +
+    bias + act. On TPU the muls land on the MXU as one fused matmul chain."""
+    helper = LayerHelper("fc", **locals())
+    dtype = helper.input_dtype()
+    mul_results = []
+    for input_var, param_attr in helper.iter_inputs_and_params():
+        input_shape = input_var.shape
+        if input_shape is None:
+            raise ValueError(f"fc input {input_var.name} needs a known shape")
+        param_shape = [
+            int(math.prod(input_shape[num_flatten_dims:]))
+        ] + [size]
+        w = helper.create_parameter(param_attr, param_shape, dtype, is_bias=False)
+        tmp = helper.create_tmp_variable(
+            dtype, shape=tuple(input_shape[:num_flatten_dims]) + (size,),
+            lod_level=input_var.lod_level,
+        )
+        helper.append_op(
+            "mul",
+            {"X": [input_var], "Y": [w]},
+            {"Out": [tmp]},
+            {"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
+        )
+        mul_results.append(tmp)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_tmp_variable(
+            dtype, shape=mul_results[0].shape, lod_level=mul_results[0].lod_level
+        )
+        helper.append_op("sum", {"X": mul_results}, {"Out": [pre_bias]})
+    pre_activation = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
+    return helper.append_activation(pre_activation)
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32"):
+    """reference layers/nn.py:199. is_sparse keeps API parity; on TPU the
+    gather/scatter vjp is already sparse-update shaped."""
+    helper = LayerHelper("embedding", **locals())
+    w = helper.create_parameter(helper.param_attr, size, dtype, is_bias=False)
+    out = helper.create_tmp_variable(
+        dtype,
+        shape=tuple(input.shape[:-1] if input.shape and input.shape[-1] == 1 else (input.shape or ()))
+        + (size[1],),
+        lod_level=input.lod_level,
+    )
+    padding_idx = (
+        -1 if padding_idx is None
+        else padding_idx if padding_idx >= 0 else (size[0] + padding_idx)
+    )
+    helper.append_op(
+        "lookup_table",
+        {"Ids": [input], "W": [w]},
+        {"Out": [out]},
+        {"is_sparse": is_sparse, "is_distributed": is_distributed, "padding_idx": padding_idx},
+    )
+    return out
+
+
+def dynamic_lstm(input, size, param_attr=None, bias_attr=None, use_peepholes=True,
+                 is_reverse=False, gate_activation="sigmoid", cell_activation="tanh",
+                 candidate_activation="tanh", dtype="float32", name=None,
+                 h_0=None, c_0=None, max_len=None):
+    """reference layers/nn.py:262. input: [N, 4*hidden] ragged projection."""
+    helper = LayerHelper("lstm", **locals())
+    size = size // 4
+    weight = helper.create_parameter(helper.param_attr, shape=[size, 4 * size], dtype=dtype)
+    bias_size = [1, 7 * size] if use_peepholes else [1, 4 * size]
+    bias = helper.create_parameter(helper.bias_attr or ParamAttr(), shape=bias_size,
+                                   dtype=dtype, is_bias=True)
+    hidden = helper.create_tmp_variable(
+        dtype, shape=(-1, size), lod_level=input.lod_level)
+    cell = helper.create_tmp_variable(
+        dtype, shape=(-1, size), lod_level=input.lod_level)
+    inputs = {"Input": [input], "Weight": [weight], "Bias": [bias]}
+    if h_0 is not None:
+        inputs["H0"] = [h_0]
+    if c_0 is not None:
+        inputs["C0"] = [c_0]
+    helper.append_op(
+        "lstm",
+        inputs,
+        {"Hidden": [hidden], "Cell": [cell]},
+        {
+            "use_peepholes": use_peepholes,
+            "is_reverse": is_reverse,
+            "gate_activation": gate_activation,
+            "cell_activation": cell_activation,
+            "candidate_activation": candidate_activation,
+            "max_len": -1 if max_len is None else int(max_len),
+        },
+    )
+    return hidden, cell
+
+
+def dynamic_lstmp(input, size, proj_size, param_attr=None, bias_attr=None,
+                  use_peepholes=True, is_reverse=False, gate_activation="sigmoid",
+                  cell_activation="tanh", candidate_activation="tanh",
+                  proj_activation="tanh", dtype="float32", name=None, max_len=None):
+    """LSTM with recurrent projection (reference layers/nn.py:408):
+    composed here as dynamic_lstm + projection fc on the hidden."""
+    hidden, cell = dynamic_lstm(
+        input, size, param_attr, bias_attr, use_peepholes, is_reverse,
+        gate_activation, cell_activation, candidate_activation, dtype, name,
+        max_len=max_len,
+    )
+    proj = fc(hidden, proj_size, act=proj_activation, name=(name or "lstmp") + "_proj")
+    return proj, cell
+
+
+def dynamic_gru(input, size, param_attr=None, bias_attr=None, is_reverse=False,
+                gate_activation="sigmoid", candidate_activation="tanh", h_0=None,
+                max_len=None):
+    """reference layers/nn.py:594. input: [N, 3*size] ragged projection."""
+    helper = LayerHelper("gru", **locals())
+    dtype = helper.input_dtype()
+    weight = helper.create_parameter(helper.param_attr, shape=[size, 3 * size], dtype=dtype)
+    bias = helper.create_parameter(helper.bias_attr or ParamAttr(), shape=[1, 3 * size],
+                                   dtype=dtype, is_bias=True)
+    hidden = helper.create_tmp_variable(
+        dtype, shape=(-1, size), lod_level=input.lod_level)
+    inputs = {"Input": [input], "Weight": [weight], "Bias": [bias]}
+    if h_0 is not None:
+        inputs["H0"] = [h_0]
+    helper.append_op(
+        "gru",
+        inputs,
+        {"Hidden": [hidden]},
+        {
+            "is_reverse": is_reverse,
+            "gate_activation": gate_activation,
+            "activation": candidate_activation,
+            "max_len": -1 if max_len is None else int(max_len),
+        },
+    )
+    return hidden
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+             activation="tanh", gate_activation="sigmoid"):
+    """reference layers/nn.py:701 — single-step GRU."""
+    helper = LayerHelper("gru_unit", **locals())
+    dtype = helper.input_dtype()
+    size = size // 3
+    weight = helper.create_parameter(helper.param_attr, shape=[size, 3 * size], dtype=dtype)
+    gate = helper.create_tmp_variable(dtype)
+    reset_hidden_pre = helper.create_tmp_variable(dtype)
+    updated_hidden = helper.create_tmp_variable(dtype, shape=hidden.shape)
+    inputs = {"Input": [input], "HiddenPrev": [hidden], "Weight": [weight]}
+    if helper.bias_attr:
+        bias_size = [1, 3 * size]
+        bias = helper.create_parameter(helper.bias_attr, shape=bias_size, dtype=dtype,
+                                       is_bias=True)
+        inputs["Bias"] = [bias]
+    helper.append_op(
+        "gru_unit",
+        inputs,
+        {"Gate": [gate], "ResetHiddenPrev": [reset_hidden_pre], "Hidden": [updated_hidden]},
+        {"activation": activation, "gate_activation": gate_activation},
+    )
+    return updated_hidden, reset_hidden_pre, gate
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0, param_attr=None,
+              bias_attr=None, name=None):
+    """reference layers/nn.py:1968 — fc(x,h) + lstm_unit op."""
+    helper = LayerHelper("lstm_unit", **locals())
+    size = cell_t_prev.shape[1]
+    concat_out = tensor_layers.concat([x_t, hidden_t_prev], axis=1)
+    fc_out = fc(concat_out, 4 * size, param_attr=param_attr, bias_attr=bias_attr)
+    dtype = x_t.dtype
+    c = helper.create_tmp_variable(dtype, shape=cell_t_prev.shape)
+    h = helper.create_tmp_variable(dtype, shape=hidden_t_prev.shape)
+    helper.append_op(
+        "lstm_unit",
+        {"X": [fc_out], "C_prev": [cell_t_prev]},
+        {"C": [c], "H": [h]},
+        {"forget_bias": forget_bias},
+    )
+    return h, c
+
+
+def cos_sim(X, Y):
+    helper = LayerHelper("cos_sim", **locals())
+    out = helper.create_tmp_variable(dtype=X.dtype)
+    xnorm = helper.create_tmp_variable(dtype=X.dtype)
+    ynorm = helper.create_tmp_variable(dtype=X.dtype)
+    helper.append_op(
+        "cos_sim", {"X": [X], "Y": [Y]},
+        {"Out": [out], "XNorm": [xnorm], "YNorm": [ynorm]},
+    )
+    return out
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None):
+    helper = LayerHelper("dropout", **locals())
+    out = helper.create_tmp_variable(dtype=x.dtype, shape=x.shape, lod_level=x.lod_level)
+    mask = helper.create_tmp_variable(dtype=x.dtype, shape=x.shape, stop_gradient=True)
+    helper.append_op(
+        "dropout",
+        {"X": [x]},
+        {"Out": [out], "Mask": [mask]},
+        {"dropout_prob": dropout_prob, "is_test": is_test, "seed": seed if seed is not None else 0},
+    )
+    return out
+
+
+def cross_entropy(input, label, soft_label=False):
+    helper = LayerHelper("cross_entropy", **locals())
+    out = helper.create_tmp_variable(
+        dtype=input.dtype,
+        shape=tuple(input.shape[:-1]) + (1,) if input.shape else None,
+    )
+    helper.append_op(
+        "cross_entropy",
+        {"X": [input], "Label": [label]},
+        {"Y": [out]},
+        {"soft_label": soft_label},
+    )
+    return out
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost", **locals())
+    out = helper.create_tmp_variable(dtype=input.dtype, shape=input.shape)
+    helper.append_op("square_error_cost", {"X": [input], "Y": [label]}, {"Out": [out]})
+    return out
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """reference layers/metric.py accuracy: topk + accuracy op."""
+    helper = LayerHelper("accuracy", **locals())
+    topk_out, topk_indices = topk(input, k=k)
+    acc_out = helper.create_tmp_variable(dtype="float32", shape=(), stop_gradient=True)
+    if correct is None:
+        correct = helper.create_tmp_variable(dtype="int32", stop_gradient=True)
+    if total is None:
+        total = helper.create_tmp_variable(dtype="int32", stop_gradient=True)
+    helper.append_op(
+        "accuracy",
+        {"Out": [topk_out], "Indices": [topk_indices], "Label": [label]},
+        {"Accuracy": [acc_out], "Correct": [correct], "Total": [total]},
+    )
+    return acc_out
+
+
+def auc(input, label, curve="ROC", num_thresholds=200):
+    helper = LayerHelper("auc", **locals())
+    stat_pos = helper.create_or_get_global_variable(
+        helper.name + "_stat_pos", "float32", (num_thresholds + 1,)
+    )
+    stat_neg = helper.create_or_get_global_variable(
+        helper.name + "_stat_neg", "float32", (num_thresholds + 1,)
+    )
+    for v in (stat_pos, stat_neg):
+        helper.set_variable_initializer(v, Constant(0.0))
+    auc_out = helper.create_tmp_variable(dtype="float32", shape=(), stop_gradient=True)
+    helper.append_op(
+        "auc",
+        {"Predict": [input], "Label": [label], "StatPos": [stat_pos], "StatNeg": [stat_neg]},
+        {"AUC": [auc_out], "StatPosOut": [stat_pos], "StatNegOut": [stat_neg]},
+        {"curve": curve, "num_thresholds": num_thresholds},
+    )
+    return auc_out
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types, excluded_chunk_types=None):
+    helper = LayerHelper("chunk_eval", **locals())
+    precision = helper.create_tmp_variable(dtype="float32", stop_gradient=True)
+    recall = helper.create_tmp_variable(dtype="float32", stop_gradient=True)
+    f1_score = helper.create_tmp_variable(dtype="float32", stop_gradient=True)
+    num_infer_chunks = helper.create_tmp_variable(dtype="int64", stop_gradient=True)
+    num_label_chunks = helper.create_tmp_variable(dtype="int64", stop_gradient=True)
+    num_correct_chunks = helper.create_tmp_variable(dtype="int64", stop_gradient=True)
+    helper.append_op(
+        "chunk_eval",
+        {"Inference": [input], "Label": [label]},
+        {
+            "Precision": [precision],
+            "Recall": [recall],
+            "F1_Score": [f1_score],
+            "NumInferChunks": [num_infer_chunks],
+            "NumLabelChunks": [num_label_chunks],
+            "NumCorrectChunks": [num_correct_chunks],
+        },
+        {
+            "num_chunk_types": num_chunk_types,
+            "chunk_scheme": chunk_scheme,
+            "excluded_chunk_types": excluded_chunk_types or [],
+        },
+    )
+    return precision, recall, f1_score, num_infer_chunks, num_label_chunks, num_correct_chunks
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1, padding=None,
+                  bias_attr=None, param_attr=None, act=None):
+    helper = LayerHelper("sequence_conv", **locals())
+    dtype = helper.input_dtype()
+    filter_shape = [filter_size * input.shape[-1], num_filters]
+    filter_param = helper.create_parameter(helper.param_attr, filter_shape, dtype)
+    pre_bias = helper.create_tmp_variable(
+        dtype, shape=(-1, num_filters), lod_level=input.lod_level)
+    helper.append_op(
+        "sequence_conv",
+        {"X": [input], "Filter": [filter_param]},
+        {"Out": [pre_bias]},
+        {
+            "contextStride": filter_stride,
+            "contextStart": -int(filter_size // 2),
+            "contextLength": filter_size,
+        },
+    )
+    pre_act = helper.append_bias_op(pre_bias)
+    return helper.append_activation(pre_act)
+
+
+def sequence_pool(input, pool_type):
+    helper = LayerHelper("sequence_pool", **locals())
+    dtype = helper.input_dtype()
+    pool_out = helper.create_tmp_variable(dtype, shape=input.shape)
+    max_index = helper.create_tmp_variable(dtype, stop_gradient=True)
+    helper.append_op(
+        "sequence_pool",
+        {"X": [input]},
+        {"Out": [pool_out], "MaxIndex": [max_index]},
+        {"pooltype": pool_type.upper()},
+    )
+    return pool_out
+
+
+def sequence_concat(input, axis=1, name=None):
+    """reference layers/nn.py sequence_concat: join sequences feature-wise
+    (axis=1, equal lod) or time-wise (axis=0, appending pairwise)."""
+    helper = LayerHelper("sequence_concat", **locals())
+    shape = None
+    if axis == 1 and all(
+            v.shape is not None and isinstance(v.shape[-1], int)
+            and v.shape[-1] > 0 for v in input):
+        shape = (-1, int(sum(v.shape[-1] for v in input)))
+    out = helper.create_tmp_variable(dtype=helper.input_dtype(), shape=shape,
+                                     lod_level=input[0].lod_level)
+    helper.append_op("sequence_concat", {"X": list(input)}, {"Out": [out]},
+                     {"axis": axis})
+    return out
+
+
+def sequence_first_step(input):
+    return sequence_pool(input=input, pool_type="first")
+
+
+def sequence_last_step(input):
+    return sequence_pool(input=input, pool_type="last")
+
+
+def sequence_softmax(input, param_attr=None, bias_attr=None, use_cudnn=True):
+    helper = LayerHelper("sequence_softmax", **locals())
+    out = helper.create_tmp_variable(dtype=input.dtype, lod_level=input.lod_level)
+    helper.append_op("sequence_softmax", {"X": [input]}, {"Out": [out]})
+    return out
+
+
+def softmax(input, param_attr=None, bias_attr=None, use_cudnn=True, name=None):
+    helper = LayerHelper("softmax", **locals())
+    out = helper.create_tmp_variable(dtype=input.dtype, shape=input.shape)
+    helper.append_op("softmax", {"X": [input]}, {"Out": [out]})
+    return out
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           use_mkldnn=False, act=None, name=None, data_format="NCHW"):
+    """reference layers/nn.py:1132. data_format (TPU extension): "NCHW"
+    (reference default) or "NHWC" activations; filters stay OIHW in both so
+    parameters are layout-independent."""
+    helper = LayerHelper("conv2d", **locals())
+    dtype = helper.input_dtype()
+    nhwc = data_format == "NHWC"
+    num_channels = input.shape[-1 if nhwc else 1]
+    if groups is None:
+        num_filter_channels = num_channels
+        groups = 1
+    else:
+        if num_channels % groups != 0:
+            raise ValueError("num_channels must be divisible by groups")
+        num_filter_channels = num_channels // groups
+
+    def _pair(v):
+        return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+    filter_size = _pair(filter_size)
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    filter_shape = [num_filters, num_filter_channels] + filter_size
+
+    def _default_param_initializer(*_):
+        std = (2.0 / (filter_size[0] ** 2 * num_channels)) ** 0.5
+        return Normal(0.0, std, 0)
+
+    h_ax, w_ax = (1, 2) if nhwc else (2, 3)
+    pre_bias_shape = None
+    if input.shape and None not in (input.shape[h_ax], input.shape[w_ax]):
+        oh = (input.shape[h_ax] + 2 * padding[0] - (dilation[0] * (filter_size[0] - 1) + 1)) // stride[0] + 1
+        ow = (input.shape[w_ax] + 2 * padding[1] - (dilation[1] * (filter_size[1] - 1) + 1)) // stride[1] + 1
+        pre_bias_shape = (input.shape[0], oh, ow, num_filters) if nhwc \
+            else (input.shape[0], num_filters, oh, ow)
+
+    filter_param = helper.create_parameter(
+        attr=helper.param_attr, shape=filter_shape, dtype=dtype,
+        default_initializer=_default_param_initializer(),
+    )
+    pre_bias = helper.create_tmp_variable(dtype, shape=pre_bias_shape)
+    helper.append_op(
+        "conv2d",
+        {"Input": [input], "Filter": [filter_param]},
+        {"Output": [pre_bias]},
+        {
+            "strides": stride,
+            "paddings": padding,
+            "dilations": dilation,
+            "groups": groups,
+            "use_cudnn": use_cudnn,
+            "data_format": data_format,
+        },
+    )
+    if nhwc:
+        pre_act = helper.append_bias_op(pre_bias, dim_start=3, dim_end=4)
+    else:
+        pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, act=None, name=None):
+    helper = LayerHelper("conv3d", **locals())
+    dtype = helper.input_dtype()
+    num_channels = input.shape[1]
+    groups = groups or 1
+
+    def _triple(v):
+        return list(v) if isinstance(v, (list, tuple)) else [v, v, v]
+
+    filter_size = _triple(filter_size)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    filter_param = helper.create_parameter(helper.param_attr, filter_shape, dtype)
+    pre_bias = helper.create_tmp_variable(dtype)
+    helper.append_op(
+        "conv3d",
+        {"Input": [input], "Filter": [filter_param]},
+        {"Output": [pre_bias]},
+        {
+            "strides": _triple(stride),
+            "paddings": _triple(padding),
+            "dilations": _triple(dilation),
+            "groups": groups,
+        },
+    )
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1, pool_padding=0,
+           global_pooling=False, use_cudnn=True, ceil_mode=False, use_mkldnn=False,
+           name=None, data_format="NCHW"):
+    """reference layers/nn.py:1441. data_format: NCHW (default) or NHWC."""
+    if pool_type not in ["max", "avg"]:
+        raise ValueError(f"Unknown pool_type {pool_type}")
+    helper = LayerHelper("pool2d", **locals())
+    dtype = helper.input_dtype()
+    nhwc = data_format == "NHWC"
+    h_ax, w_ax, c_ax = (1, 2, 3) if nhwc else (2, 3, 1)
+
+    def _pair(v):
+        return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+    pool_size = _pair(pool_size)
+    pool_stride = _pair(pool_stride)
+    pool_padding = _pair(pool_padding)
+    shape = None
+    if input.shape and None not in (input.shape[h_ax], input.shape[w_ax]) \
+            and not global_pooling:
+        rnd = math.ceil if ceil_mode else math.floor
+        oh = int(rnd((input.shape[h_ax] + 2 * pool_padding[0] - pool_size[0]) / pool_stride[0])) + 1
+        ow = int(rnd((input.shape[w_ax] + 2 * pool_padding[1] - pool_size[1]) / pool_stride[1])) + 1
+        shape = (input.shape[0], oh, ow, input.shape[c_ax]) if nhwc \
+            else (input.shape[0], input.shape[c_ax], oh, ow)
+    elif global_pooling and input.shape:
+        shape = (input.shape[0], 1, 1, input.shape[c_ax]) if nhwc \
+            else (input.shape[0], input.shape[c_ax], 1, 1)
+    pool_out = helper.create_tmp_variable(dtype, shape=shape)
+    helper.append_op(
+        "pool2d",
+        {"X": [input]},
+        {"Out": [pool_out]},
+        {
+            "pooling_type": pool_type,
+            "ksize": pool_size,
+            "global_pooling": global_pooling,
+            "strides": pool_stride,
+            "paddings": pool_padding,
+            "use_cudnn": use_cudnn,
+            "ceil_mode": ceil_mode,
+            "data_format": data_format,
+        },
+    )
+    return pool_out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-05,
+               param_attr=None, bias_attr=None, data_layout="NCHW", in_place=False,
+               use_mkldnn=False, name=None, moving_mean_name=None,
+               moving_variance_name=None, do_model_average_for_mean_and_var=False):
+    """reference layers/nn.py:1494."""
+    helper = LayerHelper("batch_norm", **locals())
+    dtype = helper.input_dtype()
+    input_shape = input.shape
+    if data_layout == "NCHW":
+        channel_num = input_shape[1]
+    elif data_layout == "NHWC":
+        channel_num = input_shape[-1]
+    else:
+        raise ValueError("unsupported data layout:" + data_layout)
+    param_shape = [channel_num]
+
+    scale = helper.create_parameter(
+        attr=helper.param_attr, shape=param_shape, dtype=dtype,
+        default_initializer=Constant(1.0),
+    )
+    bias = helper.create_parameter(
+        attr=helper.bias_attr or ParamAttr(), shape=param_shape, dtype=dtype, is_bias=True
+    )
+    mean = helper.create_parameter(
+        attr=ParamAttr(
+            name=moving_mean_name, initializer=Constant(0.0), trainable=False,
+            do_model_average=do_model_average_for_mean_and_var,
+        ),
+        shape=param_shape, dtype=dtype,
+    )
+    mean.stop_gradient = True
+    variance = helper.create_parameter(
+        attr=ParamAttr(
+            name=moving_variance_name, initializer=Constant(1.0), trainable=False,
+            do_model_average=do_model_average_for_mean_and_var,
+        ),
+        shape=param_shape, dtype=dtype,
+    )
+    variance.stop_gradient = True
+
+    saved_mean = helper.create_tmp_variable(dtype=dtype, stop_gradient=True)
+    saved_variance = helper.create_tmp_variable(dtype=dtype, stop_gradient=True)
+    batch_norm_out = input if in_place else helper.create_tmp_variable(dtype, shape=input.shape)
+    helper.append_op(
+        "batch_norm",
+        {
+            "X": [input], "Scale": [scale], "Bias": [bias],
+            "Mean": [mean], "Variance": [variance],
+        },
+        {
+            "Y": [batch_norm_out], "MeanOut": [mean], "VarianceOut": [variance],
+            "SavedMean": [saved_mean], "SavedVariance": [saved_variance],
+        },
+        {"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+         "data_layout": data_layout},
+    )
+    return helper.append_activation(batch_norm_out)
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-05,
+               param_attr=None, bias_attr=None, act=None, name=None):
+    """reference layers/nn.py:1592."""
+    helper = LayerHelper("layer_norm", **locals())
+    dtype = helper.input_dtype()
+    input_shape = input.shape
+    param_shape = [int(math.prod(input_shape[begin_norm_axis:]))]
+    inputs = {"X": [input]}
+    if scale:
+        scale_p = helper.create_parameter(
+            attr=helper.param_attr, shape=param_shape, dtype=dtype,
+            default_initializer=Constant(1.0),
+        )
+        inputs["Scale"] = [scale_p]
+    if shift:
+        bias_p = helper.create_parameter(
+            attr=helper.bias_attr or ParamAttr(), shape=param_shape, dtype=dtype, is_bias=True
+        )
+        inputs["Bias"] = [bias_p]
+    mean_out = helper.create_tmp_variable(dtype=dtype, stop_gradient=True)
+    variance_out = helper.create_tmp_variable(dtype=dtype, stop_gradient=True)
+    layer_norm_out = helper.create_tmp_variable(dtype, shape=input.shape)
+    helper.append_op(
+        "layer_norm",
+        inputs,
+        {"Y": [layer_norm_out], "Mean": [mean_out], "Variance": [variance_out]},
+        {"epsilon": epsilon, "begin_norm_axis": begin_norm_axis},
+    )
+    return helper.append_activation(layer_norm_out)
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, param_attr=None,
+                     bias_attr=None, use_cudnn=True, act=None, name=None):
+    """reference layers/nn.py:1705."""
+    helper = LayerHelper("conv2d_transpose", **locals())
+    if not isinstance(input, Variable):
+        raise TypeError("Input of conv2d_transpose must be Variable")
+    input_channel = input.shape[1]
+
+    def _pair(v):
+        return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+    padding = _pair(padding)
+    stride = _pair(stride)
+    dilation = _pair(dilation)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("output_size must be set when filter_size is None")
+        output_size = _pair(output_size)
+        h_in, w_in = input.shape[2], input.shape[3]
+        filter_size_h = (output_size[0] - (h_in - 1) * stride[0] + 2 * padding[0] - 1) // dilation[0] + 1
+        filter_size_w = (output_size[1] - (w_in - 1) * stride[1] + 2 * padding[1] - 1) // dilation[1] + 1
+        filter_size = [filter_size_h, filter_size_w]
+    else:
+        filter_size = _pair(filter_size)
+    filter_shape = [input_channel, num_filters] + filter_size
+    img_filter = helper.create_parameter(dtype=input.dtype, shape=filter_shape,
+                                         attr=helper.param_attr)
+    pre_bias = helper.create_tmp_variable(dtype=input.dtype)
+    helper.append_op(
+        "conv2d_transpose",
+        {"Input": [input], "Filter": [img_filter]},
+        {"Output": [pre_bias]},
+        {"strides": stride, "paddings": padding, "dilations": dilation, "use_cudnn": use_cudnn},
+    )
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def sequence_expand(x, y, ref_level=-1, name=None):
+    helper = LayerHelper("sequence_expand", **locals())
+    out = helper.create_tmp_variable(dtype=x.dtype, lod_level=max(1, y.lod_level))
+    helper.append_op(
+        "sequence_expand", {"X": [x], "Y": [y]}, {"Out": [out]}, {"ref_level": ref_level}
+    )
+    return out
+
+
+def beam_search(pre_ids, ids, scores, beam_size, end_id, level=0,
+                pre_scores=None, return_parents=False):
+    """reference layers/nn.py:1936 — one beam-search step over beams
+    (ops/beam_search_ops.py: dense [B*beam_size] slots instead of 2-level
+    LoD; pass pre_scores for exact finished-beam carry, request
+    return_parents to drive beam_search_decode's backtrack)."""
+    helper = LayerHelper("beam_search", **locals())
+    selected_scores = helper.create_tmp_variable(dtype=scores.dtype, lod_level=2)
+    selected_ids = helper.create_tmp_variable(
+        dtype=ids.dtype if ids is not None else "int64", lod_level=2)
+    parent_idx = helper.create_tmp_variable(dtype="int64", stop_gradient=True)
+    inputs = {"pre_ids": [pre_ids], "scores": [scores]}
+    if ids is not None:
+        inputs["ids"] = [ids]
+    if pre_scores is not None:
+        inputs["pre_scores"] = [pre_scores]
+    helper.append_op(
+        "beam_search",
+        inputs,
+        {"selected_ids": [selected_ids], "selected_scores": [selected_scores],
+         "parent_idx": [parent_idx]},
+        {"level": level, "beam_size": beam_size, "end_id": end_id},
+    )
+    if return_parents:
+        return selected_ids, selected_scores, parent_idx
+    return selected_ids, selected_scores
+
+
+def beam_search_decode(ids, scores, name=None, parents=None, end_id=-1):
+    helper = LayerHelper("beam_search_decode", **locals())
+    sentence_ids = helper.create_tmp_variable(dtype=ids.dtype, lod_level=2)
+    sentence_scores = helper.create_tmp_variable(dtype=scores.dtype, lod_level=2)
+    inputs = {"Ids": [ids], "Scores": [scores]}
+    if parents is not None:
+        inputs["Parents"] = [parents]
+    helper.append_op(
+        "beam_search_decode",
+        inputs,
+        {"SentenceIds": [sentence_ids], "SentenceScores": [sentence_scores]},
+        {"end_id": end_id},
+    )
+    return sentence_ids, sentence_scores
+
+
+def _reduce(op_type, input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper(op_type, name=name)
+    shape = None
+    if input.shape is not None:
+        if dim is None:
+            shape = ()
+        else:
+            dims = [dim] if isinstance(dim, int) else list(dim)
+            dims = [d % len(input.shape) for d in dims]
+            shape = tuple(
+                (1 if keep_dim else None) if i in dims else s
+                for i, s in enumerate(input.shape)
+            )
+            shape = tuple(s for s in shape if s is not None) if not keep_dim else shape
+    out = helper.create_tmp_variable(dtype=input.dtype, shape=shape)
+    helper.append_op(
+        op_type,
+        {"X": [input]},
+        {"Out": [out]},
+        {
+            "dim": dim if dim is not None else 0,
+            "keep_dim": keep_dim,
+            "reduce_all": dim is None,
+        },
+    )
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_min", input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_prod", input, dim, keep_dim, name)
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    """reference layers/nn.py:2425 via the norm op composition."""
+    if len(x.shape) == 1:
+        axis = 0
+    helper = LayerHelper("l2_normalize", **locals())
+    out = helper.create_tmp_variable(dtype=x.dtype, shape=x.shape)
+    norm = helper.create_tmp_variable(dtype=x.dtype)
+    helper.append_op(
+        "norm", {"X": [x]}, {"Out": [out], "Norm": [norm]},
+        {"axis": 1 if axis is None else axis, "epsilon": epsilon},
+    )
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
+    helper = LayerHelper("matmul", **locals())
+    out = helper.create_tmp_variable(dtype=x.dtype)
+    helper.append_op(
+        "matmul",
+        {"X": [x], "Y": [y]},
+        {"Out": [out]},
+        {"transpose_X": transpose_x, "transpose_Y": transpose_y},
+    )
+    return out
+
+
+def topk(input, k):
+    helper = LayerHelper("top_k", **locals())
+    values = helper.create_tmp_variable(dtype=input.dtype)
+    indices = helper.create_tmp_variable(dtype="int64", stop_gradient=True)
+    helper.append_op(
+        "top_k", {"X": [input]}, {"Out": [values], "Indices": [indices]}, {"k": k}
+    )
+    values.stop_gradient = True
+    return values, indices
+
+
+def warpctc(input, label, blank=0, norm_by_times=False):
+    """reference layers/nn.py:2813 — CTC loss (ops/ctc_ops.py)."""
+    helper = LayerHelper("warpctc", **locals())
+    loss_out = helper.create_tmp_variable(dtype=input.dtype)
+    grad_out = helper.create_tmp_variable(dtype=input.dtype, stop_gradient=True)
+    helper.append_op(
+        "warpctc",
+        {"Logits": [input], "Label": [label]},
+        {"WarpCTCGrad": [grad_out], "Loss": [loss_out]},
+        {"blank": blank, "norm_by_times": norm_by_times},
+    )
+    return loss_out
+
+
+def sequence_reshape(input, new_dim):
+    helper = LayerHelper("sequence_reshape", **locals())
+    out = helper.create_tmp_variable(dtype=input.dtype, lod_level=1)
+    helper.append_op(
+        "sequence_reshape", {"X": [input]}, {"Out": [out]}, {"new_dim": new_dim}
+    )
+    return out
+
+
+def transpose(x, perm, name=None):
+    if len(perm) != len(x.shape or perm):
+        raise ValueError("perm length must match input rank")
+    helper = LayerHelper("transpose", **locals())
+    shape = tuple(x.shape[p] for p in perm) if x.shape else None
+    out = helper.create_tmp_variable(dtype=x.dtype, shape=shape)
+    helper.append_op("transpose", {"X": [x]}, {"Out": [out]}, {"axis": list(perm)})
+    return out
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
+    helper = LayerHelper("im2sequence", **locals())
+
+    def _pair(v):
+        return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+    padding = padding if isinstance(padding, (list, tuple)) else [padding] * 4
+    if len(padding) == 2:
+        padding = [padding[0], padding[1], padding[0], padding[1]]
+    out = helper.create_tmp_variable(dtype=input.dtype, lod_level=1)
+    helper.append_op(
+        "im2sequence",
+        {"X": [input]},
+        {"Out": [out]},
+        {"kernels": _pair(filter_size), "strides": _pair(stride), "paddings": list(padding)},
+    )
+    return out
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    helper = LayerHelper("row_conv", **locals())
+    dtype = helper.input_dtype()
+    filter_shape = [future_context_size + 1, input.shape[-1]]
+    filter_param = helper.create_parameter(helper.param_attr, filter_shape, dtype)
+    out = helper.create_tmp_variable(
+        dtype, shape=tuple(input.shape), lod_level=input.lod_level)
+    helper.append_op("row_conv", {"X": [input], "Filter": [filter_param]}, {"Out": [out]})
+    return helper.append_activation(out)
+
+
+def multiplex(inputs, index):
+    helper = LayerHelper("multiplex", **locals())
+    if not isinstance(inputs, list) or len(inputs) < 2:
+        raise ValueError("inputs should be a list of at least 2 variables")
+    out = helper.create_tmp_variable(dtype=inputs[0].dtype, shape=inputs[0].shape)
+    helper.append_op("multiplex", {"X": inputs, "Ids": [index]}, {"Out": [out]})
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False):
+    helper = LayerHelper("softmax_with_cross_entropy", **locals())
+    softmax_v = helper.create_tmp_variable(dtype=logits.dtype, shape=logits.shape)
+    loss = helper.create_tmp_variable(
+        dtype=logits.dtype,
+        shape=tuple(logits.shape[:-1]) + (1,) if logits.shape else None,
+    )
+    helper.append_op(
+        "softmax_with_cross_entropy",
+        {"Logits": [logits], "Label": [label]},
+        {"Softmax": [softmax_v], "Loss": [loss]},
+        {"soft_label": soft_label},
+    )
+    return loss
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1", **locals())
+    diff = helper.create_tmp_variable(dtype=x.dtype)
+    loss = helper.create_tmp_variable(dtype=x.dtype)
+    helper.append_op(
+        "smooth_l1_loss",
+        {
+            "X": [x], "Y": [y],
+            "InsideWeight": [inside_weight] if inside_weight is not None else [],
+            "OutsideWeight": [outside_weight] if outside_weight is not None else [],
+        },
+        {"Diff": [diff], "Out": [loss]},
+        {"sigma": sigma if sigma is not None else 1.0},
+    )
+    return loss
+
+
+def one_hot(input, depth):
+    return tensor_layers.one_hot(input, depth)
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """reference layers/nn.py:3410 — persistable global step counter."""
+    helper = LayerHelper("global_step_counter")
+    counter_name = counter_name or "@STEP_COUNTER@"
+    counter = helper.create_or_get_global_variable(
+        name=counter_name, dtype="int64", shape=(1,), persistable=True
+    )
+    if not getattr(counter, "_step_counter_initialized", False):
+        helper.set_variable_initializer(counter, Constant(value=begin - 1))
+        helper.main_program.global_block().prepend_op(
+            "increment", {"X": [counter]}, {"Out": [counter]}, {"step": float(step)}
+        )
+        counter._step_counter_initialized = True
+        counter.stop_gradient = True
+    return counter
+
+
+def reshape(x, shape, actual_shape=None, act=None, inplace=True, name=None):
+    helper = LayerHelper("reshape", **locals())
+    known = None
+    if x.shape is not None and -1 not in shape and 0 not in shape:
+        known = tuple(shape)
+    elif x.shape is not None:
+        for i, s in enumerate(shape):
+            if s == 0 and i >= len(x.shape):
+                raise ValueError(
+                    f"reshape: 0 at position {i} has no input dim to copy "
+                    f"(input rank {len(x.shape)})")
+        spec = [x.shape[i] if s == 0 else s for i, s in enumerate(shape)]
+        neg = [i for i, s in enumerate(spec) if s == -1]
+        if len(neg) == 1 and None not in x.shape and -1 not in x.shape:
+            # fully-static input: resolve the single -1 exactly
+            total = int(math.prod([s for s in x.shape]))
+            rest = int(math.prod([s for s in spec if s != -1]))
+            spec[neg[0]] = total // rest if rest else -1
+            known = tuple(spec)
+        elif neg == [0]:
+            # dynamic input: only a LEADING -1 may stay (the house batch
+            # sentinel every shape consumer understands); a non-batch -1
+            # left unresolved would leak into fc's size products
+            known = tuple(spec)
+    out = helper.create_tmp_variable(dtype=x.dtype, shape=known)
+    resolved = list(known) if known is not None else list(shape)
+    helper.append_op("reshape", {"X": [x]}, {"Out": [out]}, {"shape": resolved})
+    return helper.append_activation(out)
+
+
+def squeeze(input, axes, name=None):
+    shape = [s for i, s in enumerate(input.shape) if i not in axes] if input.shape else None
+    return reshape(input, shape)
+
+
+def lod_reset(x, y=None, target_lod=None):
+    helper = LayerHelper("lod_reset", **locals())
+    out = helper.create_tmp_variable(dtype=x.dtype, lod_level=1)
+    if y is not None:
+        helper.append_op("lod_reset", {"X": [x], "Y": [y]}, {"Out": [out]})
+    elif target_lod is not None:
+        helper.append_op("lod_reset", {"X": [x]}, {"Out": [out]}, {"target_lod": list(target_lod)})
+    else:
+        raise ValueError("how to set LoD?")
+    return out
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    helper = LayerHelper("lrn", **locals())
+    if len(input.shape) != 4:
+        raise ValueError("Input's dimension size of Op(lrn) must be 4")
+    mid_out = helper.create_tmp_variable(dtype=input.dtype, stop_gradient=True)
+    lrn_out = helper.create_tmp_variable(dtype=input.dtype, shape=input.shape)
+    helper.append_op(
+        "lrn",
+        {"X": [input]},
+        {"Out": [lrn_out], "MidOut": [mid_out]},
+        {"n": n, "k": k, "alpha": alpha, "beta": beta},
+    )
+    return lrn_out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", **locals())
+    out = helper.create_tmp_variable(dtype=x.dtype)
+    helper.append_op(
+        "pad", {"X": [x]}, {"Out": [out]}, {"paddings": list(paddings), "pad_value": float(pad_value)}
+    )
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32", name=None):
+    if epsilon > 1.0 or epsilon < 0.0:
+        raise ValueError("The value of epsilon must be between 0 and 1.")
+    helper = LayerHelper("label_smooth", **locals())
+    smooth_label = helper.create_tmp_variable(dtype=dtype, shape=label.shape)
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    helper.append_op("label_smooth", inputs, {"Out": [smooth_label]}, {"epsilon": float(epsilon)})
+    return smooth_label
+
+
+def roi_pool(input, rois, pooled_height=1, pooled_width=1, spatial_scale=1.0):
+    helper = LayerHelper("roi_pool", **locals())
+    dtype = helper.input_dtype()
+    pool_out = helper.create_tmp_variable(dtype)
+    argmaxes = helper.create_tmp_variable(dtype="int64", stop_gradient=True)
+    helper.append_op(
+        "roi_pool",
+        {"X": [input], "ROIs": [rois]},
+        {"Out": [pool_out], "Argmax": [argmaxes]},
+        {"pooled_height": pooled_height, "pooled_width": pooled_width,
+         "spatial_scale": spatial_scale},
+    )
+    return pool_out
+
+
+def dice_loss(input, label, epsilon=1e-5):
+    """reference layers/nn.py:3878 — composed from primitive layers."""
+    from . import ops as ops_layers
+
+    label = tensor_layers.one_hot(label, depth=input.shape[-1])
+    reduce_dim = list(range(1, len(input.shape)))
+    inse = reduce_sum(input * label, dim=reduce_dim)
+    dice_denominator = reduce_sum(input, dim=reduce_dim) + reduce_sum(label, dim=reduce_dim)
+    dice_score = 1 - inse * 2 / (dice_denominator + epsilon)
+    from .ops import mean as _mean
+
+    return _mean(dice_score)
+
+
+def upsampling_bilinear2d(input, out_shape=None, scale=None, name=None):
+    helper = LayerHelper("bilinear_interp", **locals())
+    if out_shape is None and scale is None:
+        raise ValueError("One of out_shape and scale must not be None")
+    if out_shape is not None:
+        out_h, out_w = out_shape
+    else:
+        out_h = int(input.shape[2] * scale)
+        out_w = int(input.shape[3] * scale)
+    out = helper.create_tmp_variable(
+        dtype=input.dtype,
+        shape=(input.shape[0], input.shape[1], out_h, out_w) if input.shape else None,
+    )
+    helper.append_op(
+        "bilinear_interp", {"X": [input]}, {"Out": [out]}, {"out_h": out_h, "out_w": out_w}
+    )
+    return out
+
+
+def random_crop(x, shape, seed=None):
+    helper = LayerHelper("random_crop", **locals())
+    out = helper.create_tmp_variable(dtype=x.dtype)
+    helper.append_op(
+        "random_crop", {"X": [x]}, {"Out": [out]},
+        {"shape": list(shape), "seed": seed if seed is not None else 0},
+    )
+    return out
+
+
+def linear_chain_crf(input, label, param_attr=None):
+    """reference layers/nn.py:799 — CRF negative log-likelihood loss."""
+    helper = LayerHelper("linear_chain_crf", **locals())
+    size = input.shape[-1]
+    transition = helper.create_parameter(
+        attr=helper.param_attr, shape=[size + 2, size], dtype=helper.input_dtype()
+    )
+    alpha = helper.create_tmp_variable(dtype=helper.input_dtype(), stop_gradient=True)
+    emission_exps = helper.create_tmp_variable(dtype=helper.input_dtype(), stop_gradient=True)
+    transition_exps = helper.create_tmp_variable(dtype=helper.input_dtype(), stop_gradient=True)
+    log_likelihood = helper.create_tmp_variable(dtype=helper.input_dtype())
+    helper.append_op(
+        "linear_chain_crf",
+        {"Emission": [input], "Transition": [transition], "Label": [label]},
+        {
+            "Alpha": [alpha],
+            "EmissionExps": [emission_exps],
+            "TransitionExps": [transition_exps],
+            "LogLikelihood": [log_likelihood],
+        },
+    )
+    return log_likelihood
+
+
+def crf_decoding(input, param_attr, label=None):
+    helper = LayerHelper("crf_decoding", **locals())
+    transition = helper.get_parameter(param_attr.name)
+    viterbi_path = helper.create_tmp_variable(dtype="int64", lod_level=input.lod_level,
+                                              stop_gradient=True)
+    helper.append_op(
+        "crf_decoding",
+        {"Emission": [input], "Transition": [transition]}
+        | ({"Label": [label]} if label is not None else {}),
+        {"ViterbiPath": [viterbi_path]},
+    )
+    return viterbi_path
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None, name=None):
+    helper = LayerHelper("edit_distance", **locals())
+    if ignored_tokens:
+        erased_input = helper.create_tmp_variable(dtype=input.dtype, lod_level=1)
+        erased_label = helper.create_tmp_variable(dtype=label.dtype, lod_level=1)
+        helper.append_op(
+            "sequence_erase", {"X": [input]}, {"Out": [erased_input]},
+            {"tokens": list(ignored_tokens)},
+        )
+        helper.append_op(
+            "sequence_erase", {"X": [label]}, {"Out": [erased_label]},
+            {"tokens": list(ignored_tokens)},
+        )
+        input, label = erased_input, erased_label
+    edit_distance_out = helper.create_tmp_variable(dtype="float32", stop_gradient=True)
+    sequence_num = helper.create_tmp_variable(dtype="int64", stop_gradient=True)
+    helper.append_op(
+        "edit_distance",
+        {"Hyps": [input], "Refs": [label]},
+        {"Out": [edit_distance_out], "SequenceNum": [sequence_num]},
+        {"normalized": normalized},
+    )
+    return edit_distance_out, sequence_num
+
+
+def ctc_greedy_decoder(input, blank, name=None):
+    """reference layers/nn.py:2741 — argmax + merge repeats + drop blanks."""
+    helper = LayerHelper("ctc_greedy_decoder", **locals())
+    _, topk_indices = topk(input, k=1)
+    ctc_out = helper.create_tmp_variable(dtype="int64", lod_level=1, stop_gradient=True)
+    helper.append_op(
+        "ctc_align", {"Input": [topk_indices]}, {"Output": [ctc_out]},
+        {"merge_repeated": True, "blank": blank},
+    )
+    return ctc_out
+
+
+def sigmoid_cross_entropy_with_logits(x, label, name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", **locals())
+    out = helper.create_tmp_variable(dtype=x.dtype, shape=x.shape)
+    helper.append_op(
+        "sigmoid_cross_entropy_with_logits",
+        {"X": [x], "Label": [label]},
+        {"Out": [out]},
+    )
+    return out
+
+
+def nce(input, label, num_total_classes, sample_weight=None, param_attr=None,
+        bias_attr=None, num_neg_samples=None):
+    """reference layers/nn.py:2923 — noise contrastive estimation."""
+    helper = LayerHelper("nce", **locals())
+    dim = input.shape[1]
+    num_true_class = label.shape[1] if label.shape and len(label.shape) > 1 else 1
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=[num_total_classes, dim],
+        dtype=input.dtype,
+    )
+    b = helper.create_parameter(
+        attr=helper.bias_attr or ParamAttr(), shape=[num_total_classes, 1],
+        dtype=input.dtype, is_bias=True,
+    )
+    cost = helper.create_tmp_variable(dtype=input.dtype)
+    sample_logits = helper.create_tmp_variable(dtype=input.dtype, stop_gradient=True)
+    sample_labels = helper.create_tmp_variable(dtype=label.dtype, stop_gradient=True)
+    num_neg_samples = 10 if num_neg_samples is None else int(num_neg_samples)
+    helper.append_op(
+        "nce",
+        {
+            "Input": [input], "Label": [label], "Weight": [w], "Bias": [b],
+            "SampleWeight": [sample_weight] if sample_weight is not None else [],
+        },
+        {"Cost": [cost], "SampleLogits": [sample_logits], "SampleLabels": [sample_labels]},
+        {"num_total_classes": int(num_total_classes), "num_neg_samples": num_neg_samples},
+    )
+    return cost / (num_neg_samples + 1)
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None):
+    """Hierarchical sigmoid (reference hierarchical_sigmoid_op)."""
+    helper = LayerHelper("hierarchical_sigmoid", **locals())
+    dim = input.shape[1]
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=[num_classes - 1, dim], dtype=input.dtype
+    )
+    b = helper.create_parameter(
+        attr=helper.bias_attr or ParamAttr(), shape=[num_classes - 1, 1],
+        dtype=input.dtype, is_bias=True,
+    )
+    out = helper.create_tmp_variable(dtype=input.dtype)
+    pre_out = helper.create_tmp_variable(dtype=input.dtype, stop_gradient=True)
+    helper.append_op(
+        "hierarchical_sigmoid",
+        {"X": [input], "W": [w], "Label": [label], "Bias": [b]},
+        {"Out": [out], "PreOut": [pre_out]},
+        {"num_classes": num_classes},
+    )
+    return out
+
+
+def attention_lstm_decoder(target_embedding, encoder_vec, encoder_proj,
+                           decoder_boot, decoder_size, target_dict_dim,
+                           param_attr=None, dtype="float32", name=None,
+                           max_target_len=None, max_source_len=None):
+    """Teacher-forced attention LSTM decoder over a ragged target sequence —
+    fused-scan replacement for the reference's DynamicRNN decoder
+    (benchmark/fluid/models/machine_translation.py:104-152)."""
+    import copy as _copy
+
+    helper = LayerHelper("attention_lstm_decoder", **locals())
+    emb_dim = target_embedding.shape[-1]
+    enc_dim = encoder_vec.shape[-1]
+    d = decoder_size
+
+    def _attr():
+        # distinct copy per parameter: create_parameter mutates attr.name
+        return _copy.deepcopy(helper.param_attr)
+
+    w_att_state = helper.create_parameter(
+        _attr(), shape=[d, d], dtype=dtype)
+    w_att_score = helper.create_parameter(
+        _attr(), shape=[2 * d, 1], dtype=dtype)
+    w_step = helper.create_parameter(
+        _attr(), shape=[d + enc_dim + emb_dim, 4 * d], dtype=dtype)
+    b_step = helper.create_parameter(
+        ParamAttr(), shape=[1, 4 * d], dtype=dtype, is_bias=True)
+    w_out = helper.create_parameter(
+        _attr(), shape=[d, target_dict_dim], dtype=dtype)
+    b_out = helper.create_parameter(
+        ParamAttr(), shape=[1, target_dict_dim], dtype=dtype, is_bias=True)
+    pred = helper.create_tmp_variable(
+        dtype, lod_level=target_embedding.lod_level)
+    helper.append_op(
+        "attention_lstm_decoder",
+        {
+            "TargetEmb": [target_embedding],
+            "EncoderVec": [encoder_vec],
+            "EncoderProj": [encoder_proj],
+            "DecoderBoot": [decoder_boot],
+            "WAttState": [w_att_state],
+            "WAttScore": [w_att_score],
+            "WStep": [w_step],
+            "BStep": [b_step],
+            "WOut": [w_out],
+            "BOut": [b_out],
+        },
+        {"Out": [pred]},
+        {
+            "max_target_len": -1 if max_target_len is None else int(max_target_len),
+            "max_source_len": -1 if max_source_len is None else int(max_source_len),
+        },
+    )
+    pred.shape = (-1, target_dict_dim)
+    return pred

@@ -1,0 +1,688 @@
+"""Optimizers: emit optimizer ops into the program.
+
+Reference parity: python/paddle/fluid/optimizer.py (Optimizer:36 base,
+minimize:231 = append_backward + clip/regularization + optimization pass;
+subclasses SGD/Momentum/Adagrad/Adam/Adamax/DecayedAdagrad at :257-557, plus
+Adadelta/RMSProp/ModelAverage). Because the optimizer ops land in the same
+traced program as forward/backward, the entire training step compiles to one
+XLA computation — weight update fusion comes for free.
+"""
+
+import math
+
+from .core.framework import (
+    Parameter,
+    Variable,
+    default_main_program,
+    default_startup_program,
+)
+from .backward import append_backward
+from . import unique_name
+from .clip import append_gradient_clip_ops, error_clip_callback
+from .regularizer import append_regularization_ops
+
+__all__ = [
+    "SGD", "Momentum", "Adagrad", "Adam", "Adamax", "DecayedAdagrad",
+    "Adadelta", "RMSProp", "Optimizer", "SGDOptimizer", "MomentumOptimizer",
+    "AdagradOptimizer", "AdamOptimizer", "AdamaxOptimizer",
+    "DecayedAdagradOptimizer", "AdadeltaOptimizer", "RMSPropOptimizer",
+    "Ftrl", "FtrlOptimizer", "ProximalGD", "ProximalGDOptimizer",
+    "ProximalAdagrad", "ProximalAdagradOptimizer", "ModelAverage",
+]
+
+
+class Optimizer:
+    def __init__(self, learning_rate, regularization=None, LearningRateDecay=None):
+        if not isinstance(learning_rate, (float, Variable)):
+            raise TypeError("learning rate should be float or Variable")
+        self.regularization = regularization
+        self._learning_rate = learning_rate
+        self._learning_rate_map = {}
+        self._accumulators = {}  # {accum_name: {param_name: var}}
+        self.helper = None
+        # program pair the current optimization pass targets (set by
+        # _create_optimization_pass; falls back to the defaults)
+        self._target_main = None
+        self._target_startup = None
+
+    @property
+    def _main(self):
+        return self._target_main or default_main_program()
+
+    @property
+    def _startup(self):
+        return self._target_startup or default_startup_program()
+
+    # -- learning rate ------------------------------------------------------
+    def _create_global_learning_rate(self, program, startup_program):
+        lr = self._learning_rate_map.get(program)
+        if lr is not None:
+            return
+        if isinstance(self._learning_rate, Variable):
+            self._learning_rate_map[program] = self._learning_rate
+            return
+        name = unique_name.generate("learning_rate")
+        var = program.global_block().create_var(
+            name=name, shape=(1,), dtype="float32", persistable=True
+        )
+        startup_program.global_block().create_var(
+            name=name, shape=(1,), dtype="float32", persistable=True
+        )
+        startup_program.global_block().append_op(
+            "fill_constant",
+            {},
+            {"Out": [name]},
+            {"shape": [1], "value": float(self._learning_rate), "dtype": "float32"},
+        )
+        self._learning_rate_map[program] = var
+
+    def _global_learning_rate(self, program=None):
+        if program is None:
+            program = self._main
+        return self._learning_rate_map.get(program)
+
+    def _create_param_lr(self, param_and_grad):
+        param = param_and_grad[0]
+        param_lr = param.optimize_attr.get("learning_rate", 1.0) if param.optimize_attr else 1.0
+        lr = self._global_learning_rate()
+        if param_lr == 1.0:
+            return lr
+        block = self._main.global_block()
+        scaled = block.create_var(
+            name=unique_name.generate(param.name + "_lr"), shape=(1,), dtype="float32"
+        )
+        block.append_op(
+            "scale", {"X": [lr]}, {"Out": [scaled]}, {"scale": float(param_lr)}
+        )
+        return scaled
+
+    # -- accumulators -------------------------------------------------------
+    def _create_accumulators(self, block, parameters):
+        pass
+
+    def _add_accumulator(self, name, param, dtype="float32", fill_value=0.0, shape=None):
+        if name in self._accumulators and param.name in self._accumulators[name]:
+            raise Exception(f"Accumulator {name} already exists for parameter {param.name}")
+        self._accumulators.setdefault(name, {})
+        main = self._main
+        startup = self._startup
+        var_name = unique_name.generate(f"{param.name}_{name}")
+        shape = list(shape if shape is not None else param.shape)
+        var = main.global_block().create_var(
+            name=var_name, shape=shape, dtype=dtype, persistable=True
+        )
+        startup.global_block().create_var(
+            name=var_name, shape=shape, dtype=dtype, persistable=True
+        )
+        startup.global_block().append_op(
+            "fill_constant",
+            {},
+            {"Out": [var_name]},
+            {"shape": shape, "value": float(fill_value), "dtype": dtype},
+        )
+        self._accumulators[name][param.name] = var
+        return var
+
+    def _get_accumulator(self, name, param):
+        return self._accumulators[name][param.name]
+
+    # -- the optimization pass ---------------------------------------------
+    def _append_optimize_op(self, block, param_and_grad):
+        raise NotImplementedError
+
+    def _finish_update(self, block):
+        pass
+
+    def _create_optimization_pass(self, parameters_and_grads, loss, startup_program=None):
+        program = loss.block.program
+        startup = startup_program or default_startup_program()
+        self._target_main, self._target_startup = program, startup
+        self._create_global_learning_rate(program, startup)
+        block = program.global_block()
+        self._create_accumulators(
+            block, [p for p, g in parameters_and_grads if p.trainable]
+        )
+        optimize_ops = []
+        for param_and_grad in parameters_and_grads:
+            if param_and_grad[1] is None or not param_and_grad[0].trainable:
+                continue
+            with program.optimized_guard(param_and_grad):
+                optimize_ops.append(self._append_optimize_op(block, param_and_grad))
+        self._finish_update(block)
+        return optimize_ops
+
+    def minimize(self, loss, startup_program=None, parameter_list=None, no_grad_set=None):
+        """append_backward + regularization + clip + optimizer ops
+        (reference optimizer.py:231)."""
+        params_grads = append_backward(loss, parameter_list, no_grad_set)
+        params_grads = sorted(params_grads, key=lambda x: x[0].name)
+        params_grads = append_gradient_clip_ops(params_grads)
+        params_grads = append_regularization_ops(params_grads, self.regularization)
+        optimize_ops = self._create_optimization_pass(params_grads, loss, startup_program)
+        return optimize_ops, params_grads
+
+
+# -- ZeRO-1 shard metadata ---------------------------------------------------
+# Per optimizer-op type: the param-shaped accumulator slots, as
+# (input_slot, output_slot) pairs. parallel.zero1 uses this to rewrite each
+# update onto a 1/N shard of the parameter: the listed accumulators are
+# stored shard-layout ([num_shards, shard_numel], zero-padded), everything
+# else (LearningRate, Beta*Pow) stays replicated. Only ops listed here are
+# sharded; an op type is eligible when its update is elementwise over the
+# param AND numerically inert on zero-padded lanes (zero grad + zero accum
+# must produce zero accum out and a finite ParamOut — the padded lanes are
+# sliced away before the param write-back, but NaN/Inf there would trip
+# FLAGS_debug_nans). ftrl and proximal_adagrad divide by a zero-initialized
+# accumulator on padded lanes, so they stay on the replicated path.
+ZERO1_SHARDABLE_SLOTS = {
+    "sgd": [],
+    "momentum": [("Velocity", "VelocityOut")],
+    "adam": [("Moment1", "Moment1Out"), ("Moment2", "Moment2Out")],
+    "adagrad": [("Moment", "MomentOut")],
+    "adamax": [("Moment", "MomentOut"), ("InfNorm", "InfNormOut")],
+    "decayed_adagrad": [("Moment", "MomentOut")],
+    "adadelta": [("AvgSquaredGrad", "AvgSquaredGradOut"),
+                 ("AvgSquaredUpdate", "AvgSquaredUpdateOut")],
+    "rmsprop": [("MeanSquare", "MeanSquareOut"), ("Moment", "MomentOut")],
+    "proximal_gd": [],
+}
+
+
+class SGDOptimizer(Optimizer):
+    """reference optimizer.py:257"""
+
+    def __init__(self, learning_rate, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "sgd"
+
+    def _append_optimize_op(self, block, param_and_grad):
+        return block.append_op(
+            "sgd",
+            {
+                "Param": [param_and_grad[0]],
+                "Grad": [param_and_grad[1]],
+                "LearningRate": [self._create_param_lr(param_and_grad)],
+            },
+            {"ParamOut": [param_and_grad[0]]},
+        )
+
+
+class MomentumOptimizer(Optimizer):
+    """reference optimizer.py:283"""
+
+    _velocity_acc_str = "velocity"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "momentum"
+        self._momentum = momentum
+        self._use_nesterov = bool(use_nesterov)
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._velocity_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        velocity = self._get_accumulator(self._velocity_acc_str, param_and_grad[0])
+        return block.append_op(
+            "momentum",
+            {
+                "Param": [param_and_grad[0]],
+                "Grad": [param_and_grad[1]],
+                "Velocity": [velocity],
+                "LearningRate": [self._create_param_lr(param_and_grad)],
+            },
+            {"ParamOut": [param_and_grad[0]], "VelocityOut": [velocity]},
+            {"mu": self._momentum, "use_nesterov": self._use_nesterov},
+        )
+
+
+class AdagradOptimizer(Optimizer):
+    """reference optimizer.py:327"""
+
+    _moment_acc_str = "moment"
+
+    def __init__(self, learning_rate, epsilon=1.0e-6, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "adagrad"
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment = self._get_accumulator(self._moment_acc_str, param_and_grad[0])
+        return block.append_op(
+            "adagrad",
+            {
+                "Param": [param_and_grad[0]],
+                "Grad": [param_and_grad[1]],
+                "Moment": [moment],
+                "LearningRate": [self._create_param_lr(param_and_grad)],
+            },
+            {"ParamOut": [param_and_grad[0]], "MomentOut": [moment]},
+            {"epsilon": self._epsilon},
+        )
+
+
+class AdamOptimizer(Optimizer):
+    """reference optimizer.py:368"""
+
+    _moment1_acc_str = "moment1"
+    _moment2_acc_str = "moment2"
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "adam"
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+        self._beta1_pow_acc = None
+        self._beta2_pow_acc = None
+
+    def _create_accumulators(self, block, parameters):
+        main = self._main
+        startup = self._startup
+
+        def global_acc(name, init):
+            var_name = unique_name.generate(name)
+            var = main.global_block().create_var(
+                name=var_name, shape=(1,), dtype="float32", persistable=True
+            )
+            startup.global_block().create_var(
+                name=var_name, shape=(1,), dtype="float32", persistable=True
+            )
+            startup.global_block().append_op(
+                "fill_constant",
+                {},
+                {"Out": [var_name]},
+                {"shape": [1], "value": float(init), "dtype": "float32"},
+            )
+            return var
+
+        self._beta1_pow_acc = global_acc("beta1_pow_acc", self._beta1)
+        self._beta2_pow_acc = global_acc("beta2_pow_acc", self._beta2)
+        for p in parameters:
+            self._add_accumulator(self._moment1_acc_str, p)
+            self._add_accumulator(self._moment2_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment1 = self._get_accumulator(self._moment1_acc_str, param_and_grad[0])
+        moment2 = self._get_accumulator(self._moment2_acc_str, param_and_grad[0])
+        return block.append_op(
+            "adam",
+            {
+                "Param": [param_and_grad[0]],
+                "Grad": [param_and_grad[1]],
+                "LearningRate": [self._create_param_lr(param_and_grad)],
+                "Moment1": [moment1],
+                "Moment2": [moment2],
+                "Beta1Pow": [self._beta1_pow_acc],
+                "Beta2Pow": [self._beta2_pow_acc],
+            },
+            {
+                "ParamOut": [param_and_grad[0]],
+                "Moment1Out": [moment1],
+                "Moment2Out": [moment2],
+            },
+            {"beta1": self._beta1, "beta2": self._beta2, "epsilon": self._epsilon},
+        )
+
+    def _finish_update(self, block):
+        """update beta1/beta2 power accumulators (reference :459-471)."""
+        block.append_op(
+            "scale",
+            {"X": [self._beta1_pow_acc]},
+            {"Out": [self._beta1_pow_acc]},
+            {"scale": self._beta1},
+        )
+        block.append_op(
+            "scale",
+            {"X": [self._beta2_pow_acc]},
+            {"Out": [self._beta2_pow_acc]},
+            {"scale": self._beta2},
+        )
+
+
+class AdamaxOptimizer(Optimizer):
+    """reference optimizer.py:473"""
+
+    _moment_acc_str = "moment"
+    _inf_norm_acc_str = "inf_norm"
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "adamax"
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+        self._beta1_pow_acc = None
+
+    def _create_accumulators(self, block, parameters):
+        main = self._main
+        startup = self._startup
+        var_name = unique_name.generate("beta1_pow_acc")
+        var = main.global_block().create_var(
+            name=var_name, shape=(1,), dtype="float32", persistable=True
+        )
+        startup.global_block().create_var(
+            name=var_name, shape=(1,), dtype="float32", persistable=True
+        )
+        startup.global_block().append_op(
+            "fill_constant",
+            {},
+            {"Out": [var_name]},
+            {"shape": [1], "value": float(self._beta1), "dtype": "float32"},
+        )
+        self._beta1_pow_acc = var
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+            self._add_accumulator(self._inf_norm_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment = self._get_accumulator(self._moment_acc_str, param_and_grad[0])
+        inf_norm = self._get_accumulator(self._inf_norm_acc_str, param_and_grad[0])
+        return block.append_op(
+            "adamax",
+            {
+                "Param": [param_and_grad[0]],
+                "Grad": [param_and_grad[1]],
+                "LearningRate": [self._create_param_lr(param_and_grad)],
+                "Moment": [moment],
+                "InfNorm": [inf_norm],
+                "Beta1Pow": [self._beta1_pow_acc],
+            },
+            {
+                "ParamOut": [param_and_grad[0]],
+                "MomentOut": [moment],
+                "InfNormOut": [inf_norm],
+            },
+            {"beta1": self._beta1, "beta2": self._beta2, "epsilon": self._epsilon},
+        )
+
+    def _finish_update(self, block):
+        block.append_op(
+            "scale",
+            {"X": [self._beta1_pow_acc]},
+            {"Out": [self._beta1_pow_acc]},
+            {"scale": self._beta1},
+        )
+
+
+class DecayedAdagradOptimizer(Optimizer):
+    """reference optimizer.py:557"""
+
+    _moment_acc_str = "moment"
+
+    def __init__(self, learning_rate, decay=0.95, epsilon=1.0e-6, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "decayed_adagrad"
+        self._decay = decay
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment = self._get_accumulator(self._moment_acc_str, param_and_grad[0])
+        return block.append_op(
+            "decayed_adagrad",
+            {
+                "Param": [param_and_grad[0]],
+                "Grad": [param_and_grad[1]],
+                "Moment": [moment],
+                "LearningRate": [self._create_param_lr(param_and_grad)],
+            },
+            {"ParamOut": [param_and_grad[0]], "MomentOut": [moment]},
+            {"decay": self._decay, "epsilon": self._epsilon},
+        )
+
+
+class AdadeltaOptimizer(Optimizer):
+    """reference optimizer.py:601"""
+
+    _avg_squared_grad_acc_str = "_avg_squared_grad"
+    _avg_squared_update_acc_str = "_avg_squared_update"
+
+    def __init__(self, learning_rate, epsilon=1.0e-6, rho=0.95, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "adadelta"
+        self._epsilon = epsilon
+        self._rho = rho
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._avg_squared_grad_acc_str, p)
+            self._add_accumulator(self._avg_squared_update_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        asg = self._get_accumulator(self._avg_squared_grad_acc_str, param_and_grad[0])
+        asu = self._get_accumulator(self._avg_squared_update_acc_str, param_and_grad[0])
+        return block.append_op(
+            "adadelta",
+            {
+                "Param": [param_and_grad[0]],
+                "Grad": [param_and_grad[1]],
+                "AvgSquaredGrad": [asg],
+                "AvgSquaredUpdate": [asu],
+            },
+            {
+                "ParamOut": [param_and_grad[0]],
+                "AvgSquaredGradOut": [asg],
+                "AvgSquaredUpdateOut": [asu],
+            },
+            {"epsilon": self._epsilon, "rho": self._rho},
+        )
+
+
+class RMSPropOptimizer(Optimizer):
+    """reference optimizer.py:683"""
+
+    _momentum_acc_str = "momentum"
+    _mean_square_acc_str = "mean_square"
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1.0e-6, momentum=0.0, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "rmsprop"
+        self._rho = rho
+        self._epsilon = epsilon
+        self._momentum = momentum
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._momentum_acc_str, p)
+            self._add_accumulator(self._mean_square_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        momentum = self._get_accumulator(self._momentum_acc_str, param_and_grad[0])
+        mean_square = self._get_accumulator(self._mean_square_acc_str, param_and_grad[0])
+        return block.append_op(
+            "rmsprop",
+            {
+                "Param": [param_and_grad[0]],
+                "Grad": [param_and_grad[1]],
+                "Moment": [momentum],
+                "MeanSquare": [mean_square],
+                "LearningRate": [self._create_param_lr(param_and_grad)],
+            },
+            {
+                "ParamOut": [param_and_grad[0]],
+                "MomentOut": [momentum],
+                "MeanSquareOut": [mean_square],
+            },
+            {"epsilon": self._epsilon, "decay": self._rho, "momentum": self._momentum},
+        )
+
+
+class ModelAverage(Optimizer):
+    """reference optimizer.py:818 — running average of parameters.
+
+    Maintains sum accumulators updated each step; `apply()` context swaps
+    averaged params in (for eval), `restore()` swaps back.
+    """
+
+    def __init__(self, average_window_rate=0.15, min_average_window=10000,
+                 max_average_window=10000, **kwargs):
+        super().__init__(0.0, **kwargs)
+        self.average_window = average_window_rate
+        self.min_average_window = min_average_window
+        self.max_average_window = max_average_window
+        self.params_grads = []
+        main = default_main_program()
+        for p in main.global_block().all_parameters():
+            if p.do_model_average is not False:
+                self.params_grads.append((p, None))
+        block = main.global_block()
+        self._sums = {}
+        self._steps = None
+        self._create_accumulators(block, [p for p, g in self.params_grads])
+        for p, g in self.params_grads:
+            block.append_op(
+                "sum",
+                {"X": [self._sums[p.name], p]},
+                {"Out": [self._sums[p.name]]},
+            )
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._sums[p.name] = self._add_accumulator("sum_acc", p)
+
+    def apply(self, executor, need_restore=True):
+        import contextlib
+        import numpy as np
+        from .core.scope import global_scope
+
+        @contextlib.contextmanager
+        def _guard():
+            scope = global_scope()
+            backup = {}
+            for p, _ in self.params_grads:
+                backup[p.name] = scope.find_var(p.name)
+                s = scope.find_var(self._sums[p.name].name)
+                # steps approximated by sum count via accumulated scale
+                backup_val = np.asarray(backup[p.name])
+                avg = np.asarray(s)
+                steps = max(1, getattr(self, "_n_steps", 1))
+                scope.set_var(p.name, (avg / steps).astype(backup_val.dtype))
+            try:
+                yield
+            finally:
+                if need_restore:
+                    for name, val in backup.items():
+                        scope.set_var(name, val)
+
+        return _guard()
+
+    def restore(self, executor):
+        pass
+
+
+class FtrlOptimizer(Optimizer):
+    """FTRL-proximal (reference operators/ftrl_op.cc; optimizer surface
+    parity with the op library)."""
+
+    _squared_acc_str = "squared"
+    _linear_acc_str = "linear"
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "ftrl"
+        self._l1 = l1
+        self._l2 = l2
+        self._lr_power = lr_power
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._squared_acc_str, p)
+            self._add_accumulator(self._linear_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        sq = self._get_accumulator(self._squared_acc_str, param_and_grad[0])
+        lin = self._get_accumulator(self._linear_acc_str, param_and_grad[0])
+        return block.append_op(
+            "ftrl",
+            {
+                "Param": [param_and_grad[0]],
+                "Grad": [param_and_grad[1]],
+                "SquaredAccumulator": [sq],
+                "LinearAccumulator": [lin],
+                "LearningRate": [self._create_param_lr(param_and_grad)],
+            },
+            {
+                "ParamOut": [param_and_grad[0]],
+                "SquaredAccumOut": [sq],
+                "LinearAccumOut": [lin],
+            },
+            {"l1": self._l1, "l2": self._l2, "lr_power": self._lr_power},
+        )
+
+
+class ProximalGDOptimizer(Optimizer):
+    """Proximal gradient descent with l1/l2 regularization (reference
+    operators/proximal_gd_op.cc; optimizer surface parity with the op
+    library)."""
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "proximal_gd"
+        self._l1 = l1
+        self._l2 = l2
+
+    def _append_optimize_op(self, block, param_and_grad):
+        return block.append_op(
+            "proximal_gd",
+            {
+                "Param": [param_and_grad[0]],
+                "Grad": [param_and_grad[1]],
+                "LearningRate": [self._create_param_lr(param_and_grad)],
+            },
+            {"ParamOut": [param_and_grad[0]]},
+            {"l1": self._l1, "l2": self._l2},
+        )
+
+
+class ProximalAdagradOptimizer(Optimizer):
+    """Proximal Adagrad (reference operators/proximal_adagrad_op.cc)."""
+
+    _moment_acc_str = "moment"
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "proximal_adagrad"
+        self._l1 = l1
+        self._l2 = l2
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment = self._get_accumulator(
+            self._moment_acc_str, param_and_grad[0])
+        return block.append_op(
+            "proximal_adagrad",
+            {
+                "Param": [param_and_grad[0]],
+                "Grad": [param_and_grad[1]],
+                "Moment": [moment],
+                "LearningRate": [self._create_param_lr(param_and_grad)],
+            },
+            {"ParamOut": [param_and_grad[0]], "MomentOut": [moment]},
+            {"l1": self._l1, "l2": self._l2},
+        )
+
+
+# aliases (reference exposes both short and long names)
+SGD = SGDOptimizer
+Momentum = MomentumOptimizer
+Adagrad = AdagradOptimizer
+Adam = AdamOptimizer
+Adamax = AdamaxOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer
+ProximalGD = ProximalGDOptimizer
+ProximalAdagrad = ProximalAdagradOptimizer
