@@ -4,7 +4,8 @@
 
 Phases, in order; any failure is an uncaught exception and a non-zero exit:
   1. device   — a CUDA card must be present; print its name and power limit
-  2. build    — build the port's kernels from paddle_tpu_torch/csrc
+  2. build    — build the port's kernels from paddle_tpu_torch/csrc, all
+                in one torch.utils.cpp_extension.load extension
   3. plan     — build the ResNet-50 and README MLP training programs and
                 their fusion plans
   4. kernels  — each hand-written kernel, through its wrapper, against its
@@ -25,6 +26,15 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 30 steps on y = argmax(x @ W); the adam kernel must run
   7. parity   — a small ResNet trained 2 steps on the card and on the host
                 from the same weights must agree
+  8. flash    — the flash-attention kernel against its plain torch version
+                on the card, f32 and bf16, causal and not, at the CPU tests'
+                shapes, a ragged Sq=1000/Sk=1500 case and full width (B=1,
+                H=32, S=4096, D=128: Llama-2-7B's heads over its context);
+                then paddle_tpu_torch.parallel.flash_attention forward and
+                backward through autograd at full width in f32 against the
+                same loss through the plain version; then each of the four
+                full-width variants timed beside the plain version and
+                torch's scaled_dot_product_attention
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -42,11 +52,31 @@ import torch
 # H100 SXM data-sheet rates (dense, full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 SEED = 20261016
 BATCH = 32
 SIZES = (1, 17, 1029, 4194307)
 OUT_DIR = "chiprun_out"  # long reports (gitignored)
+
+# flash attention (B, H, Sq, Sk, D): the CPU tests' shapes, a ragged case,
+# and full width last
+FLASH_FULL = (1, 32, 4096, 4096, 128)
+FLASH_SHAPES = ((2, 3, 64, 64, 32), (2, 3, 100, 100, 32), (1, 2, 96, 96, 16),
+                (1, 2, 64, 64, 32), (1, 2, 24, 24, 8), (1, 2, 50, 50, 8),
+                (1, 2, 40, 72, 16), (1, 1, 5, 5, 8), (1, 4, 1000, 1500, 64),
+                FLASH_FULL)
+# Kernel against its plain version on the card. f32 and the gradients keep
+# the JAX package's oracle tolerances (tests/test_flash_attention.py). bf16
+# does not: the oracle's atol 3e-2 is about |out| itself at full width
+# (rms 0.026 over 4096 keys), so a kernel that skipped a 64-key tile would
+# pass it. Both sides round p and out to bf16, so they differ by about one
+# bf16 ulp of out (at most 2^-7 of it); 2e-3 + 1.6e-2·|out| allows two.
+# tests/test_torch_flash.py shows that this limit rejects a skipped tile.
+FLASH_TOL = {torch.float32: {"atol": 2e-5, "rtol": 1e-4},
+             torch.bfloat16: {"atol": 2e-3, "rtol": 1.6e-2}}
+LSE_ATOL = 1e-4
+GRAD_TOL = {"atol": 5e-5, "rtol": 1e-3}
 
 
 def log(msg):
@@ -73,12 +103,11 @@ def phase_device():
 
 def phase_build():
     from paddle_tpu_torch import cuda_build
-    from paddle_tpu_torch.fusion import kernels
 
-    kernels._library()
-    log(f"[build] fused_update.cu + fused_update_binding.cpp "
-        f"(torch.utils.cpp_extension.load): "
-        f"{cuda_build.BUILT['fused_update']:.2f} s")
+    cuda_build.kernels()
+    names = [os.path.basename(p) for p in cuda_build.sources()]
+    log(f"[build] {' + '.join(names)} (one torch.utils.cpp_extension.load): "
+        f"{cuda_build.build_seconds:.2f} s")
 
 
 def build_resnet50():
@@ -424,6 +453,173 @@ def phase_parity():
     np.testing.assert_allclose(card_l, host_l, rtol=1e-4)
 
 
+def _qkv(shape, dtype, gen):
+    B, H, Sq, Sk, D = shape
+    return [torch.randn(B, H, S, D, generator=gen, device="cuda").to(dtype)
+            for S in (Sq, Sk, Sk)]
+
+
+def _flash_work(shape, dtype, causal):
+    """(flops, bytes) the forward must do and move: 4·D flops per visible
+    (query, key) pair (q·kᵀ and p·V), q, k, v and out read or written once
+    plus the f32 lse."""
+    B, H, Sq, Sk, D = shape
+    pairs = (sum(min(i + 1, Sk) for i in range(Sq)) if causal
+             else Sq * Sk)
+    size = torch.finfo(dtype).bits // 8
+    return (4 * B * H * pairs * D,
+            B * H * (2 * Sq + 2 * Sk) * D * size + B * H * Sq * 4)
+
+
+def phase_flash():
+    """The flash-attention forward kernel against its plain version, the
+    differentiable entry point on the card, and the full-width timings."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.parallel import flash
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    flash.reset_launch_counts()
+    calls = 0
+    worst = {"float32": 0.0, "bfloat16": 0.0, "float32_limit_used": 0.0,
+             "bfloat16_limit_used": 0.0, "lse": 0.0}
+    full_err = {}
+    for shape in FLASH_SHAPES:
+        D = shape[-1]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _qkv(shape, dtype, gen)
+            for causal in (False, True):
+                out, lse = flash.flash_fwd(q, k, v, D ** -0.5, causal)
+                calls += 1
+                want, want_lse = flash.flash_fwd_plain(q, k, v, D ** -0.5,
+                                                       causal)
+                what = f"{shape} {dtype} causal={causal}"
+                if out.dtype != dtype or not torch.isfinite(out).all():
+                    raise AssertionError(f"flash {what}: bad output")
+                diff = (out.float() - want.float()).abs()
+                e_out = diff.max().item()
+                e_lse = (lse - want_lse).abs().max().item()
+                # the largest share of the limit any element used
+                used = (diff / (FLASH_TOL[dtype]["atol"] + FLASH_TOL[dtype][
+                    "rtol"] * want.float().abs())).max().item()
+                name = str(dtype).split(".")[1]
+                worst[name] = max(worst[name], e_out)
+                worst[name + "_limit_used"] = max(
+                    worst[name + "_limit_used"], used)
+                worst["lse"] = max(worst["lse"], e_lse)
+                if shape == FLASH_FULL:
+                    full_err[(dtype, causal)] = (e_out, e_lse, used)
+                    log(f"[flash] full width {what}: max |out err| "
+                        f"{e_out:.3e} ({used:.3f} of the limit; rms |out| "
+                        f"{want.float().pow(2).mean().sqrt().item():.4f}), "
+                        f"max |lse err| {e_lse:.3e}")
+                torch.testing.assert_close(out, want, **FLASH_TOL[dtype],
+                                           msg=f"flash out {what}")
+                torch.testing.assert_close(lse, want_lse, atol=LSE_ATOL,
+                                           rtol=0, msg=f"flash lse {what}")
+    torch.cuda.synchronize()
+    if flash.flash_fwd.launches != calls:
+        raise AssertionError(f"flash_fwd launched {flash.flash_fwd.launches} "
+                             f"times for {calls} CUDA calls")
+    log(f"[flash] kernel == plain version at {len(FLASH_SHAPES)} shapes x "
+        f"f32/bf16 x causal/not ({calls} launches); max |err| f32 "
+        f"{worst['float32']:.3e} ({worst['float32_limit_used']:.3f} of its "
+        f"limit), bf16 {worst['bfloat16']:.3e} "
+        f"({worst['bfloat16_limit_used']:.3f} of its limit), lse "
+        f"{worst['lse']:.3e}")
+
+    # the entry point a user calls, at full width: forward (the kernel) and
+    # backward through autograd, against the same loss through the plain
+    # version
+    shape = FLASH_FULL
+    B, H, S, _, D = shape
+    q, k, v, cot = _qkv(shape, torch.float32, gen) + [
+        torch.randn(B, H, S, D, generator=gen, device="cuda")]
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_counts()
+    grads = {}
+    for causal in (False, True):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        (flash.flash_attention(*leaves, causal=causal) * cot).sum().backward()
+        grads[causal] = [t.grad for t in leaves]
+    torch.cuda.synchronize()
+    launches = flash.flash_fwd.launches
+    if launches != 2:
+        raise AssertionError(f"flash_attention launched the kernel "
+                             f"{launches} times in 2 forward passes")
+    grad_err = 0.0
+    for causal in (False, True):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out, _ = flash.flash_fwd_plain(*leaves, D ** -0.5, causal)
+        (out * cot).sum().backward()
+        for got, t, n in zip(grads[causal], leaves, "qkv"):
+            grad_err = max(grad_err, (got - t.grad).abs().max().item())
+            torch.testing.assert_close(got, t.grad, **GRAD_TOL,
+                                       msg=f"d{n} causal={causal}")
+    log(f"[flash] flash_attention {shape} f32 forward + backward: grads of "
+        f"q, k, v == the plain version's (atol 5e-5, rtol 1e-3), causal "
+        f"and not, max |err| {grad_err:.3e}; kernel launches {launches}; "
+        f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # full width: kernel, plain version and torch's SDPA (causal mask
+    # top-left; Sq == Sk, so every backend agrees on it)
+    flash.reset_launch_counts()
+    configs = []
+    D = FLASH_FULL[-1]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _qkv(FLASH_FULL, dtype, gen)
+        for causal in (False, True):
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, scale=D ** -0.5)
+
+            ms = _time_ms(lambda: flash.flash_fwd(q, k, v, D ** -0.5, causal))
+            plain_ms = _time_ms(
+                lambda: flash.flash_fwd_plain(q, k, v, D ** -0.5, causal))
+            library_ms = _time_ms(sdpa)
+            # the yardstick's own distance from the plain version
+            library_err = (sdpa().float() - flash.flash_fwd_plain(
+                q, k, v, D ** -0.5, causal)[0].float()).abs().max().item()
+            flops, nbytes = _flash_work(FLASH_FULL, dtype, causal)
+            ops_s = flops / (BF16_FLOPS if dtype == torch.bfloat16
+                             else FP32_FLOPS)
+            bytes_s = nbytes / HBM_BYTES_PER_S
+            configs.append({
+                "dtype": str(dtype).split(".")[1], "causal": causal,
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": max(ops_s, bytes_s) * 1e3,
+                "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+                "flops": flops, "bytes": nbytes,
+                "tflop_per_s": flops / (ms * 1e-3) / 1e12,
+                "max_abs_err": full_err[(dtype, causal)][0],
+                "lse_max_abs_err": full_err[(dtype, causal)][1],
+                "limit_used": full_err[(dtype, causal)][2],
+                "library_max_abs_err": library_err})
+            c = configs[-1]
+            log(f"[flash] {FLASH_FULL} {c['dtype']} causal={causal}: kernel "
+                f"{ms:.4f} ms ({c['tflop_per_s']:.2f} TFLOP/s); plain "
+                f"{plain_ms:.4f} ms; sdpa {library_ms:.4f} ms (max |err| vs "
+                f"plain {library_err:.3e}); bound {c['bound_ms']:.4f} ms "
+                f"({c['bound_by']})")
+    timed = flash.flash_fwd.launches
+    if timed != 4 * 28:
+        raise AssertionError(f"timing launched the kernel {timed} times, "
+                             f"not 4 x 28")
+    # the row's own numbers are bf16 causal, a decoder's training shape
+    row = configs[3]
+    return {"name": "flash_fwd", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "paddle_tpu/parallel/flash.py:81",
+            "launches": launches, "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "shape": list(FLASH_FULL),
+            "dtype": "bfloat16", "causal": True,
+            "max_abs_err_all": worst, "grad_max_abs_err": grad_err,
+            "configs": configs}
+
+
 def main():
     card_line = phase_device()
     card = torch.cuda.get_device_name(0)
@@ -435,6 +631,7 @@ def main():
     rows[0]["launches"] = phase_resnet(*resnet, card)
     rows[1]["launches"] = phase_adam(*mlp)
     phase_parity()
+    rows.append(phase_flash())
     log(card_line)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

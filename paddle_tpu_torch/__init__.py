@@ -4,8 +4,9 @@ The same Fluid-style surface as the JAX package (`import paddle_tpu_torch
 as fluid`): Programs are built with `layers`, differentiated by
 `append_backward`, updated by optimizer ops, and run by an op-by-op
 Executor whose kernels are torch functions on one CUDA card (CPUPlace()
-runs them on the host). The fused optimizer-bucket updates are
-hand-written CUDA kernels (fusion/kernels.py, csrc/).
+runs them on the host). The fused optimizer-bucket updates and the
+flash-attention forward (parallel.flash_attention) are hand-written CUDA
+kernels (fusion/kernels.py, parallel/flash.py, csrc/).
 """
 
 from . import flags
@@ -35,6 +36,7 @@ from .backward import append_backward
 from . import layers
 from . import optimizer
 from . import fusion
+from . import parallel
 from . import executor
 from .executor import Executor
 from . import convert

@@ -1,8 +1,8 @@
 // Fused bucket weight updates for sm_90a: momentum and adam over one flat
 // f32 bucket. Built by torch.utils.cpp_extension.load
-// (paddle_tpu_torch/cuda_build.py) together with fused_update_binding.cpp,
-// which binds the launchers below to PyTorch; this file keeps a plain C
-// interface and includes no PyTorch header.
+// (paddle_tpu_torch/cuda_build.py) together with kernels_binding.cpp, which
+// binds the launchers below to PyTorch; this file keeps a plain C interface
+// and includes no PyTorch header.
 //
 // Replaces paddle_tpu/fusion/kernels.py::momentum_bucket (_momentum_kernel)
 // and ::adam_bucket (_adam_kernel), Pallas TPU kernels that walk the bucket

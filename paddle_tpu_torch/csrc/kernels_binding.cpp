@@ -1,8 +1,9 @@
-// PyTorch binding of the fused bucket updates in fused_update.cu, built
-// together with it by torch.utils.cpp_extension.load
-// (paddle_tpu_torch/cuda_build.py). This is the one translation unit that
-// includes PyTorch's headers; the kernels' own file keeps a plain C
-// interface, so nvcc compiles it without them.
+// PyTorch binding of every kernel of the port: the fused bucket updates in
+// fused_update.cu and the flash-attention forward in flash_attention.cu,
+// built together with them into one extension by
+// torch.utils.cpp_extension.load (paddle_tpu_torch/cuda_build.py). This is
+// the one translation unit that includes PyTorch's headers; the kernels'
+// own files keep a plain C interface, so nvcc compiles them without them.
 //
 // Each function checks what the kernel relies on, allocates fresh outputs,
 // launches on PyTorch's current stream of the operands' device and raises
@@ -25,6 +26,11 @@ int adam_bucket_launch(const float* p, const float* g, const float* m1,
                        float omb1, float b2, float omb2, float eps,
                        float* p_out, float* m1_out, float* m2_out, int64_t n,
                        void* stream);
+int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
+                     float* lse, int dtype, int B, int H, int Sq, int Sk,
+                     int D, float scale, int causal, const int64_t* q_strides,
+                     const int64_t* k_strides, const int64_t* v_strides,
+                     void* stream);
 }
 
 namespace {
@@ -100,10 +106,64 @@ std::vector<torch::Tensor> adam_bucket(torch::Tensor p, torch::Tensor g,
   return {p_out, m1_out, m2_out};
 }
 
+// q [B, H, Sq, D], k and v [B, H, Sk, D], one dtype (f32 or bf16) on one
+// CUDA device, 1 <= D <= 128. Strided operands are read in place as long as
+// their last dimension is contiguous; any other layout is copied by
+// .contiguous() first. Returns out [B, H, Sq, D] in the input dtype and
+// lse [B, H, Sq] f32, both fresh and contiguous.
+std::vector<torch::Tensor> flash_fwd(torch::Tensor q, torch::Tensor k,
+                                     torch::Tensor v, double scale,
+                                     bool causal) {
+  for (const auto* t : {&q, &k, &v}) {
+    TORCH_CHECK(t->is_cuda() && t->device() == q.device(),
+                "q, k and v must be on one CUDA device");
+    TORCH_CHECK(t->dim() == 4, "q, k and v must be [B, H, S, D]");
+    TORCH_CHECK(t->scalar_type() == q.scalar_type(),
+                "q, k and v must share one dtype");
+  }
+  TORCH_CHECK(q.scalar_type() == torch::kFloat32 ||
+                  q.scalar_type() == torch::kBFloat16,
+              "flash_fwd takes float32 or bfloat16");
+  const int64_t B = q.size(0), H = q.size(1), Sq = q.size(2), D = q.size(3);
+  const int64_t Sk = k.size(2);
+  TORCH_CHECK(k.size(0) == B && k.size(1) == H && v.size(0) == B &&
+                  v.size(1) == H && v.size(2) == Sk,
+              "k and v must be [B, H, Sk, D] beside q [B, H, Sq, D]");
+  TORCH_CHECK(k.size(3) == D && v.size(3) == D,
+              "q, k and v must share one head dim (Dv != Dq is not taken)");
+  TORCH_CHECK(D >= 1 && D <= 128, "flash_fwd: head dim must be in [1, 128], "
+              "got ", D);
+  // Sq above 65535 q-tiles of 64 rows exceeds the grid's y dimension: the
+  // launch is refused and check_launch raises
+  TORCH_CHECK(B * H <= INT32_MAX && Sq <= INT32_MAX && Sk <= INT32_MAX,
+              "flash_fwd: B*H, Sq and Sk must fit in int32");
+  if (q.stride(3) != 1) q = q.contiguous();
+  if (k.stride(3) != 1) k = k.contiguous();
+  if (v.stride(3) != 1) v = v.contiguous();
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto out = torch::empty({B, H, Sq, D}, q.options());
+  auto lse = torch::empty({B, H, Sq}, q.options().dtype(torch::kFloat32));
+  if (B * H > 0 && Sq > 0) {
+    const int64_t qst[3] = {q.stride(0), q.stride(1), q.stride(2)};
+    const int64_t kst[3] = {k.stride(0), k.stride(1), k.stride(2)};
+    const int64_t vst[3] = {v.stride(0), v.stride(1), v.stride(2)};
+    check_launch(flash_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr<float>(), q.scalar_type() == torch::kFloat32 ? 0 : 1,
+        static_cast<int>(B), static_cast<int>(H), static_cast<int>(Sq),
+        static_cast<int>(Sk), static_cast<int>(D), static_cast<float>(scale),
+        causal ? 1 : 0, qst, kst, vst,
+        c10::cuda::getCurrentCUDAStream().stream()));
+  }
+  return {out, lse};
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("momentum_bucket", &momentum_bucket,
         "v' = mu*v + g; p' = p - lr*v' (Nesterov: p - (g + mu*v')*lr)");
   m.def("adam_bucket", &adam_bucket,
         "m1' = b1*m1 + (1-b1)*g; m2' = b2*m2 + (1-b2)*g*g; "
         "p' = p - lr_t*m1'/(sqrt(m2') + eps)");
+  m.def("flash_fwd", &flash_fwd,
+        "(out, lse) of softmax(q k^T * scale) v, causal top-left aligned");
 }

@@ -6,7 +6,7 @@ back. `momentum_bucket` and `adam_bucket` replace the JAX package's
 Pallas TPU kernels (paddle_tpu/fusion/kernels.py::momentum_bucket and
 ::adam_bucket), which view the lane as zero-padded (8, 128) VMEM blocks.
 The CUDA kernels (csrc/fused_update.cu, bound to PyTorch by
-csrc/fused_update_binding.cpp) make one grid-stride pass over the unpadded
+csrc/kernels_binding.cpp) make one grid-stride pass over the unpadded
 lane. Both are bound by bytes: 20 B per element for momentum, 28 B for
 adam.
 
@@ -25,18 +25,6 @@ from .. import cuda_build
 
 __all__ = ["momentum_bucket", "adam_bucket", "momentum_bucket_plain",
            "adam_bucket_plain", "momentum_bucket_cuda", "adam_bucket_cuda"]
-
-_lib = None
-
-
-def _library():
-    """Build (first use only) and import the fused_update extension."""
-    global _lib
-    if _lib is None:
-        _lib = cuda_build.load("fused_update", ["fused_update.cu",
-                                                "fused_update_binding.cpp"])
-    return _lib
-
 
 def _check(name, lanes, scalar):
     """Refuse operands off one CUDA device before anything is built; the
@@ -63,8 +51,8 @@ def momentum_bucket_plain(p, g, v, lr, mu, nesterov):
 
 def momentum_bucket_cuda(p, g, v, lr, mu, nesterov):
     n = _check("momentum_bucket", (p, g, v), lr)
-    p_out, v_out = _library().momentum_bucket(p, g, v, lr, mu,
-                                              bool(nesterov))
+    p_out, v_out = cuda_build.kernels().momentum_bucket(p, g, v, lr, mu,
+                                                        bool(nesterov))
     if n:
         momentum_bucket.launches += 1
     return p_out, v_out
@@ -97,8 +85,8 @@ def adam_bucket_cuda(p, g, m1, m2, lr_t, b1, b2, eps):
     n = _check("adam_bucket", (p, g, m1, m2), lr_t)
     # (1 - b1) and (1 - b2) in python doubles, then f32 — where the scalar
     # op's torch expression evaluates them
-    outs = _library().adam_bucket(p, g, m1, m2, lr_t, b1, 1 - b1, b2, 1 - b2,
-                                  eps)
+    outs = cuda_build.kernels().adam_bucket(p, g, m1, m2, lr_t, b1, 1 - b1,
+                                            b2, 1 - b2, eps)
     if n:
         adam_bucket.launches += 1
     return tuple(outs)
