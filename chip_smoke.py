@@ -5,7 +5,9 @@
 Phases, in order; any failure is an uncaught exception and a non-zero exit:
   1. device   — a CUDA card must be present; print its name and power limit
   2. build    — build the port's kernels from paddle_tpu_torch/csrc, all
-                in one torch.utils.cpp_extension.load extension
+                in one torch.utils.cpp_extension.load extension; count the
+                bf16 flash kernel's HGMMA and UTMALDG instructions in its
+                SASS (cuobjdump), which must not be 0
   3. plan     — build the ResNet-50 and README MLP training programs and
                 their fusion plans
   4. kernels  — each hand-written kernel, through its wrapper, against its
@@ -26,21 +28,27 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 30 steps on y = argmax(x @ W); the adam kernel must run
   7. parity   — a small ResNet trained 2 steps on the card and on the host
                 from the same weights must agree
-  8. flash    — the flash-attention kernel against its plain torch version
-                on the card, f32 and bf16, causal and not, at the CPU tests'
-                shapes, a ragged Sq=1000/Sk=1500 case and full width (B=1,
-                H=32, S=4096, D=128: Llama-2-7B's heads over its context);
-                then paddle_tpu_torch.parallel.flash_attention forward and
-                backward through autograd at full width in f32 against the
-                same loss through the plain version; then each of the four
-                full-width variants timed beside the plain version and
-                torch's scaled_dot_product_attention
+  8. flash    — the flash-attention kernels (f32: CUDA cores; bf16:
+                wgmma fed by TMA) against their plain torch version on the
+                card, causal and not, at the CPU tests' shapes, the bf16
+                tiling's edges (129 q rows over 257 keys at D=128), a
+                zero-padded head dim (D=12), no keys, a ragged
+                Sq=1000/Sk=1500 case and full width (B=1, H=32, S=4096,
+                D=128: Llama-2-7B's heads over its context); a bf16
+                [B, S, H, D] view read in place, bitwise equal to the
+                contiguous answer; then paddle_tpu_torch.parallel.
+                flash_attention forward and backward through autograd at
+                full width, f32 against the same loss through the plain
+                version and bf16; then each of the four full-width variants
+                timed beside the plain version and torch's
+                scaled_dot_product_attention
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}.
 """
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -59,12 +67,14 @@ BATCH = 32
 SIZES = (1, 17, 1029, 4194307)
 OUT_DIR = "chiprun_out"  # long reports (gitignored)
 
-# flash attention (B, H, Sq, Sk, D): the CPU tests' shapes, a ragged case,
-# and full width last
+# flash attention (B, H, Sq, Sk, D): the CPU tests' shapes, the bf16
+# kernel's tile edges at D=128, a padded D, no keys, a ragged case, and
+# full width last
 FLASH_FULL = (1, 32, 4096, 4096, 128)
 FLASH_SHAPES = ((2, 3, 64, 64, 32), (2, 3, 100, 100, 32), (1, 2, 96, 96, 16),
                 (1, 2, 64, 64, 32), (1, 2, 24, 24, 8), (1, 2, 50, 50, 8),
-                (1, 2, 40, 72, 16), (1, 1, 5, 5, 8), (1, 4, 1000, 1500, 64),
+                (1, 2, 40, 72, 16), (1, 1, 5, 5, 8), (1, 2, 129, 257, 128),
+                (1, 2, 33, 47, 12), (1, 2, 7, 0, 8), (1, 4, 1000, 1500, 64),
                 FLASH_FULL)
 # Kernel against its plain version on the card. f32 and the gradients keep
 # the JAX package's oracle tolerances (tests/test_flash_attention.py). bf16
@@ -104,10 +114,36 @@ def phase_device():
 def phase_build():
     from paddle_tpu_torch import cuda_build
 
-    cuda_build.kernels()
+    ext = cuda_build.kernels()
     names = [os.path.basename(p) for p in cuda_build.sources()]
     log(f"[build] {' + '.join(names)} (one torch.utils.cpp_extension.load): "
         f"{cuda_build.build_seconds:.2f} s")
+    return sass_counts(ext.__file__, "flash_fwd_sm90_kernel",
+                       ("HGMMA", "UTMALDG"))
+
+
+def sass_counts(library, kernel, opcodes):
+    """How many instructions of each opcode the SASS of `kernel` in the
+    built `library` holds (cuobjdump -sass); fails on a count of 0."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
+                          text=True, check=True).stdout
+    body = [f for f in sass.split("Function : ")[1:]
+            if kernel in f.split(maxsplit=1)[0]]
+    if len(body) != 1:
+        raise AssertionError(f"{kernel}: {len(body)} functions in the SASS")
+
+    def opcode(line):  # "/*0c80*/  @P0 HGMMA.64x128x16... ;  /* 0x... */"
+        words = [w for w in line.partition("*/")[2].split()
+                 if not w.startswith("@")]
+        return words[0] if words else ""
+
+    ops = [opcode(line) for line in body[0].splitlines()]
+    counts = {op: sum(o.startswith(op) for o in ops) for op in opcodes}
+    log(f"[build] {kernel} SASS: {counts}")
+    if not all(counts.values()):
+        raise AssertionError(f"{kernel}: missing {opcodes} in its SASS")
+    return counts
 
 
 def build_resnet50():
@@ -471,9 +507,42 @@ def _flash_work(shape, dtype, causal):
             B * H * (2 * Sq + 2 * Sk) * D * size + B * H * Sq * 4)
 
 
-def phase_flash():
-    """The flash-attention forward kernel against its plain version, the
-    differentiable entry point on the card, and the full-width timings."""
+def _check_flash(flash, q, k, v, causal, what, worst):
+    """One kernel call against the plain version; returns the errors."""
+    D = q.shape[-1]
+    out, lse = flash.flash_fwd(q, k, v, D ** -0.5, causal)
+    want, want_lse = flash.flash_fwd_plain(q, k, v, D ** -0.5, causal)
+    dtype = q.dtype
+    if out.dtype != dtype or not torch.isfinite(out).all():
+        raise AssertionError(f"flash {what}: bad output")
+    torch.testing.assert_close(out, want, **FLASH_TOL[dtype],
+                               msg=f"flash out {what}")
+    # lse is -inf exactly where a row sees no key, on both sides
+    torch.testing.assert_close(lse, want_lse, atol=LSE_ATOL, rtol=0,
+                               msg=f"flash lse {what}")
+    diff = (out.float() - want.float()).abs()
+    seen = torch.isfinite(want_lse)
+    e_out = diff.max().item() if diff.numel() else 0.0
+    e_lse = ((lse - want_lse)[seen].abs().max().item() if seen.any()
+             else 0.0)
+    # the largest share of the limit any element used
+    used = ((diff / (FLASH_TOL[dtype]["atol"] + FLASH_TOL[dtype]["rtol"]
+                     * want.float().abs())).max().item()
+            if diff.numel() else 0.0)
+    name = str(dtype).split(".")[1]
+    worst[name] = max(worst[name], e_out)
+    worst[name + "_limit_used"] = max(worst[name + "_limit_used"], used)
+    worst["lse"] = max(worst["lse"], e_lse)
+    if k.shape[2] == 0 and (out.any() or not torch.isneginf(lse).all()):
+        raise AssertionError(f"flash {what}: no keys must give out 0 and "
+                             f"lse -inf")
+    return e_out, e_lse, used, want
+
+
+def phase_flash(sass):
+    """The flash-attention forward kernels against their plain version,
+    the differentiable entry point on the card, and the full-width
+    timings."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.parallel import flash
@@ -485,87 +554,104 @@ def phase_flash():
              "bfloat16_limit_used": 0.0, "lse": 0.0}
     full_err = {}
     for shape in FLASH_SHAPES:
-        D = shape[-1]
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _qkv(shape, dtype, gen)
             for causal in (False, True):
-                out, lse = flash.flash_fwd(q, k, v, D ** -0.5, causal)
-                calls += 1
-                want, want_lse = flash.flash_fwd_plain(q, k, v, D ** -0.5,
-                                                       causal)
                 what = f"{shape} {dtype} causal={causal}"
-                if out.dtype != dtype or not torch.isfinite(out).all():
-                    raise AssertionError(f"flash {what}: bad output")
-                diff = (out.float() - want.float()).abs()
-                e_out = diff.max().item()
-                e_lse = (lse - want_lse).abs().max().item()
-                # the largest share of the limit any element used
-                used = (diff / (FLASH_TOL[dtype]["atol"] + FLASH_TOL[dtype][
-                    "rtol"] * want.float().abs())).max().item()
-                name = str(dtype).split(".")[1]
-                worst[name] = max(worst[name], e_out)
-                worst[name + "_limit_used"] = max(
-                    worst[name + "_limit_used"], used)
-                worst["lse"] = max(worst["lse"], e_lse)
+                e_out, e_lse, used, want = _check_flash(flash, q, k, v, causal,
+                                                        what, worst)
+                calls += 1
+                if shape[3] == 0:
+                    log(f"[flash] no keys {what}: out 0, lse -inf")
                 if shape == FLASH_FULL:
                     full_err[(dtype, causal)] = (e_out, e_lse, used)
                     log(f"[flash] full width {what}: max |out err| "
                         f"{e_out:.3e} ({used:.3f} of the limit; rms |out| "
                         f"{want.float().pow(2).mean().sqrt().item():.4f}), "
                         f"max |lse err| {e_lse:.3e}")
-                torch.testing.assert_close(out, want, **FLASH_TOL[dtype],
-                                           msg=f"flash out {what}")
-                torch.testing.assert_close(lse, want_lse, atol=LSE_ATOL,
-                                           rtol=0, msg=f"flash lse {what}")
+
+    # a [B, S, H, D] bf16 tensor viewed as [B, H, S, D]: TMA reads it in
+    # place, and the answer is the contiguous one, bitwise
+    bshd = torch.randn(2, 777, 4, 128, generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    view = bshd.transpose(1, 2)
+    if flash._tma_operand(view) is not view:
+        raise AssertionError("a [B, S, H, D] bf16 view was copied")
+    for causal in (False, True):
+        got = flash.flash_fwd(view, view, view, 128 ** -0.5, causal)
+        dense = view.contiguous()
+        want = flash.flash_fwd(dense, dense, dense, 128 ** -0.5, causal)
+        calls += 2
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"bf16 view causal={causal} differs from "
+                                 f"the contiguous answer")
     torch.cuda.synchronize()
     if flash.flash_fwd.launches != calls:
         raise AssertionError(f"flash_fwd launched {flash.flash_fwd.launches} "
                              f"times for {calls} CUDA calls")
     log(f"[flash] kernel == plain version at {len(FLASH_SHAPES)} shapes x "
-        f"f32/bf16 x causal/not ({calls} launches); max |err| f32 "
-        f"{worst['float32']:.3e} ({worst['float32_limit_used']:.3f} of its "
-        f"limit), bf16 {worst['bfloat16']:.3e} "
+        f"f32/bf16 x causal/not, and a bf16 [B, S, H, D] view read in place "
+        f"== its contiguous copy bitwise ({calls} launches, "
+        f"{flash.flash_fwd.sm90_launches} of the wgmma kernel); max |err| "
+        f"f32 {worst['float32']:.3e} ({worst['float32_limit_used']:.3f} of "
+        f"its limit), bf16 {worst['bfloat16']:.3e} "
         f"({worst['bfloat16_limit_used']:.3f} of its limit), lse "
         f"{worst['lse']:.3e}")
 
-    # the entry point a user calls, at full width: forward (the kernel) and
-    # backward through autograd, against the same loss through the plain
-    # version
+    # the entry point a user calls, at full width: forward (the kernels)
+    # and backward through autograd; f32 against the same loss through the
+    # plain version, bf16 against the plain forward at the kernel's limit
     shape = FLASH_FULL
     B, H, S, _, D = shape
     q, k, v, cot = _qkv(shape, torch.float32, gen) + [
         torch.randn(B, H, S, D, generator=gen, device="cuda")]
     torch.cuda.reset_peak_memory_stats()
     flash.reset_launch_counts()
-    grads = {}
-    for causal in (False, True):
-        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        (flash.flash_attention(*leaves, causal=causal) * cot).sum().backward()
-        grads[causal] = [t.grad for t in leaves]
+    grads, outs = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            leaves = [t.to(dtype, copy=True).requires_grad_(True)
+                      for t in (q, k, v)]
+            out = flash.flash_attention(*leaves, causal=causal)
+            (out.float() * cot).sum().backward()
+            grads[dtype, causal] = [t.grad for t in leaves]
+            outs[dtype, causal] = out.detach()
     torch.cuda.synchronize()
     launches = flash.flash_fwd.launches
-    if launches != 2:
-        raise AssertionError(f"flash_attention launched the kernel "
-                             f"{launches} times in 2 forward passes")
+    sm90 = flash.flash_fwd.sm90_launches
+    if (launches, sm90) != (4, 2):
+        raise AssertionError(f"flash_attention launched the kernels "
+                             f"{launches} times ({sm90} wgmma) in 4 forward "
+                             f"passes (2 bf16)")
     grad_err = 0.0
     for causal in (False, True):
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         out, _ = flash.flash_fwd_plain(*leaves, D ** -0.5, causal)
         (out * cot).sum().backward()
-        for got, t, n in zip(grads[causal], leaves, "qkv"):
+        for got, t, n in zip(grads[torch.float32, causal], leaves, "qkv"):
             grad_err = max(grad_err, (got - t.grad).abs().max().item())
             torch.testing.assert_close(got, t.grad, **GRAD_TOL,
                                        msg=f"d{n} causal={causal}")
-    log(f"[flash] flash_attention {shape} f32 forward + backward: grads of "
-        f"q, k, v == the plain version's (atol 5e-5, rtol 1e-3), causal "
-        f"and not, max |err| {grad_err:.3e}; kernel launches {launches}; "
-        f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        low = [t.to(torch.bfloat16) for t in (q, k, v)]
+        want, _ = flash.flash_fwd_plain(*low, D ** -0.5, causal)
+        torch.testing.assert_close(outs[torch.bfloat16, causal], want,
+                                   **FLASH_TOL[torch.bfloat16],
+                                   msg=f"bf16 flash_attention causal={causal}")
+        for g in grads[torch.bfloat16, causal]:
+            if g.dtype != torch.bfloat16 or not torch.isfinite(g).all():
+                raise AssertionError(f"bf16 grads causal={causal}: bad")
+    log(f"[flash] flash_attention {shape} forward + backward: f32 grads of "
+        f"q, k, v == the plain version's (atol 5e-5, rtol 1e-3), causal and "
+        f"not, max |err| {grad_err:.3e}; bf16 out == the plain version's at "
+        f"the kernel's limit, bf16 grads finite; kernel launches {launches} "
+        f"({sm90} wgmma); peak mem "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # full width: kernel, plain version and torch's SDPA (causal mask
     # top-left; Sq == Sk, so every backend agrees on it)
-    flash.reset_launch_counts()
-    configs = []
+    configs = {}
     D = FLASH_FULL[-1]
+    flash.reset_launch_counts()
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = _qkv(FLASH_FULL, dtype, gen)
         for causal in (False, True):
@@ -585,45 +671,56 @@ def phase_flash():
             ops_s = flops / (BF16_FLOPS if dtype == torch.bfloat16
                              else FP32_FLOPS)
             bytes_s = nbytes / HBM_BYTES_PER_S
-            configs.append({
+            c = configs[dtype, causal] = {
                 "dtype": str(dtype).split(".")[1], "causal": causal,
                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": max(ops_s, bytes_s) * 1e3,
                 "bound_by": "operations" if ops_s >= bytes_s else "bytes",
                 "flops": flops, "bytes": nbytes,
                 "tflop_per_s": flops / (ms * 1e-3) / 1e12,
+                "bound_share": max(ops_s, bytes_s) * 1e3 / ms,
+                "vs_library": ms / library_ms,
                 "max_abs_err": full_err[(dtype, causal)][0],
                 "lse_max_abs_err": full_err[(dtype, causal)][1],
                 "limit_used": full_err[(dtype, causal)][2],
-                "library_max_abs_err": library_err})
-            c = configs[-1]
+                "library_max_abs_err": library_err}
             log(f"[flash] {FLASH_FULL} {c['dtype']} causal={causal}: kernel "
-                f"{ms:.4f} ms ({c['tflop_per_s']:.2f} TFLOP/s); plain "
-                f"{plain_ms:.4f} ms; sdpa {library_ms:.4f} ms (max |err| vs "
-                f"plain {library_err:.3e}); bound {c['bound_ms']:.4f} ms "
+                f"{ms:.4f} ms ({c['tflop_per_s']:.2f} TFLOP/s, "
+                f"{c['bound_share']:.3f} of the bound); plain "
+                f"{plain_ms:.4f} ms; sdpa {library_ms:.4f} ms (kernel / sdpa "
+                f"{c['vs_library']:.3f}; sdpa max |err| vs plain "
+                f"{library_err:.3e}); bound {c['bound_ms']:.4f} ms "
                 f"({c['bound_by']})")
     timed = flash.flash_fwd.launches
     if timed != 4 * 28:
         raise AssertionError(f"timing launched the kernel {timed} times, "
                              f"not 4 x 28")
-    # the row's own numbers are bf16 causal, a decoder's training shape
-    row = configs[3]
-    return {"name": "flash_fwd", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
-            "replaces": "paddle_tpu/parallel/flash.py:81",
-            "launches": launches, "max_abs_err": row["max_abs_err"],
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"], "shape": list(FLASH_FULL),
-            "dtype": "bfloat16", "causal": True,
-            "max_abs_err_all": worst, "grad_max_abs_err": grad_err,
-            "configs": configs}
+    # one row per kernel; each row's own numbers are its causal variant, a
+    # decoder's training shape
+    rows = []
+    for dtype, source, n in (
+            (torch.bfloat16, "flash_attention_sm90.cu", sm90),
+            (torch.float32, "flash_attention.cu", launches - sm90)):
+        c = configs[dtype, True]
+        rows.append({
+            "name": f"flash_fwd_{'bf16' if dtype == torch.bfloat16 else 'f32'}",
+            "route": "cuda", "source": f"paddle_tpu_torch/csrc/{source}",
+            "replaces": "paddle_tpu/parallel/flash.py:81", "launches": n,
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "shape": list(FLASH_FULL), "dtype": c["dtype"], "causal": True,
+            "configs": [configs[dtype, m] for m in (False, True)]})
+    rows[0]["sass"] = sass
+    rows[0]["max_abs_err_all"] = worst
+    rows[1]["grad_max_abs_err"] = grad_err
+    return rows
 
 
 def main():
     card_line = phase_device()
     card = torch.cuda.get_device_name(0)
-    phase_build()
+    sass = phase_build()
     resnet = build_resnet50()
     mlp = build_mlp()
     rows = phase_kernels([b["numel"] for b in resnet[3]],
@@ -631,7 +728,7 @@ def main():
     rows[0]["launches"] = phase_resnet(*resnet, card)
     rows[1]["launches"] = phase_adam(*mlp)
     phase_parity()
-    rows.append(phase_flash())
+    rows += phase_flash(sass)
     log(card_line)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

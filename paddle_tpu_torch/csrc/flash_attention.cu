@@ -1,6 +1,7 @@
-// Flash-attention forward for sm_90a: exact softmax(q·kᵀ·scale)·v over
-// [B, H, S, D] in f32 or bf16, streamed over key tiles so the [Sq, Sk]
-// score matrix never reaches device memory. Built by
+// Flash-attention forward for sm_90a in f32 on the CUDA cores: exact
+// softmax(q·kᵀ·scale)·v over [B, H, S, D], streamed over key tiles so the
+// [Sq, Sk] score matrix never reaches device memory. The bf16 forward runs
+// on the tensor cores in flash_attention_sm90.cu. Built by
 // torch.utils.cpp_extension.load (paddle_tpu_torch/cuda_build.py) together
 // with kernels_binding.cpp, which binds flash_fwd_launch below to PyTorch;
 // this file keeps a plain C interface and includes no PyTorch header.
@@ -22,20 +23,19 @@
 //   p    = s == -inf ? 0 : exp(s - m_safe)
 //   corr = m == -inf ? 0 : exp(m - m_safe)
 //   l'   = corr * l + Σ p;  acc' = corr * acc + p_v · V
-// where p_v is p rounded to the value dtype (round to nearest even for
-// bf16) and Σ p sums the unrounded p. At the end
-// out = acc / max(l, 1e-30) in the input dtype and
+// where p_v is p in the value dtype (f32 here: no rounding) and Σ p sums
+// the unrounded p. At the end out = acc / max(l, 1e-30) and
 // lse = m == -inf ? -inf : m + log(max(l, 1e-30)) in f32.
 //
 // Bound: operations. At the full width this is built for (S = 4096,
 // D = 128) attention does 4·D = 512 flops per (query, key) pair against
 // 4·D·elem_size bytes per query or key row, hundreds of flops per byte, far
-// above the card's balance. This first kernel runs on the CUDA cores in
-// f32 for both dtypes (bf16 is widened when it is staged): each of the 256
-// threads of a block owns a 4×4 patch of the 64×64 score tile and a 4-row
-// slice of the output, and every inner step is two 16-byte shared loads
-// feeding 16 (scores) or 32 (output) FMAs. Tensor-core products (wgmma,
-// mma.sync), TMA staging and warp specialisation are later work.
+// above the card's balance. This kernel runs on the CUDA cores: each of the
+// 256 threads of a block owns a 4×4 patch of the 64×64 score tile and a
+// 4-row slice of the output, and every inner step is two 16-byte shared
+// loads feeding 16 (scores) or 32 (output) FMAs. Tensor-core products in
+// f32 (3xTF32 split products), TMA staging and warp specialisation are
+// later work.
 //
 // Numerics: the build passes -fmad=false for the bitwise update kernels, so
 // every multiply-add here is an explicit __fmaf_rn; exp and log are the
@@ -45,7 +45,6 @@
 #include <cmath>
 #include <cstdint>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -58,27 +57,6 @@ constexpr int kCols = 4;         // score columns each thread owns
 constexpr int kStride = kBQ + 4; // row stride of the transposed Q, K and P
                                  // tiles: 16-byte aligned, fewer conflicts
 static_assert(kBQ == 16 * kRows && kBK == 16 * kCols, "16×16 threads");
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// p as it enters p·V: rounded to the value dtype, as flash.py:60 casts it
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 // Every head width D <= kD runs one instantiation: columns d >= D are
 // staged as zeros, so they add nothing to the scores, and are never stored.
@@ -113,10 +91,9 @@ struct Strides {
   int64_t b, h, s;  // elements; the last dimension is contiguous
 };
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out,
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, int H, int Sq, int Sk, int D,
                      float scale, int causal, Strides qs_, Strides ks_,
                      Strides vs_) {
@@ -133,14 +110,14 @@ __global__ void __launch_bounds__(kThreads)
   const int b = bh / H, h = bh % H;
   // heaviest causal tiles (last q-tiles) are scheduled first
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
-  const T* qb = q + b * qs_.b + h * qs_.h;
-  const T* kb = k + b * ks_.b + h * ks_.h;
-  const T* vb = v + b * vs_.b + h * vs_.h;
+  const float* qb = q + b * qs_.b + h * qs_.h;
+  const float* kb = k + b * ks_.b + h * ks_.h;
+  const float* vb = v + b * vs_.b + h * vs_.h;
 
   for (int e = tid; e < kBQ * kD; e += kThreads) {
     const int r = e / kD, d = e % kD;
     q_t[d * kStride + r] = (q0 + r < Sq && d < D)
-                               ? to_f32(qb[(q0 + r) * qs_.s + d])
+                               ? qb[(q0 + r) * qs_.s + d]
                                : 0.f;
   }
 
@@ -161,8 +138,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = tid; e < kBK * kD; e += kThreads) {
       const int c = e / kD, d = e % kD;
       const bool in = k0 + c < Sk && d < D;
-      k_t[d * kStride + c] = in ? to_f32(kb[(k0 + c) * ks_.s + d]) : 0.f;
-      v_s[c * kD + d] = in ? to_f32(vb[(k0 + c) * vs_.s + d]) : 0.f;
+      k_t[d * kStride + c] = in ? kb[(k0 + c) * ks_.s + d] : 0.f;
+      v_s[c * kD + d] = in ? vb[(k0 + c) * vs_.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -206,7 +183,7 @@ __global__ void __launch_bounds__(kThreads)
         const float p =
             s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_safe);
         rs = __fadd_rn(rs, p);
-        s[i][j] = round_to<T>(p);
+        s[i][j] = p;  // p_v = p: f32 needs no rounding
       }
       l[i] = __fadd_rn(__fmul_rn(corr, l[i]), half_warp_sum(rs));
       m[i] = m_new;
@@ -244,13 +221,13 @@ __global__ void __launch_bounds__(kThreads)
     const int row = q0 + ty * kRows + i;
     if (row >= Sq) continue;
     const float li = fmaxf(l[i], 1e-30f);
-    T* o = out + (static_cast<int64_t>(bh) * Sq + row) * D;
+    float* o = out + (static_cast<int64_t>(bh) * Sq + row) * D;
 #pragma unroll
     for (int jj = 0; jj < kNJ; ++jj)
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
         const int col = (jj * 16 + tx) * 4 + w;
-        if (col < D) store(o + col, __fdiv_rn(acc[i][jj * 4 + w], li));
+        if (col < D) o[col] = __fdiv_rn(acc[i][jj * 4 + w], li);
       }
     if (tx == 0)
       lse[static_cast<int64_t>(bh) * Sq + row] =
@@ -258,7 +235,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
            int B, int H, int Sq, int Sk, int D, float scale, int causal,
            const int64_t* qst, const int64_t* kst, const int64_t* vst,
@@ -267,13 +243,13 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   // above 48 KB a block's shared memory must be asked for, or the launch
   // is refused
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<T><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, H, Sq, Sk, D,
+  flash_fwd_kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, H, Sq, Sk, D,
       scale, causal, Strides{qst[0], qst[1], qst[2]},
       Strides{kst[0], kst[1], kst[2]}, Strides{vst[0], vst[1], vst[2]});
   return static_cast<int>(cudaGetLastError());
@@ -285,25 +261,20 @@ extern "C" {
 
 // q [B, H, Sq, D], k and v [B, H, Sk, D] with element strides
 // {batch, head, sequence} in *_strides and a contiguous last dimension;
-// out [B, H, Sq, D] contiguous, lse [B, H, Sq] f32 contiguous. dtype 0 is
-// f32, 1 is bf16; 1 <= D <= 128; B·H >= 1 and Sq >= 1 (Sk may be 0).
+// out [B, H, Sq, D] contiguous, lse [B, H, Sq] f32 contiguous, all f32
+// (bf16 goes to flash_fwd_sm90_launch); 1 <= D <= 128; B·H >= 1 and
+// Sq >= 1 (Sk may be 0).
 // Enqueues on `stream` and returns cudaGetLastError(): a refused launch
 // never runs, and a later synchronize would not report it.
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
-                     float* lse, int dtype, int B, int H, int Sq, int Sk,
+                     float* lse, int B, int H, int Sq, int Sk,
                      int D, float scale, int causal, const int64_t* q_strides,
                      const int64_t* k_strides, const int64_t* v_strides,
                      void* stream) {
   if (D < 1 || D > kD || B * H < 1 || Sq < 1 || Sk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, k, v, out, lse, B, H, Sq, Sk, D, scale, causal,
-                         q_strides, k_strides, v_strides, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, lse, B, H, Sq, Sk, D, scale,
-                                 causal, q_strides, k_strides, v_strides, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch(q, k, v, out, lse, B, H, Sq, Sk, D, scale, causal, q_strides,
+                k_strides, v_strides, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 // PyTorch binding of every kernel of the port: the fused bucket updates in
-// fused_update.cu and the flash-attention forward in flash_attention.cu,
-// built together with them into one extension by
+// fused_update.cu and the flash-attention forward in flash_attention.cu
+// (f32) and flash_attention_sm90.cu (bf16), built together with them into one extension by
 // torch.utils.cpp_extension.load (paddle_tpu_torch/cuda_build.py). This is
 // the one translation unit that includes PyTorch's headers; the kernels'
 // own files keep a plain C interface, so nvcc compiles them without them.
@@ -27,10 +27,15 @@ int adam_bucket_launch(const float* p, const float* g, const float* m1,
                        float* p_out, float* m1_out, float* m2_out, int64_t n,
                        void* stream);
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
-                     float* lse, int dtype, int B, int H, int Sq, int Sk,
+                     float* lse, int B, int H, int Sq, int Sk,
                      int D, float scale, int causal, const int64_t* q_strides,
                      const int64_t* k_strides, const int64_t* v_strides,
                      void* stream);
+int flash_fwd_sm90_launch(const void* q, const void* k, const void* v,
+                          void* out, float* lse, int B, int H, int Sq, int Sk,
+                          int Dp, int D, float scale, int causal,
+                          const int64_t* q_strides, const int64_t* k_strides,
+                          const int64_t* v_strides, void* stream);
 }
 
 namespace {
@@ -106,14 +111,18 @@ std::vector<torch::Tensor> adam_bucket(torch::Tensor p, torch::Tensor g,
   return {p_out, m1_out, m2_out};
 }
 
-// q [B, H, Sq, D], k and v [B, H, Sk, D], one dtype (f32 or bf16) on one
-// CUDA device, 1 <= D <= 128. Strided operands are read in place as long as
-// their last dimension is contiguous; any other layout is copied by
-// .contiguous() first. Returns out [B, H, Sq, D] in the input dtype and
-// lse [B, H, Sq] f32, both fresh and contiguous.
+// q [B, H, Sq, Dp], k and v [B, H, Sk, Dp], one dtype (f32 or bf16) on one
+// CUDA device; head_dim D is the width of the result, 1 <= D <= 128.
+// f32 goes to the CUDA-core kernel with Dp == D; strided operands are read
+// in place as long as their last dimension is contiguous, any other layout
+// is copied by .contiguous() first. bf16 goes to the wgmma kernel, whose
+// TMA loads need Dp % 8 == 0 (columns D..Dp zero), a 16-byte aligned base
+// and strides of 16-byte multiples; parallel/flash.py::_tma_operand makes
+// such operands, and anything else is refused here. Returns out [B, H, Sq,
+// D] in the input dtype and lse [B, H, Sq] f32, both fresh and contiguous.
 std::vector<torch::Tensor> flash_fwd(torch::Tensor q, torch::Tensor k,
                                      torch::Tensor v, double scale,
-                                     bool causal) {
+                                     bool causal, int64_t head_dim) {
   for (const auto* t : {&q, &k, &v}) {
     TORCH_CHECK(t->is_cuda() && t->device() == q.device(),
                 "q, k and v must be on one CUDA device");
@@ -124,20 +133,36 @@ std::vector<torch::Tensor> flash_fwd(torch::Tensor q, torch::Tensor k,
   TORCH_CHECK(q.scalar_type() == torch::kFloat32 ||
                   q.scalar_type() == torch::kBFloat16,
               "flash_fwd takes float32 or bfloat16");
-  const int64_t B = q.size(0), H = q.size(1), Sq = q.size(2), D = q.size(3);
-  const int64_t Sk = k.size(2);
+  const int64_t B = q.size(0), H = q.size(1), Sq = q.size(2);
+  const int64_t Dp = q.size(3), Sk = k.size(2), D = head_dim;
+  const bool bf16 = q.scalar_type() == torch::kBFloat16;
   TORCH_CHECK(k.size(0) == B && k.size(1) == H && v.size(0) == B &&
                   v.size(1) == H && v.size(2) == Sk,
               "k and v must be [B, H, Sk, D] beside q [B, H, Sq, D]");
-  TORCH_CHECK(k.size(3) == D && v.size(3) == D,
+  TORCH_CHECK(k.size(3) == Dp && v.size(3) == Dp,
               "q, k and v must share one head dim (Dv != Dq is not taken)");
   TORCH_CHECK(D >= 1 && D <= 128, "flash_fwd: head dim must be in [1, 128], "
               "got ", D);
-  // Sq above 65535 q-tiles of 64 rows exceeds the grid's y dimension: the
-  // launch is refused and check_launch raises
+  TORCH_CHECK(bf16 ? D <= Dp && Dp <= 128 : D == Dp,
+              "flash_fwd: head_dim must be q's last dim (bf16: at most it, "
+              "its zero padding)");
+  if (bf16) {
+    for (const auto* t : {&q, &k, &v}) {
+      bool aligned = t->stride(3) == 1 && Dp % 8 == 0 &&
+                     reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0;
+      for (int d = 0; d < 3; ++d)
+        aligned = aligned && (t->size(d) == 1 || t->stride(d) % 8 == 0);
+      TORCH_CHECK(aligned || t->numel() == 0,
+                  "flash_fwd: bf16 operands must meet TMA's alignment "
+                  "(parallel/flash.py::_tma_operand copies those that do "
+                  "not)");
+    }
+  }
+  // f32: Sq above 65535 q-tiles of 64 rows exceeds the grid's y dimension:
+  // the launch is refused and check_launch raises
   TORCH_CHECK(B * H <= INT32_MAX && Sq <= INT32_MAX && Sk <= INT32_MAX,
               "flash_fwd: B*H, Sq and Sk must fit in int32");
-  if (q.stride(3) != 1) q = q.contiguous();
+  if (q.stride(3) != 1) q = q.contiguous();  // f32 only: bf16 is checked
   if (k.stride(3) != 1) k = k.contiguous();
   if (v.stride(3) != 1) v = v.contiguous();
   const c10::cuda::CUDAGuard guard(q.device());
@@ -147,13 +172,22 @@ std::vector<torch::Tensor> flash_fwd(torch::Tensor q, torch::Tensor k,
     const int64_t qst[3] = {q.stride(0), q.stride(1), q.stride(2)};
     const int64_t kst[3] = {k.stride(0), k.stride(1), k.stride(2)};
     const int64_t vst[3] = {v.stride(0), v.stride(1), v.stride(2)};
-    check_launch(flash_fwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr<float>(), q.scalar_type() == torch::kFloat32 ? 0 : 1,
-        static_cast<int>(B), static_cast<int>(H), static_cast<int>(Sq),
-        static_cast<int>(Sk), static_cast<int>(D), static_cast<float>(scale),
-        causal ? 1 : 0, qst, kst, vst,
-        c10::cuda::getCurrentCUDAStream().stream()));
+    const auto stream = c10::cuda::getCurrentCUDAStream().stream();
+    if (bf16) {
+      check_launch(flash_fwd_sm90_launch(
+          q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+          lse.data_ptr<float>(), static_cast<int>(B), static_cast<int>(H),
+          static_cast<int>(Sq), static_cast<int>(Sk), static_cast<int>(Dp),
+          static_cast<int>(D), static_cast<float>(scale), causal ? 1 : 0,
+          qst, kst, vst, stream));
+    } else {
+      check_launch(flash_fwd_launch(
+          q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+          lse.data_ptr<float>(), static_cast<int>(B),
+          static_cast<int>(H), static_cast<int>(Sq), static_cast<int>(Sk),
+          static_cast<int>(D), static_cast<float>(scale), causal ? 1 : 0,
+          qst, kst, vst, stream));
+    }
   }
   return {out, lse};
 }

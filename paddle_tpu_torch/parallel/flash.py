@@ -4,10 +4,15 @@ kernel, differentiable through a blockwise plain-torch backward.
 The counterpart of paddle_tpu/parallel/flash.py. Layout [B, H, S, D]. The
 forward, `flash_fwd`, replaces the JAX package's padding wrapper
 (`_fwd_padded`) and its Pallas TPU kernel (`_flash_fwd`) together: CUDA
-tensors go to csrc/flash_attention.cu (through `flash_fwd_cuda`, which
-counts its launches on `flash_fwd.launches`), CPU tensors to the plain
-torch version `flash_fwd_plain`. The kernel masks the ragged sequence edge
-itself, so nothing is padded. Both return (out, lse) with lse the f32
+tensors go to a kernel through `flash_fwd_cuda`, which counts its launches
+on `flash_fwd.launches` — bf16 to the tensor-core kernel of
+csrc/flash_attention_sm90.cu (wgmma fed by TMA; also counted on
+`flash_fwd.sm90_launches`), f32 to the CUDA-core kernel of
+csrc/flash_attention.cu — and CPU tensors to the plain torch version
+`flash_fwd_plain`. The kernels mask the ragged sequence edge themselves,
+so the sequence is never padded; a bf16 operand that TMA cannot read in
+place is copied with its head dim zero-padded to a multiple of 8
+(`_tma_operand`). Both return (out, lse) with lse the f32
 logsumexp of each query row's scores, the pair ring attention combines per
 hop.
 
@@ -27,6 +32,10 @@ from .. import cuda_build
 
 __all__ = ["flash_attention", "flash_fwd", "flash_fwd_cuda",
            "flash_fwd_plain", "normalize_blocks", "reset_launch_counts"]
+
+# TMA reads a tensor in place only from a 16-byte aligned base with every
+# stride but the last a multiple of 16 bytes and the last stride 1
+_TMA_ALIGN = 16
 
 
 def flash_fwd_plain(q, k, v, scale, causal):
@@ -73,15 +82,42 @@ def _check(q, k, v):
                              f"(CUDA), got {t.device}")
 
 
+def _tma_operand(t):
+    """`t` itself where TMA can read it in place (a 16-byte aligned base,
+    a contiguous last dim whose width is a multiple of 16 bytes, every
+    other stride of a dim longer than 1 a multiple of 16 bytes: a
+    [B, S, H, D] tensor viewed as [B, H, S, D] qualifies); otherwise a
+    fresh contiguous copy with the last dim zero-padded to the next
+    multiple of 16 bytes. The zero columns add nothing to q·kᵀ and give
+    zero output columns, which the kernel does not store."""
+    size = t.element_size()
+    width = t.shape[-1]
+    aligned = (t.stride(-1) == 1 and width * size % _TMA_ALIGN == 0
+               and t.data_ptr() % _TMA_ALIGN == 0
+               and all(n == 1 or st * size % _TMA_ALIGN == 0
+                       for n, st in zip(t.shape[:-1], t.stride()[:-1])))
+    if aligned:
+        return t
+    per = _TMA_ALIGN // size
+    padded = t.new_zeros(*t.shape[:-1], -(-width // per) * per)
+    padded[..., :width] = t
+    return padded
+
+
 def flash_fwd_cuda(q, k, v, scale, causal):
     """The kernel: (out [B, H, Sq, D], lse [B, H, Sq] f32) on the card.
     f32 or bf16, one head dim D <= 128 for q, k and v; raises on anything
     else, a CPU tensor included."""
     _check(q, k, v)
+    D = q.shape[-1]
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and k.shape[-1] == D and v.shape[-1] == D:
+        q, k, v = (_tma_operand(t) for t in (q, k, v))
     out, lse = cuda_build.kernels().flash_fwd(q, k, v, float(scale),
-                                             bool(causal))
+                                             bool(causal), D)
     if out.numel():
         flash_fwd.launches += 1
+        flash_fwd.sm90_launches += int(bf16)
     return out, lse
 
 
@@ -94,11 +130,13 @@ def flash_fwd(q, k, v, scale, causal):
     return flash_fwd_plain(q, k, v, scale, causal)
 
 
-flash_fwd.launches = 0
+flash_fwd.launches = 0      # every kernel launch
+flash_fwd.sm90_launches = 0  # of which the bf16 wgmma kernel's
 
 
 def reset_launch_counts():
     flash_fwd.launches = 0
+    flash_fwd.sm90_launches = 0
 
 
 def normalize_blocks(block_q, block_k, Sq, Sk):
@@ -163,7 +201,8 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=256,
     scale defaults to 1/sqrt(D). block_q and block_k keep the JAX package's
     signature and auto-shrink for short sequences (`normalize_blocks`):
     block_k sets the width of the key blocks the backward walks, and
-    neither shapes the CUDA kernel's tiles, which are fixed at 64×64."""
+    neither shapes the CUDA kernels' tiles, which are fixed (64×64 in f32,
+    128×128 in bf16)."""
     _, block_k = normalize_blocks(block_q, block_k, q.shape[2], k.shape[2])
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)

@@ -2,9 +2,11 @@
 the JAX package's (paddle_tpu/parallel/flash.py, its Pallas kernel run in
 interpret mode on the CPU), on the same numpy inputs.
 
-On the CPU the port's forward is the plain torch version; the CUDA kernel
-(csrc/flash_attention.cu) is held against that same plain version on a
-card by the tests marked `cuda`, which skip elsewhere. Against JAX the
+On the CPU the port's forward is the plain torch version; the CUDA kernels
+(csrc/flash_attention.cu in f32, csrc/flash_attention_sm90.cu in bf16) are
+held against that same plain version on a card by the tests marked
+`cuda`, which skip elsewhere. The CPU tests also cover `_tma_operand`,
+which decides whether the bf16 kernel reads an operand in place. Against JAX the
 tolerances are those of the JAX package's own oracle
 (tests/test_flash_attention.py): forward atol 2e-5 / rtol 1e-4 in f32
 (products summed in another order), grads atol 5e-5 / rtol 1e-3, bf16
@@ -207,17 +209,19 @@ def test_cuda_entry_point_refuses_cpu_tensors_before_building():
     assert tflash.flash_fwd.launches == 0
 
 
+@pytest.mark.parametrize("skipped", [64, 128])  # the f32 / bf16 key tile
 @pytest.mark.parametrize("causal", [False, True])
-def test_card_bf16_limit_rejects_a_skipped_key_tile(causal):
+def test_card_bf16_limit_rejects_a_skipped_key_tile(causal, skipped):
     """At full width (S=4096, D=128; one head here) the bf16 limit that
-    chip_smoke.py holds the kernel to fails a kernel that skips the last
-    64-key tile (causal: stops one tile short of the diagonal)."""
+    chip_smoke.py holds the kernels to fails a kernel that skips the last
+    key tile of 64 or 128 keys (causal: stops one tile short of the
+    diagonal)."""
     S, D = 4096, 128
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
                for a in _inputs(10, *[(1, 1, S, D)] * 3))
     want, _ = tflash.flash_fwd_plain(q, k, v, D ** -0.5, causal)
-    got, _ = tflash.flash_fwd_plain(q, k[:, :, :-64], v[:, :, :-64],
-                                    D ** -0.5, causal)
+    got, _ = tflash.flash_fwd_plain(q, k[:, :, :-skipped],
+                                    v[:, :, :-skipped], D ** -0.5, causal)
     tol = CARD[torch.bfloat16]
     want, got = want.float(), got.float()
     over = (got - want).abs() - (tol["atol"] + tol["rtol"] * want.abs())
@@ -229,6 +233,71 @@ def test_cpu_calls_count_no_launch():
     tflash.flash_attention(q, q, q, causal=True).sum().backward()
     tflash.flash_fwd(q, q, q, 0.3, False)
     assert tflash.flash_fwd.launches == 0
+    assert tflash.flash_fwd.sm90_launches == 0
+
+
+def _bf16(seed, shape):
+    return torch.from_numpy(_inputs(seed, shape)[0]).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("layout",
+                         ["contiguous", "bshd_view", "d8", "single_row"])
+def test_tma_operand_reads_aligned_operands_in_place(layout):
+    """A 16-byte aligned bf16 operand with 16-byte strides and D % 8 == 0
+    goes to the kernel as it is, a [B, S, H, D] tensor viewed as
+    [B, H, S, D] included: no copy. A dimension of extent 1 is never
+    stepped, so one query row cut from rows of 88 bytes stays in place."""
+    if layout == "bshd_view":
+        t = _bf16(11, (2, 77, 3, 32)).transpose(1, 2)
+    elif layout == "single_row":
+        t = _bf16(11, (1, 1, 4, 44))[:, :, 2:3, :32]
+        assert t.stride(2) * t.element_size() == 88
+    else:
+        t = _bf16(11, (1, 2, 16, 8 if layout == "d8" else 32))
+    assert tflash._tma_operand(t) is t
+
+
+def test_tma_operand_pads_d12_to_16():
+    t = _bf16(12, (1, 2, 33, 12))
+    got = tflash._tma_operand(t)
+    assert got.shape == (1, 2, 33, 16) and got.is_contiguous()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got[..., :12], t)
+    assert not got[..., 12:].any()
+
+
+@pytest.mark.parametrize("fault", ["base", "stride", "last_dim"])
+def test_tma_operand_copies_what_tma_cannot_read(fault):
+    """An 8-byte offset base, a row stride of 72 bytes and a strided last
+    dim each give a fresh contiguous copy with the same values."""
+    if fault == "base":
+        t = _bf16(13, (1, 2, 16, 40))[..., 4:36]
+    elif fault == "stride":
+        t = _bf16(13, (1, 2, 16, 36))[..., :32]
+    else:
+        t = _bf16(13, (1, 2, 32, 16)).transpose(2, 3)
+    got = tflash._tma_operand(t)
+    assert got is not t and got.is_contiguous()
+    assert got.data_ptr() % 16 == 0
+    assert torch.equal(got, t)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_on_padded_operands_gives_the_unpadded_answer(causal):
+    """Zero columns of q, k and v change neither q·kᵀ nor the first D
+    columns of the output: the padded operands give the caller's out (in
+    its first 12 columns, zeros after) and lse, at the same scale."""
+    q, k, v = (_bf16(14 + i, (1, 2, 33 if i == 0 else 47, 12))
+               for i in range(3))
+    scale = 12 ** -0.5
+    want, want_lse = tflash.flash_fwd_plain(q, k, v, scale, causal)
+    got, lse = tflash.flash_fwd_plain(
+        *(tflash._tma_operand(t) for t in (q, k, v)), scale, causal)
+    assert got.shape == (1, 2, 33, 16)
+    assert not got[..., 12:].any()
+    torch.testing.assert_close(got[..., :12], want,
+                               **CARD[torch.bfloat16])
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -236,7 +305,8 @@ def test_cpu_calls_count_no_launch():
 # ---------------------------------------------------------------------------
 CARD_SHAPES = [(2, 3, 64, 64, 32), (2, 3, 100, 100, 32), (1, 2, 96, 96, 16),
                (1, 2, 40, 72, 16), (1, 1, 5, 5, 8), (1, 4, 1000, 1500, 64),
-               (1, 2, 130, 70, 128)]
+               (1, 2, 130, 70, 128), (1, 2, 129, 257, 128),
+               (1, 2, 33, 47, 12)]
 
 
 @pytest.mark.cuda
@@ -255,6 +325,7 @@ def test_kernel_matches_plain_on_the_card(cuda_device, shape, causal,
     want, want_lse = tflash.flash_fwd_plain(q, k, v, scale, causal)
     torch.cuda.synchronize()
     assert tflash.flash_fwd.launches == 1
+    assert tflash.flash_fwd.sm90_launches == (dtype == "bfloat16")
     assert out.dtype == q.dtype and lse.dtype == torch.float32
     np.testing.assert_allclose(_f32(out.cpu()), _f32(want.cpu()),
                                **CARD[q.dtype])
@@ -271,6 +342,36 @@ def test_kernel_reads_strided_heads_in_place(cuda_device):
     got = tflash.flash_fwd(view, view, view, 0.2, True)
     want = tflash.flash_fwd(view.contiguous(), view.contiguous(),
                             view.contiguous(), 0.2, True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernel_bf16_no_keys(cuda_device, causal):
+    q = torch.randn(1, 2, 7, 8, device=cuda_device).to(torch.bfloat16)
+    k = torch.zeros(1, 2, 0, 8, device=cuda_device, dtype=torch.bfloat16)
+    out, lse = tflash.flash_fwd(q, k, k, 0.5, causal)
+    torch.cuda.synchronize()
+    assert tflash.flash_fwd.sm90_launches == 1
+    assert out.dtype == torch.bfloat16 and not out.any()
+    assert torch.isneginf(lse).all()
+
+
+@pytest.mark.cuda
+def test_kernel_bf16_unaligned_operand_gives_the_contiguous_answer(
+        cuda_device):
+    """x[..., 4:36] of a 40-wide bf16 tensor starts 8 bytes past a
+    16-byte boundary: it is copied for TMA, and the answer is the one of
+    its contiguous copy."""
+    (x,) = _inputs(15, (1, 2, 150, 40))
+    wide = torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+    t = wide[..., 4:36]
+    assert t.data_ptr() % 16 == 8
+    got = tflash.flash_fwd(t, t, t, 0.2, True)
+    dense = t.contiguous()
+    want = tflash.flash_fwd(dense, dense, dense, 0.2, True)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
