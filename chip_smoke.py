@@ -6,8 +6,9 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
   1. device   — a CUDA card must be present; print its name and power limit
   2. build    — build the port's kernels from paddle_tpu_torch/csrc, all
                 in one torch.utils.cpp_extension.load extension; count the
-                bf16 flash kernel's HGMMA and UTMALDG instructions in its
-                SASS (cuobjdump), which must not be 0
+                HGMMA and UTMALDG instructions in the SASS (cuobjdump) of
+                both flash kernels, which must not be 0, and print the
+                HGMMA forms (the f32 kernel's must be .TF32)
   3. plan     — build the ResNet-50 and README MLP training programs and
                 their fusion plans
   4. kernels  — each hand-written kernel, through its wrapper, against its
@@ -28,26 +29,30 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 30 steps on y = argmax(x @ W); the adam kernel must run
   7. parity   — a small ResNet trained 2 steps on the card and on the host
                 from the same weights must agree
-  8. flash    — the flash-attention kernels (f32: CUDA cores; bf16:
-                wgmma fed by TMA) against their plain torch version on the
-                card, causal and not, at the CPU tests' shapes, the bf16
-                tiling's edges (129 q rows over 257 keys at D=128), a
-                zero-padded head dim (D=12), no keys, a ragged
-                Sq=1000/Sk=1500 case and full width (B=1, H=32, S=4096,
-                D=128: Llama-2-7B's heads over its context); a bf16
-                [B, S, H, D] view read in place, bitwise equal to the
-                contiguous answer; then paddle_tpu_torch.parallel.
+  8. flash    — the flash-attention kernels (both wgmma fed by TMA; f32
+                in 3xTF32 split products after its split prologue) against
+                their plain torch version on the card, causal and not, at
+                the CPU tests' shapes, the tiles' edges (129 q rows over
+                257 keys at D=128), a zero-padded head dim (D=12), no keys,
+                a ragged Sq=1000/Sk=1500 case and full width (B=1, H=32,
+                S=4096, D=128: Llama-2-7B's heads over its context), the
+                split prologue bitwise equal to its plain twin at each f32
+                shape; f32 and bf16 [B, S, H, D] views read in place,
+                bitwise equal to the contiguous answer; then
+                paddle_tpu_torch.parallel.
                 flash_attention forward and backward through autograd at
                 full width, f32 against the same loss through the plain
                 version and bf16; then each of the four full-width variants
                 timed beside the plain version and torch's
-                scaled_dot_product_attention
+                scaled_dot_product_attention, and the split prologue beside
+                its plain twin
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}.
 """
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -61,15 +66,18 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
+# the f32 flash kernel does each product as 3 TF32 products (3xTF32)
+TF32_PRODUCTS = 3
 
 SEED = 20261016
 BATCH = 32
 SIZES = (1, 17, 1029, 4194307)
 OUT_DIR = "chiprun_out"  # long reports (gitignored)
 
-# flash attention (B, H, Sq, Sk, D): the CPU tests' shapes, the bf16
-# kernel's tile edges at D=128, a padded D, no keys, a ragged case, and
-# full width last
+# flash attention (B, H, Sq, Sk, D): the CPU tests' shapes, the kernels'
+# tile edges at D=128, a padded D, no keys, a ragged case, and full width
+# last
 FLASH_FULL = (1, 32, 4096, 4096, 128)
 FLASH_SHAPES = ((2, 3, 64, 64, 32), (2, 3, 100, 100, 32), (1, 2, 96, 96, 16),
                 (1, 2, 64, 64, 32), (1, 2, 24, 24, 8), (1, 2, 50, 50, 8),
@@ -118,13 +126,19 @@ def phase_build():
     names = [os.path.basename(p) for p in cuda_build.sources()]
     log(f"[build] {' + '.join(names)} (one torch.utils.cpp_extension.load): "
         f"{cuda_build.build_seconds:.2f} s")
-    return sass_counts(ext.__file__, "flash_fwd_sm90_kernel",
-                       ("HGMMA", "UTMALDG"))
+    sass = {kernel: sass_counts(ext.__file__, kernel, ("HGMMA", "UTMALDG"))
+            for kernel in ("flash_fwd_sm90_kernel", "flash_fwd_tf32_kernel")}
+    if not any("TF32" in form
+               for form in sass["flash_fwd_tf32_kernel"]["HGMMA_forms"]):
+        raise AssertionError("flash_fwd_tf32_kernel: no TF32 HGMMA")
+    return sass
 
 
 def sass_counts(library, kernel, opcodes):
     """How many instructions of each opcode the SASS of `kernel` in the
-    built `library` holds (cuobjdump -sass); fails on a count of 0."""
+    built `library` holds (cuobjdump -sass), the distinct HGMMA forms and
+    its registers and stack (cuobjdump -res-usage); fails on a count of
+    0."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
                           text=True, check=True).stdout
@@ -140,9 +154,17 @@ def sass_counts(library, kernel, opcodes):
 
     ops = [opcode(line) for line in body[0].splitlines()]
     counts = {op: sum(o.startswith(op) for o in ops) for op in opcodes}
-    log(f"[build] {kernel} SASS: {counts}")
     if not all(counts.values()):
         raise AssertionError(f"{kernel}: missing {opcodes} in its SASS")
+    counts["HGMMA_forms"] = sorted({o for o in ops if o.startswith("HGMMA")})
+    # registers and stack (spilled registers live on the stack)
+    usage = subprocess.run([cuobjdump, "-res-usage", library],
+                           capture_output=True, text=True, check=True).stdout
+    usage = [f for f in usage.split("Function ")[1:]
+             if kernel in f.split(":", 1)[0]]
+    counts["resources"] = " ".join(
+        re.findall(r"\b(?:REG|STACK):\d+", usage[0]) if usage else [])
+    log(f"[build] {kernel} SASS: {counts}")
     return counts
 
 
@@ -549,18 +571,26 @@ def phase_flash(sass):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flash.reset_launch_counts()
-    calls = 0
+    calls = {torch.float32: 0, torch.bfloat16: 0}
     worst = {"float32": 0.0, "bfloat16": 0.0, "float32_limit_used": 0.0,
              "bfloat16_limit_used": 0.0, "lse": 0.0}
     full_err = {}
     for shape in FLASH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _qkv(shape, dtype, gen)
+            if dtype == torch.float32:
+                # the f32 kernel's prologue against its plain twin, bitwise
+                got = flash.split_tf32(k, v)
+                want = flash.split_tf32_plain(k, v)
+                if not all(a.shape == b.shape and torch.equal(a, b)
+                           for a, b in zip(got, want)):
+                    raise AssertionError(f"split_tf32 {shape} differs from "
+                                         f"its plain twin")
             for causal in (False, True):
                 what = f"{shape} {dtype} causal={causal}"
                 e_out, e_lse, used, want = _check_flash(flash, q, k, v, causal,
                                                         what, worst)
-                calls += 1
+                calls[dtype] += 1
                 if shape[3] == 0:
                     log(f"[flash] no keys {what}: out 0, lse -inf")
                 if shape == FLASH_FULL:
@@ -570,29 +600,36 @@ def phase_flash(sass):
                         f"{want.float().pow(2).mean().sqrt().item():.4f}), "
                         f"max |lse err| {e_lse:.3e}")
 
-    # a [B, S, H, D] bf16 tensor viewed as [B, H, S, D]: TMA reads it in
-    # place, and the answer is the contiguous one, bitwise
-    bshd = torch.randn(2, 777, 4, 128, generator=gen,
-                       device="cuda").to(torch.bfloat16)
-    view = bshd.transpose(1, 2)
-    if flash._tma_operand(view) is not view:
-        raise AssertionError("a [B, S, H, D] bf16 view was copied")
-    for causal in (False, True):
-        got = flash.flash_fwd(view, view, view, 128 ** -0.5, causal)
-        dense = view.contiguous()
-        want = flash.flash_fwd(dense, dense, dense, 128 ** -0.5, causal)
-        calls += 2
-        if not all(torch.equal(a, b) for a, b in zip(got, want)):
-            raise AssertionError(f"bf16 view causal={causal} differs from "
-                                 f"the contiguous answer")
+    # a [B, S, H, D] tensor viewed as [B, H, S, D] is read in place (bf16
+    # by TMA, f32 by the prologue and the q loads), and the answer is the
+    # contiguous one, bitwise
+    bshd = torch.randn(2, 777, 4, 128, generator=gen, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        view = bshd.to(dtype).transpose(1, 2)
+        if dtype == torch.bfloat16 and flash._tma_operand(view) is not view:
+            raise AssertionError("a [B, S, H, D] bf16 view was copied")
+        for causal in (False, True):
+            got = flash.flash_fwd(view, view, view, 128 ** -0.5, causal)
+            dense = view.contiguous()
+            want = flash.flash_fwd(dense, dense, dense, 128 ** -0.5, causal)
+            calls[dtype] += 2
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{dtype} view causal={causal} differs "
+                                     f"from the contiguous answer")
     torch.cuda.synchronize()
-    if flash.flash_fwd.launches != calls:
-        raise AssertionError(f"flash_fwd launched {flash.flash_fwd.launches} "
-                             f"times for {calls} CUDA calls")
+    counts = (flash.flash_fwd.launches, flash.flash_fwd.tf32_launches,
+              flash.flash_fwd.sm90_launches)
+    want_counts = (sum(calls.values()), calls[torch.float32],
+                   calls[torch.bfloat16])
+    if counts != want_counts:
+        raise AssertionError(f"flash_fwd launched (all, tf32, bf16) {counts} "
+                             f"times for {want_counts} CUDA calls")
     log(f"[flash] kernel == plain version at {len(FLASH_SHAPES)} shapes x "
-        f"f32/bf16 x causal/not, and a bf16 [B, S, H, D] view read in place "
-        f"== its contiguous copy bitwise ({calls} launches, "
-        f"{flash.flash_fwd.sm90_launches} of the wgmma kernel); max |err| "
+        f"f32/bf16 x causal/not, split prologue == its plain twin bitwise at "
+        f"every f32 shape, and f32/bf16 [B, S, H, D] views read in place "
+        f"== their contiguous copies bitwise ({counts[0]} launches: "
+        f"{counts[1]} of the 3xTF32 kernel, {counts[2]} of the bf16 one; "
+        f"{flash.split_tf32.launches} of the prologue); max |err| "
         f"f32 {worst['float32']:.3e} ({worst['float32_limit_used']:.3f} of "
         f"its limit), bf16 {worst['bfloat16']:.3e} "
         f"({worst['bfloat16_limit_used']:.3f} of its limit), lse "
@@ -619,10 +656,13 @@ def phase_flash(sass):
     torch.cuda.synchronize()
     launches = flash.flash_fwd.launches
     sm90 = flash.flash_fwd.sm90_launches
-    if (launches, sm90) != (4, 2):
+    tf32 = flash.flash_fwd.tf32_launches
+    split = flash.split_tf32.launches
+    if (launches, sm90, tf32, split) != (4, 2, 2, 2):
         raise AssertionError(f"flash_attention launched the kernels "
-                             f"{launches} times ({sm90} wgmma) in 4 forward "
-                             f"passes (2 bf16)")
+                             f"{launches} times ({sm90} bf16, {tf32} 3xTF32, "
+                             f"{split} prologues) in 4 forward passes (2 "
+                             f"bf16, 2 f32)")
     grad_err = 0.0
     for causal in (False, True):
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -644,7 +684,7 @@ def phase_flash(sass):
         f"q, k, v == the plain version's (atol 5e-5, rtol 1e-3), causal and "
         f"not, max |err| {grad_err:.3e}; bf16 out == the plain version's at "
         f"the kernel's limit, bf16 grads finite; kernel launches {launches} "
-        f"({sm90} wgmma); peak mem "
+        f"({sm90} bf16, {tf32} 3xTF32, {split} prologues); peak mem "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # full width: kernel, plain version and torch's SDPA (causal mask
@@ -668,8 +708,8 @@ def phase_flash(sass):
             library_err = (sdpa().float() - flash.flash_fwd_plain(
                 q, k, v, D ** -0.5, causal)[0].float()).abs().max().item()
             flops, nbytes = _flash_work(FLASH_FULL, dtype, causal)
-            ops_s = flops / (BF16_FLOPS if dtype == torch.bfloat16
-                             else FP32_FLOPS)
+            ops_s = (flops / BF16_FLOPS if dtype == torch.bfloat16
+                     else TF32_PRODUCTS * flops / TF32_FLOPS)
             bytes_s = nbytes / HBM_BYTES_PER_S
             c = configs[dtype, causal] = {
                 "dtype": str(dtype).split(".")[1], "causal": causal,
@@ -684,6 +724,9 @@ def phase_flash(sass):
                 "lse_max_abs_err": full_err[(dtype, causal)][1],
                 "limit_used": full_err[(dtype, causal)][2],
                 "library_max_abs_err": library_err}
+            if dtype == torch.float32:
+                # the earlier design's yardstick: f32 on the CUDA cores
+                c["cuda_core_bound_ms"] = flops / FP32_FLOPS * 1e3
             log(f"[flash] {FLASH_FULL} {c['dtype']} causal={causal}: kernel "
                 f"{ms:.4f} ms ({c['tflop_per_s']:.2f} TFLOP/s, "
                 f"{c['bound_share']:.3f} of the bound); plain "
@@ -695,12 +738,26 @@ def phase_flash(sass):
     if timed != 4 * 28:
         raise AssertionError(f"timing launched the kernel {timed} times, "
                              f"not 4 x 28")
-    # one row per kernel; each row's own numbers are its causal variant, a
-    # decoder's training shape
+
+    # the split prologue alone at full width: bytes bound (k and v read
+    # once, four parts written once)
+    q, k, v = _qkv(FLASH_FULL, torch.float32, gen)
+    split_err = max((a - b).abs().max().item() for a, b in zip(
+        flash.split_tf32(k, v), flash.split_tf32_plain(k, v)))
+    split_ms = _time_ms(lambda: flash.split_tf32(k, v))
+    split_plain_ms = _time_ms(lambda: flash.split_tf32_plain(k, v))
+    split_bytes = 2 * k.numel() * 4 + 4 * k.numel() * 4
+    split_bound = split_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[flash] split_tf32 {FLASH_FULL}: {split_ms:.4f} ms "
+        f"({split_bytes / (split_ms * 1e-3) / 1e9:.0f} GB/s); plain "
+        f"{split_plain_ms:.4f} ms; bound {split_bound:.4f} ms (bytes)")
+
+    # one row per kernel; each flash row's own numbers are its causal
+    # variant, a decoder's training shape
     rows = []
     for dtype, source, n in (
             (torch.bfloat16, "flash_attention_sm90.cu", sm90),
-            (torch.float32, "flash_attention.cu", launches - sm90)):
+            (torch.float32, "flash_attention_f32_sm90.cu", tf32)):
         c = configs[dtype, True]
         rows.append({
             "name": f"flash_fwd_{'bf16' if dtype == torch.bfloat16 else 'f32'}",
@@ -711,9 +768,17 @@ def phase_flash(sass):
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "shape": list(FLASH_FULL), "dtype": c["dtype"], "causal": True,
             "configs": [configs[dtype, m] for m in (False, True)]})
-    rows[0]["sass"] = sass
+    rows[0]["sass"] = sass["flash_fwd_sm90_kernel"]
     rows[0]["max_abs_err_all"] = worst
+    rows[1]["sass"] = sass["flash_fwd_tf32_kernel"]
     rows[1]["grad_max_abs_err"] = grad_err
+    rows.append({
+        "name": "split_tf32", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_attention_f32_sm90.cu",
+        "replaces": "paddle_tpu/parallel/flash.py:81", "launches": split,
+        "max_abs_err": split_err, "ms": split_ms, "plain_ms": split_plain_ms,
+        "bound_ms": split_bound, "bound_by": "bytes", "library_ms": None,
+        "shape": list(FLASH_FULL), "bytes": split_bytes})
     return rows
 
 

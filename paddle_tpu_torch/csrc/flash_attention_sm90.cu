@@ -4,7 +4,9 @@
 // torch.utils.cpp_extension.load (paddle_tpu_torch/cuda_build.py) together
 // with kernels_binding.cpp, which binds flash_fwd_sm90_launch below to
 // PyTorch; this file keeps a plain C interface and includes no PyTorch
-// header. The f32 forward stays on the CUDA cores (flash_attention.cu).
+// header. The f32 forward is flash_attention_f32_sm90.cu (3xTF32 products
+// on wgmma); sm90_common.cuh holds the mbarrier, TMA and wgmma helpers
+// both kernels use.
 //
 // Replaces paddle_tpu/parallel/flash.py:81 _flash_fwd (Pallas kernel
 // _kernel) for bf16, which runs a (B·H, q-block, k-block) grid whose k axis
@@ -39,8 +41,7 @@
 //     head come back as zeros, never as the next head's data: ragged Sq and
 //     Sk need no padding, and columns past D (D < 128) are zeros too.
 //
-// What it computes, per row (the JAX kernel's arithmetic, flash.py:44-62,
-// as flash_attention.cu restates it):
+// What it computes, per row (the JAX kernel's arithmetic, flash.py:44-62):
 //   s    = (q·kᵀ accumulated in f32) * scale; -inf where masked
 //   m'   = max(m, max s); m_safe = m' == -inf ? 0 : m'
 //   p    = exp(s - m_safe)            (0 where s is -inf)
@@ -59,10 +60,9 @@
 #include <cmath>
 #include <cstdint>
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -82,92 +82,7 @@ static_assert(kSmemBytes <= 232448, "more shared memory than a block has");
 constexpr float kLog2e = 1.4426950408889634f;
 static_assert(kBQ == 128 && kBK == 128 && kD == 2 * kBox, "tile shapes");
 
-// ---- mbarrier, TMA and wgmma, in PTX -------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// returns once the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one 64-column × 128-row box of a rank-4 {D, S, H, B} map into shared
-// memory at `dst`, completing `bar` by its bytes
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int d, int s, int h,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(s),
-      "r"(h), "r"(b)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle. K-major tiles
-// (rows of 128 bytes along the reduction) take sbo = 1024, the stride of
-// 8-row groups, and an unused lbo; the MN-major V tile takes lbo = the
-// stride between its two 64-column boxes.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// keeps the compiler from moving reads or writes of an accumulator across
-// the asynchronous product that owns it
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define ACC8(i)                                                            \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define ACC64                                                              \
-  ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
-#define REGS64                                                             \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
-  "%58, %59, %60, %61, %62, %63}"
+// ---- wgmma in bf16 -------------------------------------------------------
 
 // d (64 × 128 f32) = (accumulate ? d : 0) + A (64 × 16) · B (16 × 128),
 // A and B K-major in shared memory
@@ -175,9 +90,9 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
                                          uint64_t b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_REGS64
       ", %64, %65, p, 1, 1, 0, 0;\n}"
-      : ACC64
+      : SM90_ACC64
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -187,29 +102,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
                                          uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_REGS64
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"
-      : ACC64
+      : SM90_ACC64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
-
-#undef ACC8
-#undef ACC64
-#undef REGS64
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // nearest even
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
 // ---- the kernel ----------------------------------------------------------
@@ -309,7 +210,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                  smem_desc(ks + off, 16, 1024), kk > 0);
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(sc);
 
       // scale, mask and the streaming softmax update; p overwrites s.
@@ -370,7 +271,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_rs(o, pa + 4 * kk,
                  smem_desc(vs + kk * 16 * 128, kBoxBytes, 1024));
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(o);
       if (lane == 0) mbar_arrive(empty(s));
     }
@@ -405,51 +306,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- host side -----------------------------------------------------------
 
-// cuTensorMapEncodeTiled from the driver through the runtime, so that the
-// extension does not link libcuda itself
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
-// A rank-4 {Dp, S, H, B} map of boxes {64, 128, 1, 1} in the 128-byte
-// swizzle over a bf16 tensor with element strides {b, h, s} and a
-// contiguous last dimension. A dimension of extent 1 is never stepped, so
-// its stride is replaced by a packed one (TMA wants multiples of 16 bytes
-// even there); S = 0 is encoded as 1, since a map has no empty dimension.
-bool make_map(CUtensorMap* map, const void* ptr, int B, int H, int S, int Dp,
-              const int64_t* st) {
-  const auto encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const uint64_t s_ext = S > 0 ? S : 1;
-  uint64_t s_str = st[2] * 2, h_str = st[1] * 2, b_str = st[0] * 2;
-  if (s_ext == 1) s_str = static_cast<uint64_t>(Dp) * 2;
-  if (H == 1) h_str = s_str * s_ext;
-  if (B == 1) b_str = h_str * H;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(Dp), s_ext,
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {s_str, h_str, b_str};
-  const cuuint32_t box[4] = {kBox, kBK, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+// A rank-4 {Dp, S, H, B} map of boxes {64, 128, 1, 1} over a bf16 tensor
+// with element strides {b, h, s} and a contiguous last dimension
+bool make_bf16_map(CUtensorMap* map, const void* ptr, int B, int H, int S,
+                   int Dp, const int64_t* st) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, B, H, S, Dp,
+                  st, kBox, kBK);
 }
 
 }  // namespace
@@ -474,12 +336,12 @@ int flash_fwd_sm90_launch(const void* q, const void* k, const void* v,
       Sk < 0 || BH * nq > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap qm, km, vm;
-  if (!make_map(&qm, q, B, H, Sq, Dp, q_strides))
+  if (!make_bf16_map(&qm, q, B, H, Sq, Dp, q_strides))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Sk == 0) {
     km = vm = qm;  // never read: there is no key tile
-  } else if (!make_map(&km, k, B, H, Sk, Dp, k_strides) ||
-             !make_map(&vm, v, B, H, Sk, Dp, v_strides)) {
+  } else if (!make_bf16_map(&km, k, B, H, Sk, Dp, k_strides) ||
+             !make_bf16_map(&vm, v, B, H, Sk, Dp, v_strides)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // above 48 KB a block's shared memory must be asked for

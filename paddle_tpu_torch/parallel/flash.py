@@ -5,16 +5,20 @@ The counterpart of paddle_tpu/parallel/flash.py. Layout [B, H, S, D]. The
 forward, `flash_fwd`, replaces the JAX package's padding wrapper
 (`_fwd_padded`) and its Pallas TPU kernel (`_flash_fwd`) together: CUDA
 tensors go to a kernel through `flash_fwd_cuda`, which counts its launches
-on `flash_fwd.launches` — bf16 to the tensor-core kernel of
-csrc/flash_attention_sm90.cu (wgmma fed by TMA; also counted on
-`flash_fwd.sm90_launches`), f32 to the CUDA-core kernel of
-csrc/flash_attention.cu — and CPU tensors to the plain torch version
-`flash_fwd_plain`. The kernels mask the ragged sequence edge themselves,
-so the sequence is never padded; a bf16 operand that TMA cannot read in
-place is copied with its head dim zero-padded to a multiple of 8
-(`_tma_operand`). Both return (out, lse) with lse the f32
-logsumexp of each query row's scores, the pair ring attention combines per
-hop.
+on `flash_fwd.launches`, and CPU tensors to the plain torch version
+`flash_fwd_plain`. Both kernels run on the tensor cores, wgmma fed by TMA:
+- bf16: csrc/flash_attention_sm90.cu (also counted on
+  `flash_fwd.sm90_launches`). A bf16 operand that TMA cannot read in place
+  is copied with its head dim zero-padded to a multiple of 8
+  (`_tma_operand`).
+- f32: csrc/flash_attention_f32_sm90.cu (also counted on
+  `flash_fwd.tf32_launches`), in 3xTF32 split products. Its prologue
+  `split_tf32` (a second kernel, counted on `split_tf32.launches`; plain
+  twin `split_tf32_plain`) rounds k and a transposed v into tf32 big and
+  small parts; q is read in place and split in registers.
+The kernels mask the ragged sequence edge themselves, so the sequence is
+never padded. Both return (out, lse) with lse the f32 logsumexp of each
+query row's scores, the pair ring attention combines per hop.
 
 Causal masking is aligned top-left, as in the JAX package: query i sees
 keys 0..i, whatever Sq and Sk are.
@@ -31,7 +35,8 @@ import torch
 from .. import cuda_build
 
 __all__ = ["flash_attention", "flash_fwd", "flash_fwd_cuda",
-           "flash_fwd_plain", "normalize_blocks", "reset_launch_counts"]
+           "flash_fwd_plain", "normalize_blocks", "reset_launch_counts",
+           "split_tf32", "split_tf32_plain"]
 
 # TMA reads a tensor in place only from a 16-byte aligned base with every
 # stride but the last a multiple of 16 bytes and the last stride 1
@@ -73,6 +78,59 @@ def flash_fwd_plain(q, k, v, scale, causal):
     return out, torch.stack(lses).reshape(B, H, Sq)
 
 
+def _tf32_round(x):
+    """f32 `x` rounded to tf32 (the low 13 mantissa bits zero), to nearest
+    with ties away from zero: PTX's cvt.rna.tf32.f32 on finite values.
+    Adding half a tf32 ulp to the bit pattern rounds the magnitude up
+    whatever the sign, a carry moving into the exponent."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_parts(x):
+    big = _tf32_round(x)
+    return big, _tf32_round(x - big)  # x - big is exact in f32
+
+
+def _key_order(n, device):
+    """Which key each of n (a multiple of 8) columns of Vᵀ holds: column p
+    of a group of 8 holds key [0, 2, 4, 6, 1, 3, 5, 7][p], the order in
+    which the f32 kernel's P accumulator registers are its A fragment."""
+    p = torch.arange(n, device=device)
+    return (p & ~7) | ((p & 3) << 1) | ((p >> 2) & 1)
+
+
+def split_tf32_plain(k, v):
+    """The plain version of the f32 forward's prologue: k and v
+    [B, H, Sk, D] f32 into (k_big, k_small) [B, H, Sk, Dk] and
+    (vt_big, vt_small) [B, H, D, Sk8], where Dk is D and Sk8 is Sk rounded
+    up to multiples of 4 and 8, the extra columns and keys zero, and Vᵀ's
+    keys come in `_key_order`. big + small is x to 22 bits."""
+    B, H, Sk, D = k.shape
+    k_pad = k.new_zeros(B, H, Sk, -(-D // 4) * 4)
+    k_pad[..., :D] = k
+    Sk8 = -(-Sk // 8) * 8
+    vt = v.new_zeros(B, H, D, Sk8)
+    vt[..., :Sk] = v.transpose(-1, -2)
+    vt = vt[..., _key_order(Sk8, v.device)]
+    return (*_tf32_parts(k_pad), *_tf32_parts(vt))
+
+
+def split_tf32(k, v):
+    """`split_tf32_plain`'s parts: the prologue kernel for CUDA tensors
+    (counted on `split_tf32.launches`), the plain version for CPU
+    tensors."""
+    if not k.is_cuda:
+        return split_tf32_plain(k, v)
+    parts = cuda_build.kernels().split_tf32(k, v)
+    if k.numel():
+        split_tf32.launches += 1
+    return parts
+
+
+split_tf32.launches = 0
+
+
 def _check(q, k, v):
     """Refuse operands off one CUDA device before anything is built; the
     binding checks dtype, rank and shapes."""
@@ -110,14 +168,19 @@ def flash_fwd_cuda(q, k, v, scale, causal):
     else, a CPU tensor included."""
     _check(q, k, v)
     D = q.shape[-1]
-    bf16 = q.dtype == torch.bfloat16
-    if bf16 and k.shape[-1] == D and v.shape[-1] == D:
-        q, k, v = (_tma_operand(t) for t in (q, k, v))
-    out, lse = cuda_build.kernels().flash_fwd(q, k, v, float(scale),
-                                             bool(causal), D)
+    f32 = q.dtype == torch.float32
+    if f32:
+        out, lse = cuda_build.kernels().flash_fwd_tf32(
+            q, *split_tf32(k, v), float(scale), bool(causal))
+    else:
+        if k.shape[-1] == D and v.shape[-1] == D:
+            q, k, v = (_tma_operand(t) for t in (q, k, v))
+        out, lse = cuda_build.kernels().flash_fwd(q, k, v, float(scale),
+                                                 bool(causal), D)
     if out.numel():
         flash_fwd.launches += 1
-        flash_fwd.sm90_launches += int(bf16)
+        flash_fwd.tf32_launches += int(f32)
+        flash_fwd.sm90_launches += int(not f32)
     return out, lse
 
 
@@ -130,13 +193,16 @@ def flash_fwd(q, k, v, scale, causal):
     return flash_fwd_plain(q, k, v, scale, causal)
 
 
-flash_fwd.launches = 0      # every kernel launch
-flash_fwd.sm90_launches = 0  # of which the bf16 wgmma kernel's
+flash_fwd.launches = 0       # every kernel launch
+flash_fwd.sm90_launches = 0  # of which the bf16 kernel's
+flash_fwd.tf32_launches = 0  # and the f32 (3xTF32) kernel's
 
 
 def reset_launch_counts():
     flash_fwd.launches = 0
     flash_fwd.sm90_launches = 0
+    flash_fwd.tf32_launches = 0
+    split_tf32.launches = 0
 
 
 def normalize_blocks(block_q, block_k, Sq, Sk):
@@ -201,8 +267,8 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=256,
     scale defaults to 1/sqrt(D). block_q and block_k keep the JAX package's
     signature and auto-shrink for short sequences (`normalize_blocks`):
     block_k sets the width of the key blocks the backward walks, and
-    neither shapes the CUDA kernels' tiles, which are fixed (64×64 in f32,
-    128×128 in bf16)."""
+    neither shapes the CUDA kernels' tiles, which are fixed (128 query rows
+    by 64 keys in f32, 128 by 128 in bf16)."""
     _, block_k = normalize_blocks(block_q, block_k, q.shape[2], k.shape[2])
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)

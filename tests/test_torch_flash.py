@@ -3,10 +3,12 @@ the JAX package's (paddle_tpu/parallel/flash.py, its Pallas kernel run in
 interpret mode on the CPU), on the same numpy inputs.
 
 On the CPU the port's forward is the plain torch version; the CUDA kernels
-(csrc/flash_attention.cu in f32, csrc/flash_attention_sm90.cu in bf16) are
-held against that same plain version on a card by the tests marked
-`cuda`, which skip elsewhere. The CPU tests also cover `_tma_operand`,
-which decides whether the bf16 kernel reads an operand in place. Against JAX the
+(csrc/flash_attention_f32_sm90.cu in f32, csrc/flash_attention_sm90.cu in
+bf16) are held against that same plain version on a card by the tests
+marked `cuda`, which skip elsewhere (the f32 kernel's 3xTF32 arithmetic
+and its split prologue: tests/test_torch_flash_tf32.py). The CPU tests
+also cover `_tma_operand`, which decides whether the bf16 kernel reads an
+operand in place. Against JAX the
 tolerances are those of the JAX package's own oracle
 (tests/test_flash_attention.py): forward atol 2e-5 / rtol 1e-4 in f32
 (products summed in another order), grads atol 5e-5 / rtol 1e-3, bf16
@@ -234,6 +236,8 @@ def test_cpu_calls_count_no_launch():
     tflash.flash_fwd(q, q, q, 0.3, False)
     assert tflash.flash_fwd.launches == 0
     assert tflash.flash_fwd.sm90_launches == 0
+    assert tflash.flash_fwd.tf32_launches == 0
+    assert tflash.split_tf32.launches == 0
 
 
 def _bf16(seed, shape):
@@ -326,6 +330,8 @@ def test_kernel_matches_plain_on_the_card(cuda_device, shape, causal,
     torch.cuda.synchronize()
     assert tflash.flash_fwd.launches == 1
     assert tflash.flash_fwd.sm90_launches == (dtype == "bfloat16")
+    assert tflash.flash_fwd.tf32_launches == (dtype == "float32")
+    assert tflash.split_tf32.launches == (dtype == "float32")
     assert out.dtype == q.dtype and lse.dtype == torch.float32
     np.testing.assert_allclose(_f32(out.cpu()), _f32(want.cpu()),
                                **CARD[q.dtype])
@@ -393,10 +399,10 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device, bad):
 
 @pytest.mark.cuda
 def test_refused_launch_raises(cuda_device):
-    """More than 65535 q-tiles of 64 rows exceed the grid's y dimension: the
-    card refuses the launch and the binding raises instead of returning
-    unwritten memory."""
-    q = torch.zeros(1, 1, 65535 * 64 + 1, 8, device=cuda_device)
+    """More than 65535 f32 q-tiles of 128 rows exceed the grid's y
+    dimension: the card refuses the launch and the binding raises instead of
+    returning unwritten memory."""
+    q = torch.zeros(1, 1, 65535 * 128 + 1, 8, device=cuda_device)
     k = torch.zeros(1, 1, 1, 8, device=cuda_device)
     with pytest.raises(RuntimeError, match="kernel launch failed"):
         tflash.flash_fwd(q, k, k, 0.5, False)
