@@ -14,22 +14,42 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
   4. kernels  — each hand-written kernel, through its wrapper, against its
                 plain torch twin on the card, bitwise, at n in {1, 17, 1029,
                 4194307} and at every bucket size of both plans; then timed
-                (CUDA events, median of 25) over the buckets one step of its
-                path updates, beside the plain twin, PyTorch's closest fused
-                optimizer call, the bytes bound and the card's
-                device-to-device copy rate
+                over the buckets one step of its path updates, beside the
+                plain twin, PyTorch's closest fused optimizer call, the bytes
+                bound and the card's device-to-device copy rate: from a CUDA
+                graph of one step's launches over enough rotating copies of
+                the buckets to exceed the L2 cache, replayed 100 times
+                between one pair of events (no host time between launches),
+                and, as before, one wrapper call between two events
+                ("single_call_ms": the Python wrapper and one launch)
   5. resnet   — ResNet-50, NHWC 224x224x3, 1000 classes, batch 32, fp32,
-                Momentum(0.01, 0.9), FLAGS_fuse=1, through Executor.run: 5
-                single steps on one seeded batch, then one iters=4 call; the
-                momentum kernel's launch count must cover every bucket of
-                every step; one more step traced on the card alone gives the
-                device idle share, and one traced with host ops the top-10
-                of device time (full table in chiprun_out/resnet50_profile.txt)
-  6. adam     — the README MLP (784-200-10) with Adam 1e-3 and FLAGS_fuse=1,
+                Momentum(0.01, 0.9), FLAGS_fuse=1, through Executor.run on
+                the captured step (step_mode "graph"): 5 single steps on one
+                seeded batch, then one iters=4 call; the momentum kernel's
+                launch count must equal buckets x steps; one more step
+                traced on the card alone gives the device idle share, and
+                one traced with host ops the top-10 of device time (full
+                table in chiprun_out/resnet50_profile.txt); then the same
+                steps and traces through the interpreter (FLAGS_cuda_graph
+                off), for the two paths side by side
+  6. headline — bench.py's headline program built with the port: uint8
+                NHWC 224x224x3 input cast and scaled on the card, int32
+                labels, ResNet-50, Momentum(0.01, 0.9), FLAGS_fuse=1, bf16
+                AMP (amp.enable("bfloat16")), batch 128, Executor.run(
+                iters=40) over a seeded feed stack moved to the card once: 2
+                warm calls, then 5 timed calls from the first dispatch to one
+                scalar fetch (resnet50_train_images_per_sec), through the
+                captured step; the same program through the interpreter (one
+                warm and one timed iters=4 call); one replayed step and one
+                interpreter step traced on the card alone (idle shares, the
+                momentum kernel's rows); graph vs interpreter from the same
+                state for 3 steps at batch 32 (cuDNN deterministic on both
+                sides), bitwise; every persistable f32 after the AMP steps
+  7. adam     — the README MLP (784-200-10) with Adam 1e-3 and FLAGS_fuse=1,
                 30 steps on y = argmax(x @ W); the adam kernel must run
-  7. parity   — a small ResNet trained 2 steps on the card and on the host
-                from the same weights must agree
-  8. flash    — the flash-attention kernels (both wgmma fed by TMA; f32
+  8. parity   — a small ResNet trained 2 steps on the card and on the host
+                from the same weights must agree, in fp32 and under bf16 AMP
+  9. flash    — the flash-attention kernels (both wgmma fed by TMA; f32
                 in 3xTF32 split products after its split prologue) against
                 their plain torch version on the card, causal and not, at
                 the CPU tests' shapes, the tiles' edges (129 q rows over
@@ -50,6 +70,7 @@ Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}.
 """
 
+import gc
 import json
 import os
 import re
@@ -69,6 +90,17 @@ BF16_FLOPS = 989e12
 TF32_FLOPS = 495e12
 # the f32 flash kernel does each product as 3 TF32 products (3xTF32)
 TF32_PRODUCTS = 3
+
+# the L2 cache of one H100 (50 MB): timed buckets rotate over more
+L2_BYTES = 50 * 2 ** 20
+GRAPH_REPLAYS = 100
+# bench.py's headline run: batch 128, iters=40 a call, 2 warm + 5 timed
+HEADLINE_BATCH = 128
+HEADLINE_K = 40
+HEADLINE_WARM = 2
+HEADLINE_CALLS = 5
+# host vs card losses under bf16 AMP: five bf16 ulps (5 x 2^-8)
+PARITY_AMP_RTOL = 2e-2
 
 SEED = 20261016
 BATCH = 32
@@ -265,37 +297,68 @@ def phase_kernels(momentum_numels, adam_numels):
     log(f"[kernels] device-to-device copy: {copy_gb_per_s:.0f} GB/s")
 
     # times over one step's buckets: ResNet-50's momentum buckets, the
-    # MLP's adam bucket
-    ps, gs, vs = _step_lanes(momentum_numels, 3, gen)
-    qs, hs, m1s, m2s = _step_lanes(adam_numels, 4, gen)
-    m2s = [m.abs() for m in m2s]
-    step = torch.ones((), device="cuda")
+    # MLP's adam bucket, each on rotating copies that together exceed the
+    # L2 cache (the step finds its buckets in HBM)
     rows = []
-    for name, numels, bpe, fpe, kern, plain, lib in (
-        ("momentum_bucket", momentum_numels, 20, 4,
-         lambda: [fk.momentum_bucket(p, g, v, lr, 0.9, False)
-                  for p, g, v in zip(ps, gs, vs)],
-         lambda: [fk.momentum_bucket_plain(p, g, v, lr, 0.9, False)
-                  for p, g, v in zip(ps, gs, vs)],
-         lambda: torch._fused_sgd_(
-             ps, gs, vs, weight_decay=0.0, momentum=0.9, lr=0.01,
-             dampening=0.0, nesterov=False, maximize=False,
-             is_first_step=False)),
-        ("adam_bucket", adam_numels, 28, 12,
-         lambda: [fk.adam_bucket(p, g, m1, m2, lr_t, 0.9, 0.999, 1e-8)
-                  for p, g, m1, m2 in zip(qs, hs, m1s, m2s)],
-         lambda: [fk.adam_bucket_plain(p, g, m1, m2, lr_t, 0.9, 0.999, 1e-8)
-                  for p, g, m1, m2 in zip(qs, hs, m1s, m2s)],
-         lambda: torch._fused_adam_(
-             qs, hs, m1s, m2s, [], [step] * len(qs), lr=1e-3, beta1=0.9,
-             beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
-             maximize=False)),
-    ):
-        ms = _time_ms(kern)
-        plain_ms = _time_ms(plain)
-        # the library call updates its lists in place: time it last
-        library_ms = _time_ms(lib)
+    for name, numels, bpe, fpe in (("momentum_bucket", momentum_numels, 20, 4),
+                                   ("adam_bucket", adam_numels, 28, 12)):
         n = sum(numels)
+        sets = max(1, -(-2 * L2_BYTES // (bpe * n)))
+        if name == "momentum_bucket":
+            lanes = [_step_lanes(numels, 3, gen) for _ in range(sets)]
+
+            def kern(lanes=lanes):
+                return [fk.momentum_bucket(p, g, v, lr, 0.9, False)
+                        for ps, gs, vs in lanes for p, g, v in zip(ps, gs, vs)]
+
+            def plain(lanes=lanes):
+                return [fk.momentum_bucket_plain(p, g, v, lr, 0.9, False)
+                        for ps, gs, vs in lanes for p, g, v in zip(ps, gs, vs)]
+
+            def lib(lanes=lanes):
+                for ps, gs, vs in lanes:
+                    torch._fused_sgd_(
+                        ps, gs, vs, weight_decay=0.0, momentum=0.9, lr=0.01,
+                        dampening=0.0, nesterov=False, maximize=False,
+                        is_first_step=False)
+        else:
+            lanes = []
+            for _ in range(sets):
+                qs, hs, m1s, m2s = _step_lanes(numels, 4, gen)
+                lanes.append((qs, hs, m1s, [m.abs() for m in m2s]))
+            step = torch.ones((), device="cuda")
+
+            def kern(lanes=lanes):
+                return [fk.adam_bucket(p, g, m1, m2, lr_t, 0.9, 0.999, 1e-8)
+                        for qs, hs, m1s, m2s in lanes
+                        for p, g, m1, m2 in zip(qs, hs, m1s, m2s)]
+
+            def plain(lanes=lanes):
+                return [fk.adam_bucket_plain(p, g, m1, m2, lr_t, 0.9, 0.999,
+                                             1e-8)
+                        for qs, hs, m1s, m2s in lanes
+                        for p, g, m1, m2 in zip(qs, hs, m1s, m2s)]
+
+            def lib(lanes=lanes, step=step):
+                for qs, hs, m1s, m2s in lanes:
+                    torch._fused_adam_(
+                        qs, hs, m1s, m2s, [], [step] * len(qs), lr=1e-3,
+                        beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8,
+                        amsgrad=False, maximize=False)
+
+        def first(fn, lanes=lanes):  # one step's buckets, one set
+            only = lanes[:1]
+            return lambda: fn(lanes=only)
+
+        # back to back: a graph of `sets` steps' launches, replayed
+        ms = _graph_ms(kern) / sets
+        plain_ms = _graph_ms(plain) / sets
+        # the library call updates its lists in place: time it last
+        library_ms = _graph_ms(lib) / sets
+        # one wrapper call between two events, as timed before
+        single = {"single_call_ms": _time_ms(first(kern)),
+                  "single_call_plain_ms": _time_ms(first(plain)),
+                  "single_call_library_ms": _time_ms(first(lib))}
         bytes_s, ops_s = bpe * n / HBM_BYTES_PER_S, fpe * n / FP32_FLOPS
         rows.append({
             "name": name, "route": "cuda",
@@ -306,32 +369,97 @@ def phase_kernels(momentum_numels, adam_numels):
             "launches": None, "max_abs_err": err[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_s, ops_s)
             * 1e3, "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-            "library_ms": library_ms, "numels": list(numels),
+            "library_ms": library_ms, **single, "numels": list(numels),
+            "rotating_sets": sets, "graph_replays": GRAPH_REPLAYS,
             "bytes": bpe * n, "gb_per_s": bpe * n / (ms * 1e-3) / 1e9,
             "copy_bound_ms": bpe * n / (copy_gb_per_s * 1e9) * 1e3,
         })
         r = rows[-1]
         log(f"[kernels] {name}, one step's {len(numels)} bucket(s) of "
-            f"{list(numels)}: {ms:.4f} ms ({r['bytes'] / 1e6:.1f} MB, "
-            f"{r['gb_per_s']:.0f} GB/s); plain {plain_ms:.4f} ms; torch "
-            f"fused {library_ms:.4f} ms; bound {r['bound_ms']:.4f} ms (at "
-            f"the copy rate {r['copy_bound_ms']:.4f} ms)")
+            f"{list(numels)}, back to back ({sets} rotating set(s) x "
+            f"{GRAPH_REPLAYS} graph replays): {ms:.4f} ms "
+            f"({r['bytes'] / 1e6:.1f} MB, {r['gb_per_s']:.0f} GB/s); plain "
+            f"{plain_ms:.4f} ms; torch fused {library_ms:.4f} ms; bound "
+            f"{r['bound_ms']:.4f} ms (at the copy rate "
+            f"{r['copy_bound_ms']:.4f} ms); one wrapper call between two "
+            f"events {single['single_call_ms']:.4f} ms (plain "
+            f"{single['single_call_plain_ms']:.4f}, torch fused "
+            f"{single['single_call_library_ms']:.4f})")
+        del lanes
     return rows
 
 
+def _graph_ms(fn):
+    """ms of one fn(), from a CUDA graph of one fn() replayed GRAPH_REPLAYS
+    times between one pair of events: the launches run back to back, with
+    no host time between them. Median of 5 such windows, after one eager
+    call on a side stream and one replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(GRAPH_REPLAYS):
+            graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / GRAPH_REPLAYS)
+    del graph
+    return statistics.median(times)
+
+
 def phase_resnet(main, startup, loss, buckets, card):
+    """ResNet-50 fp32 batch 32 through the captured step, then the same
+    steps from the same weights through the interpreter. Returns the
+    momentum kernel's launches on the captured path."""
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch import flags
-    from paddle_tpu_torch.fusion import kernels as fk
+    from paddle_tpu_torch import convert, flags
 
     rs = np.random.RandomState(SEED)
     x = rs.rand(BATCH, 224, 224, 3).astype(np.float32)
     y = rs.randint(0, 1000, size=(BATCH, 1)).astype(np.int64)
-    scope = fluid.Scope()
+    place = fluid.CUDAPlace(0)
+    init_scope = fluid.Scope()
+    with fluid.scope_guard(init_scope):
+        fluid.Executor(place).run(startup)
+    init = convert.numpy_state(init_scope, main)
+    del init_scope
+    launches = {}
+    for mode in ("graph", "interpreter"):
+        with flags.flag_guard(fuse=True, cuda_graph=mode == "graph"):
+            scope = fluid.Scope()
+            convert.load_numpy_state(scope, main, init, place)
+            launches[mode] = _drive_resnet(main, loss, buckets, scope, x, y,
+                                           mode, card)
+        del scope
+        _release()
+    return launches["graph"]
+
+
+def _release():
+    """Free what a finished phase's executors and graphs held."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _drive_resnet(main, loss, buckets, scope, x, y, mode, card):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.fusion import kernels as fk
+
     exe = fluid.Executor()
-    with fluid.scope_guard(scope), flags.flag_guard(fuse=True):
-        exe.run(startup)
+    with fluid.scope_guard(scope):
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         fk.reset_launch_counts()
         losses, step_ms = [], []
         for _ in range(5):
@@ -345,9 +473,14 @@ def phase_resnet(main, startup, loss, buckets, card):
                                     "label": np.stack([y] * 4)},
                         fetch_list=[loss], iters=4)
         iters_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
         launches = fk.momentum_bucket.launches
         steps = 5 + 4
-        log(f"[resnet] losses {losses} then iters=4 {lk.reshape(-1).tolist()}")
+        if exe.step_mode(main) != mode:
+            raise AssertionError(f"ResNet-50 ran as {exe.step_mode(main)!r}, "
+                                 f"not {mode!r}")
+        log(f"[resnet] {mode}: losses {losses} then iters=4 "
+            f"{lk.reshape(-1).tolist()}")
         if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(lk))):
             raise AssertionError("non-finite ResNet-50 loss")
         if lk.shape != (4, 1):
@@ -355,22 +488,23 @@ def phase_resnet(main, startup, loss, buckets, card):
         if not losses[-1] < losses[0]:
             raise AssertionError(
                 f"loss did not fall over 5 steps: {losses[0]} -> {losses[-1]}")
-        if launches < len(buckets) * steps:
+        if launches != len(buckets) * steps:
             raise AssertionError(
-                f"momentum kernel launched {launches} times, expected >= "
+                f"momentum kernel launched {launches} times, expected "
                 f"{len(buckets)} buckets x {steps} steps")
         off = [n for n in scope.local_var_names()
                if not scope.find_var(n).is_cuda]
         if off:
             raise AssertionError(f"persistable vars off the card: {off[:5]}")
         warm = statistics.median(step_ms[1:])
-        log(f"[resnet] {card}: momentum_bucket launches {launches} "
+        log(f"[resnet] {mode} {card}: momentum_bucket launches {launches} "
             f"({len(buckets)} buckets x {steps} steps); step ms "
             f"{[round(t, 2) for t in step_ms]}; warm median {warm:.2f} ms = "
             f"{BATCH / warm * 1e3:.1f} img/s; iters=4 call "
             f"{iters_ms:.1f} ms = {4 * BATCH / iters_ms * 1e3:.1f} img/s; "
             f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        profile_step(exe, main, x, y, loss, warm)
+        profile_step(exe, main, {"data": x, "label": y}, loss, warm,
+                     f"resnet50_{mode}")
     return launches
 
 
@@ -381,39 +515,291 @@ def _device_ms(prof):
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
 
 
-def profile_step(exe, main, x, y, loss, warm_ms):
-    """Two more steps under torch.profiler. The first traces the card only,
-    which adds little host time: its wall and device-busy time give the
-    device idle share of one step. The second also records the host ops,
-    for the top-10 table of device time by op and kernel."""
+def trace_step(exe, main, feed, loss):
+    """One step traced on the card only, which adds little host time:
+    (wall ms, device busy ms, idle share, momentum_kernel rows)."""
     from torch.profiler import ProfilerActivity, profile
 
-    def run(activities):
-        with profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            exe.run(main, feed={"data": x, "label": y}, fetch_list=[loss])
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        return prof, wall_ms
-
-    prof, wall_ms = run([ProfilerActivity.CUDA])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=[loss])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms = _device_ms(prof)
-    log(f"[profile] step traced on the card only: wall {wall_ms:.2f} ms, "
-        f"device busy {busy_ms:.2f} ms, idle share "
-        f"{1 - busy_ms / wall_ms:.3f}, host time not covered by the card "
-        f"{wall_ms - busy_ms:.2f} ms (untraced warm median {warm_ms:.2f} ms)")
-    prof, wall_ms = run([ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    rows = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    rows = sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "momentum_kernel" in e.key)
+    return wall_ms, busy_ms, 1 - busy_ms / wall_ms, rows
+
+
+def profile_step(exe, main, feed, loss, warm_ms, name):
+    """Two more steps under torch.profiler. The first traces the card only:
+    its wall and device-busy time give the device idle share of one step
+    (returned as trace_step returns them). The second also records the
+    host ops, for the top-10 table of device time by op and kernel
+    (chiprun_out/<name>_profile.txt)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    card = trace_step(exe, main, feed, loss)
+    wall_ms, busy_ms, idle, rows = card
+    log(f"[profile] {name}: step traced on the card only: wall "
+        f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
+        f"{idle:.3f}, host time not covered by the card "
+        f"{wall_ms - busy_ms:.2f} ms (untraced warm median {warm_ms:.2f} "
+        f"ms); momentum_kernel rows {rows}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=[loss])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     table = prof.key_averages().table(sort_by="self_cuda_time_total",
                                       row_limit=10)
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "resnet50_profile.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"{name}_profile.txt"), "w") as f:
         f.write(table)
-    log(f"[profile] step traced with host ops: wall {wall_ms:.2f} ms, device "
-        f"busy {_device_ms(prof):.2f} ms; top 10 by device ms (calls):")
-    for e in rows[:10]:
+    log(f"[profile] {name}: step traced with host ops: wall {wall_ms:.2f} "
+        f"ms, device busy {_device_ms(prof):.2f} ms; top 10 by device ms "
+        f"(calls):")
+    for e in top[:10]:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} "
             f"({e.count:5d})  {e.key[:70]}")
+    return card
+
+
+def build_headline():
+    """bench.py's headline program (bench.py:105-124) built with the port:
+    raw uint8 NHWC pixels cast and scaled on the card, int32 labels,
+    ResNet-50, Momentum(0.01, 0.9); with its fusion plan's momentum
+    buckets."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import fusion
+    from paddle_tpu_torch.models.resnet import resnet_imagenet
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        raw = fluid.layers.data(name="data_u8", shape=[224, 224, 3],
+                                dtype="uint8")
+        img = fluid.layers.scale(fluid.layers.cast(raw, "float32"),
+                                 scale=1.0 / 255.0)
+        label = fluid.layers.data(name="label", shape=[1], dtype="int32")
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(
+            input=resnet_imagenet(img, 1000, depth=50, layout="NHWC"),
+            label=label))
+        fluid.optimizer.Momentum(learning_rate=0.01,
+                                 momentum=0.9).minimize(loss)
+    main.random_seed = startup.random_seed = SEED
+    _, plan = fusion.apply(main, feed_names=["data_u8", "label"],
+                           fetch_names=[loss.name])
+    buckets = [b for b in plan.buckets if b["opt"] == "momentum"]
+    return main, startup, loss, buckets
+
+
+def _fence(out):
+    """One scalar read back: waits for everything queued before it."""
+    return float(out.reshape(-1)[-1].item())
+
+
+def _timed_calls(exe, main, feeds, loss, iters, warm, calls):
+    """`warm` untimed then `calls` timed exe.run(iters=...) calls; the host
+    clock runs from the first timed dispatch to one scalar fetch
+    (bench.py:159-179). Returns (seconds, last losses [iters])."""
+    for _ in range(warm):
+        (out,) = exe.run(main, feed=feeds, fetch_list=[loss], iters=iters,
+                         return_numpy=False)
+        _fence(out)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        (out,) = exe.run(main, feed=feeds, fetch_list=[loss], iters=iters,
+                         return_numpy=False)
+    _fence(out)
+    return time.perf_counter() - t0, out.reshape(-1).float().cpu().numpy()
+
+
+def phase_headline(card):
+    """bench.py's headline run through the port: bf16 AMP, fused Momentum,
+    batch 128, Executor.run(iters=40) replayed from the captured step; the
+    interpreter beside it; traces; graph vs interpreter bitwise."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, convert, flags
+    from paddle_tpu_torch.fusion import kernels as fk
+
+    main, startup, loss, buckets = build_headline()
+    log(f"[headline] bench.py's program: {len(buckets)} fused momentum "
+        f"buckets of {[b['numel'] for b in buckets]} elements")
+    rs = np.random.RandomState(SEED)
+    u8 = rs.randint(0, 256, (HEADLINE_K, HEADLINE_BATCH, 224, 224, 3),
+                    dtype=np.uint8)
+    lab = rs.randint(0, 1000, (HEADLINE_K, HEADLINE_BATCH, 1)).astype(
+        np.int32)
+    feeds = {"data_u8": torch.from_numpy(u8).cuda(),
+             "label": torch.from_numpy(lab).cuda()}
+    del u8, lab
+    place = fluid.CUDAPlace(0)
+    result = {"batch": HEADLINE_BATCH, "iters": HEADLINE_K,
+              "warm_calls": HEADLINE_WARM, "timed_calls": HEADLINE_CALLS}
+    amp.enable("bfloat16")
+    try:
+        with flags.flag_guard(fuse=True):
+            init_scope = fluid.Scope()
+            with fluid.scope_guard(init_scope):
+                fluid.Executor(place).run(startup)
+            init = convert.numpy_state(init_scope, main)
+            del init_scope
+
+            # the captured step, as bench.py times it
+            scope = fluid.Scope()
+            convert.load_numpy_state(scope, main, init, place)
+            exe = fluid.Executor()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fk.reset_launch_counts()
+            with fluid.scope_guard(scope):
+                dt, lv = _timed_calls(exe, main, feeds, loss, HEADLINE_K,
+                                      HEADLINE_WARM, HEADLINE_CALLS)
+                torch.cuda.synchronize()
+                launches = fk.momentum_bucket.launches
+                steps = (HEADLINE_WARM + HEADLINE_CALLS) * HEADLINE_K
+                mode = exe.step_mode(main)
+                if mode != "graph":
+                    raise AssertionError(f"headline ran as {mode!r}")
+                if launches != len(buckets) * steps:
+                    raise AssertionError(
+                        f"momentum kernel launched {launches} times, "
+                        f"expected {len(buckets)} buckets x {steps} steps")
+                if not np.all(np.isfinite(lv)):
+                    raise AssertionError(f"non-finite headline loss {lv}")
+                _check_master_state(scope)
+                img_s = HEADLINE_BATCH * HEADLINE_K * HEADLINE_CALLS / dt
+                result.update(
+                    step_mode=mode, images_per_sec=img_s,
+                    step_ms=dt / (HEADLINE_K * HEADLINE_CALLS) * 1e3,
+                    peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                    momentum_launches=launches, steps=steps,
+                    last_losses=[float(v) for v in lv[-3:]])
+                log(f"[headline] {card}: graph: "
+                    f"resnet50_train_images_per_sec {img_s:.2f} "
+                    f"({result['step_ms']:.2f} ms a step; {HEADLINE_CALLS} "
+                    f"calls of iters={HEADLINE_K} in {dt:.3f} s after "
+                    f"{HEADLINE_WARM} warm); peak mem "
+                    f"{result['peak_mem_gib']:.2f} GiB; momentum_bucket "
+                    f"launches {launches} ({len(buckets)} buckets x {steps} "
+                    f"steps); last losses {result['last_losses']}")
+                step0 = {n: t[0] for n, t in feeds.items()}
+                wall, busy, idle, rows = profile_step(
+                    exe, main, step0, loss, result["step_ms"],
+                    "headline_graph")
+                result.update(graph_trace_wall_ms=wall,
+                              graph_trace_busy_ms=busy, graph_idle_share=idle,
+                              graph_momentum_rows=rows)
+                log(f"[headline] graph: one replayed step traced on the card "
+                    f"only: wall {wall:.2f} ms, device busy {busy:.2f} ms, "
+                    f"idle share {idle:.3f}; momentum_kernel rows {rows}")
+                if rows != len(buckets):
+                    raise AssertionError(
+                        f"{rows} momentum_kernel rows in one traced replay, "
+                        f"not {len(buckets)}")
+            del exe, scope
+            _release()
+
+            # the same program through the interpreter
+            scope = fluid.Scope()
+            convert.load_numpy_state(scope, main, init, place)
+            exe = fluid.Executor()
+            four = {n: t[:4] for n, t in feeds.items()}
+            torch.cuda.reset_peak_memory_stats()
+            with fluid.scope_guard(scope), flags.flag_guard(cuda_graph=False):
+                dt, lv = _timed_calls(exe, main, four, loss, 4, 1, 1)
+                if exe.step_mode(main) != "interpreter":
+                    raise AssertionError("the interpreter run was captured")
+                if not np.all(np.isfinite(lv)):
+                    raise AssertionError(f"non-finite interpreter loss {lv}")
+                img_s = HEADLINE_BATCH * 4 / dt
+                result.update(
+                    interpreter_images_per_sec=img_s,
+                    interpreter_step_ms=dt / 4 * 1e3,
+                    interpreter_peak_mem_gib=torch.cuda.max_memory_allocated()
+                    / 2 ** 30)
+                step0 = {n: t[0] for n, t in feeds.items()}
+                wall, busy, idle, rows = profile_step(
+                    exe, main, step0, loss, result["interpreter_step_ms"],
+                    "headline_interpreter")
+                result.update(interpreter_trace_wall_ms=wall,
+                              interpreter_trace_busy_ms=busy,
+                              interpreter_idle_share=idle)
+                log(f"[headline] interpreter: {img_s:.2f} img/s "
+                    f"({result['interpreter_step_ms']:.2f} ms a step; one "
+                    f"iters=4 call after one warm); peak mem "
+                    f"{result['interpreter_peak_mem_gib']:.2f} GiB; one step "
+                    f"traced on the card only: wall {wall:.2f} ms, device "
+                    f"busy {busy:.2f} ms, idle share {idle:.3f}; "
+                    f"momentum_kernel rows {rows}")
+            del exe, scope
+            _release()
+            result["bitwise"] = _graph_vs_interpreter(main, loss, init, feeds)
+    finally:
+        amp.disable()
+    return result
+
+
+def _check_master_state(scope):
+    """Every persistable on the card and, after bf16 AMP steps, still f32
+    where it is a float (master weights, velocities, running stats)."""
+    bad = [(n, t.dtype, t.device) for n in scope.local_var_names()
+           for t in [scope.find_var(n)]
+           if not t.is_cuda or (t.dtype.is_floating_point
+                                and t.dtype != torch.float32)]
+    if bad:
+        raise AssertionError(f"persistables not f32 on the card: {bad[:5]}")
+
+
+def _graph_vs_interpreter(main, loss, init, feeds):
+    """3 steps at batch 32 from the same state through the captured step
+    and through the interpreter, cuDNN deterministic on both sides: losses
+    and every persistable (params, velocities, running stats) bitwise; a
+    difference is printed by var with its size and then held to rtol
+    1e-6."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert, flags
+
+    batches = [{n: t[k, :BATCH] for n, t in feeds.items()} for k in range(3)]
+    place = fluid.CUDAPlace(0)
+    out = {}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode in ("graph", "interpreter"):
+            scope = fluid.Scope()
+            convert.load_numpy_state(scope, main, init, place)
+            exe = fluid.Executor()
+            with fluid.scope_guard(scope), \
+                    flags.flag_guard(cuda_graph=mode == "graph"):
+                losses = [exe.run(main, feed=b, fetch_list=[loss])[0]
+                          for b in batches]
+                if exe.step_mode(main) != mode:
+                    raise AssertionError(f"bitwise check ran {mode} as "
+                                         f"{exe.step_mode(main)}")
+            out[mode] = (np.stack(losses).reshape(-1),
+                         convert.numpy_state(scope, main))
+            del exe, scope
+            _release()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    (gl, gs), (il, ist) = out["graph"], out["interpreter"]
+    diff = {n: float(np.abs(gs[n].astype(np.float64) - ist[n]).max())
+            for n in ist if not np.array_equal(gs[n], ist[n])}
+    equal = np.array_equal(gl, il) and not diff
+    log(f"[headline] graph vs interpreter, 3 steps at batch {BATCH} from one "
+        f"state (cuDNN deterministic): losses {gl.tolist()} / {il.tolist()}; "
+        f"{'bitwise equal' if equal else 'DIFFER'} over {len(ist)} "
+        f"persistables" + ("" if equal else f": {len(diff)} differ, largest "
+                           f"{sorted(diff.items(), key=lambda kv: -kv[1])[:5]}"))
+    if not equal:
+        np.testing.assert_allclose(gl, il, rtol=1e-6)
+        for n in ist:
+            np.testing.assert_allclose(gs[n], ist[n], rtol=1e-6, err_msg=n)
+    return {"equal": equal, "losses": gl.tolist(), "n_differ": len(diff)}
 
 
 def build_mlp():
@@ -470,10 +856,15 @@ def phase_adam(main, startup, loss, buckets):
     return launches
 
 
-def phase_parity():
+def phase_parity(amp):
     """resnet_cifar10(depth=8), batch 4, 2 fused Momentum steps on the card
-    and on the host from the same weights: losses within rtol 1e-4."""
+    and on the host from the same weights: losses within rtol 1e-4 in fp32.
+    Under bf16 AMP within rtol PARITY_AMP_RTOL: cuDNN on the card and
+    PyTorch's CPU kernels both round each bf16 conv and matmul output once
+    but sum differently before it, so a logit can land one bf16 ulp (2^-8
+    relative) apart and the f32 loss inherits a few such ulps."""
     import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp as tamp
     from paddle_tpu_torch import convert, flags
     from paddle_tpu_torch.models.resnet import resnet_cifar10
 
@@ -501,14 +892,20 @@ def phase_parity():
             scope = fluid.Scope()
             convert.load_numpy_state(scope, main, init, place)
             exe = fluid.Executor(place)
-            with fluid.scope_guard(scope):
+            with fluid.scope_guard(scope), tamp.auto_cast(enabled=amp):
                 out[repr(place)] = [
                     float(exe.run(main, feed={"data": x, "label": y},
                                   fetch_list=[loss])[0].reshape(-1)[0])
                     for _ in range(2)]
+                out[repr(place) + " mode"] = exe.step_mode(main)
     host_l, card_l = out["CPUPlace()"], out["CUDAPlace(0)"]
-    log(f"[parity] resnet_cifar10(8) losses host {host_l} card {card_l}")
-    np.testing.assert_allclose(card_l, host_l, rtol=1e-4)
+    rtol = PARITY_AMP_RTOL if amp else 1e-4
+    rel = max(abs(c / h - 1) for c, h in zip(card_l, host_l))
+    log(f"[parity] resnet_cifar10(8) {'bf16 AMP' if amp else 'fp32'}: losses "
+        f"host {host_l} ({out['CPUPlace() mode']}) card {card_l} "
+        f"({out['CUDAPlace(0) mode']}); largest relative difference "
+        f"{rel:.3e} (rtol {rtol:g})")
+    np.testing.assert_allclose(card_l, host_l, rtol=rtol)
 
 
 def _qkv(shape, dtype, gen):
@@ -790,11 +1187,17 @@ def main():
     mlp = build_mlp()
     rows = phase_kernels([b["numel"] for b in resnet[3]],
                          [b["numel"] for b in mlp[3]])
-    rows[0]["launches"] = phase_resnet(*resnet, card)
+    rows[0]["launches_resnet50_fp32"] = phase_resnet(*resnet, card)
+    _release()
+    headline = phase_headline(card)
+    rows[0]["launches"] = headline["momentum_launches"]
+    _release()
     rows[1]["launches"] = phase_adam(*mlp)
-    phase_parity()
+    phase_parity(amp=False)
+    phase_parity(amp=True)
     rows += phase_flash(sass)
     log(card_line)
+    log(json.dumps({"headline": headline}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

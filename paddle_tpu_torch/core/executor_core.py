@@ -1,19 +1,45 @@
-"""Executor core: an op-by-op interpreter over a Program block.
+"""Executor core: the op-by-op interpreter and the whole-block step.
 
 Reference parity: paddle/fluid/framework/executor.cc:133 runs the op list
-one kernel launch at a time against a Scope. The port keeps that model:
-`run_ops` walks the (dead-code-eliminated) op list and calls each op's
-registered torch kernel on an env of tensors; the Executor seeds the env
-from the Scope and writes persistable state back after the step. The JAX
-package's whole-block `jax.jit` step, its lax.scan multi-step and the
-FLAGS_fuse_optimizer_ops concat path have no counterpart yet.
+one kernel launch at a time against a Scope. `run_ops` does the same: it
+walks the (dead-code-eliminated) op list and calls each op's registered
+torch kernel on an env of tensors.
+
+On top of it sit the counterparts of the JAX package's whole-block step
+(paddle_tpu/core/executor_core.py):
+  * `build_step_fn` — the pure step(mut_state, const_state, feeds) ->
+    (fetches, new_mut) over the block, which the Executor runs as it is on
+    the CPU (and for programs a CUDA graph cannot hold);
+  * `compile_step_fn` — on a CUDA place, one call of that step captured as
+    a CUDA graph over static buffers (`CapturedStep`), the counterpart of
+    `jax.jit` with donated state;
+  * `build_multi_step_fn` — `iters=K` as K calls of one step over a
+    device-resident [K, ...] feed stack, the counterpart of the lax.scan
+    multi-step; on the card each call is one graph replay.
+`capture_blocker` is the static rule that keeps a step out of a graph.
+The FLAGS_fuse_optimizer_ops concat path has no counterpart yet.
 """
 
 import numpy as np
 import torch
 
+from .. import cuda_build
 from . import registry
 from .places import device_for
+
+# Op types whose kernels draw random numbers at step time. The port draws
+# each step's numbers from a generator of its own (`step_generator`, or one
+# seeded by the op's `seed` attr); a CUDA graph would replay the Philox
+# seed and offset it captured for such a generator, repeating one step's
+# draws, unless the generator were registered with the graph, which the
+# port does not do. A step holding one of these runs in the interpreter.
+RANDOM_OPS = frozenset({"uniform_random", "gaussian_random",
+                        "truncated_gaussian_random", "dropout",
+                        "random_crop"})
+# Op types whose kernels run on the host, which a graph cannot hold (the
+# JAX package's `no_trace` ops, paddle_tpu/executor.py:121-127). Empty so
+# far: the port has no host kernel yet; one that is ported is named here.
+HOST_OPS = frozenset()
 
 
 class OpContext:
@@ -124,3 +150,179 @@ def dead_code_eliminate(ops, needed_names):
             needed |= _block_read_names(op)
     live.reverse()
     return live
+
+
+def capture_blocker(ops):
+    """The first op of `ops` that keeps their step out of a CUDA graph (a
+    random or host op, sub-blocks included), or None: the static rule,
+    decided before any capture."""
+    for op in ops:
+        if op.type in RANDOM_OPS or op.type in HOST_OPS:
+            return op
+        for v in op.attrs.values():
+            if hasattr(v, "ops"):  # a Block attr
+                sub = capture_blocker(v.ops)
+                if sub is not None:
+                    return sub
+    return None
+
+
+def build_step_fn(program, fetch_names, state_out_names, place):
+    """The pure step of a program's global block (counterpart of
+    paddle_tpu/core/executor_core.py::build_step_fn):
+
+        step(mut_state, const_state, feeds, generator) -> (fetches, new_mut)
+
+    mut_state holds the persistables the block writes, const_state those it
+    only reads; new_mut maps each of `state_out_names` the step holds to its
+    new value. It runs the dead-code-eliminated op list (`step.ops`) through
+    the interpreter and allocates fresh outputs: no input is written.
+    `step.blocker` is the op that keeps it out of a CUDA graph, or None
+    (`capture_blocker`)."""
+    ops = dead_code_eliminate(program.global_block().ops,
+                              list(fetch_names) + list(state_out_names))
+
+    def step(mut_state, const_state, feeds, generator):
+        env = {}
+        env.update(const_state)
+        env.update(mut_state)
+        env.update(feeds)
+        ctx = OpContext(place, generator)
+        with torch.no_grad():
+            run_ops(ops, env, ctx)
+        fetches = [env_get(env, n) for n in fetch_names]
+        new_mut = {n: env[n] for n in state_out_names if n in env}
+        return fetches, new_mut
+
+    step.ops = ops
+    step.blocker = capture_blocker(ops)
+    return step
+
+
+def _storage(t):
+    return t.untyped_storage().data_ptr()
+
+
+class CapturedStep:
+    """One call of a step, captured as a CUDA graph over static buffers
+    (`compile_step_fn` builds it).
+
+    The graph reads the scope's own persistable tensors at their addresses
+    and one feed buffer per feed, of fixed shape. At its end every written
+    persistable is copied in place (`copy_`) back into its scope tensor, so
+    the addresses the graph reads stay valid and the scope always holds the
+    current state, as the JAX package's donated buffers do. `run(feeds)`
+    copies a step's feeds into the buffers, replays the graph on the
+    current stream and returns the graph's own fetch tensors, which the
+    next replay overwrites.
+
+    A capture runs no Python at replay: each kernel wrapper's launch count
+    (cuda_build.launch_counts) moves during the capture although nothing
+    launches, so the capture's moves are undone and added again at every
+    replay."""
+
+    def __init__(self, step, scope, state_in, written, feeds, place,
+                 stream):
+        self.state = {n: scope.find_var(n) for n in state_in}
+        self.mut = {n: self.state[n] for n in written if n in self.state}
+        const = {n: t for n, t in self.state.items() if n not in self.mut}
+        self.feeds = {n: torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                      for n, t in feeds.items()}
+        self._load(feeds)
+        generator = torch.Generator(device=device_for(place))
+        static = {_storage(t) for t in self.state.values()}
+        self.graph = torch.cuda.CUDAGraph()
+        before = cuda_build.launch_counts()
+        with torch.cuda.graph(self.graph, stream=stream):
+            fetches, new_mut = step(self.mut, const, self.feeds, generator)
+            news = {}
+            for n, dst in self.mut.items():
+                new = new_mut.get(n, dst)
+                if new is dst:
+                    continue
+                if new.dtype != dst.dtype or new.shape != dst.shape:
+                    raise TypeError(
+                        f"persistable {n!r} would change from "
+                        f"{dst.dtype}{tuple(dst.shape)} to "
+                        f"{new.dtype}{tuple(new.shape)} in the scope")
+                # a new value that is (a view of) another static input is
+                # copied out first: the in-place copies would overwrite it
+                news[n] = new.clone() if _storage(new) in static else new
+            for n, new in news.items():
+                self.mut[n].copy_(new)
+        self.fetches = fetches
+        after = cuda_build.launch_counts()
+        cuda_build.set_launch_counts(before)
+        self.recorded = {k: n - before.get(k, 0) for k, n in after.items()
+                         if n != before.get(k, 0)}
+
+    def _load(self, feeds):
+        for n, buf in self.feeds.items():
+            t = feeds[n]
+            if t.shape != buf.shape or t.dtype != buf.dtype:
+                raise ValueError(
+                    f"feed {n!r} is {t.dtype}{tuple(t.shape)}; the captured "
+                    f"step takes {buf.dtype}{tuple(buf.shape)}")
+            buf.copy_(t)
+
+    def sync_scope(self, scope):
+        """Bring a tensor of `scope` (the capture's) that was replaced since
+        the capture (by load_numpy_state, an interpreter run, a user) into
+        the tensor the graph reads, and put that tensor back in the
+        scope."""
+        for n, t in self.state.items():
+            cur = scope.find_var(n)
+            if cur is not t:
+                if cur.shape != t.shape or cur.dtype != t.dtype:
+                    raise ValueError(
+                        f"scope var {n!r} is now {cur.dtype}"
+                        f"{tuple(cur.shape)}; the captured step holds "
+                        f"{t.dtype}{tuple(t.shape)}")
+                t.copy_(cur)
+                scope.set_var(n, t)
+
+    def run(self, feeds):
+        self._load(feeds)
+        self.graph.replay()
+        counts = cuda_build.launch_counts()
+        cuda_build.set_launch_counts(
+            {k: counts[k] + n for k, n in self.recorded.items()})
+        return self.fetches
+
+
+def compile_step_fn(step, scope, state_in, written, feeds, place, stream):
+    """Capture one call of `step` as a CUDA graph (counterpart of
+    paddle_tpu/core/executor_core.py::compile_step_fn): a `CapturedStep`
+    over the scope's persistables `state_in`, of which `written` are
+    written back in place, and static buffers shaped like `feeds`. The
+    capture runs on `stream`, where the caller has already run one step
+    eagerly (cuDNN plans, cuBLAS workspaces and autograd's device threads
+    exist only after a first run). A capture records and runs nothing; one
+    that fails raises."""
+    return CapturedStep(step, scope, state_in, written, feeds, place, stream)
+
+
+def build_multi_step_fn(run_step, iters):
+    """`iters` steps over a device-resident [iters, ...] feed stack
+    (counterpart of paddle_tpu/core/executor_core.py::build_multi_step_fn,
+    a lax.scan there):
+
+        multi(stacked_feeds) -> [fetch stacked [iters, ...], ...]
+
+    `run_step(feeds)` runs one step on step k's slice of the stack and
+    returns its fetch tensors; each is copied into a preallocated
+    [iters, ...] output before the next step. On the card a step is one
+    graph replay, and nothing here waits for the device."""
+
+    def multi(stacked_feeds):
+        outs = None
+        for k in range(iters):
+            fetches = run_step({n: t[k] for n, t in stacked_feeds.items()})
+            if outs is None:
+                outs = [torch.empty((iters,) + tuple(f.shape), dtype=f.dtype,
+                                    device=f.device) for f in fetches]
+            for o, f in zip(outs, fetches):
+                o[k].copy_(f)
+        return outs
+
+    return multi

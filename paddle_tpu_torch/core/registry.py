@@ -225,10 +225,14 @@ def make_vjp_kernel(fwd_def):
 
 
 # ---------------------------------------------------------------------------
-# Kernel-call wrapper used by the executor: SeqTensor auto-unwrap for
-# non-lod-aware kernels + LoD propagation (reference ShareLoD semantics).
+# Kernel-call wrapper used by the executor: the mixed-precision policy
+# (amp.py), SeqTensor auto-unwrap for non-lod-aware kernels + LoD
+# propagation (reference ShareLoD semantics).
 # ---------------------------------------------------------------------------
 def run_kernel(op_def, ctx, ins, attrs):
+    from .. import amp
+
+    ins = amp.apply_policy(op_def.type, ins)
     if op_def.lod_aware:
         return op_def.fn(ctx, ins, attrs)
     first_lengths = first_n = None

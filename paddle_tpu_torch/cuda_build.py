@@ -33,6 +33,27 @@ LD_FLAGS = ["-l:libstdc++.so.6"]
 _module = None
 # seconds the one load() of this process took (chip_smoke.py prints it)
 build_seconds = None
+# every kernel wrapper's launch counts, as (wrapper, attribute) pairs
+_counters = []
+
+
+def count_launches(wrapper, *attrs):
+    """Give `wrapper` the integer launch counts `attrs` (0 each) and list
+    them, so that code which runs the wrappers without launching, as a CUDA
+    graph capture does, can read and restore them (`launch_counts`)."""
+    for attr in attrs:
+        setattr(wrapper, attr, 0)
+        _counters.append((wrapper, attr))
+
+
+def launch_counts():
+    """{(wrapper, attribute): count} of every listed launch count."""
+    return {(w, a): getattr(w, a) for w, a in _counters}
+
+
+def set_launch_counts(counts):
+    for (wrapper, attr), n in counts.items():
+        setattr(wrapper, attr, n)
 
 
 def sources():

@@ -67,7 +67,7 @@ def momentum_bucket(p, g, v, lr, mu, nesterov):
     return momentum_bucket_plain(p, g, v, lr, mu, nesterov)
 
 
-momentum_bucket.launches = 0
+cuda_build.count_launches(momentum_bucket, "launches")
 
 
 # ---------------------------------------------------------------------------
@@ -102,7 +102,7 @@ def adam_bucket(p, g, m1, m2, lr_t, b1, b2, eps):
     return adam_bucket_plain(p, g, m1, m2, lr_t, b1, b2, eps)
 
 
-adam_bucket.launches = 0
+cuda_build.count_launches(adam_bucket, "launches")
 
 
 def reset_launch_counts():

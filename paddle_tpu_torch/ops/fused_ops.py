@@ -25,7 +25,12 @@ Two families:
   An adam or momentum bucket goes to fusion.kernels: the hand-written
   CUDA kernel when the bucket lives on a CUDA device (no fallback: the
   kernel runs or the step raises — it takes f32 only), its plain torch
-  twin when it lives on the CPU.
+  twin when it lives on the CPU. The fused updates are in neither amp
+  list, so under bf16 AMP a bucket's gradients arrive in bf16 (conv and
+  mul grads) or as a bf16/f32 mix that torch.cat promotes; the packed
+  gradient is cast to the parameters' dtype first. bf16 -> f32 is exact,
+  so this is the JAX package's promoted `mu * v + g` arithmetic, and the
+  kernel never sees a bf16 lane.
 """
 
 import torch
@@ -85,7 +90,8 @@ def fused_sgd_update_op(ctx, ins, attrs):
 def fused_momentum_update_op(ctx, ins, attrs):
     ps, gs, vs = many(ins, "Param"), many(ins, "Grad"), many(ins, "Velocity")
     rows = int(attrs.get("shard_rows", 0))
-    p, g, v = _pack(ps, rows), _pack(gs, rows), _pack(vs, rows)
+    p, v = _pack(ps, rows), _pack(vs, rows)
+    g = _pack(gs, rows).to(p.dtype)
     lr = first(ins, "LearningRate").reshape(()).to(p.dtype)
     mu = attrs["mu"]
     nesterov = bool(attrs.get("use_nesterov", False))
@@ -101,7 +107,8 @@ def fused_adam_update_op(ctx, ins, attrs):
     ps, gs = many(ins, "Param"), many(ins, "Grad")
     m1s, m2s = many(ins, "Moment1"), many(ins, "Moment2")
     rows = int(attrs.get("shard_rows", 0))
-    p, g = _pack(ps, rows), _pack(gs, rows)
+    p = _pack(ps, rows)
+    g = _pack(gs, rows).to(p.dtype)
     m1, m2 = _pack(m1s, rows), _pack(m2s, rows)
     lr = first(ins, "LearningRate").reshape(()).to(torch.float32)
     b1p = first(ins, "Beta1Pow").reshape(()).to(torch.float32)

@@ -128,7 +128,7 @@ def split_tf32(k, v):
     return parts
 
 
-split_tf32.launches = 0
+cuda_build.count_launches(split_tf32, "launches")
 
 
 def _check(q, k, v):
@@ -193,9 +193,10 @@ def flash_fwd(q, k, v, scale, causal):
     return flash_fwd_plain(q, k, v, scale, causal)
 
 
-flash_fwd.launches = 0       # every kernel launch
-flash_fwd.sm90_launches = 0  # of which the bf16 kernel's
-flash_fwd.tf32_launches = 0  # and the f32 (3xTF32) kernel's
+# every kernel launch; of which the bf16 kernel's; and the f32 (3xTF32)
+# kernel's
+cuda_build.count_launches(flash_fwd, "launches", "sm90_launches",
+                          "tf32_launches")
 
 
 def reset_launch_counts():
