@@ -9,14 +9,16 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 HGMMA and UTMALDG instructions in the SASS (cuobjdump) of
                 both flash kernels, which must not be 0, and print the
                 HGMMA forms (the f32 kernel's must be .TF32)
-  3. plan     — build the ResNet-50 and README MLP training programs and
-                their fusion plans
+  3. plan     — build the ResNet-50, README MLP, SE-ResNeXt-50, VGG-16 and
+                MNIST conv net training programs and their fusion plans
   4. kernels  — each hand-written kernel, through its wrapper, against its
                 plain torch twin on the card, bitwise, at n in {1, 17, 1029,
-                4194307} and at every bucket size of both plans; then timed
-                over the buckets one step of its path updates, beside the
-                plain twin, PyTorch's closest fused optimizer call, the bytes
-                bound and the card's device-to-device copy rate: from a CUDA
+                4194307} and at every bucket size of every plan (ResNet-50,
+                SE-ResNeXt-50; the MLP, VGG-16, the MNIST conv net); then
+                timed over the buckets one step of each path updates,
+                beside the plain twin, PyTorch's closest fused optimizer
+                call, the bytes bound and the card's device-to-device copy
+                rate: from a CUDA
                 graph of one step's launches over enough rotating copies of
                 the buckets to exceed the L2 cache, replayed 100 times
                 between one pair of events (no host time between launches),
@@ -45,11 +47,28 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 momentum kernel's rows); graph vs interpreter from the same
                 state for 3 steps at batch 32 (cuDNN deterministic on both
                 sides), bitwise; every persistable f32 after the AMP steps
-  7. adam     — the README MLP (784-200-10) with Adam 1e-3 and FLAGS_fuse=1,
-                30 steps on y = argmax(x @ W); the adam kernel must run
-  8. parity   — a small ResNet trained 2 steps on the card and on the host
+  7. se_resnext50, vgg16 — the benchmark/fluid image configs as their
+                get_model declares them (float32 NCHW 224x224, int64 labels,
+                the accuracy op): SE-ResNeXt-50 (1000 classes, Momentum(0.01,
+                0.9), dropout 0.2 before the classifier) and VGG-16
+                (vgg16_bn_drop + fc(102, softmax), Adam(1e-3), ten dropout
+                ops), each FLAGS_fuse=1 under bf16 AMP, batch 64,
+                Executor.run(iters=10) over a seeded feed stack made on the
+                card, 1 warm + 3 timed calls through the captured step,
+                fetching the loss and the last dropout's mask: img/s, peak
+                memory, launches = buckets x steps, every step's mask keeps
+                1 - p within 0.01 and differs from the step before, f32
+                master state; one replayed step traced (idle share, top-10
+                in chiprun_out/); graph vs interpreter over 3 steps at batch
+                32 bitwise, masks included (cuDNN deterministic)
+  8. adam     — the README MLP (784-200-10, Adam 1e-3) and the MNIST conv
+                net (cnn_model, Adam(1e-3, 0.9, 0.999)), FLAGS_fuse=1, batch
+                128, 30 steps each on y = argmax(x @ W) through the
+                captured step: the loss must fall and the adam kernel cover
+                every bucket of every step
+  9. parity   — a small ResNet trained 2 steps on the card and on the host
                 from the same weights must agree, in fp32 and under bf16 AMP
-  9. flash    — the flash-attention kernels (both wgmma fed by TMA; f32
+ 10. flash    — the flash-attention kernels (both wgmma fed by TMA; f32
                 in 3xTF32 split products after its split prologue) against
                 their plain torch version on the card, causal and not, at
                 the CPU tests' shapes, the tiles' edges (129 q rows over
@@ -66,7 +85,8 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 timed beside the plain version and torch's
                 scaled_dot_product_attention, and the split prologue beside
                 its plain twin
-Then one JSON line of per-kernel numbers, and as the last line
+Then one JSON line of the paths' numbers, one of per-kernel numbers (launches
+on every path that runs the kernel), and as the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -101,6 +121,19 @@ HEADLINE_WARM = 2
 HEADLINE_CALLS = 5
 # host vs card losses under bf16 AMP: five bf16 ulps (5 x 2^-8)
 PARITY_AMP_RTOL = 2e-2
+# SE-ResNeXt-50 and VGG-16 under bf16 AMP: batch 64, iters=10 a call,
+# 1 warm + 3 timed calls; the README MLP and the MNIST conv net: batch
+# 128, 30 single steps
+IMAGE_BATCH = 64
+IMAGE_K = 10
+IMAGE_WARM = 1
+IMAGE_CALLS = 3
+ADAM_BATCH = 128
+ADAM_STEPS = 30
+# a fetched dropout mask keeps 1 - p of its elements within this: the
+# smallest mask checked holds 64 x 512 elements, whose keep fraction's
+# standard deviation at p = 0.5 is 2.8e-3
+KEEP_TOL = 0.01
 
 SEED = 20261016
 BATCH = 32
@@ -261,17 +294,22 @@ def _step_lanes(numels, k, gen):
     return [list(kind) for kind in zip(*sets)]
 
 
-def phase_kernels(momentum_numels, adam_numels):
+def phase_kernels(paths):
     """Each kernel against its plain twin at the fixed sizes and at every
-    bucket size of the two paths' fusion plans, then each timed over the
-    buckets one step of its path updates."""
+    bucket size of every path's fusion plan, then timed over the buckets
+    one step of each path updates. `paths`: {kernel: {path: bucket
+    numels}}, the row's own path first (ResNet-50's momentum buckets, the
+    headline's; VGG-16's adam buckets, the adam kernel's largest)."""
     from paddle_tpu_torch.fusion import kernels as fk
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     lr = torch.full((), 0.01, device="cuda")
     lr_t = torch.full((), 3.3e-4, device="cuda")
     err = {"momentum_bucket": 0.0, "adam_bucket": 0.0}
-    sizes = sorted(set(SIZES) | set(momentum_numels) | set(adam_numels))
+    buckets = {name: sorted({n for numels in by_path.values() for n in numels})
+               for name, by_path in paths.items()}
+    sizes = sorted(set(SIZES) | set(buckets["momentum_bucket"])
+                   | set(buckets["adam_bucket"]))
     for n in sizes:
         p, g, v = _lanes(n, 3, gen)
         for nesterov in (False, True):
@@ -284,8 +322,10 @@ def phase_kernels(momentum_numels, adam_numels):
                  fk.adam_bucket(p, g, m1, m2, lr_t, 0.9, 0.999, 1e-8),
                  fk.adam_bucket_plain(p, g, m1, m2, lr_t, 0.9, 0.999, 1e-8),
                  err, f"n={n}")
+        del p, g, v, m1, m2
     torch.cuda.synchronize()
-    log(f"[kernels] bitwise equal to the plain twins at n in {sizes}")
+    log(f"[kernels] bitwise equal to the plain twins at n in {sizes} "
+        f"(every bucket size: {buckets})")
 
     # the card's achieved copy rate: one 1 GiB device-to-device copy
     # reads and writes 2 GiB
@@ -296,70 +336,12 @@ def phase_kernels(momentum_numels, adam_numels):
     del src, dst
     log(f"[kernels] device-to-device copy: {copy_gb_per_s:.0f} GB/s")
 
-    # times over one step's buckets: ResNet-50's momentum buckets, the
-    # MLP's adam bucket, each on rotating copies that together exceed the
-    # L2 cache (the step finds its buckets in HBM)
     rows = []
-    for name, numels, bpe, fpe in (("momentum_bucket", momentum_numels, 20, 4),
-                                   ("adam_bucket", adam_numels, 28, 12)):
-        n = sum(numels)
-        sets = max(1, -(-2 * L2_BYTES // (bpe * n)))
-        if name == "momentum_bucket":
-            lanes = [_step_lanes(numels, 3, gen) for _ in range(sets)]
-
-            def kern(lanes=lanes):
-                return [fk.momentum_bucket(p, g, v, lr, 0.9, False)
-                        for ps, gs, vs in lanes for p, g, v in zip(ps, gs, vs)]
-
-            def plain(lanes=lanes):
-                return [fk.momentum_bucket_plain(p, g, v, lr, 0.9, False)
-                        for ps, gs, vs in lanes for p, g, v in zip(ps, gs, vs)]
-
-            def lib(lanes=lanes):
-                for ps, gs, vs in lanes:
-                    torch._fused_sgd_(
-                        ps, gs, vs, weight_decay=0.0, momentum=0.9, lr=0.01,
-                        dampening=0.0, nesterov=False, maximize=False,
-                        is_first_step=False)
-        else:
-            lanes = []
-            for _ in range(sets):
-                qs, hs, m1s, m2s = _step_lanes(numels, 4, gen)
-                lanes.append((qs, hs, m1s, [m.abs() for m in m2s]))
-            step = torch.ones((), device="cuda")
-
-            def kern(lanes=lanes):
-                return [fk.adam_bucket(p, g, m1, m2, lr_t, 0.9, 0.999, 1e-8)
-                        for qs, hs, m1s, m2s in lanes
-                        for p, g, m1, m2 in zip(qs, hs, m1s, m2s)]
-
-            def plain(lanes=lanes):
-                return [fk.adam_bucket_plain(p, g, m1, m2, lr_t, 0.9, 0.999,
-                                             1e-8)
-                        for qs, hs, m1s, m2s in lanes
-                        for p, g, m1, m2 in zip(qs, hs, m1s, m2s)]
-
-            def lib(lanes=lanes, step=step):
-                for qs, hs, m1s, m2s in lanes:
-                    torch._fused_adam_(
-                        qs, hs, m1s, m2s, [], [step] * len(qs), lr=1e-3,
-                        beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8,
-                        amsgrad=False, maximize=False)
-
-        def first(fn, lanes=lanes):  # one step's buckets, one set
-            only = lanes[:1]
-            return lambda: fn(lanes=only)
-
-        # back to back: a graph of `sets` steps' launches, replayed
-        ms = _graph_ms(kern) / sets
-        plain_ms = _graph_ms(plain) / sets
-        # the library call updates its lists in place: time it last
-        library_ms = _graph_ms(lib) / sets
-        # one wrapper call between two events, as timed before
-        single = {"single_call_ms": _time_ms(first(kern)),
-                  "single_call_plain_ms": _time_ms(first(plain)),
-                  "single_call_library_ms": _time_ms(first(lib))}
-        bytes_s, ops_s = bpe * n / HBM_BYTES_PER_S, fpe * n / FP32_FLOPS
+    for name, by_path in paths.items():
+        timed = {path: _time_buckets(name, numels, gen, lr, lr_t,
+                                     copy_gb_per_s)
+                 for path, numels in by_path.items()}
+        own = timed[next(iter(by_path))]
         rows.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/fused_update.cu",
@@ -367,26 +349,96 @@ def phase_kernels(momentum_numels, adam_numels):
                          if name == "momentum_bucket"
                          else "paddle_tpu/fusion/kernels.py:108"),
             "launches": None, "max_abs_err": err[name],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_s, ops_s)
-            * 1e3, "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-            "library_ms": library_ms, **single, "numels": list(numels),
-            "rotating_sets": sets, "graph_replays": GRAPH_REPLAYS,
-            "bytes": bpe * n, "gb_per_s": bpe * n / (ms * 1e-3) / 1e9,
-            "copy_bound_ms": bpe * n / (copy_gb_per_s * 1e9) * 1e3,
-        })
-        r = rows[-1]
-        log(f"[kernels] {name}, one step's {len(numels)} bucket(s) of "
-            f"{list(numels)}, back to back ({sets} rotating set(s) x "
-            f"{GRAPH_REPLAYS} graph replays): {ms:.4f} ms "
-            f"({r['bytes'] / 1e6:.1f} MB, {r['gb_per_s']:.0f} GB/s); plain "
-            f"{plain_ms:.4f} ms; torch fused {library_ms:.4f} ms; bound "
-            f"{r['bound_ms']:.4f} ms (at the copy rate "
-            f"{r['copy_bound_ms']:.4f} ms); one wrapper call between two "
-            f"events {single['single_call_ms']:.4f} ms (plain "
-            f"{single['single_call_plain_ms']:.4f}, torch fused "
-            f"{single['single_call_library_ms']:.4f})")
-        del lanes
+            **{k: own[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+            "timed_on": next(iter(by_path)), "paths": timed})
     return rows
+
+
+def _time_buckets(name, numels, gen, lr, lr_t, copy_gb_per_s):
+    """The kernel over one step's buckets `numels`, on rotating copies that
+    together exceed the L2 cache (the step finds its buckets in HBM):
+    back to back from a CUDA graph, beside its plain twin, PyTorch's
+    closest fused optimizer call and the bytes bound; and one wrapper call
+    between two events."""
+    from paddle_tpu_torch.fusion import kernels as fk
+
+    bpe, fpe = (20, 4) if name == "momentum_bucket" else (28, 12)
+    n = sum(numels)
+    sets = max(1, -(-2 * L2_BYTES // (bpe * n)))
+    if name == "momentum_bucket":
+        lanes = [_step_lanes(numels, 3, gen) for _ in range(sets)]
+
+        def kern(lanes=lanes):
+            return [fk.momentum_bucket(p, g, v, lr, 0.9, False)
+                    for ps, gs, vs in lanes for p, g, v in zip(ps, gs, vs)]
+
+        def plain(lanes=lanes):
+            return [fk.momentum_bucket_plain(p, g, v, lr, 0.9, False)
+                    for ps, gs, vs in lanes for p, g, v in zip(ps, gs, vs)]
+
+        def lib(lanes=lanes):
+            for ps, gs, vs in lanes:
+                torch._fused_sgd_(
+                    ps, gs, vs, weight_decay=0.0, momentum=0.9, lr=0.01,
+                    dampening=0.0, nesterov=False, maximize=False,
+                    is_first_step=False)
+    else:
+        lanes = []
+        for _ in range(sets):
+            qs, hs, m1s, m2s = _step_lanes(numels, 4, gen)
+            lanes.append((qs, hs, m1s, [m.abs() for m in m2s]))
+        step = torch.ones((), device="cuda")
+
+        def kern(lanes=lanes):
+            return [fk.adam_bucket(p, g, m1, m2, lr_t, 0.9, 0.999, 1e-8)
+                    for qs, hs, m1s, m2s in lanes
+                    for p, g, m1, m2 in zip(qs, hs, m1s, m2s)]
+
+        def plain(lanes=lanes):
+            return [fk.adam_bucket_plain(p, g, m1, m2, lr_t, 0.9, 0.999, 1e-8)
+                    for qs, hs, m1s, m2s in lanes
+                    for p, g, m1, m2 in zip(qs, hs, m1s, m2s)]
+
+        def lib(lanes=lanes, step=step):
+            for qs, hs, m1s, m2s in lanes:
+                torch._fused_adam_(
+                    qs, hs, m1s, m2s, [], [step] * len(qs), lr=1e-3,
+                    beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8,
+                    amsgrad=False, maximize=False)
+
+    def first(fn):  # one step's buckets, one set
+        return lambda: fn(lanes=lanes[:1])
+
+    # back to back: a graph of `sets` steps' launches, replayed
+    ms = _graph_ms(kern) / sets
+    plain_ms = _graph_ms(plain) / sets
+    # the library call updates its lists in place: time it last
+    library_ms = _graph_ms(lib) / sets
+    # one wrapper call between two events, as timed before
+    single = {"single_call_ms": _time_ms(first(kern)),
+              "single_call_plain_ms": _time_ms(first(plain)),
+              "single_call_library_ms": _time_ms(first(lib))}
+    bytes_s, ops_s = bpe * n / HBM_BYTES_PER_S, fpe * n / FP32_FLOPS
+    r = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+         "bound_ms": max(bytes_s, ops_s) * 1e3,
+         "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+         **single, "numels": list(numels), "rotating_sets": sets,
+         "graph_replays": GRAPH_REPLAYS, "bytes": bpe * n,
+         "gb_per_s": bpe * n / (ms * 1e-3) / 1e9,
+         "copy_bound_ms": bpe * n / (copy_gb_per_s * 1e9) * 1e3}
+    log(f"[kernels] {name}, one step's {len(numels)} bucket(s) of "
+        f"{list(numels)}, back to back ({sets} rotating set(s) x "
+        f"{GRAPH_REPLAYS} graph replays): {ms:.4f} ms "
+        f"({r['bytes'] / 1e6:.1f} MB, {r['gb_per_s']:.0f} GB/s, "
+        f"{r['bound_ms'] / ms:.3f} of the bound); plain {plain_ms:.4f} ms; "
+        f"torch fused {library_ms:.4f} ms; bound {r['bound_ms']:.4f} ms (at "
+        f"the copy rate {r['copy_bound_ms']:.4f} ms); one wrapper call "
+        f"between two events {single['single_call_ms']:.4f} ms (plain "
+        f"{single['single_call_plain_ms']:.4f}, torch fused "
+        f"{single['single_call_library_ms']:.4f})")
+    del lanes, kern, plain, lib
+    return r
 
 
 def _graph_ms(fn):
@@ -503,7 +555,7 @@ def _drive_resnet(main, loss, buckets, scope, x, y, mode, card):
             f"{BATCH / warm * 1e3:.1f} img/s; iters=4 call "
             f"{iters_ms:.1f} ms = {4 * BATCH / iters_ms * 1e3:.1f} img/s; "
             f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        profile_step(exe, main, {"data": x, "label": y}, loss, warm,
+        profile_step(exe, main, {"data": x, "label": y}, [loss], warm,
                      f"resnet50_{mode}")
     return launches
 
@@ -515,24 +567,30 @@ def _device_ms(prof):
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
 
 
-def trace_step(exe, main, feed, loss):
+def trace_step(exe, main, feed, fetch, kernel="momentum_kernel"):
     """One step traced on the card only, which adds little host time:
-    (wall ms, device busy ms, idle share, momentum_kernel rows)."""
+    (wall ms, device busy ms, idle share, rows of `kernel`, device ms of
+    the random draws: torch's distribution kernels, behind dropout's
+    masks). `fetch` is the fetch list the step was prepared (and
+    captured) with."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        exe.run(main, feed=feed, fetch_list=[loss])
+        exe.run(main, feed=feed, fetch_list=fetch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms = _device_ms(prof)
-    rows = sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and "momentum_kernel" in e.key)
-    return wall_ms, busy_ms, 1 - busy_ms / wall_ms, rows
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = sum(e.count for e in device if kernel in e.key)
+    draw_ms = sum(e.self_device_time_total for e in device
+                  if "distribution" in e.key) / 1e3
+    return wall_ms, busy_ms, 1 - busy_ms / wall_ms, rows, draw_ms
 
 
-def profile_step(exe, main, feed, loss, warm_ms, name):
+def profile_step(exe, main, feed, fetch, warm_ms, name,
+                 kernel="momentum_kernel"):
     """Two more steps under torch.profiler. The first traces the card only:
     its wall and device-busy time give the device idle share of one step
     (returned as trace_step returns them). The second also records the
@@ -540,17 +598,17 @@ def profile_step(exe, main, feed, loss, warm_ms, name):
     (chiprun_out/<name>_profile.txt)."""
     from torch.profiler import ProfilerActivity, profile
 
-    card = trace_step(exe, main, feed, loss)
-    wall_ms, busy_ms, idle, rows = card
+    card = trace_step(exe, main, feed, fetch, kernel)
+    wall_ms, busy_ms, idle, rows, draw_ms = card
     log(f"[profile] {name}: step traced on the card only: wall "
         f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
         f"{idle:.3f}, host time not covered by the card "
         f"{wall_ms - busy_ms:.2f} ms (untraced warm median {warm_ms:.2f} "
-        f"ms); momentum_kernel rows {rows}")
+        f"ms); {kernel} rows {rows}; random draws {draw_ms:.3f} ms")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        exe.run(main, feed=feed, fetch_list=[loss])
+        exe.run(main, feed=feed, fetch_list=fetch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
@@ -601,20 +659,25 @@ def _fence(out):
     return float(out.reshape(-1)[-1].item())
 
 
-def _timed_calls(exe, main, feeds, loss, iters, warm, calls):
+def _timed_calls(exe, main, feeds, fetch, iters, warm, calls):
     """`warm` untimed then `calls` timed exe.run(iters=...) calls; the host
-    clock runs from the first timed dispatch to one scalar fetch
-    (bench.py:159-179). Returns (seconds, last losses [iters])."""
+    clock runs from the first timed dispatch to one scalar fetch of the
+    loss, fetch[0] (bench.py:159-179). Returns (seconds, the last call's
+    fetches as tensors [iters, ...])."""
     for _ in range(warm):
-        (out,) = exe.run(main, feed=feeds, fetch_list=[loss], iters=iters,
-                         return_numpy=False)
-        _fence(out)
+        outs = exe.run(main, feed=feeds, fetch_list=fetch, iters=iters,
+                       return_numpy=False)
+        _fence(outs[0])
     t0 = time.perf_counter()
     for _ in range(calls):
-        (out,) = exe.run(main, feed=feeds, fetch_list=[loss], iters=iters,
-                         return_numpy=False)
-    _fence(out)
-    return time.perf_counter() - t0, out.reshape(-1).float().cpu().numpy()
+        outs = exe.run(main, feed=feeds, fetch_list=fetch, iters=iters,
+                       return_numpy=False)
+    _fence(outs[0])
+    return time.perf_counter() - t0, outs
+
+
+def _losses(out):
+    return out.reshape(-1).float().cpu().numpy()
 
 
 def phase_headline(card):
@@ -656,8 +719,9 @@ def phase_headline(card):
             torch.cuda.reset_peak_memory_stats()
             fk.reset_launch_counts()
             with fluid.scope_guard(scope):
-                dt, lv = _timed_calls(exe, main, feeds, loss, HEADLINE_K,
-                                      HEADLINE_WARM, HEADLINE_CALLS)
+                dt, outs = _timed_calls(exe, main, feeds, [loss], HEADLINE_K,
+                                        HEADLINE_WARM, HEADLINE_CALLS)
+                lv = _losses(outs[0])
                 torch.cuda.synchronize()
                 launches = fk.momentum_bucket.launches
                 steps = (HEADLINE_WARM + HEADLINE_CALLS) * HEADLINE_K
@@ -687,8 +751,8 @@ def phase_headline(card):
                     f"launches {launches} ({len(buckets)} buckets x {steps} "
                     f"steps); last losses {result['last_losses']}")
                 step0 = {n: t[0] for n, t in feeds.items()}
-                wall, busy, idle, rows = profile_step(
-                    exe, main, step0, loss, result["step_ms"],
+                wall, busy, idle, rows, _ = profile_step(
+                    exe, main, step0, [loss], result["step_ms"],
                     "headline_graph")
                 result.update(graph_trace_wall_ms=wall,
                               graph_trace_busy_ms=busy, graph_idle_share=idle,
@@ -710,7 +774,8 @@ def phase_headline(card):
             four = {n: t[:4] for n, t in feeds.items()}
             torch.cuda.reset_peak_memory_stats()
             with fluid.scope_guard(scope), flags.flag_guard(cuda_graph=False):
-                dt, lv = _timed_calls(exe, main, four, loss, 4, 1, 1)
+                dt, outs = _timed_calls(exe, main, four, [loss], 4, 1, 1)
+                lv = _losses(outs[0])
                 if exe.step_mode(main) != "interpreter":
                     raise AssertionError("the interpreter run was captured")
                 if not np.all(np.isfinite(lv)):
@@ -722,8 +787,8 @@ def phase_headline(card):
                     interpreter_peak_mem_gib=torch.cuda.max_memory_allocated()
                     / 2 ** 30)
                 step0 = {n: t[0] for n, t in feeds.items()}
-                wall, busy, idle, rows = profile_step(
-                    exe, main, step0, loss, result["interpreter_step_ms"],
+                wall, busy, idle, rows, _ = profile_step(
+                    exe, main, step0, [loss], result["interpreter_step_ms"],
                     "headline_interpreter")
                 result.update(interpreter_trace_wall_ms=wall,
                               interpreter_trace_busy_ms=busy,
@@ -737,7 +802,10 @@ def phase_headline(card):
                     f"momentum_kernel rows {rows}")
             del exe, scope
             _release()
-            result["bitwise"] = _graph_vs_interpreter(main, loss, init, feeds)
+            result["bitwise"] = _graph_vs_interpreter(
+                "headline", main, [loss], init,
+                [{n: t[k, :BATCH] for n, t in feeds.items()}
+                 for k in range(3)])
     finally:
         amp.disable()
     return result
@@ -754,16 +822,16 @@ def _check_master_state(scope):
         raise AssertionError(f"persistables not f32 on the card: {bad[:5]}")
 
 
-def _graph_vs_interpreter(main, loss, init, feeds):
-    """3 steps at batch 32 from the same state through the captured step
-    and through the interpreter, cuDNN deterministic on both sides: losses
-    and every persistable (params, velocities, running stats) bitwise; a
-    difference is printed by var with its size and then held to rtol
-    1e-6."""
+def _graph_vs_interpreter(tag, main, fetch, init, batches):
+    """The steps of `batches` from the same state through the captured step
+    and through the interpreter, cuDNN deterministic on both sides: every
+    fetch (the loss first; a dropout mask, drawn on both paths from the
+    program's random stream) and every persistable (params, velocities,
+    moments, running stats) bitwise; a difference is printed by var with
+    its size and then held to rtol 1e-6."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import convert, flags
 
-    batches = [{n: t[k, :BATCH] for n, t in feeds.items()} for k in range(3)]
     place = fluid.CUDAPlace(0)
     out = {}
     prev = torch.backends.cudnn.deterministic
@@ -775,28 +843,35 @@ def _graph_vs_interpreter(main, loss, init, feeds):
             exe = fluid.Executor()
             with fluid.scope_guard(scope), \
                     flags.flag_guard(cuda_graph=mode == "graph"):
-                losses = [exe.run(main, feed=b, fetch_list=[loss])[0]
-                          for b in batches]
+                fetched = [exe.run(main, feed=b, fetch_list=fetch)
+                           for b in batches]
                 if exe.step_mode(main) != mode:
                     raise AssertionError(f"bitwise check ran {mode} as "
                                          f"{exe.step_mode(main)}")
-            out[mode] = (np.stack(losses).reshape(-1),
+            out[mode] = ([np.stack([f[i] for f in fetched])
+                          for i in range(len(fetch))],
                          convert.numpy_state(scope, main))
             del exe, scope
             _release()
     finally:
         torch.backends.cudnn.deterministic = prev
-    (gl, gs), (il, ist) = out["graph"], out["interpreter"]
+    (gf, gs), (inf, ist) = out["graph"], out["interpreter"]
+    gl, il = gf[0].reshape(-1), inf[0].reshape(-1)
     diff = {n: float(np.abs(gs[n].astype(np.float64) - ist[n]).max())
             for n in ist if not np.array_equal(gs[n], ist[n])}
-    equal = np.array_equal(gl, il) and not diff
-    log(f"[headline] graph vs interpreter, 3 steps at batch {BATCH} from one "
-        f"state (cuDNN deterministic): losses {gl.tolist()} / {il.tolist()}; "
-        f"{'bitwise equal' if equal else 'DIFFER'} over {len(ist)} "
-        f"persistables" + ("" if equal else f": {len(diff)} differ, largest "
-                           f"{sorted(diff.items(), key=lambda kv: -kv[1])[:5]}"))
+    fetch_equal = all(np.array_equal(g, i) for g, i in zip(gf, inf))
+    equal = fetch_equal and not diff
+    batch = next(iter(batches[0].values())).shape[0]
+    log(f"[{tag}] graph vs interpreter, {len(batches)} steps at batch {batch} "
+        f"from one state (cuDNN deterministic): losses {gl.tolist()} / "
+        f"{il.tolist()}; {'bitwise equal' if equal else 'DIFFER'} over "
+        f"{len(fetch)} fetches and {len(ist)} persistables"
+        + ("" if equal else f": fetches equal {fetch_equal}, {len(diff)} "
+           f"persistables differ, largest "
+           f"{sorted(diff.items(), key=lambda kv: -kv[1])[:5]}"))
     if not equal:
-        np.testing.assert_allclose(gl, il, rtol=1e-6)
+        for g, i in zip(gf, inf):
+            np.testing.assert_allclose(g, i, rtol=1e-6)
         for n in ist:
             np.testing.assert_allclose(gs[n], ist[n], rtol=1e-6, err_msg=n)
     return {"equal": equal, "losses": gl.tolist(), "n_differ": len(diff)}
@@ -826,17 +901,20 @@ def build_mlp():
     return main, startup, loss, buckets
 
 
-def phase_adam(main, startup, loss, buckets):
-    """30 fused Adam steps on y = argmax(x @ W): the loss must fall and
-    the adam kernel must cover every bucket of every step."""
+def phase_adam(name, main, startup, loss, buckets, shape):
+    """ADAM_STEPS fused Adam steps at batch ADAM_BATCH on y = argmax(x @ W)
+    (x [ADAM_BATCH] + shape, 784 features) through the captured step: the
+    loss must fall and the adam kernel must cover every bucket of every
+    step. Returns the kernel's launches."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import flags
     from paddle_tpu_torch.fusion import kernels as fk
 
     rs = np.random.RandomState(SEED)
     w_fixed = rs.randn(784, 10).astype(np.float32)
-    x = rs.rand(128, 784).astype(np.float32)
-    y = np.argmax(x @ w_fixed, axis=1).reshape(-1, 1).astype(np.int64)
+    x = rs.rand(ADAM_BATCH, *shape).astype(np.float32)
+    y = np.argmax(x.reshape(ADAM_BATCH, -1) @ w_fixed, axis=1).reshape(
+        -1, 1).astype(np.int64)
     exe = fluid.Executor(fluid.CUDAPlace(0))
     with fluid.scope_guard(fluid.Scope()), flags.flag_guard(fuse=True):
         exe.run(startup)
@@ -844,16 +922,196 @@ def phase_adam(main, startup, loss, buckets):
         fk.reset_launch_counts()
         losses = [float(exe.run(main, feed={"img": x, "label": y},
                                 fetch_list=[loss])[0].reshape(-1)[0])
-                  for _ in range(30)]
+                  for _ in range(ADAM_STEPS)]
         launches = fk.adam_bucket.launches
-    log(f"[adam] loss {losses[0]:.4f} -> {losses[-1]:.4f}; adam_bucket "
-        f"launches {launches}")
+        mode = exe.step_mode(main)
+    log(f"[adam] {name}: {ADAM_STEPS} steps ({mode}), loss {losses[0]:.4f} "
+        f"-> {losses[-1]:.4f}; adam_bucket launches {launches} "
+        f"({len(buckets)} bucket(s) of {[b['numel'] for b in buckets]})")
+    if mode != "graph":
+        raise AssertionError(f"{name} ran as {mode!r}")
     if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
-        raise AssertionError(f"adam MLP loss did not fall: {losses}")
-    if launches < 30 * len(buckets):
-        raise AssertionError(f"adam kernel launched {launches} times in 30 "
-                             f"steps of {len(buckets)} bucket(s)")
+        raise AssertionError(f"{name} loss did not fall: {losses}")
+    if launches != ADAM_STEPS * len(buckets):
+        raise AssertionError(f"adam kernel launched {launches} times in "
+                             f"{ADAM_STEPS} steps of {len(buckets)} "
+                             f"bucket(s)")
     return launches
+
+
+def build_image_model(model):
+    """One of the benchmark/fluid image configs built with the port, as its
+    get_model declares it: float32 NCHW input, int64 labels, and the
+    accuracy op; with its fusion plan's buckets and its last dropout's mask
+    (None without dropout).
+      se_resnext50: se_resnext(depth=50, 1000 classes) on 224x224,
+                    Momentum(0.01, 0.9);
+      vgg16:        vgg16_bn_drop + fc(102, softmax) on 224x224, Adam(1e-3);
+      mnist_cnn:    cnn_model on 1x28x28, Adam(1e-3, 0.9, 0.999)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import fusion
+    from paddle_tpu_torch.models import mnist, se_resnext, vgg
+
+    shape = [1, 28, 28] if model == "mnist_cnn" else [3, 224, 224]
+    classes = {"se_resnext50": 1000, "vgg16": 102, "mnist_cnn": 10}[model]
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.layers.data(name="img", shape=shape, dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        if model == "se_resnext50":
+            probs = se_resnext.se_resnext(img, classes, depth=50)
+            opt = fluid.optimizer.Momentum(learning_rate=0.01, momentum=0.9)
+        elif model == "vgg16":
+            probs = fluid.layers.fc(input=vgg.vgg16_bn_drop(img),
+                                    size=classes, act="softmax")
+            opt = fluid.optimizer.Adam(learning_rate=1e-3)
+        else:
+            probs = mnist.cnn_model(img)
+            opt = fluid.optimizer.AdamOptimizer(learning_rate=1e-3,
+                                                beta1=0.9, beta2=0.999)
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(input=probs,
+                                                             label=label))
+        fluid.layers.accuracy(input=probs, label=label)
+        opt.minimize(loss)
+    main.random_seed = startup.random_seed = SEED
+    _, plan = fusion.apply(main, feed_names=["img", "label"],
+                           fetch_names=[loss.name])
+    kind = "momentum" if model == "se_resnext50" else "adam"
+    buckets = [b for b in plan.buckets if b["opt"] == kind]
+    drops = [op for op in main.global_block().ops if op.type == "dropout"]
+    n_params = sum(int(np.prod(p.shape))
+                   for p in main.global_block().all_parameters())
+    log(f"[plan] {model}: {n_params} parameters; {len(buckets)} fused {kind} "
+        f"buckets of {[b['numel'] for b in buckets]} elements "
+        f"({sum(b['numel'] for b in buckets)} in all); ops "
+        f"{plan.n_ops_before} -> {plan.n_ops_after}; {len(drops)} dropout "
+        f"ops")
+    return {"name": model, "main": main, "startup": startup, "loss": loss,
+            "shape": shape, "classes": classes, "buckets": buckets,
+            "kind": kind,
+            "mask": drops[-1].output("Mask")[0] if drops else None,
+            "keep": 1 - drops[-1].attrs["dropout_prob"] if drops else None}
+
+
+def phase_image(m, card):
+    """An image config's training on the captured step as bench.py runs the
+    headline: bf16 AMP, its fused optimizer, batch IMAGE_BATCH,
+    Executor.run(iters=IMAGE_K) over a seeded feed stack made on the card,
+    IMAGE_WARM warm then IMAGE_CALLS timed calls, fetching the loss and
+    the last dropout's mask. Checks: step_mode "graph", the update kernel's
+    launches = buckets x steps, finite losses, each step's mask keeps
+    1 - p of its elements within KEEP_TOL and differs from the step
+    before (every timed step is a replay), every persistable f32; then one
+    replayed step traced (idle share, top-10 in chiprun_out/) and 3 steps
+    at batch BATCH through the graph and the interpreter, bitwise, masks
+    included."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, convert, flags
+    from paddle_tpu_torch.fusion import kernels as fk
+
+    tag, main, loss = m["name"], m["main"], m["loss"]
+    fetch = [loss, m["mask"]]
+    kernel = fk.momentum_bucket if m["kind"] == "momentum" else fk.adam_bucket
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    feeds = {"img": torch.rand([IMAGE_K, IMAGE_BATCH] + m["shape"],
+                               generator=gen, device="cuda"),
+             "label": torch.randint(0, m["classes"],
+                                    (IMAGE_K, IMAGE_BATCH, 1), generator=gen,
+                                    device="cuda")}
+    place = fluid.CUDAPlace(0)
+    result = {"batch": IMAGE_BATCH, "iters": IMAGE_K,
+              "warm_calls": IMAGE_WARM, "timed_calls": IMAGE_CALLS,
+              "buckets": [b["numel"] for b in m["buckets"]]}
+    amp.enable("bfloat16")
+    try:
+        with flags.flag_guard(fuse=True):
+            init_scope = fluid.Scope()
+            with fluid.scope_guard(init_scope):
+                fluid.Executor(place).run(m["startup"])
+            init = convert.numpy_state(init_scope, main)
+            del init_scope
+            scope = fluid.Scope()
+            convert.load_numpy_state(scope, main, init, place)
+            exe = fluid.Executor()
+            _release()
+            torch.cuda.reset_peak_memory_stats()
+            fk.reset_launch_counts()
+            with fluid.scope_guard(scope):
+                dt, outs = _timed_calls(exe, main, feeds, fetch, IMAGE_K,
+                                        IMAGE_WARM, IMAGE_CALLS)
+                torch.cuda.synchronize()
+                launches = kernel.launches
+                steps = (IMAGE_WARM + IMAGE_CALLS) * IMAGE_K
+                mode = exe.step_mode(main)
+                lv = _losses(outs[0])
+                masks = outs[1].float().reshape(IMAGE_K, -1)
+                keep = masks.mean(dim=1).cpu().numpy()
+                fresh = [not torch.equal(masks[k], masks[k + 1])
+                         for k in range(IMAGE_K - 1)]
+                if mode != "graph":
+                    raise AssertionError(f"{tag} ran as {mode!r}")
+                if launches != len(m["buckets"]) * steps:
+                    raise AssertionError(
+                        f"{tag}: {m['kind']} kernel launched {launches} "
+                        f"times, expected {len(m['buckets'])} buckets x "
+                        f"{steps} steps")
+                if not np.all(np.isfinite(lv)):
+                    raise AssertionError(f"non-finite {tag} loss {lv}")
+                if not np.all(np.abs(keep - m["keep"]) < KEEP_TOL):
+                    raise AssertionError(f"{tag}: masks keep {keep}, not "
+                                         f"{m['keep']} +- {KEEP_TOL}")
+                if not all(fresh):
+                    raise AssertionError(f"{tag}: a replay drew the mask of "
+                                         f"the step before: {fresh}")
+                _check_master_state(scope)
+                n_img = IMAGE_BATCH * IMAGE_K * IMAGE_CALLS
+                result.update(
+                    step_mode=mode, images_per_sec=n_img / dt,
+                    step_ms=dt / (IMAGE_K * IMAGE_CALLS) * 1e3,
+                    peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                    launches=launches, steps=steps,
+                    mask_keep=[float(k) for k in keep],
+                    last_losses=[float(v) for v in lv[-3:]])
+                log(f"[{tag}] {card}: graph: {result['images_per_sec']:.2f} "
+                    f"img/s ({result['step_ms']:.2f} ms a step; "
+                    f"{IMAGE_CALLS} calls of iters={IMAGE_K} at batch "
+                    f"{IMAGE_BATCH} in {dt:.3f} s after {IMAGE_WARM} warm); "
+                    f"peak mem {result['peak_mem_gib']:.2f} GiB; "
+                    f"{m['kind']}_bucket launches {launches} "
+                    f"({len(m['buckets'])} buckets of {result['buckets']} x "
+                    f"{steps} steps); mask keep fractions "
+                    f"{np.round(keep, 4).tolist()} (1 - p = {m['keep']}), "
+                    f"each step's mask new; last losses "
+                    f"{result['last_losses']}")
+                step0 = {n: t[0] for n, t in feeds.items()}
+                wall, busy, idle, rows, draw = profile_step(
+                    exe, main, step0, fetch, result["step_ms"],
+                    f"{tag}_graph", f"{m['kind']}_kernel")
+                result.update(trace_wall_ms=wall, trace_busy_ms=busy,
+                              idle_share=idle, kernel_rows=rows,
+                              draw_ms=draw)
+                log(f"[{tag}] one replayed step traced on the card only: "
+                    f"wall {wall:.2f} ms, device busy {busy:.2f} ms, idle "
+                    f"share {idle:.3f}; {m['kind']}_kernel rows {rows}; "
+                    f"the dropout masks' random draws {draw:.3f} ms of "
+                    f"device time")
+                if rows != len(m["buckets"]):
+                    raise AssertionError(
+                        f"{rows} {m['kind']}_kernel rows in one traced "
+                        f"replay, not {len(m['buckets'])}")
+            del exe, scope
+            _release()
+            result["bitwise"] = _graph_vs_interpreter(
+                tag, main, fetch, init,
+                [{n: t[k, :BATCH] for n, t in feeds.items()}
+                 for k in range(3)])
+            if not result["bitwise"]["equal"]:
+                raise AssertionError(f"{tag}: graph and interpreter differ")
+    finally:
+        amp.disable()
+    del feeds
+    _release()
+    return result
 
 
 def phase_parity(amp):
@@ -1185,19 +1443,43 @@ def main():
     sass = phase_build()
     resnet = build_resnet50()
     mlp = build_mlp()
-    rows = phase_kernels([b["numel"] for b in resnet[3]],
-                         [b["numel"] for b in mlp[3]])
-    rows[0]["launches_resnet50_fp32"] = phase_resnet(*resnet, card)
+    images = {name: build_image_model(name)
+              for name in ("se_resnext50", "vgg16", "mnist_cnn")}
+
+    def numels(plan):
+        return [b["numel"] for b in plan]
+
+    rows = phase_kernels({
+        "momentum_bucket": {"resnet50": numels(resnet[3]),
+                            "se_resnext50": numels(
+                                images["se_resnext50"]["buckets"])},
+        "adam_bucket": {"vgg16": numels(images["vgg16"]["buckets"]),
+                        "mlp": numels(mlp[3]),
+                        "mnist_cnn": numels(images["mnist_cnn"]["buckets"])}})
+    momentum, adam = rows[0], rows[1]
+    paths = {"resnet50_fp32": phase_resnet(*resnet, card)}
     _release()
     headline = phase_headline(card)
-    rows[0]["launches"] = headline["momentum_launches"]
+    paths["headline"] = headline["momentum_launches"]
     _release()
-    rows[1]["launches"] = phase_adam(*mlp)
+    se = phase_image(images["se_resnext50"], card)
+    paths["se_resnext50"] = se["launches"]
+    momentum["launches"], momentum["launches_by_path"] = (
+        headline["momentum_launches"], paths)
+    vgg = phase_image(images["vgg16"], card)
+    mnist = images["mnist_cnn"]
+    paths = {"vgg16": vgg["launches"],
+             "mlp": phase_adam("mlp", *mlp, [784]),
+             "mnist_cnn": phase_adam("mnist_cnn", mnist["main"],
+                                     mnist["startup"], mnist["loss"],
+                                     mnist["buckets"], mnist["shape"])}
+    adam["launches"], adam["launches_by_path"] = vgg["launches"], paths
     phase_parity(amp=False)
     phase_parity(amp=True)
     rows += phase_flash(sass)
     log(card_line)
-    log(json.dumps({"headline": headline}))
+    log(json.dumps({"headline": headline, "se_resnext50": se,
+                    "vgg16": vgg}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -34,6 +34,7 @@ from . import clip
 from . import backward
 from .backward import append_backward
 from . import layers
+from . import nets
 from . import optimizer
 from . import fusion
 from . import parallel

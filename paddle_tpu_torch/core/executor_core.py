@@ -20,48 +20,65 @@ On top of it sit the counterparts of the JAX package's whole-block step
 The FLAGS_fuse_optimizer_ops concat path has no counterpart yet.
 """
 
-import numpy as np
 import torch
 
 from .. import cuda_build
 from . import registry
 from .places import device_for
 
-# Op types whose kernels draw random numbers at step time. The port draws
-# each step's numbers from a generator of its own (`step_generator`, or one
-# seeded by the op's `seed` attr); a CUDA graph would replay the Philox
-# seed and offset it captured for such a generator, repeating one step's
-# draws, unless the generator were registered with the graph, which the
-# port does not do. A step holding one of these runs in the interpreter.
-RANDOM_OPS = frozenset({"uniform_random", "gaussian_random",
-                        "truncated_gaussian_random", "dropout",
-                        "random_crop"})
 # Op types whose kernels run on the host, which a graph cannot hold (the
 # JAX package's `no_trace` ops, paddle_tpu/executor.py:121-127). Empty so
 # far: the port has no host kernel yet; one that is ported is named here.
+# Random ops are not among them: they draw from a RandomStream, whose
+# generator the captured graph advances at every replay.
 HOST_OPS = frozenset()
+
+
+class RandomStream:
+    """The random numbers of one (Executor, program): one torch.Generator
+    on the program's device, seeded once from `program.random_seed`, that
+    every step's random ops draw from in turn (an op whose `seed` attr is
+    0). The generator's state advances with every draw in the interpreter,
+    and by the same amount at every replay of a captured step, which
+    registers it with its graph (`CapturedStep`): k steps draw the same
+    numbers through either path from the same state. The JAX package
+    draws each step's numbers from fold_in(PRNGKey(seed), step) instead;
+    the two packages draw different numbers.
+
+    An op with a non-zero `seed` attr draws the same numbers at every step
+    (the JAX package's PRNGKey(seed)): `fixed` makes them once, with a
+    generator of their own, and holds them as a constant of the step."""
+
+    def __init__(self, device, seed):
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
+        self._fixed = {}
+
+    def fixed(self, key, seed, draw):
+        """A copy of draw(generator seeded by `seed`), drawn at the first
+        call with this `key` and `seed` and held. The first call of a
+        program's step is never a capture (the executor runs one step
+        eagerly before it), so the draw itself stays out of the graph."""
+        key = (int(seed),) + tuple(key)
+        t = self._fixed.get(key)
+        if t is None:
+            gen = torch.Generator(device=self.device).manual_seed(key[0])
+            t = self._fixed[key] = draw(gen)
+        return t.clone()
 
 
 class OpContext:
     """Per-step context passed to kernels: the device every allocation
-    lands on, the step's random generator, and the test-mode flag."""
+    lands on, the random stream the step draws from, and the test-mode
+    flag."""
 
-    def __init__(self, place, generator=None, is_test=False):
+    def __init__(self, place, rng=None, is_test=False):
         self.place = place
         self.device = device_for(place)
-        self.generator = generator if generator is not None \
-            else torch.Generator(device=self.device)
+        self.rng = rng if rng is not None else RandomStream(self.device, 0)
         self.is_test = is_test
         self.current_op = None  # the op being run (derived grad kernels)
-
-
-def step_generator(device, seed, step):
-    """The generator a step's random ops draw from: one stream per
-    (program.random_seed, step), the counterpart of the JAX Executor's
-    fold_in(PRNGKey(seed), step). The two backends draw different numbers
-    from the same seed."""
-    mixed = np.random.SeedSequence([int(seed), int(step)]).generate_state(1)
-    return torch.Generator(device=device).manual_seed(int(mixed[0]))
 
 
 def env_get(env, name):
@@ -154,10 +171,10 @@ def dead_code_eliminate(ops, needed_names):
 
 def capture_blocker(ops):
     """The first op of `ops` that keeps their step out of a CUDA graph (a
-    random or host op, sub-blocks included), or None: the static rule,
-    decided before any capture."""
+    host op, sub-blocks included), or None: the static rule, decided
+    before any capture."""
     for op in ops:
-        if op.type in RANDOM_OPS or op.type in HOST_OPS:
+        if op.type in HOST_OPS:
             return op
         for v in op.attrs.values():
             if hasattr(v, "ops"):  # a Block attr
@@ -171,23 +188,24 @@ def build_step_fn(program, fetch_names, state_out_names, place):
     """The pure step of a program's global block (counterpart of
     paddle_tpu/core/executor_core.py::build_step_fn):
 
-        step(mut_state, const_state, feeds, generator) -> (fetches, new_mut)
+        step(mut_state, const_state, feeds, rng) -> (fetches, new_mut)
 
     mut_state holds the persistables the block writes, const_state those it
     only reads; new_mut maps each of `state_out_names` the step holds to its
-    new value. It runs the dead-code-eliminated op list (`step.ops`) through
-    the interpreter and allocates fresh outputs: no input is written.
+    new value; its random ops draw from `rng`, a RandomStream. It runs the
+    dead-code-eliminated op list (`step.ops`) through the interpreter and
+    allocates fresh outputs: no input is written.
     `step.blocker` is the op that keeps it out of a CUDA graph, or None
     (`capture_blocker`)."""
     ops = dead_code_eliminate(program.global_block().ops,
                               list(fetch_names) + list(state_out_names))
 
-    def step(mut_state, const_state, feeds, generator):
+    def step(mut_state, const_state, feeds, rng):
         env = {}
         env.update(const_state)
         env.update(mut_state)
         env.update(feeds)
-        ctx = OpContext(place, generator)
+        ctx = OpContext(place, rng)
         with torch.no_grad():
             run_ops(ops, env, ctx)
         fetches = [env_get(env, n) for n in fetch_names]
@@ -211,7 +229,10 @@ class CapturedStep:
     and one feed buffer per feed, of fixed shape. At its end every written
     persistable is copied in place (`copy_`) back into its scope tensor, so
     the addresses the graph reads stay valid and the scope always holds the
-    current state, as the JAX package's donated buffers do. `run(feeds)`
+    current state, as the JAX package's donated buffers do. The step's
+    RandomStream generator is registered with the graph: the capture
+    consumes none of its numbers, and every replay draws the next ones, as
+    an interpreter step would. `run(feeds)`
     copies a step's feeds into the buffers, replays the graph on the
     current stream and returns the graph's own fetch tensors, which the
     next replay overwrites.
@@ -221,20 +242,19 @@ class CapturedStep:
     launches, so the capture's moves are undone and added again at every
     replay."""
 
-    def __init__(self, step, scope, state_in, written, feeds, place,
-                 stream):
+    def __init__(self, step, scope, state_in, written, feeds, rng, stream):
         self.state = {n: scope.find_var(n) for n in state_in}
         self.mut = {n: self.state[n] for n in written if n in self.state}
         const = {n: t for n, t in self.state.items() if n not in self.mut}
         self.feeds = {n: torch.empty(t.shape, dtype=t.dtype, device=t.device)
                       for n, t in feeds.items()}
         self._load(feeds)
-        generator = torch.Generator(device=device_for(place))
         static = {_storage(t) for t in self.state.values()}
         self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(rng.generator)
         before = cuda_build.launch_counts()
         with torch.cuda.graph(self.graph, stream=stream):
-            fetches, new_mut = step(self.mut, const, self.feeds, generator)
+            fetches, new_mut = step(self.mut, const, self.feeds, rng)
             news = {}
             for n, dst in self.mut.items():
                 new = new_mut.get(n, dst)
@@ -290,16 +310,17 @@ class CapturedStep:
         return self.fetches
 
 
-def compile_step_fn(step, scope, state_in, written, feeds, place, stream):
+def compile_step_fn(step, scope, state_in, written, feeds, rng, stream):
     """Capture one call of `step` as a CUDA graph (counterpart of
     paddle_tpu/core/executor_core.py::compile_step_fn): a `CapturedStep`
     over the scope's persistables `state_in`, of which `written` are
-    written back in place, and static buffers shaped like `feeds`. The
+    written back in place, and static buffers shaped like `feeds`, drawing
+    from the RandomStream `rng`. The
     capture runs on `stream`, where the caller has already run one step
     eagerly (cuDNN plans, cuBLAS workspaces and autograd's device threads
     exist only after a first run). A capture records and runs nothing; one
     that fails raises."""
-    return CapturedStep(step, scope, state_in, written, feeds, place, stream)
+    return CapturedStep(step, scope, state_in, written, feeds, rng, stream)
 
 
 def build_multi_step_fn(run_step, iters):

@@ -6,7 +6,7 @@ Scope, feeds become tensors on the device, every op's torch kernel runs in
 program order, and the persistable vars the program writes go back to the
 Scope. Where the step runs is decided once per prepared program, before
 anything is captured (`step_mode`):
-  * "graph" — a CUDA place and a step with no random or host op
+  * "graph" — a CUDA place and a step with no host op
     (executor_core.capture_blocker): the first step runs eagerly on a side
     stream, the next is captured as a CUDA graph over the scope's own
     tensors (executor_core.compile_step_fn), and every step after is one
@@ -18,7 +18,9 @@ anything is captured (`step_mode`):
 FLAGS_fuse the fusion pass rewrites a clone of the program once per
 (program, mutation, feeds, fetches) and that clone runs. Under
 `amp.auto_cast()` the ops run in bf16 where the policy says so; the amp
-fingerprint is part of every cache key.
+fingerprint is part of every cache key. Random ops draw from one
+executor_core.RandomStream per (Executor, program), seeded once from
+`program.random_seed`, on either path.
 """
 
 import weakref
@@ -44,8 +46,13 @@ flags.define(
 
 
 def as_numpy(value):
+    """A fetched tensor (or list of them) as numpy, on the host. numpy has
+    no bfloat16: a bf16 value (an activation or mask under amp) comes back
+    widened to float32, which holds it exactly."""
     if isinstance(value, (list, tuple)):
         return [as_numpy(v) for v in value]
+    if value.dtype == torch.bfloat16:
+        value = value.float()
     return value.detach().cpu().numpy()
 
 
@@ -66,7 +73,9 @@ class Executor:
     def __init__(self, place=None):
         self.place = place if place is not None else CUDAPlace(0)
         self.device = device_for(self.place)
-        self._step_counter = {}
+        # program -> executor_core.RandomStream; a program that is gone
+        # drops its own
+        self._rngs = weakref.WeakKeyDictionary()
         self._prepared = {}
         self._modes = {}   # program id -> "graph" / "interpreter"
         # scope -> {prepared key: _Graph}; a scope that is gone drops its own
@@ -203,8 +212,8 @@ class Executor:
                 state_in, written = executor_core.collect_state_names(
                     run_prog, scope)
                 graph.captured = executor_core.compile_step_fn(
-                    step, scope, state_in, written, f, self.place, stream)
-            self._count_step(program)
+                    step, scope, state_in, written, f, self._rng(program),
+                    stream)
             return graph.captured.run(f)
 
         return run_step
@@ -222,10 +231,14 @@ class Executor:
             self._stream = torch.cuda.Stream(self.device)
         return self._stream
 
-    def _count_step(self, program):
-        step = self._step_counter.get(id(program), 0)
-        self._step_counter[id(program)] = step + 1
-        return step
+    def _rng(self, program):
+        """The random stream of `program` on this executor, seeded from
+        its random_seed at the program's first run."""
+        rng = self._rngs.get(program)
+        if rng is None:
+            rng = self._rngs[program] = executor_core.RandomStream(
+                self.device, program.random_seed)
+        return rng
 
     def _interpret(self, program, run_prog, step, scope, feeds):
         """One step through the interpreter, its state read from and
@@ -233,9 +246,7 @@ class Executor:
         state_in, written = executor_core.collect_state_names(run_prog, scope)
         mut = {n: scope.find_var(n) for n in state_in if n in written}
         const = {n: scope.find_var(n) for n in state_in if n not in written}
-        generator = executor_core.step_generator(
-            self.device, program.random_seed, self._count_step(program))
-        fetches, new_mut = step(mut, const, feeds, generator)
+        fetches, new_mut = step(mut, const, feeds, self._rng(program))
         for n in written:
             if n in new_mut:
                 scope.var(n)

@@ -1,7 +1,8 @@
-"""Math ops: the fc core, elementwise add, scale, mean and grad summation.
+"""Math ops: the fc core, the elementwise family, scale, mean, grad
+summation and top_k.
 
-Reference parity: operators/mul_op.cc, elementwise_add_op.cc,
-scale_op.cc, mean_op.cc, sum_op.cc. Matrix products go to torch.matmul
+Reference parity: operators/mul_op.cc, elementwise_*_op.cc, scale_op.cc,
+mean_op.cc, sum_op.cc, topk_op.cc. Matrix products go to torch.matmul
 (cuBLAS on the card), as the JAX package leaves them to XLA.
 """
 
@@ -26,10 +27,25 @@ def mul_op(ctx, ins, attrs):
     return out(Out=o.reshape(xs[:xn] + ys[yn:]))
 
 
-@register_op("elementwise_add")
-def elementwise_add_op(ctx, ins, attrs):
-    x, y = first(ins, "X"), first(ins, "Y")
-    return out(Out=x + bcast_y_to_x(x, y, attrs.get("axis", -1)))
+def _ew(fn):
+    def kernel(ctx, ins, attrs):
+        x, y = first(ins, "X"), first(ins, "Y")
+        yb = bcast_y_to_x(x, y, attrs.get("axis", -1))
+        return out(Out=fn(x, yb))
+
+    return kernel
+
+
+for _name, _fn in [
+    ("elementwise_add", torch.add),
+    ("elementwise_sub", torch.sub),
+    ("elementwise_mul", torch.mul),
+    ("elementwise_div", torch.div),
+    ("elementwise_max", torch.maximum),
+    ("elementwise_min", torch.minimum),
+    ("elementwise_pow", torch.pow),
+]:
+    register_op(_name)(_ew(_fn))
 
 
 @register_op("sum")
@@ -55,3 +71,12 @@ def scale_op(ctx, ins, attrs):
 def mean_op(ctx, ins, attrs):
     # fluid has no 0-d tensors: mean_op.cc infers Out as {1}
     return out(Out=first(ins, "X").mean().reshape(1))
+
+
+@register_op("top_k")
+def top_k_op(ctx, ins, attrs):
+    """The k largest values along the last axis, in descending order, and
+    their int64 indices (the JAX package narrows them to int32: x64 is off
+    there)."""
+    vals, idx = torch.topk(first(ins, "X"), attrs["k"], dim=-1)
+    return out(Out=vals, Indices=idx)

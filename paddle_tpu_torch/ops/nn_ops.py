@@ -1,10 +1,12 @@
-"""NN compute ops: conv2d, pool2d, batch_norm, softmax, cross_entropy.
+"""NN compute ops: conv2d, pool2d, batch_norm, softmax, cross_entropy,
+dropout.
 
-Reference parity: operators/{conv,pool,batch_norm,softmax,cross_entropy}
-_op.cc. Both activation layouts are supported; filters stay OIHW in every
-layout, so parameters (and checkpoints) are layout-independent. In NHWC
-the activation is viewed as NCHW around torch's conv/pool calls without a
-copy (a channels-last NCHW view), which cuDNN takes natively on the card.
+Reference parity: operators/{conv,pool,batch_norm,softmax,cross_entropy,
+dropout}_op.cc. Both activation layouts are supported; filters stay OIHW in
+every layout, so parameters (and checkpoints) are layout-independent. In
+NHWC the activation is viewed as NCHW around torch's conv/pool calls
+without a copy (a channels-last NCHW view), which cuDNN takes natively on
+the card.
 """
 
 import math
@@ -15,6 +17,7 @@ import torch.nn.functional as F
 from ..backward import _default_grad_maker
 from ..core.registry import (register_grad_maker, register_op,
                              set_stop_gradient_outputs)
+from .tensor_ops import random_draw
 from .util import first, out
 
 
@@ -170,3 +173,51 @@ def cross_entropy_op(ctx, ins, attrs):
         p = torch.gather(x, -1, idx[:, None])
         loss = -torch.log(torch.clamp_min(p, 1e-20))
     return out(Y=loss)
+
+
+# ---------------------------------------------------------------------------
+# Dropout (explicit grad: it must reuse the forward's mask)
+# ---------------------------------------------------------------------------
+@register_op("dropout")
+def dropout_op(ctx, ins, attrs):
+    """Out = X * Mask, where Mask keeps an element (1) with probability
+    1 - dropout_prob and is 0 elsewhere; Out is not rescaled. In test mode
+    Out = X * (1 - dropout_prob) and Mask is all ones (Fluid's
+    downgrade-in-infer). The uniform numbers behind Mask come from the
+    program's random stream, new at every step, or, for a non-zero `seed`
+    attr, are the same at every step (tensor_ops.random_draw)."""
+    x = first(ins, "X")
+    p = attrs.get("dropout_prob", 0.5)
+    if attrs.get("is_test", False) or ctx.is_test:
+        return out(Out=x * (1.0 - p), Mask=torch.ones_like(x))
+    shape = tuple(x.shape)
+    u = random_draw(ctx, attrs, ("dropout", shape),
+                    lambda g: torch.rand(shape, generator=g,
+                                         dtype=torch.float32,
+                                         device=ctx.device))
+    mask = (u < 1.0 - p).to(x.dtype)
+    return out(Out=x * mask, Mask=mask)
+
+
+set_stop_gradient_outputs("dropout", ["Mask"])
+
+
+@register_op("dropout_grad")
+def dropout_grad_op(ctx, ins, attrs):
+    """X@GRAD = Out@GRAD * Mask, the forward's own mask: a grad derived
+    from the forward kernel (registry.make_vjp_kernel) would run it again
+    and draw a new one."""
+    g, mask = first(ins, "Out@GRAD"), first(ins, "Mask")
+    return {"X@GRAD": [g * mask]}
+
+
+@register_grad_maker("dropout")
+def dropout_grad_maker(op, gout, gin):
+    return [
+        dict(
+            type="dropout_grad",
+            inputs={"Out@GRAD": gout["Out"], "Mask": op.output("Mask")},
+            outputs={"X@GRAD": gin["X"]},
+            attrs=dict(op.attrs),
+        )
+    ]

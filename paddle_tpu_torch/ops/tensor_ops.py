@@ -1,9 +1,10 @@
 """Tensor creation + initializer ops.
 
 Reference parity: operators/{cast,fill_constant,gaussian_random,
-uniform_random,assign}_op.cc. Random ops draw from the step's
-torch.Generator (ctx.generator), or from a generator seeded by the op's
-own `seed` attr when it is non-zero; every allocation lands on ctx.device.
+uniform_random,assign}_op.cc. Random ops draw from the program's random
+stream (ctx.rng, executor_core.RandomStream), or, when the op's own `seed`
+attr is non-zero, take the numbers that seed alone fixes, the same at
+every step (RandomStream.fixed); every allocation lands on ctx.device.
 """
 
 import torch
@@ -25,27 +26,34 @@ def fill_constant_op(ctx, ins, attrs):
                               dtype=dtype, device=ctx.device))
 
 
-def _generator(ctx, attrs):
+def random_draw(ctx, attrs, key, draw):
+    """draw(generator) from the program's stream, or, for a non-zero
+    `seed` attr, the numbers that seed fixes (held under `key`)."""
     seed = attrs.get("seed", 0)
     if not seed:
-        return ctx.generator
-    return torch.Generator(device=ctx.device).manual_seed(int(seed))
+        return draw(ctx.rng.generator)
+    return ctx.rng.fixed(key, seed, draw)
 
 
 @register_op("gaussian_random")
 def gaussian_random_op(ctx, ins, attrs):
-    z = torch.randn(tuple(attrs["shape"]), generator=_generator(ctx, attrs),
-                    dtype=torch.float32, device=ctx.device)
+    shape = tuple(attrs["shape"])
+    z = random_draw(ctx, attrs, ("gaussian_random", shape),
+                    lambda g: torch.randn(shape, generator=g,
+                                          dtype=torch.float32,
+                                          device=ctx.device))
     o = attrs.get("mean", 0.0) + attrs.get("std", 1.0) * z
     return out(Out=astype(o, attrs.get("dtype", "float32")))
 
 
 @register_op("uniform_random")
 def uniform_random_op(ctx, ins, attrs):
-    o = torch.empty(tuple(attrs["shape"]), dtype=torch.float32,
-                    device=ctx.device)
-    o.uniform_(attrs.get("min", -1.0), attrs.get("max", 1.0),
-               generator=_generator(ctx, attrs))
+    shape = tuple(attrs["shape"])
+    lo, hi = attrs.get("min", -1.0), attrs.get("max", 1.0)
+    o = random_draw(ctx, attrs, ("uniform_random", shape, lo, hi),
+                    lambda g: torch.empty(shape, dtype=torch.float32,
+                                          device=ctx.device).uniform_(
+                                              lo, hi, generator=g))
     return out(Out=astype(o, attrs.get("dtype", "float32")))
 
 

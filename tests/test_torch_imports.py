@@ -4,7 +4,8 @@
   and no module of the JAX package; no source file of the port, nor
   chip_smoke.py, imports either;
 - the same layer calls under a fresh unique_name.guard() give the same
-  Program.desc_str() in both packages — the string the JAX package's
+  Program.desc_str() in both packages (ResNet, SE-ResNeXt-50, VGG-16,
+  the MNIST conv net and the MLP) — the string the JAX package's
   compile cache digests — so var names, shapes and attrs map one to one.
   The one deliberate difference: the port's training-mode batch_norm_grad
   op does not read the running Mean/Variance.
@@ -19,12 +20,12 @@ import sys
 import pytest
 
 import paddle_tpu as jfluid
-from paddle_tpu.models import resnet as jresnet
+from paddle_tpu import models as jmodels
 
 import paddle_tpu_torch as tfluid
+from paddle_tpu_torch import models as tmodels
 from paddle_tpu_torch.core import framework as tframework
 from paddle_tpu_torch.core import scope as tscope
-from paddle_tpu_torch.models import resnet as tresnet
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "paddle_tpu_torch")
@@ -85,7 +86,8 @@ def test_source_imports_neither_jax_nor_the_jax_package(path):
     assert bad == [], f"{path} imports {bad}"
 
 
-def _build(fluid, resnet, model, train):
+def _build(fluid, models, model, train):
+    resnet = models.resnet
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         label = fluid.layers.data(name="label", shape=[1], dtype="int64")
@@ -99,6 +101,23 @@ def _build(fluid, resnet, model, train):
                                     dtype="float32")
             probs = resnet.resnet_imagenet(img, 1000, depth=50, layout="NHWC")
             opt = fluid.optimizer.Momentum(learning_rate=0.01, momentum=0.9)
+        elif model == "se_resnext50":
+            img = fluid.layers.data(name="data", shape=[3, 224, 224],
+                                    dtype="float32")
+            probs = models.se_resnext.se_resnext(img, 1000, depth=50)
+            opt = fluid.optimizer.Momentum(learning_rate=0.01, momentum=0.9)
+        elif model == "vgg16":
+            img = fluid.layers.data(name="pixel", shape=[3, 224, 224],
+                                    dtype="float32")
+            probs = fluid.layers.fc(input=models.vgg.vgg16_bn_drop(img),
+                                    size=102, act="softmax")
+            opt = fluid.optimizer.Adam(learning_rate=1e-3)
+        elif model == "mnist_cnn":
+            img = fluid.layers.data(name="pixel", shape=[1, 28, 28],
+                                    dtype="float32")
+            probs = models.mnist.cnn_model(img)
+            opt = fluid.optimizer.AdamOptimizer(learning_rate=0.001,
+                                                beta1=0.9, beta2=0.999)
         else:
             img = fluid.layers.data(name="data", shape=[3, 32, 32],
                                     dtype="float32")
@@ -106,6 +125,8 @@ def _build(fluid, resnet, model, train):
             opt = fluid.optimizer.Momentum(learning_rate=0.01, momentum=0.9)
         loss = fluid.layers.mean(
             fluid.layers.cross_entropy(input=probs, label=label))
+        if model in ("se_resnext50", "vgg16", "mnist_cnn"):
+            fluid.layers.accuracy(input=probs, label=label)
         if train:
             opt.minimize(loss)
     return main, startup
@@ -125,11 +146,12 @@ def _strip_bn_grad_running_stats(desc):
 
 
 @pytest.mark.parametrize("train", [False, True], ids=["forward", "train"])
-@pytest.mark.parametrize("model", ["resnet_cifar10_8", "resnet50_nhwc", "mlp"])
+@pytest.mark.parametrize("model", ["resnet_cifar10_8", "resnet50_nhwc", "mlp",
+                                   "se_resnext50", "vgg16", "mnist_cnn"])
 def test_same_layer_calls_give_the_same_program(model, train):
-    jmain, jstart = _build(jfluid, jresnet, model, train)
-    tmain, tstart = _build(tfluid, tresnet, model, train)
+    jmain, jstart = _build(jfluid, jmodels, model, train)
+    tmain, tstart = _build(tfluid, tmodels, model, train)
     assert tstart.desc_str() == jstart.desc_str()
     assert tmain.desc_str() == _strip_bn_grad_running_stats(jmain.desc_str())
-    if model == "mlp" or not train:
+    if model in ("mlp", "mnist_cnn") or not train:
         assert tmain.desc_str() == jmain.desc_str()

@@ -5,9 +5,10 @@ the captured step against the interpreter.
 On the CPU the executor runs `build_step_fn`'s step, so it must equal the
 plain op-by-op interpreter (`run_ops` over the dead-code-eliminated op
 list, the executor's loop before the step function existed) bitwise, and
-`iters=K` must equal K single steps bitwise. The static rule sends a step
-that draws random numbers to the interpreter and ResNet to the graph. The
-executor's graph path itself (warm-up, capture, replays, write-back,
+`iters=K` must equal K single steps bitwise. The static rule sends only a
+step with a host op to the interpreter: ResNet, its startup program and a
+step that draws random numbers go to the graph. The executor's graph path
+itself (warm-up, capture, replays, write-back,
 launch counts) also runs on the CPU, with a stand-in for the CUDA graph
 that records the aten calls of the capture and replays them into the same
 tensors: it must equal the interpreter bitwise.
@@ -91,13 +92,13 @@ def _interpret(model, init, batches, place):
     ops = tcore.dead_code_eliminate(
         main.global_block().ops,
         [loss.name] + tcore.written_persistables(main))
+    rng = tcore.RandomStream(device, main.random_seed)
     losses = []
-    for i, b in enumerate(batches):
+    for b in batches:
         state_in, written = tcore.collect_state_names(main, scope)
         env = {n: scope.find_var(n) for n in state_in}
         env.update({n: torch.from_numpy(v).to(device) for n, v in b.items()})
-        ctx = tcore.OpContext(place, tcore.step_generator(
-            device, main.random_seed, i))
+        ctx = tcore.OpContext(place, rng)
         with torch.no_grad():
             tcore.run_ops(ops, env, ctx)
         for n in written:
@@ -163,8 +164,8 @@ def test_build_step_fn_is_pure_and_multi_step_stacks():
     before = {n: t.clone() for n, t in state.items()}
     b = train._batches([784])[0]
     feeds = {n: torch.from_numpy(v) for n, v in b.items()}
-    gen = torch.Generator()
-    fetches, new_mut = step(mut, const, feeds, gen)
+    rng = tcore.RandomStream("cpu", 0)
+    fetches, new_mut = step(mut, const, feeds, rng)
     for n, t in state.items():
         assert torch.equal(t, before[n]), n
     assert set(new_mut) == set(mut)
@@ -199,12 +200,28 @@ def _random_step_program(op):
 
 @pytest.mark.parametrize("op", ["uniform_random", "dropout"])
 def test_a_step_that_draws_random_numbers_is_interpreter_only(op):
-    main, _, loss = _random_step_program(op)
+    """Interpreter-only on the CPU alone: a random op no longer keeps its
+    step out of a CUDA graph (it draws from the program's RandomStream,
+    whose generator the graph advances at every replay), so the step has
+    no blocker and only the place decides."""
+    main, startup, loss = _random_step_program(op)
     step = tcore.build_step_fn(main, [loss.name], [], tfluid.CPUPlace())
-    assert step.blocker is not None and step.blocker.type == op
+    assert step.blocker is None
+    assert op in {o.type for o in step.ops}
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    with tfluid.scope_guard(tfluid.Scope()):
+        exe.run(startup)
+        exe.run(main, feed={"x": np.ones((4, 8), np.float32)},
+                fetch_list=[loss])
+    assert exe.step_mode(main) == "interpreter"
 
 
 def test_resnet_is_capturable_and_its_startup_is_not():
+    """ResNet's step is capturable, fused or not; its startup program,
+    whose initializers draw random numbers, is capturable too now that
+    random ops draw from a stream the graph advances (the name is the
+    rule's before that): run twice on a card, its second run is a
+    capture."""
     main, startup, loss, _ = train._build(tfluid, tresnet, "resnet_cifar10_8")
     for fuse in (False, True):
         with tflags.flag_guard(fuse=fuse):
@@ -219,11 +236,16 @@ def test_resnet_is_capturable_and_its_startup_is_not():
             assert step.blocker is None
     init = tcore.build_step_fn(startup, [], tcore.written_persistables(
         startup), tfluid.CPUPlace())
-    assert init.blocker is not None
-    assert init.blocker.type in tcore.RANDOM_OPS
+    assert init.blocker is None
+    assert {"uniform_random", "gaussian_random"} & {o.type for o in init.ops}
 
 
-def test_capture_blocker_looks_into_sub_blocks():
+def test_capture_blocker_looks_into_sub_blocks(monkeypatch):
+    """A host op inside a sub-block keeps the step out of the graph (a
+    stand-in host op: the port has none yet); a random op there does
+    not."""
+    monkeypatch.setattr(tcore, "HOST_OPS", frozenset({"host_probe"}))
+
     class Block:
         def __init__(self, ops):
             self.ops = ops
@@ -232,10 +254,12 @@ def test_capture_blocker_looks_into_sub_blocks():
         def __init__(self, type, attrs=None):
             self.type, self.attrs = type, attrs or {}
 
-    inner = Op("gaussian_random")
+    inner = Op("host_probe")
     ops = [Op("mul"), Op("while", {"sub_block": Block([Op("relu"), inner])})]
     assert tcore.capture_blocker(ops) is inner
     assert tcore.capture_blocker(ops[:1]) is None
+    random = [Op("while", {"sub_block": Block([Op("gaussian_random")])})]
+    assert tcore.capture_blocker(random) is None
 
 
 def test_the_cpu_runs_the_interpreter_and_says_so():
@@ -392,6 +416,9 @@ class _RecordedGraph:
 
     calls = ()
 
+    def register_generator_state(self, generator):
+        self.generator = generator
+
     @torch.no_grad()
     def replay(self):
         for func, args, kwargs, out in self.calls:
@@ -405,8 +432,10 @@ class _RecordedGraph:
 def recorded_graphs(monkeypatch):
     """Executors on the CPU take the graph path, captured by _Recorder. A
     capture runs nothing on the card, so the state it wrote while being
-    recorded is put back; the plain momentum twin counts launches as the
-    kernel's wrapper does."""
+    recorded is put back, and so is its random stream's generator (a CUDA
+    capture consumes none of its numbers; each replay of the recorded
+    calls draws the next ones from it); the plain momentum twin counts
+    launches as the kernel's wrapper does."""
 
     @contextlib.contextmanager
     def graph(g, stream=None):
@@ -432,11 +461,14 @@ def recorded_graphs(monkeypatch):
         and tflags.get("cuda_graph") else "interpreter")
     init = tcore.CapturedStep.__init__
 
-    def capture(self, step, scope, state_in, *args):
+    def capture(self, step, scope, state_in, written, feeds, rng, stream):
         before = {n: scope.find_var(n).clone() for n in state_in}
-        init(self, step, scope, state_in, *args)
+        drawn = rng.generator.get_state()
+        init(self, step, scope, state_in, written, feeds, rng, stream)
         for n, t in before.items():
             self.state[n].copy_(t)
+        rng.generator.set_state(drawn)
+        assert self.graph.generator is rng.generator
 
     monkeypatch.setattr(tcore.CapturedStep, "__init__", capture)
     plain = fk.momentum_bucket_plain
