@@ -7,14 +7,21 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
   2. build    — build the port's kernels from paddle_tpu_torch/csrc, all
                 in one torch.utils.cpp_extension.load extension; count the
                 HGMMA and UTMALDG instructions in the SASS (cuobjdump) of
-                both flash kernels, which must not be 0, and print the
-                HGMMA forms (the f32 kernel's must be .TF32)
+                both flash kernels and the 128-bit global loads and stores
+                (LDG/STG .128) of the adam kernel, which must not be 0, and
+                print the HGMMA forms (the f32 kernel's must be .TF32)
   3. plan     — build the ResNet-50, README MLP, SE-ResNeXt-50, VGG-16 and
-                MNIST conv net training programs and their fusion plans
+                MNIST conv net training programs and their fusion plans;
+                one interpreter step at batch 2 under bf16 AMP of the
+                headline, SE-ResNeXt-50 and VGG-16 gives the dtype of
+                each fused member's grad
   4. kernels  — each hand-written kernel, through its wrapper, against its
                 plain torch twin on the card, bitwise, at n in {1, 17, 1029,
                 4194307} and at every bucket size of every plan (ResNet-50,
-                SE-ResNeXt-50; the MLP, VGG-16, the MNIST conv net); then
+                SE-ResNeXt-50; the MLP, VGG-16, the MNIST conv net); the
+                in-place adam entry (adam_bucket_) at those n and at every
+                adam bucket's member shapes, grads in their path's dtypes
+                and flipped, aligned and with a member 4 bytes off; then
                 timed over the buckets one step of each path updates,
                 beside the plain twin, PyTorch's closest fused optimizer
                 call, the bytes bound and the card's device-to-device copy
@@ -22,8 +29,15 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 graph of one step's launches over enough rotating copies of
                 the buckets to exceed the L2 cache, replayed 100 times
                 between one pair of events (no host time between launches),
-                and, as before, one wrapper call between two events
-                ("single_call_ms": the Python wrapper and one launch)
+                and one wrapper call between two events ("single_call_ms":
+                the Python wrapper and one launch). adam: on flat lanes
+                (the TPU kernel's signature) and on the buckets' member
+                lists in place, as the main path runs it, beside the same
+                lists with f32 grads through the kernel and through
+                torch._fused_adam_, and the fused op now against the op as
+                it ran before (pack, flat kernel, write-back copies).
+                momentum: its op route (pack, kernel, write-back) against
+                the kernel alone
   5. resnet   — ResNet-50, NHWC 224x224x3, 1000 classes, batch 32, fp32,
                 Momentum(0.01, 0.9), FLAGS_fuse=1, through Executor.run on
                 the captured step (step_mode "graph"): 5 single steps on one
@@ -193,6 +207,9 @@ def phase_build():
         f"{cuda_build.build_seconds:.2f} s")
     sass = {kernel: sass_counts(ext.__file__, kernel, ("HGMMA", "UTMALDG"))
             for kernel in ("flash_fwd_sm90_kernel", "flash_fwd_tf32_kernel")}
+    # the adam kernel's 16-byte global loads and stores
+    sass["adam_kernel"] = sass_counts(ext.__file__, "adam_kernel",
+                                      (r"LDG\.E\S*\.128", r"STG\.E\S*\.128"))
     if not any("TF32" in form
                for form in sass["flash_fwd_tf32_kernel"]["HGMMA_forms"]):
         raise AssertionError("flash_fwd_tf32_kernel: no TF32 HGMMA")
@@ -200,10 +217,11 @@ def phase_build():
 
 
 def sass_counts(library, kernel, opcodes):
-    """How many instructions of each opcode the SASS of `kernel` in the
-    built `library` holds (cuobjdump -sass), the distinct HGMMA forms and
-    its registers and stack (cuobjdump -res-usage); fails on a count of
-    0."""
+    """How many instructions the SASS of `kernel` in the built `library`
+    holds (cuobjdump -sass) of each opcode in `opcodes` (regular
+    expressions matched at the opcode's start), the distinct HGMMA forms
+    and its registers and stack (cuobjdump -res-usage); fails on a count
+    of 0."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
                           text=True, check=True).stdout
@@ -218,7 +236,7 @@ def sass_counts(library, kernel, opcodes):
         return words[0] if words else ""
 
     ops = [opcode(line) for line in body[0].splitlines()]
-    counts = {op: sum(o.startswith(op) for o in ops) for op in opcodes}
+    counts = {op: sum(bool(re.match(op, o)) for o in ops) for op in opcodes}
     if not all(counts.values()):
         raise AssertionError(f"{kernel}: missing {opcodes} in its SASS")
     counts["HGMMA_forms"] = sorted({o for o in ops if o.startswith("HGMMA")})
@@ -294,12 +312,83 @@ def _step_lanes(numels, k, gen):
     return [list(kind) for kind in zip(*sets)]
 
 
-def phase_kernels(paths):
+def _operands(members, gen, kind, misaligned=False):
+    """One bucket's operand lists on the card for `members` [(shape, grad
+    dtype)]: p, g in its dtype, and the accumulators (v for momentum; m1,
+    m2 >= 0 for adam). With `misaligned`, the first member's operands are
+    views 4 bytes (one f32 element, not 16 bytes) into their buffers."""
+    lists = []
+    for j in range(3 if kind == "momentum" else 4):
+        lst = []
+        for k, (shape, gdtype) in enumerate(members):
+            off = 1 if misaligned and k == 0 else 0
+            t = torch.randn(int(np.prod(shape)) + off, generator=gen,
+                            device="cuda")[off:].view(shape)
+            if j == 1:
+                t = t.to(gdtype)
+            elif j == 3:
+                t = t.abs()
+            lst.append(t)
+        lists.append(lst)
+    return lists
+
+
+def _adam_inplace_bitwise(members, gen, lr_t, err, what, misaligned):
+    """adam_bucket_ over one bucket's members against its plain twin on
+    the card, both in place on copies of the same operands."""
+    from paddle_tpu_torch.fusion import kernels as fk
+
+    ps, gs, m1s, m2s = _operands(members, gen, "adam", misaligned)
+    want = [[t.clone() for t in lst] for lst in (ps, m1s, m2s)]
+    fk.adam_bucket_plain_(want[0], gs, want[1], want[2], lr_t, 0.9, 0.999,
+                          1e-8)
+    fk.adam_bucket_(ps, gs, m1s, m2s, lr_t, 0.9, 0.999, 1e-8)
+    for got, ref in zip((ps, m1s, m2s), want):
+        _bitwise("adam_bucket", got, ref, err, what)
+
+
+def bucket_members(main, buckets, dtypes=None):
+    """[[(shape, grad dtype) of each member] of each fused bucket]: the
+    members' shapes as `main` declares them, their grads f32 unless
+    `dtypes` ({param: dtype}, from grad_dtypes) says otherwise."""
+    gb = main.global_block()
+    return [[(tuple(gb.var(p).shape), (dtypes or {}).get(p, torch.float32))
+             for p in b["params"]] for b in buckets]
+
+
+def grad_dtypes(main, startup, buckets, feed):
+    """{param: the dtype its gradient has} for every member of `buckets`,
+    from one interpreter step of `main` on the card under bf16 AMP, as
+    the fused update receives them; `feed` holds a batch of 2."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, flags
+    from paddle_tpu_torch.core.framework import grad_var_name
+
+    params = [p for b in buckets for p in b["params"]]
+    exe = fluid.Executor()
+    with fluid.scope_guard(fluid.Scope()), \
+            flags.flag_guard(fuse=True, cuda_graph=False):
+        exe.run(startup)
+        amp.enable("bfloat16")
+        try:
+            grads = exe.run(main, feed=feed, return_numpy=False,
+                            fetch_list=[grad_var_name(p) for p in params])
+        finally:
+            amp.disable()
+    dtypes = dict(zip(params, (g.dtype for g in grads)))
+    del exe, grads
+    _release()
+    return dtypes
+
+
+def phase_kernels(paths, members):
     """Each kernel against its plain twin at the fixed sizes and at every
-    bucket size of every path's fusion plan, then timed over the buckets
-    one step of each path updates. `paths`: {kernel: {path: bucket
-    numels}}, the row's own path first (ResNet-50's momentum buckets, the
-    headline's; VGG-16's adam buckets, the adam kernel's largest)."""
+    bucket size of every path's fusion plan, the in-place adam update at
+    every adam bucket's member shapes, then timed over the buckets one step
+    of each path updates. `paths`: {kernel: {path: bucket numels}}, the
+    row's own path first (ResNet-50's momentum buckets, the headline's;
+    VGG-16's adam buckets, the adam kernel's largest). `members`: {kernel:
+    {path: [[(shape, grad dtype) of each member] of each bucket]}}."""
     from paddle_tpu_torch.fusion import kernels as fk
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -322,10 +411,32 @@ def phase_kernels(paths):
                  fk.adam_bucket(p, g, m1, m2, lr_t, 0.9, 0.999, 1e-8),
                  fk.adam_bucket_plain(p, g, m1, m2, lr_t, 0.9, 0.999, 1e-8),
                  err, f"n={n}")
+        # in place: the bucket [n, n // 3 + 1, 5], grads bf16 / f32 / bf16,
+        # aligned and with its first member 4 bytes off
+        for misaligned in (False, True):
+            _adam_inplace_bitwise(
+                [((n,), torch.bfloat16), ((n // 3 + 1,), torch.float32),
+                 ((5,), torch.bfloat16)], gen, lr_t, err,
+                f"in place, n={n}, misaligned={misaligned}", misaligned)
         del p, g, v, m1, m2
+    # every adam bucket's members: the grads in the dtypes its path gives
+    # them, aligned; then each grad in the other dtype, the first member 4
+    # bytes off
+    flip = {torch.float32: torch.bfloat16, torch.bfloat16: torch.float32}
+    shapes = 0
+    for path, plan in members["adam_bucket"].items():
+        for k, bucket in enumerate(plan):
+            _adam_inplace_bitwise(bucket, gen, lr_t, err,
+                                  f"in place, {path} bucket {k}", False)
+            _adam_inplace_bitwise([(s, flip[d]) for s, d in bucket], gen,
+                                  lr_t, err, f"in place, {path} bucket {k}, "
+                                  f"grad dtypes flipped, misaligned", True)
+            shapes += len(bucket)
     torch.cuda.synchronize()
     log(f"[kernels] bitwise equal to the plain twins at n in {sizes} "
-        f"(every bucket size: {buckets})")
+        f"(every bucket size: {buckets}); adam_bucket_ in place at those n "
+        f"and at the {shapes} member shapes of every adam bucket, with bf16 "
+        f"and f32 grads and a misaligned member")
 
     # the card's achieved copy rate: one 1 GiB device-to-device copy
     # reads and writes 2 GiB
@@ -341,7 +452,16 @@ def phase_kernels(paths):
         timed = {path: _time_buckets(name, numels, gen, lr, lr_t,
                                      copy_gb_per_s)
                  for path, numels in by_path.items()}
+        for path, plan in members[name].items():
+            if name == "adam_bucket":
+                timed[path]["in_place"] = _time_adam_members(
+                    path, plan, gen, copy_gb_per_s)
+            else:
+                timed[path]["op_route"] = _time_momentum_route(
+                    path, plan, gen, timed[path]["ms"])
         own = timed[next(iter(by_path))]
+        if name == "adam_bucket":  # the main path runs the in-place entry
+            own = own["in_place"]
         rows.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/fused_update.cu",
@@ -353,6 +473,169 @@ def phase_kernels(paths):
                                    "library_ms")},
             "timed_on": next(iter(by_path)), "paths": timed})
     return rows
+
+
+def _numel(members):
+    return sum(int(np.prod(s)) for s, _ in members)
+
+
+def _adam_op_before(ps, gs, m1s, m2s, scalars):
+    """The fused adam op as it ran before it updated in place: the members
+    packed into four lanes (torch.cat), the grad lane cast to f32, the
+    flat kernel into three fresh lanes, sliced back; then the captured
+    step's write-back copies into the scope's tensors."""
+    from paddle_tpu_torch.fusion import kernels as fk
+    from paddle_tpu_torch.ops import fused_ops
+
+    p, m1, m2 = (fused_ops._pack(t, 0) for t in (ps, m1s, m2s))
+    g = fused_ops._pack(gs, 0).to(p.dtype)
+    lr, b1p, b2p = (scalars[s][0].reshape(()) for s in
+                    ("LearningRate", "Beta1Pow", "Beta2Pow"))
+    lr_t = lr * torch.sqrt(1 - b2p) / (1 - b1p)
+    lanes = fk.adam_bucket(p, g, m1, m2, lr_t, 0.9, 0.999, 1e-8)
+    for dsts, lane in zip((ps, m1s, m2s), lanes):
+        for dst, new in zip(dsts, fused_ops._unpack(lane, dsts, 0)):
+            dst.copy_(new)
+
+
+def _time_adam_members(path, plan, gen, copy_gb_per_s):
+    """adam over one step's buckets as the main path runs it: the members
+    in place (adam_bucket_), each grad in its path's dtype, on rotating
+    copies beyond the L2; beside its plain twin, the same lists with f32
+    grads through the kernel and through torch._fused_adam_ (which takes
+    one dtype for all its lists), and the op routes: the fused op now
+    (lr_t and adam_bucket_) and as it ran before (pack, flat kernel,
+    write-back)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor_core, registry
+    from paddle_tpu_torch.fusion import kernels as fk
+
+    n = sum(_numel(b) for b in plan)
+    nbytes = sum(int(np.prod(s)) * (26 if d == torch.bfloat16 else 28)
+                 for b in plan for s, d in b)
+    sets = max(1, -(-2 * L2_BYTES // nbytes))
+    lists = [[_operands(b, gen, "adam") for b in plan] for _ in range(sets)]
+    f32 = [[(ps, [g.float() for g in gs], m1s, m2s)
+            for ps, gs, m1s, m2s in one] for one in lists]
+    lr_t = torch.full((), 3.3e-4, device="cuda")
+    scalars = {s: [torch.full((1,), x, device="cuda")] for s, x in
+               (("LearningRate", 1e-3), ("Beta1Pow", 0.9 ** 3),
+                ("Beta2Pow", 0.999 ** 3))}
+    attrs = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8, "shard_rows": 0}
+    op = registry.lookup("fused_adam_update")
+    ctx = executor_core.OpContext(fluid.CUDAPlace(0))
+    step = torch.ones((), device="cuda")
+
+    def kern(lists=lists):
+        for one in lists:
+            for ps, gs, m1s, m2s in one:
+                fk.adam_bucket_(ps, gs, m1s, m2s, lr_t, 0.9, 0.999, 1e-8)
+
+    def plain():
+        for one in lists:
+            for ps, gs, m1s, m2s in one:
+                fk.adam_bucket_plain_(ps, gs, m1s, m2s, lr_t, 0.9, 0.999,
+                                      1e-8)
+
+    def lib():
+        for one in f32:
+            for ps, gs, m1s, m2s in one:
+                torch._fused_adam_(
+                    ps, gs, m1s, m2s, [], [step] * len(ps), lr=1e-3,
+                    beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8,
+                    amsgrad=False, maximize=False)
+
+    def op_now():
+        for one in lists:
+            for ps, gs, m1s, m2s in one:
+                registry.run_kernel(op, ctx, dict(
+                    scalars, Param=ps, Grad=gs, Moment1=m1s, Moment2=m2s),
+                    attrs)
+
+    def op_before():
+        for one in lists:
+            for ps, gs, m1s, m2s in one:
+                _adam_op_before(ps, gs, m1s, m2s, scalars)
+
+    r = {"ms": _graph_ms(kern) / sets, "plain_ms": _graph_ms(plain) / sets,
+         "f32_grads_ms": _graph_ms(lambda: kern(f32)) / sets,
+         "library_ms": _graph_ms(lib) / sets,
+         "op_ms": _graph_ms(op_now) / sets,
+         "op_before_ms": _graph_ms(op_before) / sets,
+         "op_ms_again": _graph_ms(op_now) / sets,
+         "op_before_ms_again": _graph_ms(op_before) / sets,
+         "single_call_ms": _time_ms(lambda: kern(lists[:1])),
+         "members": [len(b) for b in plan], "numel": n,
+         "bf16_grads": sum(d == torch.bfloat16 for b in plan for _, d in b),
+         "rotating_sets": sets, "bytes": nbytes,
+         "f32_grads_bytes": 28 * n,
+         "library_inputs": "the same member lists, grads in f32 "
+                           "(torch._fused_adam_ takes one dtype)"}
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, 12 * n / FP32_FLOPS
+    r.update(bound_ms=max(bytes_s, ops_s) * 1e3,
+             bound_by="bytes" if bytes_s >= ops_s else "operations",
+             f32_grads_bound_ms=28 * n / HBM_BYTES_PER_S * 1e3,
+             copy_bound_ms=nbytes / (copy_gb_per_s * 1e9) * 1e3,
+             gb_per_s=nbytes / (r["ms"] * 1e-3) / 1e9)
+    log(f"[kernels] adam_bucket_ in place, {path}'s {len(plan)} bucket(s) "
+        f"of {r['members']} members ({n} elements, {r['bf16_grads']} bf16 "
+        f"grads, {nbytes / 1e6:.1f} MB; {sets} rotating set(s)): "
+        f"{r['ms']:.4f} ms ({r['gb_per_s']:.0f} GB/s, "
+        f"{r['bound_ms'] / r['ms']:.3f} of the {r['bound_ms']:.4f} ms bound; "
+        f"at the copy rate {r['copy_bound_ms']:.4f}); plain twin "
+        f"{r['plain_ms']:.4f} ms; all grads f32: kernel "
+        f"{r['f32_grads_ms']:.4f} ms, torch._fused_adam_ "
+        f"{r['library_ms']:.4f} ms (bound {r['f32_grads_bound_ms']:.4f}); "
+        f"one call {r['single_call_ms']:.4f} ms. The fused op: in place "
+        f"{r['op_ms']:.4f} / {r['op_ms_again']:.4f} ms, as before (pack + "
+        f"flat kernel + write-back) {r['op_before_ms']:.4f} / "
+        f"{r['op_before_ms_again']:.4f} ms")
+    del lists, f32
+    return r
+
+
+def _time_momentum_route(path, plan, gen, kernel_ms):
+    """The fused momentum op route as a step runs it (pack, cast, flat
+    kernel, slices, the captured step's write-back copies) over one step's
+    buckets, grads in the path's dtypes, on rotating copies beyond the L2,
+    beside the kernel alone on flat f32 lanes of the same buckets
+    (`kernel_ms`, timed in this run)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor_core, registry
+
+    n = sum(_numel(b) for b in plan)
+    gbytes = sum(int(np.prod(s)) * (2 if d == torch.bfloat16 else 4)
+                 for b in plan for s, d in b)
+    sets = max(1, -(-2 * L2_BYTES // (16 * n + gbytes)))
+    lists = [[_operands(b, gen, "momentum") for b in plan]
+             for _ in range(sets)]
+    lr = [torch.full((1,), 0.01, device="cuda")]
+    attrs = {"mu": 0.9, "use_nesterov": False, "shard_rows": 0}
+    op = registry.lookup("fused_momentum_update")
+    ctx = executor_core.OpContext(fluid.CUDAPlace(0))
+
+    def route():
+        for one in lists:
+            for ps, gs, vs in one:
+                outs = registry.run_kernel(
+                    op, ctx, {"Param": ps, "Grad": gs, "Velocity": vs,
+                              "LearningRate": lr}, attrs)
+                for dst, new in zip(ps + vs, outs["ParamOut"]
+                                    + outs["VelocityOut"]):
+                    dst.copy_(new)
+
+    r = {"ms": _graph_ms(route) / sets, "kernel_ms": kernel_ms,
+         "members": [len(b) for b in plan], "numel": n,
+         "bf16_grads": sum(d == torch.bfloat16 for b in plan for _, d in b),
+         "rotating_sets": sets}
+    r["pack_and_write_back_ms"] = r["ms"] - kernel_ms
+    log(f"[kernels] fused_momentum_update op route, {path}'s {len(plan)} "
+        f"buckets of {r['members']} members ({n} elements, "
+        f"{r['bf16_grads']} bf16 grads; {sets} rotating set(s)): "
+        f"{r['ms']:.4f} ms against the kernel alone {kernel_ms:.4f} ms: "
+        f"pack, cast and write-back {r['pack_and_write_back_ms']:.4f} ms")
+    del lists
+    return r
 
 
 def _time_buckets(name, numels, gen, lr, lr_t, copy_gb_per_s):
@@ -594,8 +877,9 @@ def profile_step(exe, main, feed, fetch, warm_ms, name,
     """Two more steps under torch.profiler. The first traces the card only:
     its wall and device-busy time give the device idle share of one step
     (returned as trace_step returns them). The second also records the
-    host ops, for the top-10 table of device time by op and kernel
-    (chiprun_out/<name>_profile.txt)."""
+    host ops, for the table of device time by op and kernel (all rows in
+    chiprun_out/<name>_profile.txt, the top 10 and the count of torch.cat
+    kernels printed)."""
     from torch.profiler import ProfilerActivity, profile
 
     card = trace_step(exe, main, feed, fetch, kernel)
@@ -613,13 +897,14 @@ def profile_step(exe, main, feed, fetch, warm_ms, name,
         wall_ms = (time.perf_counter() - t0) * 1e3
     top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     table = prof.key_averages().table(sort_by="self_cuda_time_total",
-                                      row_limit=10)
+                                      row_limit=-1)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, f"{name}_profile.txt"), "w") as f:
         f.write(table)
+    cats = sum(e.count for e in top if "CatArrayBatchedCopy" in e.key)
     log(f"[profile] {name}: step traced with host ops: wall {wall_ms:.2f} "
-        f"ms, device busy {_device_ms(prof):.2f} ms; top 10 by device ms "
-        f"(calls):")
+        f"ms, device busy {_device_ms(prof):.2f} ms; {cats} torch.cat "
+        f"kernels; top 10 by device ms (calls):")
     for e in top[:10]:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} "
             f"({e.count:5d})  {e.key[:70]}")
@@ -1449,13 +1734,50 @@ def main():
     def numels(plan):
         return [b["numel"] for b in plan]
 
+    # the grads the fused updates receive: bf16 AMP on the headline,
+    # SE-ResNeXt-50 and VGG-16; f32 on the MLP and the MNIST conv net
+    rs = np.random.RandomState(SEED)
+    head = build_headline()
+    image_feed = {"img": rs.rand(2, 3, 224, 224).astype(np.float32),
+                  "label": rs.randint(0, 10, (2, 1)).astype(np.int64)}
+    amp_dtypes = {
+        "headline": grad_dtypes(
+            head[0], head[1], head[3],
+            {"data_u8": rs.randint(0, 256, (2, 224, 224, 3)).astype(
+                np.uint8),
+             "label": rs.randint(0, 10, (2, 1)).astype(np.int32)}),
+        **{m: grad_dtypes(images[m]["main"], images[m]["startup"],
+                          images[m]["buckets"], image_feed)
+           for m in ("se_resnext50", "vgg16")}}
+    for path, dtypes in amp_dtypes.items():
+        bf16 = sum(d == torch.bfloat16 for d in dtypes.values())
+        log(f"[plan] {path} under bf16 AMP: {bf16} of the {len(dtypes)} "
+            f"fused members' grads arrive in bf16")
+    members = {
+        # the headline's ResNet-50 buckets, which the fp32 path shares
+        "momentum_bucket": {
+            "resnet50": bucket_members(head[0], head[3],
+                                       amp_dtypes["headline"]),
+            "se_resnext50": bucket_members(
+                images["se_resnext50"]["main"],
+                images["se_resnext50"]["buckets"],
+                amp_dtypes["se_resnext50"])},
+        "adam_bucket": {
+            "vgg16": bucket_members(images["vgg16"]["main"],
+                                    images["vgg16"]["buckets"],
+                                    amp_dtypes["vgg16"]),
+            "mlp": bucket_members(mlp[0], mlp[3]),
+            "mnist_cnn": bucket_members(images["mnist_cnn"]["main"],
+                                        images["mnist_cnn"]["buckets"])}}
+    del head
     rows = phase_kernels({
         "momentum_bucket": {"resnet50": numels(resnet[3]),
                             "se_resnext50": numels(
                                 images["se_resnext50"]["buckets"])},
         "adam_bucket": {"vgg16": numels(images["vgg16"]["buckets"]),
                         "mlp": numels(mlp[3]),
-                        "mnist_cnn": numels(images["mnist_cnn"]["buckets"])}})
+                        "mnist_cnn": numels(images["mnist_cnn"]["buckets"])}},
+        members)
     momentum, adam = rows[0], rows[1]
     paths = {"resnet50_fp32": phase_resnet(*resnet, card)}
     _release()

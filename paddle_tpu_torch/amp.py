@@ -25,7 +25,8 @@ Gradient ops inherit the classification of their forward op (`mul_grad`
 follows `mul`), so the backward pass mirrors the forward dtype flow and
 parameter gradients are upcast exactly once, at the optimizer/sum boundary.
 The fused bucket updates (ops/fused_ops.py) are in neither list, as in the
-JAX package; they cast their packed gradient to the parameters' dtype.
+JAX package: momentum and sgd cast their packed gradient to the
+parameters' dtype, adam widens each bf16 gradient as it reads it.
 """
 
 import contextlib

@@ -56,5 +56,6 @@ def numpy_state(scope, program):
     for name in _persistable_vars(program):
         v = scope.find_var(name)
         if v is not None:
-            out[name] = v.detach().cpu().numpy()
+            # a copy: the scope's tensors may be updated in place
+            out[name] = v.detach().to("cpu", copy=True).numpy()
     return out

@@ -221,13 +221,25 @@ def _storage(t):
     return t.untyped_storage().data_ptr()
 
 
+def unshared(fetches, state):
+    """`fetches` with a clone in place of each tensor that shares memory
+    with a tensor of `state`. An update in place (the fused adam update)
+    writes those tensors again at the next step, so a fetch of one, or of
+    a view of one, would change under the caller."""
+    held = {_storage(t) for t in state}
+    return [f.clone() if isinstance(f, torch.Tensor) and _storage(f) in held
+            else f for f in fetches]
+
+
 class CapturedStep:
     """One call of a step, captured as a CUDA graph over static buffers
     (`compile_step_fn` builds it).
 
     The graph reads the scope's own persistable tensors at their addresses
     and one feed buffer per feed, of fixed shape. At its end every written
-    persistable is copied in place (`copy_`) back into its scope tensor, so
+    persistable that an op did not already update in place (as the fused
+    adam update does) is copied in place (`copy_`) back into its scope
+    tensor, so
     the addresses the graph reads stay valid and the scope always holds the
     current state, as the JAX package's donated buffers do. The step's
     RandomStream generator is registered with the graph: the capture

@@ -6,9 +6,10 @@
 // the one translation unit that includes PyTorch's headers; the kernels'
 // own files keep a plain C interface, so nvcc compiles them without them.
 //
-// Each function checks what the kernel relies on, allocates fresh outputs,
-// launches on PyTorch's current stream of the operands' device and raises
-// if the launch was refused. It does not synchronise.
+// Each function checks what the kernel relies on, allocates fresh outputs
+// (adam_bucket_ updates its operands in place instead), launches on
+// PyTorch's current stream of the operands' device and raises if the
+// launch was refused. It does not synchronise.
 
 #include <torch/extension.h>
 
@@ -17,16 +18,9 @@
 
 #include <cuda_runtime.h>
 
+#include "fused_update.h"
+
 extern "C" {
-int momentum_bucket_launch(const float* p, const float* g, const float* v,
-                           const float* lr, float mu, int nesterov,
-                           float* p_out, float* v_out, int64_t n,
-                           void* stream);
-int adam_bucket_launch(const float* p, const float* g, const float* m1,
-                       const float* m2, const float* lr_t, float b1,
-                       float omb1, float b2, float omb2, float eps,
-                       float* p_out, float* m1_out, float* m2_out, int64_t n,
-                       void* stream);
 int flash_fwd_sm90_launch(const void* q, const void* k, const void* v,
                           void* out, float* lse, int B, int H, int Sq, int Sk,
                           int Dp, int D, float scale, int causal,
@@ -70,6 +64,19 @@ void check_launch(int err) {
               cudaGetErrorString(static_cast<cudaError_t>(err)));
 }
 
+int run_adam(const std::vector<AdamMember>& members,
+             const torch::Tensor& lr_t, double b1, double omb1, double b2,
+             double omb2, double eps) {
+  int launches = 0;
+  check_launch(adam_bucket_launch(
+      members.data(), static_cast<int>(members.size()),
+      lr_t.data_ptr<float>(), static_cast<float>(b1),
+      static_cast<float>(omb1), static_cast<float>(b2),
+      static_cast<float>(omb2), static_cast<float>(eps),
+      c10::cuda::getCurrentCUDAStream().stream(), &launches));
+  return launches;
+}
+
 }  // namespace
 
 std::vector<torch::Tensor> momentum_bucket(torch::Tensor p, torch::Tensor g,
@@ -93,6 +100,9 @@ std::vector<torch::Tensor> momentum_bucket(torch::Tensor p, torch::Tensor g,
 // python doubles (the complements taken there, as the scalar op takes
 // them) and are rounded to f32 here, as torch rounds a python scalar for
 // an f32 tensor.
+//
+// adam_bucket: one flat f32 bucket, results in fresh lanes (the TPU
+// kernel's signature; one member of the kernel's table).
 std::vector<torch::Tensor> adam_bucket(torch::Tensor p, torch::Tensor g,
                                        torch::Tensor m1, torch::Tensor m2,
                                        torch::Tensor lr_t, double b1,
@@ -103,17 +113,61 @@ std::vector<torch::Tensor> adam_bucket(torch::Tensor p, torch::Tensor g,
   auto p_out = torch::empty_like(p);
   auto m1_out = torch::empty_like(m1);
   auto m2_out = torch::empty_like(m2);
-  if (p.numel() > 0) {
-    check_launch(adam_bucket_launch(
-        p.data_ptr<float>(), g.data_ptr<float>(), m1.data_ptr<float>(),
-        m2.data_ptr<float>(), lr_t.data_ptr<float>(), static_cast<float>(b1),
-        static_cast<float>(omb1), static_cast<float>(b2),
-        static_cast<float>(omb2), static_cast<float>(eps),
-        p_out.data_ptr<float>(), m1_out.data_ptr<float>(),
-        m2_out.data_ptr<float>(), p.numel(),
-        c10::cuda::getCurrentCUDAStream().stream()));
-  }
+  run_adam({AdamMember{p.data_ptr<float>(), g.data_ptr<float>(),
+                       m1.data_ptr<float>(), m2.data_ptr<float>(),
+                       p_out.data_ptr<float>(), m1_out.data_ptr<float>(),
+                       m2_out.data_ptr<float>(), p.numel(), 0}},
+           lr_t, b1, omb1, b2, omb2, eps);
   return {p_out, m1_out, m2_out};
+}
+
+// adam_bucket_: a bucket's members updated in place, each p, m1 and m2
+// f32 and g f32 or bf16, all contiguous on one CUDA device, the four of a
+// member of one length. fusion/kernels.py::plan_adam_bucket checks this and
+// that no two operands share memory before anything reaches here. Returns
+// the number of launches: one unless the bucket has more members than the
+// kernel's parameter table holds.
+int64_t adam_bucket_inplace(std::vector<torch::Tensor> ps,
+                            std::vector<torch::Tensor> gs,
+                            std::vector<torch::Tensor> m1s,
+                            std::vector<torch::Tensor> m2s,
+                            torch::Tensor lr_t, double b1, double omb1,
+                            double b2, double omb2, double eps) {
+  TORCH_CHECK(!ps.empty() && gs.size() == ps.size() &&
+                  m1s.size() == ps.size() && m2s.size() == ps.size(),
+              "adam_bucket_: one p, g, m1 and m2 for every member");
+  const auto device = ps.front().device();
+  TORCH_CHECK(device.is_cuda(), "adam_bucket_: the bucket must be on a CUDA "
+              "device");
+  TORCH_CHECK(lr_t.device() == device &&
+                  lr_t.scalar_type() == torch::kFloat32 && lr_t.numel() == 1,
+              "adam_bucket_: lr_t must be one f32 element on the bucket's "
+              "device");
+  std::vector<AdamMember> members;
+  members.reserve(ps.size());
+  for (size_t k = 0; k < ps.size(); ++k) {
+    const auto n = ps[k].numel();
+    for (const auto* t : {&ps[k], &gs[k], &m1s[k], &m2s[k]}) {
+      TORCH_CHECK(t->device() == device && t->is_contiguous() &&
+                      t->numel() == n,
+                  "adam_bucket_: a member's operands must be contiguous, of "
+                  "one length, on the bucket's device");
+    }
+    for (const auto* t : {&ps[k], &m1s[k], &m2s[k]}) {
+      TORCH_CHECK(t->scalar_type() == torch::kFloat32,
+                  "adam_bucket_: p, m1 and m2 must be float32");
+    }
+    const bool bf16 = gs[k].scalar_type() == torch::kBFloat16;
+    TORCH_CHECK(bf16 || gs[k].scalar_type() == torch::kFloat32,
+                "adam_bucket_: g must be float32 or bfloat16");
+    float* p = ps[k].data_ptr<float>();
+    float* m1 = m1s[k].data_ptr<float>();
+    float* m2 = m2s[k].data_ptr<float>();
+    members.push_back(
+        AdamMember{p, gs[k].data_ptr(), m1, m2, p, m1, m2, n, bf16 ? 1 : 0});
+  }
+  const c10::cuda::CUDAGuard guard(device);
+  return run_adam(members, lr_t, b1, omb1, b2, omb2, eps);
 }
 
 // q [B, H, Sq, Dp], k and v [B, H, Sk, Dp] in bf16 on one CUDA device;
@@ -273,6 +327,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("adam_bucket", &adam_bucket,
         "m1' = b1*m1 + (1-b1)*g; m2' = b2*m2 + (1-b2)*g*g; "
         "p' = p - lr_t*m1'/(sqrt(m2') + eps)");
+  m.def("adam_bucket_", &adam_bucket_inplace,
+        "adam_bucket over a bucket's member lists, in place; returns the "
+        "number of launches");
   m.def("flash_fwd", &flash_fwd,
         "bf16 (out, lse) of softmax(q k^T * scale) v, causal top-left "
         "aligned");

@@ -242,7 +242,8 @@ class Executor:
 
     def _interpret(self, program, run_prog, step, scope, feeds):
         """One step through the interpreter, its state read from and
-        written back to the scope."""
+        written back to the scope. A fetch that shares memory with a
+        persistable the step wrote comes back as a copy."""
         state_in, written = executor_core.collect_state_names(run_prog, scope)
         mut = {n: scope.find_var(n) for n in state_in if n in written}
         const = {n: scope.find_var(n) for n in state_in if n not in written}
@@ -251,4 +252,5 @@ class Executor:
             if n in new_mut:
                 scope.var(n)
                 scope.set_var(n, new_mut[n])
-        return fetches
+        return executor_core.unshared(
+            fetches, [new_mut[n] for n in written if n in new_mut])

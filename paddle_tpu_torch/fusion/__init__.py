@@ -21,8 +21,10 @@ Two pass families:
 
 * HORIZONTAL — all (param, grad, slot) triples of one optimizer family
   with one hyperparameter signature (same attrs, LR var, beta-pow vars,
-  dtypes, shard layout) flatten into contiguous f32 buckets of at most
-  FLAGS_fuse_bucket_mb, each updated by ONE `fused_<opt>_update` op.
+  dtypes, shard layout) group into buckets of at most
+  FLAGS_fuse_bucket_mb, each updated by ONE `fused_<opt>_update` op
+  (ops/fused_ops.py: sgd and momentum pack the members into one
+  contiguous f32 lane; adam updates them in place).
   zero1-aware: shard-layout members ((parts, shard) tensors produced by
   parallel.zero1) bucket along the shard axis — `shard_rows` — keeping
   dim 0 pinned to the dp axis with no regather; the members' trailing
@@ -62,8 +64,8 @@ flags.define(
     "fuse_bucket_mb", int, 32,
     "Horizontal fusion bucket budget in MB of f32 parameter payload: "
     "one fused_<opt>_update op covers at most this much. Smaller "
-    "buckets bound the concat working set; larger ones cut more "
-    "per-parameter kernels.")
+    "buckets bound the concat working set of sgd and momentum; larger "
+    "ones cut more per-parameter kernels.")
 flags.define(
     "fuse_pallas", bool, True,
     "Accepted so scripts written for the JAX package carry over; gates "

@@ -1,20 +1,26 @@
 """Hand-written CUDA kernels for the horizontal fused weight update, each
 with its plain torch twin.
 
-One bucket = one flat f32 lane holding every member parameter back to
-back. `momentum_bucket` and `adam_bucket` replace the JAX package's
-Pallas TPU kernels (paddle_tpu/fusion/kernels.py::momentum_bucket and
-::adam_bucket), which view the lane as zero-padded (8, 128) VMEM blocks.
-The CUDA kernels (csrc/fused_update.cu, bound to PyTorch by
-csrc/kernels_binding.cpp) make one grid-stride pass over the unpadded
-lane. Both are bound by bytes: 20 B per element for momentum, 28 B for
-adam.
+`momentum_bucket` and `adam_bucket` replace the JAX package's Pallas TPU
+kernels (paddle_tpu/fusion/kernels.py::momentum_bucket and ::adam_bucket),
+which view one flat f32 lane holding every member back to back as
+zero-padded (8, 128) VMEM blocks. The CUDA kernels (csrc/fused_update.cu,
+bound to PyTorch by csrc/kernels_binding.cpp) are bound by bytes: 20 B
+per element for momentum, 28 B for adam (26 B with a bf16 gradient).
 
-Dispatch: a bucket on a CUDA device launches the kernel (and counts the
-launch on the wrapper's `launches`); a bucket on the CPU takes the plain
-twin. `*_cuda` are the kernel entry points proper: they raise on anything
-the kernel does not take — a CPU tensor included, before anything is
-built — instead of computing.
+- `momentum_bucket(p, g, v, ...)` and `adam_bucket(p, g, m1, m2, ...)`
+  take flat f32 lanes and return fresh ones (the TPU kernels' signature).
+- `adam_bucket_(params, grads, m1s, m2s, ...)` updates a bucket's member
+  tensors in place and returns nothing: the adam kernel walks a table of
+  the members where they lie, grads f32 or bf16, so the fused op needs no
+  pack before it and no copy back after. `plan_adam_bucket` states what
+  it takes and refuses the rest with a ValueError on either device.
+
+Dispatch: a bucket on a CUDA device launches the kernel (and counts each
+launch on `momentum_bucket.launches` / `adam_bucket.launches`); a bucket
+on the CPU takes the plain twin. `*_cuda` are the kernel entry points
+proper: they raise on anything the kernel does not take — a CPU tensor
+included, before anything is built — instead of computing.
 The twins repeat the scalar ops' torch expressions (ops/optimizer_ops.py),
 so on the card the kernel is held bitwise against them.
 """
@@ -23,8 +29,10 @@ import torch
 
 from .. import cuda_build
 
-__all__ = ["momentum_bucket", "adam_bucket", "momentum_bucket_plain",
-           "adam_bucket_plain", "momentum_bucket_cuda", "adam_bucket_cuda"]
+__all__ = ["momentum_bucket", "adam_bucket", "adam_bucket_",
+           "momentum_bucket_plain", "adam_bucket_plain", "adam_bucket_plain_",
+           "momentum_bucket_cuda", "adam_bucket_cuda", "adam_bucket_cuda_",
+           "plan_adam_bucket"]
 
 def _check(name, lanes, scalar):
     """Refuse operands off one CUDA device before anything is built; the
@@ -103,6 +111,93 @@ def adam_bucket(p, g, m1, m2, lr_t, b1, b2, eps):
 
 
 cuda_build.count_launches(adam_bucket, "launches")
+
+
+def plan_adam_bucket(params, grads, m1s, m2s, lr_t):
+    """Check one bucket for the in-place update and return its device.
+    Every member's p, m1 and m2 are f32 and its g f32 or bf16, the four of
+    one shape, contiguous and on the device of the first p; lr_t is one
+    f32 element there; and no two operands of the bucket share a byte of
+    memory — an update in place would otherwise depend on the order of
+    the writes. Raises ValueError on anything else."""
+    if not params or not len(params) == len(grads) == len(m1s) == len(m2s):
+        raise ValueError(
+            f"adam_bucket_: one p, g, m1 and m2 for every member, got "
+            f"{len(params)}, {len(grads)}, {len(m1s)} and {len(m2s)}")
+    dev = params[0].device
+    spans = []
+    for k, member in enumerate(zip(params, grads, m1s, m2s)):
+        for name, t in zip(("p", "g", "m1", "m2"), member):
+            if t.device != dev:
+                raise ValueError(f"adam_bucket_: member {k}'s {name} is on "
+                                 f"{t.device}, the bucket on {dev}")
+            if not t.is_contiguous():
+                raise ValueError(f"adam_bucket_: member {k}'s {name} is not "
+                                 f"contiguous")
+            if t.shape != member[0].shape:
+                raise ValueError(
+                    f"adam_bucket_: member {k}'s {name} is "
+                    f"{tuple(t.shape)}, its p {tuple(member[0].shape)}")
+            ok = ((torch.float32, torch.bfloat16) if name == "g"
+                  else (torch.float32,))
+            if t.dtype not in ok:
+                raise ValueError(f"adam_bucket_: member {k}'s {name} is "
+                                 f"{t.dtype}, not one of {ok}")
+            if t.numel():  # its bytes [start, end)
+                start = t.data_ptr()
+                spans.append((start, start + t.numel() * t.element_size(),
+                              k, name))
+    spans.sort()
+    for (_, end, k, a), (start, _, j, b) in zip(spans, spans[1:]):
+        if start < end:
+            raise ValueError(f"adam_bucket_: member {k}'s {a} and member "
+                             f"{j}'s {b} share memory")
+    if (lr_t.device != dev or lr_t.dtype != torch.float32
+            or lr_t.numel() != 1):
+        raise ValueError(f"adam_bucket_: lr_t must be one f32 element on "
+                         f"{dev}, got {lr_t.dtype}{tuple(lr_t.shape)} on "
+                         f"{lr_t.device}")
+    return dev
+
+
+def adam_bucket_plain_(params, grads, m1s, m2s, lr_t, b1, b2, eps):
+    """adam_bucket_'s plain twin: adam_bucket_plain over the members packed
+    into flat lanes (grads widened to f32, which is exact), the results
+    copied back into the members."""
+    plan_adam_bucket(params, grads, m1s, m2s, lr_t)
+
+    def lane(ts):
+        return torch.cat([t.reshape(-1).float() for t in ts])
+
+    outs = adam_bucket_plain(lane(params), lane(grads), lane(m1s), lane(m2s),
+                             lr_t, b1, b2, eps)
+    off = 0
+    for p, m1, m2 in zip(params, m1s, m2s):
+        n = p.numel()
+        for dst, src in zip((p, m1, m2), outs):
+            dst.copy_(src[off:off + n].view(dst.shape))
+        off += n
+
+
+def adam_bucket_cuda_(params, grads, m1s, m2s, lr_t, b1, b2, eps):
+    if plan_adam_bucket(params, grads, m1s, m2s, lr_t).type != "cuda":
+        raise ValueError(f"adam_bucket_: the kernel takes a bucket on a CUDA "
+                         f"device, got {params[0].device}")
+    adam_bucket.launches += cuda_build.kernels().adam_bucket_(
+        list(params), list(grads), list(m1s), list(m2s), lr_t, b1, 1 - b1,
+        b2, 1 - b2, eps)
+
+
+def adam_bucket_(params, grads, m1s, m2s, lr_t, b1, b2, eps):
+    """Fused adam over a bucket's member tensors, in place: params[k],
+    m1s[k] and m2s[k] (f32) take their new values from grads[k] (f32 or
+    bf16) as adam_bucket would compute them over the packed lanes.
+    lr_t: f32 one-element tensor; b1/b2/eps: python floats. On a CUDA
+    device one kernel launch covers the bucket (several only past the
+    kernel's table of members, each counted on adam_bucket.launches)."""
+    if params and params[0].is_cuda:
+        return adam_bucket_cuda_(params, grads, m1s, m2s, lr_t, b1, b2, eps)
+    return adam_bucket_plain_(params, grads, m1s, m2s, lr_t, b1, b2, eps)
 
 
 def reset_launch_counts():

@@ -13,24 +13,33 @@ Two families:
   result is bitwise-identical to the unfused chain by construction.
 
 * `fused_<opt>_update` (sgd / momentum / adam) — ONE update over a bucket
-  of same-family parameters: variadic slots are concatenated into a
-  contiguous lane, updated with the exact expression tree of the scalar
-  op, and sliced back. Elementwise arithmetic is per-element, so the
-  packed update is bitwise-equal to the N separate updates.
+  of same-family parameters. sgd and momentum concatenate their variadic
+  slots into a contiguous lane, update it with the exact expression tree
+  of the scalar op, and slice it back. Elementwise arithmetic is
+  per-element, so the packed update is bitwise-equal to the N separate
+  updates.
 
   attr `shard_rows > 0` marks a zero1 bucket: every member is a
   (parts, shard) shard-layout tensor and the bucket concatenates the
   SHARD lanes on axis 1.
 
-  An adam or momentum bucket goes to fusion.kernels: the hand-written
-  CUDA kernel when the bucket lives on a CUDA device (no fallback: the
-  kernel runs or the step raises — it takes f32 only), its plain torch
-  twin when it lives on the CPU. The fused updates are in neither amp
-  list, so under bf16 AMP a bucket's gradients arrive in bf16 (conv and
-  mul grads) or as a bf16/f32 mix that torch.cat promotes; the packed
-  gradient is cast to the parameters' dtype first. bf16 -> f32 is exact,
-  so this is the JAX package's promoted `mu * v + g` arithmetic, and the
-  kernel never sees a bf16 lane.
+  A momentum bucket goes to fusion.kernels.momentum_bucket: the
+  hand-written CUDA kernel when the bucket lives on a CUDA device (no
+  fallback: the kernel runs or the step raises — it takes f32 only), its
+  plain torch twin when it lives on the CPU. The fused updates are in
+  neither amp list, so under bf16 AMP a bucket's gradients arrive in bf16
+  (conv and mul grads) or as a bf16/f32 mix that torch.cat promotes; the
+  packed gradient is cast to the parameters' dtype first. bf16 -> f32 is
+  exact, so this is the JAX package's promoted `mu * v + g` arithmetic.
+
+  An adam bucket is not packed: fusion.kernels.adam_bucket_ updates the
+  members IN PLACE (one kernel launch on a CUDA device, the plain twin on
+  the CPU), reading each gradient in its own dtype (bf16 widened exactly),
+  and the op returns the member tensors themselves as ParamOut /
+  Moment1Out / Moment2Out. A zero1 bucket's (parts, shard) members are
+  contiguous tensors too, updated the same way. The captured step then
+  has nothing to copy back, and the interpreter's write-back rebinds each
+  name to the tensor it already holds.
 """
 
 import torch
@@ -106,10 +115,6 @@ def fused_momentum_update_op(ctx, ins, attrs):
 def fused_adam_update_op(ctx, ins, attrs):
     ps, gs = many(ins, "Param"), many(ins, "Grad")
     m1s, m2s = many(ins, "Moment1"), many(ins, "Moment2")
-    rows = int(attrs.get("shard_rows", 0))
-    p = _pack(ps, rows)
-    g = _pack(gs, rows).to(p.dtype)
-    m1, m2 = _pack(m1s, rows), _pack(m2s, rows)
     lr = first(ins, "LearningRate").reshape(()).to(torch.float32)
     b1p = first(ins, "Beta1Pow").reshape(()).to(torch.float32)
     b2p = first(ins, "Beta2Pow").reshape(()).to(torch.float32)
@@ -117,11 +122,6 @@ def fused_adam_update_op(ctx, ins, attrs):
     b2 = attrs.get("beta2", 0.999)
     eps = attrs.get("epsilon", 1e-8)
     lr_t = lr * torch.sqrt(1 - b2p) / (1 - b1p)
-    po, m1o, m2o = fk.adam_bucket(
-        p.reshape(-1), g.reshape(-1), m1.reshape(-1), m2.reshape(-1),
-        lr_t, b1, b2, eps)
-    p_out = po.reshape(p.shape)
-    m1o, m2o = m1o.reshape(m1.shape), m2o.reshape(m2.shape)
-    return out(ParamOut=_unpack(p_out, ps, rows),
-               Moment1Out=_unpack(m1o, m1s, rows),
-               Moment2Out=_unpack(m2o, m2s, rows))
+    fk.adam_bucket_(ps, [g.contiguous() for g in gs], m1s, m2s, lr_t, b1, b2,
+                    eps)
+    return out(ParamOut=ps, Moment1Out=m1s, Moment2Out=m2s)

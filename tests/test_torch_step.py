@@ -478,16 +478,25 @@ def recorded_graphs(monkeypatch):
         return plain(p, g, v, lr, mu, nesterov)
 
     monkeypatch.setattr(fused_ops.fk, "momentum_bucket_plain", counted)
+    plain_ = fk.adam_bucket_plain_
+
+    def counted_(*args):
+        fk.adam_bucket.launches += 1
+        return plain_(*args)
+
+    monkeypatch.setattr(fused_ops.fk, "adam_bucket_plain_", counted_)
 
 
 @pytest.mark.parametrize("amp", [False, True], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("model", ["bottleneck_nhwc", "resnet_cifar10_8"])
+@pytest.mark.parametrize("model", ["bottleneck_nhwc", "resnet_cifar10_8",
+                                   "mlp_adam"])
 def test_recorded_graph_path_equals_the_interpreter(recorded_graphs, model,
                                                     amp):
     """The executor's graph path — eager first step, capture at the
     second, replays into static feed buffers, in-place write-back into the
-    scope's tensors, replayed launch counts — gives the interpreter's
-    losses and state bitwise, for single steps and for iters=3."""
+    scope's tensors (the fused adam update writes them itself), replayed
+    launch counts — gives the interpreter's losses and state bitwise, for
+    single steps and for iters=3."""
     init = _init_state(model)
     batches = train._batches(train._build(tfluid, tresnet, model)[3])
     place = tfluid.CPUPlace()
@@ -498,7 +507,9 @@ def test_recorded_graph_path_equals_the_interpreter(recorded_graphs, model,
             fk.reset_launch_counts()
             *got, mode = _executor_run(model, init, batches, place, iters)
             assert (mode_i, mode) == ("interpreter", "graph")
-            assert fk.momentum_bucket.launches == STEPS  # 1 bucket a step
+            kernel = (fk.adam_bucket if model == "mlp_adam"
+                      else fk.momentum_bucket)
+            assert kernel.launches == STEPS  # 1 bucket a step
             _assert_same(got, want)
 
 
