@@ -10,15 +10,17 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 both flash kernels and the 128-bit global loads and stores
                 (LDG/STG .128) of the adam kernel, which must not be 0, and
                 print the HGMMA forms (the f32 kernel's must be .TF32)
-  3. plan     — build the ResNet-50, README MLP, SE-ResNeXt-50, VGG-16 and
-                MNIST conv net training programs and their fusion plans;
+  3. plan     — build the ResNet-50, README MLP, SE-ResNeXt-50, VGG-16,
+                MNIST conv net, stacked-LSTM and NMT training programs and
+                their fusion plans;
                 one interpreter step at batch 2 under bf16 AMP of the
                 headline, SE-ResNeXt-50 and VGG-16 gives the dtype of
                 each fused member's grad
   4. kernels  — each hand-written kernel, through its wrapper, against its
                 plain torch twin on the card, bitwise, at n in {1, 17, 1029,
                 4194307} and at every bucket size of every plan (ResNet-50,
-                SE-ResNeXt-50; the MLP, VGG-16, the MNIST conv net); the
+                SE-ResNeXt-50; the MLP, VGG-16, the MNIST conv net, the
+                stacked LSTM, the NMT); the
                 in-place adam entry (adam_bucket_) at those n and at every
                 adam bucket's member shapes, grads in their path's dtypes
                 and flipped, aligned and with a member 4 bytes off; then
@@ -80,9 +82,26 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 128, 30 steps each on y = argmax(x @ W) through the
                 captured step: the loss must fall and the adam kernel cover
                 every bucket of every step
-  9. parity   — a small ResNet trained 2 steps on the card and on the host
+  9. lstm, nmt — the benchmark/fluid sequence configs as the JAX
+                package's get_model builds them, f32 and fused Adam as
+                fluid_benchmark.py runs them: the stacked LSTM (IMDB
+                vocabulary 5148, 512 wide, max_len 128; log tag
+                [stacked_lstm]) and the seq2seq NMT (dictionary 30000, 512
+                everywhere, decoder caps 32/32; [nmt]), batch 128, seeded
+                ragged batches drawn as the synthetic readers draw them,
+                bucketed (create_bucketed_seq_tensor) to one flat total per
+                feed and stacked on the card, Executor.run(iters=10), 1 warm
+                + 3 timed calls through the captured step: words/s (review
+                tokens; target tokens), step ms, peak memory, adam_bucket_
+                launches = buckets x steps, f32 state; one replayed step
+                traced (idle share, top-10 in chiprun_out/); the loop
+                ops' forwards timed alone (the derived grads run each
+                again); the embedding grads bitwise run to run; graph vs interpreter over 3 steps at batch 32
+                bitwise; host vs card within rtol 1e-4 over 3 steps at
+                batch 16
+ 10. parity   — a small ResNet trained 2 steps on the card and on the host
                 from the same weights must agree, in fp32 and under bf16 AMP
- 10. flash    — the flash-attention kernels (both wgmma fed by TMA; f32
+ 11. flash    — the flash-attention kernels (both wgmma fed by TMA; f32
                 in 3xTF32 split products after its split prologue) against
                 their plain torch version on the card, causal and not, at
                 the CPU tests' shapes, the tiles' edges (129 q rows over
@@ -144,6 +163,24 @@ IMAGE_WARM = 1
 IMAGE_CALLS = 3
 ADAM_BATCH = 128
 ADAM_STEPS = 30
+# the sequence configs (benchmark/fluid's stacked_dynamic_lstm and
+# machine_translation) in f32 with Adam, as fluid_benchmark.py runs them:
+# batch 128, iters=10 a call, 1 warm + 3 timed calls; every ragged feed
+# tail-padded to one flat total, the steps' largest rounded up to a
+# multiple of SEQ_BUCKET tokens (fluid_benchmark.bucket_totals). The
+# LSTM's loop bound is --max_seq_len 128 (the longest synthetic review
+# has 127 tokens); the NMT's are seq_to_seq_net's defaults, 32 and 32.
+SEQ_BATCH = 128
+SEQ_K = 10
+SEQ_WARM = 1
+SEQ_CALLS = 3
+SEQ_BUCKET = 64
+LSTM_MAX_LEN = 128
+IMDB_VOCAB = 5148
+WMT_DICT = 30000
+# host vs card at full width: 3 steps at this batch (the host's f32
+# matmuls over the 30000-word softmax set its size)
+SEQ_PARITY_BATCH = 16
 # a fetched dropout mask keeps 1 - p of its elements within this: the
 # smallest mask checked holds 64 x 512 elements, whose keep fraction's
 # standard deviation at p = 0.5 is 2.8e-3
@@ -724,8 +761,8 @@ def _time_buckets(name, numels, gen, lr, lr_t, copy_gb_per_s):
     return r
 
 
-def _graph_ms(fn):
-    """ms of one fn(), from a CUDA graph of one fn() replayed GRAPH_REPLAYS
+def _graph_ms(fn, replays=GRAPH_REPLAYS):
+    """ms of one fn(), from a CUDA graph of one fn() replayed `replays`
     times between one pair of events: the launches run back to back, with
     no host time between them. Median of 5 such windows, after one eager
     call on a side stream and one replay."""
@@ -743,11 +780,11 @@ def _graph_ms(fn):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(GRAPH_REPLAYS):
+        for _ in range(replays):
             graph.replay()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b) / GRAPH_REPLAYS)
+        times.append(a.elapsed_time(b) / replays)
     del graph
     return statistics.median(times)
 
@@ -850,12 +887,14 @@ def _device_ms(prof):
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
 
 
-def trace_step(exe, main, feed, fetch, kernel="momentum_kernel"):
+def trace_step(exe, main, feed, fetch, kernel="momentum_kernel",
+               table=None):
     """One step traced on the card only, which adds little host time:
     (wall ms, device busy ms, idle share, rows of `kernel`, device ms of
     the random draws: torch's distribution kernels, behind dropout's
     masks). `fetch` is the fetch list the step was prepared (and
-    captured) with."""
+    captured) with. With `table`, the device time by kernel goes whole to
+    chiprun_out/<table>_profile.txt and its top 10 to the log."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -863,10 +902,22 @@ def trace_step(exe, main, feed, fetch, kernel="momentum_kernel"):
         exe.run(main, feed=feed, fetch_list=fetch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms = _device_ms(prof)
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     rows = sum(e.count for e in device if kernel in e.key)
+    if table is not None:
+        device.sort(key=lambda e: -e.self_device_time_total)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, f"{table}_profile.txt"), "w") as f:
+            for e in device:
+                f.write(f"{e.self_device_time_total / 1e3:10.3f} "
+                        f"{e.count:7d}  {e.key}\n")
+        log(f"[profile] {table}: {sum(e.count for e in device)} device "
+            f"rows; top 10 by device ms (calls):")
+        for e in device[:10]:
+            log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} "
+                f"({e.count:5d})  {e.key[:70]}")
     draw_ms = sum(e.self_device_time_total for e in device
                   if "distribution" in e.key) / 1e3
     return wall_ms, busy_ms, 1 - busy_ms / wall_ms, rows, draw_ms
@@ -1146,7 +1197,9 @@ def _graph_vs_interpreter(tag, main, fetch, init, batches):
             for n in ist if not np.array_equal(gs[n], ist[n])}
     fetch_equal = all(np.array_equal(g, i) for g, i in zip(gf, inf))
     equal = fetch_equal and not diff
-    batch = next(iter(batches[0].values())).shape[0]
+    first = next(iter(batches[0].values()))
+    batch = (first.batch if hasattr(first, "lengths")
+             else first.shape[0])
     log(f"[{tag}] graph vs interpreter, {len(batches)} steps at batch {batch} "
         f"from one state (cuDNN deterministic): losses {gl.tolist()} / "
         f"{il.tolist()}; {'bitwise equal' if equal else 'DIFFER'} over "
@@ -1395,6 +1448,355 @@ def phase_image(m, card):
     finally:
         amp.disable()
     del feeds
+    _release()
+    return result
+
+
+def seq_batches(model, rs, steps, batch):
+    """`steps` batches of `batch` samples drawn as the JAX package's
+    synthetic readers draw them (paddle_tpu/dataset/imdb.py
+    _synthetic_reader, wmt14.py _reader): reviews of 16..127 word ids, 70%
+    from their class's half of the vocabulary, and a 0/1 label; source
+    sentences of 4..15 ids, the target a token-wise function of the source
+    after <s> (id 0), the label the target shifted, ending in <e> (id 1).
+    Each batch is {feed name: list of per-sequence id arrays, or an
+    array}."""
+    out = []
+    for _ in range(steps):
+        if model == "stacked_lstm":
+            half = IMDB_VOCAB // 2
+            words, labels = [], []
+            for _ in range(batch):
+                y, n = rs.randint(2), rs.randint(16, 128)
+                biased = rs.randint(y * half, y * half + half, n)
+                noise = rs.randint(0, IMDB_VOCAB - 1, n)
+                words.append(np.where(rs.rand(n) < 0.7, biased, noise))
+                labels.append(y)
+            out.append({"words": words, "label": np.asarray(
+                labels, np.int64).reshape(-1, 1)})
+        else:
+            src, trg, lab = [], [], []
+            for _ in range(batch):
+                s = rs.randint(3, WMT_DICT, rs.randint(4, 16))
+                t = (s * 17 + 3) % (WMT_DICT - 3) + 3
+                src.append(s)
+                trg.append(np.concatenate([[0], t]))
+                lab.append(np.concatenate([t, [1]]))
+            out.append({"source_sequence": src, "target_sequence": trg,
+                        "label_sequence": lab})
+    return out
+
+
+def seq_tokens(model, batch):
+    """The words of a batch as fluid_benchmark.tokens_in_batch counts
+    them: review tokens; target tokens for the NMT."""
+    key = "words" if model == "stacked_lstm" else "target_sequence"
+    return sum(len(s) for s in batch[key])
+
+
+def seq_feeds(batches, place):
+    """Per-step feed dicts: every ragged feed bucketed with
+    create_bucketed_seq_tensor on `place` to one flat total, the batches'
+    largest rounded up to SEQ_BUCKET; dense feeds as they are. Returns
+    (feeds, {name: flat total})."""
+    import paddle_tpu_torch as fluid
+
+    ragged = [n for n, v in batches[0].items() if isinstance(v, list)]
+    totals = {n: -(-max(sum(len(s) for s in b[n]) for b in batches)
+                   // SEQ_BUCKET) * SEQ_BUCKET for n in ragged}
+    return [{n: fluid.create_bucketed_seq_tensor(v, totals[n], place)
+             if n in totals else v for n, v in b.items()}
+            for b in batches], totals
+
+
+def _stacked(feeds):
+    """Per-step feed dicts -> one dict of [K, ...] values on the card, a
+    SeqTensor's data, lengths and host lengths stacked componentwise."""
+    from paddle_tpu_torch.core.registry import SeqTensor
+
+    out = {}
+    for n, v in feeds[0].items():
+        vals = [f[n] for f in feeds]
+        if isinstance(v, SeqTensor):
+            out[n] = SeqTensor(torch.stack([x.data for x in vals]),
+                               torch.stack([x.lengths for x in vals]),
+                               np.stack([x.host_lengths for x in vals]))
+        else:
+            out[n] = torch.from_numpy(np.stack(vals)).cuda()
+    return out
+
+
+def build_seq_model(model):
+    """One of the benchmark/fluid sequence configs built with the port, as
+    the JAX package's get_model builds it, with its fusion plan:
+      stacked_lstm: stacked_lstm_net over the IMDB vocabulary (5148), 512
+                    wide, max_len 128, Adam();
+      nmt:          seq_to_seq_net(512, 512, 512, 30000, 30000),
+                    Adam(2e-4).
+    Returns the fused adam buckets and the params left to plain adam ops
+    (a member alone over the bucket budget)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import fusion
+    from paddle_tpu_torch.models import machine_translation as mt
+    from paddle_tpu_torch.models import stacked_dynamic_lstm as sl
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        if model == "stacked_lstm":
+            loss, _ = sl.stacked_lstm_net(IMDB_VOCAB, max_len=LSTM_MAX_LEN)
+            opt = fluid.optimizer.Adam()
+            feeds = ["words", "label"]
+        else:
+            loss, _ = mt.seq_to_seq_net(512, 512, 512, WMT_DICT, WMT_DICT)
+            opt = fluid.optimizer.Adam(learning_rate=2e-4)
+            feeds = ["source_sequence", "target_sequence", "label_sequence"]
+        opt.minimize(loss)
+    main.random_seed = startup.random_seed = SEED
+    fused, plan = fusion.apply(main, feed_names=feeds,
+                               fetch_names=[loss.name])
+    buckets = [b for b in plan.buckets if b["opt"] == "adam"]
+    gb = main.global_block()
+    plain = {op.input("Param")[0]: int(np.prod(gb.var(op.input("Param")[0])
+                                               .shape))
+             for op in fused.global_block().ops if op.type == "adam"}
+    n_params = sum(int(np.prod(p.shape)) for p in gb.all_parameters())
+    log(f"[plan] {model}: {n_params} parameters; {len(buckets)} fused adam "
+        f"bucket(s) of {[b['n'] for b in buckets]} members, "
+        f"{[b['numel'] for b in buckets]} elements; plain adam ops for "
+        f"{plain}; ops {plan.n_ops_before} -> {plan.n_ops_after}")
+    return {"name": model, "main": main, "startup": startup, "loss": loss,
+            "buckets": buckets, "plain": plain}
+
+
+LOOP_OPS = ("lstm", "attention_lstm_decoder")
+
+
+def _loop_forward_ms(main, init, feed, fetch):
+    """{op name: ms} of each loop op's forward (LOOP_OPS) at the inputs one
+    interpreter step gives it on the card: the op's call alone, captured
+    as a CUDA graph and replayed (_graph_ms). Its derived grad runs the
+    same forward again."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert, flags
+    from paddle_tpu_torch.core import executor_core, registry
+
+    run_one = executor_core._run_one_op
+    out = {}
+
+    def timed(op, env, ctx):
+        run_one(op, env, ctx)
+        if op.type in LOOP_OPS:
+            op_def = registry.lookup(op.type)
+            ins = {slot: [env[n] if n else None for n in names]
+                   for slot, names in op.inputs.items()}
+            out[f"{op.type}:{op.output_arg_names()[0]}"] = _graph_ms(
+                lambda: registry.run_kernel(op_def, ctx, ins, op.attrs),
+                replays=3)
+
+    scope = fluid.Scope()
+    convert.load_numpy_state(scope, main, init, fluid.CUDAPlace(0))
+    exe = fluid.Executor()
+    executor_core._run_one_op = timed
+    try:
+        with fluid.scope_guard(scope), \
+                flags.flag_guard(fuse=True, cuda_graph=False):
+            exe.run(main, feed=feed, fetch_list=fetch)
+    finally:
+        executor_core._run_one_op = run_one
+    del exe, scope
+    _release()
+    return out
+
+
+def _embedding_grad_bitwise(main, scope, feed):
+    """lookup_table_grad of every embedding at the feed's ids and a random
+    Out@GRAD, twice on the card: bitwise equal (index_put_ with
+    accumulate sorts the ids; index_add_ would add with atomics), and
+    within the repo's fp32 bound of the host's (rtol 1e-4; atol 1e-5 for
+    rows where a sum of ~100 standard normals cancels). Returns the
+    largest difference from the host."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor_core, registry
+
+    op_def = registry.lookup("lookup_table_grad")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    worst = 0.0
+    for op in main.global_block().ops:
+        if op.type != "lookup_table":
+            continue
+        ids, w = feed[op.input("Ids")[0]], scope.find_var(op.input("W")[0])
+        g = torch.randn((ids.ntokens, w.shape[1]), generator=gen,
+                        device="cuda")
+        ins = {"Ids": [ids], "W": [w], "Out@GRAD": [g]}
+        outs = []
+        for place in (fluid.CUDAPlace(0), fluid.CUDAPlace(0),
+                      fluid.CPUPlace()):
+            dev = "cuda" if isinstance(place, fluid.CUDAPlace) else "cpu"
+            moved = {k: [registry.SeqTensor(v.data.to(dev), v.lengths.to(dev))
+                         if isinstance(v, registry.SeqTensor) else v.to(dev)
+                         for v in vs] for k, vs in ins.items()}
+            outs.append(registry.run_kernel(
+                op_def, executor_core.OpContext(place), moved,
+                dict(op.attrs))["W@GRAD"][0].cpu())
+        if not torch.equal(outs[0], outs[1]):
+            raise AssertionError(f"lookup_table_grad of {op.input('W')[0]} "
+                                 f"differs between two runs on the card")
+        np.testing.assert_allclose(outs[0].numpy(), outs[2].numpy(),
+                                   rtol=1e-4, atol=1e-5)
+        worst = max(worst, float((outs[0] - outs[2]).abs().max()))
+    return worst
+
+
+def _seq_parity(m, init, card_line):
+    """3 steps of the full-width model at batch SEQ_PARITY_BATCH on the
+    host and on the card from the same weights, fused Adam: losses within
+    rtol 1e-4 (the repo's fp32 bound)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert, flags
+
+    batches = seq_batches(m["name"], np.random.RandomState(SEED + 1), 3,
+                          SEQ_PARITY_BATCH)
+    out = {}
+    for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
+        scope = fluid.Scope()
+        convert.load_numpy_state(scope, m["main"], init, place)
+        exe = fluid.Executor(place)
+        with fluid.scope_guard(scope), flags.flag_guard(fuse=True):
+            out[repr(place)] = [
+                float(exe.run(m["main"], feed=f,
+                              fetch_list=[m["loss"]])[0].reshape(-1)[0])
+                for f in seq_feeds(batches, place)[0]]
+        del exe, scope
+        _release()
+    host, card = out["CPUPlace()"], out["CUDAPlace(0)"]
+    rel = max(abs(c / h - 1) for c, h in zip(card, host))
+    log(f"[{m['name']}] host vs card, 3 steps at batch {SEQ_PARITY_BATCH} "
+        f"from one weight set: losses host {host} card {card}; largest "
+        f"relative difference {rel:.3e} (rtol 1e-4) [{card_line}]")
+    np.testing.assert_allclose(card, host, rtol=1e-4)
+    return {"host": host, "card": card, "max_rel": rel}
+
+
+def phase_seq(m, card_line):
+    """A sequence config's training on the captured step, in f32 as
+    fluid_benchmark.py runs it: fused Adam, batch SEQ_BATCH,
+    Executor.run(iters=SEQ_K) over seeded bucketed feeds stacked on the
+    card, SEQ_WARM warm then SEQ_CALLS timed calls, fetching the loss.
+    Checks: step_mode "graph", adam_bucket_ launched once a bucket a step,
+    finite losses, every persistable f32 on the card; words/s, step ms,
+    peak memory; one replayed step traced (idle share, top-10 in
+    chiprun_out/); the loop ops' forwards timed alone (each runs again
+    inside its derived grad); the embedding grads bitwise run to run; 3
+    steps at batch 32 through the graph and the interpreter, bitwise;
+    host vs card."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert, flags
+    from paddle_tpu_torch.fusion import kernels as fk
+
+    tag, main, loss = m["name"], m["main"], m["loss"]
+    batches = seq_batches(tag, np.random.RandomState(SEED), SEQ_K, SEQ_BATCH)
+    place = fluid.CUDAPlace(0)
+    per_step, totals = seq_feeds(batches, place)
+    feeds = _stacked(per_step)
+    words = sum(seq_tokens(tag, b) for b in batches)
+    seconds = {}
+    t0 = time.perf_counter()
+    result = {"batch": SEQ_BATCH, "iters": SEQ_K, "warm_calls": SEQ_WARM,
+              "timed_calls": SEQ_CALLS, "flat_totals": totals,
+              "words_per_call": words, "card": card_line,
+              "buckets": [b["numel"] for b in m["buckets"]],
+              "plain_adam": m["plain"]}
+    with flags.flag_guard(fuse=True):
+        init_scope = fluid.Scope()
+        with fluid.scope_guard(init_scope):
+            fluid.Executor(place).run(m["startup"])
+        init = convert.numpy_state(init_scope, main)
+        del init_scope
+        scope = fluid.Scope()
+        convert.load_numpy_state(scope, main, init, place)
+        exe = fluid.Executor()
+        _release()
+        torch.cuda.reset_peak_memory_stats()
+        fk.reset_launch_counts()
+        with fluid.scope_guard(scope):
+            dt, outs = _timed_calls(exe, main, feeds, [loss], SEQ_K,
+                                    SEQ_WARM, SEQ_CALLS)
+            torch.cuda.synchronize()
+            seconds["setup_and_calls"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            launches = fk.adam_bucket.launches
+            steps = (SEQ_WARM + SEQ_CALLS) * SEQ_K
+            mode = exe.step_mode(main)
+            lv = _losses(outs[0])
+            if mode != "graph":
+                raise AssertionError(f"{tag} ran as {mode!r}")
+            if launches != len(m["buckets"]) * steps:
+                raise AssertionError(
+                    f"{tag}: adam kernel launched {launches} times, expected "
+                    f"{len(m['buckets'])} buckets x {steps} steps")
+            if not np.all(np.isfinite(lv)):
+                raise AssertionError(f"non-finite {tag} loss {lv}")
+            _check_master_state(scope)
+            result.update(
+                step_mode=mode, words_per_sec=words * SEQ_CALLS / dt,
+                step_ms=dt / (SEQ_K * SEQ_CALLS) * 1e3,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                launches=launches, steps=steps,
+                last_losses=[float(v) for v in lv[-3:]])
+            log(f"[{tag}] {card_line}: graph: {result['words_per_sec']:.1f} "
+                f"words/s ({result['step_ms']:.2f} ms a step; {SEQ_CALLS} "
+                f"calls of iters={SEQ_K} at batch {SEQ_BATCH}, {words} words "
+                f"a call, in {dt:.3f} s after {SEQ_WARM} warm; flat totals "
+                f"{totals}); peak mem {result['peak_mem_gib']:.2f} GiB; "
+                f"adam_bucket launches {launches} ({len(m['buckets'])} "
+                f"bucket(s) of {result['buckets']} x {steps} steps); last "
+                f"losses {result['last_losses']}")
+            wall, busy, idle, rows, _ = trace_step(
+                exe, main, per_step[0], [loss], "adam_kernel",
+                table=f"{tag}_graph")
+            result.update(trace_wall_ms=wall, trace_busy_ms=busy,
+                          idle_share=idle, kernel_rows=rows,
+                          idle_share_of_untraced_step=1 - busy
+                          / result["step_ms"])
+            log(f"[{tag}] {card_line}: one replayed step traced on the card "
+                f"only: wall {wall:.2f} ms, device busy {busy:.2f} ms, idle "
+                f"share {idle:.3f} (1 - busy / untraced step ms: "
+                f"{result['idle_share_of_untraced_step']:.3f}); adam_kernel "
+                f"rows {rows}")
+            if rows != len(m["buckets"]):
+                raise AssertionError(f"{rows} adam_kernel rows in one traced "
+                                     f"replay, not {len(m['buckets'])}")
+            result["embedding_grad_host_diff"] = _embedding_grad_bitwise(
+                main, scope, per_step[0])
+        del exe, scope
+        _release()
+        seconds["traces_and_embedding_grads"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loops = _loop_forward_ms(main, init, per_step[0], [loss])
+        result.update(loop_forward_ms=loops,
+                      recompute_share=sum(loops.values()) / result["step_ms"])
+        log(f"[{tag}] {card_line}: the loop ops' forwards alone, each "
+            f"replayed from a graph at a step's inputs: "
+            f"{ {k: round(v, 3) for k, v in loops.items()} } ms; each runs "
+            f"again inside its derived grad: that recompute is "
+            f"{result['recompute_share']:.3f} of the {result['step_ms']:.2f} "
+            f"ms step")
+        seconds["loop_forwards"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        small = seq_feeds([{n: v[:BATCH] for n, v in b.items()}
+                           for b in batches[:3]], place)[0]
+        result["bitwise"] = _graph_vs_interpreter(tag, main, [loss], init,
+                                                  small)
+        if not result["bitwise"]["equal"]:
+            raise AssertionError(f"{tag}: graph and interpreter differ")
+        seconds["bitwise"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        result["parity"] = _seq_parity(m, init, card_line)
+        seconds["parity"] = time.perf_counter() - t0
+    log(f"[{tag}] phase seconds: "
+        f"{ {k: round(v, 1) for k, v in seconds.items()} }")
+    result["seconds"] = seconds
+    del feeds, per_step
     _release()
     return result
 
@@ -1730,6 +2132,7 @@ def main():
     mlp = build_mlp()
     images = {name: build_image_model(name)
               for name in ("se_resnext50", "vgg16", "mnist_cnn")}
+    seqs = {name: build_seq_model(name) for name in ("stacked_lstm", "nmt")}
 
     def numels(plan):
         return [b["numel"] for b in plan]
@@ -1768,7 +2171,9 @@ def main():
                                     amp_dtypes["vgg16"]),
             "mlp": bucket_members(mlp[0], mlp[3]),
             "mnist_cnn": bucket_members(images["mnist_cnn"]["main"],
-                                        images["mnist_cnn"]["buckets"])}}
+                                        images["mnist_cnn"]["buckets"]),
+            **{name: bucket_members(m["main"], m["buckets"])
+               for name, m in seqs.items()}}}
     del head
     rows = phase_kernels({
         "momentum_bucket": {"resnet50": numels(resnet[3]),
@@ -1776,7 +2181,9 @@ def main():
                                 images["se_resnext50"]["buckets"])},
         "adam_bucket": {"vgg16": numels(images["vgg16"]["buckets"]),
                         "mlp": numels(mlp[3]),
-                        "mnist_cnn": numels(images["mnist_cnn"]["buckets"])}},
+                        "mnist_cnn": numels(images["mnist_cnn"]["buckets"]),
+                        **{name: numels(m["buckets"])
+                           for name, m in seqs.items()}}},
         members)
     momentum, adam = rows[0], rows[1]
     paths = {"resnet50_fp32": phase_resnet(*resnet, card)}
@@ -1795,13 +2202,18 @@ def main():
              "mnist_cnn": phase_adam("mnist_cnn", mnist["main"],
                                      mnist["startup"], mnist["loss"],
                                      mnist["buckets"], mnist["shape"])}
+    seq = {}
+    for name, m in seqs.items():
+        seq[name] = phase_seq(m, card_line)
+        paths[name] = seq[name]["launches"]
+    del seqs
     adam["launches"], adam["launches_by_path"] = vgg["launches"], paths
     phase_parity(amp=False)
     phase_parity(amp=True)
     rows += phase_flash(sass)
     log(card_line)
     log(json.dumps({"headline": headline, "se_resnext50": se,
-                    "vgg16": vgg}))
+                    "vgg16": vgg, **seq}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

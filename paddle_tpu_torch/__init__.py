@@ -4,9 +4,11 @@ The same Fluid-style surface as the JAX package (`import paddle_tpu_torch
 as fluid`): Programs are built with `layers`, differentiated by
 `append_backward`, updated by optimizer ops, and run by an op-by-op
 Executor whose kernels are torch functions on one CUDA card (CPUPlace()
-runs them on the host). The fused optimizer-bucket updates and the
-flash-attention forward (parallel.flash_attention) are hand-written CUDA
-kernels (fusion/kernels.py, parallel/flash.py, csrc/).
+runs them on the host). Ragged (LoD) batches are fed as LoDTensors or
+bucketed SeqTensors (create_lod_tensor, create_bucketed_seq_tensor). The
+fused optimizer-bucket updates and the flash-attention forward
+(parallel.flash_attention) are hand-written CUDA kernels
+(fusion/kernels.py, parallel/flash.py, csrc/).
 """
 
 from . import flags
@@ -24,7 +26,8 @@ from .core.framework import (
 )
 from .core.places import CPUPlace, CUDAPlace, TPUPlace
 from .core.scope import Scope, global_scope, scope_guard
-from .core.lod_tensor import LoDTensor
+from .core.lod_tensor import (LoDTensor, create_bucketed_seq_tensor,
+                              create_lod_tensor, create_random_int_lodtensor)
 from . import ops  # registers every kernel
 from . import initializer
 from . import param_attr

@@ -20,6 +20,7 @@ On top of it sit the counterparts of the JAX package's whole-block step
 The FLAGS_fuse_optimizer_ops concat path has no counterpart yet.
 """
 
+import numpy as np
 import torch
 
 from .. import cuda_build
@@ -68,17 +69,56 @@ class RandomStream:
         return t.clone()
 
 
+def check_cap(host_lengths, cap, what, op_type):
+    """Raise ValueError when a sequence of `host_lengths` (numpy) is longer
+    than the static scan bound `cap`, which would truncate it silently."""
+    mx = int(np.max(host_lengths)) if len(host_lengths) else 0
+    if mx > cap:
+        raise ValueError(
+            f"{op_type}: {what} sequence of length {mx} exceeds static cap "
+            f"{cap}; raise max_{what}_len")
+
+
+def check_caps(caps, feeds):
+    """The cap checks a step recorded ({(feed name, cap, what, op type)},
+    OpContext.check_cap) against the host lengths of `feeds`: what a
+    replay, which runs no op's Python, checks before it runs."""
+    for name, cap, what, op_type in caps:
+        host = getattr(feeds.get(name), "host_lengths", None)
+        if host is not None:
+            check_cap(host, cap, what, op_type)
+
+
 class OpContext:
     """Per-step context passed to kernels: the device every allocation
-    lands on, the random stream the step draws from, and the test-mode
-    flag."""
+    lands on, the random stream the step draws from, the test-mode flag,
+    and the host copies of the fed sequence lengths
+    ({id(lengths tensor): (feed name, numpy lengths or None)})."""
 
-    def __init__(self, place, rng=None, is_test=False):
+    def __init__(self, place, rng=None, is_test=False, fed_lengths=None,
+                 caps=None):
         self.place = place
         self.device = device_for(place)
         self.rng = rng if rng is not None else RandomStream(self.device, 0)
         self.is_test = is_test
         self.current_op = None  # the op being run (derived grad kernels)
+        self.fed_lengths = fed_lengths or {}
+        self.caps = caps if caps is not None else set()
+
+    def check_cap(self, lengths, cap, what, op_type):
+        """Raise ValueError when a sequence of `lengths` is longer than
+        `cap`, reading the lengths on the host only: a feed's from the
+        numpy copy it came with (and the check joins `self.caps`, which a
+        captured step repeats before every replay), a CPU tensor as it is.
+        Lengths made on the device inside the step are not read: that
+        would wait for the device, which a capture refuses."""
+        name, host = self.fed_lengths.get(id(lengths), (None, None))
+        if name is not None:
+            self.caps.add((name, cap, what, op_type))
+        if host is None and lengths.device.type == "cpu":
+            host = lengths.numpy()
+        if host is not None:
+            check_cap(host, cap, what, op_type)
 
 
 def env_get(env, name):
@@ -88,8 +128,18 @@ def env_get(env, name):
         f"Variable {name!r} not materialized (missing feed or init?)")
 
 
-def run_ops(ops, env, ctx):
+def run_ops(ops, env, ctx, fetch_names=(), state_names=()):
+    """Run `ops` in order on `env`. Before an op that writes a name of
+    `state_names` (the persistables the step writes), every one of
+    `fetch_names` already computed that shares that name's memory becomes
+    a copy (copy_aliased_fetches)."""
+    state = set(state_names)
+    watch = [n for n in fetch_names if n not in state]
     for op in ops:
+        if watch:
+            written = [n for n in op.output_arg_names() if n in state]
+            if written:
+                copy_aliased_fetches(env, watch, written)
         _run_one_op(op, env, ctx)
     return env
 
@@ -193,8 +243,10 @@ def build_step_fn(program, fetch_names, state_out_names, place):
     mut_state holds the persistables the block writes, const_state those it
     only reads; new_mut maps each of `state_out_names` the step holds to its
     new value; its random ops draw from `rng`, a RandomStream. It runs the
-    dead-code-eliminated op list (`step.ops`) through the interpreter and
-    allocates fresh outputs: no input is written.
+    dead-code-eliminated op list (`step.ops`) through the interpreter; a
+    fetch computed before an op writes a persistable whose memory it
+    shares is copied first (run_ops). A feed may be a SeqTensor; the cap
+    checks its ops make join `step.caps` (OpContext.check_cap).
     `step.blocker` is the op that keeps it out of a CUDA graph, or None
     (`capture_blocker`)."""
     ops = dead_code_eliminate(program.global_block().ops,
@@ -205,30 +257,87 @@ def build_step_fn(program, fetch_names, state_out_names, place):
         env.update(const_state)
         env.update(mut_state)
         env.update(feeds)
-        ctx = OpContext(place, rng)
+        ctx = OpContext(place, rng, caps=step.caps, fed_lengths={
+            id(v.lengths): (n, v.host_lengths) for n, v in feeds.items()
+            if isinstance(v, registry.SeqTensor)})
         with torch.no_grad():
-            run_ops(ops, env, ctx)
+            run_ops(ops, env, ctx, fetch_names, state_out_names)
         fetches = [env_get(env, n) for n in fetch_names]
         new_mut = {n: env[n] for n in state_out_names if n in env}
         return fetches, new_mut
 
     step.ops = ops
     step.blocker = capture_blocker(ops)
+    step.caps = set()  # the cap checks its runs made (OpContext.check_cap)
     return step
+
+
+def copy_aliased_fetches(env, fetch_names, written):
+    """Before an op writes the persistables `written`: every fetch of
+    `fetch_names` already computed whose memory is one of theirs (a view of
+    a parameter, say) becomes a copy, so it keeps the value it was computed
+    with, as in the JAX package. The write may be in place (the fused adam
+    update) or the captured step's write-back into the scope's tensors at
+    the end of the step; either would change the fetch."""
+    held = {_storage(registry.seq_data(env[n])) for n in written if n in env}
+    for n in fetch_names:
+        v = env.get(n)
+        if isinstance(registry.seq_data(v), torch.Tensor) \
+                and _storage(registry.seq_data(v)) in held:
+            env[n] = clone_value(v)
 
 
 def _storage(t):
     return t.untyped_storage().data_ptr()
 
 
+def clone_value(v):
+    """A copy of a tensor, or of a SeqTensor's data (its lengths are never
+    written in place)."""
+    if isinstance(v, registry.SeqTensor):
+        return registry.SeqTensor(v.data.clone(), v.lengths, v.host_lengths)
+    return v.clone()
+
+
 def unshared(fetches, state):
     """`fetches` with a clone in place of each tensor that shares memory
     with a tensor of `state`. An update in place (the fused adam update)
     writes those tensors again at the next step, so a fetch of one, or of
-    a view of one, would change under the caller."""
+    a view of one taken after its update, would change under the caller
+    (a view taken before it is copied earlier: copy_aliased_fetches)."""
     held = {_storage(t) for t in state}
-    return [f.clone() if isinstance(f, torch.Tensor) and _storage(f) in held
-            else f for f in fetches]
+    return [clone_value(f)
+            if isinstance(registry.seq_data(f), torch.Tensor)
+            and _storage(registry.seq_data(f)) in held else f
+            for f in fetches]
+
+
+def _buffer_like(v):
+    if isinstance(v, registry.SeqTensor):
+        return registry.SeqTensor(_buffer_like(v.data),
+                                  _buffer_like(v.lengths))
+    return torch.empty(v.shape, dtype=v.dtype, device=v.device)
+
+
+def _fill(name, buf, v):
+    """Copy feed `v` into its static buffer `buf`, both tensors or both
+    SeqTensors (data and lengths) of the buffer's shapes and dtypes."""
+    if isinstance(buf, registry.SeqTensor):
+        if not isinstance(v, registry.SeqTensor):
+            raise ValueError(f"feed {name!r} is dense; the captured step "
+                             f"takes a ragged (SeqTensor) value")
+        _fill(name, buf.data, v.data)
+        _fill(name + ".lengths", buf.lengths, v.lengths)
+        return
+    if isinstance(v, registry.SeqTensor) or v.shape != buf.shape \
+            or v.dtype != buf.dtype:
+        got = (f"ragged {tuple(v.data.shape)}"
+               if isinstance(v, registry.SeqTensor)
+               else f"{v.dtype}{tuple(v.shape)}")
+        raise ValueError(
+            f"feed {name!r} is {got}; the captured step takes "
+            f"{buf.dtype}{tuple(buf.shape)}")
+    buf.copy_(v)
 
 
 class CapturedStep:
@@ -258,8 +367,8 @@ class CapturedStep:
         self.state = {n: scope.find_var(n) for n in state_in}
         self.mut = {n: self.state[n] for n in written if n in self.state}
         const = {n: t for n, t in self.state.items() if n not in self.mut}
-        self.feeds = {n: torch.empty(t.shape, dtype=t.dtype, device=t.device)
-                      for n, t in feeds.items()}
+        self.feeds = {n: _buffer_like(t) for n, t in feeds.items()}
+        self.caps = step.caps
         self._load(feeds)
         static = {_storage(t) for t in self.state.values()}
         self.graph = torch.cuda.CUDAGraph()
@@ -289,13 +398,9 @@ class CapturedStep:
                          if n != before.get(k, 0)}
 
     def _load(self, feeds):
+        check_caps(self.caps, feeds)
         for n, buf in self.feeds.items():
-            t = feeds[n]
-            if t.shape != buf.shape or t.dtype != buf.dtype:
-                raise ValueError(
-                    f"feed {n!r} is {t.dtype}{tuple(t.shape)}; the captured "
-                    f"step takes {buf.dtype}{tuple(buf.shape)}")
-            buf.copy_(t)
+            _fill(n, buf, feeds[n])
 
     def sync_scope(self, scope):
         """Bring a tensor of `scope` (the capture's) that was replaced since
@@ -350,12 +455,37 @@ def build_multi_step_fn(run_step, iters):
     def multi(stacked_feeds):
         outs = None
         for k in range(iters):
-            fetches = run_step({n: t[k] for n, t in stacked_feeds.items()})
+            fetches = run_step({n: step_slice(t, k)
+                                for n, t in stacked_feeds.items()})
             if outs is None:
-                outs = [torch.empty((iters,) + tuple(f.shape), dtype=f.dtype,
-                                    device=f.device) for f in fetches]
+                outs = [_stack_buffer(f, iters) for f in fetches]
             for o, f in zip(outs, fetches):
-                o[k].copy_(f)
+                _put(step_slice(o, k), f)
         return outs
 
     return multi
+
+
+def step_slice(v, k):
+    """Step k of a [K, ...] stack: a tensor's row, or a SeqTensor's data,
+    lengths and host lengths rows."""
+    if isinstance(v, registry.SeqTensor):
+        host = None if v.host_lengths is None else v.host_lengths[k]
+        return registry.SeqTensor(v.data[k], v.lengths[k], host)
+    return v[k]
+
+
+def _stack_buffer(v, iters):
+    if isinstance(v, registry.SeqTensor):
+        return registry.SeqTensor(_stack_buffer(v.data, iters),
+                                  _stack_buffer(v.lengths, iters))
+    return torch.empty((iters,) + tuple(v.shape), dtype=v.dtype,
+                       device=v.device)
+
+
+def _put(dst, v):
+    if isinstance(dst, registry.SeqTensor):
+        dst.data.copy_(v.data)
+        dst.lengths.copy_(v.lengths)
+    else:
+        dst.copy_(v)

@@ -22,11 +22,19 @@ from . import dtypes
 
 class SeqTensor:
     """The LoD representation inside a step (1 nesting level): data
-    [N, ...] flat tokens, lengths [B] per-sequence token counts."""
+    [N, ...] flat tokens (N >= sum(lengths); the tail rows are padding, as
+    create_bucketed_seq_tensor makes them), lengths int32 [B] per-sequence
+    token counts, on the data's device.
 
-    def __init__(self, data, lengths):
+    `host_lengths` is a numpy copy of the lengths that a feed built on the
+    host carries, or None: the step reads it, never the device tensor, to
+    check a length cap (rnn_ops.check_cap), so that no check waits for the
+    device."""
+
+    def __init__(self, data, lengths, host_lengths=None):
         self.data = data
         self.lengths = lengths
+        self.host_lengths = host_lengths
 
     @property
     def batch(self):
@@ -35,6 +43,22 @@ class SeqTensor:
     @property
     def ntokens(self):
         return self.data.shape[0]
+
+    def offsets(self):
+        """[B+1] int32 exclusive scan of the lengths (the LoD offsets)."""
+        cum = torch.cumsum(self.lengths, 0, dtype=torch.int32)
+        return torch.cat([cum.new_zeros(1), cum])
+
+    def segment_ids(self):
+        """[N] int32: each token's sequence index; padding rows get B."""
+        cum = torch.cumsum(self.lengths, 0, dtype=torch.int32)
+        pos = torch.arange(self.ntokens, dtype=torch.int32,
+                           device=cum.device)
+        return torch.searchsorted(cum, pos, right=True, out_int32=True)
+
+    def token_mask(self):
+        """[N] bool: True for real (non-padding) tokens."""
+        return self.segment_ids() < self.batch
 
     def __repr__(self):
         return (f"SeqTensor(data={tuple(self.data.shape)}, "

@@ -33,6 +33,7 @@ from .core import dtypes, executor_core
 from .core.framework import Variable, default_main_program
 from .core.lod_tensor import LoDTensor
 from .core.places import CUDAPlace, device_for
+from .core.registry import SeqTensor
 from .core.scope import global_scope
 
 __all__ = ["Executor", "as_numpy"]
@@ -48,12 +49,41 @@ flags.define(
 def as_numpy(value):
     """A fetched tensor (or list of them) as numpy, on the host. numpy has
     no bfloat16: a bf16 value (an activation or mask under amp) comes back
-    widened to float32, which holds it exactly."""
+    widened to float32, which holds it exactly. A ragged value (SeqTensor)
+    comes back as a LoDTensor (`to_lod_tensor`), as in the reference."""
     if isinstance(value, (list, tuple)):
         return [as_numpy(v) for v in value]
+    if isinstance(value, SeqTensor):
+        return to_lod_tensor(value)
     if value.dtype == torch.bfloat16:
         value = value.float()
     return value.detach().cpu().numpy()
+
+
+def to_lod_tensor(value):
+    """A SeqTensor as a host LoDTensor: its data (padding rows included)
+    and the offsets of its lengths. A stacked one (iters=K, lengths
+    [K, B]) gives a list of K LoDTensors, one a step."""
+    lengths = value.lengths.cpu().numpy()
+    if lengths.ndim == 2:
+        return [to_lod_tensor(executor_core.step_slice(value, k))
+                for k in range(lengths.shape[0])]
+    offsets = np.concatenate([[0], np.cumsum(lengths)]).tolist()
+    return LoDTensor(as_numpy(value.data), [offsets])
+
+
+def _host_lengths(seq):
+    """A fed SeqTensor's lengths as numpy where the host has them without
+    waiting for the device: its own host copy, or lengths held on the host;
+    None for lengths only on a card."""
+    if seq.host_lengths is not None:
+        return seq.host_lengths
+    lengths = seq.lengths
+    if isinstance(lengths, torch.Tensor):
+        if lengths.device.type != "cpu":
+            return None
+        lengths = lengths.numpy()
+    return np.asarray(lengths, np.int32)
 
 
 class _Graph:
@@ -106,10 +136,11 @@ class Executor:
             outs = run_step(feeds)
             if self.step_mode(program) == "graph":
                 # the graph's fetch tensors are overwritten by its next replay
-                outs = [t.clone() for t in outs]
+                outs = [executor_core.clone_value(t) for t in outs]
         else:
             stacked = self._stack_steps(program, feed, iters)
-            step0 = {n: t[0] for n, t in stacked.items()}
+            step0 = {n: executor_core.step_slice(t, 0)
+                     for n, t in stacked.items()}
             run_step = self._stepper(program, scope, step0, fetch_names)
             outs = executor_core.build_multi_step_fn(run_step, iters)(stacked)
         return as_numpy(outs) if return_numpy else outs
@@ -121,19 +152,30 @@ class Executor:
 
     # ------------------------------------------------------------------
     def _to_device(self, value, var):
+        """A feed value on the device: a LoDTensor with a LoD becomes a
+        SeqTensor (data, int32 lengths, and the lengths as numpy for the
+        step's cap checks), a SeqTensor moves as it is; the data takes the
+        var's declared dtype."""
         if isinstance(value, LoDTensor):
             if value.lod():
-                raise NotImplementedError(
-                    "ragged (LoD) feeds wait for the sequence slice of the "
-                    "port")
-            value = value.numpy()
-        if isinstance(value, torch.Tensor):
-            t = value.to(self.device)
-        else:
-            t = torch.from_numpy(np.ascontiguousarray(value)).to(self.device)
+                offs = value.last_level_offsets()
+                lengths = np.diff(np.asarray(offs)).astype(np.int32)
+                value = SeqTensor(value.numpy(), lengths, lengths)
+            else:
+                value = value.numpy()
+        if isinstance(value, SeqTensor):
+            return SeqTensor(self._to_device(value.data, var),
+                             self._tensor(value.lengths).to(torch.int32),
+                             _host_lengths(value))
+        t = self._tensor(value)
         if var is not None and var.dtype is not None:
             t = t.to(dtypes.to_torch(var.dtype))
         return t
+
+    def _tensor(self, value):
+        if isinstance(value, torch.Tensor):
+            return value.to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(value)).to(self.device)
 
     def _feed_values(self, program, feed):
         gb = program.global_block()
@@ -141,7 +183,11 @@ class Executor:
 
     def _stack_steps(self, program, feed, iters):
         """list of K dicts, or one dict of [K, ...] arrays -> one dict of
-        [K, ...] device tensors (a stacked feed moves to the device once)."""
+        [K, ...] device tensors (a stacked feed moves to the device once).
+        Ragged feeds ride too: the K steps' SeqTensors (from
+        create_bucketed_seq_tensor, or LoDTensors of one token total) stack
+        data and lengths componentwise when they share one shape; a dict
+        takes a SeqTensor pre-stacked on both."""
         if iters < 1:
             raise ValueError(f"iters must be >= 1, got {iters}")
         if isinstance(feed, (list, tuple)):
@@ -149,14 +195,50 @@ class Executor:
                 raise ValueError(
                     f"iters={iters} but feed has {len(feed)} step dicts")
             steps = [self._feed_values(program, f) for f in feed]
-            return {n: torch.stack([s[n] for s in steps]) for n in steps[0]}
+            return {n: self._stack(n, [s[n] for s in steps], iters)
+                    for n in steps[0]}
+        for n, v in feed.items():
+            if isinstance(v, LoDTensor) and v.lod():
+                raise ValueError(
+                    f"iters > 1 takes ragged feeds as per-step LIST dicts "
+                    f"(bucketed to one shape, see "
+                    f"fluid.create_bucketed_seq_tensor); a single "
+                    f"pre-stacked LoDTensor ({n!r}) is not supported")
         stacked = self._feed_values(program, feed)
         for n, t in stacked.items():
-            if t.ndim == 0 or t.shape[0] != iters:
+            if isinstance(t, SeqTensor):
+                if t.data.shape[:1] != (iters,) \
+                        or t.lengths.shape[:1] != (iters,):
+                    raise ValueError(
+                        f"stacked SeqTensor feed {n!r} must carry a leading "
+                        f"[K={iters}] axis on data and lengths, got "
+                        f"{tuple(t.data.shape)} / {tuple(t.lengths.shape)}")
+            elif t.ndim == 0 or t.shape[0] != iters:
                 raise ValueError(
                     f"feed {n!r} leading axis {tuple(t.shape)[:1]} != iters "
                     f"{iters} (pre-stacked feeds carry [K, ...])")
         return stacked
+
+    @staticmethod
+    def _stack(name, vals, iters):
+        ragged = [isinstance(v, SeqTensor) for v in vals]
+        if not any(ragged):
+            return torch.stack(vals)
+        if not all(ragged):
+            raise ValueError(f"feed {name!r} mixes ragged and dense values "
+                             f"across the {iters} steps")
+        shapes = {(tuple(v.data.shape), tuple(v.lengths.shape))
+                  for v in vals}
+        if len(shapes) != 1:
+            raise ValueError(
+                f"iters > 1 needs ONE static shape per feed, but ragged "
+                f"feed {name!r} varies across steps ({sorted(shapes)}); "
+                f"bucket-and-pad first (fluid.create_bucketed_seq_tensor)")
+        hosts = [v.host_lengths for v in vals]
+        return SeqTensor(
+            torch.stack([v.data for v in vals]),
+            torch.stack([v.lengths for v in vals]),
+            None if any(h is None for h in hosts) else np.stack(hosts))
 
     def _prepare(self, program, feeds, fetch_names):
         """key, (program to run, FusionPlan or None, step), cached per
@@ -164,8 +246,11 @@ class Executor:
         shapes and dtypes, fetches): FLAGS_fuse rewrites a clone once, and
         repeat steps reuse it."""
         fuse = flags.get("fuse")
-        specs = tuple(sorted((n, tuple(t.shape), str(t.dtype))
-                             for n, t in feeds.items()))
+        specs = tuple(sorted(
+            (n, "seq", tuple(t.data.shape), str(t.data.dtype),
+             tuple(t.lengths.shape)) if isinstance(t, SeqTensor)
+            else (n, tuple(t.shape), str(t.dtype))
+            for n, t in feeds.items()))
         key = (id(program), program._mutation, fuse,
                flags.get("fuse_bucket_mb"), amp.fingerprint(), specs,
                tuple(fetch_names))

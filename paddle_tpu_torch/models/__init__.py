@@ -1,5 +1,5 @@
-"""Model definitions (the BASELINE workloads): ResNet, SE-ResNeXt, VGG
-and the MNIST conv net.
+"""Model definitions (the BASELINE workloads): ResNet, SE-ResNeXt, VGG,
+the MNIST conv net, the stacked LSTM and the seq2seq NMT.
 
 Each module has the benchmark/fluid contract get_model(args) ->
 (avg_cost, inference_program, optimizer, train_reader, test_reader,
@@ -19,7 +19,9 @@ def input_path_missing(module):
         f"and feed arrays to Executor.run.")
 
 
+from . import machine_translation  # noqa: E402
 from . import mnist  # noqa: E402
 from . import resnet  # noqa: E402
 from . import se_resnext  # noqa: E402
+from . import stacked_dynamic_lstm  # noqa: E402
 from . import vgg  # noqa: E402

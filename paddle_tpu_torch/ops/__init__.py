@@ -1,7 +1,8 @@
 """Op kernels on torch. Importing this package registers every kernel
 the port carries (the training slices: ResNet, SE-ResNeXt, VGG and the
-MNIST conv net with Momentum or Adam, the MLP, and the fused bucket
-updates)."""
+MNIST conv net with Momentum or Adam, the MLP, the sequence family —
+embedding, sequence ops, LSTM/GRU and the attention decoder of the
+stacked-LSTM and NMT models — and the fused bucket updates)."""
 
 from . import util
 from . import tensor_ops
@@ -11,3 +12,6 @@ from . import nn_ops
 from . import metric_ops
 from . import optimizer_ops
 from . import fused_ops
+from . import sparse_ops
+from . import sequence_ops
+from . import rnn_ops

@@ -10,7 +10,7 @@ import math
 
 import torch
 
-from ..core.registry import register_op
+from ..core.registry import SeqTensor, register_op
 from .util import first, many, out, bcast_y_to_x
 
 
@@ -67,10 +67,23 @@ def scale_op(ctx, ins, attrs):
     return out(Out=o.to(x.dtype))
 
 
-@register_op("mean")
+@register_op("mean", lod_aware=True)
 def mean_op(ctx, ins, attrs):
-    # fluid has no 0-d tensors: mean_op.cc infers Out as {1}
-    return out(Out=first(ins, "X").mean().reshape(1))
+    """fluid has no 0-d tensors: mean_op.cc infers Out as {1}. Over a
+    SeqTensor the mean is over its real tokens only: a bucket-padded one
+    (create_bucketed_seq_tensor) carries tail rows past sum(lengths) that
+    do not count. Without padding the mask is all true and this is the
+    plain mean."""
+    x = first(ins, "X")
+    if isinstance(x, SeqTensor):
+        data = x.data
+        m = x.token_mask().reshape((-1,) + (1,) * (data.ndim - 1))
+        total = torch.sum(torch.where(m, data.to(torch.float32), 0.0))
+        denom = torch.sum(m).to(torch.float32) * float(
+            math.prod(data.shape[1:]) or 1)
+        return out(Out=(total / torch.clamp_min(denom, 1.0))
+                   .to(data.dtype).reshape(1))
+    return out(Out=x.mean().reshape(1))
 
 
 @register_op("top_k")

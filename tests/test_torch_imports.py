@@ -1,8 +1,8 @@
 """The port stands alone, and builds the same IR as the JAX package.
 
 - importing paddle_tpu_torch (in a fresh interpreter) loads no jax module
-  and no module of the JAX package; no source file of the port, nor
-  chip_smoke.py, imports either;
+  and no module of the JAX package; no source file of the port (the
+  sequence slice's among them), nor chip_smoke.py, imports either;
 - the same layer calls under a fresh unique_name.guard() give the same
   Program.desc_str() in both packages (ResNet, SE-ResNeXt-50, VGG-16,
   the MNIST conv net and the MLP) — the string the JAX package's
@@ -84,6 +84,16 @@ def _sources():
 def test_source_imports_neither_jax_nor_the_jax_package(path):
     bad = [m for m in _imported_modules(path) if _foreign(m)]
     assert bad == [], f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("module", [
+    "core/lod_tensor.py", "ops/sparse_ops.py", "ops/sequence_ops.py",
+    "ops/rnn_ops.py", "models/stacked_dynamic_lstm.py",
+    "models/machine_translation.py"])
+def test_the_sequence_slice_is_among_the_checked_sources(module):
+    """The sequence slice's modules are checked by the test above: the walk
+    over the package finds each of them."""
+    assert os.path.join(PORT, module) in set(_sources())
 
 
 def _build(fluid, models, model, train):
