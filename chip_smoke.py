@@ -63,6 +63,18 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 momentum kernel's rows); graph vs interpreter from the same
                 state for 3 steps at batch 32 (cuDNN deterministic on both
                 sides), bitwise; every persistable f32 after the AMP steps
+  6b. parallel — the headline's program, feeds and timing through
+                fluid.ParallelExecutor(use_cuda=True) over a one-rank NCCL
+                group (parallel.distributed.initialize, file:// rendezvous
+                in a temp dir): 1 warm + 3 timed iters=40 calls through the
+                captured step, its gradient all-reduces and global-batch
+                collectives inside the graph; step_mode "graph", the
+                momentum kernel's launches = buckets x steps, the
+                collective launches of one replay (> 0), img/s beside the
+                headline Executor's, peak memory, one replayed step traced
+                (idle share); then PE and the Executor over 3 steps at batch
+                32 from one state, bitwise (losses and every persistable);
+                the group destroyed after
   7. se_resnext50, vgg16 — the benchmark/fluid image configs as their
                 get_model declares them (float32 NCHW 224x224, int64 labels,
                 the accuracy op): SE-ResNeXt-50 (1000 classes, Momentum(0.01,
@@ -152,6 +164,8 @@ HEADLINE_BATCH = 128
 HEADLINE_K = 40
 HEADLINE_WARM = 2
 HEADLINE_CALLS = 5
+PARALLEL_WARM = 1
+PARALLEL_CALLS = 3
 # host vs card losses under bf16 AMP: five bf16 ulps (5 x 2^-8)
 PARITY_AMP_RTOL = 2e-2
 # SE-ResNeXt-50 and VGG-16 under bf16 AMP: batch 64, iters=10 a call,
@@ -1215,6 +1229,196 @@ def _graph_vs_interpreter(tag, main, fetch, init, batches):
     return {"equal": equal, "losses": gl.tolist(), "n_differ": len(diff)}
 
 
+class _PERunner:
+    """A ParallelExecutor behind the Executor.run / step_mode calls that
+    _timed_calls and trace_step make."""
+
+    def __init__(self, pe):
+        self.pe = pe
+
+    def run(self, main, feed, fetch_list, iters=None, return_numpy=True):
+        return self.pe.run(fetch_list, feed=feed, iters=iters,
+                           return_numpy=return_numpy)
+
+    def step_mode(self, main):
+        return self.pe.step_mode()
+
+
+def _pe_vs_executor(main, fetch, init, batches):
+    """The steps of `batches` from the same state through the Executor and
+    through ParallelExecutor over the one-rank group, both on the captured
+    step with cuDNN deterministic: every fetch and every persistable
+    bitwise (a one-rank sum is a copy, and the global mean is one rank's
+    mean over one); a difference is printed and then held to rtol 1e-6."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+
+    place = fluid.CUDAPlace(0)
+    out = {}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode in ("executor", "parallel_executor"):
+            scope = fluid.Scope()
+            convert.load_numpy_state(scope, main, init, place)
+            with fluid.scope_guard(scope):
+                runner = (fluid.Executor() if mode == "executor" else
+                          _PERunner(fluid.ParallelExecutor(
+                              use_cuda=True, loss_name=fetch[0].name,
+                              main_program=main)))
+                fetched = [runner.run(main, feed=b, fetch_list=fetch)
+                           for b in batches]
+                if runner.step_mode(main) != "graph":
+                    raise AssertionError(f"{mode} ran its steps as "
+                                         f"{runner.step_mode(main)!r}")
+            out[mode] = (np.stack([f[0] for f in fetched]).reshape(-1),
+                         convert.numpy_state(scope, main))
+            del runner, scope
+            _release()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    (el, es), (pl, ps) = out["executor"], out["parallel_executor"]
+    diff = {n: float(np.abs(ps[n].astype(np.float64) - es[n]).max())
+            for n in es if not np.array_equal(ps[n], es[n])}
+    equal = np.array_equal(pl, el) and not diff
+    log(f"[parallel] ParallelExecutor (one NCCL rank) vs Executor, "
+        f"{len(batches)} steps at batch {BATCH} from one state (cuDNN "
+        f"deterministic): losses {pl.tolist()} / {el.tolist()}; "
+        f"{'bitwise equal' if equal else 'DIFFER'} over the loss and "
+        f"{len(es)} persistables" + ("" if equal else
+                                     f": {len(diff)} differ, largest "
+                                     f"{sorted(diff.items(), key=lambda kv: -kv[1])[:5]}"))
+    if not equal:
+        np.testing.assert_allclose(pl, el, rtol=1e-6)
+        for n in es:
+            np.testing.assert_allclose(ps[n], es[n], rtol=1e-6, err_msg=n)
+    return {"equal": equal, "losses": pl.tolist(), "n_differ": len(diff)}
+
+
+def phase_parallel(card, executor_img_s):
+    """bench.py's headline program through ParallelExecutor over a one-rank
+    NCCL group: the captured step with its collectives inside, timed as
+    the headline; one replay's collective launches; a replayed step
+    traced; PE vs Executor bitwise."""
+    import tempfile
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, convert, flags
+    from paddle_tpu_torch.fusion import kernels as fk
+    from paddle_tpu_torch.ops import collective_ops
+    from paddle_tpu_torch.parallel import distributed
+
+    t0 = time.perf_counter()
+    rendezvous = tempfile.mkdtemp()
+    distributed.initialize(
+        "file://" + os.path.join(rendezvous, "rendezvous"), 1, 0,
+        local_device_ids=[0])
+    main, startup, loss, buckets = build_headline()
+    rs = np.random.RandomState(SEED)
+    u8 = rs.randint(0, 256, (HEADLINE_K, HEADLINE_BATCH, 224, 224, 3),
+                    dtype=np.uint8)
+    lab = rs.randint(0, 1000, (HEADLINE_K, HEADLINE_BATCH, 1)).astype(
+        np.int32)
+    feeds = {"data_u8": torch.from_numpy(u8).cuda(),
+             "label": torch.from_numpy(lab).cuda()}
+    del u8, lab
+    place = fluid.CUDAPlace(0)
+    result = {"batch": HEADLINE_BATCH, "iters": HEADLINE_K,
+              "warm_calls": PARALLEL_WARM, "timed_calls": PARALLEL_CALLS,
+              "ranks": torch.distributed.get_world_size(),
+              "backend": torch.distributed.get_backend()}
+    amp.enable("bfloat16")
+    try:
+        with flags.flag_guard(fuse=True):
+            init_scope = fluid.Scope()
+            with fluid.scope_guard(init_scope):
+                fluid.Executor(place).run(startup)
+            init = convert.numpy_state(init_scope, main)
+            del init_scope
+
+            scope = fluid.Scope()
+            convert.load_numpy_state(scope, main, init, place)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fk.reset_launch_counts()
+            collective_ops.reset_launch_counts()
+            with fluid.scope_guard(scope):
+                runner = _PERunner(fluid.ParallelExecutor(
+                    use_cuda=True, loss_name=loss.name, main_program=main))
+                dt, outs = _timed_calls(runner, main, feeds, [loss],
+                                        HEADLINE_K, PARALLEL_WARM,
+                                        PARALLEL_CALLS)
+                lv = _losses(outs[0])
+                torch.cuda.synchronize()
+                steps = (PARALLEL_WARM + PARALLEL_CALLS) * HEADLINE_K
+                launches = fk.momentum_bucket.launches
+                collectives = collective_ops.launch.launches
+                mode = runner.step_mode(main)
+                if mode != "graph":
+                    raise AssertionError(f"the PE headline ran as {mode!r}")
+                if launches != len(buckets) * steps:
+                    raise AssertionError(
+                        f"momentum kernel launched {launches} times under "
+                        f"PE, expected {len(buckets)} buckets x {steps} "
+                        f"steps")
+                if not np.all(np.isfinite(lv)):
+                    raise AssertionError(f"non-finite PE loss {lv}")
+                _check_master_state(scope)
+                img_s = HEADLINE_BATCH * HEADLINE_K * PARALLEL_CALLS / dt
+                result.update(
+                    step_mode=mode, images_per_sec=img_s,
+                    step_ms=dt / (HEADLINE_K * PARALLEL_CALLS) * 1e3,
+                    executor_images_per_sec=executor_img_s,
+                    pe_over_executor=img_s / executor_img_s,
+                    peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                    momentum_launches=launches, steps=steps,
+                    collective_launches=collectives,
+                    last_losses=[float(v) for v in lv[-3:]])
+                step0 = {n: t[0] for n, t in feeds.items()}
+                collective_ops.reset_launch_counts()
+                runner.run(main, feed=step0, fetch_list=[loss])
+                torch.cuda.synchronize()
+                per_replay = collective_ops.launch.launches
+                if per_replay <= 0:
+                    raise AssertionError("no collective ran in a replay of "
+                                         "the PE step")
+                wall, busy, idle, rows, _ = trace_step(runner, main, step0,
+                                                       [loss])
+                result.update(collective_launches_per_replay=per_replay,
+                              trace_wall_ms=wall, trace_busy_ms=busy,
+                              idle_share=idle, momentum_rows=rows)
+                log(f"[parallel] {card}: ParallelExecutor over "
+                    f"{result['ranks']} {result['backend']} rank: "
+                    f"step_mode {mode}; resnet50_train_images_per_sec "
+                    f"{img_s:.2f} ({result['step_ms']:.2f} ms a step; "
+                    f"{PARALLEL_CALLS} calls of iters={HEADLINE_K} in "
+                    f"{dt:.3f} s after {PARALLEL_WARM} warm) beside the "
+                    f"Executor's {executor_img_s:.2f} in this run (ratio "
+                    f"{result['pe_over_executor']:.4f}); collective launches "
+                    f"in one replay {per_replay} ({collectives} over "
+                    f"{steps} steps, the eager step's included); "
+                    f"momentum_bucket launches {launches}; peak mem "
+                    f"{result['peak_mem_gib']:.2f} GiB; one replayed step "
+                    f"traced on the card only: wall {wall:.2f} ms, device "
+                    f"busy {busy:.2f} ms, idle share {idle:.3f}, "
+                    f"momentum_kernel rows {rows}")
+            del runner, scope
+            _release()
+            result["bitwise"] = _pe_vs_executor(
+                main, [loss], init,
+                [{n: t[k, :BATCH] for n, t in feeds.items()}
+                 for k in range(3)])
+            if not result["bitwise"]["equal"]:
+                raise AssertionError("ParallelExecutor over one rank is not "
+                                     "bitwise equal to the Executor")
+    finally:
+        amp.disable()
+        torch.distributed.destroy_process_group()
+    result["seconds"] = time.perf_counter() - t0
+    log(f"[parallel] phase seconds {result['seconds']:.1f}")
+    return result
+
+
 def build_mlp():
     """The README MLP (784-200-10) with Adam 1e-3, and its fusion plan."""
     import paddle_tpu_torch as fluid
@@ -2191,6 +2395,9 @@ def main():
     headline = phase_headline(card)
     paths["headline"] = headline["momentum_launches"]
     _release()
+    parallel = phase_parallel(card, headline["images_per_sec"])
+    paths["parallel_executor"] = parallel["momentum_launches"]
+    _release()
     se = phase_image(images["se_resnext50"], card)
     paths["se_resnext50"] = se["launches"]
     momentum["launches"], momentum["launches_by_path"] = (
@@ -2212,8 +2419,8 @@ def main():
     phase_parity(amp=True)
     rows += phase_flash(sass)
     log(card_line)
-    log(json.dumps({"headline": headline, "se_resnext50": se,
-                    "vgg16": vgg, **seq}))
+    log(json.dumps({"headline": headline, "parallel": parallel,
+                    "se_resnext50": se, "vgg16": vgg, **seq}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -4,7 +4,8 @@ The same Fluid-style surface as the JAX package (`import paddle_tpu_torch
 as fluid`): Programs are built with `layers`, differentiated by
 `append_backward`, updated by optimizer ops, and run by an op-by-op
 Executor whose kernels are torch functions on one CUDA card (CPUPlace()
-runs them on the host). Ragged (LoD) batches are fed as LoDTensors or
+runs them on the host), or by ParallelExecutor, one process per card over
+a torch.distributed group (data parallel, ZeRO-1). Ragged (LoD) batches are fed as LoDTensors or
 bucketed SeqTensors (create_lod_tensor, create_bucketed_seq_tensor). The
 fused optimizer-bucket updates and the flash-attention forward
 (parallel.flash_attention) are hand-written CUDA kernels
@@ -43,6 +44,9 @@ from . import fusion
 from . import parallel
 from . import executor
 from .executor import Executor
+from . import parallel_executor
+from .parallel_executor import (BuildStrategy, ExecutionStrategy,
+                                ParallelExecutor)
 from . import convert
 
 __version__ = "0.1.0"

@@ -7,6 +7,9 @@ names in both packages, so a `{var name: np.ndarray}` dict maps one to one:
 `load_numpy_state` places one — for example built from a JAX scope with
 `np.asarray(jax_scope.find_var(name))` — into the port's scope, after
 checking every array against the program's declared shape and dtype.
+State crosses in that full layout under ParallelExecutor's zero1 too: a
+rank keeps its row of a loaded accumulator at its next step
+(parallel/zero1.py), and `numpy_state` gathers the rows back.
 """
 
 import numpy as np
@@ -14,6 +17,7 @@ import torch
 
 from .core import dtypes
 from .core.places import device_for
+from .parallel import zero1
 
 
 def _persistable_vars(program):
@@ -51,11 +55,16 @@ def load_numpy_state(scope, program, arrays, place):
 
 
 def numpy_state(scope, program):
-    """{name: np.ndarray} of every persistable var of `program` in scope."""
+    """{name: np.ndarray} of every persistable var of `program` in scope,
+    in the full layout: a zero1 accumulator, of which this rank holds its
+    row, is gathered over the ranks (parallel.zero1.full_layout), so every
+    rank of a ParallelExecutor calls this together."""
     out = {}
-    for name in _persistable_vars(program):
+    # sorted: the gathers are collectives, issued in one order on every rank
+    for name in sorted(_persistable_vars(program)):
         v = scope.find_var(name)
         if v is not None:
             # a copy: the scope's tensors may be updated in place
-            out[name] = v.detach().to("cpu", copy=True).numpy()
+            out[name] = zero1.full_layout(name, v).detach().to(
+                "cpu", copy=True).numpy()
     return out

@@ -92,15 +92,21 @@ def check_caps(caps, feeds):
 class OpContext:
     """Per-step context passed to kernels: the device every allocation
     lands on, the random stream the step draws from, the test-mode flag,
-    and the host copies of the fed sequence lengths
-    ({id(lengths tensor): (feed name, numpy lengths or None)})."""
+    the host copies of the fed sequence lengths
+    ({id(lengths tensor): (feed name, numpy lengths or None)}), and the
+    data-parallel group the step runs on (`dp`, a parallel.mesh.Mesh:
+    ParallelExecutor's; None for a plain Executor), over which the ops
+    that reduce over the batch (mean, batch_norm, accuracy, dropout's
+    draw) give the global batch's result and the collective ops
+    communicate."""
 
     def __init__(self, place, rng=None, is_test=False, fed_lengths=None,
-                 caps=None):
+                 caps=None, dp=None):
         self.place = place
         self.device = device_for(place)
         self.rng = rng if rng is not None else RandomStream(self.device, 0)
         self.is_test = is_test
+        self.dp = dp
         self.current_op = None  # the op being run (derived grad kernels)
         self.fed_lengths = fed_lengths or {}
         self.caps = caps if caps is not None else set()
@@ -234,7 +240,7 @@ def capture_blocker(ops):
     return None
 
 
-def build_step_fn(program, fetch_names, state_out_names, place):
+def build_step_fn(program, fetch_names, state_out_names, place, dp=None):
     """The pure step of a program's global block (counterpart of
     paddle_tpu/core/executor_core.py::build_step_fn):
 
@@ -248,7 +254,8 @@ def build_step_fn(program, fetch_names, state_out_names, place):
     shares is copied first (run_ops). A feed may be a SeqTensor; the cap
     checks its ops make join `step.caps` (OpContext.check_cap).
     `step.blocker` is the op that keeps it out of a CUDA graph, or None
-    (`capture_blocker`)."""
+    (`capture_blocker`). `dp` is the data-parallel group its ops run
+    over (OpContext.dp)."""
     ops = dead_code_eliminate(program.global_block().ops,
                               list(fetch_names) + list(state_out_names))
 
@@ -257,7 +264,7 @@ def build_step_fn(program, fetch_names, state_out_names, place):
         env.update(const_state)
         env.update(mut_state)
         env.update(feeds)
-        ctx = OpContext(place, rng, caps=step.caps, fed_lengths={
+        ctx = OpContext(place, rng, caps=step.caps, dp=dp, fed_lengths={
             id(v.lengths): (n, v.host_lengths) for n, v in feeds.items()
             if isinstance(v, registry.SeqTensor)})
         with torch.no_grad():
@@ -358,6 +365,11 @@ class CapturedStep:
     current stream and returns the graph's own fetch tensors, which the
     next replay overwrites.
 
+    A step of a ParallelExecutor holds collectives: the eager step before
+    the capture has created the NCCL communicator, and the capture records
+    each collective's launch on NCCL's stream, joined to the capture stream
+    by events, as one more node of the graph.
+
     A capture runs no Python at replay: each kernel wrapper's launch count
     (cuda_build.launch_counts) moves during the capture although nothing
     launches, so the capture's moves are undone and added again at every
@@ -374,7 +386,12 @@ class CapturedStep:
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(rng.generator)
         before = cuda_build.launch_counts()
-        with torch.cuda.graph(self.graph, stream=stream):
+        # thread_local: a capture fails on an unsafe call made by this
+        # thread only. Under the default "global" mode, the event queries
+        # of NCCL's watchdog thread invalidate a capture that holds a
+        # collective (a ParallelExecutor step)
+        with torch.cuda.graph(self.graph, stream=stream,
+                              capture_error_mode="thread_local"):
             fetches, new_mut = step(self.mut, const, self.feeds, rng)
             news = {}
             for n, dst in self.mut.items():

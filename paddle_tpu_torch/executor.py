@@ -111,6 +111,9 @@ class Executor:
         # scope -> {prepared key: _Graph}; a scope that is gone drops its own
         self._graphs = weakref.WeakKeyDictionary()
         self._stream = None  # side stream of warm-up steps and captures
+        # the data-parallel group the steps run over (OpContext.dp): set by
+        # the ParallelExecutor that drives this executor; None otherwise
+        self.dp = None
 
     # ------------------------------------------------------------------
     def run(self, program=None, feed=None, fetch_list=None,
@@ -262,7 +265,8 @@ class Executor:
                                               fetch_names=fetch_names)
             step = executor_core.build_step_fn(
                 run_prog, fetch_names,
-                executor_core.written_persistables(run_prog), self.place)
+                executor_core.written_persistables(run_prog), self.place,
+                dp=self.dp)
             hit = (run_prog, plan, step)
             self._prepared[key] = hit
         return key, hit

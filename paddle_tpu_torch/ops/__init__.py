@@ -2,7 +2,8 @@
 the port carries (the training slices: ResNet, SE-ResNeXt, VGG and the
 MNIST conv net with Momentum or Adam, the MLP, the sequence family —
 embedding, sequence ops, LSTM/GRU and the attention decoder of the
-stacked-LSTM and NMT models — and the fused bucket updates)."""
+stacked-LSTM and NMT models — the fused bucket updates, and the
+collectives of data parallelism)."""
 
 from . import util
 from . import tensor_ops
@@ -15,3 +16,4 @@ from . import fused_ops
 from . import sparse_ops
 from . import sequence_ops
 from . import rnn_ops
+from . import collective_ops

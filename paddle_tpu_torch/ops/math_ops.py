@@ -11,6 +11,7 @@ import math
 import torch
 
 from ..core.registry import SeqTensor, register_op
+from .collective_ops import psum_replicated
 from .util import first, many, out, bcast_y_to_x
 
 
@@ -73,7 +74,8 @@ def mean_op(ctx, ins, attrs):
     SeqTensor the mean is over its real tokens only: a bucket-padded one
     (create_bucketed_seq_tensor) carries tail rows past sum(lengths) that
     do not count. Without padding the mask is all true and this is the
-    plain mean."""
+    plain mean. Under ParallelExecutor (ctx.dp) it is the global batch's
+    mean; ragged feeds do not run there."""
     x = first(ins, "X")
     if isinstance(x, SeqTensor):
         data = x.data
@@ -83,7 +85,17 @@ def mean_op(ctx, ins, attrs):
             math.prod(data.shape[1:]) or 1)
         return out(Out=(total / torch.clamp_min(denom, 1.0))
                    .to(data.dtype).reshape(1))
-    return out(Out=x.mean().reshape(1))
+    m = x.mean().reshape(1)
+    if ctx.dp is not None:
+        # the global batch's mean: every rank holds an equal share of the
+        # batch (ParallelExecutor splits it evenly) and a replicated tensor
+        # is the same everywhere, so it is the mean of the ranks' means —
+        # at one rank exactly the plain Executor's value. The loss's
+        # cotangent is the same on every rank: each local element takes
+        # 1/(n*size) with no collective, and a parameter's gradient is its
+        # rank's part of the sum that ParallelExecutor's all-reduce adds up
+        m = psum_replicated(m, ctx.dp) / ctx.dp.size
+    return out(Out=m)
 
 
 @register_op("top_k")

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from ..backward import _default_grad_maker
 from ..core.registry import (register_grad_maker, register_op,
                              set_stop_gradient_outputs)
+from .collective_ops import psum
 from .tensor_ops import random_draw
 from .util import first, out
 
@@ -101,7 +102,9 @@ def batch_norm_op(ctx, ins, attrs):
     SavedVariance = rsqrt(v + eps). Training grads flow through the batch
     statistics. Mean/Variance may be absent in training mode (the
     batch_norm_grad op below does not carry them): MeanOut/VarianceOut
-    are then not produced."""
+    are then not produced. Under ParallelExecutor (ctx.dp) the batch
+    statistics are the global batch's (`_global_moments`), as the JAX
+    package computes them over the dp-sharded batch."""
     x = first(ins, "X")
     scale, bias = first(ins, "Scale"), first(ins, "Bias")
     mean, var = first(ins, "Mean"), first(ins, "Variance")
@@ -120,6 +123,8 @@ def batch_norm_op(ctx, ins, attrs):
     else:
         m = xf.mean(dim=axes)
         msq = (xf * xf).mean(dim=axes)
+        if ctx.dp is not None:
+            m, msq = _global_moments(m, msq, ctx.dp)
         v = torch.clamp_min(msq - m * m, 0.0)
         mean_out = None if mean is None else mean * momentum + m * (1 - momentum)
         var_out = None if var is None else var * momentum + v * (1 - momentum)
@@ -129,6 +134,19 @@ def batch_norm_op(ctx, ins, attrs):
     y = y * scale.reshape(shape) + bias.reshape(shape)
     return out(Y=y.to(x.dtype), MeanOut=mean_out, VarianceOut=var_out,
                SavedMean=saved_mean, SavedVariance=inv.detach())
+
+
+def _global_moments(m, msq, dp):
+    """E[x] and E[x^2] of the global batch from each rank's: the ranks hold
+    equal shares of it, so the global moments are the means of the ranks'
+    (at one rank, exactly the local ones). One f32 all-reduce of both; it
+    is differentiable (collective_ops.psum), so the derived grad's
+    backward all-reduces the moments' cotangents, which each rank holds
+    only its part of — the sums of dy and dy*x_hat over the global batch
+    that dx needs — while Scale@GRAD and Bias@GRAD stay this rank's part,
+    for ParallelExecutor's gradient all-reduce to add up."""
+    both = psum(torch.stack([m, msq]), dp) / dp.size
+    return both[0], both[1]
 
 
 set_stop_gradient_outputs(
@@ -185,16 +203,24 @@ def dropout_op(ctx, ins, attrs):
     Out = X * (1 - dropout_prob) and Mask is all ones (Fluid's
     downgrade-in-infer). The uniform numbers behind Mask come from the
     program's random stream, new at every step, or, for a non-zero `seed`
-    attr, are the same at every step (tensor_ops.random_draw)."""
+    attr, are the same at every step (tensor_ops.random_draw). Under
+    ParallelExecutor (ctx.dp) every rank draws the global batch's numbers
+    and keeps its rows, so W ranks drop what one Executor does on the
+    whole batch."""
     x = first(ins, "X")
     p = attrs.get("dropout_prob", 0.5)
     if attrs.get("is_test", False) or ctx.is_test:
         return out(Out=x * (1.0 - p), Mask=torch.ones_like(x))
     shape = tuple(x.shape)
+    dp = ctx.dp
+    if dp is not None:  # the global batch's draw, of which this rank's rows
+        shape = (shape[0] * dp.size,) + shape[1:]
     u = random_draw(ctx, attrs, ("dropout", shape),
                     lambda g: torch.rand(shape, generator=g,
                                          dtype=torch.float32,
                                          device=ctx.device))
+    if dp is not None:
+        u = u[dp.rank * x.shape[0]:(dp.rank + 1) * x.shape[0]]
     mask = (u < 1.0 - p).to(x.dtype)
     return out(Out=x * mask, Mask=mask)
 

@@ -75,9 +75,17 @@ def _f32(t):
 
 
 def test_parallel_package_exports():
+    from paddle_tpu import parallel as jparallel
     from paddle_tpu_torch import parallel
 
-    assert parallel.__all__ == ["flash", "flash_attention"]
+    # flash and, since the data-parallel slice, the mesh, the bootstrap,
+    # zero1 and the sharding annotations: names of the JAX package's
+    # parallel package, which has more (ring attention, autoshard, ...)
+    assert sorted(parallel.__all__) == sorted([
+        "mesh", "distributed", "api", "flash", "zero1", "make_mesh",
+        "data_parallel_mesh", "mesh_scope", "mesh_geometry", "MeshSpec",
+        "set_sharding", "get_sharding", "sharding_scope", "flash_attention"])
+    assert set(parallel.__all__) <= set(jparallel.__all__)
     assert tfluid.parallel.flash_attention is tflash.flash_attention
 
 

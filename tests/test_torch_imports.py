@@ -2,7 +2,8 @@
 
 - importing paddle_tpu_torch (in a fresh interpreter) loads no jax module
   and no module of the JAX package; no source file of the port (the
-  sequence slice's among them), nor chip_smoke.py, imports either;
+  sequence and data-parallel slices' among them), nor chip_smoke.py, nor
+  the worker of the multi-rank tests, imports either;
 - the same layer calls under a fresh unique_name.guard() give the same
   Program.desc_str() in both packages (ResNet, SE-ResNeXt-50, VGG-16,
   the MNIST conv net and the MLP) — the string the JAX package's
@@ -94,6 +95,22 @@ def test_the_sequence_slice_is_among_the_checked_sources(module):
     """The sequence slice's modules are checked by the test above: the walk
     over the package finds each of them."""
     assert os.path.join(PORT, module) in set(_sources())
+
+
+@pytest.mark.parametrize("module", [
+    "parallel_executor.py", "parallel/distributed.py", "parallel/mesh.py",
+    "parallel/api.py", "parallel/zero1.py", "ops/collective_ops.py"])
+def test_the_data_parallel_slice_is_among_the_checked_sources(module):
+    """The data-parallel slice's modules are checked by the test above."""
+    assert os.path.join(PORT, module) in set(_sources())
+
+
+def test_the_multi_rank_worker_imports_only_the_port():
+    """The worker the multi-rank tests run as their ranks
+    (tests/torch_dp_worker.py) imports neither jax nor the JAX package."""
+    path = os.path.join(REPO, "tests", "torch_dp_worker.py")
+    bad = [m for m in _imported_modules(path) if _foreign(m)]
+    assert bad == [], f"{path} imports {bad}"
 
 
 def _build(fluid, models, model, train):

@@ -438,7 +438,10 @@ def recorded_graphs(monkeypatch):
     launches as the kernel's wrapper does."""
 
     @contextlib.contextmanager
-    def graph(g, stream=None):
+    def graph(g, stream=None, capture_error_mode="global"):
+        # thread_local, so that NCCL's watchdog thread cannot invalidate a
+        # capture that holds a collective (executor_core.CapturedStep)
+        assert capture_error_mode == "thread_local"
         rec = _Recorder()
         with rec:
             yield
