@@ -113,6 +113,25 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 batch 16
  10. parity   — a small ResNet trained 2 steps on the card and on the host
                 from the same weights must agree, in fp32 and under bf16 AMP
+ 10b. serve  — the serving slice: the headline's network (uint8 NHWC
+                224x224x3 cast and scaled on the card, ResNet-50, 1000
+                classes) trained 3 steps at batch 32 under bf16 AMP and
+                saved (io.save_inference_model, io.save_params);
+                serve.Server.from_inference_model under bf16 AMP, buckets
+                1..32, every bucket a captured CUDA graph after start();
+                16 requests of 1-4 rows against the host's f32 (rtol 2e-2
+                of each row's top); a second server through
+                from_infer_func with the InferenceTranspiler's conv+bn
+                fold, f32, against the unfolded program on the card (rtol
+                1e-4); each bucket's replay timed alone (CUDA events, 50
+                replays); closed-loop one-image loads from C = 64 client
+                threads (2,048 requests) and C = 1 (256): img/s,
+                p50/p95/p99, pad fraction, rows a batch, device-busy share
+                (the batches' replay ms over the wall time); no
+                hand-written kernel launched and no steady-state compile
+                while serving; 4 HTTP round trips, /healthz, /stats,
+                /metrics; drain serves its backlog and refuses a new submit
+                ([serve] lines)
  11. flash    — the flash-attention kernels (both wgmma fed by TMA; f32
                 in 3xTF32 split products after its split prologue) against
                 their plain torch version on the card, causal and not, at
@@ -143,6 +162,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -199,6 +219,21 @@ SEQ_PARITY_BATCH = 16
 # smallest mask checked holds 64 x 512 elements, whose keep fraction's
 # standard deviation at p = 0.5 is 2.8e-3
 KEEP_TOL = 0.01
+
+# phase serve: the saved headline network served under bf16 AMP, buckets
+# 1..32; parity over 16 requests of 1-4 rows (rtol PARITY_AMP_RTOL against
+# the host's f32, SERVE_FOLD_RTOL folded against unfolded in f32 on the
+# card, each with an atol of rtol x the row's largest probability);
+# each bucket's replay timed over 50 runs; closed-loop loads of one-image
+# requests from C client threads: (C, requests)
+SERVE_MAX_BATCH = 32
+SERVE_TRAIN_STEPS = 3
+SERVE_PARITY_REQUESTS = 16
+SERVE_FOLD_RTOL = 1e-4
+SERVE_REPLAYS = 50
+SERVE_LOADS = ((64, 2048), (1, 256))
+SERVE_HTTP_REQUESTS = 4
+SERVE_DRAIN_BACKLOG = 128
 
 SEED = 20261016
 BATCH = 32
@@ -976,31 +1011,44 @@ def profile_step(exe, main, feed, fetch, warm_ms, name,
     return card
 
 
-def build_headline():
+def headline_net():
+    """The headline's network in the current program: raw uint8 NHWC
+    224x224x3 pixels ("data_u8") cast and scaled on the card, ResNet-50,
+    1000 classes. Returns the softmax prediction. Serving builds it alone
+    as its inference function; the names match the training program's
+    under a fresh unique_name.guard()."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.resnet import resnet_imagenet
+
+    raw = fluid.layers.data(name="data_u8", shape=[224, 224, 3],
+                            dtype="uint8")
+    img = fluid.layers.scale(fluid.layers.cast(raw, "float32"),
+                             scale=1.0 / 255.0)
+    return resnet_imagenet(img, 1000, depth=50, layout="NHWC")
+
+
+def build_headline(with_prediction=False):
     """bench.py's headline program (bench.py:105-124) built with the port:
     raw uint8 NHWC pixels cast and scaled on the card, int32 labels,
     ResNet-50, Momentum(0.01, 0.9); with its fusion plan's momentum
-    buckets."""
+    buckets (and, `with_prediction`, the softmax prediction last)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import fusion
-    from paddle_tpu_torch.models.resnet import resnet_imagenet
 
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
-        raw = fluid.layers.data(name="data_u8", shape=[224, 224, 3],
-                                dtype="uint8")
-        img = fluid.layers.scale(fluid.layers.cast(raw, "float32"),
-                                 scale=1.0 / 255.0)
+        prediction = headline_net()
         label = fluid.layers.data(name="label", shape=[1], dtype="int32")
         loss = fluid.layers.mean(fluid.layers.cross_entropy(
-            input=resnet_imagenet(img, 1000, depth=50, layout="NHWC"),
-            label=label))
+            input=prediction, label=label))
         fluid.optimizer.Momentum(learning_rate=0.01,
                                  momentum=0.9).minimize(loss)
     main.random_seed = startup.random_seed = SEED
     _, plan = fusion.apply(main, feed_names=["data_u8", "label"],
                            fetch_names=[loss.name])
     buckets = [b for b in plan.buckets if b["opt"] == "momentum"]
+    if with_prediction:
+        return main, startup, loss, buckets, prediction
     return main, startup, loss, buckets
 
 
@@ -2057,6 +2105,382 @@ def phase_parity(amp):
     np.testing.assert_allclose(card_l, host_l, rtol=rtol)
 
 
+def _rows_diff(got, want):
+    """The largest |got - want| over its row's largest |want|."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    top = np.abs(want).max(axis=-1, keepdims=True)
+    return float((np.abs(got - want) / top).max())
+
+
+def _rows_close(got, want, rtol, what):
+    """Hold `got` to `want` elementwise within rtol x (|want| + the row's
+    largest |want|): rtol relative where a probability is near its row's
+    top, and rtol of the top where it is small. Returns the largest
+    difference over the row's largest |want| (a normwise relative
+    difference)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.all(np.isfinite(got)):
+        raise AssertionError(f"[serve] {what}: got {got.shape} (finite: "
+                             f"{np.all(np.isfinite(got))}), want "
+                             f"{want.shape}")
+    top = np.abs(want).max(axis=-1, keepdims=True)
+    err = np.abs(got - want)
+    if np.any(err > rtol * (np.abs(want) + top)):
+        raise AssertionError(
+            f"[serve] {what}: outside rtol {rtol:g}; largest difference "
+            f"{float((err / top).max()):.3e} of its row's top")
+    return float((err / top).max())
+
+
+def _serve_load(server, images, clients, n, replay_ms):
+    """`n` one-image requests from `clients` closed-loop client threads
+    (each submits, waits for its result, submits the next): wall time,
+    served images/s, the server's latency percentiles and pad fraction
+    for this load alone (Server.reset_stats), batches by bucket (the
+    registry's serve_batches_total), mean rows a batch, and the
+    device-busy share: the batches' replay ms (each its bucket's,
+    timed alone) over the wall time."""
+    from paddle_tpu_torch import monitor
+
+    server.reset_stats()
+    before = monitor.registry().snapshot()
+    next_request = iter(range(n)).__next__
+    errors = []
+
+    def client():
+        while True:
+            try:
+                i = next_request()
+            except StopIteration:
+                return
+            try:
+                server.submit({"data_u8": images[i % len(images)]}).result(
+                    timeout=120)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+                return
+
+    threads = [threading.Thread(target=client, name=f"serve-client-{k}")
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    after = monitor.registry().snapshot()
+    key = 'serve_batches_total{{bucket="{}"}}'.format
+    batches = {b: int(after.get(key(b), 0) - before.get(key(b), 0))
+               for b in replay_ms}
+    st = server.stats()
+    nb = sum(batches.values())
+    return {
+        "clients": clients, "requests": n, "wall_s": wall,
+        "images_per_sec": n / wall,
+        "p50_ms": st["p50_ms"], "p95_ms": st["p95_ms"],
+        "p99_ms": st["p99_ms"], "pad_fraction": st["pad_fraction"],
+        "batches": nb, "rows_per_batch": st["rows"] / nb,
+        "batches_by_bucket": {str(b): c for b, c in batches.items() if c},
+        "device_busy_share": sum(c * replay_ms[b]
+                                 for b, c in batches.items())
+        / (wall * 1e3),
+    }
+
+
+def phase_serve(card_line):
+    """The serving slice on the card: the headline's network trained 3
+    steps under bf16 AMP and saved with io.save_inference_model, served by
+    serve.Server.from_inference_model under bf16 AMP from one captured
+    CUDA graph per bucket (1..32); its rows against the host's f32; a
+    second server from io.save_params through from_infer_func with the
+    InferenceTranspiler's conv+bn fold, in f32, against the unfolded
+    program on the card; each bucket's replay timed alone; closed-loop
+    loads; HTTP round trips; drain."""
+    import tempfile
+    import urllib.request
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, cuda_build, flags, monitor, serve
+    from paddle_tpu_torch.serve.http import make_http_server
+
+    t_phase = time.perf_counter()
+    place = fluid.CUDAPlace(0)
+    buckets = [b for b in (1, 2, 4, 8, 16, 32) if b <= SERVE_MAX_BATCH]
+    result = {"max_batch": SERVE_MAX_BATCH, "buckets": buckets}
+    rs = np.random.RandomState(SEED + 1)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    model_dir = os.path.join(tmp, "model")
+    params_dir = os.path.join(tmp, "params")
+    server = None
+    try:
+        # 1. train briefly, so the running statistics move, and save
+        main, startup, loss, _, prediction = build_headline(
+            with_prediction=True)
+        exe = fluid.Executor(place)
+        u8 = rs.randint(0, 256, (SERVE_TRAIN_STEPS, BATCH, 224, 224, 3),
+                        dtype=np.uint8)
+        lab = rs.randint(0, 1000, (SERVE_TRAIN_STEPS, BATCH, 1)).astype(
+            np.int32)
+        with fluid.scope_guard(fluid.Scope()), flags.flag_guard(fuse=True):
+            exe.run(startup)
+            with amp.auto_cast():
+                losses = [float(exe.run(
+                    main, feed={"data_u8": u8[k], "label": lab[k]},
+                    fetch_list=[loss])[0].reshape(-1)[0])
+                    for k in range(SERVE_TRAIN_STEPS)]
+            if not np.all(np.isfinite(losses)):
+                raise AssertionError(f"[serve] training losses {losses}")
+            fluid.io.save_inference_model(model_dir, ["data_u8"],
+                                          [prediction], exe,
+                                          main_program=main)
+            fluid.io.save_params(exe, params_dir, main_program=main)
+        files = os.listdir(model_dir)
+        nbytes = sum(os.path.getsize(os.path.join(model_dir, f))
+                     for f in files)
+        result.update(train_losses=losses, saved_files=len(files),
+                      saved_bytes=nbytes)
+        log(f"[serve] trained {SERVE_TRAIN_STEPS} steps at batch {BATCH} "
+            f"under bf16 AMP (losses {losses}); save_inference_model: "
+            f"{len(files)} files, {nbytes} bytes")
+        del exe, u8, lab
+        _release()
+
+        # the parity requests and their references: the host's f32 and
+        # the card's f32 (unfolded), from the saved directory
+        sizes = rs.randint(1, 5, SERVE_PARITY_REQUESTS)
+        offs = np.concatenate([[0], np.cumsum(sizes)])
+        pool = rs.randint(0, 256, (int(offs[-1]), 224, 224, 3),
+                          dtype=np.uint8)
+        requests = [pool[offs[i]:offs[i + 1]] for i in range(len(sizes))]
+        refs = {}
+        for name, ref_place in (("host", fluid.CPUPlace()), ("card", place)):
+            t0 = time.perf_counter()
+            ref_exe = fluid.Executor(ref_place)
+            with fluid.scope_guard(fluid.Scope()):
+                prog, feeds, fetches = fluid.io.load_inference_model(
+                    model_dir, ref_exe)
+                refs[name] = ref_exe.run(prog, feed={feeds[0]: pool},
+                                         fetch_list=fetches)[0]
+            log(f"[serve] f32 reference on the {name}: {len(pool)} rows "
+                f"in {time.perf_counter() - t0:.2f} s")
+            del ref_exe
+        _release()
+
+        # 2. serve the saved directory under bf16 AMP
+        amp.enable("bfloat16")
+        server = serve.Server.from_inference_model(
+            model_dir, place=place,
+            config=serve.ServeConfig(max_batch=SERVE_MAX_BATCH))
+        server.start()
+        warm_ms = monitor.registry().gauge("serve_warmup_ms").value
+        modes = server.step_modes()
+        if sorted(modes) != buckets \
+                or any(m != ["graph"] for m in modes.values()):
+            raise AssertionError(f"[serve] step modes {modes}")
+        rexe, rscope = server._replicas[0]
+        info = rexe.compile_cache_info()
+        if info["entries"] != 2 * len(buckets):
+            raise AssertionError(f"[serve] compile_cache_info {info}")
+        result.update(warmup_ms=warm_ms, step_modes={
+            str(b): m[0] for b, m in modes.items()},
+            compile_cache_info=info)
+        log(f"[serve] {card_line}: Server.from_inference_model warm-up "
+            f"{warm_ms:.1f} ms; step modes {result['step_modes']}; "
+            f"compile_cache_info {info}")
+
+        # 3. parity: the served bf16 rows against the host's f32
+        futs = [server.submit({"data_u8": r}) for r in requests]
+        served = [f.result(timeout=120)[0] for f in futs]
+        got = np.concatenate(served)
+        amp_err = _rows_close(got, refs["host"], PARITY_AMP_RTOL,
+                              "served bf16 vs host f32")
+        top1 = float(np.mean(got.argmax(-1) == refs["host"].argmax(-1)))
+        card_err = _rows_diff(refs["card"], refs["host"])
+        # the folded program in f32: a second server, from save_params
+        probe = fluid.Program()
+        with fluid.program_guard(probe, fluid.Program()), \
+                fluid.unique_name.guard():
+            headline_net()
+        ops_before = [op.type for op in probe.global_block().ops]
+        amp.disable()
+        folded = serve.Server.from_infer_func(
+            headline_net, params_dir, place=place,
+            config=serve.ServeConfig(max_batch=4,
+                                     max_queue_rows=len(pool)),
+            transpile=True)
+        ops_after = [op.type for op in folded.program.global_block().ops]
+        if "batch_norm" in ops_after:
+            raise AssertionError("[serve] a batch_norm was not folded")
+        with folded:
+            ffuts = [folded.submit({"data_u8": r}) for r in requests]
+            fgot = np.concatenate([f.result(timeout=120)[0] for f in ffuts])
+            fstats = folded.stats()
+        amp.enable("bfloat16")
+        if fstats["steady_state_compiles"] != 0 or any(
+                m != ["graph"] for m in folded.step_modes().values()):
+            raise AssertionError(f"[serve] folded server {fstats}")
+        fold_err = _rows_close(fgot, refs["card"], SERVE_FOLD_RTOL,
+                               "folded vs unfolded, f32 on the card")
+        del folded
+        result.update(
+            parity_requests=len(requests), parity_rows=len(pool),
+            amp_vs_host_max_rel=amp_err, amp_top1_agreement=top1,
+            card_vs_host_f32_max_rel=card_err,
+            ops_before_fold=len(ops_before), ops_after_fold=len(ops_after),
+            batch_norms_folded=ops_before.count("batch_norm"),
+            folded_vs_unfolded_max_rel=fold_err)
+        log(f"[serve] parity: {len(requests)} requests of 1-4 rows "
+            f"({len(pool)} rows): served bf16 vs host f32 largest "
+            f"difference {amp_err:.3e} of the row's top (rtol "
+            f"{PARITY_AMP_RTOL:g}), top-1 agreement {top1:.3f}; card vs "
+            f"host f32 {card_err:.3e}; InferenceTranspiler: "
+            f"{len(ops_before)} ops ({ops_before.count('batch_norm')} "
+            f"batch_norm, {ops_before.count('elementwise_add')} "
+            f"elementwise_add) -> {len(ops_after)} "
+            f"({ops_after.count('batch_norm')} batch_norm, "
+            f"{ops_after.count('elementwise_add')} elementwise_add); "
+            f"folded vs unfolded f32 on the card {fold_err:.3e} (rtol "
+            f"{SERVE_FOLD_RTOL:g})")
+
+        # 4. the traffic: each bucket's replay alone, then closed loops
+        steps = {cs.feeds["data_u8"].shape[0]: cs
+                 for cs in rexe.captured_steps(server.program, rscope)}
+        replay_ms = {}
+        for b in buckets:
+            graph = steps[b].graph
+            graph.replay()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(SERVE_REPLAYS):
+                graph.replay()
+            end.record()
+            end.synchronize()
+            replay_ms[b] = start.elapsed_time(end) / SERVE_REPLAYS
+        full = rs.randint(0, 256, (SERVE_MAX_BATCH, 224, 224, 3),
+                          dtype=np.uint8)
+        h2d = []
+        for _ in range(21):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.from_numpy(full).to(rexe.device)
+            torch.cuda.synchronize()
+            h2d.append((time.perf_counter() - t0) * 1e3)
+        result.update(replay_ms={str(b): v for b, v in replay_ms.items()},
+                      h2d_ms=statistics.median(h2d), h2d_bytes=full.nbytes)
+        log(f"[serve] {card_line}: replay ms by bucket (CUDA events, "
+            f"{SERVE_REPLAYS} replays): "
+            + ", ".join(f"{b}: {v:.3f}" for b, v in replay_ms.items())
+            + f"; pageable H2D of {full.nbytes} bytes "
+            f"{result['h2d_ms']:.3f} ms (median of 21)")
+        images = rs.randint(0, 256, (256, 224, 224, 3), dtype=np.uint8)
+        counts = cuda_build.launch_counts()
+        result["loads"] = []
+        for clients, n in SERVE_LOADS:
+            r = _serve_load(server, images, clients, n, replay_ms)
+            result["loads"].append(r)
+            log(f"[serve] {card_line}: C={clients}: {n} requests in "
+                f"{r['wall_s']:.3f} s: {r['images_per_sec']:.2f} img/s; "
+                f"p50 {r['p50_ms']:.3f} p95 {r['p95_ms']:.3f} p99 "
+                f"{r['p99_ms']:.3f} ms; pad fraction "
+                f"{r['pad_fraction']:.4f}; {r['batches']} batches, "
+                f"{r['rows_per_batch']:.2f} rows each "
+                f"{r['batches_by_bucket']}; device-busy share "
+                f"{r['device_busy_share']:.3f}")
+        hand = {f"{w.__name__}.{a}": n - counts[(w, a)]
+                for (w, a), n in cuda_build.launch_counts().items()}
+        if any(hand.values()):
+            raise AssertionError(f"[serve] hand-written kernels launched "
+                                 f"while serving: {hand}")
+        steady = server.stats()["steady_state_compiles"]
+        if steady != 0:
+            raise AssertionError(f"[serve] {steady} steady-state compiles")
+        result.update(steady_state_compiles=steady,
+                      hand_kernel_launches=0)
+
+        # 5. HTTP round trips, the admin endpoints, then drain
+        httpd = make_http_server(server, port=0)
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        threading.Thread(target=httpd.serve_forever, name="serve-http",
+                         daemon=True).start()
+        try:
+            http_err = 0.0
+            for i in range(SERVE_HTTP_REQUESTS):
+                body = json.dumps({"inputs": {
+                    "data_u8": requests[i][:1].tolist()}}).encode()
+                req = urllib.request.Request(
+                    url + "/v1/infer", data=body,
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    out = np.asarray(json.loads(r.read())["outputs"][0])
+                http_err = max(http_err, _rows_close(
+                    out, served[i][:1], PARITY_AMP_RTOL, "HTTP vs step 3"))
+            with urllib.request.urlopen(url + "/healthz") as r:
+                if r.status != 200 or r.read() != b"ok\n":
+                    raise AssertionError("[serve] /healthz not ok")
+            with urllib.request.urlopen(url + "/stats") as r:
+                if json.loads(r.read())["requests"] != \
+                        SERVE_LOADS[-1][1] + SERVE_HTTP_REQUESTS:
+                    raise AssertionError("[serve] /stats request count")
+            with urllib.request.urlopen(url + "/metrics") as r:
+                text = r.read().decode()
+            series = ("serve_requests_total", "serve_rows_total",
+                      "serve_batches_total", "serve_request_ms",
+                      "serve_request_phase_ms", "serve_queue_rows",
+                      "serve_warmup_ms", "serve_ready")
+            missing = [n for n in series if n not in text]
+            if missing:
+                raise AssertionError(f"[serve] /metrics lacks {missing}")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        backlog = [server.submit({"data_u8": images[i]})
+                   for i in range(SERVE_DRAIN_BACKLOG)]
+        drained = {}
+        drainer = threading.Thread(
+            target=lambda: drained.update(ok=server.drain(timeout=120)),
+            name="serve-drain")
+        drainer.start()
+        deadline = time.perf_counter() + 60
+        while not server.draining() and time.perf_counter() < deadline:
+            time.sleep(0.0005)
+        try:
+            server.submit({"data_u8": images[0]})
+            raise AssertionError("[serve] a submit while draining was "
+                                 "admitted")
+        except serve.ServerDraining:
+            pass
+        drainer.join(150)
+        served_backlog = sum(f.exception(timeout=0) is None
+                             for f in backlog)
+        if not drained.get("ok") or server.state() != "stopped" \
+                or served_backlog != SERVE_DRAIN_BACKLOG:
+            raise AssertionError(
+                f"[serve] drain: {drained}, state {server.state()}, "
+                f"{served_backlog} of {SERVE_DRAIN_BACKLOG} served")
+        result.update(http_round_trips=SERVE_HTTP_REQUESTS,
+                      http_vs_served_max_rel=http_err,
+                      drain_backlog_served=served_backlog)
+        log(f"[serve] HTTP: {SERVE_HTTP_REQUESTS} POST /v1/infer round "
+            f"trips, largest difference from step 3's rows {http_err:.3e}; "
+            f"/healthz, /stats, /metrics ({len(series)} serve_* series) "
+            f"ok; drain served the backlog of {served_backlog} requests "
+            f"and refused a new submit with ServerDraining")
+    finally:
+        amp.disable()
+        if server is not None:
+            server.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    _release()
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"[serve] phase seconds {result['seconds']:.1f}")
+    return result
+
+
 def _qkv(shape, dtype, gen):
     B, H, Sq, Sk, D = shape
     return [torch.randn(B, H, S, D, generator=gen, device="cuda").to(dtype)
@@ -2417,10 +2841,12 @@ def main():
     adam["launches"], adam["launches_by_path"] = vgg["launches"], paths
     phase_parity(amp=False)
     phase_parity(amp=True)
+    served = phase_serve(card_line)
     rows += phase_flash(sass)
     log(card_line)
     log(json.dumps({"headline": headline, "parallel": parallel,
-                    "se_resnext50": se, "vgg16": vgg, **seq}))
+                    "se_resnext50": se, "vgg16": vgg, **seq,
+                    "serve": served}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

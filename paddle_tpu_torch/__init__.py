@@ -9,7 +9,10 @@ a torch.distributed group (data parallel, ZeRO-1). Ragged (LoD) batches are fed 
 bucketed SeqTensors (create_lod_tensor, create_bucketed_seq_tensor). The
 fused optimizer-bucket updates and the flash-attention forward
 (parallel.flash_attention) are hand-written CUDA kernels
-(fusion/kernels.py, parallel/flash.py, csrc/).
+(fusion/kernels.py, parallel/flash.py, csrc/). A trained program is
+saved and loaded with `io` (the JAX package's directory format), folded
+for inference by `InferenceTranspiler`, run by `Inferencer`, and served by
+`serve.Server` from one captured CUDA graph per batch bucket.
 """
 
 from . import flags
@@ -48,5 +51,29 @@ from . import parallel_executor
 from .parallel_executor import (BuildStrategy, ExecutionStrategy,
                                 ParallelExecutor)
 from . import convert
+from . import profiler
+from . import monitor
+from . import trace
+from . import io
+from .io import (
+    save_vars,
+    save_params,
+    save_persistables,
+    load_vars,
+    load_params,
+    load_persistables,
+    save_inference_model,
+    load_inference_model,
+    save_checkpoint,
+    load_checkpoint,
+    clean_checkpoint,
+)
+from . import transpiler
+from .transpiler import InferenceTranspiler
+from . import trainer
+from . import inferencer
+from .inferencer import Inferencer
+from . import amp
+from . import serve
 
 __version__ = "0.1.0"

@@ -28,11 +28,13 @@ from . import registry
 from .places import device_for
 
 # Op types whose kernels run on the host, which a graph cannot hold (the
-# JAX package's `no_trace` ops, paddle_tpu/executor.py:121-127). Empty so
-# far: the port has no host kernel yet; one that is ported is named here.
-# Random ops are not among them: they draw from a RandomStream, whose
-# generator the captured graph advances at every replay.
-HOST_OPS = frozenset()
+# JAX package's `no_trace` ops, paddle_tpu/executor.py:121-127): the file
+# IO ops (ops/io_ops.py), which also have side effects, so dead-code
+# elimination keeps them. Random ops are not among them: they draw from a
+# RandomStream, whose generator the captured graph advances at every
+# replay.
+HOST_OPS = frozenset({"save", "load", "save_combine", "load_combine",
+                      "delete_var"})
 
 
 class RandomStream:
@@ -98,10 +100,12 @@ class OpContext:
     ParallelExecutor's; None for a plain Executor), over which the ops
     that reduce over the batch (mean, batch_norm, accuracy, dropout's
     draw) give the global batch's result and the collective ops
-    communicate."""
+    communicate. `env` is the step's {name: value} map while run_ops
+    runs, and `scope` the Scope an interpreted step reads (None inside a
+    capture): the host op delete_var drops names from both."""
 
     def __init__(self, place, rng=None, is_test=False, fed_lengths=None,
-                 caps=None, dp=None):
+                 caps=None, dp=None, scope=None):
         self.place = place
         self.device = device_for(place)
         self.rng = rng if rng is not None else RandomStream(self.device, 0)
@@ -110,6 +114,8 @@ class OpContext:
         self.current_op = None  # the op being run (derived grad kernels)
         self.fed_lengths = fed_lengths or {}
         self.caps = caps if caps is not None else set()
+        self.env = None
+        self.scope = scope
 
     def check_cap(self, lengths, cap, what, op_type):
         """Raise ValueError when a sequence of `lengths` is longer than
@@ -141,6 +147,7 @@ def run_ops(ops, env, ctx, fetch_names=(), state_names=()):
     a copy (copy_aliased_fetches)."""
     state = set(state_names)
     watch = [n for n in fetch_names if n not in state]
+    ctx.env = env
     for op in ops:
         if watch:
             written = [n for n in op.output_arg_names() if n in state]
@@ -216,7 +223,7 @@ def dead_code_eliminate(ops, needed_names):
         # effect with empty declared outputs — always keep them
         has_sub_block = any(hasattr(v, "ops") for v in op.attrs.values())
         keep = (bool(outs & needed) or has_sub_block
-                or op.type in ("print", "assert_op"))
+                or op.type in ("print", "assert_op") or op.type in HOST_OPS)
         if keep:
             live.append(op)
             needed |= set(op.input_arg_names())
@@ -244,7 +251,8 @@ def build_step_fn(program, fetch_names, state_out_names, place, dp=None):
     """The pure step of a program's global block (counterpart of
     paddle_tpu/core/executor_core.py::build_step_fn):
 
-        step(mut_state, const_state, feeds, rng) -> (fetches, new_mut)
+        step(mut_state, const_state, feeds, rng, scope=None)
+            -> (fetches, new_mut)
 
     mut_state holds the persistables the block writes, const_state those it
     only reads; new_mut maps each of `state_out_names` the step holds to its
@@ -255,18 +263,21 @@ def build_step_fn(program, fetch_names, state_out_names, place, dp=None):
     checks its ops make join `step.caps` (OpContext.check_cap).
     `step.blocker` is the op that keeps it out of a CUDA graph, or None
     (`capture_blocker`). `dp` is the data-parallel group its ops run
-    over (OpContext.dp)."""
+    over (OpContext.dp); `scope` is the Scope an interpreted step reads
+    (OpContext.scope)."""
     ops = dead_code_eliminate(program.global_block().ops,
                               list(fetch_names) + list(state_out_names))
 
-    def step(mut_state, const_state, feeds, rng):
+    def step(mut_state, const_state, feeds, rng, scope=None):
         env = {}
         env.update(const_state)
         env.update(mut_state)
         env.update(feeds)
-        ctx = OpContext(place, rng, caps=step.caps, dp=dp, fed_lengths={
-            id(v.lengths): (n, v.host_lengths) for n, v in feeds.items()
-            if isinstance(v, registry.SeqTensor)})
+        ctx = OpContext(place, rng, caps=step.caps, dp=dp, scope=scope,
+                        fed_lengths={
+                            id(v.lengths): (n, v.host_lengths)
+                            for n, v in feeds.items()
+                            if isinstance(v, registry.SeqTensor)})
         with torch.no_grad():
             run_ops(ops, env, ctx, fetch_names, state_out_names)
         fetches = [env_get(env, n) for n in fetch_names]
@@ -312,7 +323,7 @@ def unshared(fetches, state):
     writes those tensors again at the next step, so a fetch of one, or of
     a view of one taken after its update, would change under the caller
     (a view taken before it is copied earlier: copy_aliased_fetches)."""
-    held = {_storage(t) for t in state}
+    held = {_storage(registry.seq_data(t)) for t in state}
     return [clone_value(f)
             if isinstance(registry.seq_data(f), torch.Tensor)
             and _storage(registry.seq_data(f)) in held else f

@@ -41,6 +41,10 @@ class Scope:
     def set_var(self, name, value):
         self._vars[name] = value
 
+    def erase(self, name):
+        """Drop `name` from THIS scope (the delete_var op)."""
+        self._vars.pop(name, None)
+
     def local_var_names(self):
         return list(self._vars.keys())
 

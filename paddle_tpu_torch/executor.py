@@ -20,7 +20,11 @@ FLAGS_fuse the fusion pass rewrites a clone of the program once per
 `amp.auto_cast()` the ops run in bf16 where the policy says so; the amp
 fingerprint is part of every cache key. Random ops draw from one
 executor_core.RandomStream per (Executor, program), seeded once from
-`program.random_seed`, on either path.
+`program.random_seed`, on either path. A program holding a host op (the
+file IO ops of fluid.io) runs on the interpreter and is prepared afresh at
+every run, as the JAX package runs such programs eagerly, uncached.
+`compile_cache_info()` counts the prepared steps and captured graphs in
+the JAX package's payload, which the serving engine reads.
 """
 
 import weakref
@@ -114,6 +118,10 @@ class Executor:
         # the data-parallel group the steps run over (OpContext.dp): set by
         # the ParallelExecutor that drives this executor; None otherwise
         self.dp = None
+        # compile_cache_info(): hits are cached prepares and replays,
+        # misses are prepares and captures
+        self._hits = 0
+        self._misses = 0
 
     # ------------------------------------------------------------------
     def run(self, program=None, feed=None, fetch_list=None,
@@ -152,6 +160,35 @@ class Executor:
         """"graph" or "interpreter": how the last run of `program` ran its
         steps (see the module docstring)."""
         return self._modes[id(program)]
+
+    def compile_cache_info(self):
+        """The JAX package's compile-cache payload (paddle_tpu/cache
+        CompileCache.info) for this executor: "entries" counts its prepared
+        steps plus its captured CUDA graphs, "hits" the prepares it found
+        cached plus the replays, "misses" the prepares plus the captures.
+        Nothing is evicted, and there is no on-disk cache (the "l2" block
+        is all zero or None). The serving engine diffs "entries" across
+        its warm-up to count steady-state compiles."""
+        return {
+            "entries": len(self._prepared) + sum(
+                g.captured is not None for graphs in self._graphs.values()
+                for g in graphs.values()),
+            "hits": self._hits,
+            "misses": self._misses,
+            "evictions": 0,
+            "l2": {"enabled": False, "dir": None, "hits": 0, "misses": 0,
+                   "fallbacks": 0, "puts": 0, "put_bytes": 0,
+                   "remote_hits": 0, "remote_misses": 0, "service": None},
+        }
+
+    def captured_steps(self, program, scope=None):
+        """[CapturedStep] of `program`'s steps captured in `scope` (the
+        global scope by default), one per feed signature, at the program's
+        current mutation."""
+        scope = scope if scope is not None else global_scope()
+        return [g.captured for key, g in self._graphs.get(scope, {}).items()
+                if key[0] == id(program) and key[1] == program._mutation
+                and g.captured is not None]
 
     # ------------------------------------------------------------------
     def _to_device(self, value, var):
@@ -258,16 +295,23 @@ class Executor:
                flags.get("fuse_bucket_mb"), amp.fingerprint(), specs,
                tuple(fetch_names))
         hit = self._prepared.get(key)
-        if hit is None:
-            run_prog, plan = program, None
-            if fuse:
-                run_prog, plan = fusion.apply(program, feed_names=list(feeds),
-                                              fetch_names=fetch_names)
-            step = executor_core.build_step_fn(
-                run_prog, fetch_names,
-                executor_core.written_persistables(run_prog), self.place,
-                dp=self.dp)
-            hit = (run_prog, plan, step)
+        if hit is not None:
+            self._hits += 1
+            return key, hit
+        run_prog, plan = program, None
+        if fuse:
+            run_prog, plan = fusion.apply(program, feed_names=list(feeds),
+                                          fetch_names=fetch_names)
+        step = executor_core.build_step_fn(
+            run_prog, fetch_names,
+            executor_core.written_persistables(run_prog), self.place,
+            dp=self.dp)
+        hit = (run_prog, plan, step)
+        # a program with a host op (save, load, ...) is a one-off, run
+        # uncached, as the JAX package runs it eagerly
+        if step.blocker is None \
+                or step.blocker.type not in executor_core.HOST_OPS:
+            self._misses += 1
             self._prepared[key] = hit
         return key, hit
 
@@ -284,6 +328,13 @@ class Executor:
             graph.captured.sync_scope(scope)
 
         def run_step(f):
+            # a worker thread's current card is card 0 unless it is set
+            if self.device.type != "cuda":
+                return run_graph(f)
+            with torch.cuda.device(self.device):
+                return run_graph(f)
+
+        def run_graph(f):
             if graph.captured is None:
                 stream = self._side_stream()
                 stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -303,6 +354,9 @@ class Executor:
                 graph.captured = executor_core.compile_step_fn(
                     step, scope, state_in, written, f, self._rng(program),
                     stream)
+                self._misses += 1
+            else:
+                self._hits += 1
             return graph.captured.run(f)
 
         return run_step
@@ -336,7 +390,8 @@ class Executor:
         state_in, written = executor_core.collect_state_names(run_prog, scope)
         mut = {n: scope.find_var(n) for n in state_in if n in written}
         const = {n: scope.find_var(n) for n in state_in if n not in written}
-        fetches, new_mut = step(mut, const, feeds, self._rng(program))
+        fetches, new_mut = step(mut, const, feeds, self._rng(program),
+                                scope=scope)
         for n in written:
             if n in new_mut:
                 scope.var(n)

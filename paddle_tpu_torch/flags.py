@@ -95,3 +95,29 @@ class flag_guard:
         for n, v in self._saved.items():
             set(n, v)
         return False
+
+
+# ---------------------------------------------------------------------------
+# Tracing flags, with the JAX package's defaults (paddle_tpu/trace/span.py,
+# paddle_tpu/trace/recorder.py). FLAGS_monitor is parallel_executor.py's:
+# the per-step monitor it gates is not ported, so it stays off by default
+# there; the metrics registry the serving engine reports into does not
+# read it.
+# ---------------------------------------------------------------------------
+define("trace", bool, False,
+       "Span-based tracing into the in-memory flight recorder "
+       "(paddle_tpu_torch.trace): serve request lifecycles. Off by "
+       "default; when 0 the hot-path cost is a single flag check.")
+define("trace_buffer", int, 4096,
+       "Flight-recorder capacity in spans PER THREAD (each recording "
+       "thread owns one ring this size; older spans are overwritten and "
+       "counted as dropped in the dump manifest).")
+define("trace_dump_dir", str, "",
+       "Directory flight-recorder dumps land in (trace_<reason>_<n>/ "
+       "subdirectories); empty = current directory.")
+define("trace_dump_cooldown_s", float, 60.0,
+       "Minimum seconds between automatic flight-recorder dumps PER "
+       "trigger reason (maybe_dump). 0 = dump every trigger.")
+define("trace_dump_keep", int, 0,
+       "Retention cap on trace_<reason>_<n>/ dump directories: after each "
+       "dump the oldest beyond this many are pruned. 0 = keep everything.")

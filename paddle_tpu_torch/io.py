@@ -1,0 +1,403 @@
+"""Model save/load and checkpointing: the JAX package's fluid.io
+(paddle_tpu/io.py; reference python/paddle/fluid/io.py: save_vars:63,
+save_params, save_persistables, load_vars, load_params, load_persistables,
+save_inference_model:300, load_inference_model:377, save_checkpoint:463
+with _SUCCESS markers :595 and LRU retention :576, load_checkpoint:505,
+clean_checkpoint).
+
+The programs built here hold `save`/`load` ops (ops/io_ops.py), host ops
+that the executor runs on its interpreter. A directory is byte-compatible
+with the JAX package's: the same `__model__` JSON (Program.to_dict) and the
+same `.npy` payloads, so either package loads what the other saved.
+"""
+
+import json
+import os
+import shutil
+import time
+
+from .core.framework import (Program, Parameter, Variable,
+                             default_main_program, default_startup_program)
+from .executor import Executor
+
+__all__ = [
+    "save_vars", "save_params", "save_persistables", "load_vars", "load_params",
+    "load_persistables", "save_inference_model", "load_inference_model",
+    "get_inference_program", "save_checkpoint", "load_checkpoint",
+    "clean_checkpoint", "save_train_model",
+]
+
+SUCCESS_MARK_FILENAME = "_SUCCESS"
+CHECKPOINT_PREFIX = "checkpoint"
+MODEL_DIR = "__model__"
+CHECKPOINT_SEPARATOR = "_"
+
+
+def is_parameter(var):
+    return isinstance(var, Parameter)
+
+
+def is_persistable(var):
+    from .core.framework import VarType
+
+    if var.type in (VarType.FEED_MINIBATCH, VarType.FETCH_LIST, VarType.READER):
+        return False
+    return var.persistable
+
+
+def _clone_var_in_block_(block, var):
+    return block.create_var(
+        name=var.name,
+        shape=var.shape,
+        dtype=var.dtype,
+        lod_level=var.lod_level,
+        persistable=True,
+    )
+
+
+def save_vars(executor, dirname, main_program=None, vars=None, predicate=None,
+              filename=None):
+    """reference io.py:63."""
+    if vars is None:
+        if main_program is None:
+            main_program = default_main_program()
+        save_vars(
+            executor,
+            dirname=dirname,
+            vars=list(filter(predicate, main_program.list_vars())),
+            filename=filename,
+        )
+    else:
+        save_program = Program()
+        save_block = save_program.global_block()
+        save_var_list = []
+        for each_var in vars:
+            if each_var.type == "raw":
+                continue
+            new_var = _clone_var_in_block_(save_block, each_var)
+            if filename is None:
+                save_block.append_op(
+                    "save",
+                    {"X": [new_var]},
+                    {},
+                    {"file_path": os.path.join(dirname, new_var.name)},
+                )
+            else:
+                save_var_list.append(new_var)
+        if filename is not None:
+            save_block.append_op(
+                "save_combine",
+                {"X": save_var_list},
+                {},
+                {"file_path": os.path.join(dirname, filename)},
+            )
+        executor.run(save_program)
+
+
+def save_params(executor, dirname, main_program=None, filename=None):
+    save_vars(executor, dirname, main_program, None, is_parameter, filename)
+
+
+def save_persistables(executor, dirname, main_program=None, filename=None):
+    save_vars(executor, dirname, main_program, None, is_persistable, filename)
+
+
+def load_vars(executor, dirname, main_program=None, vars=None, predicate=None,
+              filename=None):
+    """reference io.py:124."""
+    if vars is None:
+        if main_program is None:
+            main_program = default_main_program()
+        load_vars(
+            executor,
+            dirname=dirname,
+            vars=list(filter(predicate, main_program.list_vars())),
+            filename=filename,
+        )
+    else:
+        load_prog = Program()
+        load_block = load_prog.global_block()
+        load_var_list = []
+        for each_var in vars:
+            assert isinstance(each_var, Variable)
+            new_var = _clone_var_in_block_(load_block, each_var)
+            if filename is None:
+                load_block.append_op(
+                    "load",
+                    {},
+                    {"Out": [new_var]},
+                    {"file_path": os.path.join(dirname, new_var.name)},
+                )
+            else:
+                load_var_list.append(new_var)
+        if filename is not None:
+            load_block.append_op(
+                "load_combine",
+                {},
+                {"Out": load_var_list},
+                {"file_path": os.path.join(dirname, filename)},
+            )
+        executor.run(load_prog)
+
+
+def load_params(executor, dirname, main_program=None, filename=None):
+    load_vars(executor, dirname, main_program, None, is_parameter, filename)
+
+
+def load_persistables(executor, dirname, main_program=None, filename=None):
+    load_vars(executor, dirname, main_program, None, is_persistable, filename)
+
+
+def get_inference_program(target_vars, main_program=None):
+    if main_program is None:
+        main_program = default_main_program()
+    if not isinstance(target_vars, list):
+        target_vars = [target_vars]
+    pruned = main_program.prune(targets=target_vars)
+    inference_program = pruned.inference_optimize()
+    return inference_program
+
+
+def save_inference_model(dirname, feeded_var_names, target_vars, executor,
+                         main_program=None, model_filename=None,
+                         params_filename=None):
+    """reference io.py:300: prune to feed/fetch targets + serialize."""
+    if isinstance(feeded_var_names, str):
+        feeded_var_names = [feeded_var_names]
+    if isinstance(target_vars, Variable):
+        target_vars = [target_vars]
+    if main_program is None:
+        main_program = default_main_program()
+    if not os.path.isdir(dirname):
+        os.makedirs(dirname, exist_ok=True)
+
+    pruned_program = main_program.prune(targets=target_vars)
+    inference_program = pruned_program.inference_optimize()
+    fetch_var_names = [v.name for v in target_vars]
+
+    model_basename = model_filename or "__model__"
+    with open(os.path.join(dirname, model_basename), "w") as f:
+        json.dump(
+            {
+                "program": inference_program.to_dict(),
+                "feed_var_names": feeded_var_names,
+                "fetch_var_names": fetch_var_names,
+            },
+            f,
+        )
+    save_persistables(executor, dirname, inference_program, params_filename)
+    return fetch_var_names
+
+
+def save_train_model(dirname, feeded_var_names, loss, main_program=None,
+                     startup_program=None):
+    """Serialize a FULL training program (forward + backward + optimizer
+    ops) plus its startup program for the native C++ trainer
+    (native/train.cc; reference parity: the ProgramDesc + init program
+    fluid/train/demo/demo_trainer.cc loads). No parameters are written —
+    the native side runs the startup initializers itself."""
+    if isinstance(feeded_var_names, str):
+        feeded_var_names = [feeded_var_names]
+    if main_program is None:
+        main_program = default_main_program()
+    if startup_program is None:
+        startup_program = default_startup_program()
+    os.makedirs(dirname, exist_ok=True)
+    with open(os.path.join(dirname, "__train__"), "w") as f:
+        json.dump(
+            {
+                "main_program": main_program.to_dict(),
+                "startup_program": startup_program.to_dict(),
+                "feed_var_names": feeded_var_names,
+                "loss_name": loss.name if isinstance(loss, Variable)
+                else str(loss),
+            },
+            f,
+        )
+    return dirname
+
+
+def load_inference_model(dirname, executor, model_filename=None,
+                         params_filename=None):
+    """reference io.py:377 -> (program, feed_names, fetch_targets)."""
+    if not os.path.isdir(dirname):
+        raise ValueError("There is no directory named '%s'" % dirname)
+    model_basename = model_filename or "__model__"
+    with open(os.path.join(dirname, model_basename)) as f:
+        payload = json.load(f)
+    program = Program.from_dict(payload["program"])
+    load_persistables(executor, dirname, program, params_filename)
+    feed_names = payload["feed_var_names"]
+    fetch_targets = [program.global_block().var(n) for n in payload["fetch_var_names"]]
+    return program, feed_names, fetch_targets
+
+
+# ---------------------------------------------------------------------------
+# Checkpointing (reference io.py:463-644)
+# ---------------------------------------------------------------------------
+def save_checkpoint(executor, checkpoint_dir=None, max_num_checkpoints=3,
+                    save_interval_secs=600, main_program=None):
+    if checkpoint_dir is None:
+        checkpoint_dir = os.getcwd()
+    if not os.path.isdir(checkpoint_dir):
+        os.makedirs(checkpoint_dir, exist_ok=True)
+    serial = _get_latest_checkpoint_serial(checkpoint_dir)
+    if serial >= 0 and not _interval_secs_exceed(
+        _get_serial_dir(serial, checkpoint_dir), save_interval_secs
+    ):
+        return
+    serial += 1
+    cur_dir = _get_serial_dir(serial, checkpoint_dir)
+    # write into a .tmp sibling and commit by rename: a crash mid-save can
+    # only ever leave a .tmp orphan (swept by _lru_delete), never a
+    # half-written checkpoint_<N> that a reader could pick up
+    tmp_dir = cur_dir + ".tmp"
+    if os.path.isdir(tmp_dir):
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+    save_vars(
+        executor,
+        dirname=tmp_dir,
+        main_program=main_program,
+        vars=None,
+        predicate=_is_checkpoint_var,
+        filename=None,
+    )
+    _write_success(tmp_dir)
+    _fsync_dir(tmp_dir)
+    os.replace(tmp_dir, cur_dir)
+    _fsync_dir(checkpoint_dir)
+    _lru_delete(checkpoint_dir, max_num_checkpoints)
+
+
+def load_checkpoint(executor, checkpoint_dir=None, main_program=None):
+    if checkpoint_dir is None:
+        checkpoint_dir = os.getcwd()
+    serial = _get_latest_checkpoint_serial(checkpoint_dir)
+    if serial < 0:
+        return
+    cur_dir = _get_serial_dir(serial, checkpoint_dir)
+    load_vars(
+        executor,
+        dirname=cur_dir,
+        main_program=main_program,
+        predicate=_is_checkpoint_var,
+        filename=None,
+    )
+
+
+def clean_checkpoint(checkpoint_dir, delete_dir=False):
+    if checkpoint_dir is None:
+        checkpoint_dir = os.getcwd()
+    _lru_delete(checkpoint_dir, max_num_checkpoints=0)
+    if delete_dir and not os.listdir(checkpoint_dir):
+        os.rmdir(checkpoint_dir)
+
+
+def _get_serial_dir(serial, checkpoint_dir):
+    serial_folder = CHECKPOINT_PREFIX + CHECKPOINT_SEPARATOR + str(serial)
+    return os.path.join(checkpoint_dir, serial_folder)
+
+
+def _is_checkpoint_var(var):
+    """reference io.py:551 — persistables minus feed/fetch/reader/grads."""
+    from .core.framework import VarType
+
+    if var.type in (VarType.FEED_MINIBATCH, VarType.FETCH_LIST, VarType.RAW,
+                    VarType.READER):
+        return False
+    if var.name.endswith("@GRAD"):
+        return False
+    return var.persistable
+
+
+def _interval_secs_exceed(dirname, save_interval_secs):
+    dir_time = os.path.getmtime(dirname)
+    return (time.time() - save_interval_secs) >= dir_time
+
+
+def _lru_delete(dirname, max_num_checkpoints=3):
+    """reference io.py:576 — keep newest N COMMITTED checkpoint dirs.
+
+    Only dirs carrying the _SUCCESS marker count toward the retention
+    budget; _SUCCESS-less serial dirs are crash debris (with the atomic
+    rename protocol a committed dir always has its marker) and are
+    removed outright rather than silently eating retention slots. Stale
+    `.tmp` staging dirs are swept too (age-gated so a concurrent writer's
+    in-flight temp dir is left alone)."""
+    committed = []
+    for name in os.listdir(dirname):
+        path = os.path.join(dirname, name)
+        if not os.path.isdir(path):
+            continue
+        if name.endswith(".tmp"):
+            try:
+                stale = (time.time() - os.path.getmtime(path)) > 300
+            except OSError:
+                stale = False
+            if stale:
+                shutil.rmtree(path, ignore_errors=True)
+            continue
+        try:
+            serial = int(name.split(CHECKPOINT_SEPARATOR)[-1])
+        except ValueError:
+            continue
+        if os.path.isfile(os.path.join(path, SUCCESS_MARK_FILENAME)):
+            committed.append(serial)
+        else:
+            shutil.rmtree(path, ignore_errors=True)
+    if len(committed) <= max_num_checkpoints:
+        return
+    committed.sort(reverse=True)
+    for serial in committed[max_num_checkpoints:]:
+        shutil.rmtree(_get_serial_dir(serial, dirname), ignore_errors=True)
+
+
+def _fsync_dir(path):
+    """fsync a directory fd so the rename/create is durable (no-op where
+    directory fds aren't a thing)."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _write_success(dirname):
+    """reference io.py:595 — completion marker, fsynced so the marker is
+    on disk before the enclosing dir is renamed into place."""
+    with open(os.path.join(dirname, SUCCESS_MARK_FILENAME), "a") as f:
+        now = time.ctime()
+        f.write(now)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def _get_latest_checkpoint_serial(checkpoint_dir):
+    """reference io.py:606 — newest serial with a _SUCCESS marker."""
+    if not checkpoint_dir or not os.path.isdir(checkpoint_dir):
+        return -1
+
+    def has_success(checkpoint_dir, cur_dir):
+        serial = cur_dir.split(CHECKPOINT_SEPARATOR)[-1]
+        try:
+            int(serial)
+        except ValueError:
+            return -1
+        if not os.path.isdir(os.path.join(checkpoint_dir, cur_dir)):
+            return -1
+        success_path = os.path.join(
+            _get_serial_dir(int(serial), checkpoint_dir), SUCCESS_MARK_FILENAME
+        )
+        if os.path.isfile(success_path):
+            return int(serial)
+        return -1
+
+    current_dir = -1
+    for cur_dir in os.listdir(checkpoint_dir):
+        success_num = has_success(checkpoint_dir, cur_dir)
+        if success_num > current_dir:
+            current_dir = success_num
+    return current_dir

@@ -3,7 +3,7 @@ the port carries (the training slices: ResNet, SE-ResNeXt, VGG and the
 MNIST conv net with Momentum or Adam, the MLP, the sequence family —
 embedding, sequence ops, LSTM/GRU and the attention decoder of the
 stacked-LSTM and NMT models — the fused bucket updates, and the
-collectives of data parallelism)."""
+collectives of data parallelism) and the host file IO ops of fluid.io."""
 
 from . import util
 from . import tensor_ops
@@ -17,3 +17,4 @@ from . import sparse_ops
 from . import sequence_ops
 from . import rnn_ops
 from . import collective_ops
+from . import io_ops

@@ -1,0 +1,134 @@
+"""Flight-recorder dump formats: spans.jsonl, chrome trace, manifest.
+
+One dump directory holds three views of the same snapshot:
+
+    spans.jsonl     one span dict per line (the machine-readable source
+                    of truth: load_dump() round-trips it)
+    trace.json      chrome://tracing / Perfetto JSON — spans as "X"
+                    complete events grouped pid=1 ("paddle_tpu trace"),
+                    one tid row per recording thread.
+    manifest.json   schema below — everything needed to interpret the
+                    other two files without this codebase.
+
+Manifest schema (format "paddle_tpu.trace/1"):
+    format      "paddle_tpu.trace/1"
+    reason      dump trigger ("manual", "hang_<label>", "nan_guard",
+                "serve_slo", "server_overloaded", ...)
+    ts          wall-clock seconds (time.time) when the dump was written
+    pid         dumping process id
+    clock       {"perf_counter", "epoch"} sampled together at dump time:
+                span t0/t1 are perf_counter seconds, so
+                epoch_of(t) = t - clock.perf_counter + clock.epoch
+    spans       span count in the snapshot
+    dropped     spans overwritten in the rings before the dump (ring
+                capacity FLAGS_trace_buffer per thread)
+    buffers     per-thread rings contributing to the snapshot
+    traces      distinct trace_ids in the snapshot
+    names       {span name: count}
+    files       {"spans": "spans.jsonl", "chrome": "trace.json"}
+    slowest_ops per-op compile cost attribution when available, else
+                null (always null in the port)
+
+A copy of the JAX package's paddle_tpu/trace/export.py: a dump either
+package writes loads in the other.
+"""
+
+import json
+import os
+import time
+
+__all__ = ["FORMAT", "CHROME_PID", "chrome_events", "write_dump",
+           "load_dump"]
+
+FORMAT = "paddle_tpu.trace/1"
+CHROME_PID = 1  # the profiler's host lane is pid 0
+
+
+def chrome_events(spans, t0=None, pid=CHROME_PID,
+                  process_name="paddle_tpu trace", sort_index=1):
+    """Spans -> chrome-trace event dicts ("X" complete events, one tid
+    row per recording thread). `t0` sets the timeline origin in
+    perf_counter seconds (defaults to the earliest span). A merge of
+    several processes passes a distinct pid + process_name per process so
+    lanes don't collide on the default pid 1."""
+    if not spans:
+        return []
+    if t0 is None:
+        t0 = min(s["t0"] for s in spans)
+    events = [
+        {"ph": "M", "pid": pid, "name": "process_name",
+         "args": {"name": process_name}},
+        {"ph": "M", "pid": pid, "name": "process_sort_index",
+         "args": {"sort_index": sort_index}},
+    ]
+    for s in spans:
+        args = {"trace": s["trace"], "span": s["span"]}
+        if s.get("parent"):
+            args["parent"] = s["parent"]
+        if s.get("links"):
+            args["links"] = s["links"]
+        if s.get("attrs"):
+            args.update(s["attrs"])
+        events.append({
+            "name": s["name"],
+            "ph": "X",
+            "ts": (s["t0"] - t0) * 1e6,
+            "dur": max(0.0, (s["t1"] - s["t0"]) * 1e6),
+            "pid": pid,
+            "tid": s.get("thread", "?"),
+            "cat": s.get("kind", "span"),
+            "args": args,
+        })
+    return events
+
+
+def write_dump(path, spans, reason="manual", dropped=0, buffers=0,
+               slowest_ops=None):
+    """Materialize one dump directory at `path`; returns the path."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "spans.jsonl"), "w") as f:
+        for s in spans:
+            f.write(json.dumps(s) + "\n")
+    with open(os.path.join(path, "trace.json"), "w") as f:
+        json.dump({"traceEvents": chrome_events(spans),
+                   "displayTimeUnit": "ms"}, f)
+    names = {}
+    for s in spans:
+        names[s["name"]] = names.get(s["name"], 0) + 1
+    manifest = {
+        "format": FORMAT,
+        "reason": reason,
+        "ts": time.time(),
+        "pid": os.getpid(),
+        "clock": {"perf_counter": time.perf_counter(),
+                  "epoch": time.time()},
+        "spans": len(spans),
+        "dropped": int(dropped),
+        "buffers": int(buffers),
+        "traces": len({s["trace"] for s in spans}),
+        "names": names,
+        "files": {"spans": "spans.jsonl", "chrome": "trace.json"},
+        "slowest_ops": slowest_ops,
+    }
+    with open(os.path.join(path, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=2)
+    return path
+
+
+def load_dump(path):
+    """Read a dump directory (or its manifest.json path) back:
+    {"manifest": dict, "spans": [span dicts]}."""
+    if os.path.isfile(path):
+        path = os.path.dirname(path) or "."
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    spans = []
+    spans_file = os.path.join(path,
+                              manifest.get("files", {}).get("spans",
+                                                            "spans.jsonl"))
+    with open(spans_file) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                spans.append(json.loads(line))
+    return {"manifest": manifest, "spans": spans}

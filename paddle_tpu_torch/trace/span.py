@@ -1,0 +1,221 @@
+"""Span primitives and the thread-local trace context.
+
+A span is one timed operation: {trace, span, parent, name, kind, t0, t1,
+thread, attrs, links}. trace/span ids are 16-hex random strings; every
+span created while a context is attached inherits that context's
+trace_id and parents under its span_id — so one serve request's HTTP
+handler, queue wait, and readback land in ONE trace even though three
+different threads touch the request.
+
+Two recording styles, both landing in the flight recorder (recorder.py):
+
+    with trace.span("serve.batch", links=[...]):   # eager: times a block
+        exe.run(...)
+
+    ctx = trace.record("executor.step", t0, t1)    # retroactive: stamps
+    trace.record("dispatch", d0, d1, parent=ctx)   # already-measured work
+
+Retroactive recording is how the serving engine emits a request's
+queue/pad/dispatch/readback spans after the request is served, from the
+phase boundaries it measured.
+
+Cross-thread propagation is explicit (thread pools outlive any one
+trace): capture `current()` where the work is submitted and `attach()`
+it in the worker. Fan-in points (the serve batcher coalescing N requests
+into one dispatch) cannot parent under N requests at once — they record
+span LINKS to every coalesced request's context instead.
+
+Off contract: FLAGS_trace=0 makes span() return a shared no-op handle
+and record() return None — one flag check, no allocation (same contract
+as FLAGS_monitor). A copy of the JAX package's paddle_tpu/trace/span.py;
+its flags live in the port's flags.py.
+"""
+
+import contextlib
+import os
+import threading
+import time
+
+from .. import flags
+
+__all__ = ["SpanContext", "enabled", "current", "new_context", "attach",
+           "span", "record"]
+
+# sentinel: record(parent=None) means "root span", omitting parent means
+# "parent under the caller's current context"
+_USE_CURRENT = object()
+
+_tls = threading.local()
+
+
+def _new_id():
+    return os.urandom(8).hex()
+
+
+def enabled():
+    """THE hot-path flag check; every other trace call is gated on it."""
+    return bool(flags.get("trace"))
+
+
+class SpanContext:
+    """Immutable (trace_id, span_id) pair — what propagates across
+    threads and what links point at."""
+
+    __slots__ = ("trace_id", "span_id")
+
+    def __init__(self, trace_id, span_id):
+        self.trace_id = trace_id
+        self.span_id = span_id
+
+    def to_dict(self):
+        return {"trace": self.trace_id, "span": self.span_id}
+
+    def __repr__(self):
+        return f"SpanContext(trace={self.trace_id}, span={self.span_id})"
+
+
+def current():
+    """The calling thread's attached SpanContext, or None."""
+    return getattr(_tls, "ctx", None)
+
+
+def new_context(parent=_USE_CURRENT):
+    """A fresh SpanContext: same trace as `parent` (default: the current
+    context), new span id; a brand-new trace when parentless. Used to
+    pre-allocate a span's identity before the span is recorded (the serve
+    request span's id must exist at submit() so the batch span can link
+    to it long before the request span itself is stamped)."""
+    if parent is _USE_CURRENT:
+        parent = current()
+    tid = parent.trace_id if parent is not None else _new_id()
+    return SpanContext(tid, _new_id())
+
+
+@contextlib.contextmanager
+def attach(ctx):
+    """Make `ctx` the calling thread's current context for the block —
+    the explicit propagation edge into worker threads (capture current()
+    where work is submitted, attach() it where the work runs)."""
+    prev = getattr(_tls, "ctx", None)
+    _tls.ctx = ctx
+    try:
+        yield ctx
+    finally:
+        _tls.ctx = prev
+
+
+def record(name, t0, t1, kind="span", ctx=None, parent=_USE_CURRENT,
+           links=None, attrs=None):
+    """Retroactively stamp one finished span into the flight recorder.
+
+    t0/t1 are time.perf_counter() seconds (the manifest carries the
+    perf_counter<->epoch anchor). `ctx` supplies a pre-allocated identity
+    (new_context), otherwise one is minted under `parent`; passing
+    parent=None explicitly makes a root span. Returns the span's
+    SpanContext (None when tracing is off) so children can parent to it.
+    """
+    if not enabled():
+        return None
+    if parent is _USE_CURRENT:
+        parent = current()
+    if ctx is None:
+        ctx = new_context(parent=parent)
+    sp = {
+        "name": name,
+        "kind": kind,
+        "trace": ctx.trace_id,
+        "span": ctx.span_id,
+        "parent": parent.span_id if parent is not None else None,
+        "t0": float(t0),
+        "t1": float(t1),
+        "thread": threading.current_thread().name,
+    }
+    if links:
+        sp["links"] = [l.to_dict() for l in links if l is not None]
+    if attrs:
+        sp["attrs"] = dict(attrs)
+    from . import recorder
+
+    recorder.append(sp)
+    return ctx
+
+
+class _NoopSpan:
+    """Shared disabled-path handle: span() returns this singleton when
+    FLAGS_trace=0 — no allocation per call."""
+
+    __slots__ = ()
+    ctx = None
+
+    def set(self, **attrs):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        return False
+
+
+_NOOP = _NoopSpan()
+
+
+class _LiveSpan:
+    """Eager span: __enter__ attaches a fresh context (so nested spans
+    and worker handoffs parent correctly), __exit__ records."""
+
+    __slots__ = ("name", "kind", "links", "attrs", "ctx", "_parent",
+                 "_prev", "_t0")
+
+    def __init__(self, name, kind, links, attrs):
+        self.name = name
+        self.kind = kind
+        self.links = links
+        self.attrs = attrs
+        self.ctx = None
+
+    def set(self, **attrs):
+        self.attrs.update(attrs)
+
+    def __enter__(self):
+        self._parent = current()
+        self.ctx = new_context(parent=self._parent)
+        self._prev = getattr(_tls, "ctx", None)
+        _tls.ctx = self.ctx
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        t1 = time.perf_counter()
+        _tls.ctx = self._prev
+        if exc_type is not None:
+            self.attrs.setdefault("error", exc_type.__name__)
+        sp = {
+            "name": self.name,
+            "kind": self.kind,
+            "trace": self.ctx.trace_id,
+            "span": self.ctx.span_id,
+            "parent": self._parent.span_id
+            if self._parent is not None else None,
+            "t0": self._t0,
+            "t1": t1,
+            "thread": threading.current_thread().name,
+        }
+        if self.links:
+            sp["links"] = [l.to_dict() for l in self.links
+                           if l is not None]
+        if self.attrs:
+            sp["attrs"] = self.attrs
+        from . import recorder
+
+        recorder.append(sp)
+        return False
+
+
+def span(name, kind="span", links=None, **attrs):
+    """Context manager timing a block as one span; the handle exposes
+    .ctx (the span's identity, for links) and .set(**attrs). Returns the
+    shared no-op handle when tracing is off."""
+    if not enabled():
+        return _NOOP
+    return _LiveSpan(name, kind, links, attrs)

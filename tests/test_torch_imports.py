@@ -2,14 +2,16 @@
 
 - importing paddle_tpu_torch (in a fresh interpreter) loads no jax module
   and no module of the JAX package; no source file of the port (the
-  sequence and data-parallel slices' among them), nor chip_smoke.py, nor
-  the worker of the multi-rank tests, imports either;
+  sequence, data-parallel and serving slices' among them), nor
+  chip_smoke.py, nor the worker of the multi-rank tests, imports either;
 - the same layer calls under a fresh unique_name.guard() give the same
   Program.desc_str() in both packages (ResNet, SE-ResNeXt-50, VGG-16,
   the MNIST conv net and the MLP) — the string the JAX package's
   compile cache digests — so var names, shapes and attrs map one to one.
   The one deliberate difference: the port's training-mode batch_norm_grad
-  op does not read the running Mean/Variance.
+  op does not read the running Mean/Variance. The inference program of
+  each (io.get_inference_program of its prediction, what
+  save_inference_model writes as `__model__`) is the same string too.
 """
 
 import ast
@@ -105,6 +107,18 @@ def test_the_data_parallel_slice_is_among_the_checked_sources(module):
     assert os.path.join(PORT, module) in set(_sources())
 
 
+@pytest.mark.parametrize("module", [
+    "io.py", "ops/io_ops.py", "transpiler/__init__.py",
+    "transpiler/inference_transpiler.py", "trainer.py", "inferencer.py",
+    "profiler.py", "monitor/__init__.py", "monitor/registry.py",
+    "trace/__init__.py", "trace/span.py", "trace/recorder.py",
+    "trace/export.py", "serve/__init__.py", "serve/buckets.py",
+    "serve/engine.py", "serve/http.py"])
+def test_the_serving_slice_is_among_the_checked_sources(module):
+    """The serving slice's modules are checked by the test above."""
+    assert os.path.join(PORT, module) in set(_sources())
+
+
 def test_the_multi_rank_worker_imports_only_the_port():
     """The worker the multi-rank tests run as their ranks
     (tests/torch_dp_worker.py) imports neither jax nor the JAX package."""
@@ -114,6 +128,12 @@ def test_the_multi_rank_worker_imports_only_the_port():
 
 
 def _build(fluid, models, model, train):
+    main, startup, _ = _build_net(fluid, models, model, train)
+    return main, startup
+
+
+def _build_net(fluid, models, model, train):
+    """(main, startup, the prediction var) of `model`."""
     resnet = models.resnet
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
@@ -156,7 +176,7 @@ def _build(fluid, models, model, train):
             fluid.layers.accuracy(input=probs, label=label)
         if train:
             opt.minimize(loss)
-    return main, startup
+    return main, startup, probs
 
 
 def _strip_bn_grad_running_stats(desc):
@@ -182,3 +202,17 @@ def test_same_layer_calls_give_the_same_program(model, train):
     assert tmain.desc_str() == _strip_bn_grad_running_stats(jmain.desc_str())
     if model in ("mlp", "mnist_cnn") or not train:
         assert tmain.desc_str() == jmain.desc_str()
+
+
+@pytest.mark.parametrize("model", ["resnet_cifar10_8", "resnet50_nhwc", "mlp",
+                                   "se_resnext50", "vgg16", "mnist_cnn"])
+def test_same_inference_program(model):
+    """A trained program pruned to its prediction (the `__model__` of
+    save_inference_model) is the same in both packages."""
+    jmain, _, jprobs = _build_net(jfluid, jmodels, model, True)
+    tmain, _, tprobs = _build_net(tfluid, tmodels, model, True)
+    jinf = jfluid.io.get_inference_program([jprobs], jmain)
+    tinf = tfluid.io.get_inference_program([tprobs], tmain)
+    assert tinf.desc_str() == jinf.desc_str()
+    assert not any(op.type.endswith("_grad") or op.type in (
+        "momentum", "adam") for op in tinf.global_block().ops)
