@@ -132,6 +132,25 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 while serving; 4 HTTP round trips, /healthz, /stats,
                 /metrics; drain serves its backlog and refuses a new submit
                 ([serve] lines)
+ 10c. tail_ops — the single-device op tail: (a) every op type it
+                registered (the reductions, matmul, clipping, the tensor
+                ops, comparison and logic, the dense losses, the eight
+                update rules) on the card and on the host from the same
+                seeded inputs, forward and grad, at full-width shapes
+                (NMT's target logits [1472, 30000] for
+                softmax_with_cross_entropy, label_smooth, arg_max and
+                argsort; ResNet-50's last activation [128, 2048, 7, 7]
+                for the reductions; the rules over ResNet-50's
+                25,557,032 parameter lanes); (b) the headline's program
+                with GradientClipByGlobalNorm(1.0) and exponential_decay
+                on fused Momentum, bf16 AMP, batch 128, iters=10 through
+                the captured step: momentum_bucket's launches (path
+                headline_clip_decay), the rate fetched at each step
+                equal to the schedule at the step counter's value, img/s
+                beside the headline's; (c) each of the eight new update
+                rules trains fp32 ResNet-50 (NHWC 224x224x3, batch 32)
+                for 3 steps, graph and interpreter bitwise equal, step
+                ms; the phase's seconds ([tail_ops] lines)
  11. flash    — the flash-attention kernels (both wgmma fed by TMA; f32
                 in 3xTF32 split products after its split prologue) against
                 their plain torch version on the card, causal and not, at
@@ -235,6 +254,44 @@ SERVE_LOADS = ((64, 2048), (1, 256))
 SERVE_HTTP_REQUESTS = 4
 SERVE_DRAIN_BACKLOG = 128
 
+# phase tail_ops: (a) each op type of the single-device tail on the card
+# and on the host, at NMT's target logits (the 1,472-token bucket total x
+# the 30,000-word dictionary), ResNet-50's last activation at the
+# headline's batch, and the update rules over ResNet-50's parameter lanes;
+# within TAIL_RTOL (the parity phase's fp32 rtol) of each array's largest
+# magnitude, the rules within TAIL_RULE_ULPS units in the last place at
+# the array's scale. (b) the headline with GradientClipByGlobalNorm(1.0) and
+# exponential_decay(0.01, TAIL_DECAY_STEPS, 0.5) on fused Momentum, bf16,
+# batch 128, TAIL_WARM + TAIL_CALLS calls of iters=TAIL_K. (c) the eight
+# new update rules on fp32 ResNet-50 at batch 32: TAIL_OPT_STEPS steps,
+# graph against interpreter, then TAIL_OPT_TIMED replays timed
+TAIL_LOGITS = (1472, 30000)
+TAIL_ACT = (128, 2048, 7, 7)
+TAIL_LANES = 25557032
+TAIL_RTOL = 1e-4
+TAIL_RULE_ULPS = 4
+TAIL_DECAY_STEPS = 10
+TAIL_K = 10
+TAIL_WARM = 1
+TAIL_CALLS = 3
+TAIL_OPT_STEPS = 3
+TAIL_OPT_TIMED = 3
+TAIL_OPTIMIZERS = {
+    "adamax": lambda f: f.optimizer.Adamax(learning_rate=1e-3),
+    "adagrad": lambda f: f.optimizer.Adagrad(learning_rate=0.01),
+    "decayed_adagrad": lambda f: f.optimizer.DecayedAdagrad(
+        learning_rate=0.01),
+    "adadelta": lambda f: f.optimizer.Adadelta(learning_rate=1.0),
+    "rmsprop": lambda f: f.optimizer.RMSProp(learning_rate=1e-3,
+                                             momentum=0.9),
+    "ftrl": lambda f: f.optimizer.Ftrl(learning_rate=0.01, l1=1e-4,
+                                       l2=1e-4),
+    "proximal_gd": lambda f: f.optimizer.ProximalGD(learning_rate=0.01,
+                                                    l1=1e-5),
+    "proximal_adagrad": lambda f: f.optimizer.ProximalAdagrad(
+        learning_rate=0.01, l2=1e-4),
+}
+
 SEED = 20261016
 BATCH = 32
 SIZES = (1, 17, 1029, 4194307)
@@ -337,7 +394,10 @@ def sass_counts(library, kernel, opcodes):
     return counts
 
 
-def build_resnet50():
+def build_resnet50(optimizer=None, quiet=False):
+    """ResNet-50 NHWC 224x224x3, 1000 classes, fp32, trained by
+    Momentum(0.01, 0.9), or by `optimizer(fluid)`; with its fusion plan's
+    momentum buckets."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import fusion
     from paddle_tpu_torch.models.resnet import resnet_imagenet
@@ -350,12 +410,18 @@ def build_resnet50():
         loss = fluid.layers.mean(fluid.layers.cross_entropy(
             input=resnet_imagenet(img, 1000, depth=50, layout="NHWC"),
             label=label))
-        fluid.optimizer.Momentum(learning_rate=0.01,
-                                 momentum=0.9).minimize(loss)
+        if optimizer is None:
+            fluid.optimizer.Momentum(learning_rate=0.01,
+                                     momentum=0.9).minimize(loss)
+        else:
+            optimizer(fluid).minimize(loss)
     main.random_seed = startup.random_seed = SEED
     _, plan = fusion.apply(main, feed_names=["data", "label"],
                            fetch_names=[loss.name])
-    buckets = [b for b in plan.buckets if b["opt"] == "momentum"]
+    buckets = [] if plan is None else [b for b in plan.buckets
+                                       if b["opt"] == "momentum"]
+    if quiet:
+        return main, startup, loss, buckets
     log(f"[plan] ResNet-50: {len(buckets)} fused momentum buckets of "
         f"{[b['n'] for b in buckets]} params, numel "
         f"{[b['numel'] for b in buckets]}; ops {plan.n_ops_before} -> "
@@ -2481,6 +2547,454 @@ def phase_serve(card_line):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase tail_ops: the single-device op tail on the card
+# ---------------------------------------------------------------------------
+def _tail_inputs(rs):
+    """{case: (op type, numpy inputs, attrs, output slots given a
+    cotangent)} for every op type of the tail, at full-width shapes: NMT's
+    target logits (TAIL_LOGITS), ResNet-50's last activation at the
+    headline's batch (TAIL_ACT), its pooled features and classifier
+    weight; the comparisons and the small ops on the features too."""
+    def f32(*shape, lo=None, hi=None):
+        if lo is None:
+            return rs.randn(*shape).astype(np.float32)
+        return rs.uniform(lo, hi, shape).astype(np.float32)
+
+    b, c = TAIL_ACT[0], TAIL_ACT[1]
+    logits = f32(*TAIL_LOGITS)
+    labels = rs.randint(0, TAIL_LOGITS[1], (TAIL_LOGITS[0], 1))
+    act = f32(*TAIL_ACT, lo=0.5, hi=1.5)
+    feat, w = f32(b, c), f32(c, 1000, lo=-0.05, hi=0.05)
+    col, col2 = f32(b, 1), f32(b, 1)
+    ints = rs.randint(0, 3, (b, c)).astype(np.float32)
+    ints2 = rs.randint(0, 3, (b, c)).astype(np.float32)
+    mask, mask2 = rs.rand(b, c) > 0.5, rs.rand(b, c) > 0.5
+    cases = {
+        "softmax_with_cross_entropy": (
+            "softmax_with_cross_entropy",
+            {"Logits": [logits], "Label": [labels]}, {}, ["Loss"]),
+        "label_smooth": ("label_smooth", {"X": [logits]},
+                         {"epsilon": 0.1}, ["Out"]),
+        "arg_max": ("arg_max", {"X": [logits]}, {"axis": -1}, []),
+        "argsort": ("argsort", {"X": [logits]}, {"axis": -1}, ["Out"]),
+        "reduce_sum": ("reduce_sum", {"X": [act]}, {"dim": [2, 3]},
+                       ["Out"]),
+        "reduce_mean": ("reduce_mean", {"X": [act]},
+                        {"dim": [2, 3], "keep_dim": True}, ["Out"]),
+        "reduce_max": ("reduce_max", {"X": [act]}, {"dim": [1]}, ["Out"]),
+        "reduce_min": ("reduce_min", {"X": [act]}, {"dim": [2, 3]},
+                       ["Out"]),
+        "reduce_prod": ("reduce_prod", {"X": [act]}, {"dim": [3]},
+                        ["Out"]),
+        "matmul": ("matmul", {"X": [feat], "Y": [w]}, {}, ["Out"]),
+        "clip": ("clip", {"X": [w]}, {"min": -0.02, "max": 0.03}, ["Out"]),
+        "clip_by_norm": ("clip_by_norm", {"X": [w]}, {"max_norm": 1.0},
+                         ["Out"]),
+        "cos_sim": ("cos_sim", {"X": [feat], "Y": [feat[:1]]}, {},
+                    ["Out"]),
+        "cumsum": ("cumsum", {"X": [feat]}, {"axis": 1}, ["Out"]),
+        "norm": ("norm", {"X": [feat]}, {"axis": 1}, ["Out"]),
+        "split": ("split", {"X": [feat]}, {"axis": 1, "num": 4}, ["Out"]),
+        "transpose": ("transpose", {"X": [act]}, {"axis": [0, 2, 3, 1]},
+                      ["Out"]),
+        "pad": ("pad", {"X": [feat]}, {"paddings": [0, 0, 1, 3]},
+                ["Out"]),
+        "crop": ("crop", {"X": [feat]}, {"offsets": [0, 8],
+                                         "shape": [b, 1024]}, ["Out"]),
+        "gather": ("gather", {"X": [w], "Index": [rs.randint(0, c, 4096)]},
+                   {}, ["Out"]),
+        "scatter": ("scatter", {"X": [w], "Ids": [rs.randint(0, c, 4096)],
+                                "Updates": [f32(4096, 1000)]}, {},
+                    ["Out"]),
+        "one_hot": ("one_hot", {"X": [labels]},
+                    {"depth": TAIL_LOGITS[1]}, []),
+        "fill_constant_batch_size_like": (
+            "fill_constant_batch_size_like", {"Input": [feat]},
+            {"shape": [-1, 1000], "value": 0.5, "dtype": "float32"}, []),
+        "fill_zeros_like": ("fill_zeros_like", {"X": [act]}, {}, []),
+        "shape": ("shape", {"X": [act]}, {}, []),
+        "increment": ("increment", {"X": [np.array([41], np.int64)]},
+                      {"step": 1.0}, []),
+        "expand": ("expand", {"X": [col]}, {"expand_times": [1, c]},
+                   ["Out"]),
+        "reverse": ("reverse", {"X": [feat]}, {"axis": [1]}, ["Out"]),
+        "assign_value": ("assign_value", {}, {
+            "shape": [4, 3], "dtype": "float32",
+            "values": [float(v) for v in rs.randn(12)]}, []),
+        "arg_min": ("arg_min", {"X": [feat]}, {"axis": 1}, []),
+        "isfinite": ("isfinite", {"X": [act]}, {}, []),
+        "logical_not": ("logical_not", {"X": [mask]}, {}, []),
+        "sigmoid_cross_entropy_with_logits": (
+            "sigmoid_cross_entropy_with_logits",
+            {"X": [feat], "Label": [f32(b, c, lo=0.0, hi=1.0)]}, {},
+            ["Out"]),
+        "square_error_cost": ("square_error_cost", {"X": [col],
+                                                    "Y": [col2]}, {},
+                              ["Out"]),
+        "squared_l2_norm": ("squared_l2_norm", {"X": [w]}, {}, ["Out"]),
+        "squared_l2_distance": ("squared_l2_distance",
+                                {"X": [feat], "Y": [f32(b, c)]}, {},
+                                ["Out"]),
+        "smooth_l1_loss": ("smooth_l1_loss", {"X": [feat], "Y": [f32(b, c)]},
+                           {"sigma": 1.0}, ["Out"]),
+        "huber_loss": ("huber_loss", {"X": [col], "Y": [col2]},
+                       {"delta": 0.5}, ["Out"]),
+        "hinge_loss": ("hinge_loss", {"Logits": [col], "Labels": [
+            rs.randint(0, 2, (b, 1)).astype(np.float32)]}, {}, ["Loss"]),
+        "rank_loss": ("rank_loss", {"Label": [rs.randint(0, 2, (
+            b, 1)).astype(np.float32)], "Left": [col], "Right": [col2]}, {},
+            ["Out"]),
+        "margin_rank_loss": ("margin_rank_loss", {
+            "Label": [np.sign(col2) + (col2 == 0)], "X1": [col],
+            "X2": [col2]}, {"margin": 0.1}, ["Out"]),
+        "log_loss": ("log_loss", {"Predicted": [f32(b, 1, lo=0.05,
+                                                    hi=0.95)],
+                                  "Labels": [rs.randint(0, 2, (b, 1)).astype(
+                                      np.float32)]}, {}, ["Loss"]),
+    }
+    for op in ("equal", "not_equal", "less_than", "less_equal",
+               "greater_than", "greater_equal"):
+        cases[op] = (op, {"X": [ints], "Y": [ints2]}, {}, [])
+    for op in ("logical_and", "logical_or", "logical_xor"):
+        cases[op] = (op, {"X": [mask], "Y": [mask2]}, {}, [])
+    return cases
+
+
+def _tail_run(op_type, ins, attrs, place):
+    """The op (its kernel through registry.run_kernel) on `place`: its
+    outputs as tensors."""
+    from paddle_tpu_torch.core import executor_core, registry
+
+    ctx = executor_core.OpContext(place)
+    return registry.run_kernel(
+        registry.lookup(op_type), ctx,
+        {s: [torch.from_numpy(np.asarray(v)).to(ctx.device) for v in vs]
+         for s, vs in ins.items()}, dict(attrs))
+
+
+def _tail_compare(card, host, what, worst):
+    """Card outputs against the host's: integers and bools equal; floats
+    within TAIL_RTOL of the host array's largest magnitude (a sum over
+    2,048 or 30,000 terms in another order differs by a fraction of its
+    terms' size, not of its own), recorded in `worst`."""
+    for slot, hs in host.items():
+        cs = card.get(slot, [])
+        if len(cs) != len(hs):
+            raise AssertionError(f"[tail_ops] {what} {slot}: {len(cs)} "
+                                 f"outputs on the card, {len(hs)} on the host")
+        for c, h in zip(cs, hs):
+            if h is None:
+                continue
+            c = c.detach().cpu()
+            if c.shape != h.shape or c.dtype != h.dtype:
+                raise AssertionError(
+                    f"[tail_ops] {what} {slot}: card {c.dtype}"
+                    f"{tuple(c.shape)} vs host {h.dtype}{tuple(h.shape)}")
+            if not h.dtype.is_floating_point:
+                if not torch.equal(c, h):
+                    raise AssertionError(f"[tail_ops] {what} {slot}: card "
+                                         f"and host differ")
+                continue
+            if not h.numel():
+                continue
+            scale = float(h.abs().max())
+            diff = float((c - h).abs().max())
+            if not (np.isfinite(scale) and diff <= TAIL_RTOL * scale):
+                raise AssertionError(
+                    f"[tail_ops] {what} {slot}: card vs host {diff:.3e}, "
+                    f"over {TAIL_RTOL:g} of the host's largest {scale:.3e}")
+            worst[what] = max(worst.get(what, 0.0),
+                              diff / scale if scale else diff)
+
+
+def _tail_ops_on_card():
+    """(a) every op type of the tail on the card and on the host from the
+    same seeded inputs, forward and grad. Returns the count of op types."""
+    import paddle_tpu_torch as fluid
+
+    rs = np.random.RandomState(SEED)
+    cases = _tail_inputs(rs)
+    card, host = fluid.CUDAPlace(0), fluid.CPUPlace()
+    worst, secs = {}, {}
+    grads = 0
+    for what, (op_type, ins, attrs, slots) in cases.items():
+        t0 = time.perf_counter()
+        h = _tail_run(op_type, ins, attrs, host)
+        _tail_compare(_tail_run(op_type, ins, attrs, card), h, what, worst)
+        if slots:
+            cot = {f"{s}@GRAD": [rs.randn(*v.shape).astype(np.float32)
+                                 for v in h[s]] for s in slots}
+            gins = dict(ins, **cot)
+            gh = _tail_run(op_type + "_grad", gins, attrs, host)
+            gc_ = _tail_run(op_type + "_grad", gins, attrs, card)
+            _tail_compare(gc_, gh, what + "_grad", worst)
+            grads += 1
+        del h
+        secs[what] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    units = _tail_rules_on_card(rs)
+    secs["the rules"] = time.perf_counter() - t0
+    types = {v[0] for v in cases.values()} | set(units)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    log(f"[tail_ops] (a) {len(types)} op types on the card and the host "
+        f"from the same inputs ({len(cases)} forward cases, {grads} grads; "
+        f"softmax_with_cross_entropy, label_smooth, arg_max, argsort at "
+        f"{list(TAIL_LOGITS)}, the reductions over {list(TAIL_ACT)}, the "
+        f"{len(units)} update rules over {TAIL_LANES} lanes): all within "
+        f"{TAIL_RTOL:g} of the host array's scale, largest "
+        f"{[(k, f'{v:.2e}') for k, v in top]}; the rules within "
+        f"{TAIL_RULE_ULPS} units in the last place at it, largest "
+        f"{max(units.values()):.2f} ({max(units, key=units.get)}); "
+        f"slowest cases (s, host and card) "
+        f"{[(k, round(v, 1)) for k, v in sorted(secs.items(), key=lambda kv: -kv[1])[:4]]}")
+    return len(types)
+
+
+def _tail_rules_on_card(rs):
+    """One step of each update rule over ResNet-50's parameter lanes, on
+    the card and on the host: every output within TAIL_RULE_ULPS units in
+    the last place at the array's scale (tests/test_torch_optimizers.py's
+    bound; pow, sqrt and division round on each side alone). Returns
+    {rule: the largest difference in those units}."""
+    import paddle_tpu_torch as fluid
+
+    n = TAIL_LANES
+    p, g = rs.randn(n).astype(np.float32), rs.randn(n).astype(np.float32)
+    pos = rs.uniform(0.1, 1.0, n).astype(np.float32)
+    small = rs.uniform(0.0, 0.1, n).astype(np.float32)
+    base = {"Param": [p], "Grad": [g],
+            "LearningRate": [np.array([0.01], np.float32)]}
+    rules = {
+        "adamax": ({"Moment": [small], "InfNorm": [pos],
+                    "Beta1Pow": [np.array([0.81], np.float32)]}, {}),
+        "adagrad": ({"Moment": [pos]}, {}),
+        "decayed_adagrad": ({"Moment": [pos]}, {}),
+        "adadelta": ({"AvgSquaredGrad": [pos], "AvgSquaredUpdate": [small]},
+                     {}),
+        "rmsprop": ({"MeanSquare": [pos], "Moment": [small]},
+                    {"momentum": 0.5}),
+        "ftrl": ({"SquaredAccumulator": [pos], "LinearAccumulator": [small]},
+                 {"l1": 0.01, "l2": 0.01}),
+        "proximal_gd": ({}, {"l1": 0.01, "l2": 0.01}),
+        "proximal_adagrad": ({"Moment": [pos]}, {"l1": 0.01, "l2": 0.01}),
+    }
+    units = {}
+    for rule, (extra, attrs) in rules.items():
+        ins = dict(base, **extra)
+        h = _tail_run(rule, ins, attrs, fluid.CPUPlace())
+        c = _tail_run(rule, ins, attrs, fluid.CUDAPlace(0))
+        for slot, (hv,) in h.items():
+            cv = c[slot][0].cpu()
+            unit = float(np.spacing(np.float32(hv.abs().max())))
+            diff = float((cv - hv).abs().max())
+            if diff > TAIL_RULE_ULPS * unit:
+                raise AssertionError(
+                    f"[tail_ops] {rule} {slot}: card vs host {diff:.3e}, "
+                    f"over {TAIL_RULE_ULPS} units of {unit:.3e}")
+            units[rule] = max(units.get(rule, 0.0), diff / unit)
+        del h, c
+    return units
+
+
+def build_headline_clip_decay():
+    """The headline's program with GradientClipByGlobalNorm(clip_norm=1.0)
+    and exponential_decay(0.01, TAIL_DECAY_STEPS, 0.5) feeding Momentum:
+    the rate is computed on the card from the step counter each step.
+    Returns (main, startup, loss, lr var, momentum buckets)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import fusion
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        prediction = headline_net()
+        label = fluid.layers.data(name="label", shape=[1], dtype="int32")
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(
+            input=prediction, label=label))
+        lr = fluid.layers.exponential_decay(0.01, TAIL_DECAY_STEPS, 0.5)
+        fluid.clip.set_gradient_clip(
+            fluid.clip.GradientClipByGlobalNorm(clip_norm=1.0))
+        fluid.optimizer.Momentum(learning_rate=lr,
+                                 momentum=0.9).minimize(loss)
+    main.random_seed = startup.random_seed = SEED
+    _, plan = fusion.apply(main, feed_names=["data_u8", "label"],
+                           fetch_names=[loss.name, lr.name])
+    buckets = [b for b in plan.buckets if b["opt"] == "momentum"]
+    return main, startup, loss, lr, buckets
+
+
+def _tail_headline(card, headline_img_s):
+    """(b) the headline with the global-norm clip and the decaying rate,
+    bf16 AMP, fused Momentum, batch 128, iters=TAIL_K through the captured
+    step: the momentum kernel's launches (counts zeroed just before), the
+    rate fetched at every step against the schedule at the counter's
+    value, img/s on the headline's clock."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, convert, flags
+    from paddle_tpu_torch.fusion import kernels as fk
+
+    main, startup, loss, lr, buckets = build_headline_clip_decay()
+    rs = np.random.RandomState(SEED + 1)
+    feeds = {"data_u8": torch.from_numpy(rs.randint(
+        0, 256, (TAIL_K, HEADLINE_BATCH, 224, 224, 3),
+        dtype=np.uint8)).cuda(),
+        "label": torch.from_numpy(rs.randint(
+            0, 1000, (TAIL_K, HEADLINE_BATCH, 1)).astype(np.int32)).cuda()}
+    place = fluid.CUDAPlace(0)
+    amp.enable("bfloat16")
+    try:
+        with flags.flag_guard(fuse=True):
+            scope = fluid.Scope()
+            with fluid.scope_guard(scope):
+                fluid.Executor(place).run(startup)
+            exe = fluid.Executor()
+            torch.cuda.synchronize()
+            fk.reset_launch_counts()
+            with fluid.scope_guard(scope):
+                dt, outs = _timed_calls(exe, main, feeds, [loss, lr], TAIL_K,
+                                        TAIL_WARM, TAIL_CALLS)
+                torch.cuda.synchronize()
+                launches = fk.momentum_bucket.launches
+                mode = exe.step_mode(main)
+                counter = int(scope.find_var("@LR_DECAY_COUNTER@")
+                              .reshape(-1)[0])
+                _check_master_state(scope)
+                # one more replay traced on the card alone: where the time
+                # beside the headline's goes (the clip's ops, the rate's)
+                wall, busy, idle, rows, _ = trace_step(
+                    exe, main, {n: t[0] for n, t in feeds.items()},
+                    [loss, lr], table="headline_clip_decay")
+    finally:
+        amp.disable()
+    steps = (TAIL_WARM + TAIL_CALLS) * TAIL_K
+    lv, rates = _losses(outs[0]), outs[1].reshape(-1).cpu().numpy()
+    want = np.array([0.01 * 0.5 ** (k / TAIL_DECAY_STEPS)
+                     for k in range(counter - TAIL_K + 1, counter + 1)])
+    img_s = HEADLINE_BATCH * TAIL_K * TAIL_CALLS / dt
+    log(f"[tail_ops] (b) {card}: headline + GradientClipByGlobalNorm(1.0) + "
+        f"exponential_decay(0.01, {TAIL_DECAY_STEPS}, 0.5), bf16 AMP, "
+        f"fused Momentum, batch {HEADLINE_BATCH}: {mode}; "
+        f"{img_s:.2f} img/s ({dt / (TAIL_K * TAIL_CALLS) * 1e3:.2f} ms a "
+        f"step; {TAIL_CALLS} calls of iters={TAIL_K} after {TAIL_WARM} warm) "
+        f"beside the headline's {headline_img_s:.2f}; momentum_bucket "
+        f"launches {launches} ({len(buckets)} buckets x {steps} steps); "
+        f"counter {counter}; last call's rates {rates.tolist()}; last "
+        f"losses {lv[-3:].tolist()}; one replay traced on the card: wall "
+        f"{wall:.2f} ms, device busy {busy:.2f} ms, idle share {idle:.3f}, "
+        f"momentum_kernel rows {rows}")
+    if mode != "graph":
+        raise AssertionError(f"the clip-and-decay headline ran as {mode!r}")
+    if launches != len(buckets) * steps:
+        raise AssertionError(
+            f"momentum kernel launched {launches} times, expected "
+            f"{len(buckets)} buckets x {steps} steps")
+    if counter != steps - 1:
+        raise AssertionError(f"the step counter reads {counter} after "
+                             f"{steps} steps, not {steps - 1}")
+    np.testing.assert_allclose(rates, want, rtol=1e-6)
+    if len(set(rates.tolist())) != TAIL_K:
+        raise AssertionError(f"the rate did not change every step: {rates}")
+    if not np.all(np.isfinite(lv)):
+        raise AssertionError(f"non-finite loss {lv}")
+    del exe, scope, feeds
+    _release()
+    return {"images_per_sec": img_s, "headline_images_per_sec":
+            headline_img_s, "step_ms": dt / (TAIL_K * TAIL_CALLS) * 1e3,
+            "momentum_launches": launches, "steps": steps,
+            "counter": counter, "rates": rates.tolist(),
+            "trace_wall_ms": wall, "trace_busy_ms": busy,
+            "idle_share": idle}
+
+
+def _tail_optimizers(card):
+    """(c) each of the eight new update rules trains the fp32 ResNet-50
+    path (NHWC 224x224x3, batch 32, FLAGS_fuse=1) for TAIL_OPT_STEPS steps
+    through the captured step and through the interpreter from one state,
+    cuDNN deterministic: losses and every persistable bitwise equal. Then
+    TAIL_OPT_TIMED replays timed (host clock to one fetch): step ms."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert, flags
+
+    rs = np.random.RandomState(SEED)
+    x = torch.from_numpy(rs.rand(BATCH, 224, 224, 3).astype(
+        np.float32)).cuda()
+    y = torch.from_numpy(rs.randint(0, 1000, (BATCH, 1))).cuda()
+    feed = {"data": x, "label": y}
+    place = fluid.CUDAPlace(0)
+    step_ms = {}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, make in TAIL_OPTIMIZERS.items():
+            main, startup, loss, _ = build_resnet50(make, quiet=True)
+            init_scope = fluid.Scope()
+            with fluid.scope_guard(init_scope):
+                fluid.Executor(place).run(startup)
+            init = convert.numpy_state(init_scope, main)
+            del init_scope
+            out = {}
+            for mode in ("graph", "interpreter"):
+                scope = fluid.Scope()
+                convert.load_numpy_state(scope, main, init, place)
+                exe = fluid.Executor()
+                with fluid.scope_guard(scope), flags.flag_guard(
+                        fuse=True, cuda_graph=mode == "graph"):
+                    losses = [float(exe.run(main, feed=feed,
+                                            fetch_list=[loss])[0][0])
+                              for _ in range(TAIL_OPT_STEPS)]
+                    if exe.step_mode(main) != mode:
+                        raise AssertionError(
+                            f"[tail_ops] {name} ran {mode} as "
+                            f"{exe.step_mode(main)}")
+                    out[mode] = (losses, convert.numpy_state(scope, main))
+                    if mode == "graph":
+                        t0 = time.perf_counter()
+                        for _ in range(TAIL_OPT_TIMED):
+                            (lt,) = exe.run(main, feed=feed,
+                                            fetch_list=[loss],
+                                            return_numpy=False)
+                        _fence(lt)
+                        step_ms[name] = (time.perf_counter() - t0) \
+                            / TAIL_OPT_TIMED * 1e3
+                del exe, scope
+                _release()
+            (gl, gs), (il, ist) = out["graph"], out["interpreter"]
+            differ = [n for n in ist if not np.array_equal(gs[n], ist[n])]
+            log(f"[tail_ops] (c) {name}: ResNet-50 fp32 batch {BATCH}, "
+                f"losses graph {gl} / interpreter {il}; "
+                f"{'bitwise equal' if gl == il and not differ else 'DIFFER'}"
+                f" over {len(ist)} persistables; step "
+                f"{step_ms[name]:.2f} ms ({card})")
+            if gl != il or differ:
+                raise AssertionError(f"[tail_ops] {name}: graph and "
+                                     f"interpreter differ: {differ[:5]}")
+            if not np.all(np.isfinite(gl)):
+                raise AssertionError(f"[tail_ops] {name}: loss {gl}")
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    return step_ms
+
+
+def phase_tail_ops(card, headline_img_s):
+    """(a) every op type of the single-device tail, card against host;
+    (b) the clip-and-decay headline; (c) the eight new update rules on
+    ResNet-50, graph against interpreter. Prints its seconds."""
+    t0 = time.perf_counter()
+    n_types = _tail_ops_on_card()
+    _release()
+    t1 = time.perf_counter()
+    head = _tail_headline(card, headline_img_s)
+    t2 = time.perf_counter()
+    step_ms = _tail_optimizers(card)
+    t3 = time.perf_counter()
+    parts = {"ops": t1 - t0, "clip_decay": t2 - t1, "optimizers": t3 - t2}
+    log(f"[tail_ops] phase {t3 - t0:.1f} s: (a) {parts['ops']:.1f} s, (b) "
+        f"{parts['clip_decay']:.1f} s, (c) {parts['optimizers']:.1f} s")
+    return {"op_types": n_types, "clip_decay": head,
+            "optimizer_step_ms": step_ms, "seconds": t3 - t0,
+            "seconds_by_part": parts}
+
+
 def _qkv(shape, dtype, gen):
     B, H, Sq, Sk, D = shape
     return [torch.randn(B, H, S, D, generator=gen, device="cuda").to(dtype)
@@ -2842,11 +3356,16 @@ def main():
     phase_parity(amp=False)
     phase_parity(amp=True)
     served = phase_serve(card_line)
+    _release()
+    tail = phase_tail_ops(card, headline["images_per_sec"])
+    momentum["launches_by_path"]["headline_clip_decay"] = \
+        tail["clip_decay"]["momentum_launches"]
+    _release()
     rows += phase_flash(sass)
     log(card_line)
     log(json.dumps({"headline": headline, "parallel": parallel,
                     "se_resnext50": se, "vgg16": vgg, **seq,
-                    "serve": served}))
+                    "serve": served, "tail_ops": tail}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

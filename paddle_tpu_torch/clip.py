@@ -104,12 +104,16 @@ class GradientClipByGlobalNorm(BaseGradientClipAttr):
         self.context = context
 
     def _create_operators(self, param, grad):
+        """The group's scale, clip_norm / max(global norm, clip_norm),
+        is built once and shared through the context, as the reference's
+        clip.py does: set_gradient_clip gives every parameter its own copy
+        of this object, and a per-copy cache (the JAX package's, whose
+        XLA step merges the copies' identical ops) would build the whole
+        global norm again for each parameter, which the port runs."""
         block = grad.block
         group = self.context[self.group_name]
-        if not hasattr(self, "_group_scale_var_cache"):
-            self._group_scale_var_cache = {}
-        key = (id(block.program), self.group_name)
-        scale_var = self._group_scale_var_cache.get(key)
+        key = self.group_name + "_scale"
+        scale_var = self.context.get(key)
         if scale_var is None:
             from . import unique_name
 
@@ -143,7 +147,7 @@ class GradientClipByGlobalNorm(BaseGradientClipAttr):
             block.append_op(
                 "elementwise_div", {"X": [clipped_norm], "Y": [denom]}, {"Out": [scale_var]}
             )
-            self._group_scale_var_cache[key] = scale_var
+            self.context[key] = scale_var
         new_grad = block.create_var(
             name=grad.name + "_clipped", shape=grad.shape, dtype=grad.dtype
         )

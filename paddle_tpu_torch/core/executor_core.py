@@ -50,25 +50,32 @@ class RandomStream:
 
     An op with a non-zero `seed` attr draws the same numbers at every step
     (the JAX package's PRNGKey(seed)): `fixed` makes them once, with a
-    generator of their own, and holds them as a constant of the step."""
+    generator of their own, and holds them as a constant of the step.
+    `held` holds any such constant, for example one copied from the host,
+    which a capture cannot copy."""
 
     def __init__(self, device, seed):
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
-        self._fixed = {}
+        self._held = {}
+
+    def held(self, key, make):
+        """A copy of make(), made at the first call with this `key` and
+        held. The first call of a program's step is never a capture (the
+        executor runs one step eagerly before it), so make() stays out of
+        the graph and a replay copies the held tensor on the device."""
+        t = self._held.get(key)
+        if t is None:
+            t = self._held[key] = make()
+        return t.clone()
 
     def fixed(self, key, seed, draw):
         """A copy of draw(generator seeded by `seed`), drawn at the first
-        call with this `key` and `seed` and held. The first call of a
-        program's step is never a capture (the executor runs one step
-        eagerly before it), so the draw itself stays out of the graph."""
-        key = (int(seed),) + tuple(key)
-        t = self._fixed.get(key)
-        if t is None:
-            gen = torch.Generator(device=self.device).manual_seed(key[0])
-            t = self._fixed[key] = draw(gen)
-        return t.clone()
+        call with this `key` and `seed` and held (`held`)."""
+        seed = int(seed)
+        return self.held(("fixed", seed) + tuple(key), lambda: draw(
+            torch.Generator(device=self.device).manual_seed(seed)))
 
 
 def check_cap(host_lengths, cap, what, op_type):

@@ -147,7 +147,10 @@ def lookup(type):
             stub.fn = make_vjp_kernel(fwd)
             stub.lod_aware = True
             return stub
-    raise NotImplementedError(f"No kernel registered for op type {type!r}")
+    raise NotImplementedError(
+        f"No kernel registered for op type {type!r}: it is not yet ported "
+        f"to paddle_tpu_torch (tests/test_torch_op_coverage.py lists the "
+        f"types still missing and the roadmap item that owns each)")
 
 
 # ---------------------------------------------------------------------------

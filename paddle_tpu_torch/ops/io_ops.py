@@ -9,6 +9,11 @@ with 64-bit types off, so an int64 var is written as int32 and a float64
 one as float32. A load lands on the executor's device as the var's
 declared dtype. These are host ops (core/executor_core.py HOST_OPS): a
 program holding one runs on the interpreter, never in a CUDA graph.
+
+Under ParallelExecutor's zero1 a rank holds its [1, shard] row of each
+sharded accumulator: a save writes the whole [W, shard] array, gathered
+over the ranks, as the JAX package does, and a load gives each rank its
+row of it (parallel/zero1.py saved_layout, loaded_row).
 """
 
 import json
@@ -19,6 +24,7 @@ import torch
 
 from ..core import dtypes
 from ..core.registry import SeqTensor, register_op
+from ..parallel import zero1
 from .util import first, many, out
 
 # the JAX package runs with 64-bit types off: what it writes is 32-bit
@@ -65,7 +71,7 @@ def _on_device(ctx, data, name):
 def _value(ctx, name, data, lengths):
     t = _on_device(ctx, data, name)
     if lengths is None:
-        return t
+        return zero1.loaded_row(name, t)
     host = np.asarray(lengths, np.int32)
     return SeqTensor(t, torch.from_numpy(host.copy()).to(ctx.device), host)
 
@@ -86,7 +92,7 @@ def save_op(ctx, ins, attrs):
     path = attrs["file_path"]
     if os.path.exists(path + ".npy") and not attrs.get("overwrite", True):
         raise RuntimeError(f"{path} exists and overwrite=False")
-    _save_one(path, x)
+    _save_one(path, zero1.saved_layout(ctx.current_op.input("X")[0], x))
     return {}
 
 
@@ -104,7 +110,7 @@ def save_combine_op(ctx, ins, attrs):
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     arrays = {}
     for n, v in zip(names, xs):
-        data, lengths = _to_numpy(v)
+        data, lengths = _to_numpy(zero1.saved_layout(n, v))
         arrays[n] = data
         if lengths is not None:
             arrays[n + "@@lod"] = lengths

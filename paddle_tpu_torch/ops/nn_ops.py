@@ -1,8 +1,12 @@
 """NN compute ops: conv2d, pool2d, batch_norm, softmax, cross_entropy,
-dropout.
+the dense losses, dropout.
 
 Reference parity: operators/{conv,pool,batch_norm,softmax,cross_entropy,
-dropout}_op.cc. Both activation layouts are supported; filters stay OIHW in
+softmax_with_cross_entropy,sigmoid_cross_entropy_with_logits,
+squared_l2_norm,squared_l2_distance,smooth_l1_loss,huber_loss,hinge_loss,
+rank_loss,margin_rank_loss,log_loss,dropout}_op.cc (with
+square_error_cost, a layer there), each loss as the JAX package's
+paddle_tpu/ops/nn_ops.py computes it. Both activation layouts are supported; filters stay OIHW in
 every layout, so parameters (and checkpoints) are layout-independent. In
 NHWC the activation is viewed as NCHW around torch's conv/pool calls
 without a copy (a channels-last NCHW view), which cuDNN takes natively on
@@ -191,6 +195,109 @@ def cross_entropy_op(ctx, ins, attrs):
         p = torch.gather(x, -1, idx[:, None])
         loss = -torch.log(torch.clamp_min(p, 1e-20))
     return out(Y=loss)
+
+
+def _relu0(x):
+    """max(0, x) with the JAX package's gradient: torch.maximum, like
+    jnp.maximum, splits the gradient of a tie in half."""
+    return torch.maximum(x.new_zeros(()), x)
+
+
+@register_op("softmax_with_cross_entropy")
+def softmax_with_cross_entropy_op(ctx, ins, attrs):
+    """The loss of Logits against hard int labels (the first column of
+    Label) or soft ones, over a log-softmax; Softmax is its exp."""
+    logits, label = first(ins, "Logits"), first(ins, "Label")
+    logp = torch.log_softmax(logits, dim=-1)
+    if attrs.get("soft_label", False):
+        loss = -torch.sum(label * logp, dim=-1, keepdim=True)
+    else:
+        idx = label.reshape(label.shape[0], -1)[:, 0].to(torch.int64)
+        loss = -torch.gather(logp, -1, idx[:, None])
+    return out(Softmax=torch.exp(logp), Loss=loss)
+
+
+@register_op("sigmoid_cross_entropy_with_logits")
+def sigmoid_ce_op(ctx, ins, attrs):
+    x, label = first(ins, "X"), first(ins, "Label")
+    loss = _relu0(x) - x * label + torch.log1p(torch.exp(-torch.abs(x)))
+    return out(Out=loss)
+
+
+@register_op("square_error_cost")
+def square_error_cost_op(ctx, ins, attrs):
+    return out(Out=torch.square(first(ins, "X") - first(ins, "Y")))
+
+
+@register_op("squared_l2_norm")
+def squared_l2_norm_op(ctx, ins, attrs):
+    return out(Out=torch.sum(torch.square(first(ins, "X"))).reshape(1))
+
+
+@register_op("squared_l2_distance")
+def squared_l2_distance_op(ctx, ins, attrs):
+    sub = first(ins, "X") - first(ins, "Y")
+    return out(sub_result=sub,
+               Out=torch.sum(torch.square(sub), dim=-1, keepdim=True))
+
+
+@register_op("smooth_l1_loss")
+def smooth_l1_loss_op(ctx, ins, attrs):
+    x, y = first(ins, "X"), first(ins, "Y")
+    iw, ow = first(ins, "InsideWeight"), first(ins, "OutsideWeight")
+    sigma = attrs.get("sigma", 1.0)
+    s2 = sigma * sigma
+    diff = x - y
+    if iw is not None:
+        diff = diff * iw
+    ad = torch.abs(diff)
+    val = torch.where(ad < 1.0 / s2, 0.5 * s2 * diff * diff, ad - 0.5 / s2)
+    if ow is not None:
+        val = val * ow
+    return out(Diff=diff, Out=torch.sum(val.reshape(val.shape[0], -1), dim=1,
+                                        keepdim=True))
+
+
+@register_op("huber_loss")
+def huber_loss_op(ctx, ins, attrs):
+    x, y = first(ins, "X"), first(ins, "Y")
+    delta = attrs.get("delta", 1.0)
+    r = y - x
+    ar = torch.abs(r)
+    loss = torch.where(ar <= delta, 0.5 * r * r, delta * (ar - 0.5 * delta))
+    return out(Residual=r, Out=loss)
+
+
+@register_op("hinge_loss")
+def hinge_loss_op(ctx, ins, attrs):
+    logits, label = first(ins, "Logits"), first(ins, "Labels")
+    return out(Loss=_relu0(1.0 - (2.0 * label - 1.0) * logits))
+
+
+@register_op("rank_loss")
+def rank_loss_op(ctx, ins, attrs):
+    label = first(ins, "Label")
+    d = first(ins, "Left") - first(ins, "Right")
+    return out(Out=torch.log1p(torch.exp(d)) - label * d)
+
+
+@register_op("margin_rank_loss")
+def margin_rank_loss_op(ctx, ins, attrs):
+    label = first(ins, "Label")
+    x1, x2 = first(ins, "X1"), first(ins, "X2")
+    o = _relu0(-label * (x1 - x2) + attrs.get("margin", 0.0))
+    return out(Out=o, Activated=(o > 0).to(x1.dtype))
+
+
+set_stop_gradient_outputs("margin_rank_loss", ["Activated"])
+
+
+@register_op("log_loss")
+def log_loss_op(ctx, ins, attrs):
+    p, label = first(ins, "Predicted"), first(ins, "Labels")
+    eps = attrs.get("epsilon", 1e-4)
+    return out(Loss=-label * torch.log(p + eps)
+               - (1 - label) * torch.log(1 - p + eps))
 
 
 # ---------------------------------------------------------------------------

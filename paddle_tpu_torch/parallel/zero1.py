@@ -35,6 +35,13 @@ which the first zero1 step converts to the rank's row
 (Zero1Plan.ensure_scope_sharded), and convert.numpy_state gathers the
 rows back (`full_layout`, a collective every rank calls), so state
 written at dp=W restores onto any dp size.
+
+fluid.io's save and load ops write what the JAX package's scope holds,
+so the two packages' directories are byte-equal: a save gathers each
+accumulator's rows into the whole [W, shard] array (`saved_layout`, a
+collective every rank calls), and a load gives rank r row r of it
+(`loaded_row`; ensure_scope_sharded too, for a load made before the
+plan exists).
 """
 
 import math
@@ -48,8 +55,8 @@ from ..optimizer import ZERO1_SHARDABLE_SLOTS
 
 __all__ = ["Zero1Plan", "build_plan", "apply", "apply_grad_scale",
            "to_shard_layout", "from_shard_layout", "registered_entry",
-           "canonicalize_snapshot", "full_layout", "ensure_scope_unsharded",
-           "reset_registry"]
+           "canonicalize_snapshot", "full_layout", "saved_layout",
+           "loaded_row", "ensure_scope_unsharded", "reset_registry"]
 
 flags.define(
     "zero1", bool, False,
@@ -194,6 +201,10 @@ class Zero1Plan:
             for _, _, name, _ in e.accums:
                 v = scope.find_var(name)
                 if v is None or tuple(v.shape) == (1, e.shard):
+                    continue
+                if tuple(v.shape) == (self.parts, e.shard):
+                    # the whole shard layout, as a save writes it
+                    scope.set_var(name, v[self.rank:self.rank + 1].clone())
                     continue
                 if math.prod(v.shape) != e.numel:
                     continue  # stale var from another program; leave it
@@ -420,6 +431,36 @@ def full_layout(name, value):
 
     rows = all_gather(value, plan.mesh)
     return rows.reshape(-1)[:e.numel].reshape(e.shape)
+
+
+def saved_layout(name, value):
+    """`value` (a scope tensor of var `name`) as a save writes it: a
+    registered accumulator's [1, shard] row becomes the whole [W, shard]
+    array, all-gathered over its plan's mesh (a collective every rank of
+    it must call), which is what the JAX package's scope holds and its
+    save writes; anything else comes back as it is."""
+    reg = _REGISTRY.get(name)
+    if reg is None:
+        return value
+    plan, e = reg
+    if tuple(value.shape) != (1, e.shard) or plan.parts == 1:
+        return value
+    from ..ops.collective_ops import all_gather
+
+    return all_gather(value, plan.mesh).reshape(plan.parts, e.shard)
+
+
+def loaded_row(name, value):
+    """What a load puts in the scope for var `name`: this rank's row of a
+    registered accumulator's [W, shard] array (a file `saved_layout`
+    wrote), `value` itself otherwise."""
+    reg = _REGISTRY.get(name)
+    if reg is None:
+        return value
+    plan, e = reg
+    if plan.parts == 1 or tuple(value.shape) != (plan.parts, e.shard):
+        return value
+    return value[plan.rank:plan.rank + 1].clone()
 
 
 def ensure_scope_unsharded(scope, program):

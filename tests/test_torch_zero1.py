@@ -13,9 +13,13 @@ the shard axis (`shard_rows`), the momentum buckets through the fused
 kernel's plain twin, the adam buckets in place.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
+
+import jax
 
 import paddle_tpu as jfluid
 from paddle_tpu.parallel import zero1 as jzero1
@@ -256,3 +260,146 @@ def test_full_layout_state_round_trips_through_the_scope():
     np.testing.assert_array_equal(row, tzero1.to_shard_layout(full, 2)[:1])
     plan.ensure_scope_sharded(scope)  # already converted: unchanged
     np.testing.assert_array_equal(scope.find_var(name).numpy(), row)
+
+
+# ---------------------------------------------------------------------------
+# fluid.io under zero1: the JAX package's directory, byte for byte
+# ---------------------------------------------------------------------------
+# optimizer: the inputs of its run. Byte-equality needs the same bits from
+# both packages' updates. With dyadic inputs (multiples of 1/8) the
+# `linear` net's gradients are sums of exact products, and momentum's
+# update with powers of two is exact arithmetic. XLA on the CPU computes
+# rmsprop's lr*g/sqrt(ms + eps) as lr*g*rsqrt(ms + eps) with an rsqrt
+# that is not correctly rounded, so its run takes rho = 0 and eps = 0
+# (ms = g²) and inputs whose every column sums to a power of two: rsqrt
+# of a power of four is exact. `rmsprop` on uniform inputs holds the
+# same layout to the fp32 bounds of the other tests.
+SAVE_CASES = {"momentum_pow2": "dyadic", "rmsprop_pow2": "pow2_columns",
+              "rmsprop": "uniform"}
+
+
+def _save_inputs(tmp_dir, opt):
+    """The init npz (the JAX package's startup state) and 5 global
+    batches of SAVE_CASES[opt]'s inputs for the `linear` net."""
+    os.makedirs(tmp_dir, exist_ok=True)
+    init = os.path.join(tmp_dir, f"init.linear.{opt}.npz")
+    data = os.path.join(tmp_dir, f"data.linear.{opt}.npz")
+    np.savez(init, **tp.jax_init("linear", opt))
+    rs = np.random.RandomState(5)
+    shape = (tp.STEPS, tp.BATCH, 32)
+    kind = SAVE_CASES[opt]
+    if kind == "dyadic":
+        x = np.round(rs.rand(*shape) * 8) / 8
+    elif kind == "pow2_columns":
+        x = np.zeros(shape)
+        for s in range(tp.STEPS):
+            x[s, rs.randint(0, tp.BATCH, 32), np.arange(32)] = \
+                2.0 ** -rs.randint(0, 4, 32)
+    else:
+        x = rs.rand(*shape)
+    y = rs.randint(0, worker.CLASSES, (tp.STEPS, tp.BATCH, 1))
+    np.savez(data, x=x.astype(np.float32), y=y.astype(np.int64))
+    return init, data
+
+
+def _jax_pe_save(opt, world, data, dirname):
+    """The JAX package's zero1 ParallelExecutor over `world` devices
+    through the batches of `data`, then fluid.io.save_persistables."""
+    main, startup, loss, _ = worker.build(jfluid, "linear", opt)
+    batches = np.load(data)
+    scope = jfluid.Scope()
+    with jfluid.scope_guard(scope):
+        exe = jfluid.Executor(jfluid.CPUPlace())
+        exe.run(startup)
+        bs = jfluid.BuildStrategy()
+        bs.sharded_weight_update = True
+        pe = jfluid.ParallelExecutor(
+            use_cuda=False, loss_name=loss.name, main_program=main,
+            build_strategy=bs, devices=jax.devices()[:world])
+        for x, y in zip(batches["x"], batches["y"]):
+            pe.run([loss], feed={"img": x, "label": y})
+        jfluid.io.save_persistables(exe, dirname, main)
+
+
+def _assert_dirs_equal(got, want, exact):
+    """The same files; byte for byte when `exact`, else the same shapes
+    and dtypes, values within the fp32 bounds (tests/test_torch_parallel)."""
+    names = sorted(os.listdir(want))
+    assert sorted(os.listdir(got)) == names
+    for n in names:
+        if exact:
+            with open(os.path.join(got, n), "rb") as f, \
+                    open(os.path.join(want, n), "rb") as g:
+                assert f.read() == g.read(), n
+            continue
+        a, b = (np.load(os.path.join(d, n)) for d in (got, want))
+        assert (a.shape, a.dtype) == (b.shape, b.dtype), n
+        np.testing.assert_allclose(a, b, rtol=tp.RTOL, atol=tp.ATOL,
+                                   err_msg=n)
+
+
+def _save_case(tmp_path, opt, world, cuda):
+    init, data = _save_inputs(str(tmp_path), opt)
+    save_dir = str(tmp_path / "port")
+    got = worker.launch(world, [tp.port_case(
+        "save", "linear", opt, (init, data), zero1=True, save=save_dir)],
+        str(tmp_path / "ranks"), timeout=600 if cuda else 120,
+        cuda=cuda)["save"]
+    want = str(tmp_path / "jax")
+    _jax_pe_save(opt, world, data, want)
+    return got, save_dir, want
+
+
+def _check_save(got, save_dir, want, world, exact):
+    accums = [k[len("row/"):] for k in got[0] if k.startswith("row/")]
+    assert accums
+    for rank in range(world):
+        # every rank wrote the JAX package's files: the [W, shard] arrays
+        _assert_dirs_equal(os.path.join(save_dir, str(rank)), want, exact)
+        # and the load gave the rank its own row back
+        for n in accums:
+            row = got[rank][f"row/{n}"]
+            assert row.shape[0] == 1
+            np.testing.assert_array_equal(got[rank][f"loaded/{n}"], row)
+            full = np.load(os.path.join(save_dir, str(rank), n + ".npy"))
+            assert full.shape == (world, row.shape[1])
+            np.testing.assert_array_equal(full[rank:rank + 1], row)
+
+
+@pytest.mark.parametrize("opt", sorted(SAVE_CASES))
+def test_zero1_save_writes_the_jax_packages_directory(tmp_path, opt):
+    """save_persistables under zero1 at W = 2 gloo ranks: each
+    accumulator file is the whole [W, shard] array (the rows gathered
+    over the ranks), and the directory is byte-equal to the JAX PE's
+    from the same program, seed and steps (SAVE_CASES says when);
+    load_persistables gives each rank its row back."""
+    world = 2
+    got, save_dir, want = _save_case(tmp_path, opt, world, cuda=False)
+    _check_save(got, save_dir, want, world, SAVE_CASES[opt] != "uniform")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", sorted(SAVE_CASES))
+def test_zero1_save_over_nccl_writes_the_jax_packages_directory(tmp_path,
+                                                                opt):
+    """The same at W = 2 ranks on two cards over NCCL."""
+    world = 2
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} CUDA cards")
+    got, save_dir, want = _save_case(tmp_path, opt, world, cuda=True)
+    _check_save(got, save_dir, want, world, SAVE_CASES[opt] != "uniform")
+
+
+def test_a_loaded_shard_layout_becomes_the_ranks_row():
+    """A [W, shard] array loaded before the plan existed becomes the
+    rank's row at the next zero1 step (ensure_scope_sharded)."""
+    main = worker.build(tfluid, "mlp", "adam")[0]
+    _, plan = tzero1.apply(main, 2)
+    e = plan.entries[0]
+    name = e.accums[0][2]
+    rows = np.arange(2 * e.shard, dtype=np.float32).reshape(2, e.shard)
+    scope = tfluid.Scope()
+    scope.var(name)
+    scope.set_var(name, torch.from_numpy(rows.copy()))
+    plan.ensure_scope_sharded(scope)
+    np.testing.assert_array_equal(scope.find_var(name).numpy(), rows[:1])

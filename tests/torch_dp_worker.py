@@ -20,7 +20,9 @@ deterministic) — runs every case in order and writes
     a step, or one run of iters=steps — then the losses, the full-layout
     state (convert.numpy_state), each persistable's shape in the scope,
     the program's collective ops and fused buckets and, with
-    fetch_batch, the last step's softmax output.
+    fetch_batch, the last step's softmax output; with "save": <dir>,
+    fluid.io.save_persistables into <dir>/<rank> and a load back
+    (`_save_and_load`).
 This module imports paddle_tpu_torch and nothing of the JAX package; the
 tests import `build` and `collective_inputs` to make the same nets and
 inputs on the JAX side, and `launch` to run the ranks.
@@ -39,8 +41,17 @@ OPTIMIZERS = {
     "momentum": lambda fluid: fluid.optimizer.Momentum(learning_rate=0.05,
                                                        momentum=0.9),
     "adam": lambda fluid: fluid.optimizer.Adam(learning_rate=0.01),
+    # powers of two: with the `linear` net's dyadic gradients every
+    # product is exact, and the two packages' updates agree bit for bit
+    "momentum_pow2": lambda fluid: fluid.optimizer.Momentum(
+        learning_rate=0.125, momentum=0.5),
+    "rmsprop_pow2": lambda fluid: fluid.optimizer.RMSProp(
+        learning_rate=0.125, rho=0.0, epsilon=0.0, momentum=0.5),
+    "rmsprop": lambda fluid: fluid.optimizer.RMSProp(learning_rate=0.01,
+                                                     momentum=0.5),
 }
-SHAPES = {"mlp": [32], "conv_bn": [3, 8, 8], "dropout": [32]}
+SHAPES = {"mlp": [32], "conv_bn": [3, 8, 8], "dropout": [32],
+          "linear": [32]}
 CLASSES = 4
 
 
@@ -50,12 +61,21 @@ def build(fluid, net, opt):
       mlp     — tests/test_parallel.py's net: fc(32, relu), fc(4, softmax);
       conv_bn — conv2d(4, 3x3, pad 1), batch_norm(relu), 2x2 max pool,
                 fc(4, softmax), and the accuracy op;
-      dropout — fc(32, relu), dropout(0.5), fc(4, softmax)."""
+      dropout — fc(32, relu), dropout(0.5), fc(4, softmax);
+      linear  — the mean of fc(4) (its gradients are the batch's mean
+                input, whatever the parameters: exact for dyadic inputs;
+                the label is fed and unused)."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         img = fluid.layers.data(name="img", shape=SHAPES[net],
                                 dtype="float32")
         label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        if net == "linear":
+            out = fluid.layers.fc(input=img, size=CLASSES)
+            loss = fluid.layers.mean(out)
+            OPTIMIZERS[opt](fluid).minimize(loss)
+            main.random_seed = startup.random_seed = 7
+            return main, startup, loss, out
         if net == "conv_bn":
             conv = fluid.layers.conv2d(img, 4, 3, padding=1)
             h = fluid.layers.pool2d(fluid.layers.batch_norm(conv, act="relu"),
@@ -189,6 +209,31 @@ def _pe(case, mesh, cuda):
                                           np.int64)
     if case.get("fetch_batch"):
         res["probs"] = outs[1]
+    if case.get("save"):
+        res.update(_save_and_load(fluid, place, scope, main,
+                                  os.path.join(case["save"], str(mesh.rank))))
+    return res
+
+
+def _save_and_load(fluid, place, scope, main, dirname):
+    """fluid.io.save_persistables of `main` from `scope` into `dirname`
+    (every rank takes part in the zero1 gathers), then
+    fluid.io.load_persistables of it into a fresh scope: for each zero1
+    accumulator, the row this rank held (`row/<name>`) and the one the
+    load gave it (`loaded/<name>`)."""
+    from paddle_tpu_torch.parallel import zero1
+
+    exe = fluid.Executor(place)
+    with fluid.scope_guard(scope):
+        fluid.io.save_persistables(exe, dirname, main)
+    fresh = fluid.Scope()
+    with fluid.scope_guard(fresh):
+        fluid.io.load_persistables(exe, dirname, main)
+    res = {}
+    for n in sorted(main.global_block().vars):
+        if zero1.registered_entry(n) is not None:
+            res[f"row/{n}"] = scope.find_var(n).cpu().numpy()
+            res[f"loaded/{n}"] = fresh.find_var(n).cpu().numpy()
     return res
 
 
