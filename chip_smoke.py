@@ -62,7 +62,26 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 interpreter step traced on the card alone (idle shares, the
                 momentum kernel's rows); graph vs interpreter from the same
                 state for 3 steps at batch 32 (cuDNN deterministic on both
-                sides), bitwise; every persistable f32 after the AMP steps
+                sides), bitwise; every persistable f32 after the AMP steps;
+                the timed calls monitored (FLAGS_monitor, on by default)
+                and journaled to chiprun_out/headline_journal.jsonl
+  6a. monitor — the run-time instruments on the same program and state:
+                the same calls with FLAGS_monitor=0 (the monitored
+                headline at >= 0.95 of it; momentum launches 4 a step);
+                the journal, one record a call, through `python3 -m
+                paddle_tpu_torch monitor`; on a fresh prepare with
+                FLAGS_monitor_hlo_cost, the compile probe's FLOPs equal to
+                the program's shape count (_analytic_step_flops), GFLOP an
+                image and mfu against monitor.chip_peak_flops();
+                FLAGS_benchmark's gauge beside the host clock;
+                FLAGS_check_nan_inf's cost (off, on, on, off calls of
+                iters=10); a profiler session over 3 replays exported as
+                one chrome trace (host lane, 4 momentum_kernel rows a
+                replay) and trace.costs' slowest ops; FLAGS_health's cost
+                a step, one interpreter step's stats against float64
+                host sums, 3 steps graph vs interpreter bitwise; fp32
+                ResNet-50 with a NaN running mean, named by the captured
+                step and, with its op, by the interpreter ([monitor] lines)
   6b. parallel — the headline's program, feeds and timing through
                 fluid.ParallelExecutor(use_cuda=True) over a one-rank NCCL
                 group (parallel.distributed.initialize, file:// rendezvous
@@ -168,8 +187,10 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 timed beside the plain version and torch's
                 scaled_dot_product_attention, and the split prologue beside
                 its plain twin
-Then one JSON line of the paths' numbers, one of per-kernel numbers (launches
-on every path that runs the kernel), and as the last line
+Then one JSON line of the paths' numbers (the monitor phase's under
+"monitor"), one of per-kernel numbers (launches on every path that runs the
+kernel; momentum's "headline_unmonitored" path is the monitor phase's
+unmonitored calls), and as the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -238,6 +259,20 @@ SEQ_PARITY_BATCH = 16
 # smallest mask checked holds 64 x 512 elements, whose keep fraction's
 # standard deviation at p = 0.5 is 2.8e-3
 KEEP_TOL = 0.01
+
+# phase monitor: the headline's monitored img/s against FLAGS_monitor=0
+# (the same warm and timed calls) must keep MONITOR_MIN_RATIO; the compile
+# probe's model FLOPs must equal the step's convolution and matmul FLOPs
+# counted from the program's shapes (_analytic_step_flops; 2 a
+# multiply-add); the FLAGS_benchmark, FLAGS_check_nan_inf and FLAGS_health
+# calls run
+# iters=MONITOR_K; health's stats against a float64 host recompute within
+# MONITOR_HEALTH_RTOL (bf16 grads); the profiler session spans
+# MONITOR_TRACE_STEPS replays
+MONITOR_MIN_RATIO = 0.95
+MONITOR_K = 10
+MONITOR_HEALTH_RTOL = 2e-2
+MONITOR_TRACE_STEPS = 3
 
 # phase serve: the saved headline network served under bf16 AMP, buckets
 # 1..32; parity over 16 requests of 1-4 rows (rtol PARITY_AMP_RTOL against
@@ -1144,10 +1179,14 @@ def _losses(out):
     return out.reshape(-1).float().cpu().numpy()
 
 
-def phase_headline(card):
+def phase_headline(card, journal):
     """bench.py's headline run through the port: bf16 AMP, fused Momentum,
-    batch 128, Executor.run(iters=40) replayed from the captured step; the
-    interpreter beside it; traces; graph vs interpreter bitwise."""
+    batch 128, Executor.run(iters=40) replayed from the captured step,
+    monitored (FLAGS_monitor, on by default) and its calls journaled to
+    `journal`; the interpreter beside it; traces; graph vs interpreter
+    bitwise. Returns (its numbers, what phase monitor reruns: the program,
+    its loss and buckets, the feed stack on the card, the initial
+    state)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import amp, convert, flags
     from paddle_tpu_torch.fusion import kernels as fk
@@ -1155,6 +1194,9 @@ def phase_headline(card):
     main, startup, loss, buckets = build_headline()
     log(f"[headline] bench.py's program: {len(buckets)} fused momentum "
         f"buckets of {[b['numel'] for b in buckets]} elements")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    if os.path.exists(journal):
+        os.remove(journal)
     rs = np.random.RandomState(SEED)
     u8 = rs.randint(0, 256, (HEADLINE_K, HEADLINE_BATCH, 224, 224, 3),
                     dtype=np.uint8)
@@ -1183,8 +1225,10 @@ def phase_headline(card):
             torch.cuda.reset_peak_memory_stats()
             fk.reset_launch_counts()
             with fluid.scope_guard(scope):
-                dt, outs = _timed_calls(exe, main, feeds, [loss], HEADLINE_K,
-                                        HEADLINE_WARM, HEADLINE_CALLS)
+                with flags.flag_guard(monitor_journal=journal):
+                    dt, outs = _timed_calls(exe, main, feeds, [loss],
+                                            HEADLINE_K, HEADLINE_WARM,
+                                            HEADLINE_CALLS)
                 lv = _losses(outs[0])
                 torch.cuda.synchronize()
                 launches = fk.momentum_bucket.launches
@@ -1206,7 +1250,7 @@ def phase_headline(card):
                     peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                     momentum_launches=launches, steps=steps,
                     last_losses=[float(v) for v in lv[-3:]])
-                log(f"[headline] {card}: graph: "
+                log(f"[headline] {card}: graph (monitored, journaled): "
                     f"resnet50_train_images_per_sec {img_s:.2f} "
                     f"({result['step_ms']:.2f} ms a step; {HEADLINE_CALLS} "
                     f"calls of iters={HEADLINE_K} in {dt:.3f} s after "
@@ -1272,7 +1316,423 @@ def phase_headline(card):
                  for k in range(3)])
     finally:
         amp.disable()
+    return result, {"main": main, "loss": loss, "buckets": buckets,
+                    "feeds": feeds, "init": init}
+
+
+def _analytic_step_flops(main, batch):
+    """The convolution and matmul FLOPs of one training step of `main` at
+    `batch`, from the program's shapes (2 a multiply-add): each conv2d and
+    mul once, and each of their grad ops once for every input grad it
+    writes (Input/Filter, X/Y), at the forward's cost. The compile probe
+    counts what the step runs; this counts what the program asks for."""
+    gb = main.global_block()
+
+    def numel(name):
+        return int(np.prod([batch if d == -1 else d
+                            for d in gb.vars[name].shape]))
+
+    def cost(op, out):
+        if op.type.startswith("conv2d"):
+            # each output element: Cin/groups x kh x kw multiply-adds
+            return 2 * numel(out) * int(np.prod(
+                gb.vars[op.inputs["Filter"][0]].shape[1:]))
+        y = gb.vars[op.inputs["Y"][0]].shape
+        k = int(np.prod(y[:op.attrs.get("y_num_col_dims", 1)]))
+        return 2 * numel(out) * k
+
+    total = 0
+    for op in gb.ops:
+        if op.type in ("conv2d", "mul"):
+            total += cost(op, op.output_arg_names()[0])
+        elif op.type in ("conv2d_grad", "mul_grad"):
+            out = next(names[0] for slot, names in op.inputs.items()
+                       if slot.endswith("@GRAD"))
+            writes = sum(1 for names in op.outputs.values()
+                         if names and names[0])
+            total += writes * cost(op, out)
+    return total
+
+
+def _fenced_ms(exe, main, feeds, fetch, iters):
+    """Host ms of one exe.run(iters=...) from its dispatch to one scalar
+    fetch of its loss (every step done)."""
+    t0 = time.perf_counter()
+    outs = exe.run(main, feed=feeds, fetch_list=fetch, iters=iters,
+                   return_numpy=False)
+    _fence(outs[0])
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_monitor(card_line, headline, rerun):
+    """The run-time instruments on the headline (bench.py's program, bf16
+    AMP, fused Momentum, batch 128, through the captured step):
+    (1) the headline's monitored img/s beside the same calls with
+    FLAGS_monitor=0; (2) its journal, one record a call, through `python3
+    -m paddle_tpu_torch monitor`; (3) the compile probe's model FLOPs an
+    image and the MFU against the card's peak; (4) FLAGS_benchmark's gauge
+    beside the same call's host clock; (5) FLAGS_health: its cost a step,
+    one step's stats against a float64 host recompute, graph vs
+    interpreter bitwise; (6) FLAGS_check_nan_inf: its cost on the clean
+    headline, then on fp32 ResNet-50 a NaN running mean named by the
+    captured step and by the interpreter with its op; (7) a profiler
+    session over replays: host lane, momentum_kernel rows, slowest ops."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, convert, flags, health, monitor
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch import trace as ptrace
+    from paddle_tpu_torch.fusion import kernels as fk
+
+    t_phase = time.perf_counter()
+    tag = f"[monitor] {card_line}:"
+    main, loss, buckets = rerun["main"], rerun["loss"], rerun["buckets"]
+    feeds, init = rerun["feeds"], rerun["init"]
+    place = fluid.CUDAPlace(0)
+    result = {}
+
+    def fresh():
+        scope = fluid.Scope()
+        convert.load_numpy_state(scope, main, init, place)
+        return scope, fluid.Executor()
+
+    amp.enable("bfloat16")
+    try:
+        with flags.flag_guard(fuse=True):
+            # (1) the same calls as the headline's, unmonitored
+            scope, exe = fresh()
+            fk.reset_launch_counts()
+            with fluid.scope_guard(scope), flags.flag_guard(monitor=False):
+                steps_before = monitor.steps_done()
+                dt, _ = _timed_calls(exe, main, feeds, [loss], HEADLINE_K,
+                                     HEADLINE_WARM, HEADLINE_CALLS)
+                torch.cuda.synchronize()
+                if monitor.steps_done() != steps_before:
+                    raise AssertionError("FLAGS_monitor=0 recorded a step")
+            steps = (HEADLINE_WARM + HEADLINE_CALLS) * HEADLINE_K
+            launches = fk.momentum_bucket.launches
+            if launches != len(buckets) * steps:
+                raise AssertionError(
+                    f"unmonitored: momentum kernel launched {launches} "
+                    f"times, not {len(buckets)} x {steps}")
+            off = HEADLINE_BATCH * HEADLINE_K * HEADLINE_CALLS / dt
+            on = headline["images_per_sec"]
+            ratio = on / off
+            result.update(monitored_images_per_sec=on,
+                          unmonitored_images_per_sec=off,
+                          monitored_over_unmonitored=ratio,
+                          unmonitored_launches=launches)
+            log(f"{tag} headline img/s monitored (journal on, phase "
+                f"headline) {on:.2f} vs FLAGS_monitor=0 {off:.2f} (same "
+                f"{HEADLINE_WARM} warm + {HEADLINE_CALLS} timed calls of "
+                f"iters={HEADLINE_K}): ratio {ratio:.4f}; momentum_bucket "
+                f"launches unmonitored {launches} = {len(buckets)} x "
+                f"{steps} steps (monitored: "
+                f"{headline['momentum_launches']})")
+            if ratio < MONITOR_MIN_RATIO:
+                raise AssertionError(
+                    f"the monitored headline runs at {ratio:.4f} of the "
+                    f"unmonitored one (< {MONITOR_MIN_RATIO})")
+            del exe, scope
+            _release()
+
+            # (2) the headline's journal and the CLI's summary of it
+            journal = os.path.join(OUT_DIR, "headline_journal.jsonl")
+            records = monitor.read_journal(journal)
+            calls = HEADLINE_WARM + HEADLINE_CALLS
+            if len(records) != calls or any(
+                    r["iters"] != HEADLINE_K or r["kind"] != "executor"
+                    for r in records):
+                raise AssertionError(
+                    f"journal: {len(records)} records "
+                    f"{[(r['kind'], r['iters']) for r in records]}, not "
+                    f"{calls} of iters={HEADLINE_K}")
+            if records[0]["cache"] != "miss" or any(
+                    r["cache"] != "hit" for r in records[1:]) \
+                    or "compile" not in records[0]["phases_ms"]:
+                raise AssertionError(
+                    f"journal cache outcomes "
+                    f"{[r['cache'] for r in records]}")
+            cli = subprocess.run(
+                [sys.executable, "-m", "paddle_tpu_torch", "monitor",
+                 journal], capture_output=True, text=True, timeout=120)
+            if cli.returncode != 0:
+                raise AssertionError(f"monitor CLI rc {cli.returncode}: "
+                                     f"{cli.stderr}")
+            log(f"{tag} journal {journal}: {len(records)} records, iters="
+                f"{HEADLINE_K} each; phases of the first (ms) "
+                f"{records[0]['phases_ms']}, of the last "
+                f"{records[-1]['phases_ms']}; python3 -m paddle_tpu_torch "
+                f"monitor (rc 0):")
+            for line in cli.stdout.splitlines():
+                log(f"{tag}   {line}")
+            result.update(journal_records=len(records),
+                          journal_first_phases_ms=records[0]["phases_ms"],
+                          journal_last_phases_ms=records[-1]["phases_ms"])
+
+            # (3) the compile probe on a fresh prepare: model FLOPs, MFU
+            scope, exe = fresh()
+            with fluid.scope_guard(scope), \
+                    flags.flag_guard(monitor_hlo_cost=True):
+                two = {n: t[:2] for n, t in feeds.items()}
+                t0 = time.perf_counter()
+                _fence(exe.run(main, feed=two, fetch_list=[loss], iters=2,
+                               return_numpy=False)[0])
+                probe_s = time.perf_counter() - t0
+                fp = monitor.last_step()["fingerprint"]
+                info = monitor.compile_info()[fp]
+            flops_step = info["flops"] / 2
+            gflop_img = flops_step / HEADLINE_BATCH / 1e9
+            analytic = _analytic_step_flops(main, HEADLINE_BATCH)
+            peak = monitor.chip_peak_flops()
+            mfu = monitor.mfu(flops_step, on / HEADLINE_BATCH,
+                              peak_flops=peak)
+            result.update(model_flops_per_step=flops_step,
+                          model_gflop_per_image=gflop_img,
+                          chip_peak_flops=peak, mfu=mfu,
+                          analytic_flops_per_step=analytic,
+                          probe_run_s=probe_s,
+                          compile_wall_s=info["wall_s"])
+            log(f"{tag} compile probe (FlopCounterMode over the first "
+                f"eager step, the derived grads' recomputed forward left "
+                f"out): {flops_step:.6e} FLOP a step = {gflop_img:.4f} "
+                f"GFLOP an image (2 a multiply-add), the program's shapes "
+                f"give {analytic:.6e}; the first run (probe, "
+                f"capture, replay) {probe_s:.2f} s, compile_info wall_s "
+                f"{info['wall_s']:.3f}; peak {peak} FLOP/s for "
+                f"{torch.cuda.get_device_name(0)!r}; mfu {mfu:.5f} at the "
+                f"monitored headline's {on:.2f} img/s")
+            if flops_step != analytic:
+                raise AssertionError(
+                    f"the probe counted {flops_step:.6e} FLOP a step; the "
+                    f"program's convolutions and matmuls do {analytic:.6e}")
+            if peak is None or mfu is None:
+                raise AssertionError("no peak for this card in "
+                                     "monitor.CHIP_PEAK_TFLOPS")
+
+            # (4) FLAGS_benchmark beside the same call's host clock, and
+            # (6a) FLAGS_check_nan_inf on the clean headline
+            k_feeds = {n: t[:MONITOR_K] for n, t in feeds.items()}
+            with fluid.scope_guard(scope):
+                _fenced_ms(exe, main, k_feeds, [loss], MONITOR_K)  # warm
+                with flags.flag_guard(benchmark=True):
+                    host_ms = _fenced_ms(exe, main, k_feeds, [loss],
+                                         MONITOR_K)
+                gauge_ms = monitor.registry().gauge(
+                    "benchmark_run_ms").value
+                nan_ms = {False: [], True: []}
+                for check in (False, True, True, False):
+                    with flags.flag_guard(check_nan_inf=check):
+                        nan_ms[check].append(_fenced_ms(
+                            exe, main, k_feeds, [loss], MONITOR_K))
+            result.update(benchmark_gauge_ms=gauge_ms,
+                          benchmark_host_ms=host_ms)
+            log(f"{tag} FLAGS_benchmark: gauge benchmark_run_ms "
+                f"{gauge_ms:.3f} ms beside the same call's host clock "
+                f"{host_ms:.3f} ms (iters={MONITOR_K})")
+            if not 0 < gauge_ms <= host_ms:
+                raise AssertionError("benchmark gauge outside the call")
+            off_ms = statistics.mean(nan_ms[False])
+            on_ms = statistics.mean(nan_ms[True])
+            result.update(nan_check_off_ms=nan_ms[False],
+                          nan_check_on_ms=nan_ms[True])
+            log(f"{tag} FLAGS_check_nan_inf on the clean headline: a call "
+                f"of iters={MONITOR_K} {on_ms:.3f} ms on vs {off_ms:.3f} ms "
+                f"off (off, on, on, off: {nan_ms[False][0]:.3f}, "
+                f"{nan_ms[True][0]:.3f}, {nan_ms[True][1]:.3f}, "
+                f"{nan_ms[False][1]:.3f}); one check a call: "
+                f"{on_ms - off_ms:.3f} ms")
+
+            # (7) a profiler session over replays
+            trace_dir = os.path.join(OUT_DIR, "monitor_trace")
+            three = {n: t[:MONITOR_TRACE_STEPS] for n, t in feeds.items()}
+            with fluid.scope_guard(scope):
+                profiler.reset_profiler()
+                profiler.start_profiler("All", trace_dir=trace_dir)
+                _fenced_ms(exe, main, three, [loss], MONITOR_TRACE_STEPS)
+                torch.cuda.synchronize()
+                profiler.stop_profiler(
+                    "total", os.path.join(OUT_DIR, "monitor_profile"))
+            chrome = profiler.export_chrome_trace(
+                os.path.join(OUT_DIR, "monitor_chrome_trace.json"))
+            with open(chrome) as f:
+                events = json.load(f)["traceEvents"]
+            host = [e for e in events if e.get("pid") == 0
+                    and e.get("ph") != "M"]
+            kernels = [e for e in events if e.get("cat") == "kernel"]
+            momentum = [e for e in kernels
+                        if "momentum_kernel" in e.get("name", "")]
+            result.update(trace_host_events=len(host),
+                          trace_kernel_rows=len(kernels),
+                          trace_momentum_rows=len(momentum))
+            log(f"{tag} profiler session over {MONITOR_TRACE_STEPS} "
+                f"replays: {chrome} holds {len(host)} host-lane events "
+                f"(pid 0), {len(kernels)} kernel rows, "
+                f"{len(momentum)} momentum_kernel rows")
+            if not host or len(momentum) != \
+                    len(buckets) * MONITOR_TRACE_STEPS:
+                raise AssertionError(
+                    f"chrome trace: {len(host)} host events, "
+                    f"{len(momentum)} momentum_kernel rows (want "
+                    f"{len(buckets) * MONITOR_TRACE_STEPS})")
+            table = ptrace.format_ops_table(ptrace.slowest_ops(
+                fp, batch_size=HEADLINE_BATCH, top=10))
+            log(f"{tag} trace.costs.slowest_ops, top 10:")
+            for line in table.splitlines():
+                log(f"{tag}   {line}")
+            del exe, scope
+            _release()
+
+            # (5) FLAGS_health: its cost a step, against its host recompute
+            scope, exe = fresh()
+            with fluid.scope_guard(scope), flags.flag_guard(health=1):
+                _fenced_ms(exe, main, {n: t[:2] for n, t in feeds.items()},
+                           [loss], 2)  # eager step, capture, replay
+                health_ms = _fenced_ms(exe, main, k_feeds, [loss], MONITOR_K)
+                if exe.step_mode(main) != "graph":
+                    raise AssertionError("health step not captured")
+            health_cost = (health_ms - off_ms) / MONITOR_K
+            result.update(health_on_ms=health_ms,
+                          health_cost_ms_per_step=health_cost)
+            log(f"{tag} FLAGS_health=1: a call of iters={MONITOR_K} "
+                f"{health_ms:.3f} ms vs {off_ms:.3f} ms off: "
+                f"{health_cost:.3f} ms a step "
+                f"({len(health.plan_for(main).pairs)} parameters)")
+            del exe, scope
+            _release()
+            result.update(_health_checks(main, loss, init, feeds, tag))
+    finally:
+        amp.disable()
+    result.update(_nan_checks(tag))
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"{tag} phase monitor took {result['seconds']:.1f} s")
     return result
+
+
+def _health_checks(main, loss, init, feeds, tag):
+    """FLAGS_health at batch 32 from the headline's state: one
+    interpreter step's stats against float64 sums over its fetched grads
+    and its parameters before and after; then 3 steps through the
+    captured step (eager, capture, replay) and through the interpreter,
+    cuDNN deterministic: every step's stats bitwise equal."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert, flags, health
+
+    place = fluid.CUDAPlace(0)
+    plan = health.plan_for(main)
+    steps = [{n: t[k, :BATCH] for n, t in feeds.items()} for k in range(3)]
+    scope = fluid.Scope()
+    convert.load_numpy_state(scope, main, init, place)
+    exe = fluid.Executor()
+    before = convert.numpy_state(scope, main)
+    with fluid.scope_guard(scope), \
+            flags.flag_guard(health=1, cuda_graph=False):
+        outs = exe.run(main, feed=steps[0],
+                       fetch_list=[loss] + plan.fetch_names)
+    after = convert.numpy_state(scope, main)
+    params = health.last_record()["params"]
+    worst = 0.0
+    for (label, _), g in zip(plan.pairs, outs[1:]):
+        g = g.astype(np.float64)
+        w0, w1 = before[label].astype(np.float64), \
+            after[label].astype(np.float64)
+        want = {"grad_norm": np.sqrt((g * g).sum()),
+                "weight_norm": np.sqrt((w1 * w1).sum())}
+        want["update_ratio"] = np.sqrt(((w1 - w0) ** 2).sum()) / \
+            want["weight_norm"]
+        for k, v in want.items():
+            err = abs(params[label][k] - v) / max(abs(v), 1e-30)
+            worst = max(worst, err)
+            if err > MONITOR_HEALTH_RTOL:
+                raise AssertionError(f"health {label} {k}: "
+                                     f"{params[label][k]} vs {v}")
+    log(f"{tag} FLAGS_health: one interpreter step at batch {BATCH}, "
+        f"{len(plan.pairs)} parameters' grad norm, weight norm and update "
+        f"ratio against float64 host sums over the fetched grads and the "
+        f"parameters before and after: largest relative difference "
+        f"{worst:.3e} (limit {MONITOR_HEALTH_RTOL})")
+    del exe, scope
+    _release()
+    records = {}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode in ("graph", "interpreter"):
+            scope = fluid.Scope()
+            convert.load_numpy_state(scope, main, init, place)
+            exe = fluid.Executor()
+            with fluid.scope_guard(scope), flags.flag_guard(
+                    health=1, cuda_graph=mode == "graph"):
+                records[mode] = []
+                for f in steps:
+                    exe.run(main, feed=f, fetch_list=[loss])
+                    records[mode].append(health.last_record()["params"])
+                if exe.step_mode(main) != mode:
+                    raise AssertionError(f"health ran {mode} as "
+                                         f"{exe.step_mode(main)}")
+            del exe, scope
+            _release()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    equal = records["graph"] == records["interpreter"]
+    log(f"{tag} FLAGS_health: 3 steps at batch {BATCH} (eager, capture, "
+        f"replay) vs the interpreter, cuDNN deterministic: stats of "
+        f"{len(plan.pairs)} parameters "
+        f"{'bitwise equal' if equal else 'DIFFER'}")
+    if not equal:
+        raise AssertionError("health stats: graph and interpreter differ")
+    return {"health_recompute_worst_rel": worst, "health_bitwise": equal}
+
+
+def _nan_checks(tag):
+    """FLAGS_check_nan_inf on fp32 ResNet-50 (NHWC 224x224x3, batch 32,
+    fused Momentum) with the first batch norm's running mean set to NaN:
+    a persistable the step writes and no other op of a training step
+    reads, so the NaN stays in it. The captured step (its first two runs
+    clean) raises after the replay naming that var; the interpreter
+    raises at the batch_norm op that writes it."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import flags
+
+    main, startup, loss, _ = build_resnet50(quiet=True)
+    bn = next(op for op in main.global_block().ops
+              if op.type == "batch_norm")
+    name = bn.inputs["Mean"][0]
+    rs = np.random.RandomState(SEED)
+    feed = {"data": rs.rand(BATCH, 224, 224, 3).astype(np.float32),
+            "label": rs.randint(0, 1000, (BATCH, 1)).astype(np.int64)}
+    got = {}
+    for mode in ("graph", "interpreter"):
+        scope = fluid.Scope()
+        exe = fluid.Executor()
+        with fluid.scope_guard(scope), flags.flag_guard(
+                fuse=True, check_nan_inf=True,
+                cuda_graph=mode == "graph"):
+            exe.run(startup)
+            if mode == "graph":
+                for _ in range(2):  # eager, then the capture: clean
+                    exe.run(main, feed=feed, fetch_list=[loss])
+            scope.find_var(name).fill_(float("nan"))
+            try:
+                exe.run(main, feed=feed, fetch_list=[loss])
+            except RuntimeError as e:
+                got[mode] = str(e)
+            else:
+                raise AssertionError(f"{mode}: a NaN {name} passed the "
+                                     f"check")
+            if exe.step_mode(main) != mode:
+                raise AssertionError(f"nan check ran {mode} as "
+                                     f"{exe.step_mode(main)}")
+        del exe, scope
+        _release()
+    want = {"graph": f"Variable {name!r} contains NaN after compiled step",
+            "interpreter": f"Variable {name!r} contains NaN after op "
+                           f"'batch_norm'"}
+    for mode, msg in got.items():
+        log(f"{tag} FLAGS_check_nan_inf, fp32 ResNet-50 with {name} set to "
+            f"NaN, {mode}: RuntimeError: {msg}")
+        if not msg.startswith(want[mode]):
+            raise AssertionError(f"{mode}: {msg!r} does not name {name}")
+    return {"nan_poisoned": name, "nan_messages": got}
 
 
 def _check_master_state(scope):
@@ -3330,8 +3790,13 @@ def main():
     momentum, adam = rows[0], rows[1]
     paths = {"resnet50_fp32": phase_resnet(*resnet, card)}
     _release()
-    headline = phase_headline(card)
+    headline, rerun = phase_headline(
+        card, os.path.join(OUT_DIR, "headline_journal.jsonl"))
     paths["headline"] = headline["momentum_launches"]
+    _release()
+    monitored = phase_monitor(card_line, headline, rerun)
+    paths["headline_unmonitored"] = monitored["unmonitored_launches"]
+    del rerun
     _release()
     parallel = phase_parallel(card, headline["images_per_sec"])
     paths["parallel_executor"] = parallel["momentum_launches"]
@@ -3363,7 +3828,8 @@ def main():
     _release()
     rows += phase_flash(sass)
     log(card_line)
-    log(json.dumps({"headline": headline, "parallel": parallel,
+    log(json.dumps({"headline": headline, "monitor": monitored,
+                    "parallel": parallel,
                     "se_resnext50": se, "vgg16": vgg, **seq,
                     "serve": served, "tail_ops": tail}))
     log(json.dumps({"kernels": rows}))

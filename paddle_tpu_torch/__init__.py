@@ -12,7 +12,11 @@ fused optimizer-bucket updates and the flash-attention forward
 (fusion/kernels.py, parallel/flash.py, csrc/). A trained program is
 saved and loaded with `io` (the JAX package's directory format), folded
 for inference by `InferenceTranspiler`, run by `Inferencer`, and served by
-`serve.Server` from one captured CUDA graph per batch bucket.
+`serve.Server` from one captured CUDA graph per batch bucket. Every run
+reports to the step monitor (`monitor`: phases, the step journal, MFU),
+and, when asked, to the model-health ledger (`health`), the NaN/Inf
+check, FLAGS_benchmark and a profiler session (`profiler`); `python -m
+paddle_tpu_torch` reads their files.
 """
 
 from . import flags
@@ -54,6 +58,7 @@ from . import convert
 from . import profiler
 from . import monitor
 from . import trace
+from . import health
 from . import io
 from .io import (
     save_vars,

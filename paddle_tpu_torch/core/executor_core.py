@@ -17,13 +17,16 @@ On top of it sit the counterparts of the JAX package's whole-block step
     device-resident [K, ...] feed stack, the counterpart of the lax.scan
     multi-step; on the card each call is one graph replay.
 `capture_blocker` is the static rule that keeps a step out of a graph.
-The FLAGS_fuse_optimizer_ops concat path has no counterpart yet.
+FLAGS_check_nan_inf (`check_values_finite`) checks every op's outputs in
+an eager step, naming the op; a captured step is checked by the Executor
+once after its replays. The FLAGS_fuse_optimizer_ops concat path has no
+counterpart yet.
 """
 
 import numpy as np
 import torch
 
-from .. import cuda_build
+from .. import cuda_build, flags, profiler
 from . import registry
 from .places import device_for
 
@@ -35,6 +38,31 @@ from .places import device_for
 # replay.
 HOST_OPS = frozenset({"save", "load", "save_combine", "load_combine",
                       "delete_var"})
+
+
+def check_values_finite(named_values, context=""):
+    """FLAGS_check_nan_inf (reference executor.cc:343 CheckTensorNANOrInf):
+    raise naming the first variable of `named_values` ((name, value)
+    pairs) that holds NaN/Inf. A SeqTensor is checked by its data; values
+    that are not floating-point tensors are skipped. One reduction over
+    all of them gives one flag, read once; the culprit is looked for only
+    when it is set."""
+    named = []
+    for name, v in named_values:
+        v = registry.seq_data(v)
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            named.append((name, v))
+    if not named:
+        return
+    finite = torch.stack([torch.isfinite(v).all() for _, v in named])
+    if bool(finite.all()):
+        return
+    bad = int(torch.nonzero(~finite)[0, 0])
+    name, v = named[bad]
+    what = "NaN" if bool(torch.isnan(v).any()) else "Inf"
+    raise RuntimeError(
+        f"Variable {name!r} contains {what}{context} "
+        f"(FLAGS_check_nan_inf)")
 
 
 class RandomStream:
@@ -109,10 +137,13 @@ class OpContext:
     draw) give the global batch's result and the collective ops
     communicate. `env` is the step's {name: value} map while run_ops
     runs, and `scope` the Scope an interpreted step reads (None inside a
-    capture): the host op delete_var drops names from both."""
+    capture): the host op delete_var drops names from both. `eager` is
+    False while a CUDA graph captures the step: nothing may then wait
+    for the device (`check_nan_inf`, each op's outputs checked after it)
+    or time the ops on the host (`profile`, each op a profiler event)."""
 
     def __init__(self, place, rng=None, is_test=False, fed_lengths=None,
-                 caps=None, dp=None, scope=None):
+                 caps=None, dp=None, scope=None, eager=True):
         self.place = place
         self.device = device_for(place)
         self.rng = rng if rng is not None else RandomStream(self.device, 0)
@@ -123,6 +154,9 @@ class OpContext:
         self.caps = caps if caps is not None else set()
         self.env = None
         self.scope = scope
+        self.eager = eager
+        self.check_nan_inf = eager and flags.get("check_nan_inf")
+        self.profile = eager and profiler.enabled()
 
     def check_cap(self, lengths, cap, what, op_type):
         """Raise ValueError when a sequence of `lengths` is longer than
@@ -170,11 +204,23 @@ def _run_one_op(op, env, ctx):
     ins = {slot: [None if n == "" else env_get(env, n) for n in names]
            for slot, names in op.inputs.items()}
     try:
-        outs = registry.run_kernel(op_def, ctx, ins, op.attrs) or {}
+        if ctx.profile:
+            with profiler.record_event(f"op::{op.type}"):
+                outs = registry.run_kernel(op_def, ctx, ins, op.attrs) or {}
+        else:
+            outs = registry.run_kernel(op_def, ctx, ins, op.attrs) or {}
     except Exception as e:
         raise type(e)(f"while running op {op.type!r} ({op!r}): {e}") from e
     finally:
         ctx.current_op = None
+    if ctx.check_nan_inf:
+        named = []
+        for slot, names in op.outputs.items():
+            vals = outs.get(slot, [])
+            for i, n in enumerate(names):
+                if n and i < len(vals) and vals[i] is not None:
+                    named.append((n, vals[i]))
+        check_values_finite(named, context=f" after op {op.type!r}")
     for slot, names in op.outputs.items():
         vals = outs.get(slot, [])
         for i, name in enumerate(names):
@@ -258,7 +304,7 @@ def build_step_fn(program, fetch_names, state_out_names, place, dp=None):
     """The pure step of a program's global block (counterpart of
     paddle_tpu/core/executor_core.py::build_step_fn):
 
-        step(mut_state, const_state, feeds, rng, scope=None)
+        step(mut_state, const_state, feeds, rng, scope=None, eager=True)
             -> (fetches, new_mut)
 
     mut_state holds the persistables the block writes, const_state those it
@@ -271,16 +317,18 @@ def build_step_fn(program, fetch_names, state_out_names, place, dp=None):
     `step.blocker` is the op that keeps it out of a CUDA graph, or None
     (`capture_blocker`). `dp` is the data-parallel group its ops run
     over (OpContext.dp); `scope` is the Scope an interpreted step reads
-    (OpContext.scope)."""
+    (OpContext.scope); `eager` is False while a CUDA graph captures it
+    (OpContext.eager)."""
     ops = dead_code_eliminate(program.global_block().ops,
                               list(fetch_names) + list(state_out_names))
 
-    def step(mut_state, const_state, feeds, rng, scope=None):
+    def step(mut_state, const_state, feeds, rng, scope=None, eager=True):
         env = {}
         env.update(const_state)
         env.update(mut_state)
         env.update(feeds)
         ctx = OpContext(place, rng, caps=step.caps, dp=dp, scope=scope,
+                        eager=eager,
                         fed_lengths={
                             id(v.lengths): (n, v.host_lengths)
                             for n, v in feeds.items()
@@ -410,7 +458,8 @@ class CapturedStep:
         # collective (a ParallelExecutor step)
         with torch.cuda.graph(self.graph, stream=stream,
                               capture_error_mode="thread_local"):
-            fetches, new_mut = step(self.mut, const, self.feeds, rng)
+            fetches, new_mut = step(self.mut, const, self.feeds, rng,
+                                    eager=False)
             news = {}
             for n, dst in self.mut.items():
                 new = new_mut.get(n, dst)

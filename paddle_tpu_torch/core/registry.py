@@ -17,6 +17,7 @@ randomness or side effects must register explicit grads.
 
 import torch
 
+from ..monitor import step as _monitor_step
 from . import dtypes
 
 
@@ -223,7 +224,14 @@ def make_vjp_kernel(fwd_def):
         if not leaves:
             return result
         with torch.enable_grad():
-            outs = fwd_fn(ctx, full, attrs)
+            # the forward again, for autograd: a compile probe counting
+            # this step's FLOPs leaves it out (monitor.compile_probe)
+            probe = _monitor_step.active_probe()
+            if probe is None:
+                outs = fwd_fn(ctx, full, attrs)
+            else:
+                with probe.uncounted():
+                    outs = fwd_fn(ctx, full, attrs)
             ys, cots = [], []
             for slot, vals in outs.items():
                 if slot in stop:

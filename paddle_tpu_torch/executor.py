@@ -25,20 +25,36 @@ file IO ops of fluid.io) runs on the interpreter and is prepared afresh at
 every run, as the JAX package runs such programs eagerly, uncached.
 `compile_cache_info()` counts the prepared steps and captured graphs in
 the JAX package's payload, which the serving engine reads.
+
+The run-time instruments hook in as in the JAX package
+(paddle_tpu/executor.py): one monitor.enabled() check a run, a StepRecord
+with the phases feed_encode, compile (the prepare, the first eager step
+of a prepared program and the capture), dispatch (the replays' or the
+interpreter's enqueue time) and fetch_readback, the prepared key marked
+hit or miss; FLAGS_monitor_hlo_cost counts the first eager step's FLOPs
+(monitor.compile_probe). FLAGS_health adds the grads to the step's
+fetches and its stats rows to the step (health/stats.py), so they ride
+the captured graph. FLAGS_benchmark waits for the run's last event after
+the run, and FLAGS_check_nan_inf checks every op of an eager step, and a
+captured step's fetches and written state once after its replays. None
+of them waits for the card inside a step.
 """
 
+import sys
+import time
 import weakref
 
 import numpy as np
 import torch
 
-from . import amp, flags, fusion
+from . import amp, flags, fusion, health, monitor
 from .core import dtypes, executor_core
 from .core.framework import Variable, default_main_program
 from .core.lod_tensor import LoDTensor
 from .core.places import CUDAPlace, device_for
 from .core.registry import SeqTensor
 from .core.scope import global_scope
+from .trace import costs as _trace_costs
 
 __all__ = ["Executor", "as_numpy"]
 
@@ -99,6 +115,33 @@ class _Graph:
         self.captured = None
 
 
+class _Run:
+    """One run of a prepared program: `step(feeds)` runs one of its steps;
+    `mode` is its step mode; `written` the persistables it writes; `hplan`
+    its HealthPlan or None; `key` and `fingerprint` its prepared key and
+    the key's monitor fingerprint, `miss` whether the prepare missed;
+    `probe` the compile probe its first eager step runs under, or None.
+    Its steps count `compile_s`, the host seconds spent on a prepared
+    program's first eager step or on a capture, and `eager_first`, the
+    steps that were such a first step; the rest of their time is
+    dispatch. `iters` and `t_dispatch` (perf_counter at its first step)
+    are set by Executor._run."""
+
+    def __init__(self, mode, written, hplan, key, fingerprint, miss, probe):
+        self.step = None
+        self.mode = mode
+        self.written = written
+        self.hplan = hplan
+        self.key = key
+        self.fingerprint = fingerprint
+        self.miss = miss
+        self.probe = probe
+        self.compile_s = 0.0
+        self.eager_first = 0
+        self.iters = None
+        self.t_dispatch = None
+
+
 class Executor:
     """Runs Programs on one Place: the first CUDA card unless the caller
     passes another (CPUPlace() runs on the host). Asking for a CUDA place
@@ -122,6 +165,10 @@ class Executor:
         # misses are prepares and captures
         self._hits = 0
         self._misses = 0
+        # program id -> steps run (the health ledger's step index)
+        self._step_counter = {}
+        # prepared key -> host seconds of its compile work (compile_info)
+        self._compile_s = {}
 
     # ------------------------------------------------------------------
     def run(self, program=None, feed=None, fetch_list=None,
@@ -136,25 +183,104 @@ class Executor:
             program = default_main_program()
         if scope is None:
             scope = global_scope()
+        # the ONE per-step monitor flag check; mon stays None when off and
+        # every telemetry site below is gated on `mon is not None`
+        mon = monitor.step_begin("executor") if monitor.enabled() else None
+        fetch_names = [v.name if isinstance(v, Variable) else str(v)
+                       for v in (fetch_list or [])]
+        outs, done = self._run(program, scope, feed, fetch_names, iters, mon)
+        if flags.get("benchmark"):
+            self._benchmark(done, len(outs))
+        if flags.get("check_nan_inf") and done.mode == "graph":
+            # per-op blame cannot exist inside one replay: check the
+            # fetches and the written state once, after the run
+            executor_core.check_values_finite(
+                list(zip(fetch_names, outs)) + [
+                    (n, scope.find_var(n)) for n in done.written
+                    if scope.has_var(n)],
+                context=(" after compiled step" if done.iters is None
+                         else f" after compiled {done.iters}-step scan"))
+        if return_numpy:
+            if mon is not None:
+                with mon.timed("fetch_readback"):
+                    outs = as_numpy(outs)
+            else:
+                outs = as_numpy(outs)
+        if mon is not None:
+            monitor.step_end(mon, iters=done.iters)
+        return outs
+
+    def _run(self, program, scope, feed, fetch_names, iters, mon,
+             kind="executor"):
+        """One run of `program` (K steps with `iters`): (fetch tensors,
+        its _Run). The monitor's phases land on `mon` (None: off); health
+        records carry `kind`."""
         feed = feed if feed is not None else {}
         if isinstance(feed, (list, tuple)) and iters is None:
             iters = len(feed)
-        fetch_names = [v.name if isinstance(v, Variable) else str(v)
-                       for v in (fetch_list or [])]
+        t_enc = time.perf_counter()
         if iters is None:
-            feeds = self._feed_values(program, feed)
-            run_step = self._stepper(program, scope, feeds, fetch_names)
-            outs = run_step(feeds)
-            if self.step_mode(program) == "graph":
-                # the graph's fetch tensors are overwritten by its next replay
-                outs = [executor_core.clone_value(t) for t in outs]
+            feeds = first = self._feed_values(program, feed)
         else:
             stacked = self._stack_steps(program, feed, iters)
-            step0 = {n: executor_core.step_slice(t, 0)
+            first = {n: executor_core.step_slice(t, 0)
                      for n, t in stacked.items()}
-            run_step = self._stepper(program, scope, step0, fetch_names)
-            outs = executor_core.build_multi_step_fn(run_step, iters)(stacked)
-        return as_numpy(outs) if return_numpy else outs
+        if mon is not None:
+            mon.phase("feed_encode", time.perf_counter() - t_enc)
+        tp = time.perf_counter()
+        done = self._stepper(program, scope, first, fetch_names, iters,
+                             mon)
+        prepare_s = time.perf_counter() - tp
+        done.iters = iters
+        done.t_dispatch = tc = time.perf_counter()
+        if iters is None:
+            outs = done.step(feeds)
+            if done.mode == "graph":
+                # the graph's fetch tensors are overwritten by its next
+                # replay
+                outs = [executor_core.clone_value(t) for t in outs]
+        else:
+            outs = executor_core.build_multi_step_fn(done.step, iters)(
+                stacked)
+        if mon is not None:
+            call_s = time.perf_counter() - tc
+            if done.miss or done.compile_s:
+                compile_s = prepare_s + done.compile_s
+                mon.phase("compile", compile_s)
+                total = self._compile_s[done.key] = \
+                    self._compile_s.get(done.key, 0.0) + compile_s
+                monitor.record_compile(done.fingerprint, wall_s=total)
+            if (iters or 1) > done.eager_first:
+                mon.phase("dispatch", call_s - done.compile_s)
+        step0 = self._step_counter.get(id(program), 0)
+        self._step_counter[id(program)] = step0 + (iters or 1)
+        if done.hplan is not None:
+            stats = outs.pop()
+            health.on_step(step0, iters, stats, fetch_names, outs, mon=mon,
+                           kind=kind, labels=done.hplan.labels)
+        return outs, done
+
+    def _benchmark(self, done, n_fetches):
+        """FLAGS_benchmark: wait for the run's last event (never inside a
+        capture: the run has returned), then set the gauge and histogram
+        of its wall time from the first dispatch and print it with the
+        card's peak memory, as the JAX package does."""
+        mem = ""
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            ev.synchronize()
+            peak = torch.cuda.max_memory_allocated(self.device)
+            mem = f" peak_hbm={peak / 1e6:.1f}MB"
+        reg = monitor.registry()
+        g = reg.gauge("benchmark_run_ms",
+                      help="FLAGS_benchmark fenced wall time per run")
+        g.set((time.perf_counter() - done.t_dispatch) * 1000.0)
+        reg.histogram("benchmark_run_ms_hist",
+                      help="FLAGS_benchmark fenced wall time "
+                           "distribution").observe(g.value)
+        print(f"[paddle_tpu] run: {g.value:.3f}"
+              f" ms (fetches={n_fetches}){mem}", file=sys.stderr)
 
     def step_mode(self, program):
         """"graph" or "interpreter": how the last run of `program` ran its
@@ -281,11 +407,14 @@ class Executor:
             None if any(h is None for h in hosts) else np.stack(hosts))
 
     def _prepare(self, program, feeds, fetch_names):
-        """key, (program to run, FusionPlan or None, step), cached per
-        (program id, mutation, fusion flags, amp policy, feeds' names,
-        shapes and dtypes, fetches): FLAGS_fuse rewrites a clone once, and
-        repeat steps reuse it."""
+        """key, (program to run, FusionPlan or None, step), hit, cached
+        per (program id, mutation, fusion flags, amp policy, feeds' names,
+        shapes and dtypes, fetches, health plan): FLAGS_fuse rewrites a
+        clone once, and repeat steps reuse it. Under FLAGS_health the step
+        also fetches the grads and returns their stats rows last
+        (HealthPlan.wrap_step)."""
         fuse = flags.get("fuse")
+        hplan = health.plan_if_enabled(program)
         specs = tuple(sorted(
             (n, "seq", tuple(t.data.shape), str(t.data.dtype),
              tuple(t.lengths.shape)) if isinstance(t, SeqTensor)
@@ -293,19 +422,25 @@ class Executor:
             for n, t in feeds.items()))
         key = (id(program), program._mutation, fuse,
                flags.get("fuse_bucket_mb"), amp.fingerprint(), specs,
-               tuple(fetch_names))
+               tuple(fetch_names),
+               ("health", hplan.digest if hplan is not None else None))
         hit = self._prepared.get(key)
         if hit is not None:
             self._hits += 1
-            return key, hit
+            return key, hit, True
         run_prog, plan = program, None
         if fuse:
             run_prog, plan = fusion.apply(program, feed_names=list(feeds),
                                           fetch_names=fetch_names)
+        run_plan = health.plan_for(run_prog) if hplan is not None else None
         step = executor_core.build_step_fn(
-            run_prog, fetch_names,
+            run_prog, list(fetch_names) + (
+                run_plan.fetch_names if run_plan is not None else []),
             executor_core.written_persistables(run_prog), self.place,
             dp=self.dp)
+        if run_plan is not None:
+            step = run_plan.wrap_step(step, len(fetch_names))
+        step.hplan = run_plan
         hit = (run_prog, plan, step)
         # a program with a host op (save, load, ...) is a one-off, run
         # uncached, as the JAX package runs it eagerly
@@ -313,16 +448,60 @@ class Executor:
                 or step.blocker.type not in executor_core.HOST_OPS:
             self._misses += 1
             self._prepared[key] = hit
-        return key, hit
+        return key, hit, False
 
-    def _stepper(self, program, scope, feeds, fetch_names):
-        """run_step(feeds) -> fetch tensors, one step of `program` each
-        call, on the path its prepared entry chose."""
-        key, (run_prog, _, step) = self._prepare(program, feeds, fetch_names)
+    def _stepper(self, program, scope, feeds, fetch_names, iters=None,
+                 mon=None):
+        """A _Run whose step(feeds) runs one step of `program` each call,
+        on the path its prepared entry chose. `mon` gets the prepared
+        key's cache outcome (a program with a host op, run uncached, gets
+        kind "executor_eager" instead); on a miss with
+        FLAGS_monitor_hlo_cost the first eager step runs under the compile
+        probe, which counts `iters` steps' FLOPs from it."""
+        key, (run_prog, _, step), hit = self._prepare(program, feeds,
+                                                      fetch_names)
         mode = self._modes[id(program)] = self._mode_of(step)
+        uncached = step.blocker is not None \
+            and step.blocker.type in executor_core.HOST_OPS
+        miss = not hit and not uncached
+        fp = probe = None
+        if mon is not None:
+            fp = monitor.fingerprint_of(key)
+            if uncached:
+                mon.kind = "executor_eager"
+            else:
+                mon.mark_cache(hit, fingerprint=fp,
+                               level="l1" if hit else None)
+            if miss:
+                _trace_costs.register_program(fp, run_prog)
+                if flags.get("monitor_hlo_cost"):
+                    probe = monitor.compile_probe(fp, iters or 1)
+        done = _Run(mode, executor_core.written_persistables(run_prog),
+                    step.hplan, key, fp, miss, probe)
+
+        def first_step(f):
+            """The prepared program's first eager step: compile work,
+            under the probe when there is one."""
+            t0 = time.perf_counter()
+            probe, done.probe = done.probe, None
+            if probe is None:
+                outs = self._interpret(program, run_prog, step, scope, f)
+            else:
+                with probe:
+                    outs = self._interpret(program, run_prog, step, scope,
+                                           f)
+            done.compile_s += time.perf_counter() - t0
+            done.eager_first += 1
+            return outs
+
+        def interpret(f):
+            if done.miss and not done.eager_first:
+                return first_step(f)
+            return self._interpret(program, run_prog, step, scope, f)
+
         if mode == "interpreter":
-            return lambda f: self._interpret(program, run_prog, step, scope,
-                                             f)
+            done.step = interpret
+            return done
         graph = self._graphs.setdefault(scope, {}).setdefault(key, _Graph())
         if graph.captured is not None:
             graph.captured.sync_scope(scope)
@@ -343,23 +522,25 @@ class Executor:
                     # capture will use: a real step, after which cuDNN
                     # plans, cuBLAS workspaces and autograd's threads exist
                     with torch.cuda.stream(stream):
-                        outs = self._interpret(program, run_prog, step,
-                                               scope, f)
+                        outs = first_step(f)
                     torch.cuda.current_stream(self.device).wait_stream(
                         stream)
                     graph.warm = True
                     return outs
+                t0 = time.perf_counter()
                 state_in, written = executor_core.collect_state_names(
                     run_prog, scope)
                 graph.captured = executor_core.compile_step_fn(
                     step, scope, state_in, written, f, self._rng(program),
                     stream)
                 self._misses += 1
+                done.compile_s += time.perf_counter() - t0
             else:
                 self._hits += 1
             return graph.captured.run(f)
 
-        return run_step
+        done.step = run_step
+        return done
 
     def _mode_of(self, step):
         """The path a prepared step takes (module docstring), decided

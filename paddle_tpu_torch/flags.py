@@ -9,8 +9,8 @@ help string, overridable from the environment using the reference's
 familiar `FLAGS_<name>` variables, and read via flags.get() anywhere.
 
     from paddle_tpu_torch import flags
-    flags.set("fuse", True)
-    FLAGS_fuse=1 python train.py   # same effect
+    flags.set("check_nan_inf", True)
+    FLAGS_check_nan_inf=1 python train.py   # same effect
 """
 
 import os
@@ -98,11 +98,33 @@ class flag_guard:
 
 
 # ---------------------------------------------------------------------------
+# Core flags, with the JAX package's names, types and defaults
+# (paddle_tpu/flags.py)
+# ---------------------------------------------------------------------------
+define("check_nan_inf", bool, False,
+       "Raise if a value holds NaN/Inf, naming the variable (reference "
+       "executor.cc:343): on the interpreter after each op, naming the op "
+       "too; on a captured step once after the run, over the fetches and "
+       "the written state (one device reduction, read once).")
+define("benchmark", bool, False,
+       "Synchronize and time each executor run (reference FLAGS_benchmark): "
+       "after the run, wait for its last event, set the benchmark_run_ms "
+       "gauge and print the time with the card's peak memory to stderr.")
+define("monitor", bool, True,
+       "Step-level training telemetry (paddle_tpu_torch.monitor): per-step "
+       "phase breakdown, prepared-step cache hit/miss accounting, "
+       "replica-skew gauges. Default ON — when set to 0 the per-step cost "
+       "is a single flag check (asserted by "
+       "tests/test_torch_monitor_step.py).")
+define("monitor_journal", str, "",
+       "Path of the JSONL step journal (one self-contained record per "
+       "executor step; schema in paddle_tpu_torch/monitor/journal.py). "
+       "Empty = no journal. Render with `python -m paddle_tpu_torch monitor "
+       "<path>`.")
+
+# ---------------------------------------------------------------------------
 # Tracing flags, with the JAX package's defaults (paddle_tpu/trace/span.py,
-# paddle_tpu/trace/recorder.py). FLAGS_monitor is parallel_executor.py's:
-# the per-step monitor it gates is not ported, so it stays off by default
-# there; the metrics registry the serving engine reports into does not
-# read it.
+# paddle_tpu/trace/recorder.py).
 # ---------------------------------------------------------------------------
 define("trace", bool, False,
        "Span-based tracing into the in-memory flight recorder "

@@ -29,16 +29,20 @@ Then the fusion pass (FLAGS_fuse) and the step run through this rank's
 Executor, so the captured CUDA graph — collectives inside it — AMP and the
 fused update kernels stay the single-card code path.
 
-Not ported yet, each refused with NotImplementedError: autoshard and
-tensor parallelism, the overlap schedule (ROADMAP queue 1 item 5), the
-monitor and the compile cache (items 4 and 8), async_fetch (item 4),
-DataPipe feeds (item 6) and ragged feeds (item 5).
+The step monitor rides every run as it does the Executor's (kind
+"parallel_executor"; per-rank skew under FLAGS_monitor_replica_skew), and
+so does FLAGS_health. Not ported yet, each refused with
+NotImplementedError: autoshard and tensor parallelism and the overlap
+schedule (ROADMAP queue 1 item 6), the compile cache and async_fetch
+(item 5), DataPipe feeds and ragged feeds (item 3).
 """
+
+import time
 
 import numpy as np
 import torch
 
-from . import flags
+from . import flags, monitor
 from .core.framework import Variable, default_main_program, grad_var_name
 from .core.framework import Operator, OpRole
 from .core.lod_tensor import LoDTensor
@@ -54,11 +58,10 @@ __all__ = ["ParallelExecutor", "ExecutionStrategy", "BuildStrategy"]
 
 # flags the JAX package reads here; the port refuses them while they are on
 _UNPORTED_FLAGS = {
-    "autoshard": ("GSPMD-style autoshard: ROADMAP queue 1 item 5's "
+    "autoshard": ("GSPMD-style autoshard: ROADMAP queue 1 item 6's "
                   "tensor-parallel leftover"),
     "overlap_plan": ("the static overlap schedule of the zero1 "
-                     "collectives: ROADMAP queue 1 item 5's leftover"),
-    "monitor": "the step monitor: ROADMAP queue 1 items 4 and 8",
+                     "collectives: ROADMAP queue 1 item 6"),
 }
 for _name, _what in _UNPORTED_FLAGS.items():
     flags.define(_name, bool, False,
@@ -207,7 +210,7 @@ class ParallelExecutor:
         return self._exe.step_mode(self._last_program)
 
     def compile_cache_info(self):
-        raise _not_ported("the compile cache (ROADMAP queue 1 item 8)")
+        raise _not_ported("the compile cache (ROADMAP queue 1 item 5)")
 
     # ------------------------------------------------------------------
     def _prepare_program(self, program, use_zero1, gss, dp_n):
@@ -251,7 +254,7 @@ class ParallelExecutor:
                     isinstance(value, LoDTensor) and value.lod()):
                 raise _not_ported(
                     f"a ragged feed ({name!r}) under ParallelExecutor "
-                    f"(ROADMAP queue 1 item 5)")
+                    f"(ROADMAP queue 1 item 3)")
             if isinstance(value, LoDTensor):
                 value = value.numpy()
             if not isinstance(value, torch.Tensor):
@@ -291,7 +294,11 @@ class ParallelExecutor:
         concatenated into the global batch first (reference
         feed_parallel)."""
         if async_fetch:
-            raise _not_ported("async_fetch (ROADMAP queue 1 item 4)")
+            raise _not_ported("async_fetch (ROADMAP queue 1 item 5)")
+        # single flag check when monitoring is off (same contract as
+        # Executor.run); every site below gates on `mon is not None`
+        mon = monitor.step_begin("parallel_executor") \
+            if monitor.enabled() else None
         for name, what in _UNPORTED_FLAGS.items():
             if flags.get(name):
                 raise _not_ported(f"FLAGS_{name} ({what})")
@@ -301,7 +308,7 @@ class ParallelExecutor:
                               f"({_UNPORTED_FLAGS['autoshard']})")
         feed = feed if feed is not None else feed_dict
         if hasattr(feed, "next_feed"):
-            raise _not_ported("a DataPipe feed (ROADMAP queue 1 item 6)")
+            raise _not_ported("a DataPipe feed (ROADMAP queue 1 item 3)")
         feed = feed if feed is not None else {}
         if isinstance(feed, list) and iters is None:
             # per-device feed list (reference feed_parallel): concatenate
@@ -330,18 +337,60 @@ class ParallelExecutor:
             zplan.ensure_scope_sharded(scope)
         else:
             _zero1.ensure_scope_unsharded(scope, program)
+        if mon is not None and zplan.entries:
+            # analytic ring-collective accounting for the dp gradient path
+            # (bytes, not time); journal extras ride into the JSONL record
+            # for `python -m paddle_tpu_torch monitor`
+            cb = zplan.collective_bytes(sharded=use_zero1)
+            osb = zplan.optimizer_state_bytes(sharded=use_zero1)
+            reg = monitor.registry()
+            for op_name, nbytes in sorted(cb.items()):
+                reg.gauge(
+                    "collective_bytes_per_step",
+                    help="analytic per-step dp-collective traffic (ring)",
+                    op=op_name).set(float(nbytes))
+            reg.gauge(
+                "optimizer_state_bytes_per_replica",
+                help="optimizer accumulator bytes resident per replica",
+            ).set(float(osb))
+            if mon.extra is None:
+                mon.extra = {}
+            mon.extra["collective_bytes"] = {
+                k: int(v) for k, v in cb.items()}
+            mon.extra["optimizer_state_bytes"] = int(osb)
+            mon.extra["zero1"] = bool(use_zero1)
+        t_enc = time.perf_counter()
         if isinstance(feed, list):
             local = [self._local_feed(f, 0) for f in feed]
         else:
             local = self._local_feed(feed, 0 if iters is None else 1)
+        if mon is not None:
+            mon.phase("feed_encode", time.perf_counter() - t_enc)
         self._last_program = run_program
-        outs = self._exe.run(run_program, feed=local,
-                             fetch_list=fetch_names, scope=scope,
-                             return_numpy=False, iters=iters)
+        outs, done = self._exe._run(run_program, scope, local, fetch_names,
+                                    iters, mon, kind="parallel_executor")
+        replica_ms = replica_ids = None
+        if mon is not None and flags.get("monitor_replica_skew"):
+            # wait for this rank's step, then all-gather every rank's
+            # completion time: a host sync, hence the separate opt-in flag
+            leaf = outs[0] if outs else torch.empty(0,
+                                                   device=self._exe.device)
+            res = monitor.measure_replica_ms(leaf, done.t_dispatch)
+            if res is not None:
+                replica_ms, replica_ids = res
         axis = 0 if iters is None else 1
         outs = [self._gathered(program, n, o, axis)
                 for n, o in zip(fetch_names, outs)]
-        return as_numpy(outs) if return_numpy else outs
+        if return_numpy:
+            if mon is not None:
+                with mon.timed("fetch_readback"):
+                    outs = as_numpy(outs)
+            else:
+                outs = as_numpy(outs)
+        if mon is not None:
+            monitor.step_end(mon, iters=done.iters, replica_ms=replica_ms,
+                             replica_ids=replica_ids)
+        return outs
 
     def bcast_params(self):
         """reference parallel_executor.py:242: every parameter takes rank

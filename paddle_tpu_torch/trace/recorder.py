@@ -15,15 +15,13 @@ The recorder is read two ways:
                              manifest.json        (export.py formats)
 
 maybe_dump(reason) is the anomaly hook the serve SLO / overload paths
-call: per-reason cooldown (FLAGS_trace_dump_cooldown_s) so a storm of
+and the model-health detectors call: per-reason cooldown (FLAGS_trace_dump_cooldown_s) so a storm of
 violations produces one post-mortem, not a disk flood; a no-op (one flag
 check) when tracing is off. Dumps never raise into the caller.
 
-A copy of the JAX package's paddle_tpu/trace/recorder.py, but for the
-slowest-ops table of a dump: the JAX package joins XLA's compile cost
-analysis onto the program's ops (trace/costs.py), which the port has no
-counterpart of, so its manifests carry "slowest_ops": null, as the JAX
-package's do when no attribution is available.
+A copy of the JAX package's paddle_tpu/trace/recorder.py: a dump's
+manifest carries the slowest-ops table (trace/costs.py) when a prepared
+step's FLOPs were measured, null otherwise.
 """
 
 import os
@@ -120,8 +118,9 @@ def dump(reason="manual", out_dir=None):
     """Write the flight recorder to <out_dir>/trace_<reason>_<n>/
     (out_dir defaults to FLAGS_trace_dump_dir, then cwd) and return the
     directory path. Format: export.write_dump (spans.jsonl + chrome
-    trace.json + manifest.json; no slowest-ops table)."""
-    from . import export
+    trace.json + manifest.json, with the slowest-ops table when cost
+    attribution is available)."""
+    from . import costs, export
 
     reason = _REASON_RE.sub("_", str(reason)) or "manual"
     spans, dropped = snapshot()
@@ -131,8 +130,12 @@ def dump(reason="manual", out_dir=None):
         seq = _dump_seq[0]
         buffers = len(_rings)
     path = os.path.join(base, f"trace_{reason}_{seq}")
+    try:
+        slowest = costs.slowest_ops()
+    except Exception:
+        slowest = None
     export.write_dump(path, spans, reason=reason, dropped=dropped,
-                      buffers=buffers, slowest_ops=None)
+                      buffers=buffers, slowest_ops=slowest)
     _last_dump[0] = path
     monitor.registry().counter(
         "trace_dumps_total",
@@ -172,8 +175,8 @@ def _prune_dumps(base):
 
 
 def maybe_dump(reason):
-    """Anomaly hook (serve SLO violation / overload): dump unless tracing
-    is off or `reason` dumped within the cooldown window. Never raises — a failed post-mortem must not take
+    """Anomaly hook (serve SLO violation / overload, a health detector
+    event): dump unless tracing is off or `reason` dumped within the cooldown window. Never raises — a failed post-mortem must not take
     down the path that triggered it. Returns the dump path or None."""
     from .span import enabled
 

@@ -119,6 +119,17 @@ def test_the_serving_slice_is_among_the_checked_sources(module):
     assert os.path.join(PORT, module) in set(_sources())
 
 
+@pytest.mark.parametrize("module", [
+    "monitor/step.py", "monitor/journal.py", "monitor/mfu.py",
+    "monitor/skew.py", "health/__init__.py", "health/stats.py",
+    "health/ledger.py", "health/detectors.py", "health/compare.py",
+    "trace/costs.py", "cli.py", "__main__.py"])
+def test_the_instruments_slice_is_among_the_checked_sources(module):
+    """The run-time instruments' modules (the step monitor, health, the
+    cost table, the CLI) are checked by the test above."""
+    assert os.path.join(PORT, module) in set(_sources())
+
+
 def test_the_multi_rank_worker_imports_only_the_port():
     """The worker the multi-rank tests run as their ranks
     (tests/torch_dp_worker.py) imports neither jax nor the JAX package."""

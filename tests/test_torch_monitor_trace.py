@@ -228,9 +228,10 @@ def test_dumps_match_jax_and_load_across(tmp_path):
             'trace_dumps_total{reason="unit_test_"}'] == 1
     loaded = {n: trace.load_dump(p) for n, p in dumps.items()}
     assert jtrace.load_dump(dumps["port"]) == loaded["port"]
-    # the JAX package's slowest-ops table joins the XLA costs of whatever
-    # programs its process compiled before; the port has none to join
-    assert loaded["port"]["manifest"]["slowest_ops"] is None
+    # each package's slowest-ops table joins the costs of whatever programs
+    # its process prepared before (trace.costs): the port's is its own
+    assert loaded["port"]["manifest"]["slowest_ops"] == json.loads(
+        json.dumps(trace.slowest_ops()))
     man = {n: {k: v for k, v in d["manifest"].items()
                if k not in ("ts", "pid", "clock", "slowest_ops")}
            for n, d in loaded.items()}
@@ -264,21 +265,43 @@ def test_maybe_dump_cooldown_matches_jax(tmp_path):
         True, None, True, ["trace_other", "trace_storm"])
 
 
-def test_profiler_host_recorder_without_a_session():
-    """The host recorder's tables stay empty while no session is on, and
-    starting one (torch.profiler) is not ported yet."""
+def test_profiler_session_records_host_events_and_exports_a_trace(
+        tmp_path):
+    """The host recorder's tables stay empty while no session is on; a
+    session (torch.profiler over the host here) records host events,
+    counters (a gauge's set) and byte flows, prints the summary table, and
+    exports one chrome trace holding the host lane and the profiler's
+    rows, the session's own origin mark at ts 0."""
     profiler.reset_profiler()
     monitor.registry().gauge("g").set(1.0)
     profiler.record_counter("c", 2)
-    profiler.record_bytes("b", 10)
     with profiler.record_event("e"):
         pass
     assert profiler._counter_events == [] and profiler._host_events == []
-    for call in (lambda: profiler.start_profiler("All"),
-                 profiler.stop_profiler,
-                 lambda: profiler.export_chrome_trace("x.json")):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call()
+    profiler.start_profiler("All", trace_dir=str(tmp_path / "trace"))
+    with profiler.record_event("e"):
+        torch.ones(4, 4).sum()
+    monitor.registry().gauge("g").set(3.0)
+    profiler.record_bytes("b", 2e6)
+    profiler.stop_profiler("calls", str(tmp_path / "profile"))
+    assert [ev.name for ev in profiler._host_events] == ["e"]
+    assert [(n, v) for n, _, v in profiler._counter_events] == [
+        ("monitor/g", 3.0), ("b/MB", 2.0)]
+    assert (tmp_path / "profile.txt").read_text().splitlines()[2].startswith(
+        "e ")
+    assert (tmp_path / "trace" / "device_trace.json").exists()
+    out = profiler.export_chrome_trace(str(tmp_path / "merged.json"))
+    events = json.load(open(out))["traceEvents"]
+    host = [e for e in events if e.get("pid") == 0]
+    assert {e["name"] for e in host if e["ph"] == "X"} == {"e"}
+    assert {e["name"] for e in host if e["ph"] == "C"} == {"monitor/g",
+                                                          "b/MB"}
+    device = [e for e in events
+              if isinstance(e.get("pid"), int) and e["pid"] >= 100]
+    origin = [e for e in device
+              if e.get("name") == "paddle_tpu_torch::profiler_origin"]
+    assert len(origin) == 1 and origin[0]["ts"] == 0.0
+    assert any("aten::sum" == e.get("name") for e in device)
 
 
 # ---------------------------------------------------------------------------

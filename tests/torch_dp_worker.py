@@ -22,7 +22,10 @@ deterministic) — runs every case in order and writes
     the program's collective ops and fused buckets and, with
     fetch_batch, the last step's softmax output; with "save": <dir>,
     fluid.io.save_persistables into <dir>/<rank> and a load back
-    (`_save_and_load`).
+    (`_save_and_load`); with "monitor": <dir>, the steps journaled to
+    `<dir>/<case name>.<rank>.jsonl` under FLAGS_monitor_replica_skew, and
+    the skew gauge ("skew_gauge") and the ranks of the per-rank gauges
+    ("replica_gauges") after them.
 This module imports paddle_tpu_torch and nothing of the JAX package; the
 tests import `build` and `collective_inputs` to make the same nets and
 inputs on the JAX side, and `launch` to run the ranks.
@@ -180,7 +183,13 @@ def _pe(case, mesh, cuda):
         bs.gradient_scale_strategy = \
             fluid.BuildStrategy.GradientScaleStrategy.One
     fetch = [loss, probs] if case.get("fetch_batch") else [loss]
-    with fluid.scope_guard(scope), flags.flag_guard(fuse=case["fuse"]):
+    instruments = {}
+    if case.get("monitor"):
+        instruments = {"monitor_replica_skew": True, "monitor_journal":
+                       os.path.join(case["monitor"],
+                                    f"{case['name']}.{mesh.rank}.jsonl")}
+    with fluid.scope_guard(scope), \
+            flags.flag_guard(fuse=case["fuse"], **instruments):
         pe = fluid.ParallelExecutor(use_cuda=cuda, loss_name=loss.name,
                                     main_program=main, build_strategy=bs)
         if case.get("iters"):
@@ -209,6 +218,16 @@ def _pe(case, mesh, cuda):
                                           np.int64)
     if case.get("fetch_batch"):
         res["probs"] = outs[1]
+    if case.get("monitor"):
+        from paddle_tpu_torch import monitor
+
+        snap = monitor.registry().snapshot()
+        res["skew_gauge"] = np.asarray(
+            snap["replica_skew_max_over_median"])
+        res["replica_gauges"] = np.asarray(sorted(
+            int(k.split('"')[1]) for k in snap
+            if k.startswith("replica_step_ms{")))
+        monitor.reset()
     if case.get("save"):
         res.update(_save_and_load(fluid, place, scope, main,
                                   os.path.join(case["save"], str(mesh.rank))))
