@@ -170,6 +170,29 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 rules trains fp32 ResNet-50 (NHWC 224x224x3, batch 32)
                 for 3 steps, graph and interpreter bitwise equal, step
                 ms; the phase's seconds ([tail_ops] lines)
+ 10d. loss_ops — the structured losses, the metrics and the rest of the
+                nn ops: (a) every op type the slice registered (warpctc,
+                ctc_align, linear_chain_crf, crf_decoding, nce and
+                nce_grad, hierarchical_sigmoid, auc, precision_recall,
+                edit_distance, chunk_eval, layer_norm, the transposed,
+                depthwise and 3-d convolutions, lrn, prelu,
+                bilinear_interp, row_conv, im2sequence, spp, unpool,
+                maxout, multiplex, lod_reset) on the card and on the host
+                from the same seeded inputs, forward and grad, each at a
+                full-width shape printed on its line (the book tagger's
+                CRF batch, NCE and hierarchical sigmoid over 30,000
+                classes, layer_norm over 8,192 x 1,024, ...), and the
+                three drawing ops (truncated_gaussian_random, random_crop,
+                nce's negatives) by their laws on both; (b) the
+                PaddlePaddle book's label_semantic_roles db_lstm with its
+                CRF at the book's widths and batch (10 sentences of 10-60
+                tokens), SGD on exponential_decay: 4 steps through the
+                captured step bitwise equal to the interpreter, host
+                losses within rtol 1e-4, 4 more replays timed (tokens/s,
+                ms a step), decoded tags in range, chunk_eval
+                on the test program through the interpreter, no
+                hand-written kernel launched ([loss_ops] lines). Alone:
+                `python3 chip_smoke.py --only loss_ops`
  11. flash    — the flash-attention kernels (both wgmma fed by TMA; f32
                 in 3xTF32 split products after its split prologue) against
                 their plain torch version on the card, causal and not, at
@@ -326,6 +349,42 @@ TAIL_OPTIMIZERS = {
     "proximal_adagrad": lambda f: f.optimizer.ProximalAdagrad(
         learning_rate=0.01, l2=1e-4),
 }
+
+# phase loss_ops: (a) each op type of the loss-ops and nn-rest slice on
+# the card and on the host (TAIL_RTOL, TF32 off) at one full-width shape:
+# the CRF ops at the book tagger's batch below; warpctc over LOSS_CTC
+# (sequences, fewest and most frames) x LOSS_CTC_CLASSES with labels of
+# 4..LOSS_CTC_LABEL_MAX (the loop's trip count is the batch's frame total,
+# as in the JAX package); nce and hierarchical_sigmoid over LOSS_NCE (rows,
+# width, classes); auc and precision_recall over LOSS_AUC_ROWS rows;
+# edit_distance over LOSS_EDIT sequences; layer_norm and multiplex over
+# LOSS_LN; the drawing ops by their laws (TRUNC_NORMAL_VAR: the variance
+# of N(0, 1) cut at +-2). (b) the PaddlePaddle book's label_semantic_roles
+# db_lstm at its published widths (conll05's vocabularies, word_dim 32,
+# mark_dim 5, hidden_dim 512, depth 8) at its BATCH_SIZE 10, sentences of
+# SRL_LEN tokens: SRL_STEPS steps graph against interpreter (the first
+# eager, the rest the captured graph), host losses within SRL_RTOL, then
+# SRL_STEPS more replays timed
+LOSS_CTC = (8, 64, 128)
+LOSS_CTC_CLASSES = 96
+LOSS_CTC_LABEL_MAX = 24
+LOSS_NCE = (4096, 512, 30000)
+LOSS_AUC_ROWS = 65536
+LOSS_EDIT = (32, 8, 48)
+LOSS_LN = (8192, 1024)
+LOSS_TGR = (4096, 4096)
+LOSS_CROP_IN = (64, 3, 256, 256)
+LOSS_CROP = (3, 224, 224)
+TRUNC_NORMAL_VAR = 0.7737413
+SRL_WORD_V, SRL_PRED_V, SRL_LABELS = 44068, 3162, 67
+SRL_CHUNK_TYPES = 33  # ceil((67 - 1) / 2): IOB over 33 role types, and O
+SRL_WORD_DIM, SRL_MARK_DIM, SRL_HIDDEN, SRL_DEPTH = 32, 5, 512, 8
+SRL_SLOTS = ["word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2",
+             "verb", "mark", "target"]
+SRL_BATCH = 10
+SRL_LEN = (10, 60)
+SRL_STEPS = 4
+SRL_RTOL = 1e-4
 
 SEED = 20261016
 BATCH = 32
@@ -2272,16 +2331,17 @@ def seq_tokens(model, batch):
     return sum(len(s) for s in batch[key])
 
 
-def seq_feeds(batches, place):
+def seq_feeds(batches, place, totals=None):
     """Per-step feed dicts: every ragged feed bucketed with
     create_bucketed_seq_tensor on `place` to one flat total, the batches'
-    largest rounded up to SEQ_BUCKET; dense feeds as they are. Returns
-    (feeds, {name: flat total})."""
+    largest rounded up to SEQ_BUCKET (or `totals`' {name: flat total});
+    dense feeds as they are. Returns (feeds, {name: flat total})."""
     import paddle_tpu_torch as fluid
 
     ragged = [n for n, v in batches[0].items() if isinstance(v, list)]
-    totals = {n: -(-max(sum(len(s) for s in b[n]) for b in batches)
-                   // SEQ_BUCKET) * SEQ_BUCKET for n in ragged}
+    if totals is None:
+        totals = {n: -(-max(sum(len(s) for s in b[n]) for b in batches)
+                       // SEQ_BUCKET) * SEQ_BUCKET for n in ragged}
     return [{n: fluid.create_bucketed_seq_tensor(v, totals[n], place)
              if n in totals else v for n, v in b.items()}
             for b in batches], totals
@@ -3133,7 +3193,7 @@ def _tail_run(op_type, ins, attrs, place):
          for s, vs in ins.items()}, dict(attrs))
 
 
-def _tail_compare(card, host, what, worst):
+def _tail_compare(card, host, what, worst, tag="tail_ops"):
     """Card outputs against the host's: integers and bools equal; floats
     within TAIL_RTOL of the host array's largest magnitude (a sum over
     2,048 or 30,000 terms in another order differs by a fraction of its
@@ -3141,7 +3201,7 @@ def _tail_compare(card, host, what, worst):
     for slot, hs in host.items():
         cs = card.get(slot, [])
         if len(cs) != len(hs):
-            raise AssertionError(f"[tail_ops] {what} {slot}: {len(cs)} "
+            raise AssertionError(f"[{tag}] {what} {slot}: {len(cs)} "
                                  f"outputs on the card, {len(hs)} on the host")
         for c, h in zip(cs, hs):
             if h is None:
@@ -3149,11 +3209,11 @@ def _tail_compare(card, host, what, worst):
             c = c.detach().cpu()
             if c.shape != h.shape or c.dtype != h.dtype:
                 raise AssertionError(
-                    f"[tail_ops] {what} {slot}: card {c.dtype}"
+                    f"[{tag}] {what} {slot}: card {c.dtype}"
                     f"{tuple(c.shape)} vs host {h.dtype}{tuple(h.shape)}")
             if not h.dtype.is_floating_point:
                 if not torch.equal(c, h):
-                    raise AssertionError(f"[tail_ops] {what} {slot}: card "
+                    raise AssertionError(f"[{tag}] {what} {slot}: card "
                                          f"and host differ")
                 continue
             if not h.numel():
@@ -3162,7 +3222,7 @@ def _tail_compare(card, host, what, worst):
             diff = float((c - h).abs().max())
             if not (np.isfinite(scale) and diff <= TAIL_RTOL * scale):
                 raise AssertionError(
-                    f"[tail_ops] {what} {slot}: card vs host {diff:.3e}, "
+                    f"[{tag}] {what} {slot}: card vs host {diff:.3e}, "
                     f"over {TAIL_RTOL:g} of the host's largest {scale:.3e}")
             worst[what] = max(worst.get(what, 0.0),
                               diff / scale if scale else diff)
@@ -3455,6 +3515,572 @@ def phase_tail_ops(card, headline_img_s):
             "seconds_by_part": parts}
 
 
+# ---------------------------------------------------------------------------
+# phase loss_ops: the structured losses, the metrics and the nn rest on the
+# card; the book's semantic-role-labelling db_lstm trained there
+# ---------------------------------------------------------------------------
+class _Seq:
+    """A ragged numpy input: data [N, ...] and lengths [B]."""
+
+    def __init__(self, data, lengths):
+        self.data = data
+        self.lengths = np.asarray(lengths, np.int32)
+
+    @property
+    def shape(self):
+        return f"{len(self.lengths)} sequences, {self.data.shape[0]} rows x " \
+            f"{list(self.data.shape[1:])}"
+
+
+def _ragged(rs, n, lo, hi, *feature, ids=None, low=0):
+    """n sequences of lo..hi rows: f32 rows, or ints in [low, ids)."""
+    lengths = rs.randint(lo, hi + 1, n)
+    rows = int(lengths.sum())
+    data = rs.randint(low, ids, (rows,) + feature).astype(np.int64) \
+        if ids is not None else rs.randn(rows, *feature).astype(np.float32)
+    return _Seq(data, lengths)
+
+
+def _loss_inputs(rs):
+    """{case: (op type, inputs, attrs, output slots given a cotangent,
+    {grad input slot: forward output slot})} for the 25 op types whose
+    card and host runs must agree, each at one full-width shape: the
+    book's CRF tagger batch (10 sentences of 10-60 tokens, 67 tags), a
+    speech recogniser's CTC batch (96 classes), NCE and hierarchical
+    sigmoid over 30,000 classes, a Transformer-width layer norm, the
+    image ops at the widths of the nets that use them."""
+    def f32(*shape, scale=1.0):
+        return (rs.randn(*shape) * scale).astype(np.float32)
+
+    c = {}
+    em = _ragged(rs, SRL_BATCH, *SRL_LEN, SRL_LABELS)
+    tags = _Seq(rs.randint(0, SRL_LABELS, (em.data.shape[0], 1)),
+                em.lengths)
+    trans = f32(SRL_LABELS + 2, SRL_LABELS, scale=0.1)
+    c["linear_chain_crf"] = ("linear_chain_crf", {
+        "Emission": [em], "Transition": [trans], "Label": [tags]}, {},
+        ["LogLikelihood"], {})
+    c["crf_decoding"] = ("crf_decoding", {"Emission": [em],
+                                          "Transition": [trans]}, {}, [], {})
+    c["crf_decoding_label"] = ("crf_decoding", {
+        "Emission": [em], "Transition": [trans], "Label": [tags]}, {}, [], {})
+    logits = _ragged(rs, *LOSS_CTC, LOSS_CTC_CLASSES)
+    labels = _ragged(rs, LOSS_CTC[0], 4, LOSS_CTC_LABEL_MAX, 1,
+                     ids=LOSS_CTC_CLASSES, low=1)
+    c["warpctc"] = ("warpctc", {"Logits": [logits], "Label": [labels]},
+                    {"blank": 0, "norm_by_times": False}, ["Loss"], {})
+    greedy = _Seq(rs.randint(0, 4, (logits.data.shape[0], 1)),
+                  logits.lengths)
+    c["ctc_align"] = ("ctc_align", {"Input": [greedy]},
+                      {"blank": 0, "merge_repeated": True}, [], {})
+    b, d, n = LOSS_NCE
+    c["nce"] = ("nce", {
+        "Input": [f32(b, d)], "Label": [rs.randint(0, n, (b, 1))],
+        "Weight": [f32(n, d, scale=0.05)], "Bias": [f32(n, 1, scale=0.01)]},
+        {"num_total_classes": n, "num_neg_samples": 10,
+         "custom_neg_classes": [int(v) for v in rs.choice(n, 10, False)]},
+        ["Cost"], {"SampleLabels": "SampleLabels"})
+    c["hierarchical_sigmoid"] = ("hierarchical_sigmoid", {
+        "X": [f32(b, d)], "W": [f32(n - 1, d, scale=0.05)],
+        "Label": [rs.randint(0, n, (b, 1))],
+        "Bias": [f32(n - 1, 1, scale=0.01)]}, {"num_classes": n}, ["Out"],
+        {})
+    prob = rs.rand(LOSS_AUC_ROWS).astype(np.float32)
+    c["auc"] = ("auc", {
+        "Predict": [np.stack([1 - prob, prob], 1)],
+        "Label": [(rs.rand(LOSS_AUC_ROWS, 1) < prob[:, None]).astype(
+            np.int64)],
+        "StatPos": [np.zeros(201, np.float32)],
+        "StatNeg": [np.zeros(201, np.float32)]}, {"num_thresholds": 200},
+        [], {})
+    k = rs.randint(0, 1000, (LOSS_AUC_ROWS, 1))
+    c["precision_recall"] = ("precision_recall", {
+        "MaxProbs": [rs.rand(LOSS_AUC_ROWS, 1).astype(np.float32)],
+        "Indices": [k], "Labels": [np.where(rs.rand(LOSS_AUC_ROWS, 1) < 0.5,
+                                            k, rs.randint(0, 1000, k.shape))],
+        "Weights": [rs.rand(LOSS_AUC_ROWS, 1).astype(np.float32)],
+        "StatesInfo": [np.zeros((1000, 4), np.float32)]},
+        {"class_number": 1000}, [], {})
+    hyps = _ragged(rs, *LOSS_EDIT, 1, ids=30)
+    refs = _ragged(rs, *LOSS_EDIT, 1, ids=30)
+    c["edit_distance"] = ("edit_distance", {"Hyps": [hyps], "Refs": [refs]},
+                          {"normalized": True}, [], {})
+    inf = _ragged(rs, 512, 10, 60, 1, ids=SRL_LABELS)
+    lab = _Seq(np.where(rs.rand(*inf.data.shape) < 0.8, inf.data,
+                        rs.randint(0, SRL_LABELS, inf.data.shape)),
+               inf.lengths)
+    c["chunk_eval"] = ("chunk_eval", {"Inference": [inf], "Label": [lab]},
+                       {"num_chunk_types": SRL_CHUNK_TYPES,
+                        "chunk_scheme": "IOB"}, [], {})
+    rows, width = LOSS_LN
+    c["layer_norm"] = ("layer_norm", {"X": [f32(rows, width)],
+                                      "Scale": [f32(width)],
+                                      "Bias": [f32(width)]},
+                       {"begin_norm_axis": 1, "epsilon": 1e-5}, ["Y"], {})
+    c["conv2d_transpose"] = ("conv2d_transpose", {
+        "Input": [f32(16, 256, 16, 16)],
+        "Filter": [f32(256, 128, 4, 4, scale=0.05)]},
+        {"strides": [2, 2], "paddings": [1, 1], "dilations": [1, 1]},
+        ["Output"], {})
+    c["depthwise_conv2d"] = ("depthwise_conv2d", {
+        "Input": [f32(32, 128, 56, 56)], "Filter": [f32(128, 1, 3, 3)]},
+        {"strides": [1, 1], "paddings": [1, 1]}, ["Output"], {})
+    c["conv3d"] = ("conv3d", {"Input": [f32(2, 32, 16, 28, 28)],
+                              "Filter": [f32(64, 32, 3, 3, 3, scale=0.05)]},
+                   {"strides": [1, 1, 1], "paddings": [1, 1, 1]},
+                   ["Output"], {})
+    c["lrn"] = ("lrn", {"X": [f32(64, 96, 55, 55)]},
+                {"n": 5, "k": 2.0, "alpha": 1e-4, "beta": 0.75}, ["Out"], {})
+    c["prelu"] = ("prelu", {"X": [f32(64, 64, 56, 56)],
+                            "Alpha": [np.array([0.25], np.float32)]},
+                  {"mode": "all"}, ["Out"], {})
+    c["bilinear_interp"] = ("bilinear_interp", {"X": [f32(16, 256, 64, 64)]},
+                            {"out_h": 128, "out_w": 128}, ["Out"], {})
+    c["row_conv"] = ("row_conv", {"X": [_ragged(rs, 32, 64, 256, 1024)],
+                                  "Filter": [f32(3, 1024)]}, {}, ["Out"], {})
+    c["im2sequence"] = ("im2sequence", {"X": [f32(64, 3, 32, 100)]},
+                        {"kernels": [3, 3], "strides": [1, 1],
+                         "paddings": [1, 1, 1, 1]}, ["Out"], {})
+    c["spp"] = ("spp", {"X": [f32(64, 256, 13, 13)]},
+                {"pyramid_height": 3, "pooling_type": "max"}, ["Out"], {})
+    pooled, idx = torch.nn.functional.max_pool2d(
+        torch.from_numpy(f32(16, 64, 112, 112)), 2, 2, return_indices=True)
+    c["unpool"] = ("unpool", {"X": [pooled.numpy()], "Indices": [idx.numpy()]},
+                   {"ksize": [2, 2], "strides": [2, 2], "paddings": [0, 0]},
+                   ["Out"], {})
+    c["maxout"] = ("maxout", {"X": [f32(64, 512, 14, 14)]}, {"groups": 2},
+                   ["Out"], {})
+    c["multiplex"] = ("multiplex", {
+        "X": [f32(rows, width) for _ in range(4)],
+        "Ids": [rs.randint(0, 4, (rows, 1))]}, {}, ["Out"], {})
+    lr = _ragged(rs, 32, 64, 256, 1024)
+    offs = np.concatenate([[0], np.cumsum(lr.lengths[::-1])]).tolist()
+    c["lod_reset"] = ("lod_reset", {"X": [lr]}, {"target_lod": offs},
+                      ["Out"], {})
+    return c
+
+
+def _loss_value(v, device):
+    if isinstance(v, _Seq):
+        from paddle_tpu_torch.core.registry import SeqTensor
+
+        return SeqTensor(torch.from_numpy(v.data).to(device),
+                         torch.from_numpy(v.lengths).to(device), v.lengths)
+    return torch.from_numpy(np.asarray(v)).to(device)
+
+
+def _loss_run(op_type, ins, attrs, place, ctx=None):
+    """The op's kernel on `place` (registry.run_kernel): its outputs, a
+    SeqTensor as two entries (`slot`: data, `slot.lengths`)."""
+    from paddle_tpu_torch.core import executor_core, registry
+
+    ctx = ctx or executor_core.OpContext(place)
+    outs = registry.run_kernel(
+        registry.lookup(op_type), ctx,
+        {s: [_loss_value(v, ctx.device) for v in vs]
+         for s, vs in ins.items()}, dict(attrs))
+    flat = {}
+    for slot, vals in outs.items():
+        flat[slot] = [registry.seq_data(v) for v in vals]
+        if any(isinstance(v, registry.SeqTensor) for v in vals):
+            flat[slot + ".lengths"] = [v.lengths for v in vals]
+    return outs, flat
+
+
+def _as_input(v):
+    """An output (tensor or SeqTensor) as a numpy input of another op."""
+    from paddle_tpu_torch.core.registry import SeqTensor
+
+    if isinstance(v, SeqTensor):
+        return _Seq(v.data.cpu().numpy(), v.lengths.cpu().numpy())
+    return v.cpu().numpy()
+
+
+def _loss_cotangents(rs, outs, slots):
+    from paddle_tpu_torch.core.registry import SeqTensor
+
+    cot = {}
+    for s in slots:
+        vals = []
+        for v in outs[s]:
+            d = v.data if isinstance(v, SeqTensor) else v
+            g = rs.randn(*d.shape).astype(np.float32)
+            vals.append(_Seq(g, v.lengths.cpu().numpy())
+                        if isinstance(v, SeqTensor) else g)
+        cot[f"{s}@GRAD"] = vals
+    return cot
+
+
+def _loss_random_laws(card):
+    """The three drawing ops, on the card and on the host, each held by
+    its law (the two devices' generators draw other numbers):
+    truncated_gaussian_random within [-2, 2] with the truncated law's
+    variance; every random_crop a window of its own image at an offset
+    in range; nce's drawn negatives in range, fresh each step, and its
+    grad at the drawn SampleLabels equal to its grad at the same
+    negatives given as custom_neg_classes."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor_core
+
+    out = {}
+    for name, place in (("card", card), ("host", fluid.CPUPlace())):
+        ctx = executor_core.OpContext(place)
+        ctx.rng = executor_core.RandomStream(ctx.device, SEED)
+        z = _loss_run("truncated_gaussian_random", {},
+                      {"shape": list(LOSS_TGR), "dtype": "float32"}, place,
+                      ctx)[1]["Out"][0].double()
+        var = float(z.var())
+        if not (float(z.min()) >= -2.0 and float(z.max()) <= 2.0
+                and abs(float(z.mean())) < 2e-3
+                and abs(var - TRUNC_NORMAL_VAR) < 2e-3):
+            raise AssertionError(f"[loss_ops] truncated_gaussian_random on "
+                                 f"the {name}: min {float(z.min())}, max "
+                                 f"{float(z.max())}, var {var}")
+        x = np.arange(np.prod(LOSS_CROP_IN), dtype=np.float64).reshape(
+            LOSS_CROP_IN)
+        crop = _loss_run("random_crop", {"X": [x]},
+                         {"shape": list(LOSS_CROP)}, place,
+                         ctx)[1]["Out"][0].cpu().numpy()
+        h, w = LOSS_CROP_IN[-2:]
+        offsets = set()
+        for i in range(0, LOSS_CROP_IN[0], 7):
+            r, col = divmod(int(crop[i, 0, 0, 0] - x[i, 0, 0, 0]), w)
+            if not (0 <= r <= h - LOSS_CROP[1] and 0 <= col <= w
+                    - LOSS_CROP[2] and np.array_equal(
+                        crop[i], x[i, :, r:r + LOSS_CROP[1],
+                                   col:col + LOSS_CROP[2]])):
+                raise AssertionError(f"[loss_ops] random_crop on the {name}: "
+                                     f"image {i} is no window of its input")
+            offsets.add((r, col))
+        rs = np.random.RandomState(SEED)
+        b, d, n = LOSS_NCE
+        ins = {"Input": [rs.randn(b, d).astype(np.float32)],
+               "Label": [rs.randint(0, n, (b, 1))],
+               "Weight": [(rs.randn(n, d) * 0.05).astype(np.float32)],
+               "Bias": [np.zeros((n, 1), np.float32)]}
+        attrs = {"num_total_classes": n, "num_neg_samples": 10}
+        s1 = _loss_run("nce", ins, attrs, place, ctx)[1]["SampleLabels"][0]
+        s2 = _loss_run("nce", ins, attrs, place, ctx)[1]["SampleLabels"][0]
+        neg = s1[:, 1:]
+        if not (int(neg.min()) >= 0 and int(neg.max()) < n
+                and not torch.equal(neg, s2[:, 1:])):
+            raise AssertionError(f"[loss_ops] nce's draw on the {name}")
+        one = {"Input": [ins["Input"][0][:1]], "Label": [ins["Label"][0][:1]],
+               "Weight": ins["Weight"], "Bias": ins["Bias"],
+               "Cost@GRAD": [np.ones((1, 1), np.float32)]}
+        drawn = _loss_run("nce_grad", dict(one, SampleLabels=[
+            s1[:1].cpu().numpy()]), attrs, place)[1]
+        custom = dict(attrs, custom_neg_classes=[int(v) for v in neg[0]])
+        fixed = _loss_run("nce_grad", dict(one, SampleLabels=[
+            s1[:1].cpu().numpy()]), custom, place)[1]
+        for slot in ("Input@GRAD", "Weight@GRAD", "Bias@GRAD"):
+            if not torch.equal(drawn[slot][0], fixed[slot][0]):
+                raise AssertionError(f"[loss_ops] nce_grad on the {name} "
+                                     f"does not replay its SampleLabels")
+        out[name] = {"trunc_var": var, "crop_offsets": len(offsets)}
+    log(f"[loss_ops] (a) the drawing ops by their laws, card and host "
+        f"(other generators, other numbers): truncated_gaussian_random "
+        f"{list(LOSS_TGR)} in [-2, 2], variance "
+        f"{out['card']['trunc_var']:.5f} / {out['host']['trunc_var']:.5f} "
+        f"(law {TRUNC_NORMAL_VAR}); random_crop {list(LOSS_CROP_IN)} -> "
+        f"{list(LOSS_CROP)}: every checked image a window of itself, "
+        f"{out['card']['crop_offsets']} / {out['host']['crop_offsets']} "
+        f"distinct offsets; nce over {LOSS_NCE[2]} classes with 10 drawn "
+        f"negatives: in range, fresh each step, nce_grad replays them")
+    return out
+
+
+def _loss_ops_on_card(card):
+    """(a) every op type of the slice on the card and on the host from the
+    same seeded inputs at a full-width shape, forward and grad (the
+    phase tail_ops tolerance, TF32 off); the drawing ops by their laws.
+    Returns the count of op types."""
+    import paddle_tpu_torch as fluid
+
+    rs = np.random.RandomState(SEED)
+    cases = _loss_inputs(rs)
+    host = fluid.CPUPlace()
+    worst, grads = {}, 0
+    for what, (op_type, ins, attrs, slots, extra) in cases.items():
+        t0 = time.perf_counter()
+        h_outs, h = _loss_run(op_type, ins, attrs, host)
+        t1 = time.perf_counter()
+        _, c = _loss_run(op_type, ins, attrs, card)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        _tail_compare(c, h, what, worst, tag="loss_ops")
+        line = ""
+        if slots:
+            gins = dict(ins, **_loss_cotangents(rs, h_outs, slots),
+                        **{g: [_as_input(v) for v in h_outs[f]]
+                           for g, f in extra.items()})
+            grad_type = "nce_grad" if op_type == "nce" else op_type + "_grad"
+            gh = _loss_run(grad_type, gins, attrs, host)[1]
+            gc_ = _loss_run(grad_type, gins, attrs, card)[1]
+            _tail_compare(gc_, gh, what + "_grad", worst, tag="loss_ops")
+            grads += 1
+            line = f", grad {worst.get(what + '_grad', 0.0):.2e}"
+        shapes = {s: (v.shape if isinstance(v, _Seq) else list(np.shape(v)))
+                  for s, vs in ins.items() for v in vs[:1]}
+        log(f"[loss_ops] (a) {what} at {shapes}: card vs host "
+            f"{worst.get(what, 0.0):.2e}{line} of the host's largest "
+            f"(host {t1 - t0:.2f} s, card {t2 - t1:.2f} s)")
+        del h_outs, h, c
+    laws = _loss_random_laws(card)
+    types = {v[0] for v in cases.values()} | {
+        "nce_grad", "random_crop", "truncated_gaussian_random"}
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    log(f"[loss_ops] (a) {len(types)} op types on the card and the host "
+        f"({len(cases)} cases, {grads} with grads, 3 drawing ops by their "
+        f"laws): all within {TAIL_RTOL:g} of the host array's scale, "
+        f"integers and the decoded tags equal; largest "
+        f"{[(k, f'{v:.2e}') for k, v in top]}")
+    return {"op_types": len(types), "cases": len(cases), "grads": grads,
+            "worst": worst, "laws": laws}
+
+
+def build_srl(fluid, widths=None):
+    """The PaddlePaddle book's label_semantic_roles db_lstm (chapter 07)
+    at its published widths, built with `fluid`'s layers: six word-id
+    slots share the non-trainable `emb` (44,068 x 32) beside the
+    predicate's `vemb` (3,162 x 32) and the mark's (2 x 5) embeddings; a
+    sum of fc(512, tanh); SRL_DEPTH dynamic_lstm(512) with a relu
+    candidate and sigmoid gate and cell, reversed on odd layers, each
+    (hidden, cell) pair feeding the next fc as the book passes it;
+    feature_out a sum of two fc(67, tanh); linear_chain_crf on `crfw`
+    (learning rate 1e-3), mean, crf_decoding on `crfw`; SGD on
+    exponential_decay(0.01, 100000, 0.5, staircase). The test program
+    (the net cloned for test before the optimizer) holds chunk_eval (IOB,
+    33 chunk types). Returns (main, test, startup, loss, decode, chunk
+    outputs)."""
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        data = {n: L.data(name=n, shape=[1], dtype="int64", lod_level=1)
+                for n in SRL_SLOTS}
+        embs = [L.embedding(data[n], size=[SRL_WORD_V, SRL_WORD_DIM],
+                            param_attr=fluid.ParamAttr(name="emb",
+                                                       trainable=False))
+                for n in SRL_SLOTS[:6]]
+        embs += [L.embedding(data["verb"], size=[SRL_PRED_V, SRL_WORD_DIM],
+                             param_attr="vemb"),
+                 L.embedding(data["mark"], size=[2, SRL_MARK_DIM])]
+        hidden_0 = L.sums(input=[L.fc(input=e, size=SRL_HIDDEN, act="tanh")
+                                 for e in embs])
+        lstm = L.dynamic_lstm(input=hidden_0, size=SRL_HIDDEN,
+                              candidate_activation="relu",
+                              gate_activation="sigmoid",
+                              cell_activation="sigmoid")
+        tmp = [hidden_0, lstm]
+        for i in range(1, SRL_DEPTH):
+            mix = L.sums(input=[
+                L.fc(input=tmp[0], size=SRL_HIDDEN, act="tanh"),
+                L.fc(input=tmp[1], size=SRL_HIDDEN, act="tanh")])
+            lstm = L.dynamic_lstm(input=mix, size=SRL_HIDDEN,
+                                  candidate_activation="relu",
+                                  gate_activation="sigmoid",
+                                  cell_activation="sigmoid",
+                                  is_reverse=(i % 2) == 1)
+            tmp = [mix, lstm]
+        feature_out = L.sums(input=[
+            L.fc(input=tmp[0], size=SRL_LABELS, act="tanh"),
+            L.fc(input=tmp[1], size=SRL_LABELS, act="tanh")])
+        loss = L.mean(L.linear_chain_crf(
+            input=feature_out, label=data["target"],
+            param_attr=fluid.ParamAttr(name="crfw", learning_rate=1e-3)))
+        decode = L.crf_decoding(input=feature_out,
+                                param_attr=fluid.ParamAttr(name="crfw"))
+        test = main.clone(for_test=True)
+        with fluid.program_guard(test, startup):
+            block = test.global_block()
+            chunks = L.chunk_eval(input=block.var(decode.name),
+                                  label=block.var("target"),
+                                  chunk_scheme="IOB",
+                                  num_chunk_types=SRL_CHUNK_TYPES)
+        fluid.optimizer.SGD(learning_rate=L.exponential_decay(
+            learning_rate=0.01, decay_steps=100000, decay_rate=0.5,
+            staircase=True)).minimize(loss)
+    main.random_seed = startup.random_seed = SEED % 1000
+    return main, test, startup, loss, decode, chunks
+
+
+def srl_batches(rs, steps):
+    """`steps` batches of SRL_BATCH sentences of SRL_LEN tokens, drawn as
+    the JAX package's synthetic conll05 reader draws them: random words,
+    one marked predicate, the context windows around it, labels that
+    follow the signed distance to it. {slot: [per-sentence id arrays]}."""
+    out = []
+    for _ in range(steps):
+        b = {s: [] for s in SRL_SLOTS}
+        for _ in range(SRL_BATCH):
+            t = int(rs.randint(SRL_LEN[0], SRL_LEN[1] + 1))
+            words = rs.randint(0, SRL_WORD_V, t)
+            pos = int(rs.randint(t))
+            b["word"].append(words)
+            for s, off in zip(SRL_SLOTS[1:6], (-2, -1, 0, 1, 2)):
+                b[s].append(np.full(t, words[min(max(pos + off, 0), t - 1)]))
+            b["verb"].append(np.full(t, rs.randint(SRL_PRED_V)))
+            mark = np.zeros(t, np.int64)
+            mark[pos] = 1
+            b["mark"].append(mark)
+            dist = np.arange(t) - pos
+            b["target"].append((np.abs(dist) * 2 + (dist < 0)) % SRL_LABELS)
+        out.append(b)
+    return out
+
+
+def _srl_runs(main, fetch, init, feeds, place, graph, timed=0):
+    """`feeds`' steps from `init` on one Executor, through the captured
+    step (`graph`) or the interpreter: (the fetches of each step as numpy,
+    the persistables after them, the ms a step of `timed` more replays
+    over the first feeds again, host clock to one scalar read, and the
+    executor and scope)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert, flags
+
+    scope = fluid.Scope()
+    convert.load_numpy_state(scope, main, init, place)
+    exe = fluid.Executor(place)
+    with fluid.scope_guard(scope), flags.flag_guard(cuda_graph=graph):
+        fetched = [[np.asarray(v) for v in exe.run(main, feed=f,
+                                                   fetch_list=fetch)]
+                   for f in feeds]
+        mode = exe.step_mode(main)
+        state = convert.numpy_state(scope, main)
+        ms = None
+        if timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for f in feeds[:timed]:  # the same fetches: the same graph
+                outs = exe.run(main, feed=f, fetch_list=fetch,
+                               return_numpy=False)
+            _fence(outs[0])
+            ms = (time.perf_counter() - t0) / timed * 1e3
+    want = "graph" if graph and place.__class__.__name__ == "CUDAPlace" \
+        else "interpreter"
+    if mode != want:
+        raise AssertionError(f"[loss_ops] db_lstm ran as {mode}, not {want}")
+    return fetched, state, ms, exe, scope
+
+
+def _srl_train(card, card_line):
+    """(b) the book's db_lstm at its widths: SRL_STEPS steps through the
+    captured step (the first eager, the next the capture, then replays)
+    bitwise equal to the interpreter's from one state, fetches and every
+    persistable; the host's losses within SRL_RTOL of the card's; then
+    SRL_STEPS more replays on the same executor timed (tokens/s, ms a
+    step); decoded tags in range; chunk_eval on the test program through
+    the interpreter; no hand-written kernel launched (plain SGD:
+    FLAGS_fuse buckets only momentum and adam)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert, cuda_build
+
+    main, test, startup, loss, decode, chunks = build_srl(fluid)
+    rs = np.random.RandomState(SEED)
+    batches = srl_batches(rs, SRL_STEPS + 1)
+    per_step, totals = seq_feeds(batches, card)
+    host_feeds = seq_feeds(batches[:SRL_STEPS], fluid.CPUPlace(),
+                           totals)[0]
+    tokens = [sum(len(s) for s in b["word"]) for b in batches]
+    init_scope = fluid.Scope()
+    with fluid.scope_guard(init_scope):
+        fluid.Executor(card).run(startup)
+    init = convert.numpy_state(init_scope, main)
+    del init_scope
+    feeds = per_step[:SRL_STEPS]
+    t0 = time.perf_counter()
+    counts = cuda_build.launch_counts()
+    g_fetch, g_state, step_ms, exe, scope = _srl_runs(
+        main, [loss, decode], init, feeds, card, True, timed=SRL_STEPS)
+    hand = {f"{w.__name__}.{a}": n - counts[(w, a)]
+            for (w, a), n in cuda_build.launch_counts().items()}
+    t1 = time.perf_counter()
+    i_fetch, i_state = _srl_runs(main, [loss, decode], init, feeds, card,
+                                 False)[:2]
+    t2 = time.perf_counter()
+    h_fetch = _srl_runs(main, [loss], init, host_feeds, fluid.CPUPlace(),
+                        False)[0]
+    t3 = time.perf_counter()
+    losses = [float(f[0].reshape(())) for f in g_fetch]
+    host = [float(f[0].reshape(())) for f in h_fetch]
+    differ = [n for n in i_state if not np.array_equal(g_state[n],
+                                                       i_state[n])]
+    equal = not differ and all(
+        np.array_equal(g, i) for gs, is_ in zip(g_fetch, i_fetch)
+        for g, i in zip(gs, is_))
+    if not equal:
+        raise AssertionError(f"[loss_ops] db_lstm: graph and interpreter "
+                             f"differ (persistables {differ[:5]})")
+    if any(hand.values()):
+        raise AssertionError(f"[loss_ops] hand-written kernels launched on "
+                             f"the db_lstm path: {hand}")
+    np.testing.assert_allclose(losses, host, rtol=SRL_RTOL,
+                               err_msg="[loss_ops] db_lstm host vs card")
+    tags = np.concatenate([f[1] for f in g_fetch])
+    with fluid.scope_guard(scope):
+        ev = exe.run(test, feed=per_step[SRL_STEPS], fetch_list=list(chunks))
+        test_mode = exe.step_mode(test)
+        _check_master_state(scope)
+    t4 = time.perf_counter()
+    prf = [float(np.asarray(v)) for v in ev[:3]]
+    if not (np.all(np.isfinite(losses)) and tags.min() >= 0
+            and tags.max() < SRL_LABELS and np.all(np.isfinite(prf))
+            and test_mode == "interpreter"):
+        raise AssertionError(f"[loss_ops] db_lstm: losses {losses}, tags "
+                             f"in [{tags.min()}, {tags.max()}], chunk_eval "
+                             f"{prf} ({test_mode})")
+    result = {
+        "batch": SRL_BATCH, "flat_total": totals["word"], "tokens": tokens,
+        "card": card_line, "step_ms": step_ms,
+        "tokens_per_sec": sum(tokens[:SRL_STEPS]) / (step_ms * SRL_STEPS)
+        * 1e3, "losses": losses, "host_losses": host,
+        "graph_interpreter_bitwise": equal, "persistables": len(i_state),
+        "chunk_eval": {"precision": prf[0], "recall": prf[1], "f1": prf[2],
+                       "infer_chunks": int(np.asarray(ev[3])),
+                       "label_chunks": int(np.asarray(ev[4])),
+                       "correct_chunks": int(np.asarray(ev[5]))},
+        "hand_kernel_launches": 0,
+        "seconds": {"graph_and_timed": t1 - t0, "interpreter": t2 - t1,
+                    "host": t3 - t2, "test_program": t4 - t3}}
+    log(f"[loss_ops] (b) {card_line}: book db_lstm (depth {SRL_DEPTH}, "
+        f"hidden {SRL_HIDDEN}, vocabularies {SRL_WORD_V} / {SRL_PRED_V} / "
+        f"{SRL_LABELS}) at batch {SRL_BATCH}, sentences of "
+        f"{SRL_LEN[0]}-{SRL_LEN[1]} tokens bucketed to {totals['word']} "
+        f"(the loops' trip count): {result['tokens_per_sec']:.1f} tokens/s, "
+        f"{step_ms:.2f} ms a step ({SRL_STEPS} replays of "
+        f"{sum(tokens[:SRL_STEPS])} tokens, host clock); graph vs "
+        f"interpreter bitwise equal over {SRL_STEPS} steps (the first "
+        f"eager, the rest the captured graph), {len(i_state)} persistables "
+        f"and the decoded tags; losses {losses}, host {host} (rtol "
+        f"{SRL_RTOL:g}); decoded tags in [0, {SRL_LABELS}); chunk_eval on "
+        f"the test program (interpreter) P/R/F1 "
+        f"{[round(v, 4) for v in prf]}; no hand-written kernel on this path "
+        f"(plain SGD; FLAGS_fuse buckets only momentum and adam): launches "
+        f"{hand}; seconds "
+        f"{ {k: round(v, 1) for k, v in result['seconds'].items()} }")
+    del exe, scope
+    _release()
+    return result
+
+
+def phase_loss_ops(card_line):
+    """(a) every op type of the loss-ops and nn-rest slice, card against
+    host, at full width; (b) the book's db_lstm trained on the card.
+    Prints its seconds."""
+    import paddle_tpu_torch as fluid
+
+    t0 = time.perf_counter()
+    ops = _loss_ops_on_card(fluid.CUDAPlace(0))
+    _release()
+    t1 = time.perf_counter()
+    srl = _srl_train(fluid.CUDAPlace(0), card_line)
+    t2 = time.perf_counter()
+    log(f"[loss_ops] phase {t2 - t0:.1f} s: (a) {t1 - t0:.1f} s, (b) "
+        f"{t2 - t1:.1f} s")
+    return {"ops": ops, "db_lstm": srl, "seconds": t2 - t0,
+            "seconds_by_part": {"ops": t1 - t0, "db_lstm": t2 - t1}}
+
+
 def _qkv(shape, dtype, gen):
     B, H, Sq, Sk, D = shape
     return [torch.randn(B, H, S, D, generator=gen, device="cuda").to(dtype)
@@ -3726,6 +4352,22 @@ def phase_flash(sass):
     return rows
 
 
+def _device_line():
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+
+
+def main_loss_ops():
+    """`python3 chip_smoke.py --only loss_ops`: the device check and phase
+    loss_ops alone (its slice's kernels are torch's: nothing to build)."""
+    card_line = phase_device()
+    result = phase_loss_ops(card_line)
+    log(card_line)
+    log(json.dumps({"loss_ops": result}))
+    log(_device_line())
+
+
 def main():
     card_line = phase_device()
     card = torch.cuda.get_device_name(0)
@@ -3826,17 +4468,20 @@ def main():
     momentum["launches_by_path"]["headline_clip_decay"] = \
         tail["clip_decay"]["momentum_launches"]
     _release()
+    losses = phase_loss_ops(card_line)
+    _release()
     rows += phase_flash(sass)
     log(card_line)
     log(json.dumps({"headline": headline, "monitor": monitored,
                     "parallel": parallel,
                     "se_resnext50": se, "vgg16": vgg, **seq,
-                    "serve": served, "tail_ops": tail}))
+                    "serve": served, "tail_ops": tail, "loss_ops": losses}))
     log(json.dumps({"kernels": rows}))
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": card,
-        "count": torch.cuda.device_count()}}))
+    log(_device_line())
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--only", "loss_ops"]:
+        main_loss_ops()
+    else:
+        main()

@@ -38,6 +38,12 @@ from .places import device_for
 # replay.
 HOST_OPS = frozenset({"save", "load", "save_combine", "load_combine",
                       "delete_var"})
+# Op types that read device values on the host (ops/metric_ops.py's
+# chunk_eval, the JAX package's no_trace metric): no side effects, so
+# dead-code elimination may drop them, but a graph cannot hold them. A
+# program with one runs through the interpreter, prepared and cached as
+# any other.
+HOST_SYNC_OPS = frozenset({"chunk_eval"})
 
 
 def check_values_finite(named_values, context=""):
@@ -290,7 +296,7 @@ def capture_blocker(ops):
     host op, sub-blocks included), or None: the static rule, decided
     before any capture."""
     for op in ops:
-        if op.type in HOST_OPS:
+        if op.type in HOST_OPS or op.type in HOST_SYNC_OPS:
             return op
         for v in op.attrs.values():
             if hasattr(v, "ops"):  # a Block attr

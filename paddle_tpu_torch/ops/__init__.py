@@ -5,7 +5,9 @@ embedding, sequence ops, LSTM/GRU and the attention decoder of the
 stacked-LSTM and NMT models — the fused bucket updates, and the
 collectives of data parallelism), the single-device op tail (matmul, the
 reductions, the tensor ops, comparisons and logic, the dense losses and
-every optimizer rule) and the host file IO ops of fluid.io."""
+every optimizer rule), the structured losses (CTC, CRF, NCE, hierarchical
+sigmoid), the metrics, the rest of the nn ops and the host file IO ops of
+fluid.io."""
 
 from . import util
 from . import tensor_ops
@@ -19,5 +21,6 @@ from . import fused_ops
 from . import sparse_ops
 from . import sequence_ops
 from . import rnn_ops
+from . import loss_ops
 from . import collective_ops
 from . import io_ops

@@ -1,9 +1,11 @@
 """Math ops: the fc core and matmul, the elementwise family, scale, mean,
-grad summation, the reductions, clipping, cos_sim, cumsum, norm and top_k.
+grad summation, the reductions, clipping, cos_sim, cumsum, norm, top_k and
+maxout.
 
 Reference parity: operators/mul_op.cc, matmul_op.cc, elementwise_*_op.cc,
 scale_op.cc, mean_op.cc, sum_op.cc, reduce_op.cc, clip_op.cc,
-clip_by_norm_op.cc, cos_sim_op.cc, cumsum_op.cc, norm_op.cc, topk_op.cc.
+clip_by_norm_op.cc, cos_sim_op.cc, cumsum_op.cc, norm_op.cc, topk_op.cc,
+maxout_op.cc.
 Matrix products go to torch.matmul (cuBLAS on the card), as the JAX
 package leaves them to XLA. Each op keeps the JAX package's expression
 (paddle_tpu/ops/math_ops.py), its defaults and its output shapes; an
@@ -234,6 +236,15 @@ def cumsum_op(ctx, ins, attrs):
     if reverse:
         o = torch.flip(o, (axis,))
     return out(Out=o)
+
+
+@register_op("maxout")
+def maxout_op(ctx, ins, attrs):
+    """NCHW X's channels in `groups`-sized runs, each run's maximum."""
+    x = first(ins, "X")
+    g = attrs["groups"]
+    n, c, h, w = x.shape
+    return out(Out=torch.amax(x.reshape(n, c // g, g, h, w), dim=2))
 
 
 @register_op("norm")

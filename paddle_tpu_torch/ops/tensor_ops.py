@@ -4,10 +4,11 @@ Reference parity: operators/{cast,concat,split,reshape,transpose,pad,crop,
 gather,scatter,one_hot,fill_constant,fill_constant_batch_size_like,
 fill_zeros_like,gaussian_random,uniform_random,assign,assign_value,shape,
 increment,expand,label_smooth,reverse,arg_min_max,argsort,isfinite,
-lookup_table}_op.cc, each as the JAX package's
-paddle_tpu/ops/tensor_ops.py computes it. Random ops draw from the
-program's random stream (ctx.rng, executor_core.RandomStream), or, when
-the op's own `seed` attr is non-zero, take the numbers that seed alone
+lookup_table,truncated_gaussian_random,multiplex,lod_reset}_op.cc, each as
+the JAX package's paddle_tpu/ops/tensor_ops.py computes it. Random ops
+draw from the program's random stream (ctx.rng,
+executor_core.RandomStream), or, when the op's own `seed` attr is
+non-zero, take the numbers that seed alone
 fixes, the same at every step (RandomStream.fixed); every allocation lands
 on ctx.device. A value made on the host (`shape`, `assign_value`) is
 copied to the device once and held (RandomStream.held): a captured step
@@ -15,11 +16,13 @@ copies it on the device. Integer outputs are int64 where the JAX package,
 which runs with 64-bit types off, has int32.
 """
 
+import math
+
 import numpy as np
 import torch
 
 from ..core import dtypes
-from ..core.registry import SeqTensor, register_op
+from ..core.registry import SeqTensor, register_op, seq_data
 from .util import first, many, out, astype
 
 
@@ -301,3 +304,51 @@ def uniform_random_op(ctx, ins, attrs):
 @register_op("assign", lod_aware=True)
 def assign_op(ctx, ins, attrs):
     return out(Out=first(ins, "X"))
+
+
+# the standard normal's CDF at the truncation bounds -2 and 2
+_TRUNC_LO = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+_TRUNC_HI = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
+
+
+@register_op("truncated_gaussian_random")
+def truncated_gaussian_random_op(ctx, ins, attrs):
+    """mean + std * z, z standard normal truncated to [-2, 2] (the JAX
+    package's jax.random.truncated_normal(-2, 2)): the inverse CDF of a
+    uniform draw between the bounds' CDF values, clipped to the bounds."""
+    shape = tuple(attrs["shape"])
+
+    def draw(g):
+        u = torch.empty(shape, dtype=torch.float32, device=ctx.device)
+        u.uniform_(_TRUNC_LO, _TRUNC_HI, generator=g)
+        return torch.clamp(math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0),
+                           -2.0, 2.0)
+
+    z = random_draw(ctx, attrs, ("truncated_gaussian_random", shape), draw)
+    o = attrs.get("mean", 0.0) + attrs.get("std", 1.0) * z
+    return out(Out=astype(o, attrs.get("dtype", "float32")))
+
+
+@register_op("multiplex")
+def multiplex_op(ctx, ins, attrs):
+    """Row i of Out is row i of the Ids[i]-th input."""
+    idx = first(ins, "Ids").reshape(-1).long()
+    xs = torch.stack(many(ins, "X"), dim=0)  # [K, B, ...]
+    rows = torch.arange(idx.shape[0], device=idx.device)
+    return out(Out=xs[idx, rows])
+
+
+@register_op("lod_reset", lod_aware=True)
+def lod_reset_op(ctx, ins, attrs):
+    """X's rows with new sequence lengths: Y's lengths (Y a SeqTensor) or
+    Y's values (a dense Y), or the differences of the `target_lod` attr's
+    offsets, copied to the device once and held."""
+    data, y = seq_data(first(ins, "X")), first(ins, "Y")
+    if y is not None:
+        lengths = y.lengths if isinstance(y, SeqTensor) \
+            else y.reshape(-1).to(torch.int32)
+        return out(Out=SeqTensor(data, lengths))
+    target = attrs.get("target_lod")
+    lengths = _held_constant(ctx, ("lod_reset", tuple(target)),
+                             np.diff(np.asarray(target)), torch.int32)
+    return out(Out=SeqTensor(data, lengths))

@@ -1,5 +1,7 @@
 """Kernel-authoring helpers."""
 
+import torch
+
 from ..core import dtypes
 
 
@@ -16,6 +18,12 @@ def many(ins, slot):
 
 def out(**slots):
     return {k: v if isinstance(v, list) else [v] for k, v in slots.items()}
+
+
+def at_least_f32(x):
+    """x in f32 where the JAX package computes in f32 (a bf16 or f32 x),
+    or in its own wider dtype (f64, which the JAX package never sees)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def astype(x, dtype):

@@ -18,8 +18,10 @@ import sys
 import pytest
 
 from paddle_tpu import cli as jcli
+from paddle_tpu import flags as jflags
+from paddle_tpu import monitor as jmonitor
 
-from paddle_tpu_torch import cli, flags
+from paddle_tpu_torch import cli, flags, monitor
 
 from test_torch_health import ledger_run
 from test_torch_monitor_step import (_fresh_state, jax_init,  # noqa: F401
@@ -38,10 +40,9 @@ def _both(capsys, argv):
     return out
 
 
-@pytest.fixture(scope="module")
-def files(tmp_path_factory):
-    """Each package's journal and health ledger of the same MLP runs."""
-    tmp = tmp_path_factory.mktemp("cli")
+def write_files(tmp):
+    """Each package's journal and health ledger of the same MLP runs, in
+    the directory `tmp`: {name: path}."""
     init = jax_init("mlp")
     paths = {}
     for pkg in ("jax", "port"):
@@ -60,6 +61,30 @@ def files(tmp_path_factory):
     with open(paths["drifted_ledger"], "w") as f:
         f.write("\n".join(drifted) + "\n")
     return paths
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    return write_files(tmp_path_factory.mktemp("cli"))
+
+
+def test_the_files_are_written_with_the_monitor_left_off(tmp_path):
+    """A module fixture runs before any test's flag reset, after whatever
+    file ran last on the worker: one that left FLAGS_monitor off in both
+    packages (as tests/test_serve.py leaves the JAX package's) must not
+    stop the journals from being written."""
+    flags.set("monitor", False)
+    jflags.set("monitor", False)
+    try:
+        paths = write_files(tmp_path)
+        assert not flags.get("monitor") and not jflags.get("monitor")
+    finally:
+        flags.reset()
+        jflags.reset()
+    for pkg, mon in (("jax", jmonitor), ("port", monitor)):
+        recs = mon.read_journal(paths[f"{pkg}_journal"])
+        assert [r["step"] for r in recs] == [1, 2, 3, 4, 5], pkg
+        assert os.path.getsize(paths[f"{pkg}_ledger"]) > 0, pkg
 
 
 @pytest.mark.parametrize("json_flag", [[], ["--json"]])

@@ -40,13 +40,15 @@ RTOL = 1e-5
 def ledger_run(pkg, model, init, path, steps=3, iters_runs=1, fuse=False,
                place=None, **flag_values):
     """`steps` single steps then `iters_runs` iters=2 runs with
-    FLAGS_health=1 and a ledger at `path`: the ledger's records."""
+    FLAGS_monitor and FLAGS_health=1 (the health gauges go to the monitor
+    registry) and a ledger at `path`: the ledger's records."""
     fluid, main, loss, scope = setup(pkg, model, init, place)
     fl = jflags if pkg == "jax" else flags
     bs = batches(model, steps + 2 * iters_runs)
     with fluid.scope_guard(scope), \
-            fl.flag_guard(health=1, health_ledger=path, fuse=fuse,
-                          **flag_values):
+            fl.flag_guard(**{"monitor": True, "health": 1,
+                             "health_ledger": path, "fuse": fuse,
+                             **flag_values}):
         exe = fluid.Executor(place or fluid.CPUPlace())
         for b in bs[:steps]:
             exe.run(main, feed=b, fetch_list=[loss])
@@ -105,7 +107,8 @@ def test_the_journal_carries_the_health_summary(tmp_path):
     for pkg in ("jax", "port"):
         mon = jmonitor if pkg == "jax" else monitor
         fl = jflags if pkg == "jax" else flags
-        with fl.flag_guard(monitor_journal=str(tmp_path / f"{pkg}.j")):
+        with fl.flag_guard(monitor=True,
+                           monitor_journal=str(tmp_path / f"{pkg}.j")):
             ledger_run(pkg, "mlp", init, str(tmp_path / f"{pkg}.h"),
                        steps=2, iters_runs=0)
         mon.reset()
@@ -138,7 +141,8 @@ SEQUENCES = {
 
 @pytest.mark.parametrize("name", sorted(SEQUENCES))
 def test_detectors_fire_the_same_events(name):
-    settings = {"health_plateau_patience": 4, "health_ema": 0.5}
+    settings = {"monitor": True, "health_plateau_patience": 4,
+                "health_ema": 0.5}
     got = {}
     for pkg, h, fl in (("jax", jhealth, jflags), ("port", health, flags)):
         bank = h.DetectorBank()

@@ -130,6 +130,15 @@ def test_the_instruments_slice_is_among_the_checked_sources(module):
     assert os.path.join(PORT, module) in set(_sources())
 
 
+@pytest.mark.parametrize("module", [
+    "ops/loss_ops.py", "ops/metric_ops.py", "ops/nn_ops.py",
+    "ops/math_ops.py", "ops/tensor_ops.py"])
+def test_the_loss_and_nn_rest_slice_is_among_the_checked_sources(module):
+    """The structured losses, the metrics and the rest of the nn ops are
+    checked by the test above."""
+    assert os.path.join(PORT, module) in set(_sources())
+
+
 def test_the_multi_rank_worker_imports_only_the_port():
     """The worker the multi-rank tests run as their ranks
     (tests/torch_dp_worker.py) imports neither jax nor the JAX package."""

@@ -140,7 +140,10 @@ def journaled_runs(pkg, model, init, path):
     fl, mon = (jflags, jmonitor) if pkg == "jax" else (flags, monitor)
     bs = batches(model, 7)
     mon.reset()
-    with fluid.scope_guard(scope), fl.flag_guard(monitor_journal=path):
+    # FLAGS_monitor on explicitly: a test file run before this one on the
+    # same worker may have left it off in either package
+    with fluid.scope_guard(scope), \
+            fl.flag_guard(monitor=True, monitor_journal=path):
         exe = fluid.Executor(fluid.CPUPlace())
         for b in bs[:3]:
             exe.run(main, feed=b, fetch_list=[loss])

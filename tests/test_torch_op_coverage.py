@@ -47,18 +47,7 @@ BUILDER_MODULES = [
     "paddle_tpu_torch.regularizer",
 ]
 
-_NN_REST = "ROADMAP queue 1 item 2 (d): the nn rest"
-_LOSS_OPS = "ROADMAP queue 1 item 2 (e): loss_ops and the metric rest"
 MISSING = {
-    "layer_norm": _NN_REST, "conv2d_transpose": _NN_REST,
-    "conv3d": _NN_REST, "lrn": _NN_REST, "maxout": _NN_REST,
-    "bilinear_interp": _NN_REST, "row_conv": _NN_REST,
-    "im2sequence": _NN_REST, "multiplex": _NN_REST,
-    "random_crop": _NN_REST, "lod_reset": _NN_REST,
-    "warpctc": _LOSS_OPS, "ctc_align": _LOSS_OPS,
-    "linear_chain_crf": _LOSS_OPS, "crf_decoding": _LOSS_OPS,
-    "nce": _LOSS_OPS, "hierarchical_sigmoid": _LOSS_OPS,
-    "auc": _LOSS_OPS, "chunk_eval": _LOSS_OPS, "edit_distance": _LOSS_OPS,
     "beam_search": "ROADMAP queue 1 item 4: control flow and decoding",
     "beam_search_decode": "ROADMAP queue 1 item 4: control flow and decoding",
     "roi_pool": "ROADMAP queue 1 item 9: detection",
@@ -146,10 +135,32 @@ def test_the_slice_is_registered():
                 if d.fn is not None]) >= 153
 
 
+# the op types the loss-ops and nn-rest slice registered: ops/loss_ops.py
+# (nce_grad is its explicit grad), the metrics, the nn rest, maxout and
+# three tensor ops
+LOSS_AND_NN_REST = (
+    ["warpctc", "ctc_align", "linear_chain_crf", "crf_decoding", "nce",
+     "nce_grad", "hierarchical_sigmoid"]
+    + ["chunk_eval", "auc", "precision_recall", "edit_distance"]
+    + ["layer_norm", "conv2d_transpose", "depthwise_conv2d", "conv3d", "lrn",
+       "prelu", "bilinear_interp", "row_conv", "im2sequence", "spp",
+       "unpool", "random_crop"]
+    + ["maxout", "truncated_gaussian_random", "multiplex", "lod_reset"])
+
+
+def test_the_loss_and_nn_rest_slice_is_registered():
+    assert len(LOSS_AND_NN_REST) == len(set(LOSS_AND_NN_REST)) == 27
+    assert not set(LOSS_AND_NN_REST) & set(SLICE)
+    for t in LOSS_AND_NN_REST:
+        assert treg.get_op_def(t) is not None, t
+    assert len([t for t, d in treg._registry.items()
+                if d.fn is not None]) >= 180
+
+
 def test_an_unported_type_says_so():
     with pytest.raises(NotImplementedError,
                        match="not yet ported to paddle_tpu_torch"):
-        treg.lookup("warpctc")
+        treg.lookup("roi_pool")
 
 
 # ---------------------------------------------------------------------------
