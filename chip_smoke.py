@@ -94,6 +94,31 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 (idle share); then PE and the Executor over 3 steps at batch
                 32 from one state, bitwise (losses and every persistable);
                 the group destroyed after
+  6c. input  — the input path: INPUT_IMAGES seeded 256x256x3 uint8
+                images written to a RecordIO file (recordio.Writer,
+                compressor none; the native library built at first use)
+                and the headline's program (bf16 AMP, fused Momentum,
+                batch 128) trained from it through DataPipe.from_recordio
+                -> map(random 224 crop and flip, INPUT_WORKERS processes)
+                -> batch(128) -> prefetch_to_device(CUDAPlace(0),
+                chunk=40) fed to Executor.run: (a) 1 warm + 3 timed calls
+                through the captured step: img/s and its ratio to the
+                headline's, the monitor's feed_wait a call, the pipe's
+                per-stage stats, the link's share, one replay traced
+                (idle share), peak memory, momentum launches (4 a step);
+                the link's pinned and pageable copy rates on the idle card;
+                (b) the first chunk through the pipe and as the same
+                images stacked in numpy, bitwise (losses and every
+                persistable); (f) the fused shm route, one pass drained;
+                (c) resnet.get_model(flowers) fp32 fed uint8 under
+                WireSpec.uint8_images("data", scale=1/255), decoded in the
+                captured step, bitwise against the host-normalised float32
+                feed, a quarter of its link bytes; (d) the MNIST conv net
+                from open_recordio_file -> batch -> double_buffer ->
+                read_file on the interpreter, card against host within
+                1e-4; (e) each get_model's first train batch through a
+                DataFeeder and one card step, a finite loss ([input]
+                lines). Alone: `python3 chip_smoke.py --only input`
   7. se_resnext50, vgg16 — the benchmark/fluid image configs as their
                 get_model declares them (float32 NCHW 224x224, int64 labels,
                 the accuracy op): SE-ResNeXt-50 (1000 classes, Momentum(0.01,
@@ -223,6 +248,7 @@ import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import threading
@@ -385,6 +411,29 @@ SRL_BATCH = 10
 SRL_LEN = (10, 60)
 SRL_STEPS = 4
 SRL_RTOL = 1e-4
+
+# phase input: the headline's program trained from a RecordIO file of
+# INPUT_IMAGES seeded INPUT_SIDE^2 x 3 uint8 images through a DataPipe:
+# INPUT_WORKERS decode processes (a random 224x224 crop and flip), batch
+# HEADLINE_BATCH, chunks of HEADLINE_K steps, INPUT_WARM + INPUT_CALLS
+# calls; (c) resnet.get_model(flowers) fed uint8 under a WireSpec,
+# INPUT_WIRE_STEPS steps at INPUT_WIRE_BATCH; (d) the MNIST conv net from
+# the reader ops, INPUT_READER_STEPS batches of INPUT_READER_BATCH, card
+# against host within INPUT_READER_RTOL; (e) one batch of INPUT_MODEL_BATCH
+# from each get_model's train reader; the link's pinned and pageable rates
+# best of INPUT_LINK_REPS
+INPUT_IMAGES = 2560
+INPUT_SIDE = 256
+INPUT_WORKERS = min(8, (os.cpu_count() or 2) // 2)
+INPUT_WARM = 1
+INPUT_CALLS = 3
+INPUT_WIRE_STEPS = 3
+INPUT_WIRE_BATCH = 32
+INPUT_READER_STEPS = 20
+INPUT_READER_BATCH = 64
+INPUT_READER_RTOL = 1e-4
+INPUT_MODEL_BATCH = 8
+INPUT_LINK_REPS = 3
 
 SEED = 20261016
 BATCH = 32
@@ -2049,6 +2098,632 @@ def phase_parallel(card, executor_img_s):
         torch.distributed.destroy_process_group()
     result["seconds"] = time.perf_counter() - t0
     log(f"[parallel] phase seconds {result['seconds']:.1f}")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase input: the headline trained from a RecordIO file through a DataPipe
+# ---------------------------------------------------------------------------
+def _input_record(index, label, image):
+    """One record of the input phase's file: (index, label) as two int32,
+    then the raw HWC uint8 pixels."""
+    return struct.pack("<ii", index, label) + image.tobytes()
+
+
+def parse_input_record(rec):
+    """The pipe's parse_fn: a record as {"image", "index", "label"}."""
+    index, label = struct.unpack_from("<ii", rec)
+    image = np.frombuffer(rec, np.uint8, offset=8).reshape(
+        INPUT_SIDE, INPUT_SIDE, 3)
+    return {"image": image, "index": index, "label": label}
+
+
+def random_crop_flip_224(sample):
+    """ImageNet's training preprocessing without the JPEG decode: a random
+    224x224 window of the 256x256 image, flipped left to right half the
+    time, drawn from a generator seeded by the image's index (the same
+    crop on every pass and in every process). It runs in a decode worker
+    process, on numpy arrays only: a forked worker never touches
+    torch.cuda."""
+    rs = np.random.RandomState(SEED + sample["index"])
+    y, x = rs.randint(0, INPUT_SIDE - 224 + 1, 2)
+    image = sample["image"][y:y + 224, x:x + 224]
+    if rs.rand() < 0.5:
+        image = image[:, ::-1]
+    return {"data_u8": np.ascontiguousarray(image),
+            "label": np.array([sample["label"]], np.int32)}
+
+
+def _write_input_file(path):
+    """INPUT_IMAGES seeded 256x256x3 uint8 images with labels in [0,
+    1000), written by the port's recordio.Writer uncompressed (noise does
+    not compress). Returns the file's bytes."""
+    from paddle_tpu_torch import recordio
+
+    rs = np.random.RandomState(SEED)
+    labels = rs.randint(0, 1000, INPUT_IMAGES)
+    with recordio.Writer(path, compressor="none", max_num_records=64) as w:
+        for i in range(INPUT_IMAGES):
+            image = rs.randint(0, 256, (INPUT_SIDE, INPUT_SIDE, 3),
+                               dtype=np.uint8)
+            w.write(_input_record(i, int(labels[i]), image))
+    return os.path.getsize(path)
+
+
+def _input_pipe(path, passes, place):
+    """The main path's pipe: the file's records parsed, cropped and
+    flipped in INPUT_WORKERS processes (order kept), batched and staged in
+    chunks of HEADLINE_K steps."""
+    import paddle_tpu_torch as fluid
+
+    return (fluid.DataPipe.from_recordio(path, parse_fn=parse_input_record,
+                                         pass_num=passes)
+            .map(random_crop_flip_224, num_workers=INPUT_WORKERS,
+                 processes=True)
+            .batch(HEADLINE_BATCH)
+            .prefetch_to_device(place, chunk=HEADLINE_K))
+
+
+def _input_chunk_numpy(path, steps, batch):
+    """The first `steps` x `batch` images the pipe yields, made here from
+    the same records with the same crop, stacked as the headline phase
+    stacks its feed: ({name: [steps, batch, ...] array})."""
+    from paddle_tpu_torch import recordio
+
+    data = np.empty((steps, batch, 224, 224, 3), np.uint8)
+    label = np.empty((steps, batch, 1), np.int32)
+    i = 0
+    while i < steps * batch:
+        scanner = recordio.Scanner(path)
+        for rec in scanner:
+            if i == steps * batch:
+                break
+            s = random_crop_flip_224(parse_input_record(rec))
+            k, b = divmod(i, batch)
+            data[k, b], label[k, b] = s["data_u8"], s["label"]
+            i += 1
+        scanner.close()
+    return {"data_u8": data, "label": label}
+
+
+def _stage_sums(deltas):
+    """The per-stage DataPipe deltas of several runs (the monitor's
+    records), summed."""
+    keys = ("items", "bytes", "busy_s", "wait_in_s", "wait_out_s",
+            "bp_wait_s")
+    out = {}
+    for d in deltas:
+        for stage, row in d.items():
+            if isinstance(row, dict):
+                acc = out.setdefault(stage, dict.fromkeys(keys, 0))
+                for k in keys:
+                    acc[k] += row.get(k, 0)
+    return out
+
+
+def _input_speed(main, loss, buckets, init, path, place, headline_img_s,
+                 result):
+    """(a) 1 warm + 3 timed calls of HEADLINE_K steps fed by the pipe, as
+    the headline phase times its calls: img/s and its ratio to the
+    headline's, feed_wait, per-stage stats, the link's share, one replay
+    traced (idle share), peak memory, the momentum kernel's launches."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert, flags, monitor
+    from paddle_tpu_torch.datapipe import WIRE_KEY
+    from paddle_tpu_torch.fusion import kernels as fk
+
+    calls = INPUT_WARM + INPUT_CALLS
+    passes = calls * HEADLINE_K * HEADLINE_BATCH // INPUT_IMAGES
+    scope = fluid.Scope()
+    convert.load_numpy_state(scope, main, init, place)
+    exe = fluid.Executor()
+    pipe = _input_pipe(path, passes, place)
+    waits, deltas = [], []
+
+    def call():
+        outs = exe.run(main, feed=pipe, fetch_list=[loss],
+                       return_numpy=False)
+        rec = monitor.last_step()
+        waits.append(rec["phases_ms"].get("feed_wait", 0.0))
+        deltas.append(rec.get("datapipe", {}))
+        return outs
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_launch_counts()
+    try:
+        with fluid.scope_guard(scope), flags.flag_guard(monitor=True):
+            for _ in range(INPUT_WARM):
+                _fence(call()[0])
+            t0 = time.perf_counter()
+            for _ in range(INPUT_CALLS):
+                outs = call()
+            _fence(outs[0])
+            dt = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = fk.momentum_bucket.launches
+            steps = calls * HEADLINE_K
+            mode = exe.step_mode(main)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            lv = _losses(outs[0])
+            wire = pipe.wire_spec
+            if mode != "graph":
+                raise AssertionError(f"the pipe's steps ran as {mode!r}")
+            if launches != len(buckets) * steps:
+                raise AssertionError(
+                    f"momentum kernel launched {launches} times on the "
+                    f"input path, expected {len(buckets)} x {steps} steps")
+            if not np.all(np.isfinite(lv)):
+                raise AssertionError(f"non-finite input-path loss {lv}")
+            _check_master_state(scope)
+            # one replay of the same captured step, traced
+            rs = np.random.RandomState(SEED + 1)
+            one = {"data_u8": torch.from_numpy(rs.randint(
+                       0, 256, (HEADLINE_BATCH, 224, 224, 3),
+                       dtype=np.uint8)).cuda(),
+                   "label": torch.from_numpy(rs.randint(
+                       0, 1000, (HEADLINE_BATCH, 1)).astype(
+                           np.int32)).cuda(),
+                   WIRE_KEY: wire}
+            wall, busy, idle, rows, _ = trace_step(exe, main, one, [loss])
+            if len(exe.captured_steps(main, scope)) != 1:
+                raise AssertionError("the traced step was captured anew")
+    finally:
+        pipe.close()
+    img_s = HEADLINE_BATCH * HEADLINE_K * INPUT_CALLS / dt
+    timed = _stage_sums(deltas[INPUT_WARM:])
+    tr = timed.get("transfer", {})
+    # the lanes' busy time is their copies' time on the card
+    lanes = [row for stage, row in timed.items() if stage.startswith("link")]
+    card_s = sum(row["busy_s"] for row in lanes)
+    link_gb_s = sum(row["bytes"] for row in lanes) / card_s / 1e9 \
+        if card_s else 0.0
+    host_gb_s = tr["bytes"] / tr["busy_s"] / 1e9 if tr.get("busy_s") else 0
+    result.update(
+        images_per_sec=img_s, ratio_to_headline=img_s / headline_img_s,
+        step_ms=dt / (HEADLINE_K * INPUT_CALLS) * 1e3,
+        feed_wait_ms=waits, peak_mem_gib=peak, momentum_launches=launches,
+        steps=steps, passes=passes, wire=wire.describe() if wire else None,
+        stages=timed, link_gb_per_s=link_gb_s,
+        transfer_host_gb_per_s=host_gb_s, link_busy_share=card_s / dt,
+        trace_wall_ms=wall, trace_busy_ms=busy, idle_share=idle,
+        momentum_rows=rows, last_losses=[float(v) for v in lv[-3:]])
+    log(f"[input] {INPUT_CALLS} calls of iters={HEADLINE_K} fed by the "
+        f"pipe in {dt:.3f} s after {INPUT_WARM} warm: {img_s:.2f} img/s "
+        f"({result['step_ms']:.2f} ms a step), "
+        f"{img_s / headline_img_s:.4f} of the headline's {headline_img_s:.2f}"
+        f"; step_mode {mode}; wire {result['wire']}")
+    log(f"[input] feed_wait ms a call (warm first): "
+        f"{[round(w, 3) for w in waits]}")
+    for stage, row in timed.items():
+        gb = row["bytes"] / row["busy_s"] / 1e9 if row["busy_s"] else 0.0
+        log(f"[input] stage {stage:9s} over the timed calls: items "
+            f"{row['items']}, busy {row['busy_s']:.3f} s, wait in "
+            f"{row['wait_in_s']:.3f} s, wait out (starved) "
+            f"{row['wait_out_s']:.3f} s, backpressure "
+            f"{row['bp_wait_s']:.3f} s, {row['bytes'] / 1e9:.3f} GB"
+            + (f" at {gb:.2f} GB/s busy" if row["bytes"] else ""))
+    log(f"[input] link: {tr.get('bytes', 0) / 1e9:.3f} GB copied from "
+        f"pinned buffers at {link_gb_s:.2f} GB/s of the copies' card time "
+        f"(the lanes' host time: {host_gb_s:.2f} GB/s), busy "
+        f"{result['link_busy_share']:.4f} of the timed wall time; one "
+        f"replay traced on the card only: wall {wall:.2f} ms, device busy "
+        f"{busy:.2f} ms, idle share {idle:.3f}; peak mem {peak:.2f} GiB; "
+        f"momentum_bucket launches {launches} ({len(buckets)} buckets x "
+        f"{steps} steps); last losses {result['last_losses']}")
+
+
+def _input_link(result):
+    """The host-to-card copy rate of one chunk's bytes on an idle card,
+    from pinned and from pageable memory (CUDA events, best of
+    INPUT_LINK_REPS): what the feeder's copies are held against."""
+    nbytes = HEADLINE_K * HEADLINE_BATCH * 224 * 224 * 3
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    rates = {}
+    for kind in ("pinned", "pageable"):
+        src = torch.empty(nbytes, dtype=torch.uint8,
+                          pin_memory=kind == "pinned")
+        src.fill_(1)
+        best = None
+        for _ in range(INPUT_LINK_REPS):
+            t0, t1 = torch.cuda.Event(True), torch.cuda.Event(True)
+            t0.record()
+            dst.copy_(src, non_blocking=kind == "pinned")
+            t1.record()
+            t1.synchronize()
+            ms = t0.elapsed_time(t1)
+            best = ms if best is None else min(best, ms)
+        rates[kind] = nbytes / best / 1e6
+        del src
+    del dst
+    result["link_probe_gb_per_s"] = rates
+    log(f"[input] link probe, one chunk ({nbytes / 1e6:.1f} MB) to the idle "
+        f"card, best of {INPUT_LINK_REPS}: pinned {rates['pinned']:.2f} "
+        f"GB/s, pageable {rates['pageable']:.2f} GB/s")
+
+
+def _input_shm_route(path, place, result):
+    """(f) The fused route: the decode processes write straight into the
+    shared-memory ring (map(processes=True) right before
+    prefetch_to_device, chunks of HEADLINE_BATCH images), the feeder stacks
+    each slot into its pinned buffer (one host copy; the slot is free
+    again) and copies that to the card: one pass of the file, drained
+    without training. Stack and copy GB/s from the pipe's stats."""
+    import paddle_tpu_torch as fluid
+
+    pipe = (fluid.DataPipe.from_recordio(path, parse_fn=parse_input_record)
+            .map(random_crop_flip_224, num_workers=INPUT_WORKERS,
+                 processes=True)
+            .prefetch_to_device(place, chunk=HEADLINE_BATCH))
+    n = 0
+    t0 = time.perf_counter()
+    try:
+        for chunk in pipe:
+            if tuple(chunk["data_u8"].shape) != (HEADLINE_BATCH, 224, 224, 3):
+                raise AssertionError(f"fused chunk {chunk['data_u8'].shape}")
+            chunk["__donate__"].release()
+            n += 1
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        st = pipe.stats()
+    finally:
+        pipe.close()
+    stack, tr = st["stack"], st["transfer"]
+    lanes = [d for k, d in st.items() if k.startswith("link")
+             and isinstance(d, dict)]
+    link = {"bytes": sum(d["bytes"] for d in lanes),
+            "busy_s": sum(d["busy_s"] for d in lanes)}
+    rate = {k: d["bytes"] / d["busy_s"] / 1e9 if d["busy_s"] else 0.0
+            for k, d in (("stack", stack), ("transfer", tr), ("link", link))}
+    result["shm_route"] = {"chunks": n, "images_per_sec":
+                           n * HEADLINE_BATCH / dt,
+                           "stack_gb_per_s": rate["stack"],
+                           "transfer_gb_per_s": rate["transfer"],
+                           "link_gb_per_s": rate["link"],
+                           "bottleneck_stage": st.get("bottleneck_stage")}
+    log(f"[input] shm route (map(processes=True) fused with "
+        f"prefetch_to_device(chunk={HEADLINE_BATCH})): {n} chunks in "
+        f"{dt:.2f} s, {n * HEADLINE_BATCH / dt:.1f} img/s drained; slot -> "
+        f"pinned stack {stack['bytes'] / 1e9:.3f} GB at "
+        f"{rate['stack']:.2f} GB/s busy, pinned -> card "
+        f"{tr['bytes'] / 1e9:.3f} GB at {rate['link']:.2f} GB/s of card time "
+        f"({rate['transfer']:.2f} GB/s of the lanes' host time); "
+        f"bottleneck stage {st.get('bottleneck_stage')}")
+    if n != INPUT_IMAGES // HEADLINE_BATCH:
+        raise AssertionError(f"the fused route staged {n} chunks")
+
+
+def _input_bitwise(main, loss, init, path, place, result):
+    """(b) The first chunk through the pipe and the same images stacked in
+    numpy, fed as the headline phase feeds them, from one state (cuDNN
+    deterministic): the losses and every persistable bitwise equal."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.core.framework import Parameter
+
+    ref = _input_chunk_numpy(path, HEADLINE_K, HEADLINE_BATCH)
+    runs = {}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for how in ("pipe", "numpy"):
+            scope = fluid.Scope()
+            convert.load_numpy_state(scope, main, init, place)
+            exe = fluid.Executor()
+            with fluid.scope_guard(scope):
+                if how == "pipe":
+                    passes = -(-HEADLINE_K * HEADLINE_BATCH // INPUT_IMAGES)
+                    pipe = _input_pipe(path, passes, place)
+                    try:
+                        lv = exe.run(main, feed=pipe, fetch_list=[loss])[0]
+                    finally:
+                        pipe.close()
+                else:
+                    feeds = {n: torch.from_numpy(a).cuda()
+                             for n, a in ref.items()}
+                    lv = exe.run(main, feed=feeds, fetch_list=[loss],
+                                 iters=HEADLINE_K)[0]
+                    del feeds
+                runs[how] = (lv.reshape(-1), convert.numpy_state(scope, main))
+            del exe, scope
+            _release()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    (pl, ps), (nl, ns) = runs["pipe"], runs["numpy"]
+    params = [n for n, v in main.global_block().vars.items()
+              if isinstance(v, Parameter) and v.trainable]
+    differ = sorted(n for n in ns if not np.array_equal(ps[n], ns[n]))
+    equal = np.array_equal(pl, nl) and not differ
+    result["bitwise"] = {"equal": bool(equal), "steps": HEADLINE_K,
+                         "params": len(params), "persistables": len(ns),
+                         "losses": [float(v) for v in pl[-3:]]}
+    log(f"[input] pipe vs numpy stack, the first {HEADLINE_K}-step chunk at "
+        f"batch {HEADLINE_BATCH} from one state (cuDNN deterministic): "
+        f"losses {'bitwise equal' if np.array_equal(pl, nl) else 'DIFFER'} "
+        f"(last {pl[-3:].tolist()} / {nl[-3:].tolist()}); {len(params)} "
+        f"trainable params and {len(ns) - len(params)} other persistables "
+        f"(momenta, batch-norm statistics): {len(differ)} differ "
+        f"{differ[:5]}")
+    if not equal:
+        raise AssertionError("the pipe's chunk and the numpy stack trained "
+                             "to different states")
+
+
+def _input_wire(place, result):
+    """(c) resnet.get_model at flowers (float32 "data" [3, 224, 224]):
+    INPUT_WIRE_STEPS steps at batch INPUT_WIRE_BATCH fed by a pipe that
+    ships uint8 pixels under WireSpec.uint8_images("data", scale=1/255),
+    decoded in the captured step, against the host-normalised float32 feed
+    (the same cast, then the same f32 product): losses bitwise equal; the
+    link's bytes against the float32 feed's."""
+    import random
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import datapipe, flags
+    from paddle_tpu_torch.models import resnet
+
+    class Args:
+        batch_size, data_set = INPUT_WIRE_BATCH, "flowers"
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        loss, _, opt, train_reader, _, _ = resnet.get_model(Args())
+        opt.minimize(loss)
+    main.random_seed = startup.random_seed = SEED
+    random.seed(SEED)
+    samples = []
+    for batch in train_reader():
+        samples += batch
+        if len(samples) >= INPUT_WIRE_STEPS * INPUT_WIRE_BATCH:
+            break
+    samples = samples[:INPUT_WIRE_STEPS * INPUT_WIRE_BATCH]
+    u8 = np.stack([np.rint(np.asarray(img) * 255).astype(np.uint8).reshape(
+        3, 224, 224) for img, _ in samples])
+    lab = np.array([[lbl] for _, lbl in samples], np.int64)
+
+    def gen():
+        for x, y in zip(u8, lab):
+            yield {"data": x, "label": y}
+
+    scale = 1.0 / 255.0
+    f32 = u8.astype(np.float32) * np.float32(scale)
+    shape = (INPUT_WIRE_STEPS, INPUT_WIRE_BATCH)
+    runs = {}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with flags.flag_guard(fuse=True):
+            for how in ("wire", "float32"):
+                scope = fluid.Scope()
+                exe = fluid.Executor()
+                with fluid.scope_guard(scope):
+                    exe.run(startup)
+                    if how == "wire":
+                        pipe = (fluid.DataPipe.from_reader(gen)
+                                .batch(INPUT_WIRE_BATCH)
+                                .prefetch_to_device(
+                                    place, chunk=INPUT_WIRE_STEPS,
+                                    wire=datapipe.WireSpec.uint8_images(
+                                        "data", scale=scale)))
+                        try:
+                            lv = exe.run(main, feed=pipe,
+                                         fetch_list=[loss])[0]
+                            link = pipe.stats()["transfer"]["bytes"]
+                        finally:
+                            pipe.close()
+                    else:
+                        feeds = {"data": torch.from_numpy(f32.reshape(
+                                     shape + f32.shape[1:])).cuda(),
+                                 "label": torch.from_numpy(lab.reshape(
+                                     shape + (1,))).cuda()}
+                        lv = exe.run(main, feed=feeds, fetch_list=[loss],
+                                     iters=INPUT_WIRE_STEPS)[0]
+                        link = f32.nbytes + lab.nbytes
+                    if exe.step_mode(main) != "graph":
+                        raise AssertionError(
+                            f"the {how} feed ran as {exe.step_mode(main)}")
+                runs[how] = (lv.reshape(-1), link)
+                del exe, scope
+                _release()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    (wl, wb), (fl, fb) = runs["wire"], runs["float32"]
+    equal = np.array_equal(wl, fl)
+    result["wire"] = {"equal": bool(equal), "losses": wl.tolist(),
+                      "link_bytes": int(wb), "float32_bytes": int(fb),
+                      "link_ratio": wb / fb}
+    log(f"[input] wire: resnet.get_model(flowers) fp32, {INPUT_WIRE_STEPS} "
+        f"steps at batch {INPUT_WIRE_BATCH}, uint8 on the link decoded "
+        f"(cast, x {scale:.8g}) in the captured step: losses {wl.tolist()} "
+        f"against the host-normalised float32 feed's {fl.tolist()}: "
+        f"{'bitwise equal' if equal else 'DIFFER'}; link bytes {wb} vs "
+        f"{fb} for float32 ({wb / fb:.4f})")
+    if not equal:
+        raise AssertionError("the wire-decoded losses differ from the host-"
+                             "normalised reference's")
+
+
+def _input_readers(workdir, result):
+    """(d) The MNIST conv net fed by open_recordio_file -> batch ->
+    double_buffer -> read_file: INPUT_READER_STEPS steps on the card (the
+    interpreter: reader ops are host ops; the double buffer stages each
+    batch from pinned memory on its stream) and on the host from one
+    state, losses within INPUT_READER_RTOL (TF32 off)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert, recordio
+    from paddle_tpu_torch.models import mnist
+
+    path = os.path.join(workdir, "mnist.recordio")
+    n = INPUT_READER_STEPS * INPUT_READER_BATCH
+
+    def samples():
+        for i, (img, lbl) in enumerate(fluid.dataset.mnist.train()()):
+            if i == n:
+                return
+            yield [(np.asarray(img, np.float32).reshape(1, 28, 28), None),
+                   (np.array([lbl], np.int64), None)]
+
+    recordio.convert_reader_to_recordio_file(path, samples)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        reader = fluid.layers.open_recordio_file(
+            path, shapes=[[-1, 1, 28, 28], [-1, 1]], lod_levels=[0, 0],
+            dtypes=["float32", "int64"])
+        reader = fluid.layers.batch(reader, batch_size=INPUT_READER_BATCH)
+        reader = fluid.layers.double_buffer(reader)
+        img, label = fluid.layers.read_file(reader)
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(
+            input=mnist.cnn_model(img), label=label))
+        fluid.optimizer.AdamOptimizer(learning_rate=0.001, beta1=0.9,
+                                      beta2=0.999).minimize(loss)
+    main.random_seed = startup.random_seed = SEED
+    losses, init = {}, None
+    for name, place in (("host", fluid.CPUPlace()),
+                        ("card", fluid.CUDAPlace(0))):
+        scope = fluid.Scope()
+        exe = fluid.Executor(place)
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            if init is None:
+                init = convert.numpy_state(scope, main)
+            else:
+                convert.load_numpy_state(scope, main, init, place)
+            t0 = time.perf_counter()
+            out = []
+            for _ in range(INPUT_READER_STEPS):
+                out.append(float(exe.run(main, fetch_list=[loss])[0].item()))
+            dt = time.perf_counter() - t0
+            try:
+                exe.run(main, fetch_list=[loss])
+                raise AssertionError("the reader did not end after "
+                                     f"{INPUT_READER_STEPS} batches")
+            except StopIteration:
+                pass
+            if exe.step_mode(main) != "interpreter":
+                raise AssertionError(f"reader program ran as "
+                                     f"{exe.step_mode(main)}")
+        losses[name] = (np.array(out), dt)
+        del exe, scope
+    (hl, hdt), (cl, cdt) = losses["host"], losses["card"]
+    rel = float(np.max(np.abs(cl - hl) / np.abs(hl)))
+    result["readers"] = {"steps": INPUT_READER_STEPS,
+                         "card_losses": cl.tolist(), "max_rel": rel,
+                         "card_step_ms": cdt / INPUT_READER_STEPS * 1e3,
+                         "host_step_ms": hdt / INPUT_READER_STEPS * 1e3}
+    log(f"[input] readers: MNIST conv net from open_recordio_file -> batch "
+        f"({INPUT_READER_BATCH}) -> double_buffer -> read_file, "
+        f"{INPUT_READER_STEPS} steps on the interpreter: card losses "
+        f"{cl[[0, -1]].tolist()} against the host's {hl[[0, -1]].tolist()}, "
+        f"largest relative difference {rel:.3g} (limit {INPUT_READER_RTOL}); "
+        f"{result['readers']['card_step_ms']:.2f} ms a card step, "
+        f"{result['readers']['host_step_ms']:.2f} on the host")
+    if not rel <= INPUT_READER_RTOL:
+        raise AssertionError(f"reader program: card and host losses differ "
+                             f"by {rel}")
+
+
+def _input_models(result):
+    """(e) Each get_model's train reader yields one batch (of
+    INPUT_MODEL_BATCH), a DataFeeder turns it into a feed, and one card
+    step takes it: the loss is finite."""
+    import random
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import models
+
+    class Args:
+        batch_size, data_set = INPUT_MODEL_BATCH, "flowers"
+        max_seq_len, learning_rate = LSTM_MAX_LEN, 2e-4
+
+    out = {}
+    for name in ("resnet", "se_resnext", "vgg", "mnist",
+                 "stacked_dynamic_lstm", "machine_translation"):
+        t0 = time.perf_counter()
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            loss, _, opt, train_reader, _, _ = getattr(
+                models, name).get_model(Args())
+            opt.minimize(loss)
+        main.random_seed = startup.random_seed = SEED
+        random.seed(SEED)
+        batch = next(train_reader())
+        slots = [v for v in main.global_block().vars.values() if v.is_data]
+        feeder = fluid.DataFeeder(feed_list=slots, place=fluid.CUDAPlace(0),
+                                  program=main)
+        feed = feeder.feed(batch)
+        exe = fluid.Executor()
+        with fluid.scope_guard(fluid.Scope()):
+            exe.run(startup)
+            lv = float(np.asarray(exe.run(main, feed=feed,
+                                          fetch_list=[loss])[0]).ravel()[0])
+        del exe
+        out[name] = lv
+        log(f"[input] get_model {name}: one train batch of {len(batch)} "
+            f"through DataFeeder ({', '.join(s.name for s in slots)}) and "
+            f"one card step: loss {lv:.6f} "
+            f"({time.perf_counter() - t0:.2f} s)")
+        if not np.isfinite(lv):
+            raise AssertionError(f"get_model {name}: non-finite loss {lv}")
+        _release()
+    result["get_model_losses"] = out
+
+
+def phase_input(card_line, headline_img_s):
+    """The input path: the headline's program (bf16 AMP, fused Momentum,
+    batch 128) trained from a RecordIO file through DataPipe's worker
+    processes, pinned staging and the captured step ((a), (b)); a wire
+    decode inside the captured step (c); the reader ops (d); get_model's
+    readers through a DataFeeder (e). Its file is made in a temporary
+    directory, removed after."""
+    import tempfile
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, convert, flags
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_input_")
+    place = fluid.CUDAPlace(0)
+    result = {"workers": INPUT_WORKERS, "images": INPUT_IMAGES,
+              "batch": HEADLINE_BATCH, "iters": HEADLINE_K,
+              "warm_calls": INPUT_WARM, "timed_calls": INPUT_CALLS}
+    try:
+        path = os.path.join(workdir, "train.recordio")
+        t0 = time.perf_counter()
+        size = _write_input_file(path)
+        result["file_bytes"] = size
+        log(f"[input] {card_line}: {INPUT_IMAGES} seeded {INPUT_SIDE}x"
+            f"{INPUT_SIDE}x3 uint8 images written by recordio.Writer "
+            f"(compressor none, native library built at first use) in "
+            f"{time.perf_counter() - t0:.2f} s: {size / 1e6:.1f} MB; "
+            f"{INPUT_WORKERS} decode worker processes")
+        main, startup, loss, buckets = build_headline()
+        amp.enable("bfloat16")
+        try:
+            with flags.flag_guard(fuse=True):
+                init_scope = fluid.Scope()
+                with fluid.scope_guard(init_scope):
+                    fluid.Executor(place).run(startup)
+                init = convert.numpy_state(init_scope, main)
+                del init_scope
+                _input_speed(main, loss, buckets, init, path, place,
+                             headline_img_s, result)
+                _release()
+                _input_bitwise(main, loss, init, path, place, result)
+                _release()
+        finally:
+            amp.disable()
+        _input_link(result)
+        _input_shm_route(path, place, result)
+        _release()
+        _input_wire(place, result)
+        _release()
+        _input_readers(workdir, result)
+        _release()
+        _input_models(result)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"[input] phase seconds {result['seconds']:.1f}")
     return result
 
 
@@ -4368,6 +5043,42 @@ def main_loss_ops():
     log(_device_line())
 
 
+def main_input():
+    """`python3 chip_smoke.py --only input`: the device check, the build
+    and phase input alone, its speed against the headline's numpy feed
+    timed here the same way (1 warm + INPUT_CALLS calls)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, flags
+
+    card_line = phase_device()
+    phase_build()
+    main, startup, loss, _ = build_headline()
+    rs = np.random.RandomState(SEED)
+    feeds = {"data_u8": torch.from_numpy(rs.randint(
+                 0, 256, (HEADLINE_K, HEADLINE_BATCH, 224, 224, 3),
+                 dtype=np.uint8)).cuda(),
+             "label": torch.from_numpy(rs.randint(
+                 0, 1000, (HEADLINE_K, HEADLINE_BATCH, 1)).astype(
+                     np.int32)).cuda()}
+    amp.enable("bfloat16")
+    try:
+        with flags.flag_guard(fuse=True), fluid.scope_guard(fluid.Scope()):
+            exe = fluid.Executor()
+            exe.run(startup)
+            dt, _ = _timed_calls(exe, main, feeds, [loss], HEADLINE_K,
+                                 INPUT_WARM, INPUT_CALLS)
+    finally:
+        amp.disable()
+    img_s = HEADLINE_BATCH * HEADLINE_K * INPUT_CALLS / dt
+    log(f"[input] the headline's numpy feed: {img_s:.2f} img/s")
+    del feeds, exe
+    _release()
+    result = phase_input(card_line, img_s)
+    log(card_line)
+    log(json.dumps({"input": result}))
+    log(_device_line())
+
+
 def main():
     card_line = phase_device()
     card = torch.cuda.get_device_name(0)
@@ -4443,6 +5154,9 @@ def main():
     parallel = phase_parallel(card, headline["images_per_sec"])
     paths["parallel_executor"] = parallel["momentum_launches"]
     _release()
+    fed = phase_input(card_line, headline["images_per_sec"])
+    paths["input"] = fed["momentum_launches"]
+    _release()
     se = phase_image(images["se_resnext50"], card)
     paths["se_resnext50"] = se["launches"]
     momentum["launches"], momentum["launches_by_path"] = (
@@ -4473,7 +5187,7 @@ def main():
     rows += phase_flash(sass)
     log(card_line)
     log(json.dumps({"headline": headline, "monitor": monitored,
-                    "parallel": parallel,
+                    "parallel": parallel, "input": fed,
                     "se_resnext50": se, "vgg16": vgg, **seq,
                     "serve": served, "tail_ops": tail, "loss_ops": losses}))
     log(json.dumps({"kernels": rows}))
@@ -4483,5 +5197,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--only", "loss_ops"]:
         main_loss_ops()
+    elif sys.argv[1:] == ["--only", "input"]:
+        main_input()
     else:
         main()

@@ -12,7 +12,11 @@ fused optimizer-bucket updates and the flash-attention forward
 (fusion/kernels.py, parallel/flash.py, csrc/). A trained program is
 saved and loaded with `io` (the JAX package's directory format), folded
 for inference by `InferenceTranspiler`, run by `Inferencer`, and served by
-`serve.Server` from one captured CUDA graph per batch bucket. Every run
+`serve.Server` from one captured CUDA graph per batch bucket. Input comes
+from RecordIO files (`recordio`), readers (`reader`, `dataset`, `batch`,
+`DataFeeder`, the reader layers) or a `DataPipe` (`datapipe`: sharded
+sources, thread or process decode, batching, and pinned staging onto the
+card on a side stream), which Executor.run takes as its feed. Every run
 reports to the step monitor (`monitor`: phases, the step journal, MFU),
 and, when asked, to the model-health ledger (`health`), the NaN/Inf
 check, FLAGS_benchmark and a profiler session (`profiler`); `python -m
@@ -80,5 +84,14 @@ from . import inferencer
 from .inferencer import Inferencer
 from . import amp
 from . import serve
+from . import recordio
+from .data_feeder import DataFeeder
+from . import reader
+from . import dataset
+from . import datapipe
+from .datapipe import DataPipe, AsyncDeviceFeeder
+from . import pipeline
+from .pipeline import DeviceChunkFeeder
+from .minibatch import batch
 
 __version__ = "0.1.0"

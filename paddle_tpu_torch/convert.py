@@ -16,13 +16,16 @@ import numpy as np
 import torch
 
 from .core import dtypes
+from .core.framework import VarType
 from .core.places import device_for
 from .parallel import zero1
 
 
 def _persistable_vars(program):
+    """The persistable vars of `program` that hold tensors: not its reader
+    vars, whose readers are host objects (ops/reader_ops.py)."""
     return {n: v for b in program.blocks for n, v in b.vars.items()
-            if v.persistable}
+            if v.persistable and v.type != VarType.READER}
 
 
 def load_numpy_state(scope, program, arrays, place):

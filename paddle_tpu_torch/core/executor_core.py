@@ -30,14 +30,21 @@ from .. import cuda_build, flags, profiler
 from . import registry
 from .places import device_for
 
+# The reader ops (ops/reader_ops.py): readers are host objects held in the
+# scope, and `read` pops the next batch on the host.
+READER_OPS = frozenset({
+    "create_recordio_file_reader", "open_files",
+    "create_random_data_generator", "create_shuffle_reader",
+    "create_batch_reader", "create_double_buffer_reader",
+    "create_datapipe_reader", "create_multi_pass_reader", "read"})
 # Op types whose kernels run on the host, which a graph cannot hold (the
 # JAX package's `no_trace` ops, paddle_tpu/executor.py:121-127): the file
-# IO ops (ops/io_ops.py), which also have side effects, so dead-code
-# elimination keeps them. Random ops are not among them: they draw from a
-# RandomStream, whose generator the captured graph advances at every
-# replay.
+# IO ops (ops/io_ops.py) and the reader ops, which also have side effects,
+# so dead-code elimination keeps them. Random ops are not among them: they
+# draw from a RandomStream, whose generator the captured graph advances at
+# every replay.
 HOST_OPS = frozenset({"save", "load", "save_combine", "load_combine",
-                      "delete_var"})
+                      "delete_var"}) | READER_OPS
 # Op types that read device values on the host (ops/metric_ops.py's
 # chunk_eval, the JAX package's no_trace metric): no side effects, so
 # dead-code elimination may drop them, but a graph cannot hold them. A
@@ -358,7 +365,8 @@ def copy_aliased_fetches(env, fetch_names, written):
     with, as in the JAX package. The write may be in place (the fused adam
     update) or the captured step's write-back into the scope's tensors at
     the end of the step; either would change the fetch."""
-    held = {_storage(registry.seq_data(env[n])) for n in written if n in env}
+    held = {_storage(registry.seq_data(env[n])) for n in written
+            if n in env and _is_tensor(env[n])}
     for n in fetch_names:
         v = env.get(n)
         if isinstance(registry.seq_data(v), torch.Tensor) \
@@ -368,6 +376,11 @@ def copy_aliased_fetches(env, fetch_names, written):
 
 def _storage(t):
     return t.untyped_storage().data_ptr()
+
+
+def _is_tensor(v):
+    """A tensor or SeqTensor (not a host object such as a reader)."""
+    return isinstance(registry.seq_data(v), torch.Tensor)
 
 
 def clone_value(v):
@@ -384,7 +397,7 @@ def unshared(fetches, state):
     writes those tensors again at the next step, so a fetch of one, or of
     a view of one taken after its update, would change under the caller
     (a view taken before it is copied earlier: copy_aliased_fetches)."""
-    held = {_storage(registry.seq_data(t)) for t in state}
+    held = {_storage(registry.seq_data(t)) for t in state if _is_tensor(t)}
     return [clone_value(f)
             if isinstance(registry.seq_data(f), torch.Tensor)
             and _storage(registry.seq_data(f)) in held else f

@@ -62,3 +62,21 @@ def device_for(place):
     if isinstance(place, CPUPlace):
         return torch.device("cpu")
     raise TypeError(f"not a Place: {place!r}")
+
+
+def place_to_str(place):
+    """Serialize a Place for op attrs ('cpu', 'cuda:0')."""
+    if isinstance(place, CUDAPlace):
+        return f"cuda:{place.device_id}"
+    return "cpu"
+
+
+def place_from_str(s):
+    """The Place of `place_to_str`'s string (the JAX package's 'tpu:0'
+    names the card too)."""
+    if s == "cpu" or not s:
+        return CPUPlace()
+    kind, _, idx = s.partition(":")
+    if kind not in ("tpu", "cuda", "gpu"):
+        raise ValueError(f"unknown place string {s!r}")
+    return CUDAPlace(int(idx or 0))

@@ -26,6 +26,19 @@ every run, as the JAX package runs such programs eagerly, uncached.
 `compile_cache_info()` counts the prepared steps and captured graphs in
 the JAX package's payload, which the serving engine reads.
 
+`feed` may be a datapipe.DataPipe (anything with next_feed()), as in the
+JAX package (paddle_tpu/executor.py:357-370): the run pulls the pipe's
+next staged chunk under the monitor's `feed_wait` phase, `iters` defaults
+to the pipe's chunk size, and the chunk's transfer-engine markers
+(datapipe.pop_markers) are honoured. A feed under a WireSpec keeps its
+wire dtype (uint8 pixels) up to the step, which decodes it first
+(WireSpec.wrap_step), inside the captured graph on the card; the spec's
+fingerprint keys the prepared step and its graph. A program with a host
+op decodes at feed time instead. The chunk's stream waits for its copy
+(ChunkLease.wait), and after the run the chunk goes back to the feeder's
+ring (ChunkLease.release, an event on the run's stream past the last fill
+that read it).
+
 The run-time instruments hook in as in the JAX package
 (paddle_tpu/executor.py): one monitor.enabled() check a run, a StepRecord
 with the phases feed_encode, compile (the prepare, the first eager step
@@ -54,6 +67,7 @@ from .core.lod_tensor import LoDTensor
 from .core.places import CUDAPlace, device_for
 from .core.registry import SeqTensor
 from .core.scope import global_scope
+from .datapipe.transfer import pop_markers
 from .trace import costs as _trace_costs
 
 __all__ = ["Executor", "as_numpy"]
@@ -104,6 +118,18 @@ def _host_lengths(seq):
             return None
         lengths = lengths.numpy()
     return np.asarray(lengths, np.int32)
+
+
+def _has_host_ops(program):
+    """Whether an op of `program` is a host op (executor_core.HOST_OPS):
+    the program runs on the interpreter, unprepared."""
+    return any(op.type in executor_core.HOST_OPS
+               for b in program.blocks for op in b.ops)
+
+
+def _has_reader_ops(program):
+    return any(op.type in executor_core.READER_OPS
+               for b in program.blocks for op in b.ops)
 
 
 class _Graph:
@@ -177,8 +203,11 @@ class Executor:
         """Run the program once — or, with `iters=K`, K steps. For iters,
         `feed` is either a list of K per-step feed dicts or one dict whose
         arrays carry a leading [K] axis; fetches come back stacked with a
-        leading [K] axis. `feed_var_name`, `fetch_var_name` and
-        `use_program_cache` are accepted for API parity."""
+        leading [K] axis. `feed` may also be a DataPipe, whose next chunk
+        the run pulls (iters defaults to its chunk size; its StopIteration
+        propagates when it is exhausted). `feed_var_name`,
+        `fetch_var_name` and `use_program_cache` are accepted for API
+        parity."""
         if program is None:
             program = default_main_program()
         if scope is None:
@@ -186,9 +215,33 @@ class Executor:
         # the ONE per-step monitor flag check; mon stays None when off and
         # every telemetry site below is gated on `mon is not None`
         mon = monitor.step_begin("executor") if monitor.enabled() else None
+        pipe = feed if hasattr(feed, "next_feed") else None
+        if pipe is not None:  # datapipe.DataPipe (duck-typed)
+            if iters is None:
+                iters = getattr(pipe, "feed_iters", None)
+            if mon is not None:
+                with mon.timed("feed_wait"):
+                    feed = pipe.next_feed()
+            else:
+                feed = pipe.next_feed()
+        feed, wire, lease = pop_markers(feed)
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in (fetch_list or [])]
-        outs, done = self._run(program, scope, feed, fetch_names, iters, mon)
+        stream = torch.cuda.current_stream(self.device) \
+            if self.device.type == "cuda" else None
+        if lease is not None:
+            lease.wait(stream)
+        try:
+            outs, done = self._run(program, scope, feed, fetch_names, iters,
+                                   mon, wire=wire)
+            if lease is not None:
+                # a fetch that is (a view of) the chunk must outlive it
+                outs = executor_core.unshared(
+                    outs, [t for t in feed.values()
+                           if isinstance(t, torch.Tensor)])
+        finally:
+            if lease is not None:
+                lease.release(stream)
         if flags.get("benchmark"):
             self._benchmark(done, len(outs))
         if flags.get("check_nan_inf") and done.mode == "graph":
@@ -207,29 +260,41 @@ class Executor:
             else:
                 outs = as_numpy(outs)
         if mon is not None:
-            monitor.step_end(mon, iters=done.iters)
+            monitor.step_end(mon, iters=done.iters, datapipe=pipe)
         return outs
 
     def _run(self, program, scope, feed, fetch_names, iters, mon,
-             kind="executor"):
+             kind="executor", wire=None):
         """One run of `program` (K steps with `iters`): (fetch tensors,
         its _Run). The monitor's phases land on `mon` (None: off); health
-        records carry `kind`."""
+        records carry `kind`. Feeds that `wire` (a datapipe WireSpec)
+        covers are decoded in the step, or at feed time in a program
+        with a host op."""
         feed = feed if feed is not None else {}
         if isinstance(feed, (list, tuple)) and iters is None:
             iters = len(feed)
+        # walked only where it decides something: a wire, or iters
+        host = (wire is not None or iters is not None) \
+            and _has_host_ops(program)
+        if iters is not None and host and _has_reader_ops(program):
+            raise ValueError(
+                "iters requires a program without reader ops (a reader's "
+                "read op runs step by step on the host)")
+        eager_wire, wire = (wire, None) if host else (None, wire)
         t_enc = time.perf_counter()
         if iters is None:
-            feeds = first = self._feed_values(program, feed)
+            feeds = first = self._feed_values(program, feed, wire,
+                                              eager_wire)
         else:
-            stacked = self._stack_steps(program, feed, iters)
+            stacked = self._stack_steps(program, feed, iters, wire,
+                                        eager_wire)
             first = {n: executor_core.step_slice(t, 0)
                      for n, t in stacked.items()}
         if mon is not None:
             mon.phase("feed_encode", time.perf_counter() - t_enc)
         tp = time.perf_counter()
         done = self._stepper(program, scope, first, fetch_names, iters,
-                             mon)
+                             mon, wire)
         prepare_s = time.perf_counter() - tp
         done.iters = iters
         done.t_dispatch = tc = time.perf_counter()
@@ -343,11 +408,25 @@ class Executor:
             return value.to(self.device)
         return torch.from_numpy(np.ascontiguousarray(value)).to(self.device)
 
-    def _feed_values(self, program, feed):
+    def _feed_values(self, program, feed, wire=None, eager_wire=None):
+        """Feed values on the device. A dense feed that `wire` covers keeps
+        its wire dtype (the step decodes it); one that `eager_wire` covers
+        is decoded here."""
         gb = program.global_block()
-        return {n: self._to_device(v, gb.vars.get(n)) for n, v in feed.items()}
+        vals = {}
+        for n, v in feed.items():
+            var = gb.vars.get(n)
+            dense = not isinstance(v, (SeqTensor, LoDTensor))
+            if dense and wire is not None and n in wire:
+                vals[n] = self._tensor(v)
+                continue
+            if dense and eager_wire is not None and n in eager_wire:
+                v = eager_wire[n].decode(
+                    self._tensor(v), var.dtype if var is not None else None)
+            vals[n] = self._to_device(v, var)
+        return vals
 
-    def _stack_steps(self, program, feed, iters):
+    def _stack_steps(self, program, feed, iters, wire=None, eager_wire=None):
         """list of K dicts, or one dict of [K, ...] arrays -> one dict of
         [K, ...] device tensors (a stacked feed moves to the device once).
         Ragged feeds ride too: the K steps' SeqTensors (from
@@ -360,7 +439,8 @@ class Executor:
             if len(feed) != iters:
                 raise ValueError(
                     f"iters={iters} but feed has {len(feed)} step dicts")
-            steps = [self._feed_values(program, f) for f in feed]
+            steps = [self._feed_values(program, f, wire, eager_wire)
+                     for f in feed]
             return {n: self._stack(n, [s[n] for s in steps], iters)
                     for n in steps[0]}
         for n, v in feed.items():
@@ -370,7 +450,7 @@ class Executor:
                     f"(bucketed to one shape, see "
                     f"fluid.create_bucketed_seq_tensor); a single "
                     f"pre-stacked LoDTensor ({n!r}) is not supported")
-        stacked = self._feed_values(program, feed)
+        stacked = self._feed_values(program, feed, wire, eager_wire)
         for n, t in stacked.items():
             if isinstance(t, SeqTensor):
                 if t.data.shape[:1] != (iters,) \
@@ -406,13 +486,14 @@ class Executor:
             torch.stack([v.lengths for v in vals]),
             None if any(h is None for h in hosts) else np.stack(hosts))
 
-    def _prepare(self, program, feeds, fetch_names):
+    def _prepare(self, program, feeds, fetch_names, wire=None):
         """key, (program to run, FusionPlan or None, step), hit, cached
         per (program id, mutation, fusion flags, amp policy, feeds' names,
-        shapes and dtypes, fetches, health plan): FLAGS_fuse rewrites a
-        clone once, and repeat steps reuse it. Under FLAGS_health the step
-        also fetches the grads and returns their stats rows last
-        (HealthPlan.wrap_step)."""
+        shapes and dtypes, fetches, health plan, wire spec): FLAGS_fuse
+        rewrites a clone once, and repeat steps reuse it. Under a WireSpec
+        the step decodes the covered feeds first (WireSpec.wrap_step).
+        Under FLAGS_health the step also fetches the grads and returns
+        their stats rows last (HealthPlan.wrap_step)."""
         fuse = flags.get("fuse")
         hplan = health.plan_if_enabled(program)
         specs = tuple(sorted(
@@ -423,7 +504,8 @@ class Executor:
         key = (id(program), program._mutation, fuse,
                flags.get("fuse_bucket_mb"), amp.fingerprint(), specs,
                tuple(fetch_names),
-               ("health", hplan.digest if hplan is not None else None))
+               ("health", hplan.digest if hplan is not None else None),
+               ("wire", wire.fingerprint() if wire is not None else None))
         hit = self._prepared.get(key)
         if hit is not None:
             self._hits += 1
@@ -438,6 +520,11 @@ class Executor:
                 run_plan.fetch_names if run_plan is not None else []),
             executor_core.written_persistables(run_prog), self.place,
             dp=self.dp)
+        if wire is not None:
+            gb = program.global_block()
+            step = wire.wrap_step(step, var_dtypes={
+                n: gb.vars[n].dtype for n in wire
+                if n in gb.vars and gb.vars[n].dtype is not None})
         if run_plan is not None:
             step = run_plan.wrap_step(step, len(fetch_names))
         step.hplan = run_plan
@@ -451,7 +538,7 @@ class Executor:
         return key, hit, False
 
     def _stepper(self, program, scope, feeds, fetch_names, iters=None,
-                 mon=None):
+                 mon=None, wire=None):
         """A _Run whose step(feeds) runs one step of `program` each call,
         on the path its prepared entry chose. `mon` gets the prepared
         key's cache outcome (a program with a host op, run uncached, gets
@@ -459,7 +546,7 @@ class Executor:
         FLAGS_monitor_hlo_cost the first eager step runs under the compile
         probe, which counts `iters` steps' FLOPs from it."""
         key, (run_prog, _, step), hit = self._prepare(program, feeds,
-                                                      fetch_names)
+                                                      fetch_names, wire)
         mode = self._modes[id(program)] = self._mode_of(step)
         uncached = step.blocker is not None \
             and step.blocker.type in executor_core.HOST_OPS

@@ -12,7 +12,6 @@ the port's beam_search ops and control flow (ROADMAP queue 1 item 7).
 
 import paddle_tpu_torch as fluid
 
-from . import input_path_missing
 
 # the synthetic WMT14 dictionary (paddle_tpu/dataset/wmt14.py DICT_SIZE)
 DICT_SIZE = 30000
@@ -83,7 +82,24 @@ def seq_to_seq_net(embedding_dim, encoder_size, decoder_size,
 
 
 def get_model(args):
-    """The benchmark/fluid contract: seq_to_seq_net(512, 512, 512, 30000,
-    30000) with Adam(learning_rate=args.learning_rate or 2e-4); raises
-    until the port has its input path (the WMT14 readers)."""
-    raise input_path_missing("machine_translation")
+    embedding_dim = 512
+    encoder_size = 512
+    decoder_size = 512
+    dict_size = 30000
+
+    avg_cost, feeding_list = seq_to_seq_net(
+        embedding_dim, encoder_size, decoder_size, dict_size, dict_size)
+
+    inference_program = fluid.default_main_program().clone(for_test=True)
+    optimizer = fluid.optimizer.Adam(
+        learning_rate=getattr(args, "learning_rate", 2e-4))
+
+    train_reader = fluid.batch(
+        fluid.reader.shuffle(
+            fluid.dataset.wmt14.train(dict_size), buf_size=1000),
+        batch_size=args.batch_size)
+    test_reader = fluid.batch(
+        fluid.dataset.wmt14.test(dict_size), batch_size=args.batch_size)
+
+    return avg_cost, inference_program, optimizer, train_reader, \
+        test_reader, None

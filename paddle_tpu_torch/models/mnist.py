@@ -12,7 +12,6 @@ import numpy as np
 
 import paddle_tpu_torch as fluid
 
-from . import input_path_missing
 
 
 def cnn_model(data):
@@ -34,8 +33,27 @@ def cnn_model(data):
 
 
 def get_model(args):
-    """The benchmark/fluid contract (models/__init__.py): input "pixel"
-    [1, 28, 28] float32, label "label" [1] int64, cnn_model,
-    Adam(0.001, 0.9, 0.999); raises until the port has its input
-    path."""
-    raise input_path_missing("mnist")
+    images = fluid.layers.data(name="pixel", shape=[1, 28, 28],
+                               dtype="float32")
+    label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+    predict = cnn_model(images)
+    cost = fluid.layers.cross_entropy(input=predict, label=label)
+    avg_cost = fluid.layers.mean(cost)
+    batch_acc = fluid.layers.accuracy(input=predict, label=label)
+
+    inference_program = fluid.default_main_program().clone(for_test=True)
+    opt = fluid.optimizer.AdamOptimizer(
+        learning_rate=0.001, beta1=0.9, beta2=0.999)
+
+    def _wrap(r):
+        def wrapped():
+            for img, lbl in r():
+                yield img.reshape(1, 28, 28), lbl
+        return wrapped
+
+    train_reader = fluid.batch(_wrap(fluid.dataset.mnist.train()),
+                               batch_size=args.batch_size)
+    test_reader = fluid.batch(_wrap(fluid.dataset.mnist.test()),
+                              batch_size=args.batch_size)
+    return avg_cost, inference_program, opt, train_reader, test_reader, \
+        batch_acc

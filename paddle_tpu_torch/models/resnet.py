@@ -18,7 +18,6 @@ import numpy as np
 
 import paddle_tpu_torch as fluid
 
-from . import input_path_missing
 
 
 def conv_bn_layer(input, ch_out, filter_size, stride, padding, act="relu",
@@ -105,6 +104,31 @@ def resnet_cifar10(input, class_dim, depth=32):
 
 
 def get_model(args):
-    """The benchmark/fluid contract (models/__init__.py); raises until the
-    port has its input path."""
-    raise input_path_missing("resnet")
+    """benchmark/fluid model contract: returns
+    (avg_cost, inference_program, optimizer, train_reader, test_reader,
+     batch_acc)."""
+    if args.data_set == "cifar10":
+        class_dim, dshape, model = 10, [3, 32, 32], resnet_cifar10
+        train_r, test_r = fluid.dataset.cifar.train10(), \
+            fluid.dataset.cifar.test10()
+    else:
+        class_dim, dshape, model = 102, [3, 224, 224], resnet_imagenet
+        train_r, test_r = fluid.dataset.flowers.train(), \
+            fluid.dataset.flowers.test()
+
+    input = fluid.layers.data(name="data", shape=dshape, dtype="float32")
+    label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+    predict = model(input, class_dim)
+    cost = fluid.layers.cross_entropy(input=predict, label=label)
+    avg_cost = fluid.layers.mean(cost)
+    batch_acc = fluid.layers.accuracy(input=predict, label=label)
+
+    inference_program = fluid.default_main_program().clone(for_test=True)
+    optimizer = fluid.optimizer.Momentum(learning_rate=0.01, momentum=0.9)
+
+    train_reader = fluid.batch(
+        fluid.reader.shuffle(train_r, buf_size=5120),
+        batch_size=args.batch_size)
+    test_reader = fluid.batch(test_r, batch_size=args.batch_size)
+    return avg_cost, inference_program, optimizer, train_reader, \
+        test_reader, batch_acc

@@ -12,7 +12,6 @@ features before the classifier.
 
 import paddle_tpu_torch as fluid
 
-from . import input_path_missing
 
 
 def conv_bn_layer(input, num_filters, filter_size, stride=1, groups=1,
@@ -80,8 +79,27 @@ def se_resnext(input, class_dim, depth=50):
 
 
 def get_model(args):
-    """The benchmark/fluid contract (models/__init__.py): input "data"
-    [3, 224, 224] float32 (flowers, 102 classes) or [3, 32, 32] (cifar10,
-    10 classes), label "label" [1] int64, Momentum(0.01, 0.9); raises
-    until the port has its input path."""
-    raise input_path_missing("se_resnext")
+    class_dim = 102 if args.data_set != "cifar10" else 10
+    dshape = [3, 224, 224] if args.data_set != "cifar10" else [3, 32, 32]
+    input = fluid.layers.data(name="data", shape=dshape, dtype="float32")
+    label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+    predict = se_resnext(input, class_dim)
+    cost = fluid.layers.cross_entropy(input=predict, label=label)
+    avg_cost = fluid.layers.mean(cost)
+    batch_acc = fluid.layers.accuracy(input=predict, label=label)
+
+    inference_program = fluid.default_main_program().clone(for_test=True)
+    optimizer = fluid.optimizer.Momentum(learning_rate=0.01, momentum=0.9)
+
+    if args.data_set == "cifar10":
+        train_r, test_r = fluid.dataset.cifar.train10(), \
+            fluid.dataset.cifar.test10()
+    else:
+        train_r, test_r = fluid.dataset.flowers.train(), \
+            fluid.dataset.flowers.test()
+    train_reader = fluid.batch(
+        fluid.reader.shuffle(train_r, buf_size=5120),
+        batch_size=args.batch_size)
+    test_reader = fluid.batch(test_r, batch_size=args.batch_size)
+    return avg_cost, inference_program, optimizer, train_reader, \
+        test_reader, batch_acc

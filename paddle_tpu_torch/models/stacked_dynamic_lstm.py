@@ -11,7 +11,6 @@ the reference's own dynamic_lstm op. The words/sec metric is the same.
 
 import paddle_tpu_torch as fluid
 
-from . import input_path_missing
 
 LSTM_SIZE = 512
 EMB_DIM = 512
@@ -46,7 +45,54 @@ def stacked_lstm_net(dict_dim, emb_dim=EMB_DIM, lstm_size=LSTM_SIZE,
 
 
 def get_model(args):
-    """The benchmark/fluid contract (models/__init__.py): stacked_lstm_net
-    over the IMDB vocabulary with max_len = args.max_seq_len, Adam();
-    raises until the port has its input path (the IMDB readers)."""
-    raise input_path_missing("stacked_dynamic_lstm")
+    lstm_size = 512
+    emb_dim = 512
+    crop_size = 1500
+
+    word_dict = fluid.dataset.imdb.word_dict()
+
+    data = fluid.layers.data(
+        name="words", shape=[1], lod_level=1, dtype="int64")
+    sentence = fluid.layers.embedding(
+        input=data, size=[len(word_dict), emb_dim])
+    sentence = fluid.layers.fc(input=sentence, size=lstm_size, act="tanh")
+
+    proj = fluid.layers.fc(input=sentence, size=lstm_size * 4,
+                           bias_attr=False)
+    hidden, _cell = fluid.layers.dynamic_lstm(
+        input=proj, size=lstm_size * 4, use_peepholes=False,
+        # static scan bound: without it the scan trip count defaults to
+        # the batch's FLAT token total — fine for eager shapes, 10-20x
+        # wasteful under bucketed feeding (benchmark --max_seq_len)
+        max_len=getattr(args, "max_seq_len", None))
+
+    last = fluid.layers.sequence_pool(hidden, "last")
+    label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+    logit = fluid.layers.fc(input=last, size=2, act="softmax")
+    loss = fluid.layers.mean(
+        fluid.layers.cross_entropy(input=logit, label=label))
+    batch_acc = fluid.layers.accuracy(input=logit, label=label)
+
+    inference_program = fluid.default_main_program().clone(for_test=True)
+    adam = fluid.optimizer.Adam()
+
+    def crop_sentence(reader, crop_size):
+        unk_value = word_dict["<unk>"]
+
+        def __impl__():
+            for item in reader():
+                if len([x for x in item[0] if x != unk_value]) < crop_size:
+                    yield item
+
+        return __impl__
+
+    train_reader = fluid.batch(
+        fluid.reader.shuffle(
+            crop_sentence(fluid.dataset.imdb.train(word_dict), crop_size),
+            buf_size=25000),
+        batch_size=args.batch_size)
+    test_reader = fluid.batch(
+        crop_sentence(fluid.dataset.imdb.test(word_dict), crop_size),
+        batch_size=args.batch_size)
+
+    return loss, inference_program, adam, train_reader, test_reader, batch_acc

@@ -11,7 +11,6 @@ framework's own API.
 
 import paddle_tpu_torch as fluid
 
-from . import input_path_missing
 
 
 def vgg16_bn_drop(input):
@@ -37,9 +36,31 @@ def vgg16_bn_drop(input):
 
 
 def get_model(args):
-    """The benchmark/fluid contract (models/__init__.py): input "pixel"
-    [3, 224, 224] float32 (flowers, 102 classes) or [3, 32, 32] (cifar10,
-    10 classes), label "label" [1] int64, vgg16_bn_drop then
-    fc(classdim, softmax), Adam(learning_rate, default 1e-3); raises until
-    the port has its input path."""
-    raise input_path_missing("vgg")
+    if args.data_set == "cifar10":
+        classdim, data_shape = 10, [3, 32, 32]
+        train_r, test_r = fluid.dataset.cifar.train10(), \
+            fluid.dataset.cifar.test10()
+    else:
+        classdim, data_shape = 102, [3, 224, 224]
+        train_r, test_r = fluid.dataset.flowers.train(), \
+            fluid.dataset.flowers.test()
+
+    images = fluid.layers.data(name="pixel", shape=data_shape,
+                               dtype="float32")
+    label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+    net = vgg16_bn_drop(images)
+    predict = fluid.layers.fc(input=net, size=classdim, act="softmax")
+    cost = fluid.layers.cross_entropy(input=predict, label=label)
+    avg_cost = fluid.layers.mean(cost)
+    batch_acc = fluid.layers.accuracy(input=predict, label=label)
+
+    inference_program = fluid.default_main_program().clone(for_test=True)
+    optimizer = fluid.optimizer.Adam(
+        learning_rate=getattr(args, "learning_rate", 1e-3))
+
+    train_reader = fluid.batch(
+        fluid.reader.shuffle(train_r, buf_size=5120),
+        batch_size=args.batch_size)
+    test_reader = fluid.batch(test_r, batch_size=args.batch_size)
+    return avg_cost, inference_program, optimizer, train_reader, \
+        test_reader, batch_acc

@@ -6,8 +6,8 @@ stacked-LSTM and NMT models — the fused bucket updates, and the
 collectives of data parallelism), the single-device op tail (matmul, the
 reductions, the tensor ops, comparisons and logic, the dense losses and
 every optimizer rule), the structured losses (CTC, CRF, NCE, hierarchical
-sigmoid), the metrics, the rest of the nn ops and the host file IO ops of
-fluid.io."""
+sigmoid), the metrics, the rest of the nn ops, the host file IO ops of
+fluid.io and the reader ops (readers held in the scope, `read`)."""
 
 from . import util
 from . import tensor_ops
@@ -24,3 +24,4 @@ from . import rnn_ops
 from . import loss_ops
 from . import collective_ops
 from . import io_ops
+from . import reader_ops

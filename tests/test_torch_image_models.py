@@ -304,9 +304,28 @@ def test_declared_shapes_match_the_kernels():
 
 @pytest.mark.parametrize("module", [tresnet, tse, tvgg, tmnist],
                          ids=["resnet", "se_resnext", "vgg", "mnist"])
-def test_get_model_names_the_missing_input_path(module):
+def test_get_model_names_the_missing_input_path(module, tmp_path,
+                                                monkeypatch):
+    """The input path is ported: get_model returns the benchmark's
+    contract, readers included, and its test reader yields batches of
+    batch_size (image, label) samples of the data var's size (synthetic
+    data: DATA_HOME is an empty directory)."""
+    from paddle_tpu_torch.dataset import common
+
+    monkeypatch.setattr(common, "DATA_HOME", str(tmp_path))
+
     class Args:
         batch_size, data_set = 4, "flowers"
 
-    with pytest.raises(NotImplementedError, match="input-path slice"):
-        module.get_model(Args())
+    main = tfluid.Program()
+    with tfluid.unique_name.guard(), \
+            tfluid.program_guard(main, tfluid.Program()):
+        out = module.get_model(Args())
+    assert len(out) == 6 and callable(out[3]) and callable(out[4])
+    image = next(v for v in main.global_block().vars.values() if v.is_data
+                 and v.name != "label")
+    batch = next(out[4]())
+    assert len(batch) == 4
+    for img, label in batch:
+        assert np.asarray(img).size == int(np.prod(image.shape[1:]))
+        assert 0 <= int(label) < (10 if module is tmnist else 102)

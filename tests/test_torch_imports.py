@@ -2,7 +2,7 @@
 
 - importing paddle_tpu_torch (in a fresh interpreter) loads no jax module
   and no module of the JAX package; no source file of the port (the
-  sequence, data-parallel and serving slices' among them), nor
+  sequence, data-parallel, serving and input slices' among them), nor
   chip_smoke.py, nor the worker of the multi-rank tests, imports either;
 - the same layer calls under a fresh unique_name.guard() give the same
   Program.desc_str() in both packages (ResNet, SE-ResNeXt-50, VGG-16,
@@ -136,6 +136,27 @@ def test_the_instruments_slice_is_among_the_checked_sources(module):
 def test_the_loss_and_nn_rest_slice_is_among_the_checked_sources(module):
     """The structured losses, the metrics and the rest of the nn ops are
     checked by the test above."""
+    assert os.path.join(PORT, module) in set(_sources())
+
+
+@pytest.mark.parametrize("module", [
+    "recordio.py", "native/__init__.py", "native/build.py",
+    "reader/__init__.py", "reader/creator.py", "reader/decorator.py",
+    "minibatch.py", "data_feeder.py", "pipeline.py",
+    "dataset/__init__.py", "dataset/common.py", "dataset/cifar.py",
+    "dataset/conll05.py", "dataset/flowers.py", "dataset/imdb.py",
+    "dataset/imikolov.py", "dataset/mnist.py", "dataset/movielens.py",
+    "dataset/mq2007.py", "dataset/sentiment.py", "dataset/uci_housing.py",
+    "dataset/voc2012.py", "dataset/wmt14.py", "dataset/wmt16.py",
+    "datapipe/__init__.py", "datapipe/stats.py", "datapipe/source.py",
+    "datapipe/parallel_map.py", "datapipe/batcher.py",
+    "datapipe/process_map.py", "datapipe/shm.py", "datapipe/transfer.py",
+    "datapipe/feeder.py", "datapipe/pipeline.py", "ops/reader_ops.py",
+    "layers/io.py", "executor.py", "models/resnet.py"])
+def test_the_input_slice_is_among_the_checked_sources(module):
+    """The input path's modules (RecordIO, readers, datasets, the
+    DataFeeder, the datapipe stages and the reader ops) are checked by the
+    test above."""
     assert os.path.join(PORT, module) in set(_sources())
 
 

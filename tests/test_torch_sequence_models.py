@@ -136,9 +136,25 @@ def test_full_width_programs_match_get_model(model):
 
 
 @pytest.mark.parametrize("module", [tsl, tmt], ids=["stacked_lstm", "nmt"])
-def test_get_model_names_the_missing_input_path(module):
-    with pytest.raises(NotImplementedError, match="input-path slice"):
-        module.get_model(_Args())
+def test_get_model_names_the_missing_input_path(module, tmp_path,
+                                                monkeypatch):
+    """The input path is ported: get_model returns the benchmark's
+    contract, readers included, and its test reader yields batch_size
+    samples of id sequences (synthetic data: DATA_HOME is an empty
+    directory)."""
+    from paddle_tpu_torch.dataset import common
+
+    monkeypatch.setattr(common, "DATA_HOME", str(tmp_path))
+    with tfluid.unique_name.guard(), \
+            tfluid.program_guard(tfluid.Program(), tfluid.Program()):
+        out = module.get_model(_Args())
+    assert len(out) == 6 and callable(out[3]) and callable(out[4])
+    batch = next(out[4]())
+    assert len(batch) == _Args.batch_size
+    for sample in batch:
+        ids = np.asarray(sample[0])
+        assert ids.ndim == 1 and ids.size >= 1
+        assert np.issubdtype(ids.dtype, np.integer)
 
 
 # ---------------------------------------------------------------------------
