@@ -439,6 +439,7 @@ SEED = 20261016
 BATCH = 32
 SIZES = (1, 17, 1029, 4194307)
 OUT_DIR = "chiprun_out"  # long reports (gitignored)
+TRACE_ATTEMPTS = 3  # traces of one step, at most, for its kernel's rows
 
 # flash attention (B, H, Sq, Sk, D): the CPU tests' shapes, the kernels'
 # tile edges at D=128, a padded D, no keys, a ragged case, and full width
@@ -1146,24 +1147,37 @@ def _device_ms(prof):
 
 
 def trace_step(exe, main, feed, fetch, kernel="momentum_kernel",
-               table=None):
+               table=None, expect=None):
     """One step traced on the card only, which adds little host time:
     (wall ms, device busy ms, idle share, rows of `kernel`, device ms of
     the random draws: torch's distribution kernels, behind dropout's
     masks). `fetch` is the fetch list the step was prepared (and
     captured) with. With `table`, the device time by kernel goes whole to
-    chiprun_out/<table>_profile.txt and its top 10 to the log."""
+    chiprun_out/<table>_profile.txt and its top 10 to the log. With
+    `expect`, a trace holding another number of `kernel` rows is logged
+    and the step traced again, TRACE_ATTEMPTS traces at most: a CUPTI
+    trace of a replay has come back without the kernel's rows while the
+    wrapper's launch count showed it ran. The caller checks the rows of
+    the trace returned."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        exe.run(main, feed=feed, fetch_list=fetch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    rows = sum(e.count for e in device if kernel in e.key)
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            exe.run(main, feed=feed, fetch_list=fetch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        device = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+        rows = sum(e.count for e in device if kernel in e.key)
+        if expect is None or rows == expect or attempt == TRACE_ATTEMPTS:
+            break
+        log(f"[profile] trace {attempt} of at most {TRACE_ATTEMPTS}: {rows} "
+            f"{kernel} rows, not {expect}, among "
+            f"{sum(e.count for e in device)} device rows; wall "
+            f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms; tracing the "
+            f"step again")
     if table is not None:
         device.sort(key=lambda e: -e.self_device_time_total)
         os.makedirs(OUT_DIR, exist_ok=True)
@@ -1182,16 +1196,16 @@ def trace_step(exe, main, feed, fetch, kernel="momentum_kernel",
 
 
 def profile_step(exe, main, feed, fetch, warm_ms, name,
-                 kernel="momentum_kernel"):
+                 kernel="momentum_kernel", expect=None):
     """Two more steps under torch.profiler. The first traces the card only:
     its wall and device-busy time give the device idle share of one step
     (returned as trace_step returns them). The second also records the
     host ops, for the table of device time by op and kernel (all rows in
     chiprun_out/<name>_profile.txt, the top 10 and the count of torch.cat
-    kernels printed)."""
+    kernels printed). `expect` goes to trace_step."""
     from torch.profiler import ProfilerActivity, profile
 
-    card = trace_step(exe, main, feed, fetch, kernel)
+    card = trace_step(exe, main, feed, fetch, kernel, expect=expect)
     wall_ms, busy_ms, idle, rows, draw_ms = card
     log(f"[profile] {name}: step traced on the card only: wall "
         f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
@@ -1369,7 +1383,7 @@ def phase_headline(card, journal):
                 step0 = {n: t[0] for n, t in feeds.items()}
                 wall, busy, idle, rows, _ = profile_step(
                     exe, main, step0, [loss], result["step_ms"],
-                    "headline_graph")
+                    "headline_graph", expect=len(buckets))
                 result.update(graph_trace_wall_ms=wall,
                               graph_trace_busy_ms=busy, graph_idle_share=idle,
                               graph_momentum_rows=rows)
@@ -2936,7 +2950,8 @@ def phase_image(m, card):
                 step0 = {n: t[0] for n, t in feeds.items()}
                 wall, busy, idle, rows, draw = profile_step(
                     exe, main, step0, fetch, result["step_ms"],
-                    f"{tag}_graph", f"{m['kind']}_kernel")
+                    f"{tag}_graph", f"{m['kind']}_kernel",
+                    expect=len(m["buckets"]))
                 result.update(trace_wall_ms=wall, trace_busy_ms=busy,
                               idle_share=idle, kernel_rows=rows,
                               draw_ms=draw)
@@ -3266,7 +3281,7 @@ def phase_seq(m, card_line):
                 f"losses {result['last_losses']}")
             wall, busy, idle, rows, _ = trace_step(
                 exe, main, per_step[0], [loss], "adam_kernel",
-                table=f"{tag}_graph")
+                table=f"{tag}_graph", expect=len(m["buckets"]))
             result.update(trace_wall_ms=wall, trace_busy_ms=busy,
                           idle_share=idle, kernel_rows=rows,
                           idle_share_of_untraced_step=1 - busy
