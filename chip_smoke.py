@@ -218,6 +218,40 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 on the test program through the interpreter, no
                 hand-written kernel launched ([loss_ops] lines). Alone:
                 `python3 chip_smoke.py --only loss_ops`
+ 10e. control_flow — control flow and beam decoding: (a) the NMT
+                (seq_to_seq_net(512, 512, 512, 30000, 30000), f32)
+                trained 3 fused-Adam steps at batch 32 through the
+                captured step, then models.machine_translation.
+                beam_decode, beam 4, max_len 16, of 32 synthetic WMT14
+                sources of 4-15 tokens: a first call (it builds the step
+                programs and their graphs) and a warm one, ms a decode
+                step (the attention_lstm_step run and the beam_search run,
+                CUDA events and the host clock), sources/s; card against
+                the host's decode on the same weights, scores within
+                rtol 1e-4 and the token ids equal, or different only
+                where the host's top 5 scores of that step hold a gap
+                under 1e-4 (printed with the K-th/(K+1)-th margin); the
+                beam_search op alone, card against host, bitwise, on the
+                decode's candidates (NEG_INF ties) and on them rounded
+                (live ties); (b) the headline's program under
+                piecewise_decay([10, 50, 90], [0.1, 0.01, 0.001, 1e-4]),
+                bf16 AMP, fused Momentum, batch 128, 1 warm + 2 timed
+                calls of iters=40 through the captured step: one
+                CapturedStep, no capture after the first call, momentum
+                launches 4 a step, every step's rate equal to the numpy
+                schedule, img/s at >= 0.97 of the same run's headline;
+                graph vs interpreter bitwise over 3 steps across the
+                first boundary; (c) the reference benchmark's
+                gate-by-gate LSTM in a DynamicRNN (embedding and hidden
+                512, vocabulary 5148, f32, fused Adam) at batch 16,
+                reviews of 16-64 tokens bucketed: 3 steps card vs host
+                within rtol 1e-4, graph vs interpreter bitwise, 3 more
+                replays timed (ms a step, words/s); (d) a small program
+                of each new op family (While with its grad, Switch,
+                IfElse on mixed rows, StaticRNN, tensor arrays, the
+                rank-table ops, is_empty, print) card against host
+                ([control_flow] lines). Alone: `python3 chip_smoke.py
+                --only control_flow`
  11. flash    — the flash-attention kernels (both wgmma fed by TMA; f32
                 in 3xTF32 split products after its split prologue) against
                 their plain torch version on the card, causal and not, at
@@ -411,6 +445,33 @@ SRL_BATCH = 10
 SRL_LEN = (10, 60)
 SRL_STEPS = 4
 SRL_RTOL = 1e-4
+# phase control_flow: (a) the NMT trained CF_NMT_STEPS fused-Adam steps at
+# batch CF_NMT_BATCH, then beam_decode (beam CF_BEAM, max_len CF_MAX_LEN)
+# of CF_NMT_BATCH sources; (b) the headline under piecewise_decay (the
+# reference ImageNet recipes' schedule, cut to boundaries the timed calls
+# cross), CF_HEAD_WARM + CF_HEAD_CALLS calls of iters=HEADLINE_K; (c) the
+# gate-by-gate DynamicRNN LSTM at its published widths, batch
+# CF_DRNN_BATCH, reviews of CF_DRNN_LEN tokens, 3 checked and
+# CF_DRNN_TIMED timed steps; card vs host within CF_RTOL, and beams that
+# differ only where the host's K-th/(K+1)-th margin is under CF_NEAR_TIE
+# (or, where the card took the same K candidates in another order, the
+# host's score differences between the candidates they swapped)
+CF_NMT_BATCH = 32
+CF_NMT_STEPS = 3
+CF_BEAM = 4
+CF_MAX_LEN = 16
+CF_BOUNDARIES = [10, 50, 90]
+CF_VALUES = [0.1, 0.01, 0.001, 0.0001]
+CF_HEAD_WARM = 1
+CF_HEAD_CALLS = 2
+CF_HEAD_MIN_RATIO = 0.97
+CF_HEAD_BUCKETS = 4  # the headline's fused momentum buckets
+CF_DRNN_WIDTH = 512
+CF_DRNN_BATCH = 16
+CF_DRNN_LEN = (16, 65)
+CF_DRNN_TIMED = 3
+CF_RTOL = 1e-4
+CF_NEAR_TIE = 1e-4
 
 # phase input: the headline's program trained from a RecordIO file of
 # INPUT_IMAGES seeded INPUT_SIDE^2 x 3 uint8 images through a DataPipe:
@@ -2979,10 +3040,11 @@ def phase_image(m, card):
     return result
 
 
-def seq_batches(model, rs, steps, batch):
+def seq_batches(model, rs, steps, batch, review_len=(16, 128)):
     """`steps` batches of `batch` samples drawn as the JAX package's
     synthetic readers draw them (paddle_tpu/dataset/imdb.py
-    _synthetic_reader, wmt14.py _reader): reviews of 16..127 word ids, 70%
+    _synthetic_reader, wmt14.py _reader): reviews of 16..127 word ids
+    (`review_len`'s half-open range), 70%
     from their class's half of the vocabulary, and a 0/1 label; source
     sentences of 4..15 ids, the target a token-wise function of the source
     after <s> (id 0), the label the target shifted, ending in <e> (id 1).
@@ -2994,7 +3056,7 @@ def seq_batches(model, rs, steps, batch):
             half = IMDB_VOCAB // 2
             words, labels = [], []
             for _ in range(batch):
-                y, n = rs.randint(2), rs.randint(16, 128)
+                y, n = rs.randint(2), rs.randint(*review_len)
                 biased = rs.randint(y * half, y * half + half, n)
                 noise = rs.randint(0, IMDB_VOCAB - 1, n)
                 words.append(np.where(rs.rand(n) < 0.7, biased, noise))
@@ -4771,6 +4833,763 @@ def phase_loss_ops(card_line):
             "seconds_by_part": {"ops": t1 - t0, "db_lstm": t2 - t1}}
 
 
+# ---------------------------------------------------------------------------
+# phase control_flow
+# ---------------------------------------------------------------------------
+def build_drnn_lstm(fluid, vocab=IMDB_VOCAB, emb=CF_DRNN_WIDTH,
+                    hidden=CF_DRNN_WIDTH):
+    """The reference benchmark's gate-by-gate LSTM
+    (benchmark/fluid/models/stacked_dynamic_lstm.py in the reference; the
+    JAX package's paddle_tpu/models/stacked_dynamic_lstm.py:4-8), one
+    layer, built with `fluid`'s layers: embedding, fc(hidden, tanh), then
+    in a DynamicRNN each gate as fc(word) + fc(prev_hidden, no bias) with
+    sigmoid (forget, input, output) or tanh (cell), the cell and hidden
+    updates as memories, the last step's hidden into fc(2, softmax),
+    cross_entropy, mean, Adam(0.002). Feeds "words" (int64, lod_level 1)
+    and "label" (int64). Returns (main, startup, loss)."""
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        words = L.data(name="words", shape=[1], dtype="int64", lod_level=1)
+        label = L.data(name="label", shape=[1], dtype="int64")
+        sentence = L.fc(input=L.embedding(input=words, size=[vocab, emb]),
+                        size=hidden, act="tanh")
+        rnn = L.DynamicRNN()
+        with rnn.block():
+            word = rnn.step_input(sentence)
+            prev_hidden = rnn.memory(value=0.0, shape=[hidden])
+            prev_cell = rnn.memory(value=0.0, shape=[hidden])
+
+            def gate(act):
+                return act(L.elementwise_add(
+                    L.fc(input=word, size=hidden),
+                    L.fc(input=prev_hidden, size=hidden, bias_attr=False)))
+
+            forget, inp, out = (gate(L.sigmoid) for _ in range(3))
+            cell = L.elementwise_add(L.elementwise_mul(forget, prev_cell),
+                                     L.elementwise_mul(inp, gate(L.tanh)))
+            hidden_t = L.elementwise_mul(out, L.tanh(cell))
+            rnn.update_memory(prev_cell, cell)
+            rnn.update_memory(prev_hidden, hidden_t)
+            rnn.output(hidden_t)
+        logit = L.fc(input=L.sequence_last_step(rnn()), size=2,
+                     act="softmax")
+        loss = L.mean(L.cross_entropy(input=logit, label=label))
+        fluid.optimizer.Adam(learning_rate=0.002).minimize(loss)
+    main.random_seed = startup.random_seed = SEED
+    return main, startup, loss
+
+
+def build_headline_piecewise():
+    """The headline's program with piecewise_decay(CF_BOUNDARIES,
+    CF_VALUES) feeding Momentum(0.9): a Switch of conditional blocks
+    writes the rate from the step counter each step. Returns (main,
+    startup, loss, lr var, momentum buckets)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import fusion
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        prediction = headline_net()
+        label = fluid.layers.data(name="label", shape=[1], dtype="int32")
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(
+            input=prediction, label=label))
+        lr = fluid.layers.piecewise_decay(CF_BOUNDARIES, CF_VALUES)
+        fluid.optimizer.Momentum(learning_rate=lr,
+                                 momentum=0.9).minimize(loss)
+    main.random_seed = startup.random_seed = SEED
+    _, plan = fusion.apply(main, feed_names=["data_u8", "label"],
+                           fetch_names=[loss.name, lr.name])
+    buckets = [b for b in plan.buckets if b["opt"] == "momentum"]
+    return main, startup, loss, lr, buckets
+
+
+def _piecewise(step):
+    """The schedule's rate at step counter `step` (numpy's answer)."""
+    i = int(np.searchsorted(CF_BOUNDARIES, step, side="right"))
+    return np.float32(CF_VALUES[i])
+
+
+class _TimedExecutor:
+    """An Executor behind beam_decode that times each run by the program's
+    kind (encoder, step, beam, backtrack: the op that tells them apart):
+    host ms around Executor.run (its fetch read back included) and the
+    card's ms between CUDA events recorded before and after it; and keeps
+    each beam step's feeds (pre_ids, pre_scores, cand_scores)."""
+
+    def __init__(self, exe):
+        self.exe, self.device = exe, exe.device
+        self.runs, self.steps = {}, []
+
+    @staticmethod
+    def _kind(program):
+        types = {op.type for op in program.global_block().ops}
+        for op_type, kind in (("attention_lstm_step", "step"),
+                              ("beam_search", "beam"),
+                              ("beam_search_decode", "backtrack")):
+            if op_type in types:
+                return kind
+        return "encoder"
+
+    def run(self, program, **kw):
+        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+        start.record()
+        t0 = time.perf_counter()
+        outs = self.exe.run(program, **kw)
+        host = (time.perf_counter() - t0) * 1e3
+        end.record()
+        kind = self._kind(program)
+        self.runs.setdefault(kind, []).append((start, end, host))
+        if kind == "beam":
+            feed = kw["feed"]
+            self.steps.append((feed["pre_ids"], feed["pre_scores"],
+                               feed["cand_scores"]))
+        return outs
+
+    def last(self, kind):
+        """[(card ms, host ms)] of the runs of `kind`."""
+        torch.cuda.synchronize()
+        return [(s.elapsed_time(e), h) for s, e, h in self.runs[kind]]
+
+
+def _masked_candidates(pre_ids, pre_scores, cand, K, end_id):
+    """The host's [B, K*V] candidate scores as the beam_search op sees
+    them: a finished beam keeps one candidate, (end_id, its score), an
+    inactive slot none."""
+    from paddle_tpu_torch.ops.beam_search_ops import NEG_INF
+
+    c = cand.astype(np.float32).copy()
+    fin = pre_ids[:, 0] == end_id
+    c[fin] = NEG_INF
+    c[fin, 0] = pre_scores[fin, 0]
+    c[pre_ids[:, 0] < 0] = NEG_INF
+    return c.reshape(-1, K * c.shape[1])
+
+
+def _first_flip(crecord, record, b, n_steps):
+    """The first decode step at which source b's selection on the card
+    (from its own candidates, `crecord`) differs from the host's
+    (`record`), by the beam_search op's order: a stable descending sort
+    of the masked candidates, first K. Returns {step, same_set (the card
+    took the host's K candidates in another order), margin (the host's
+    K-th minus (K+1)-th score), order_gap (the largest difference of the
+    host's scores between the candidates the card and the host put at
+    one place)}, or None if no step differs."""
+    K = CF_BEAM
+    for s in range(n_steps):
+        host = _masked_candidates(*record[s], K, 1)[b]
+        picked = np.argsort(-host, kind="stable")[:K + 1]
+        card = np.argsort(-_masked_candidates(*crecord[s], K, 1)[b],
+                          kind="stable")[:K]
+        if np.array_equal(card, picked[:K]):
+            continue
+        top = host[picked]
+        return {"step": s,
+                "same_set": set(card.tolist()) == set(picked[:K].tolist()),
+                "margin": float(top[K - 1] - top[K]),
+                "order_gap": float(np.max(np.abs(host[card] - top[:K])))}
+    return None
+
+
+def _cf_decode(exe, scope, main, state, lt, tag, card_line):
+    """beam_decode of `lt` on the card, three calls: the first builds the
+    step programs on new shapes and captures those that run twice in it
+    (a program runs eagerly once, then is captured), the second captures
+    the encoder's, which runs once a call, the third replays every graph
+    (the warm call); and on the host from `state`, the same weights:
+    scores within CF_RTOL, token ids equal or differing only at a
+    near-tie of the host's scores (CF_NEAR_TIE): at the first step whose
+    selection differs, the host's K-th/(K+1)-th margin, or, where the
+    card took the same K candidates in another order, the host's score
+    differences between the candidates the two put at one place
+    (_first_flip). Returns its numbers and the host's recorded steps."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.models import machine_translation as mt
+
+    timed = _TimedExecutor(exe)
+    calls = []
+    for _ in range(3):
+        timed.steps.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = mt.beam_decode(timed, main, lt, beam_size=CF_BEAM,
+                              max_len=CF_MAX_LEN, scope=scope)
+        calls.append(time.perf_counter() - t0)
+    crecord = timed.steps
+    n = len(crecord)  # decode steps a call
+    runs = {kind: timed.last(kind) for kind in
+            ("encoder", "step", "beam", "backtrack")}
+    step = [c + b for (c, _), (b, _) in zip(runs["step"][-n:],
+                                             runs["beam"][-n:])]
+    step_host = [h + g for (_, h), (_, g) in zip(runs["step"][-n:],
+                                                 runs["beam"][-n:])]
+
+    def med(kind, i):
+        return statistics.median(r[i] for r in runs[kind][-n:])
+
+    result = {
+        "decode_steps": n, "call_s": calls, "warm_call_s": calls[-1],
+        "sources_per_sec": CF_NMT_BATCH / calls[-1],
+        "encoder_ms": {"card": runs["encoder"][-1][0],
+                       "host": runs["encoder"][-1][1]},
+        "step_program_ms": {"card": med("step", 0), "host": med("step", 1)},
+        "beam_program_ms": {"card": med("beam", 0), "host": med("beam", 1)},
+        "backtrack_ms": {"card": runs["backtrack"][-1][0],
+                         "host": runs["backtrack"][-1][1]},
+        "decode_step_ms": {"card": statistics.median(step),
+                           "host": statistics.median(step_host)}}
+    accounted = (result["encoder_ms"]["host"] + sum(step_host)
+                 + result["backtrack_ms"]["host"])
+    outside = calls[-1] * 1e3 - accounted
+    result["host_outside_runs_ms"] = outside
+    log(f"[control_flow] (a) {tag}: beam_decode of {CF_NMT_BATCH} sources, "
+        f"beam {CF_BEAM}, max_len {CF_MAX_LEN} ({CF_NMT_BATCH * CF_BEAM} "
+        f"rows of {WMT_DICT} candidates a step), {n} steps: calls "
+        f"{calls[0]:.3f} s (builds the programs), {calls[1]:.3f} s (captures "
+        f"the encoder), warm {calls[2]:.3f} s = "
+        f"{result['sources_per_sec']:.2f} sources/s; a warm decode step "
+        f"{result['decode_step_ms']['host']:.3f} ms on the host clock, "
+        f"{result['decode_step_ms']['card']:.3f} ms between CUDA events "
+        f"(attention_lstm_step run {result['step_program_ms']['card']:.3f}"
+        f" / {result['step_program_ms']['host']:.3f} ms, beam_search run "
+        f"{result['beam_program_ms']['card']:.3f} / "
+        f"{result['beam_program_ms']['host']:.3f} ms, events / host); the "
+        f"encoder run {result['encoder_ms']['card']:.3f} / "
+        f"{result['encoder_ms']['host']:.3f} ms, the backtrack run "
+        f"{result['backtrack_ms']['card']:.3f} / "
+        f"{result['backtrack_ms']['host']:.3f} ms; host time outside the "
+        f"runs {outside:.3f} ms (the embedding table read back, the "
+        f"padding, the parents' gathers) [{card_line}]")
+
+    hscope = fluid.Scope()
+    convert.load_numpy_state(hscope, main, state, fluid.CPUPlace())
+    hexe = _TimedExecutor(fluid.Executor(fluid.CPUPlace()))
+    host = mt.beam_decode(hexe, main, lt, beam_size=CF_BEAM,
+                          max_len=CF_MAX_LEN, scope=hscope)
+    record = hexe.steps
+    np.testing.assert_allclose(card[1], host[1], rtol=CF_RTOL)
+    flips = []
+    n_steps = min(len(crecord), len(record))
+    for b in range(CF_NMT_BATCH):
+        rows = slice(b * CF_BEAM, (b + 1) * CF_BEAM)
+        if card[0][rows] == host[0][rows]:
+            continue
+        flip = _first_flip(crecord, record, b, n_steps)
+        if flip is None:
+            raise AssertionError(f"source {b}: card and host beams differ "
+                                 f"but every step selected alike")
+        flip["source"] = b
+        flips.append(flip)
+        took = ("the same set in another order" if flip["same_set"]
+                else "another set")
+        log(f"[control_flow] (a) {tag}: source {b}'s beams differ card vs "
+            f"host at step {flip['step']}, where the card took {took}; "
+            f"the host's K-th/(K+1)-th score margin there "
+            f"{flip['margin']:.3e}, its scores' largest difference between "
+            f"the candidates the two put at one place {flip['order_gap']:.3e}"
+            f" (near-tie limit {CF_NEAR_TIE:g}: on that difference for the "
+            f"same set, else on the margin)")
+        tie = flip["order_gap"] if flip["same_set"] else flip["margin"]
+        if tie >= CF_NEAR_TIE:
+            raise AssertionError(f"source {b}: card and host beams differ "
+                                 f"({took}) with no near-tie ({tie:.3e})")
+    rel = max(abs(c / h - 1) for c, h in zip(card[1], host[1]) if h)
+    lengths = [len(s) for s in card[0]]
+    log(f"[control_flow] (a) {tag}: card vs host: {len(card[0])} beams of "
+        f"{min(lengths)}-{max(lengths)} tokens, {CF_NMT_BATCH - len(flips)} "
+        f"of {CF_NMT_BATCH} sources' token ids equal, scores' largest "
+        f"relative difference {rel:.3e} (rtol {CF_RTOL:g}); the first "
+        f"source's best beam {card[0][0]} ({card[1][0]:.4f})")
+    result.update(host_vs_card_max_rel=rel, flips=flips,
+                  beam_lengths=[min(lengths), max(lengths)])
+    return result, record
+
+
+def _cf_nmt(card_line):
+    """(a) the NMT at its published widths: beam_decode (beam CF_BEAM,
+    max_len CF_MAX_LEN) of CF_NMT_BATCH synthetic WMT14 sources from its
+    initial weights, where beams run their full length, then
+    CF_NMT_STEPS fused-Adam steps at batch CF_NMT_BATCH through the
+    captured step and the same decode from the trained weights, each on
+    the card and on the host (_cf_decode); the beam_search op alone, card
+    against host, bitwise."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert, flags
+    from paddle_tpu_torch.core import executor_core, registry
+    from paddle_tpu_torch.core.lod_tensor import LoDTensor
+    from paddle_tpu_torch.fusion import kernels as fk
+
+    m = build_seq_model("nmt")
+    main, loss = m["main"], m["loss"]
+    place = fluid.CUDAPlace(0)
+    rs = np.random.RandomState(SEED + 15)
+    src = [rs.randint(3, WMT_DICT, rs.randint(4, 16))
+           for _ in range(CF_NMT_BATCH)]
+    offs = np.concatenate([[0], np.cumsum([len(s) for s in src])])
+    lt = LoDTensor(np.concatenate(src).astype(np.int64)[:, None],
+                   [offs.tolist()])
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    with fluid.scope_guard(scope):
+        exe.run(m["startup"])
+    result = {}
+    result["initial"], record = _cf_decode(
+        exe, scope, main, convert.numpy_state(scope, main), lt,
+        "initial weights", card_line)
+
+    feeds, _ = seq_feeds(seq_batches("nmt", rs, CF_NMT_STEPS,
+                                     CF_NMT_BATCH), place)
+    with fluid.scope_guard(scope):
+        fk.reset_launch_counts()
+        with flags.flag_guard(fuse=True):
+            losses = [float(exe.run(main, feed=f, fetch_list=[loss])[0]
+                            .reshape(-1)[0]) for f in feeds]
+        launches = fk.adam_bucket.launches
+        mode = exe.step_mode(main)
+    want = len(m["buckets"]) * CF_NMT_STEPS
+    log(f"[control_flow] (a) NMT trained {CF_NMT_STEPS} steps at batch "
+        f"{CF_NMT_BATCH} ({mode}): losses {losses}; adam_bucket_ launches "
+        f"{launches} ({len(m['buckets'])} buckets x {CF_NMT_STEPS} steps)")
+    if mode != "graph" or launches != want:
+        raise AssertionError(f"NMT training ran {mode} with {launches} "
+                             f"adam launches, not graph with {want}")
+    result["trained"], _ = _cf_decode(
+        exe, scope, main, convert.numpy_state(scope, main), lt,
+        "trained weights", card_line)
+    result.update(train_losses=losses, adam_launches=launches)
+
+    # the op alone, card against host, on the host decode's candidates:
+    # the first step (3 inactive slots a source: NEG_INF ties), the last
+    # one, and the last one rounded to 0.5 (ties among live candidates)
+    op = registry.lookup("beam_search")
+    sets = [record[0], record[-1],
+            record[-1][:2] + (np.round(record[-1][2] * 2) / 2,)]
+    for i, (pre_ids, pre_scores, cand) in enumerate(sets):
+        outs = {}
+        for p in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
+            ctx = executor_core.OpContext(p)
+            outs[repr(p)] = op.fn(ctx, {
+                "pre_ids": [torch.from_numpy(pre_ids).to(ctx.device)],
+                "pre_scores": [torch.from_numpy(pre_scores).to(ctx.device)],
+                "scores": [torch.from_numpy(
+                    np.ascontiguousarray(cand)).to(ctx.device)]},
+                {"beam_size": CF_BEAM, "end_id": 1})
+        for slot, (h,) in outs["CPUPlace()"].items():
+            if not torch.equal(outs["CUDAPlace(0)"][slot][0].cpu(), h):
+                raise AssertionError(f"beam_search {slot}: card and host "
+                                     f"differ on candidate set {i}")
+    log(f"[control_flow] (a) the beam_search op alone on {len(sets)} "
+        f"candidate sets of [{CF_NMT_BATCH * CF_BEAM}, {WMT_DICT}] (NEG_INF "
+        f"ties, live ties): card and host bitwise equal [{card_line}]")
+    del exe, scope, record
+    _release()
+    return result
+
+
+def _cf_headline(card, headline_img_s):
+    """(b) the headline under piecewise_decay, bf16 AMP, fused Momentum,
+    batch 128, iters=HEADLINE_K, CF_HEAD_WARM + CF_HEAD_CALLS calls
+    through the captured step: one CapturedStep and no capture after the
+    first call, momentum launches, each call's rates against the numpy
+    schedule at its step counters, img/s against `headline_img_s`; graph
+    against interpreter bitwise over 3 steps that cross a boundary."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, convert, flags
+    from paddle_tpu_torch.fusion import kernels as fk
+
+    main, startup, loss, lr, buckets = build_headline_piecewise()
+    rs = np.random.RandomState(SEED + 16)
+    feeds = {"data_u8": torch.from_numpy(rs.randint(
+        0, 256, (HEADLINE_K, HEADLINE_BATCH, 224, 224, 3),
+        dtype=np.uint8)).cuda(),
+        "label": torch.from_numpy(rs.randint(
+            0, 1000, (HEADLINE_K, HEADLINE_BATCH, 1)).astype(
+                np.int32)).cuda()}
+    place = fluid.CUDAPlace(0)
+    amp.enable("bfloat16")
+    try:
+        with flags.flag_guard(fuse=True):
+            init_scope = fluid.Scope()
+            with fluid.scope_guard(init_scope):
+                fluid.Executor(place).run(startup)
+            init = convert.numpy_state(init_scope, main)
+            scope = init_scope
+            exe = fluid.Executor()
+            torch.cuda.synchronize()
+            fk.reset_launch_counts()
+            rates = []
+            with fluid.scope_guard(scope):
+                for _ in range(CF_HEAD_WARM):
+                    outs = exe.run(main, feed=feeds, fetch_list=[loss, lr],
+                                   iters=HEADLINE_K, return_numpy=False)
+                    rates.append(outs[1])
+                    _fence(outs[0])
+                entries = exe.compile_cache_info()["entries"]
+                t0 = time.perf_counter()
+                for _ in range(CF_HEAD_CALLS):
+                    outs = exe.run(main, feed=feeds, fetch_list=[loss, lr],
+                                   iters=HEADLINE_K, return_numpy=False)
+                    rates.append(outs[1])
+                _fence(outs[0])
+                dt = time.perf_counter() - t0
+                launches = fk.momentum_bucket.launches
+                mode = exe.step_mode(main)
+                captured = len(exe.captured_steps(main, scope))
+                later = exe.compile_cache_info()["entries"] - entries
+                counter = int(scope.find_var("@LR_DECAY_COUNTER@")
+                              .reshape(-1)[0])
+                _check_master_state(scope)
+            lv = _losses(outs[0])
+            del exe, scope, init_scope
+            _release()
+            # 3 steps from counter CF_BOUNDARIES[0] - 2 on: the first
+            # boundary falls between the first and the second
+            init["@LR_DECAY_COUNTER@"] = np.array(
+                [CF_BOUNDARIES[0] - 2], np.int64)
+            bitwise = _graph_vs_interpreter(
+                "control_flow", main, [loss, lr], init,
+                [{n: t[k, :BATCH] for n, t in feeds.items()}
+                 for k in range(3)])
+    finally:
+        amp.disable()
+    steps = (CF_HEAD_WARM + CF_HEAD_CALLS) * HEADLINE_K
+    got = np.concatenate([r.reshape(-1).float().cpu().numpy()
+                          for r in rates])
+    want = np.array([_piecewise(k) for k in range(steps)])
+    img_s = HEADLINE_BATCH * HEADLINE_K * CF_HEAD_CALLS / dt
+    ratio = img_s / headline_img_s
+    crossings = [(b, float(got[b - 1]), float(got[b]))
+                 for b in CF_BOUNDARIES if b < steps]
+    log(f"[control_flow] (b) {card}: headline + piecewise_decay("
+        f"{CF_BOUNDARIES}, {CF_VALUES}), bf16 AMP, fused Momentum, batch "
+        f"{HEADLINE_BATCH}: {mode}, {captured} CapturedStep, {later} "
+        f"captures after the first call; {img_s:.2f} img/s "
+        f"({dt / (HEADLINE_K * CF_HEAD_CALLS) * 1e3:.2f} ms a step; "
+        f"{CF_HEAD_CALLS} calls of iters={HEADLINE_K} after {CF_HEAD_WARM} "
+        f"warm), {ratio:.4f} of the headline's {headline_img_s:.2f} (limit "
+        f"{CF_HEAD_MIN_RATIO}); momentum_bucket launches {launches} "
+        f"({len(buckets)} buckets x {steps} steps); counter {counter}; "
+        f"rates at the boundaries {crossings}; "
+        f"graph vs interpreter over counters "
+        f"{CF_BOUNDARIES[0] - 1}..{CF_BOUNDARIES[0] + 1}: "
+        f"{'bitwise equal' if bitwise['equal'] else 'DIFFER'}; last losses "
+        f"{lv[-3:].tolist()}")
+    if mode != "graph" or captured != 1 or later:
+        raise AssertionError(f"the piecewise headline ran {mode} with "
+                             f"{captured} captured steps, {later} later")
+    if launches != len(buckets) * steps or len(buckets) != CF_HEAD_BUCKETS:
+        raise AssertionError(
+            f"momentum kernel launched {launches} times over "
+            f"{len(buckets)} buckets, expected {CF_HEAD_BUCKETS} buckets x "
+            f"{steps} steps")
+    if counter != steps - 1:
+        raise AssertionError(f"the step counter reads {counter} after "
+                             f"{steps} steps")
+    np.testing.assert_array_equal(got, want)
+    if not bitwise["equal"]:
+        raise AssertionError("graph and interpreter differ under "
+                             "piecewise_decay")
+    if not np.all(np.isfinite(lv)):
+        raise AssertionError(f"non-finite loss {lv}")
+    if ratio < CF_HEAD_MIN_RATIO:
+        raise AssertionError(f"the piecewise headline ran at {ratio:.4f} "
+                             f"of the headline, under {CF_HEAD_MIN_RATIO}")
+    del feeds
+    _release()
+    return {"images_per_sec": img_s, "headline_images_per_sec":
+            headline_img_s, "ratio": ratio,
+            "step_ms": dt / (HEADLINE_K * CF_HEAD_CALLS) * 1e3,
+            "momentum_launches": launches, "steps": steps,
+            "captured_steps": captured, "later_captures": later,
+            "bitwise": bitwise["equal"]}
+
+
+def _cf_drnn(card_line, lstm_words_s):
+    """(c) the gate-by-gate DynamicRNN LSTM at published widths, f32,
+    fused Adam: 3 steps on the host and on the card (the captured step)
+    from one state, losses within CF_RTOL; the same 3 steps through the
+    interpreter on the card, bitwise; CF_DRNN_TIMED more replays timed."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert, flags
+    from paddle_tpu_torch.fusion import kernels as fk
+
+    from paddle_tpu_torch import fusion
+
+    main, startup, loss = build_drnn_lstm(fluid)
+    _, plan = fusion.apply(main, feed_names=["words", "label"],
+                           fetch_names=[loss.name])
+    n_buckets = sum(b["opt"] == "adam" for b in plan.buckets)
+    rs = np.random.RandomState(SEED + 17)
+    batches = seq_batches("stacked_lstm", rs, 3 + CF_DRNN_TIMED,
+                          CF_DRNN_BATCH, CF_DRNN_LEN)
+    total = -(-max(sum(len(s) for s in b["words"]) for b in batches)
+              // SEQ_BUCKET) * SEQ_BUCKET
+    init_scope = fluid.Scope()
+    with fluid.scope_guard(init_scope):
+        fluid.Executor(fluid.CUDAPlace(0)).run(startup)
+    init = convert.numpy_state(init_scope, main)
+    del init_scope
+    out = {}
+    for name, place, graph in (("host", fluid.CPUPlace(), False),
+                               ("interpreter", fluid.CUDAPlace(0), False),
+                               ("graph", fluid.CUDAPlace(0), True)):
+        feeds, _ = seq_feeds(batches, place, {"words": total})
+        scope = fluid.Scope()
+        convert.load_numpy_state(scope, main, init, place)
+        exe = fluid.Executor(place)
+        fk.reset_launch_counts()
+        with fluid.scope_guard(scope), flags.flag_guard(
+                fuse=True, cuda_graph=graph):
+            lv = [float(exe.run(main, feed=f, fetch_list=[loss])[0]
+                        .reshape(-1)[0]) for f in feeds[:3]]
+            out[name] = {"losses": lv, "mode": exe.step_mode(main),
+                         "state": convert.numpy_state(scope, main)}
+            if graph:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for f in feeds[3:]:
+                    last = exe.run(main, feed=f, fetch_list=[loss],
+                                   return_numpy=False)[0]
+                _fence(last)
+                out[name]["ms"] = (time.perf_counter() - t0) \
+                    / CF_DRNN_TIMED * 1e3
+            out[name]["launches"] = fk.adam_bucket.launches
+        del exe, scope, feeds
+        _release()
+    host, interp, graph = out["host"], out["interpreter"], out["graph"]
+    rel = max(abs(c / h - 1) for c, h in zip(graph["losses"],
+                                             host["losses"]))
+    equal = graph["losses"] == interp["losses"] and all(
+        np.array_equal(graph["state"][n], v)
+        for n, v in interp["state"].items())
+    words = np.mean([sum(len(s) for s in b["words"])
+                     for b in batches[3:]])
+    words_s = words / graph["ms"] * 1e3
+    log(f"[control_flow] (c) DynamicRNN LSTM (embedding {CF_DRNN_WIDTH}, "
+        f"hidden {CF_DRNN_WIDTH}, vocabulary {IMDB_VOCAB}, one layer, f32, "
+        f"fused Adam) at batch {CF_DRNN_BATCH}, reviews of "
+        f"{CF_DRNN_LEN[0]}-{CF_DRNN_LEN[1] - 1} tokens bucketed to {total} "
+        f"(the loop's trip count): {graph['mode']}; losses host "
+        f"{host['losses']} card {graph['losses']}, largest relative "
+        f"difference {rel:.3e} (rtol {CF_RTOL:g}); graph vs interpreter "
+        f"over 3 steps: {'bitwise equal' if equal else 'DIFFER'}; "
+        f"{graph['ms']:.2f} ms a step over {CF_DRNN_TIMED} replays, "
+        f"{words_s:.1f} words/s beside the fused dynamic_lstm's "
+        f"{lstm_words_s} (phase stacked_lstm, batch {SEQ_BATCH}); "
+        f"adam_bucket_ launches {graph['launches']} ({n_buckets} buckets x "
+        f"{3 + CF_DRNN_TIMED} steps) [{card_line}]")
+    np.testing.assert_allclose(graph["losses"], host["losses"],
+                               rtol=CF_RTOL)
+    if graph["mode"] != "graph" or interp["mode"] != "interpreter":
+        raise AssertionError(f"DynamicRNN ran {graph['mode']} / "
+                             f"{interp['mode']}")
+    if not equal:
+        raise AssertionError("DynamicRNN: graph and interpreter differ")
+    if graph["launches"] != n_buckets * (3 + CF_DRNN_TIMED):
+        raise AssertionError(f"adam kernel launched {graph['launches']} "
+                             f"times, expected {n_buckets} buckets x "
+                             f"{3 + CF_DRNN_TIMED} steps")
+    return {"tokens_bucket": total, "losses_host": host["losses"],
+            "losses_card": graph["losses"], "max_rel": rel,
+            "bitwise": equal, "step_ms": graph["ms"], "words_per_sec":
+            words_s, "adam_launches": graph["launches"]}
+
+
+def _cf_programs(fluid):
+    """{name: (main, startup, fetch vars, feed)}: a small program for each
+    new op family, built with `fluid`'s layers."""
+    L = fluid.layers
+    rs = np.random.RandomState(SEED + 18)
+    x4 = rs.randn(2, 4).astype(np.float32)
+    progs = {}
+
+    def make(name, body, feed):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            fetch = body()
+        main.random_seed = startup.random_seed = SEED
+        progs[name] = (main, startup, fetch, feed)
+
+    def x_input():
+        x = L.data(name="x", shape=[4], dtype="float32")
+        x.stop_gradient = False
+        return x
+
+    def while_grad():
+        x = x_input()
+        i = L.fill_constant(shape=[1], dtype="int64", value=0)
+        n = L.fill_constant(shape=[1], dtype="int64", value=3)
+        h = L.fc(input=x, size=4, act="tanh")
+        acc = L.fill_constant_batch_size_like(input=h, shape=[-1, 4],
+                                              dtype="float32", value=0.0)
+        cond = L.less_than(x=i, y=n)
+        loop = L.While(cond=cond, max_trip_count=5)
+        with loop.block():
+            L.assign(L.elementwise_add(acc, L.fc(input=h, size=4,
+                                                 act="tanh")), acc)
+            L.increment(i, value=1, in_place=True)
+            L.less_than(x=i, y=n, cond=cond)
+        loss = L.mean(acc)
+        return [loss] + fluid.backward.calc_gradient(loss, [x])
+
+    def switch():
+        x = x_input()
+        c = L.data(name="c", shape=[1], dtype="float32")
+        res = L.fill_constant(shape=[2, 4], dtype="float32", value=0.0)
+        half = L.fill_constant(shape=[1], dtype="float32", value=0.5)
+        first = L.reduce_sum(c)
+        with L.Switch() as sw:
+            with sw.case(L.less_than(x=first, y=half)):
+                L.assign(L.scale(x, scale=2.0), res)
+            with sw.default():  # not taken: sqrt of x < 0 is NaN
+                L.assign(L.sqrt(x), res)
+        loss = L.mean(res)
+        return [res] + fluid.backward.calc_gradient(loss, [x])
+
+    def ifelse():
+        x = x_input()
+        c = L.data(name="c", shape=[1], dtype="float32")
+        ie = L.IfElse(L.less_than(x=c, y=L.fill_constant(
+            shape=[1], dtype="float32", value=0.5)))
+        with ie.true_block():  # sqrt: singular on the false rows' x
+            ie.output(L.sqrt(ie.input(x)))
+        with ie.false_block():
+            ie.output(L.tanh(ie.input(x)))
+        out = ie()[0]
+        return [out] + fluid.backward.calc_gradient(L.mean(out), [x])
+
+    def static_rnn():
+        x = L.data(name="xs", shape=[3, 2, 4], append_batch_size=False,
+                   dtype="float32")
+        x.stop_gradient = False
+        init = L.fill_constant(shape=[2, 4], dtype="float32", value=0.0)
+        rnn = L.StaticRNN()
+        with rnn.step():
+            x_t = rnn.step_input(x)
+            h = rnn.memory(init=init)
+            nh = L.fc(input=L.elementwise_add(h, x_t), size=4, act="tanh")
+            rnn.update_memory(h, nh)
+            rnn.step_output(nh)
+        out = rnn()
+        return [out] + fluid.backward.calc_gradient(L.mean(out), [x])
+
+    def arrays():
+        x = x_input()
+        i0 = L.fill_constant(shape=[1], dtype="int64", value=0)
+        i1 = L.fill_constant(shape=[1], dtype="int64", value=1)
+        arr = L.array_write(L.scale(x, scale=2.0), i0)
+        L.array_write(L.exp(x), i1, array=arr)
+        a, b = L.array_read(arr, i0), L.array_read(arr, i1)
+        loss = L.mean(L.sums([a, b]))
+        return [a, b, L.array_length(arr)] + fluid.backward.calc_gradient(
+            loss, [x])
+
+    def rank_tables():
+        seq = L.data(name="seq", shape=[4], dtype="float32", lod_level=1)
+        table = L.lod_rank_table(seq)
+        arr = L.lod_tensor_to_array(seq, table)
+        i1 = L.fill_constant(shape=[1], dtype="int64", value=1)
+        return [L.max_sequence_len(table), L.array_read(arr, i1),
+                L.shrink_memory(L.array_read(arr, i1), i1, table),
+                L.array_to_lod_tensor(arr, table),
+                L.reorder_lod_tensor_by_rank(seq, table)]
+
+    def small_ops():
+        x = x_input()
+        shown = L.Print(L.scale(x, scale=3.0), message="[control_flow] "
+                        "(d) print:", summarize=4)
+        empty = L.create_tensor(dtype="bool")
+        fluid.default_main_program().current_block().append_op(
+            "is_empty", {"X": [x]}, {"Out": [empty]})
+        return [shown, empty]
+
+    lod = fluid.create_lod_tensor(rs.randn(10, 4).astype(np.float32),
+                                  [[2, 3, 1, 4]], fluid.CPUPlace())
+    make("while_grad", while_grad, {"x": x4})
+    make("switch", switch, {"x": x4, "c": np.array([[0.2], [0.1]],
+                                                   np.float32)})
+    make("ifelse_mixed_rows", ifelse, {"x": np.array(
+        [[-1.0, 0.0, -2.0, -3.0], [1.0, 4.0, 9.0, 2.0]], np.float32),
+        "c": np.array([[0.9], [0.1]], np.float32)})
+    make("static_rnn", static_rnn,
+         {"xs": rs.randn(3, 2, 4).astype(np.float32)})
+    make("tensor_arrays", arrays, {"x": x4})
+    make("rank_tables", rank_tables, {"seq": lod})
+    make("is_empty_print", small_ops, {"x": x4})
+    return progs
+
+
+def _cf_ops():
+    """(d) each new op family's small program on the card and on the
+    host from one state: fetched values within CF_RTOL of the host
+    array's largest magnitude. Returns {program: worst error / scale}."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+
+    worst = {}
+    for name, (main, startup, fetch, feed) in _cf_programs(fluid).items():
+        runs = {}
+        init = None
+        for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
+            scope = fluid.Scope()
+            if init is None:
+                with fluid.scope_guard(scope):
+                    fluid.Executor(place).run(startup)
+                init = convert.numpy_state(scope, main)
+            else:
+                convert.load_numpy_state(scope, main, init, place)
+            exe = fluid.Executor(place)
+            with fluid.scope_guard(scope):
+                runs[repr(place)] = (exe.run(main, feed=feed,
+                                             fetch_list=fetch),
+                                     exe.step_mode(main))
+        (host, _), (card, mode) = runs["CPUPlace()"], runs["CUDAPlace(0)"]
+        for h, c in zip(host, card):
+            h = np.asarray(h.numpy() if hasattr(h, "lod") else h, np.float64)
+            c = np.asarray(c.numpy() if hasattr(c, "lod") else c, np.float64)
+            if h.shape != c.shape:
+                raise AssertionError(f"[control_flow] (d) {name}: card "
+                                     f"{c.shape} vs host {h.shape}")
+            if not (np.isfinite(h).all() and np.isfinite(c).all()):
+                raise AssertionError(f"[control_flow] (d) {name}: a "
+                                     f"value is not finite")
+            scale = float(np.abs(h).max()) if h.size else 0.0
+            err = float(np.abs(c - h).max()) if h.size else 0.0
+            if err > CF_RTOL * scale:
+                raise AssertionError(f"[control_flow] (d) {name}: card vs "
+                                     f"host {err:.3e} over {CF_RTOL:g} of "
+                                     f"{scale:.3e}")
+            worst[name] = max(worst.get(name, 0.0),
+                              err / scale if scale else err)
+        log(f"[control_flow] (d) {name}: card ({mode}) vs host, "
+            f"{len(host)} fetches, worst error / scale {worst[name]:.3e}")
+    return worst
+
+
+def phase_control_flow(card, card_line, headline_img_s, lstm_words_s):
+    """(a) NMT beam decode, (b) the headline under piecewise_decay, (c) the
+    DynamicRNN LSTM, (d) the new op families card against host. Prints
+    its seconds."""
+    t = [time.perf_counter()]
+    result = {"nmt_decode": _cf_nmt(card_line)}
+    t.append(time.perf_counter())
+    result["headline_piecewise"] = _cf_headline(card, headline_img_s)
+    t.append(time.perf_counter())
+    result["dynamic_rnn_lstm"] = _cf_drnn(card_line, lstm_words_s)
+    _release()
+    t.append(time.perf_counter())
+    result["ops"] = _cf_ops()
+    t.append(time.perf_counter())
+    parts = dict(zip(("nmt_decode", "headline_piecewise",
+                      "dynamic_rnn_lstm", "ops"),
+                     (b - a for a, b in zip(t, t[1:]))))
+    log(f"[control_flow] phase {t[-1] - t[0]:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+    result.update(seconds=t[-1] - t[0], seconds_by_part=parts)
+    return result
+
+
 def _qkv(shape, dtype, gen):
     B, H, Sq, Sk, D = shape
     return [torch.randn(B, H, S, D, generator=gen, device="cuda").to(dtype)
@@ -5094,6 +5913,47 @@ def main_input():
     log(_device_line())
 
 
+def main_control_flow():
+    """`python3 chip_smoke.py --only control_flow`: the device check, the
+    build and phase control_flow alone; the headline and the stacked
+    LSTM it compares with are timed here (1 warm + CF_HEAD_CALLS calls;
+    1 warm + SEQ_CALLS calls of phase stacked_lstm)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, flags
+
+    card_line = phase_device()
+    card = torch.cuda.get_device_name(0)
+    phase_build()
+    main, startup, loss, _ = build_headline()
+    rs = np.random.RandomState(SEED)
+    feeds = {"data_u8": torch.from_numpy(rs.randint(
+                 0, 256, (HEADLINE_K, HEADLINE_BATCH, 224, 224, 3),
+                 dtype=np.uint8)).cuda(),
+             "label": torch.from_numpy(rs.randint(
+                 0, 1000, (HEADLINE_K, HEADLINE_BATCH, 1)).astype(
+                     np.int32)).cuda()}
+    amp.enable("bfloat16")
+    try:
+        with flags.flag_guard(fuse=True), fluid.scope_guard(fluid.Scope()):
+            exe = fluid.Executor()
+            exe.run(startup)
+            dt, _ = _timed_calls(exe, main, feeds, [loss], HEADLINE_K,
+                                 CF_HEAD_WARM, CF_HEAD_CALLS)
+    finally:
+        amp.disable()
+    img_s = HEADLINE_BATCH * HEADLINE_K * CF_HEAD_CALLS / dt
+    log(f"[control_flow] the headline: {img_s:.2f} img/s")
+    del feeds, exe
+    _release()
+    lstm = phase_seq(build_seq_model("stacked_lstm"), card_line)
+    _release()
+    result = phase_control_flow(card, card_line, img_s,
+                                lstm["words_per_sec"])
+    log(card_line)
+    log(json.dumps({"control_flow": result}))
+    log(_device_line())
+
+
 def main():
     card_line = phase_device()
     card = torch.cuda.get_device_name(0)
@@ -5199,12 +6059,22 @@ def main():
     _release()
     losses = phase_loss_ops(card_line)
     _release()
+    flow = phase_control_flow(card, card_line, headline["images_per_sec"],
+                              seq["stacked_lstm"]["words_per_sec"])
+    momentum["launches_by_path"]["headline_piecewise"] = \
+        flow["headline_piecewise"]["momentum_launches"]
+    adam["launches_by_path"]["nmt_decode_train"] = \
+        flow["nmt_decode"]["adam_launches"]
+    adam["launches_by_path"]["dynamic_rnn_lstm"] = \
+        flow["dynamic_rnn_lstm"]["adam_launches"]
+    _release()
     rows += phase_flash(sass)
     log(card_line)
     log(json.dumps({"headline": headline, "monitor": monitored,
                     "parallel": parallel, "input": fed,
                     "se_resnext50": se, "vgg16": vgg, **seq,
-                    "serve": served, "tail_ops": tail, "loss_ops": losses}))
+                    "serve": served, "tail_ops": tail, "loss_ops": losses,
+                    "control_flow": flow}))
     log(json.dumps({"kernels": rows}))
     log(_device_line())
 
@@ -5214,5 +6084,7 @@ if __name__ == "__main__":
         main_loss_ops()
     elif sys.argv[1:] == ["--only", "input"]:
         main_input()
+    elif sys.argv[1:] == ["--only", "control_flow"]:
+        main_control_flow()
     else:
         main()

@@ -540,14 +540,26 @@ def check_hazards(program, report, feed_names=None, donate_state=True,
                     block_idx=0, op_idx=node.idx,
                     op_type=node.op.type, var=name)
 
-    # PTA032: persistable written more than once per step
+    # PTA032: persistable written more than once per step. A
+    # conditional_block that reads the version the write before it made
+    # does not count: it keeps that version where its predicate fails, an
+    # update of it, not a second write over it (piecewise_decay's Switch
+    # writes the rate once a case; the JAX package flags it, ROADMAP §3
+    # item 11)
     writers = {}
     for node in graph.nodes:
         for name in node.writes:
             var = gb.var_recursive(name) \
                 if gb.has_var_recursive(name) else None
-            if var is not None and var.persistable:
-                writers.setdefault(name, []).append(node.idx)
+            if var is None or not var.persistable:
+                continue
+            ws = writers.setdefault(name, [])
+            if ws and node.op.type == "conditional_block" \
+                    and node.reads.get(name) == \
+                    graph.nodes[ws[-1]].writes[name]:
+                ws[-1] = node.idx
+                continue
+            ws.append(node.idx)
     for name, ws in sorted(writers.items()):
         if len(ws) < 2:
             continue

@@ -45,12 +45,28 @@ READER_OPS = frozenset({
 # every replay.
 HOST_OPS = frozenset({"save", "load", "save_combine", "load_combine",
                       "delete_var"}) | READER_OPS
-# Op types that read device values on the host (ops/metric_ops.py's
-# chunk_eval, the JAX package's no_trace metric): no side effects, so
+# Op types that read device values on the host: no side effects, so
 # dead-code elimination may drop them, but a graph cannot hold them. A
 # program with one runs through the interpreter, prepared and cached as
-# any other.
-HOST_SYNC_OPS = frozenset({"chunk_eval"})
+# any other. They are ops/metric_ops.py's chunk_eval (the JAX package's
+# no_trace metric) and, from ops/control_flow_ops.py, `while` and its
+# grad (the condition is read after every trip, as the reference's
+# while_op.cc does), the tensor-array ops (the index is read on the
+# host), the rank-table family (the JAX package's no_trace ops, which
+# read the lengths), IfElse's row split and merge (the rows are found on
+# the host), `print` and the JAX package's other no_trace ops (feed,
+# fetch, get_places). A data-dependent loop inside a CUDA graph
+# needs the graph's conditional nodes (ROADMAP).
+HOST_SYNC_OPS = frozenset({
+    "chunk_eval", "while", "while_grad",
+    "write_to_array", "read_from_array", "write_to_array_grad",
+    "read_from_array_grad", "lod_array_length",
+    "lod_rank_table", "max_sequence_len", "lod_tensor_to_array",
+    "array_to_lod_tensor", "reorder_lod_tensor_by_rank",
+    "reorder_lod_tensor_by_rank_grad", "shrink_rnn_memory",
+    "print", "feed", "fetch", "get_places",
+    "split_lod_tensor", "split_lod_tensor_grad", "merge_lod_tensor",
+    "merge_lod_tensor_grad"})
 
 
 def check_values_finite(named_values, context=""):
@@ -156,8 +172,9 @@ class OpContext:
     or time the ops on the host (`profile`, each op a profiler event)."""
 
     def __init__(self, place, rng=None, is_test=False, fed_lengths=None,
-                 caps=None, dp=None, scope=None, eager=True):
+                 caps=None, dp=None, scope=None, eager=True, feed=None):
         self.place = place
+        self.feed = feed or {}  # the step's feeds (the feed op)
         self.device = device_for(place)
         self.rng = rng if rng is not None else RandomStream(self.device, 0)
         self.is_test = is_test
@@ -170,6 +187,19 @@ class OpContext:
         self.eager = eager
         self.check_nan_inf = eager and flags.get("check_nan_inf")
         self.profile = eager and profiler.enabled()
+
+    def run_block(self, block, env):
+        """Run a sub-block's ops against `env` (the control-flow ops).
+        The running op and the env are per-op state that the sub-block's
+        ops overwrite: both come back as they were, for the kernel that
+        called this (and a derived grad's `_wanted`, which reads the
+        running op)."""
+        op, outer = self.current_op, self.env
+        try:
+            run_ops(block.ops, env, self)
+        finally:
+            self.current_op, self.env = op, outer
+        return env
 
     def check_cap(self, lengths, cap, what, op_type):
         """Raise ValueError when a sequence of `lengths` is longer than
@@ -214,7 +244,11 @@ def run_ops(ops, env, ctx, fetch_names=(), state_names=()):
 def _run_one_op(op, env, ctx):
     op_def = registry.lookup(op.type)
     ctx.current_op = op
-    ins = {slot: [None if n == "" else env_get(env, n) for n in names]
+    # an op with lazy inputs (conditional_block, its grad, while_grad)
+    # takes None for a name not yet made: a state var first written
+    # inside its sub-block
+    get = env.get if op_def.lazy_inputs else (lambda n: env_get(env, n))
+    ins = {slot: [None if n == "" else get(n) for n in names]
            for slot, names in op.inputs.items()}
     try:
         if ctx.profile:
@@ -341,7 +375,7 @@ def build_step_fn(program, fetch_names, state_out_names, place, dp=None):
         env.update(mut_state)
         env.update(feeds)
         ctx = OpContext(place, rng, caps=step.caps, dp=dp, scope=scope,
-                        eager=eager,
+                        eager=eager, feed=feeds,
                         fed_lengths={
                             id(v.lengths): (n, v.host_lengths)
                             for n, v in feeds.items()

@@ -77,6 +77,9 @@ class OpDef:
         self.lod_aware = lod_aware
         self.grad_maker = None  # custom IR-level grad maker (backward.py)
         self.stop_gradient_outputs = ()  # output slots never differentiated
+        # a missing input name reaches the kernel as None, not a KeyError
+        # (state first written inside a sub-block: control_flow_ops.py)
+        self.lazy_inputs = False
 
 
 _registry = {}
@@ -121,6 +124,12 @@ def register_grad_maker(type):
 
 def set_stop_gradient_outputs(type, slots):
     _get_or_stub(type).stop_gradient_outputs = tuple(slots)
+
+
+def set_lazy_inputs(*types):
+    """A missing input name reaches these types' kernels as None."""
+    for type in types:
+        _get_or_stub(type).lazy_inputs = True
 
 
 def _get_or_stub(type):

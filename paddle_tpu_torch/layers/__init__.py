@@ -1,7 +1,7 @@
 """Layer library (reference python/paddle/fluid/layers/). The port carries
-the modules the training path builds with, the comparison and counter
-helpers of control flow, and the learning-rate schedulers; the rest of
-control flow and detection wait for later slices."""
+the modules the training path builds with, control flow and the
+learning-rate schedulers; `device` (get_places) and detection wait for
+later slices."""
 
 from . import ops
 from .ops import *

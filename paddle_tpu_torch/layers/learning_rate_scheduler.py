@@ -9,6 +9,7 @@ step computes each replay's from the counter it advances."""
 import math
 
 from .nn import autoincreased_step_counter
+from . import control_flow
 from . import tensor
 from . import ops
 
@@ -85,8 +86,33 @@ def polynomial_decay(learning_rate, decay_steps, end_learning_rate=0.0001,
 
 
 def piecewise_decay(boundaries, values):
-    """Needs `Switch` (conditional blocks), which the port does not have
-    yet: it comes with the control-flow slice (ROADMAP queue 1 item 4)."""
-    raise NotImplementedError(
-        "piecewise_decay needs layers.Switch, which is not yet ported to "
-        "paddle_tpu_torch (ROADMAP queue 1 item 4, control flow)")
+    """values[i] while the step counter is below boundaries[i], then the
+    last value: a persistable learning rate that a Switch of conditional
+    blocks assigns at every step (ops/control_flow_ops.py keeps each
+    block's write where its case holds, so the step stays capturable)."""
+    if len(values) - len(boundaries) != 1:
+        raise ValueError("len(values) - len(boundaries) should be 1")
+    global_step = _decay_step_counter()
+    from .. import unique_name
+    from ..layer_helper import LayerHelper
+
+    helper = LayerHelper("piecewise_decay")
+    lr = helper.create_or_get_global_variable(
+        unique_name.generate("learning_rate"), "float32", (1,), persistable=True
+    )
+    from ..initializer import Constant
+
+    helper.set_variable_initializer(lr, Constant(values[0]))
+    with control_flow.Switch() as switch:
+        for i in range(len(boundaries)):
+            boundary_val = tensor.fill_constant(shape=(1,), dtype="float32",
+                                                value=float(boundaries[i]))
+            value_var = tensor.fill_constant(shape=(1,), dtype="float32",
+                                             value=float(values[i]))
+            with switch.case(control_flow.less_than(global_step, boundary_val)):
+                tensor.assign(value_var, lr)
+        last_value_var = tensor.fill_constant(shape=(1,), dtype="float32",
+                                              value=float(values[len(values) - 1]))
+        with switch.default():
+            tensor.assign(last_value_var, lr)
+    return lr

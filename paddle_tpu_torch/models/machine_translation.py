@@ -6,11 +6,18 @@ The encoder runs dynamic_lstm forward and reversed; the decoder's
 per-step attention (the reference's DynamicRNN with sequence_expand and
 sequence_softmax) is the fused attention_lstm_decoder op. Ragged batches
 travel as SeqTensors (data + lengths), so every shape in the step is
-static. Beam-search decoding (the JAX package's beam_decode) waits for
-the port's beam_search ops and control flow (ROADMAP queue 1 item 7).
+static. `beam_decode` translates with a trained net: the host drives the
+loop, and each step runs one attention_lstm_step program and one
+beam_search program (ROADMAP queue 1 item 4).
 """
 
+import weakref
+
+import numpy as np
+import torch
+
 import paddle_tpu_torch as fluid
+from paddle_tpu_torch.executor import as_numpy
 
 
 # the synthetic WMT14 dictionary (paddle_tpu/dataset/wmt14.py DICT_SIZE)
@@ -79,6 +86,195 @@ def seq_to_seq_net(embedding_dim, encoder_size, decoder_size,
     cost = fluid.layers.cross_entropy(input=prediction, label=label)
     avg_cost = fluid.layers.mean(cost)
     return avg_cost, prediction
+
+
+# train program -> {key: a program beam_decode built for it}: a repeat
+# call runs the same programs, so their prepared steps and captured
+# graphs are reused
+_PROGRAMS = weakref.WeakKeyDictionary()
+
+
+def _cached(train_prog, key, build):
+    progs = _PROGRAMS.setdefault(train_prog, {})
+    key = (train_prog._mutation,) + key
+    if key not in progs:
+        progs[key] = build()
+    return progs[key]
+
+
+def _step_programs(train_prog, weight_names, BK, K, V, E, D, Ts, He,
+                   end_id):
+    """(the one-step decoder program, the beam-step program, the
+    backtrack program and its fetch vars). The decoder program reads the
+    loop invariants beam_evec, beam_eproj and beam_smask and the
+    decoder's weights from the scope by name."""
+    step_prog = fluid.Program()
+    with fluid.program_guard(step_prog, fluid.Program()):
+        pe = fluid.layers.data(name="prev_emb", shape=[E], dtype="float32")
+        ph = fluid.layers.data(name="prev_h", shape=[D], dtype="float32")
+        pc = fluid.layers.data(name="prev_c", shape=[D], dtype="float32")
+        blk = step_prog.global_block()
+        ev = blk.create_var(name="beam_evec", shape=[-1, Ts, He],
+                            dtype="float32", persistable=True)
+        ej = blk.create_var(name="beam_eproj", shape=[-1, Ts, D],
+                            dtype="float32", persistable=True)
+        sm = blk.create_var(name="beam_smask", shape=[-1, Ts],
+                            dtype="float32", persistable=True)
+        for n in weight_names.values():
+            v = train_prog.global_block().vars[n]
+            blk.create_var(name=n, shape=v.shape, dtype=v.dtype,
+                           persistable=True)
+        for n in ("step_h", "step_c", "step_logprobs"):
+            blk.create_var(name=n, dtype="float32")
+        blk.append_op(
+            type="attention_lstm_step",
+            inputs={"PrevEmb": [pe.name], "PrevH": [ph.name],
+                    "PrevC": [pc.name], "EncoderVec": [ev.name],
+                    "EncoderProj": [ej.name], "SrcMask": [sm.name],
+                    **{s: [n] for s, n in weight_names.items()}},
+            outputs={"H": ["step_h"], "C": ["step_c"],
+                     "LogProbs": ["step_logprobs"]},
+            attrs={})
+
+    # ids omitted: the candidate id is the vocabulary column
+    beam_prog = fluid.Program()
+    with fluid.program_guard(beam_prog, fluid.Program()):
+        pi = fluid.layers.data(name="pre_ids", shape=[1], dtype="int64")
+        ps = fluid.layers.data(name="pre_scores", shape=[1],
+                               dtype="float32")
+        cs = fluid.layers.data(name="cand_scores", shape=[V],
+                               dtype="float32")
+        beam_fetch = fluid.layers.beam_search(
+            pi, None, cs, beam_size=K, end_id=end_id, pre_scores=ps,
+            return_parents=True)
+
+    decode_prog = fluid.Program()
+    with fluid.program_guard(decode_prog, fluid.Program()):
+        iv = fluid.layers.data(name="ids", shape=[BK, 1], dtype="int64")
+        sv = fluid.layers.data(name="sc", shape=[BK, 1], dtype="float32")
+        pv = fluid.layers.data(name="par", shape=[BK, 1], dtype="int64")
+        decode_fetch = fluid.layers.beam_search_decode(
+            iv, sv, parents=pv, end_id=end_id)
+    return step_prog, beam_prog, beam_fetch, decode_prog, decode_fetch
+
+
+def _padded(lt):
+    """A fetched ragged LoDTensor as ([B, Ts, ...] zero-padded, [B, Ts]
+    mask)."""
+    data = np.asarray(lt.numpy())
+    offs = lt.last_level_offsets()
+    lens = [b - a for a, b in zip(offs, offs[1:])]
+    o = np.zeros((len(lens), max(lens)) + data.shape[1:], data.dtype)
+    m = np.zeros((len(lens), max(lens)), "float32")
+    for i, (a, b) in enumerate(zip(offs, offs[1:])):
+        o[i, : b - a] = data[a:b]
+        m[i, : b - a] = 1.0
+    return o, m
+
+
+def beam_decode(exe, train_prog, src_lod_tensor, beam_size=4, max_len=16,
+                start_id=0, end_id=1, scope=None):
+    """Beam-search inference over a trained seq_to_seq_net (reference
+    python/paddle/fluid/tests/book/test_machine_translation.py decode():
+    a While loop of DynamicRNN step and beam_search ops; here, as in the
+    JAX package, the host drives the loop).
+
+    The encoder runs once, through a clone(for_test=True); its outputs
+    go into the scope once as the loop invariants beam_evec, beam_eproj
+    and beam_smask. Each step then runs the attention_lstm_step program
+    (fetching its [B*K, V] log-probs), adds the beams' scores on the
+    host and runs the beam_search program; the beams follow their
+    parents' recurrent state; the loop stops when every beam has ended
+    or after max_len steps, and one beam_search_decode run backtracks
+    the sentences. The programs are built once per (train program,
+    shapes) and reused by later calls.
+
+    Returns (sentences, scores): per-beam token-id lists and accumulated
+    log-prob floats, source-major, beam-minor."""
+    scope = scope if scope is not None else fluid.global_scope()
+    # the decoder's wiring in the train program (the op's own input names
+    # are the source of truth, whatever the layers named them)
+    dec_op = next(op for b in train_prog.blocks for op in b.ops
+                  if op.type == "attention_lstm_decoder")
+    evec_n = dec_op.input("EncoderVec")[0]
+    eproj_n = dec_op.input("EncoderProj")[0]
+    boot_n = dec_op.input("DecoderBoot")[0]
+    weight_names = {s: dec_op.input(s)[0] for s in (
+        "WAttState", "WAttScore", "WStep", "BStep", "WOut", "BOut")}
+    table_n = next(
+        op for op in train_prog.global_block().ops
+        if op.type == "lookup_table"
+        and op.input("Ids")[0] == "target_sequence").input("W")[0]
+
+    infer_prog = _cached(train_prog, ("infer",),
+                         lambda: train_prog.clone(for_test=True))
+    evec, eproj, boot = exe.run(
+        infer_prog, feed={"source_sequence": src_lod_tensor},
+        fetch_list=[evec_n, eproj_n, boot_n], scope=scope)
+    evec_p, src_mask = _padded(evec)
+    eproj_p, _ = _padded(eproj)
+    B, Ts, He = evec_p.shape
+    D = boot.shape[-1]
+    K = beam_size
+    table = as_numpy(scope.find_var(table_n))
+    V, E = table.shape
+    step_prog, beam_prog, beam_fetch, decode_prog, decode_fetch = _cached(
+        train_prog, (K, B, Ts, He, D, E, V, end_id),
+        lambda: _step_programs(train_prog, weight_names, B * K, K, V, E, D,
+                               Ts, He, end_id))
+
+    def rep(a):
+        return np.repeat(a, K, axis=0)
+
+    for n, v in (("beam_evec", rep(evec_p)), ("beam_eproj", rep(eproj_p)),
+                 ("beam_smask", rep(src_mask))):
+        scope.var(n)
+        scope.set_var(n, torch.from_numpy(v.astype("float32")).to(
+            exe.device))
+
+    pre_ids = np.full((B * K, 1), -1, dtype="int64")
+    pre_ids[::K, 0] = start_id
+    pre_scores = np.zeros((B * K, 1), dtype="float32")
+    h = rep(boot).astype("float32")
+    c = np.zeros((B * K, D), dtype="float32")
+    step_ids, step_scores, step_parents = [], [], []
+    for _ in range(max_len):
+        emb = table[np.clip(pre_ids[:, 0], 0, V - 1)].astype("float32")
+        lp, h_new, c_new = exe.run(
+            step_prog, feed={"prev_emb": emb, "prev_h": h, "prev_c": c},
+            fetch_list=["step_logprobs", "step_h", "step_c"], scope=scope)
+        cand_scores = pre_scores + lp
+        sel, sc, par = exe.run(
+            beam_prog, feed={"pre_ids": pre_ids, "pre_scores": pre_scores,
+                             "cand_scores": cand_scores},
+            fetch_list=list(beam_fetch), scope=scope)
+        par = par.astype("int64")
+        step_ids.append(sel.astype("int64"))
+        step_scores.append(sc)
+        step_parents.append(par)
+        # beams follow their parents' recurrent state
+        h, c = h_new[par[:, 0]], c_new[par[:, 0]]
+        pre_ids, pre_scores = step_ids[-1], sc
+        if (pre_ids[:, 0] == end_id).all():
+            break
+
+    ids_lt, sc_lt = exe.run(
+        decode_prog, feed={"ids": np.stack(step_ids),
+                           "sc": np.stack(step_scores),
+                           "par": np.stack(step_parents)},
+        fetch_list=list(decode_fetch), scope=scope)
+    offs = ids_lt.last_level_offsets()
+    toks = np.asarray(ids_lt.numpy()).reshape(-1)
+    scs = np.asarray(sc_lt.numpy()).reshape(-1)
+    sentences, scores = [], []
+    for a, b in zip(offs, offs[1:]):
+        sentences.append(toks[a:b].tolist())
+        scores.append(float(scs[b - 1]) if b > a else 0.0)
+    return sentences, scores
+
+
+def lodtensor_to_ndarray(lod_tensor):
+    return np.asarray(lod_tensor.numpy()), lod_tensor.lod()
 
 
 def get_model(args):

@@ -7,12 +7,15 @@ collectives of data parallelism), the single-device op tail (matmul, the
 reductions, the tensor ops, comparisons and logic, the dense losses and
 every optimizer rule), the structured losses (CTC, CRF, NCE, hierarchical
 sigmoid), the metrics, the rest of the nn ops, the host file IO ops of
-fluid.io and the reader ops (readers held in the scope, `read`)."""
+fluid.io, the reader ops (readers held in the scope, `read`), control
+flow (while, conditional blocks, tensor arrays, rank tables, the
+recurrent ops) and beam search."""
 
 from . import util
 from . import tensor_ops
 from . import math_ops
 from . import control_flow_ops
+from . import beam_search_ops
 from . import activation_ops
 from . import nn_ops
 from . import metric_ops

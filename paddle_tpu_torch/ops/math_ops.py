@@ -96,8 +96,23 @@ for _name, _fn in [
 
 @register_op("sum")
 def sum_op(ctx, ins, attrs):
-    """reference operators/sum_op.cc — add N tensors (grad accumulation)."""
+    """reference operators/sum_op.cc — add N tensors (grad accumulation).
+    Tensor arrays (the grads of two reads of one array) merge slot by
+    slot; a slot only one of them holds rides through."""
     xs = many(ins, "X")
+    from .control_flow_ops import TensorArray
+
+    if any(isinstance(x, TensorArray) for x in xs):
+        merged = TensorArray()
+        for x in xs:
+            if not isinstance(x, TensorArray):
+                raise TypeError(
+                    "sum: cannot mix tensor arrays with dense tensors")
+            for idx, item in enumerate(x.items):
+                if item is not None:
+                    prev = merged.items[idx] if idx < len(merged) else None
+                    merged.write(idx, item if prev is None else prev + item)
+        return out(Out=merged)
     acc = xs[0]
     for x in xs[1:]:
         acc = acc + x

@@ -3,7 +3,7 @@
 Reference parity: operators/{cast,concat,split,reshape,transpose,pad,crop,
 gather,scatter,one_hot,fill_constant,fill_constant_batch_size_like,
 fill_zeros_like,gaussian_random,uniform_random,assign,assign_value,shape,
-increment,expand,label_smooth,reverse,arg_min_max,argsort,isfinite,
+increment,expand,label_smooth,reverse,arg_min_max,argsort,is_empty,isfinite,
 lookup_table,truncated_gaussian_random,multiplex,lod_reset}_op.cc, each as
 the JAX package's paddle_tpu/ops/tensor_ops.py computes it. Random ops
 draw from the program's random stream (ctx.rng,
@@ -235,6 +235,15 @@ def argsort_op(ctx, ins, attrs):
     axis = attrs.get("axis", -1)
     idx = torch.argsort(x, dim=axis, stable=True)
     return out(Out=torch.take_along_dim(x, idx, dim=axis), Indices=idx)
+
+
+@register_op("is_empty")
+def is_empty_op(ctx, ins, attrs):
+    """One 0-d bool on the device: whether X has no element (its shape
+    decides; a fill, so a captured step holds it)."""
+    x = first(ins, "X")
+    return out(Out=torch.full((), x.numel() == 0, dtype=torch.bool,
+                              device=x.device))
 
 
 @register_op("isfinite")

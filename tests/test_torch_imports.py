@@ -12,6 +12,12 @@
   op does not read the running Mean/Variance. The inference program of
   each (io.get_inference_program of its prediction, what
   save_inference_model writes as `__model__`) is the same string too.
+  Control flow (tests/test_torch_control_flow.py) has the same rule and
+  one more difference: the port's IfElse splits the rows between its
+  branches as the reference Fluid does (reference fault 10), so its
+  program holds reduce_max, reduce_min, a 0.5 fill, two less_than ops,
+  a split_lod_tensor in each branch and a merge_lod_tensor where the JAX
+  package's holds one logical_not and a multiplex.
 """
 
 import ast
@@ -157,6 +163,16 @@ def test_the_input_slice_is_among_the_checked_sources(module):
     """The input path's modules (RecordIO, readers, datasets, the
     DataFeeder, the datapipe stages and the reader ops) are checked by the
     test above."""
+    assert os.path.join(PORT, module) in set(_sources())
+
+
+@pytest.mark.parametrize("module", [
+    "ops/control_flow_ops.py", "ops/beam_search_ops.py",
+    "layers/control_flow.py", "layers/learning_rate_scheduler.py",
+    "models/machine_translation.py", "analysis/dataflow.py"])
+def test_the_control_flow_slice_is_among_the_checked_sources(module):
+    """Control flow, beam search and beam_decode are checked by the test
+    above."""
     assert os.path.join(PORT, module) in set(_sources())
 
 

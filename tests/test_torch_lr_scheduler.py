@@ -9,7 +9,9 @@ stand-in for a CUDA graph of tests/test_torch_step.py on the CPU, a real
 graph on a card) the counter, an int64 persistable that `increment`
 writes in place, advances at every replay, the decayed rate reaches the
 fused momentum update at every replay, and graph and interpreter stay
-bitwise equal.
+bitwise equal. piecewise_decay, built from a Switch of conditional
+blocks, takes the JAX package's rate exactly at steps that cross both
+its boundaries, on both paths.
 """
 
 import math
@@ -72,7 +74,9 @@ SCHEDULES = {
 
 
 def build(fluid, schedule, momentum=False, clip=False):
-    name, args, kwargs, _ = SCHEDULES[schedule]
+    name, args, kwargs, _ = SCHEDULES[schedule] \
+        if schedule != "piecewise_decay" \
+        else ("piecewise_decay", PIECEWISE, {}, None)
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         x = fluid.layers.data(name="x", shape=[6], dtype="float32")
@@ -140,10 +144,30 @@ def test_schedule_matches_the_jax_package(schedule):
                                rtol=LR_RTOL)
 
 
-def test_piecewise_decay_names_the_missing_switch():
-    with tfluid.program_guard(tfluid.Program(), tfluid.Program()):
-        with pytest.raises(NotImplementedError, match="Switch"):
-            tfluid.layers.piecewise_decay([2, 4], [0.1, 0.01, 0.001])
+PIECEWISE = ([1, 3], [0.1, 0.01, 0.001])
+
+
+def _piecewise(k):
+    bounds, values = PIECEWISE
+    return next((v for b, v in zip(bounds, values) if k < b), values[-1])
+
+
+def test_piecewise_decay_matches_the_jax_package():
+    """The Switch-built schedule over 5 steps that cross both boundaries
+    (counter 0..4: 0.1, 0.01, 0.01, 0.001, 0.001): the rate the JAX
+    package fetches, exactly, and its losses within rtol 1e-4; the
+    program is the JAX package's, four conditional blocks included."""
+    init, want = _jax_run("piecewise_decay")
+    got, state, _ = _port_run("piecewise_decay", init, tfluid.CPUPlace())
+    np.testing.assert_array_equal(got[:, 1], want[:, 1])
+    np.testing.assert_allclose(got[:, 1], [_piecewise(k)
+                                           for k in range(STEPS)])
+    np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=LOSS_RTOL)
+    assert int(state[COUNTER][0]) == STEPS - 1
+    progs = [build(f, "piecewise_decay")[0] for f in (jfluid, tfluid)]
+    assert progs[1].desc_str() == progs[0].desc_str()
+    assert [op.type for op in progs[1].global_block().ops].count(
+        "conditional_block") == len(PIECEWISE[1])
 
 
 def test_counter_layers_build_the_jax_packages_ops():
@@ -164,22 +188,22 @@ def test_counter_layers_build_the_jax_packages_ops():
     assert progs[1].desc_str() == progs[0].desc_str()
 
 
-def _graph_vs_interpreter(place):
-    """exponential_decay on fused Momentum with GradientClipByGlobalNorm:
-    the interpreter's run and the graph path's."""
-    init, want = _jax_run("exponential_decay", momentum=True, clip=True)
+def _graph_vs_interpreter(place, schedule="exponential_decay"):
+    """`schedule` on fused Momentum with GradientClipByGlobalNorm: the
+    interpreter's run and the graph path's."""
+    init, want = _jax_run(schedule, momentum=True, clip=True)
     runs = {}
     with tflags.flag_guard(fuse=True):
         for graph in (False, True):
             fk.reset_launch_counts()
             with tflags.flag_guard(cuda_graph=graph):
-                runs[graph] = _port_run("exponential_decay", init, place,
+                runs[graph] = _port_run(schedule, init, place,
                                         momentum=True, clip=True)
             runs[graph] += (fk.momentum_bucket.launches,)
     return want, runs
 
 
-def _assert_graph_run(want, runs):
+def _assert_graph_run(want, runs, value=SCHEDULES["exponential_decay"][3]):
     got, state, mode, launches = runs[True]
     i_got, i_state, i_mode, _ = runs[False]
     assert (mode, i_mode) == ("graph", "interpreter")
@@ -188,7 +212,6 @@ def _assert_graph_run(want, runs):
     for n, v in i_state.items():
         np.testing.assert_array_equal(state[n], v, err_msg=n)
     # a new rate every step: the counter's, not the capture's
-    value = SCHEDULES["exponential_decay"][3]
     np.testing.assert_allclose(got[:, 1], [value(k) for k in range(STEPS)],
                                rtol=LR_RTOL)
     assert int(state[COUNTER][0]) == STEPS - 1
@@ -199,8 +222,27 @@ def test_decaying_rate_reaches_every_replay(recorded_graphs):  # noqa: F811
     _assert_graph_run(*_graph_vs_interpreter(tfluid.CPUPlace()))
 
 
+def test_piecewise_rate_reaches_every_replay(recorded_graphs):  # noqa: F811
+    """piecewise_decay's four conditional blocks run in the graph: the
+    Switch-written rate reaches the fused momentum bucket at every
+    replay, crossing both boundaries, bitwise as the interpreter."""
+    _assert_graph_run(*_graph_vs_interpreter(tfluid.CPUPlace(),
+                                             "piecewise_decay"),
+                      value=_piecewise)
+
+
 @pytest.mark.cuda
 def test_decaying_rate_reaches_every_replay_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     _assert_graph_run(*_graph_vs_interpreter(tfluid.CUDAPlace(0)))
+
+
+@pytest.mark.cuda
+def test_piecewise_rate_reaches_every_replay_on_the_card():
+    """The masked conditional blocks of piecewise_decay in a CUDA graph."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _assert_graph_run(*_graph_vs_interpreter(tfluid.CUDAPlace(0),
+                                             "piecewise_decay"),
+                      value=_piecewise)

@@ -48,8 +48,6 @@ BUILDER_MODULES = [
 ]
 
 MISSING = {
-    "beam_search": "ROADMAP queue 1 item 4: control flow and decoding",
-    "beam_search_decode": "ROADMAP queue 1 item 4: control flow and decoding",
     "roi_pool": "ROADMAP queue 1 item 9: detection",
 }
 

@@ -242,8 +242,9 @@ def test_resnet_is_capturable_and_its_startup_is_not():
 
 def test_capture_blocker_looks_into_sub_blocks(monkeypatch):
     """A host op inside a sub-block keeps the step out of the graph (a
-    stand-in host op: the port has none yet); a random op there does
-    not."""
+    stand-in host op); a random op there does not. The sub-block's owner
+    is a conditional_block, which a graph holds (a `while` is a host-sync
+    op itself)."""
     monkeypatch.setattr(tcore, "HOST_OPS", frozenset({"host_probe"}))
 
     class Block:
@@ -255,11 +256,15 @@ def test_capture_blocker_looks_into_sub_blocks(monkeypatch):
             self.type, self.attrs = type, attrs or {}
 
     inner = Op("host_probe")
-    ops = [Op("mul"), Op("while", {"sub_block": Block([Op("relu"), inner])})]
+    ops = [Op("mul"), Op("conditional_block",
+                         {"sub_block": Block([Op("relu"), inner])})]
     assert tcore.capture_blocker(ops) is inner
     assert tcore.capture_blocker(ops[:1]) is None
-    random = [Op("while", {"sub_block": Block([Op("gaussian_random")])})]
+    random = [Op("conditional_block",
+                 {"sub_block": Block([Op("gaussian_random")])})]
     assert tcore.capture_blocker(random) is None
+    loop = Op("while", {"sub_block": Block([Op("relu")])})
+    assert tcore.capture_blocker([loop]) is loop
 
 
 def test_the_cpu_runs_the_interpreter_and_says_so():
