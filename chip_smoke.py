@@ -252,6 +252,40 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 rank-table ops, is_empty, print) card against host
                 ([control_flow] lines). Alone: `python3 chip_smoke.py
                 --only control_flow`
+ 10f. resilience — the training services: (a) fluid.Trainer over the
+                headline's network (Momentum(0.01, 0.9), FLAGS_fuse, bf16
+                AMP) fed by a DataPipe over a seeded in-memory pool of
+                uint8 images, batch 128, prefetch_to_device(chunk=8), 2
+                epochs of 6 dispatches: img/s over the dispatches after
+                the first and its ratio to the same run's headline, the
+                event counts, momentum launches 4 a step; (b) the same
+                under ResilienceConfig(checkpoint_interval=10), async
+                writes: img/s against (a), the step-gap ms of a save (CUDA
+                events around its snapshot copies, and its host ms), the
+                writer's seconds and the bytes of a checkpoint,
+                inspect_dir's statuses; (a) and (b) end in the same state,
+                the rule for (c)-(e): bitwise, or, where they are not,
+                within (a)-(b)'s largest difference; (c) a chaos sigterm
+                after dispatch 5 raises Preempted after a grace save, a
+                fresh Trainer restores and finishes, the time to recover
+                (restore to its first completed dispatch, capture
+                included); (d) a chaos nan at dispatch 6 under
+                nan_policy="restore" rolls back in the same Trainer on its
+                captured graph; (e) a chaos transient at run call 3, twice,
+                is retried; (f) the README MLP with a dropout after its
+                hidden layer, fused Adam, graph mode, killed after
+                dispatch 2 and restored: bitwise equal to its
+                uninterrupted run (the random stream rides the
+                checkpoint), adam launches one a bucket a step; (g) the
+                headline with async_fetch, fenced one call behind: every
+                fetched loss equal to a synchronous run's from the same
+                state, img/s against the headline; (h) FLAGS_debug_nans:
+                log(-1) raises FloatingPointError naming log, a training
+                scope trains after the trap, and with the flag off the
+                program is back on its captured graph; (i)
+                FLAGS_step_deadline_ms with a chaos delay writes a hang
+                dump ([resilience] lines). Alone: `python3 chip_smoke.py
+                --only resilience`
  11. flash    — the flash-attention kernels (both wgmma fed by TMA; f32
                 in 3xTF32 split products after its split prologue) against
                 their plain torch version on the card, causal and not, at
@@ -472,6 +506,29 @@ CF_DRNN_LEN = (16, 65)
 CF_DRNN_TIMED = 3
 CF_RTOL = 1e-4
 CF_NEAR_TIE = 1e-4
+
+# phase resilience: the headline's network under fluid.Trainer fed by a
+# DataPipe over RES_POOL seeded uint8 images, batch HEADLINE_BATCH, chunks
+# of RES_CHUNK steps, RES_EPOCHS epochs of RES_DISPATCHES dispatches; the
+# checkpoint cadence of (b) RES_INTERVAL dispatches, of (c)-(e)
+# RES_FAULT_INTERVAL; the faults' dispatches; the MLP with dropout at
+# batch RES_MLP_BATCH, chunks of RES_MLP_CHUNK, RES_MLP_DISPATCHES a
+# epoch, killed after dispatch RES_MLP_KILL; async_fetch over
+# RES_ASYNC_CALLS calls of RES_CHUNK steps
+RES_POOL = 512
+RES_CHUNK = 8
+RES_EPOCHS = 2
+RES_DISPATCHES = 6
+RES_INTERVAL = 10
+RES_FAULT_INTERVAL = 4
+RES_KILL_AT = 5
+RES_NAN_AT = 6
+RES_TRANSIENT_AT = 3
+RES_MLP_BATCH = 128
+RES_MLP_CHUNK = 4
+RES_MLP_DISPATCHES = 3
+RES_MLP_KILL = 2
+RES_ASYNC_CALLS = 5
 
 # phase input: the headline's program trained from a RecordIO file of
 # INPUT_IMAGES seeded INPUT_SIDE^2 x 3 uint8 images through a DataPipe:
@@ -5590,6 +5647,620 @@ def phase_control_flow(card, card_line, headline_img_s, lstm_words_s):
     return result
 
 
+def _res_headline_func():
+    """The Trainer's train_func for the headline: its network, int32
+    labels, the mean cross entropy; names fixed by a unique_name guard, so
+    every Trainer builds the same vars and a checkpoint restores into
+    another."""
+    import paddle_tpu_torch as fluid
+
+    with fluid.unique_name.guard():
+        prediction = headline_net()
+        label = fluid.layers.data(name="label", shape=[1], dtype="int32")
+        return fluid.layers.mean(fluid.layers.cross_entropy(
+            input=prediction, label=label))
+
+
+def _res_momentum():
+    import paddle_tpu_torch as fluid
+
+    return fluid.optimizer.Momentum(learning_rate=0.01, momentum=0.9)
+
+
+def _res_pool():
+    """RES_POOL seeded 224x224x3 uint8 images and their labels."""
+    rs = np.random.RandomState(SEED + 23)
+    return (rs.randint(0, 256, (RES_POOL, 224, 224, 3), dtype=np.uint8),
+            rs.randint(0, 1000, RES_POOL).astype(np.int32))
+
+
+def _res_pipe(pool):
+    """An epoch of RES_DISPATCHES chunks: samples drawn in order from the
+    pool (sample i is image i mod RES_POOL), batched and staged on the
+    card RES_CHUNK steps a chunk."""
+    import paddle_tpu_torch as fluid
+
+    images, labels = pool
+    n = RES_DISPATCHES * RES_CHUNK * HEADLINE_BATCH
+
+    def reader():
+        for i in range(n):
+            j = i % RES_POOL
+            yield {"data_u8": images[j], "label": labels[j:j + 1]}
+
+    return (fluid.DataPipe.from_reader(reader).batch(HEADLINE_BATCH)
+            .prefetch_to_device(fluid.CUDAPlace(0), chunk=RES_CHUNK))
+
+
+class _ResEvents:
+    """A Trainer's event handler: counts by event type, the host time of
+    each EndStepEvent (its loss is read back: the dispatch has finished)
+    and the losses."""
+
+    def __init__(self):
+        self.counts = {}
+        self.ends = []
+        self.losses = []
+
+    def __call__(self, event):
+        name = type(event).__name__
+        self.counts[name] = self.counts.get(name, 0) + 1
+        if name == "EndStepEvent":
+            self.ends.append(time.perf_counter())
+            self.losses.append(np.asarray(event.metrics[0]).reshape(-1))
+
+
+def _res_state(trainer):
+    from paddle_tpu_torch import convert
+
+    return convert.numpy_state(trainer.scope, trainer.train_program)
+
+
+def _res_diff(a, b):
+    """{var: largest |a - b|} over the vars where two states differ."""
+    return {n: float(np.abs(a[n].astype(np.float64) - b[n]).max())
+            for n in a if not np.array_equal(a[n], b[n])}
+
+
+def _res_train(pool, cfg=None, faults=(), hook=None):
+    """One Trainer over the headline, trained RES_EPOCHS epochs under `cfg`
+    (a ResilienceConfig or None) with the chaos `faults` installed:
+    (trainer, events, Preempted or None). `hook(trainer)` runs before
+    train()."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, flags
+    from paddle_tpu_torch.resilience import Preempted, chaos
+
+    events = _ResEvents()
+    pipe = _res_pipe(pool)
+    preempted = None
+    amp.enable("bfloat16")
+    try:
+        with flags.flag_guard(fuse=True):
+            if faults:
+                chaos.install(chaos.ChaosMonkey(list(faults)))
+            # as in a fresh process: the optimizer's vars (velocities, the
+            # learning rate) take the names of every other run's, so a
+            # checkpoint restores into them
+            fluid.unique_name.switch()
+            trainer = fluid.Trainer(
+                train_func=_res_headline_func, optimizer_func=_res_momentum,
+                place=fluid.CUDAPlace(0), resilience_config=cfg)
+            if hook is not None:
+                hook(trainer)
+            try:
+                trainer.train(num_epochs=RES_EPOCHS, event_handler=events,
+                              reader=pipe)
+            except Preempted as e:
+                preempted = e
+    finally:
+        chaos.uninstall()
+        amp.disable()
+        pipe.close()
+    torch.cuda.synchronize()
+    return trainer, events, preempted
+
+
+def _res_img_s(events):
+    """img/s over the dispatches after the first (which holds the eager
+    step and the capture)."""
+    ends = events.ends
+    return (len(ends) - 1) * RES_CHUNK * HEADLINE_BATCH / (ends[-1] - ends[0])
+
+
+def _res_bound(want, got, tol, what):
+    """Hold a state to the uninterrupted run's: bitwise when `tol` is None
+    (the uninterrupted run repeats bitwise), else within `tol`, the largest
+    difference between two uninterrupted runs."""
+    diff = _res_diff(want, got)
+    worst = max(diff.values(), default=0.0)
+    if tol is None and diff:
+        raise AssertionError(
+            f"{what}: {len(diff)} vars differ from the uninterrupted run "
+            f"(largest {sorted(diff.items(), key=lambda kv: -kv[1])[:3]})")
+    if tol is not None and worst > tol:
+        raise AssertionError(f"{what}: largest difference {worst} over the "
+                             f"uninterrupted runs' {tol}")
+    return {"vars_differ": len(diff), "max_abs_diff": worst}
+
+
+def _res_trainer(card, headline_img_s, workdir):
+    """(a)-(e): the headline under fluid.Trainer, plain, checkpointed, and
+    under each fault."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.fusion import kernels as fk
+    from paddle_tpu_torch.resilience import ResilienceConfig, chaos, \
+        inspect_dir
+
+    pool = _res_pool()
+    steps = RES_EPOCHS * RES_DISPATCHES * RES_CHUNK
+    out = {}
+    # (a) plain
+    fk.reset_launch_counts()
+    trainer, events, _ = _res_train(pool)
+    launches_a = fk.momentum_bucket.launches
+    state_a = _res_state(trainer)
+    img_a = _res_img_s(events)
+    out["trainer_headline"] = {
+        "images_per_sec": img_a, "ratio": img_a / headline_img_s,
+        "events": dict(events.counts), "momentum_launches": launches_a,
+        "steps": steps}
+    log(f"[resilience] (a) {card}: fluid.Trainer over the headline, bf16 "
+        f"AMP, fused Momentum, DataPipe batch {HEADLINE_BATCH} chunk "
+        f"{RES_CHUNK}, {RES_EPOCHS} epochs of {RES_DISPATCHES} dispatches: "
+        f"{img_a:.2f} img/s over dispatches 2-{len(events.ends)}, "
+        f"{img_a / headline_img_s:.4f} of the headline's "
+        f"{headline_img_s:.2f}; events {events.counts}; momentum_bucket "
+        f"launches {launches_a} ({CF_HEAD_BUCKETS} buckets x {steps} "
+        f"steps); last losses {np.concatenate(events.losses)[-3:].tolist()}")
+    del trainer
+    _release()
+    # (b) checkpointed, async writes
+    ckdir = os.path.join(workdir, "b")
+    cfg = ResilienceConfig(checkpoint_dir=ckdir,
+                           checkpoint_interval=RES_INTERVAL)
+    saves = []
+
+    def timed_saves(trainer):
+        mgr = trainer._resilience.checkpoint
+        save = mgr.save
+
+        def save_timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            serial = save(*args, **kwargs)
+            saves.append((time.perf_counter() - t0, mgr))
+            return serial
+
+        mgr.save = save_timed
+
+    fk.reset_launch_counts()
+    trainer, events, _ = _res_train(pool, cfg, hook=timed_saves)
+    launches_b = fk.momentum_bucket.launches
+    state_b = _res_state(trainer)
+    img_b = _res_img_s(events)
+    gap_ms = [mgr.last_gap_ms() for _, mgr in saves[-1:]]
+    host_ms = [s * 1e3 for s, _ in saves]
+    write_ms = monitor.registry().gauge("checkpoint_write_ms").value
+    report = inspect_dir(ckdir)
+    statuses = [e["status"] for e in report["serials"]]
+    ck_bytes = [e["bytes"] for e in report["serials"]]
+    del trainer, saves
+    _release()
+    diff_ab = _res_diff(state_a, state_b)
+    tol = max(diff_ab.values()) if diff_ab else None
+    out["trainer_checkpointed"] = {
+        "images_per_sec": img_b, "ratio_to_a": img_b / img_a,
+        "save_gap_ms": gap_ms, "save_host_ms": host_ms,
+        "write_s": write_ms / 1e3, "checkpoint_bytes": ck_bytes,
+        "statuses": statuses, "momentum_launches": launches_b,
+        "a_vs_b_vars_differ": len(diff_ab),
+        "a_vs_b_max_abs_diff": tol or 0.0}
+    log(f"[resilience] (b) the same under ResilienceConfig("
+        f"checkpoint_interval={RES_INTERVAL}), async writes: {img_b:.2f} "
+        f"img/s, {img_b / img_a:.4f} of (a); a save's snapshot copies "
+        f"{gap_ms} ms on the card (CUDA events), save() {host_ms} ms on "
+        f"the host; the writer {write_ms / 1e3:.3f} s a checkpoint of "
+        f"{ck_bytes} bytes; inspect_dir {statuses}; momentum launches "
+        f"{launches_b}; (a) vs (b): "
+        + ("bitwise equal" if not diff_ab else
+           f"{len(diff_ab)} vars differ, largest "
+           f"{sorted(diff_ab.items(), key=lambda kv: -kv[1])[:5]}"))
+    if launches_a != CF_HEAD_BUCKETS * steps \
+            or launches_b != CF_HEAD_BUCKETS * steps:
+        raise AssertionError(f"momentum launched {launches_a} / "
+                             f"{launches_b} times, expected "
+                             f"{CF_HEAD_BUCKETS} x {steps}")
+    want_events = {"BeginEpochEvent": RES_EPOCHS,
+                   "EndEpochEvent": RES_EPOCHS,
+                   "BeginStepEvent": RES_EPOCHS * RES_DISPATCHES,
+                   "EndStepEvent": RES_EPOCHS * RES_DISPATCHES}
+    if out["trainer_headline"]["events"] != want_events:
+        raise AssertionError(f"events {events.counts} != {want_events}")
+    if not statuses or set(statuses) != {"committed"}:
+        raise AssertionError(f"checkpoint statuses {statuses}")
+    # (c) kill after dispatch RES_KILL_AT, restore in a fresh Trainer
+    ckdir = os.path.join(workdir, "c")
+    cfg = ResilienceConfig(checkpoint_dir=ckdir,
+                           checkpoint_interval=RES_FAULT_INTERVAL)
+    trainer, events, pre = _res_train(
+        pool, cfg, faults=[chaos.Fault("sigterm", at=RES_KILL_AT)])
+    killed_at = len(events.ends)
+    del trainer
+    _release()
+    if pre is None or pre.checkpoint_serial is None:
+        raise AssertionError(f"the sigterm run ended with {pre!r}")
+    marks = {}
+
+    def timed_restore(trainer):
+        runner = trainer._resilience
+        restore = runner.restore
+
+        def restore_timed(*args, **kwargs):
+            marks["restore"] = time.perf_counter()
+            return restore(*args, **kwargs)
+
+        runner.restore = restore_timed
+
+    cfg = ResilienceConfig(checkpoint_dir=ckdir,
+                           checkpoint_interval=RES_FAULT_INTERVAL)
+    trainer, events, _ = _res_train(pool, cfg, hook=timed_restore)
+    ttr = events.ends[0] - marks["restore"]
+    resumed = len(events.ends)
+    check_c = _res_bound(state_a, _res_state(trainer), tol, "(c) restored")
+    del trainer
+    _release()
+    out["kill_restore"] = {"killed_after": killed_at,
+                           "serial": pre.checkpoint_serial,
+                           "resumed_dispatches": resumed,
+                           "time_to_recover_s": ttr, **check_c}
+    log(f"[resilience] (c) chaos sigterm after dispatch {RES_KILL_AT}: "
+        f"Preempted after {killed_at} dispatches, grace save serial "
+        f"{pre.checkpoint_serial}; a fresh Trainer restored and ran "
+        f"{resumed} dispatches; time to recover {ttr:.3f} s (restore to "
+        f"its first completed dispatch, capture included); against (a): "
+        f"{check_c}")
+    # (d) nan at dispatch RES_NAN_AT under nan_policy=restore
+    cfg = ResilienceConfig(checkpoint_dir=os.path.join(workdir, "d"),
+                           checkpoint_interval=RES_FAULT_INTERVAL,
+                           nan_policy="restore")
+    trainer, events, _ = _res_train(
+        pool, cfg, faults=[chaos.Fault("nan", at=RES_NAN_AT)])
+    mode = trainer._resilience.executor.step_mode(trainer.train_program)
+    rolled = len(events.ends)
+    check_d = _res_bound(state_a, _res_state(trainer), tol, "(d) nan")
+    del trainer
+    _release()
+    if mode != "graph":
+        raise AssertionError(f"(d) ran {mode}")
+    out["nan_restore"] = {"dispatches": rolled, "mode": mode, **check_d}
+    log(f"[resilience] (d) chaos nan at dispatch {RES_NAN_AT}, "
+        f"nan_policy=restore: rolled back to the checkpoint of dispatch "
+        f"{RES_NAN_AT // RES_FAULT_INTERVAL * RES_FAULT_INTERVAL} in the "
+        f"same Trainer ({mode}), {rolled} dispatches in all; against (a): "
+        f"{check_d}")
+    # (e) transient at run call RES_TRANSIENT_AT, twice
+    from paddle_tpu_torch.resilience import RetryPolicy
+
+    cfg = ResilienceConfig(checkpoint_dir=os.path.join(workdir, "e"),
+                           checkpoint_interval=RES_FAULT_INTERVAL,
+                           retry=RetryPolicy(max_attempts=4,
+                                             base_delay_ms=1))
+    before = monitor.registry().counter("resilience_retries_total",
+                                        kind="executor").value
+    trainer, events, _ = _res_train(
+        pool, cfg, faults=[chaos.Fault("transient", at=RES_TRANSIENT_AT,
+                                       times=2)])
+    retries = monitor.registry().counter("resilience_retries_total",
+                                         kind="executor").value - before
+    check_e = _res_bound(state_a, _res_state(trainer), tol, "(e) transient")
+    del trainer
+    _release()
+    if retries != 2:
+        raise AssertionError(f"(e) retried {retries} times, expected 2")
+    out["transient_retry"] = {"retries": retries, **check_e}
+    log(f"[resilience] (e) chaos transient at run call "
+        f"{RES_TRANSIENT_AT}, twice: {retries} retries; against (a): "
+        f"{check_e}")
+    return out, tol
+
+
+def _res_mlp_func():
+    """The README MLP with a dropout after its hidden layer."""
+    import paddle_tpu_torch as fluid
+
+    with fluid.unique_name.guard():
+        img = fluid.layers.data(name="img", shape=[784], dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        hidden = fluid.layers.fc(input=img, size=200, act="relu")
+        hidden = fluid.layers.dropout(hidden, dropout_prob=0.5)
+        probs = fluid.layers.fc(input=hidden, size=10, act="softmax")
+        return fluid.layers.mean(
+            fluid.layers.cross_entropy(input=probs, label=label))
+
+
+def _res_mlp(workdir):
+    """(f) the MLP with dropout under fused Adam on its captured step:
+    uninterrupted, then killed after dispatch RES_MLP_KILL and restored;
+    bitwise."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import flags, fusion
+    from paddle_tpu_torch.fusion import kernels as fk
+    from paddle_tpu_torch.resilience import Preempted, ResilienceConfig, \
+        chaos
+
+    rs = np.random.RandomState(SEED + 29)
+    n = RES_MLP_DISPATCHES * RES_MLP_CHUNK * RES_MLP_BATCH
+    x = rs.rand(n, 784).astype(np.float32)
+    y = (x @ rs.randn(784, 10)).argmax(1).astype(np.int64)[:, None]
+
+    def pipe():
+        def reader():
+            for i in range(n):
+                yield {"img": x[i], "label": y[i]}
+        return (fluid.DataPipe.from_reader(reader).batch(RES_MLP_BATCH)
+                .prefetch_to_device(fluid.CUDAPlace(0), chunk=RES_MLP_CHUNK))
+
+    def run(cfg, faults=()):
+        p = pipe()
+        try:
+            with flags.flag_guard(fuse=True):
+                if faults:
+                    chaos.install(chaos.ChaosMonkey(list(faults)))
+                fluid.unique_name.switch()
+                t = fluid.Trainer(
+                    train_func=_res_mlp_func,
+                    optimizer_func=lambda: fluid.optimizer.Adam(1e-3),
+                    place=fluid.CUDAPlace(0), resilience_config=cfg)
+                events = _ResEvents()
+                try:
+                    t.train(num_epochs=RES_EPOCHS, event_handler=events,
+                            reader=p)
+                except Preempted:
+                    pass
+        finally:
+            chaos.uninstall()
+            p.close()
+        return t, events
+
+    fk.reset_launch_counts()
+    t, events = run(None)
+    launches = fk.adam_bucket.launches
+    main = t.train_program
+    _, plan = fusion.apply(main, feed_names=["img", "label"],
+                           fetch_names=[t.train_func_outputs[0].name])
+    buckets = [b for b in plan.buckets if b["opt"] == "adam"]
+    want = _res_state(t)
+    losses = np.concatenate(events.losses)
+    del t
+    ckdir = os.path.join(workdir, "f")
+    cfg = ResilienceConfig(checkpoint_dir=ckdir, checkpoint_interval=2)
+    t, events = run(cfg, [chaos.Fault("sigterm", at=RES_MLP_KILL)])
+    killed = len(events.ends)
+    del t
+    t, events = run(ResilienceConfig(checkpoint_dir=ckdir,
+                                     checkpoint_interval=2))
+    mode = t._resilience.executor.step_mode(t.train_program)
+    got = _res_state(t)
+    del t
+    _release()
+    steps = RES_EPOCHS * RES_MLP_DISPATCHES * RES_MLP_CHUNK
+    diff = _res_diff(want, got)
+    log(f"[resilience] (f) the README MLP + dropout(0.5), fused Adam, "
+        f"batch {RES_MLP_BATCH}, chunk {RES_MLP_CHUNK}: {mode}; killed "
+        f"after {killed} dispatches, restored: "
+        + ("bitwise equal to the uninterrupted run" if not diff else
+           f"{len(diff)} vars DIFFER {diff}")
+        + f"; adam launches {launches} ({len(buckets)} buckets x {steps} "
+        f"steps); last losses {losses[-3:].tolist()}")
+    if mode != "graph":
+        raise AssertionError(f"(f) ran {mode}")
+    if diff:
+        raise AssertionError(f"(f) the restored dropout run differs: {diff}")
+    if launches != len(buckets) * steps:
+        raise AssertionError(f"adam launched {launches} times, expected "
+                             f"{len(buckets)} x {steps}")
+    return {"adam_launches": launches, "steps": steps,
+            "buckets": len(buckets), "killed_after": killed,
+            "bitwise": not diff}
+
+
+def _res_async(headline_img_s, tol):
+    """(g) the headline with async_fetch, the result of call i read after
+    call i + 1 is enqueued, against a synchronous run of the same calls
+    from the same state on the same Executor and graph."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, convert, flags
+
+    main, startup, loss, _ = build_headline()
+    rs = np.random.RandomState(SEED + 31)
+    feeds = [{"data_u8": torch.from_numpy(rs.randint(
+        0, 256, (RES_CHUNK, HEADLINE_BATCH, 224, 224, 3),
+        dtype=np.uint8)).cuda(),
+        "label": torch.from_numpy(rs.randint(
+            0, 1000, (RES_CHUNK, HEADLINE_BATCH, 1)).astype(
+                np.int32)).cuda()} for _ in range(RES_ASYNC_CALLS)]
+    place = fluid.CUDAPlace(0)
+    amp.enable("bfloat16")
+    try:
+        with flags.flag_guard(fuse=True):
+            scope = fluid.Scope()
+            with fluid.scope_guard(scope):
+                fluid.Executor(place).run(startup)
+            init = convert.numpy_state(scope, main)
+            exe = fluid.Executor()
+            with fluid.scope_guard(scope):
+                # warm: the eager step and the capture
+                exe.run(main, feed=feeds[0], fetch_list=[loss],
+                        iters=RES_CHUNK)
+                convert.load_numpy_state(scope, main, init, place)
+                sync = [exe.run(main, feed=f, fetch_list=[loss],
+                                iters=RES_CHUNK)[0] for f in feeds]
+                convert.load_numpy_state(scope, main, init, place)
+                torch.cuda.synchronize()
+                got, prev = [], None
+                t0 = time.perf_counter()
+                for f in feeds:
+                    futs = exe.run(main, feed=f, fetch_list=[loss],
+                                   iters=RES_CHUNK, async_fetch=True)
+                    if prev is not None:
+                        got.append(prev[0].result())
+                    prev = futs
+                got.append(prev[0].result())
+                dt = time.perf_counter() - t0
+                mode = exe.step_mode(main)
+            del exe, scope
+    finally:
+        amp.disable()
+    _release()
+    img_s = RES_ASYNC_CALLS * RES_CHUNK * HEADLINE_BATCH / dt
+    worst = max(float(np.abs(g.astype(np.float64) - s).max())
+                for g, s in zip(got, sync))
+    equal = all(np.array_equal(g, s) for g, s in zip(got, sync))
+    log(f"[resilience] (g) the headline with async_fetch, fenced one call "
+        f"behind ({mode}, {RES_ASYNC_CALLS} calls of iters={RES_CHUNK}): "
+        f"{img_s:.2f} img/s, {img_s / headline_img_s:.4f} of the "
+        f"headline; losses against the synchronous run's: "
+        + ("bitwise equal" if equal else f"largest difference {worst}"))
+    if mode != "graph":
+        raise AssertionError(f"(g) ran {mode}")
+    if (tol is None and not equal) or (tol is not None and worst > tol):
+        raise AssertionError(f"(g) async fetches differ by {worst}")
+    return {"images_per_sec": img_s, "ratio": img_s / headline_img_s,
+            "bitwise": equal, "max_abs_diff": worst}
+
+
+def _res_tiny(fluid, with_log=False):
+    """A small fc regression trained by SGD (x of 3 features), or log(x)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[3], dtype="float32")
+        if with_log:
+            out = fluid.layers.log(x)
+        else:
+            h = fluid.layers.fc(input=x, size=2)
+            out = fluid.layers.sums([
+                fluid.layers.mean(fluid.layers.log(x)),
+                fluid.layers.mean(h)])
+            fluid.optimizer.SGD(learning_rate=0.1).minimize(out)
+    return main, startup, out
+
+
+def _res_debug_nans():
+    """(h) FLAGS_debug_nans on the card."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import flags
+
+    main, startup, y = _res_tiny(fluid, with_log=True)
+    exe = fluid.Executor()
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        bad = np.array([[-1.0, 2.0, 3.0]], np.float32)
+        try:
+            with flags.flag_guard(debug_nans=True):
+                exe.run(main, feed={"x": bad}, fetch_list=[y])
+            raise AssertionError("log(-1) ran under FLAGS_debug_nans")
+        except FloatingPointError as e:
+            msg = str(e)
+        if "'log'" not in msg:
+            raise AssertionError(f"the trap does not name log: {msg}")
+    main, startup, y = _res_tiny(fluid)
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    good = np.abs(np.random.RandomState(SEED).randn(4, 3)).astype(
+        np.float32) + 5
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        params = [p.name for p in main.global_block().all_parameters()]
+        before = {p: fluid.fetch_var(p) for p in params}
+        try:
+            with flags.flag_guard(debug_nans=True):
+                exe.run(main, feed={"x": -np.ones((4, 3), np.float32)},
+                        fetch_list=[y])
+            raise AssertionError("the trap did not fire")
+        except FloatingPointError:
+            pass
+        kept = all(np.array_equal(fluid.fetch_var(p), before[p])
+                   for p in params)
+        with flags.flag_guard(debug_nans=True):
+            trapped_mode = (exe.run(main, feed={"x": good},
+                                    fetch_list=[y]),
+                            exe.step_mode(main))[1]
+        outs = [exe.run(main, feed={"x": good}, fetch_list=[y])[0]
+                for _ in range(3)]
+        mode = exe.step_mode(main)
+        captured = len(exe.captured_steps(main, scope))
+    log(f"[resilience] (h) FLAGS_debug_nans: log(-1) raised "
+        f"FloatingPointError: {msg}; the training scope kept its params "
+        f"{kept} and trained on ({trapped_mode} under the flag); flag off: "
+        f"{mode}, {captured} CapturedStep, losses "
+        f"{[float(o.reshape(-1)[0]) for o in outs]}")
+    if not kept or trapped_mode != "interpreter" or mode != "graph" \
+            or captured != 1 \
+            or not all(np.isfinite(o).all() for o in outs):
+        raise AssertionError("(h) debug_nans: the scope or the graph did "
+                             "not come back")
+    return {"message": msg, "mode_after": mode}
+
+
+def _res_watchdog(workdir):
+    """(i) FLAGS_step_deadline_ms: a warm run inside the deadline writes no
+    dump; the same run held by a chaos delay past it writes one."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.resilience import chaos, watchdog
+
+    main, startup, y = _res_tiny(fluid, with_log=True)
+    dump_dir = os.path.join(workdir, "hang")
+    exe = fluid.Executor()
+    feed = {"x": np.ones((2, 3), np.float32)}
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        exe.run(main, feed=feed, fetch_list=[y])
+        watchdog.reset()
+        with flags.flag_guard(step_deadline_ms=300, hang_dump_dir=dump_dir):
+            exe.run(main, feed=feed, fetch_list=[y])
+            quiet = os.listdir(dump_dir) if os.path.isdir(dump_dir) else []
+            chaos.install(chaos.ChaosMonkey([chaos.Fault(
+                "delay", at=0, delay_ms=1000.0)]))
+            try:
+                exe.run(main, feed=feed, fetch_list=[y])
+            finally:
+                chaos.uninstall()
+    dumps = sorted(os.listdir(dump_dir)) if os.path.isdir(dump_dir) else []
+    log(f"[resilience] (i) FLAGS_step_deadline_ms=300: a warm run, dumps "
+        f"{quiet}; with a chaos delay of 1000 ms, dumps {dumps}")
+    if quiet or not any(d.startswith("hang_executor_") for d in dumps):
+        raise AssertionError(f"hang dumps {quiet} / {dumps}")
+    return {"dumps": dumps}
+
+
+def phase_resilience(card, headline_img_s):
+    """(a)-(i) of the module docstring. Prints its seconds."""
+    import tempfile
+
+    # checkpoints of ~205 MB each: kept out of OUT_DIR, which comes back
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    t = [time.perf_counter()]
+    try:
+        result, tol = _res_trainer(card, headline_img_s, workdir)
+        t.append(time.perf_counter())
+        result["trainer_mlp_dropout"] = _res_mlp(workdir)
+        t.append(time.perf_counter())
+        result["async_fetch"] = _res_async(headline_img_s, tol)
+        t.append(time.perf_counter())
+        result["debug_nans"] = _res_debug_nans()
+        result["watchdog"] = _res_watchdog(workdir)
+        t.append(time.perf_counter())
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    parts = dict(zip(("trainer", "mlp_dropout", "async_fetch", "flags"),
+                     (b - a for a, b in zip(t, t[1:]))))
+    log(f"[resilience] phase {t[-1] - t[0]:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+    result.update(seconds=t[-1] - t[0], seconds_by_part=parts)
+    return result
+
+
 def _qkv(shape, dtype, gen):
     B, H, Sq, Sk, D = shape
     return [torch.randn(B, H, S, D, generator=gen, device="cuda").to(dtype)
@@ -5954,6 +6625,43 @@ def main_control_flow():
     log(_device_line())
 
 
+def main_resilience():
+    """`python3 chip_smoke.py --only resilience`: the device check, the
+    build and phase resilience alone, the headline it compares with timed
+    here (1 warm + CF_HEAD_CALLS calls of iters=HEADLINE_K)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, flags
+
+    card_line = phase_device()
+    card = torch.cuda.get_device_name(0)
+    phase_build()
+    main, startup, loss, _ = build_headline()
+    rs = np.random.RandomState(SEED)
+    feeds = {"data_u8": torch.from_numpy(rs.randint(
+                 0, 256, (HEADLINE_K, HEADLINE_BATCH, 224, 224, 3),
+                 dtype=np.uint8)).cuda(),
+             "label": torch.from_numpy(rs.randint(
+                 0, 1000, (HEADLINE_K, HEADLINE_BATCH, 1)).astype(
+                     np.int32)).cuda()}
+    amp.enable("bfloat16")
+    try:
+        with flags.flag_guard(fuse=True), fluid.scope_guard(fluid.Scope()):
+            exe = fluid.Executor()
+            exe.run(startup)
+            dt, _ = _timed_calls(exe, main, feeds, [loss], HEADLINE_K,
+                                 CF_HEAD_WARM, CF_HEAD_CALLS)
+    finally:
+        amp.disable()
+    img_s = HEADLINE_BATCH * HEADLINE_K * CF_HEAD_CALLS / dt
+    log(f"[resilience] the headline: {img_s:.2f} img/s")
+    del feeds, exe
+    _release()
+    result = phase_resilience(card, img_s)
+    log(card_line)
+    log(json.dumps({"resilience": result}))
+    log(_device_line())
+
+
 def main():
     card_line = phase_device()
     card = torch.cuda.get_device_name(0)
@@ -6068,13 +6776,20 @@ def main():
     adam["launches_by_path"]["dynamic_rnn_lstm"] = \
         flow["dynamic_rnn_lstm"]["adam_launches"]
     _release()
+    resil = phase_resilience(card, headline["images_per_sec"])
+    for path in ("trainer_headline", "trainer_checkpointed"):
+        momentum["launches_by_path"][path] = \
+            resil[path]["momentum_launches"]
+    adam["launches_by_path"]["trainer_mlp_dropout"] = \
+        resil["trainer_mlp_dropout"]["adam_launches"]
+    _release()
     rows += phase_flash(sass)
     log(card_line)
     log(json.dumps({"headline": headline, "monitor": monitored,
                     "parallel": parallel, "input": fed,
                     "se_resnext50": se, "vgg16": vgg, **seq,
                     "serve": served, "tail_ops": tail, "loss_ops": losses,
-                    "control_flow": flow}))
+                    "control_flow": flow, "resilience": resil}))
     log(json.dumps({"kernels": rows}))
     log(_device_line())
 
@@ -6086,5 +6801,7 @@ if __name__ == "__main__":
         main_input()
     elif sys.argv[1:] == ["--only", "control_flow"]:
         main_control_flow()
+    elif sys.argv[1:] == ["--only", "resilience"]:
+        main_resilience()
     else:
         main()

@@ -20,7 +20,12 @@ card on a side stream), which Executor.run takes as its feed. Every run
 reports to the step monitor (`monitor`: phases, the step journal, MFU),
 and, when asked, to the model-health ledger (`health`), the NaN/Inf
 check, FLAGS_benchmark and a profiler session (`profiler`); `python -m
-paddle_tpu_torch` reads their files.
+paddle_tpu_torch` reads their files. The high-level `Trainer` drives a
+reader or a DataPipe with events, io-format checkpoints and, under a
+`ResilienceConfig`, the fault-tolerant loop of `resilience` (async atomic
+checkpoints in the JAX package's layout, retry, the NaN guard, the grace
+save on SIGTERM, the hang watchdog, the chaos harness); `metrics` and
+`evaluator` accumulate what a run fetches.
 """
 
 from . import flags
@@ -29,32 +34,58 @@ from . import core
 from .core import framework
 from .core.framework import (
     Program,
+    Block,
+    Operator,
     Variable,
     Parameter,
     default_main_program,
     default_startup_program,
     program_guard,
+    switch_main_program,
+    switch_startup_program,
     name_scope,
 )
-from .core.places import CPUPlace, CUDAPlace, TPUPlace
+from .core.places import CPUPlace, CUDAPinnedPlace, CUDAPlace, TPUPlace
 from .core.scope import Scope, global_scope, scope_guard
 from .core.lod_tensor import (LoDTensor, create_bucketed_seq_tensor,
                               create_lod_tensor, create_random_int_lodtensor)
 from . import ops  # registers every kernel
 from . import initializer
 from . import param_attr
-from .param_attr import ParamAttr
+from .param_attr import ParamAttr, WeightNormParamAttr
 from . import regularizer
 from . import clip
 from . import backward
-from .backward import append_backward
+from .backward import append_backward, calc_gradient
 from . import layers
 from . import nets
 from . import optimizer
+from .optimizer import (
+    SGD,
+    ProximalGD,
+    ProximalAdagrad,
+    Momentum,
+    Adagrad,
+    Adam,
+    Adamax,
+    DecayedAdagrad,
+    Adadelta,
+    RMSProp,
+    SGDOptimizer,
+    MomentumOptimizer,
+    AdagradOptimizer,
+    AdamOptimizer,
+    AdamaxOptimizer,
+    DecayedAdagradOptimizer,
+    AdadeltaOptimizer,
+    RMSPropOptimizer,
+    ModelAverage,
+    Optimizer,
+)
 from . import fusion
 from . import parallel
 from . import executor
-from .executor import Executor
+from .executor import Executor, FetchFuture, fetch_var
 from . import parallel_executor
 from .parallel_executor import (BuildStrategy, ExecutionStrategy,
                                 ParallelExecutor)
@@ -79,7 +110,13 @@ from .io import (
 )
 from . import transpiler
 from .transpiler import InferenceTranspiler
+from . import metrics
+from . import evaluator
+from . import resilience
+from .resilience import ResilienceConfig, ResilientRunner
 from . import trainer
+from .trainer import (BeginEpochEvent, BeginStepEvent, CheckpointConfig,
+                      EndEpochEvent, EndStepEvent, Trainer)
 from . import inferencer
 from .inferencer import Inferencer
 from . import amp
@@ -93,5 +130,7 @@ from .datapipe import DataPipe, AsyncDeviceFeeder
 from . import pipeline
 from .pipeline import DeviceChunkFeeder
 from .minibatch import batch
+
+Tensor = LoDTensor
 
 __version__ = "0.1.0"

@@ -20,10 +20,15 @@ journals and ledgers:
                      deviation, divergence-step agreement); rc 0 on
                      parity, 1 on a violated tolerance, 2 on an
                      unreadable ledger.
+  checkpoint inspect DIR [--serial N] [--json]
+                     list a checkpoint directory's serials, their commit
+                     status and bytes, and a serial's manifest
+                     (resilience.inspect_dir); either package's
+                     checkpoints.
 
-The JAX CLI's other commands (trace ops, serve, fleet, checkpoint, cache,
-...) and `monitor` over several journals (the fleet's clock-aligned
-merge) are not ported yet.
+The JAX CLI's other commands (trace ops, serve, fleet, cache, ...) and
+`monitor` over several journals (the fleet's clock-aligned merge) are not
+ported yet.
 """
 
 import argparse
@@ -110,6 +115,96 @@ def _cmd_health(args):
     return 0 if report["ok"] else 1
 
 
+def _cmd_checkpoint(args):
+    from .resilience import inspect_dir
+
+    try:
+        report = inspect_dir(args.dir, serial=args.serial)
+    except (OSError, ValueError) as e:
+        print(f"cannot inspect checkpoint dir: {e}", file=sys.stderr)
+        return 1
+    if args.json:
+        import json
+
+        print(json.dumps(report, indent=2))
+        return 0
+    print(f"checkpoint dir: {report['checkpoint_dir']}")
+    if not report["serials"]:
+        print("  (no checkpoints)")
+        return 0
+    for ent in report["serials"]:
+        # an orphaned .tmp dir has no serial and no size (the JAX CLI
+        # raises KeyError on one: ROADMAP §3)
+        print(f"  {ent['dir']:<24} serial={ent.get('serial')!s:<6} "
+              f"{ent['status']:<12} {ent.get('bytes', 0)} bytes")
+    print(f"latest committed serial: {report['latest']}")
+    manifest = report.get("manifest")
+    if manifest:
+        print(f"manifest (serial {manifest.get('serial')}): "
+              f"format={manifest.get('format')} step={manifest.get('step')}")
+        var_names = sorted((manifest.get("vars") or {}).keys())
+        print(f"  vars ({len(var_names)}): {', '.join(var_names[:8])}"
+              + (" ..." if len(var_names) > 8 else ""))
+        dp = manifest.get("datapipe")
+        if dp:
+            print(f"  datapipe: {dp}")
+        mesh = manifest.get("mesh")
+        if mesh:
+            mesh_s = "×".join(f"{k}={v}" for k, v in mesh.items())
+            print(f"  mesh geometry: [{mesh_s}] (dp may change across a "
+                  f"restore; other axes must match the target mesh)")
+        el = (manifest.get("extra") or {}).get("elastic")
+        if el:
+            print(f"  elastic resize point: epoch={el.get('epoch')} "
+                  f"world_size={el.get('world_size')} "
+                  f"members={el.get('members')}")
+        zero1 = manifest.get("zero1")
+        if zero1:
+            print(f"  zero1 shard layout ({len(zero1)} sharded params; "
+                  f"checkpoint stores canonical full layout):")
+            for pname in sorted(zero1):
+                ent = zero1[pname]
+                owners = ent.get("owners") or {}
+                own = ", ".join(
+                    f"dp{r}:[{owners[r][0]}:{owners[r][1]})"
+                    for r in sorted(owners, key=int)[:4])
+                if len(owners) > 4:
+                    own += ", ..."
+                print(f"    {pname}: shape={ent.get('shape')} "
+                      f"shards={ent.get('num_shards')}x"
+                      f"{ent.get('shard_numel')} "
+                      f"param_shard={ent.get('param_shard_bytes')}B "
+                      f"accum_shard={ent.get('accum_shard_bytes')}B")
+                print(f"      owners: {own}")
+                accs = ent.get("accums") or []
+                if accs:
+                    print(f"      accums: {', '.join(accs)}")
+        ashard = manifest.get("autoshard")
+        if ashard:
+            mesh = ashard.get("mesh_axes") or {}
+            mesh_s = "×".join(f"{k}={v}" for k, v in mesh.items())
+            params = ashard.get("params") or {}
+            print(f"  autoshard plan digest={ashard.get('digest')} "
+                  f"mesh[{mesh_s}] layout={ashard.get('layout', 'full')} "
+                  f"({len(params)} sharded params; checkpoint stores "
+                  f"canonical full layout):")
+            for pname in sorted(params):
+                spec = ", ".join(str(a) for a in params[pname])
+                print(f"    {pname}: ({spec})")
+        pp = manifest.get("pipeline")
+        if pp:
+            print(f"  pipeline: stages={pp.get('stages')} "
+                  f"axis={pp.get('axis', 'pp')} "
+                  f"microbatches={pp.get('microbatches')} "
+                  f"schedule={pp.get('schedule', '1f1b')} "
+                  f"plan digest={pp.get('digest')} (params stored full; "
+                  f"restore requires a matching pp axis size)")
+    elif report.get("format"):
+        print(f"legacy io-format checkpoint (no manifest); files: "
+              f"{len(report.get('files', []))}")
+    return 0
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="paddle_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -147,9 +242,21 @@ def main(argv=None):
     hc.add_argument("--json", action="store_true",
                     help="emit the parity report as JSON")
 
+    c = sub.add_parser("checkpoint", help="inspect checkpoint directories")
+    csub = c.add_subparsers(dest="checkpoint_action", required=True)
+    ci = csub.add_parser("inspect", help="list serials, commit status and "
+                                         "the manifest of a checkpoint dir")
+    ci.add_argument("dir", help="checkpoint directory "
+                                "(holds checkpoint_<N> subdirs)")
+    ci.add_argument("--serial", type=int, default=None,
+                    help="show this serial's manifest instead of the latest")
+    ci.add_argument("--json", action="store_true",
+                    help="emit the report as JSON")
+
     args = parser.parse_args(argv)
     commands = {"version": _cmd_version, "flags": _cmd_flags,
-                "monitor": _cmd_monitor, "health": _cmd_health}
+                "monitor": _cmd_monitor, "health": _cmd_health,
+                "checkpoint": _cmd_checkpoint}
     return commands[args.command](args)
 
 

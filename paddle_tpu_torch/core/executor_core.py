@@ -69,29 +69,49 @@ HOST_SYNC_OPS = frozenset({
     "merge_lod_tensor_grad"})
 
 
-def check_values_finite(named_values, context=""):
-    """FLAGS_check_nan_inf (reference executor.cc:343 CheckTensorNANOrInf):
-    raise naming the first variable of `named_values` ((name, value)
-    pairs) that holds NaN/Inf. A SeqTensor is checked by its data; values
-    that are not floating-point tensors are skipped. One reduction over
-    all of them gives one flag, read once; the culprit is looked for only
-    when it is set."""
+def first_non_finite(named_values):
+    """(name, "NaN" or "Inf") of the first of `named_values` ((name,
+    value) pairs) that holds NaN/Inf, or None. A SeqTensor is checked by
+    its data; values that are not floating-point tensors are skipped. One
+    reduction over all of them gives one flag, read once; the culprit is
+    looked for only when it is set."""
     named = []
     for name, v in named_values:
         v = registry.seq_data(v)
         if isinstance(v, torch.Tensor) and v.is_floating_point():
             named.append((name, v))
     if not named:
-        return
+        return None
     finite = torch.stack([torch.isfinite(v).all() for _, v in named])
     if bool(finite.all()):
-        return
+        return None
     bad = int(torch.nonzero(~finite)[0, 0])
     name, v = named[bad]
-    what = "NaN" if bool(torch.isnan(v).any()) else "Inf"
-    raise RuntimeError(
-        f"Variable {name!r} contains {what}{context} "
-        f"(FLAGS_check_nan_inf)")
+    return name, "NaN" if bool(torch.isnan(v).any()) else "Inf"
+
+
+def check_values_finite(named_values, context=""):
+    """FLAGS_check_nan_inf (reference executor.cc:343 CheckTensorNANOrInf):
+    raise naming the first variable of `named_values` ((name, value)
+    pairs) that holds NaN/Inf (first_non_finite)."""
+    bad = first_non_finite(named_values)
+    if bad is not None:
+        raise RuntimeError(
+            f"Variable {bad[0]!r} contains {bad[1]}{context} "
+            f"(FLAGS_check_nan_inf)")
+
+
+def trap_non_finite(op_type, named_values):
+    """FLAGS_debug_nans (the JAX package's jax_debug_nans trap): raise
+    FloatingPointError naming op `op_type` and the first of its outputs
+    (`named_values`, (name, value) pairs) that holds NaN/Inf. Runs before
+    the op's outputs reach the step's env, so nothing the op wrote is
+    kept."""
+    bad = first_non_finite(named_values)
+    if bad is not None:
+        raise FloatingPointError(
+            f"op {op_type!r} wrote {bad[1]} to its output {bad[0]!r} "
+            f"(FLAGS_debug_nans)")
 
 
 class RandomStream:
@@ -186,6 +206,8 @@ class OpContext:
         self.scope = scope
         self.eager = eager
         self.check_nan_inf = eager and flags.get("check_nan_inf")
+        # FLAGS_debug_nans keeps its runs on the interpreter (eager)
+        self.debug_nans = eager and flags.get("debug_nans")
         self.profile = eager and profiler.enabled()
 
     def run_block(self, block, env):
@@ -260,14 +282,17 @@ def _run_one_op(op, env, ctx):
         raise type(e)(f"while running op {op.type!r} ({op!r}): {e}") from e
     finally:
         ctx.current_op = None
-    if ctx.check_nan_inf:
+    if ctx.check_nan_inf or ctx.debug_nans:
         named = []
         for slot, names in op.outputs.items():
             vals = outs.get(slot, [])
             for i, n in enumerate(names):
                 if n and i < len(vals) and vals[i] is not None:
                     named.append((n, vals[i]))
-        check_values_finite(named, context=f" after op {op.type!r}")
+        if ctx.debug_nans:
+            trap_non_finite(op.type, named)
+        if ctx.check_nan_inf:
+            check_values_finite(named, context=f" after op {op.type!r}")
     for slot, names in op.outputs.items():
         vals = outs.get(slot, [])
         for i, name in enumerate(names):

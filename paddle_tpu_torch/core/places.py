@@ -41,6 +41,12 @@ class CUDAPlace(Place):
         return f"CUDAPlace({self.device_id})"
 
 
+class CUDAPinnedPlace(CPUPlace):
+    """Page-locked host memory: where the datapipe's feeder stages a chunk
+    before its copy to the card (datapipe/feeder.py). Ops run on it as on
+    CPUPlace()."""
+
+
 # API-parity alias: scripts written for the JAX package say TPUPlace(0);
 # in the port that is the accelerator, i.e. a CUDA card.
 TPUPlace = CUDAPlace

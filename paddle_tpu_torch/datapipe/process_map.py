@@ -32,10 +32,14 @@ exitcode scan within one 0.2 s poll interval: by default the consumer
 gets a DataPipeError naming the pid/exitcode; under
 FLAGS_datapipe_restart_workers=1 a replacement is forked and the dead
 worker's in-flight items are re-dispatched (the parent keeps every
-in-flight item precisely so this replay is possible). The JAX package's
-resilience.chaos fires `worker_kill` faults through an `on_map_dispatch`
-hook; here that hook (`_on_map_dispatch`) is a no-op until resilience is
-ported (ROADMAP queue 1 item 5).
+in-flight item precisely so this replay is possible). resilience.chaos
+fires `worker_kill` faults through its `on_map_dispatch` hook, called as
+each item goes to a worker. A forked worker inherits the parent's signal
+handlers, and the trainer's PreemptionHandler only records a signal, to
+act on it at the next step boundary: so a worker first puts SIGTERM back
+to its default (the parent's terminate() must end it) and ignores SIGINT
+(a Ctrl-C reaches the whole process group; the parent grace-saves, then
+closes its pipe and its workers).
 
 Start method: fork by default (fn needn't pickle; decode closures work),
 FLAGS_datapipe_start_method=spawn for libraries that dislike fork.
@@ -49,6 +53,7 @@ import numpy as np
 
 from .. import trace as _trace
 from ..flags import define, get as get_flag
+from ..resilience import chaos as _chaos
 from .shm import SHM_SLOT_KEY, ShmRing, ShmRingClient
 from .transfer import WIRE_KEY
 
@@ -75,12 +80,6 @@ define("datapipe_dispatch_batch", int, 0,
        "chunk // num_workers, min 1). Batching cuts the per-item "
        "queue/pipe round-trips that bound single-core decode rate; 1 "
        "restores item-granular dispatch.")
-
-
-def _on_map_dispatch(idx, pid):
-    """The chaos hook of the JAX package (resilience.chaos.on_map_dispatch,
-    which may kill worker `pid` as item `idx` goes to it): a no-op until
-    resilience is ported (ROADMAP queue 1 item 5)."""
 
 
 class DataPipeError(RuntimeError):
@@ -118,8 +117,11 @@ def _worker_main(wid, fn, task_q, conn):
     ("okshmb", idx0, n, dur) / ("probe_ok", idx, res, dur) /
     ("err", idx, etype, msg, tb).
     """
+    import signal
     import traceback
 
+    signal.signal(signal.SIGTERM, signal.SIG_DFL)
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
     client = None
     wire = None
     try:
@@ -538,7 +540,7 @@ class ProcessPoolMap:
                 items = [it for _, it in pending]
                 off0 = cur_off - len(pending)
                 for i, _ in pending:
-                    _on_map_dispatch(i, w.proc.pid)
+                    _chaos.on_map_dispatch(i, w.proc.pid)
                 with cond:
                     state["inflight"][idx0] = _InFlight(
                         w.wid, cur_chunk, off0, cur_slot, items,
@@ -619,7 +621,7 @@ class ProcessPoolMap:
                         if w is None:
                             tickets.release()
                             return  # scan_deaths already set the error
-                        _on_map_dispatch(idx, w.proc.pid)
+                        _chaos.on_map_dispatch(idx, w.proc.pid)
                         with cond:
                             state["inflight"][idx] = _InFlight(
                                 w.wid, 0, 0, None, item, probe=True)
@@ -642,7 +644,7 @@ class ProcessPoolMap:
                     if w is None:
                         tickets.release()
                         return
-                    _on_map_dispatch(idx, w.proc.pid)
+                    _chaos.on_map_dispatch(idx, w.proc.pid)
                     with cond:
                         state["inflight"][idx] = _InFlight(
                             w.wid, cur_chunk, 0, None, item)

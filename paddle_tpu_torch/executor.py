@@ -51,8 +51,22 @@ the captured graph. FLAGS_benchmark waits for the run's last event after
 the run, and FLAGS_check_nan_inf checks every op of an eager step, and a
 captured step's fetches and written state once after its replays. None
 of them waits for the card inside a step.
+
+`run(..., async_fetch=True)` returns one FetchFuture a fetch: the run's
+fetches are copied on its stream into pinned host buffers, an event after
+them, so the caller can enqueue the next run before reading this one (a
+captured step's own fetch tensors are overwritten by its next replay: the
+copies are made at run time). FLAGS_debug_nans sends a run to the
+interpreter, which traps the first op that writes NaN/Inf
+(executor_core.trap_non_finite) before its writes reach the scope; the
+flag may flip between runs, and a program goes back to its captured graph
+when it is off. Every run passes the resilience hooks of the JAX package:
+the hang watchdog armed over the run up to and including the fetch
+readback (resilience/watchdog.py), and inside it chaos.on_run("executor")
+before anything of the run is touched.
 """
 
+import base64
 import sys
 import time
 import weakref
@@ -68,9 +82,11 @@ from .core.places import CUDAPlace, device_for
 from .core.registry import SeqTensor
 from .core.scope import global_scope
 from .datapipe.transfer import pop_markers
+from .resilience import chaos as _chaos
+from .resilience import watchdog as _watchdog
 from .trace import costs as _trace_costs
 
-__all__ = ["Executor", "as_numpy"]
+__all__ = ["Executor", "FetchFuture", "as_numpy", "fetch_var"]
 
 flags.define(
     "cuda_graph", bool, True,
@@ -104,6 +120,88 @@ def to_lod_tensor(value):
                 for k in range(lengths.shape[0])]
     offsets = np.concatenate([[0], np.cumsum(lengths)]).tolist()
     return LoDTensor(as_numpy(value.data), [offsets])
+
+
+def fetch_var(name, scope=None, return_numpy=True):
+    """The value of var `name` in `scope` (the global scope by default):
+    numpy, a SeqTensor's flat data, as the JAX package returns it; with
+    return_numpy=False the scope's own value."""
+    scope = scope or global_scope()
+    v = scope.find_var(name)
+    if v is None:
+        raise ValueError(f"Variable {name!r} is not found in scope")
+    if not return_numpy:
+        return v
+    if isinstance(v, SeqTensor):
+        v = v.data
+    if isinstance(v, LoDTensor):
+        return v.numpy()
+    if isinstance(v, torch.Tensor):
+        return as_numpy(v)
+    return np.asarray(v)
+
+
+def _pinned_copy(value, stream):
+    """`value` (a fetched tensor or SeqTensor) copied into pinned host
+    memory on `stream`, without waiting; a CPU value as it is."""
+    if isinstance(value, SeqTensor):
+        return SeqTensor(_pinned_copy(value.data, stream),
+                         _pinned_copy(value.lengths, stream),
+                         value.host_lengths)
+    if not isinstance(value, torch.Tensor) or value.device.type != "cuda":
+        return value
+    host = torch.empty(value.shape, dtype=value.dtype, pin_memory=True)
+    with torch.cuda.stream(stream):
+        host.copy_(value, non_blocking=True)
+    return host
+
+
+class FetchFuture:
+    """One fetch of a run(async_fetch=True) (the JAX package's
+    FetchFuture). The run has been enqueued; its fetch was copied into
+    pinned host memory on the run's stream, with an event after the copy.
+
+    value    — the fetch on the device: a tensor of its own, valid after
+               later runs (a captured step's fetches are copies)
+    done()   — True once the host copy has landed (no blocking)
+    result() — wait for the copy and return the host value (numpy, as
+               return_numpy=True gives it); cached after the first call
+    """
+
+    __slots__ = ("_value", "_host", "_event", "_result")
+
+    def __init__(self, value, host, event):
+        self._value = value
+        self._host = host
+        self._event = event
+        self._result = None
+
+    @property
+    def value(self):
+        return self._value
+
+    def done(self):
+        return self._event is None or self._event.query()
+
+    def result(self):
+        if self._result is None:
+            if self._event is not None:
+                self._event.synchronize()
+            self._result = as_numpy(self._host)
+        return self._result
+
+
+def fetch_futures(outs, device):
+    """A FetchFuture for each of `outs`, the fetches of a run on `device`:
+    copied to pinned host memory on the current stream, one event after
+    the copies."""
+    if device.type != "cuda":
+        return [FetchFuture(o, o, None) for o in outs]
+    stream = torch.cuda.current_stream(device)
+    hosts = [_pinned_copy(o, stream) for o in outs]
+    event = torch.cuda.Event()
+    event.record(stream)
+    return [FetchFuture(o, h, event) for o, h in zip(outs, hosts)]
 
 
 def _host_lengths(seq):
@@ -199,15 +297,17 @@ class Executor:
     # ------------------------------------------------------------------
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name="feed", fetch_var_name="fetch", scope=None,
-            return_numpy=True, use_program_cache=True, iters=None):
+            return_numpy=True, use_program_cache=True, iters=None,
+            async_fetch=False):
         """Run the program once — or, with `iters=K`, K steps. For iters,
         `feed` is either a list of K per-step feed dicts or one dict whose
         arrays carry a leading [K] axis; fetches come back stacked with a
         leading [K] axis. `feed` may also be a DataPipe, whose next chunk
         the run pulls (iters defaults to its chunk size; its StopIteration
-        propagates when it is exhausted). `feed_var_name`,
-        `fetch_var_name` and `use_program_cache` are accepted for API
-        parity."""
+        propagates when it is exhausted). `async_fetch=True` returns a
+        FetchFuture a fetch instead (return_numpy is then ignored).
+        `feed_var_name`, `fetch_var_name` and `use_program_cache` are
+        accepted for API parity."""
         if program is None:
             program = default_main_program()
         if scope is None:
@@ -224,6 +324,22 @@ class Executor:
                     feed = pipe.next_feed()
             else:
                 feed = pipe.next_feed()
+        with _watchdog.armed("executor"):
+            # fault injection (a no-op unless a ChaosMonkey is installed),
+            # before the chunk's lease is waited on or released: a retried
+            # run finds the feed as it was
+            _chaos.on_run("executor")
+            outs, done = self._run_fetched(program, scope, feed, fetch_list,
+                                           iters, mon, return_numpy,
+                                           async_fetch)
+        if mon is not None:
+            monitor.step_end(mon, iters=done.iters, datapipe=pipe)
+        return outs
+
+    def _run_fetched(self, program, scope, feed, fetch_list, iters, mon,
+                     return_numpy, async_fetch):
+        """The body of run() that the watchdog watches: the run and its
+        fetches' readback (futures under async_fetch)."""
         feed, wire, lease = pop_markers(feed)
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in (fetch_list or [])]
@@ -253,15 +369,15 @@ class Executor:
                     if scope.has_var(n)],
                 context=(" after compiled step" if done.iters is None
                          else f" after compiled {done.iters}-step scan"))
-        if return_numpy:
+        if async_fetch:
+            outs = fetch_futures(outs, self.device)
+        elif return_numpy:
             if mon is not None:
                 with mon.timed("fetch_readback"):
                     outs = as_numpy(outs)
             else:
                 outs = as_numpy(outs)
-        if mon is not None:
-            monitor.step_end(mon, iters=done.iters, datapipe=pipe)
-        return outs
+        return outs, done
 
     def _run(self, program, scope, feed, fetch_names, iters, mon,
              kind="executor", wire=None):
@@ -630,10 +746,11 @@ class Executor:
         return done
 
     def _mode_of(self, step):
-        """The path a prepared step takes (module docstring), decided
-        before any capture."""
+        """The path a prepared step takes (module docstring), decided at
+        every run, before any capture: FLAGS_debug_nans and FLAGS_cuda_graph
+        may flip between runs."""
         if (self.device.type == "cuda" and step.blocker is None
-                and flags.get("cuda_graph")):
+                and flags.get("cuda_graph") and not flags.get("debug_nans")):
             return "graph"
         return "interpreter"
 
@@ -650,6 +767,35 @@ class Executor:
             rng = self._rngs[program] = executor_core.RandomStream(
                 self.device, program.random_seed)
         return rng
+
+    def rng_state(self, program):
+        """The state of `program`'s random stream on this executor, as a
+        checkpoint manifest holds it (JSON): on a card the generator's
+        seed and Philox offset, on the CPU its Mersenne Twister state
+        (base64)."""
+        state = self._rng(program).generator.get_state()
+        if self.device.type == "cuda":
+            seed, offset = (int(v) for v in state.view(torch.int64))
+            return {"device": "cuda", "seed": seed, "offset": offset}
+        return {"device": "cpu", "state": base64.b64encode(
+            state.numpy().tobytes()).decode("ascii")}
+
+    def set_rng_state(self, program, state):
+        """Put `program`'s random stream back in `state` (rng_state's): the
+        next step, interpreted or replayed, draws on from there. The
+        generator is the one a captured step registered with its graph,
+        whose every replay reads its seed and offset."""
+        if state.get("device") != self.device.type:
+            raise ValueError(
+                f"random stream state of a {state.get('device')} run "
+                f"cannot seed this executor's {self.device.type} stream")
+        if state["device"] == "cuda":
+            raw = torch.tensor([state["seed"], state["offset"]],
+                               dtype=torch.int64).view(torch.uint8)
+        else:
+            raw = torch.frombuffer(bytearray(base64.b64decode(
+                state["state"])), dtype=torch.uint8)
+        self._rng(program).generator.set_state(raw)
 
     def _interpret(self, program, run_prog, step, scope, feeds):
         """One step through the interpreter, its state read from and

@@ -106,6 +106,14 @@ define("check_nan_inf", bool, False,
        "executor.cc:343): on the interpreter after each op, naming the op "
        "too; on a captured step once after the run, over the fetches and "
        "the written state (one device reduction, read once).")
+define("debug_nans", bool, False,
+       "Trap the first NaN-producing computation (the analogue of the "
+       "legacy trainer's feenableexcept FPE trapping, "
+       "TrainerMain.cpp:47): a run under the flag goes to the "
+       "interpreter, which checks each op's float outputs before its "
+       "writes reach the scope and raises FloatingPointError naming the "
+       "op and the output. Heavier than check_nan_inf's step-boundary "
+       "scan; use to localize, not in production runs.")
 define("benchmark", bool, False,
        "Synchronize and time each executor run (reference FLAGS_benchmark): "
        "after the run, wait for its last event, set the benchmark_run_ms "

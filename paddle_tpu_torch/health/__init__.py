@@ -7,10 +7,10 @@ its CUDA graph (stats.py), a JSONL run ledger + gauges (ledger.py),
 convergence detectors wired into trace dumps (detectors.py), and a
 run-parity comparison engine behind `python -m paddle_tpu_torch health
 summary|compare` (compare.py). The JAX package's paddle_tpu.health, with
-the same flags, ledger schema and text output; its resilience branch (the
-chaos drill's scaled stats and resilience's health policy, which drains
-the detectors' events) waits for the port's resilience/ (ROADMAP queue 1
-item 5).
+the same flags, ledger schema and text output, and its resilience
+branch: a chaos monkey's `loss_spike` / `grad_explode` faults scale the
+recorded stats (`_chaos_scales`), and resilience's health policy drains
+the detectors' events.
 
 Executor integration (executor.py / parallel_executor.py):
 
@@ -95,6 +95,16 @@ def _find_loss(fetch_names, fetches, k, multi):
     return None
 
 
+def _chaos_scales(step):
+    """(loss_scale, grad_scale) from the installed chaos monkey."""
+    from ..resilience import chaos  # lazy: resilience imports health
+
+    monkey = chaos.active()
+    if monkey is None:
+        return 1.0, 1.0
+    return monkey.poison_health(step)
+
+
 def on_step(step0, iters, stats_dev, fetch_names, fetches,
             mon=None, kind="executor", labels=None):
     """Host side of the health path: sample, journal, detect.
@@ -141,6 +151,14 @@ def on_step(step0, iters, stats_dev, fetch_names, fetches,
             gsq_total += gsq
         loss = float(loss_vec[i]) if loss_vec is not None else None
         ggn = math.sqrt(gsq_total) if gsq_total >= 0 else float("nan")
+
+        loss_scale, grad_scale = _chaos_scales(step)
+        if loss is not None and loss_scale != 1.0:
+            loss *= loss_scale
+        if grad_scale != 1.0:
+            for st in params.values():
+                st["grad_norm"] *= grad_scale
+            ggn *= grad_scale
 
         rec = {"ts": time.time(), "step": int(step), "kind": kind,
                "loss": loss, "global_grad_norm": ggn,

@@ -7,11 +7,9 @@ event:
   * bumps `health_events_total{kind=...}` in the monitor registry,
   * fires `trace.maybe_dump("health_<kind>")` so the flight recorder
     snapshots the run around the anomaly (cooldown-gated, never raises),
-  * lands on a bounded queue (drain_events / pending_events). In the JAX
-    package resilience.ResilientRunner drains it after each step and maps
-    it through FLAGS_resilience_health_policy (warn | skip | restore);
-    the port's resilience/ is not ported yet (ROADMAP queue 1 item 5),
-    so the queue only holds the events for a caller to read.
+  * lands on a bounded queue (drain_events / pending_events), which
+    resilience.ResilientRunner drains after each step and maps through
+    FLAGS_resilience_health_policy (warn | skip | restore).
 
 Kinds: loss_spike, loss_divergence, loss_plateau, loss_nonfinite,
 grad_explode, grad_vanish, param_nonfinite.
@@ -172,8 +170,9 @@ def _fire(kind, step):
 
 
 def drain_events():
-    """Hand the queued (kind, step) events to the caller (the JAX
-    package's resilience policy hook) and clear the queue."""
+    """Hand the queued (kind, step) events to the caller (the resilience
+    policy hook, ResilientRunner._apply_health_policy) and clear the
+    queue."""
     with _events_lock:
         out = list(_pending)
         del _pending[:]

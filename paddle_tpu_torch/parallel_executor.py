@@ -31,10 +31,12 @@ fused update kernels stay the single-card code path.
 
 The step monitor rides every run as it does the Executor's (kind
 "parallel_executor"; per-rank skew under FLAGS_monitor_replica_skew), and
-so does FLAGS_health. Not ported yet, each refused with
+so do FLAGS_health, `async_fetch` (executor.FetchFuture, over the
+gathered fetches) and the resilience hooks (chaos.on_run and the hang
+watchdog, labelled "parallel_executor"). Not ported yet, each refused with
 NotImplementedError: autoshard and tensor parallelism and the overlap
-schedule (ROADMAP queue 1 item 6), the compile cache and async_fetch
-(item 5), DataPipe feeds and ragged feeds (item 3).
+schedule (ROADMAP queue 1 item 6), the compile cache (item 5), DataPipe
+feeds and ragged feeds (item 3).
 """
 
 import time
@@ -49,10 +51,12 @@ from .core.lod_tensor import LoDTensor
 from .core.places import CPUPlace, CUDAPlace
 from .core.registry import SeqTensor
 from .core.scope import global_scope
-from .executor import Executor, as_numpy
+from .executor import Executor, as_numpy, fetch_futures
 from .ops import collective_ops
 from .parallel import mesh as _mesh
 from .parallel import zero1 as _zero1
+from .resilience import chaos as _chaos
+from .resilience import watchdog as _watchdog
 
 __all__ = ["ParallelExecutor", "ExecutionStrategy", "BuildStrategy"]
 
@@ -292,9 +296,8 @@ class ParallelExecutor:
         a list of K global-batch dicts; fetches come back stacked
         [K, ...]). A list of per-device feed dicts without `iters` is
         concatenated into the global batch first (reference
-        feed_parallel)."""
-        if async_fetch:
-            raise _not_ported("async_fetch (ROADMAP queue 1 item 5)")
+        feed_parallel). `async_fetch=True` returns a FetchFuture a fetch
+        (return_numpy is then ignored)."""
         # single flag check when monitoring is off (same contract as
         # Executor.run); every site below gates on `mon is not None`
         mon = monitor.step_begin("parallel_executor") \
@@ -367,26 +370,32 @@ class ParallelExecutor:
         if mon is not None:
             mon.phase("feed_encode", time.perf_counter() - t_enc)
         self._last_program = run_program
-        outs, done = self._exe._run(run_program, scope, local, fetch_names,
-                                    iters, mon, kind="parallel_executor")
-        replica_ms = replica_ids = None
-        if mon is not None and flags.get("monitor_replica_skew"):
-            # wait for this rank's step, then all-gather every rank's
-            # completion time: a host sync, hence the separate opt-in flag
-            leaf = outs[0] if outs else torch.empty(0,
-                                                   device=self._exe.device)
-            res = monitor.measure_replica_ms(leaf, done.t_dispatch)
-            if res is not None:
-                replica_ms, replica_ids = res
-        axis = 0 if iters is None else 1
-        outs = [self._gathered(program, n, o, axis)
-                for n, o in zip(fetch_names, outs)]
-        if return_numpy:
-            if mon is not None:
-                with mon.timed("fetch_readback"):
+        # the watchdog watches the step, the gathers of its fetches and
+        # their readback
+        with _watchdog.armed("parallel_executor"):
+            _chaos.on_run("parallel_executor")
+            outs, done = self._exe._run(run_program, scope, local, fetch_names,
+                                        iters, mon, kind="parallel_executor")
+            replica_ms = replica_ids = None
+            if mon is not None and flags.get("monitor_replica_skew"):
+                # wait for this rank's step, then all-gather every rank's
+                # completion time: a host sync, hence the separate opt-in flag
+                leaf = outs[0] if outs else torch.empty(0,
+                                                       device=self._exe.device)
+                res = monitor.measure_replica_ms(leaf, done.t_dispatch)
+                if res is not None:
+                    replica_ms, replica_ids = res
+            axis = 0 if iters is None else 1
+            outs = [self._gathered(program, n, o, axis)
+                    for n, o in zip(fetch_names, outs)]
+            if async_fetch:
+                outs = fetch_futures(outs, self._exe.device)
+            elif return_numpy:
+                if mon is not None:
+                    with mon.timed("fetch_readback"):
+                        outs = as_numpy(outs)
+                else:
                     outs = as_numpy(outs)
-            else:
-                outs = as_numpy(outs)
         if mon is not None:
             monitor.step_end(mon, iters=done.iters, replica_ms=replica_ms,
                              replica_ids=replica_ids)

@@ -176,6 +176,65 @@ def test_the_control_flow_slice_is_among_the_checked_sources(module):
     assert os.path.join(PORT, module) in set(_sources())
 
 
+@pytest.mark.parametrize("module", [
+    "resilience/__init__.py", "resilience/errors.py", "resilience/retry.py",
+    "resilience/nan_guard.py", "resilience/preempt.py",
+    "resilience/watchdog.py", "resilience/chaos.py",
+    "resilience/checkpoint.py", "resilience/loop.py", "trainer.py",
+    "metrics.py", "evaluator.py", "executor.py", "parallel_executor.py",
+    "cli.py", "health/__init__.py", "datapipe/process_map.py"])
+def test_the_training_services_slice_is_among_the_checked_sources(module):
+    """The training services (the Trainer, resilience, metrics and
+    evaluators, the Executor's rest) are checked by the test above."""
+    assert os.path.join(PORT, module) in set(_sources())
+
+
+# names of the JAX package's top level whose modules wait in ROADMAP
+# queue 1 (the distributed stack and memory passes, the compile cache,
+# CSP concurrency, the debugger), and is_compiled_with_tpu, which asks
+# JAX for a TPU
+TOP_LEVEL_EXCEPTIONS = {"DistributeTranspiler", "memory_optimize",
+                        "release_memory", "cache", "concurrency",
+                        "debugger", "is_compiled_with_tpu"}
+
+
+def _public_names(package):
+    """dir() of `package` freshly imported in its own interpreter: in this
+    one, other tests' imports of submodules (paddle_tpu.obs, ...) add
+    names to it."""
+    code = (f"import {package}\n"
+            f"print(' '.join(n for n in dir({package}) "
+            f"if not n.startswith('_')))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert proc.returncode == 0, proc.stderr
+    return set(proc.stdout.split())
+
+
+def test_the_top_level_has_every_name_of_the_jax_packages():
+    """dir() of the port's top level holds every public name of the JAX
+    package's but the stated exceptions, and each name the JAX package
+    lists in __all__ that the port has is of the same kind (a module, a
+    class, a function)."""
+    import types
+
+    jnames = _public_names("paddle_tpu")
+    tnames = _public_names("paddle_tpu_torch")
+    assert sorted(jnames - tnames - TOP_LEVEL_EXCEPTIONS) == []
+    assert TOP_LEVEL_EXCEPTIONS <= jnames
+    assert not TOP_LEVEL_EXCEPTIONS & tnames
+
+    def kind(v):
+        if isinstance(v, types.ModuleType):
+            return "module"
+        return "class" if isinstance(v, type) else "callable" \
+            if callable(v) else type(v).__name__
+
+    for n in sorted(set(jfluid.__all__) & tnames):
+        assert kind(getattr(tfluid, n)) == kind(getattr(jfluid, n)), n
+
+
 def test_the_multi_rank_worker_imports_only_the_port():
     """The worker the multi-rank tests run as their ranks
     (tests/torch_dp_worker.py) imports neither jax nor the JAX package."""

@@ -466,7 +466,8 @@ def recorded_graphs(monkeypatch):
     monkeypatch.setattr(
         tfluid.Executor, "_mode_of",
         lambda self, step: "graph" if step.blocker is None
-        and tflags.get("cuda_graph") else "interpreter")
+        and tflags.get("cuda_graph") and not tflags.get("debug_nans")
+        else "interpreter")
     init = tcore.CapturedStep.__init__
 
     def capture(self, step, scope, state_in, written, feeds, rng, stream):

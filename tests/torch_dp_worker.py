@@ -25,7 +25,11 @@ deterministic) — runs every case in order and writes
     (`_save_and_load`); with "monitor": <dir>, the steps journaled to
     `<dir>/<case name>.<rank>.jsonl` under FLAGS_monitor_replica_skew, and
     the skew gauge ("skew_gauge") and the ranks of the per-rank gauges
-    ("replica_gauges") after them.
+    ("replica_gauges") after them; with "async_fetch", every step's
+    fetches come back as FetchFutures, read after the step; with
+    "checkpoint": <dir>, a blocking
+    resilience.CheckpointManager save into <dir>/<rank> after the steps
+    (every rank takes part in the zero1 gathers).
 This module imports paddle_tpu_torch and nothing of the JAX package; the
 tests import `build` and `collective_inputs` to make the same nets and
 inputs on the JAX side, and `launch` to run the ranks.
@@ -197,8 +201,12 @@ def _pe(case, mesh, cuda):
                           iters=len(xs))
             losses = outs[0].reshape(-1)
         else:
-            steps = [pe.run(fetch, feed={"img": x, "label": y})
+            async_fetch = bool(case.get("async_fetch"))
+            steps = [pe.run(fetch, feed={"img": x, "label": y},
+                            async_fetch=async_fetch)
                      for x, y in zip(xs, ys)]
+            if async_fetch:
+                steps = [[f.result() for f in s] for s in steps]
             losses = np.concatenate([s[0].reshape(-1) for s in steps])
             outs = steps[-1]
         state = convert.numpy_state(scope, main)
@@ -231,6 +239,16 @@ def _pe(case, mesh, cuda):
     if case.get("save"):
         res.update(_save_and_load(fluid, place, scope, main,
                                   os.path.join(case["save"], str(mesh.rank))))
+    if case.get("checkpoint"):
+        from paddle_tpu_torch.resilience import CheckpointManager
+
+        mgr = CheckpointManager(
+            os.path.join(case["checkpoint"], str(mesh.rank)),
+            async_write=False)
+        try:
+            mgr.save(len(xs), scope=scope, program=main)
+        finally:
+            mgr.close()
     return res
 
 
