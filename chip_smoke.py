@@ -85,7 +85,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
   6b. parallel — the headline's program, feeds and timing through
                 fluid.ParallelExecutor(use_cuda=True) over a one-rank NCCL
                 group (parallel.distributed.initialize, file:// rendezvous
-                in a temp dir): 1 warm + 3 timed iters=40 calls through the
+                in a temp dir): 1 warm + 2 timed iters=40 calls through the
                 captured step, its gradient all-reduces and global-batch
                 collectives inside the graph; step_mode "graph", the
                 momentum kernel's launches = buckets x steps, the
@@ -235,7 +235,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 decode's candidates (NEG_INF ties) and on them rounded
                 (live ties); (b) the headline's program under
                 piecewise_decay([10, 50, 90], [0.1, 0.01, 0.001, 1e-4]),
-                bf16 AMP, fused Momentum, batch 128, 1 warm + 2 timed
+                bf16 AMP, fused Momentum, batch 128, 1 warm + 1 timed
                 calls of iters=40 through the captured step: one
                 CapturedStep, no capture after the first call, momentum
                 launches 4 a step, every step's rate equal to the numpy
@@ -286,6 +286,37 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 FLAGS_step_deadline_ms with a chaos delay writes a hang
                 dump ([resilience] lines). Alone: `python3 chip_smoke.py
                 --only resilience`
+ 10g. compile_services — the compile-time services: (a) the headline
+                (bf16 AMP, fused Momentum, batch 128) under
+                FLAGS_verify=full, 1 warm + 2 timed calls of iters=40
+                through the captured step: no error-severity diagnostic,
+                the verify's host seconds on the miss, img/s as a ratio to
+                the same run's headline, momentum launches 4 a step; the
+                program with a conv2d deleted raises
+                ProgramVerificationError (PTA001) at its prepare, no op
+                run and no kernel launched; (b) estimate_peak_hbm at batch
+                128 beside max_memory_allocated over one replayed and one
+                interpreted step (reset_peak_memory_stats before each),
+                and the state's measured_live_bytes within 2x of the
+                estimate's state bytes; (c) the headline network's
+                for_test clone (f32, cuDNN deterministic) at batches 8,
+                16, 32, then 8, under FLAGS_compile_cache_cap=2: 2
+                evictions, the bytes each evicted graph freed, the
+                recaptured batch-8 outputs bitwise equal to the first,
+                memory_reserved after empty_cache below an uncapped
+                executor's with the three graphs alive; (d) three fresh
+                processes (`--l2-child`) of the headline under
+                FLAGS_verify=full, its startup and two steps each, one
+                FLAGS_compile_cache_dir: the first misses L2 and puts,
+                the second hits (the monitor counts no miss), the third,
+                after the main program's entry is corrupted, counts one
+                l2_fallback; first-step losses bitwise equal; each
+                prepare's host split (L2 read, fusion, verify, step
+                build, first eager step, capture); (e) a Go block sends
+                4 CUDA tensors through a buffered channel and Selects
+                with a default case receive them: equal to the host's
+                ([compile_services] lines). Alone: `python3 chip_smoke.py
+                --only compile_services`
  11. flash    — the flash-attention kernels (both wgmma fed by TMA; f32
                 in 3xTF32 split products after its split prologue) against
                 their plain torch version on the card, causal and not, at
@@ -342,7 +373,7 @@ HEADLINE_K = 40
 HEADLINE_WARM = 2
 HEADLINE_CALLS = 5
 PARALLEL_WARM = 1
-PARALLEL_CALLS = 3
+PARALLEL_CALLS = 2
 # host vs card losses under bf16 AMP: five bf16 ulps (5 x 2^-8)
 PARITY_AMP_RTOL = 2e-2
 # SE-ResNeXt-50 and VGG-16 under bf16 AMP: batch 64, iters=10 a call,
@@ -497,7 +528,7 @@ CF_MAX_LEN = 16
 CF_BOUNDARIES = [10, 50, 90]
 CF_VALUES = [0.1, 0.01, 0.001, 0.0001]
 CF_HEAD_WARM = 1
-CF_HEAD_CALLS = 2
+CF_HEAD_CALLS = 1
 CF_HEAD_MIN_RATIO = 0.97
 CF_HEAD_BUCKETS = 4  # the headline's fused momentum buckets
 CF_DRNN_WIDTH = 512
@@ -528,7 +559,7 @@ RES_MLP_BATCH = 128
 RES_MLP_CHUNK = 4
 RES_MLP_DISPATCHES = 3
 RES_MLP_KILL = 2
-RES_ASYNC_CALLS = 5
+RES_ASYNC_CALLS = 3
 
 # phase input: the headline's program trained from a RecordIO file of
 # INPUT_IMAGES seeded INPUT_SIDE^2 x 3 uint8 images through a DataPipe:
@@ -552,6 +583,17 @@ INPUT_READER_BATCH = 64
 INPUT_READER_RTOL = 1e-4
 INPUT_MODEL_BATCH = 8
 INPUT_LINK_REPS = 3
+
+# phase compile_services: (a) the headline under FLAGS_verify=full,
+# CS_WARM + CS_CALLS calls of iters=HEADLINE_K; (c) the headline
+# network's for_test clone at CS_CAP_BATCHES, then the first again, under
+# FLAGS_compile_cache_cap=2; (d) each fresh process of the L2 warm start
+# within CS_CHILD_S seconds; (e) CS_CSP_VALUES tensors through a channel
+CS_WARM = 1
+CS_CALLS = 2
+CS_CAP_BATCHES = (8, 16, 32)
+CS_CHILD_S = 300
+CS_CSP_VALUES = 4
 
 SEED = 20261016
 BATCH = 32
@@ -1368,11 +1410,12 @@ def headline_net():
     return resnet_imagenet(img, 1000, depth=50, layout="NHWC")
 
 
-def build_headline(with_prediction=False):
+def build_headline(with_prediction=False, plan=True):
     """bench.py's headline program (bench.py:105-124) built with the port:
     raw uint8 NHWC pixels cast and scaled on the card, int32 labels,
     ResNet-50, Momentum(0.01, 0.9); with its fusion plan's momentum
-    buckets (and, `with_prediction`, the softmax prediction last)."""
+    buckets (None with plan=False: no fusion pass run here), and, with
+    `with_prediction`, the softmax prediction last."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import fusion
 
@@ -1385,9 +1428,11 @@ def build_headline(with_prediction=False):
         fluid.optimizer.Momentum(learning_rate=0.01,
                                  momentum=0.9).minimize(loss)
     main.random_seed = startup.random_seed = SEED
-    _, plan = fusion.apply(main, feed_names=["data_u8", "label"],
-                           fetch_names=[loss.name])
-    buckets = [b for b in plan.buckets if b["opt"] == "momentum"]
+    buckets = None
+    if plan:
+        _, fplan = fusion.apply(main, feed_names=["data_u8", "label"],
+                                fetch_names=[loss.name])
+        buckets = [b for b in fplan.buckets if b["opt"] == "momentum"]
     if with_prediction:
         return main, startup, loss, buckets, prediction
     return main, startup, loss, buckets
@@ -6261,6 +6306,482 @@ def phase_resilience(card, headline_img_s):
     return result
 
 
+def _cs_feeds(seed, steps, batch):
+    """A seeded headline feed stack on the card: [steps, batch, ...]."""
+    rs = np.random.RandomState(seed)
+    return {"data_u8": torch.from_numpy(rs.randint(
+                0, 256, (steps, batch, 224, 224, 3), dtype=np.uint8)).cuda(),
+            "label": torch.from_numpy(rs.randint(
+                0, 1000, (steps, batch, 1)).astype(np.int32)).cuda()}
+
+
+def _cs_prepared(exe, program):
+    """The (program to run, FusionPlan, step) `exe` prepared for
+    `program` (the one key of it in the compile cache)."""
+    (entry,) = [v for k, v in exe._prepared.items() if k[0] == id(program)]
+    return entry
+
+
+def _cs_verify(card, headline_img_s):
+    """(a) the headline under FLAGS_verify=full, CS_WARM + CS_CALLS calls
+    of iters=HEADLINE_K through the captured step, and a program broken on
+    purpose refused before any launch; (b) the peak-HBM estimate beside
+    the card's max_memory_allocated over one replayed and one interpreted
+    step, and the state's measured live bytes within 2x of the
+    estimate's state bytes."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, analysis, flags
+    from paddle_tpu_torch.core import executor_core
+    from paddle_tpu_torch.fusion import kernels as fk
+
+    main, startup, loss, _ = build_headline()
+    feeds = _cs_feeds(SEED + 17, HEADLINE_K, HEADLINE_BATCH)
+    one = {n: t[0] for n, t in feeds.items()}
+    out = {}
+    analysis.reset()
+    amp.enable("bfloat16")
+    scope = fluid.Scope()
+    try:
+        with flags.flag_guard(fuse=True, verify="full"), \
+                fluid.scope_guard(scope):
+            exe = fluid.Executor()
+            exe.run(startup)
+            torch.cuda.synchronize()
+            fk.reset_launch_counts()
+            dt, outs = _timed_calls(exe, main, feeds, [loss], HEADLINE_K,
+                                    CS_WARM, CS_CALLS)
+            launches = fk.momentum_bucket.launches
+            if launches != CF_HEAD_BUCKETS * HEADLINE_K * (CS_WARM
+                                                           + CS_CALLS):
+                raise AssertionError(f"[compile_services] momentum launched "
+                                     f"{launches} times")
+            if exe.step_mode(main) != "graph":
+                raise AssertionError("the verified headline left the graph")
+            split = dict(exe.last_prepare)
+            run_prog, plan, _ = _cs_prepared(exe, main)
+            report = analysis.ensure_verified(
+                run_prog, feed_names=list(feeds), fetch_names=[loss.name])
+            if not report.ok or report.level != "full":
+                raise AssertionError(report.render())
+            img_s = HEADLINE_BATCH * HEADLINE_K * CS_CALLS / dt
+            out["verify"] = {
+                "images_per_sec": img_s,
+                "ratio_to_headline": img_s / headline_img_s,
+                "verify_s": split["verify"], "prepare_s": split,
+                "errors": 0, "warnings": len(report.warnings()),
+                "warning_codes": sorted({d.code for d in report.warnings()}),
+                "ops_verified": report.summary["n_ops"],
+                "momentum_launches": launches,
+                "loss_finite": bool(np.isfinite(_losses(outs[0])).all())}
+            log(f"[compile_services] (a) headline under FLAGS_verify=full "
+                f"{card}: {img_s:.2f} img/s, {img_s / headline_img_s:.4f} "
+                f"of the same run's headline ({headline_img_s:.2f}); verify "
+                f"{split['verify']:.4f} s of host time on the miss "
+                f"({report.summary['n_ops']} ops; 0 errors, "
+                f"{len(report.warnings())} warnings "
+                f"{out['verify']['warning_codes']}); prepare split "
+                + ", ".join(f"{k} {v:.4f} s" for k, v in split.items()
+                            if k != "level")
+                + f"; momentum launches {launches}")
+
+            # a producer deleted: PTA001 at the prepare, nothing launched
+            broken = main.clone()
+            ops = broken.global_block().ops
+            del ops[next(i for i, op in enumerate(ops)
+                         if op.type == "conv2d")]
+            broken._mutation += 1
+            calls = [0]
+            run_ops = executor_core.run_ops
+
+            def counted(*args, **kwargs):
+                calls[0] += 1
+                return run_ops(*args, **kwargs)
+
+            executor_core.run_ops = counted
+            before = fk.momentum_bucket.launches
+            try:
+                exe.run(broken, feed=one, fetch_list=[loss])
+                raise AssertionError("the broken program ran")
+            except analysis.ProgramVerificationError as e:
+                codes = sorted(e.report.codes())
+            finally:
+                executor_core.run_ops = run_ops
+            if "PTA001" not in codes or calls[0] or \
+                    fk.momentum_bucket.launches != before or \
+                    exe.captured_steps(broken):
+                raise AssertionError(f"broken program: codes {codes}, "
+                                     f"{calls[0]} op runs")
+            out["broken"] = {"codes": codes, "op_runs": calls[0]}
+            log(f"[compile_services] (a) a conv2d deleted: "
+                f"ProgramVerificationError {codes} at the prepare, no op "
+                f"run, no kernel launched")
+
+            # (b) the estimate beside the card's own numbers
+            est = analysis.estimate_peak_hbm(
+                run_prog, fetch_names=[loss.name],
+                nominal_batch=HEADLINE_BATCH)
+            peaks, reserved = {}, {}
+            for mode, graph in (("graph", True), ("interpreter", False)):
+                with flags.flag_guard(cuda_graph=graph):
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    _fence(exe.run(main, feed=one, fetch_list=[loss],
+                                   return_numpy=False)[0])
+                    peaks[mode] = torch.cuda.max_memory_allocated()
+                    reserved[mode] = torch.cuda.max_memory_reserved()
+            state_in, _ = executor_core.collect_state_names(run_prog, scope)
+            live = analysis.measured_live_bytes(
+                [scope.find_var(n) for n in state_in])
+            state_est = est["param_bytes"] + est["optimizer_state_bytes"]
+            if not state_est / 2 <= live <= 2 * state_est:
+                raise AssertionError(f"measured state {live} B is not within "
+                                     f"2x of the estimate's {state_est} B")
+            out["hbm"] = {
+                "estimate_peak_bytes": est["peak_bytes_per_replica"],
+                "estimate_at_batch_1": report.hbm["peak_bytes_per_replica"],
+                "estimate_state_bytes": state_est,
+                "estimate_transient_bytes": est["peak_transient_bytes"],
+                "estimate_peak_op": est["peak_op_type"],
+                "max_allocated_graph_step": peaks["graph"],
+                "max_allocated_interpreter_step": peaks["interpreter"],
+                "max_reserved_graph_step": reserved["graph"],
+                "max_reserved_interpreter_step": reserved["interpreter"],
+                "measured_state_bytes": live,
+                "state_ratio": live / state_est,
+                "peak_ratio_graph": peaks["graph"]
+                / est["peak_bytes_per_replica"],
+                "peak_ratio_interpreter": peaks["interpreter"]
+                / est["peak_bytes_per_replica"]}
+            log(f"[compile_services] (b) peak-HBM estimate at batch "
+                f"{HEADLINE_BATCH}: {est['peak_bytes_per_replica']} B "
+                f"({est['peak_bytes_per_replica'] / 2**30:.3f} GiB; state "
+                f"{state_est} B, transients {est['peak_transient_bytes']} B "
+                f"at {est['peak_op_type']}; the gauge's, at nominal batch 1: "
+                f"{report.hbm['peak_bytes_per_replica']} B); "
+                f"max_memory_allocated over one replayed step "
+                f"{peaks['graph']} B ({peaks['graph'] / 2**30:.3f} GiB, "
+                f"{out['hbm']['peak_ratio_graph']:.3f} of the estimate), "
+                f"one interpreted step {peaks['interpreter']} B "
+                f"({out['hbm']['peak_ratio_interpreter']:.3f}; a captured "
+                f"step's working set lives in its graph's private pool, "
+                f"which max_memory_allocated does not count: "
+                f"max_memory_reserved {reserved['graph']} / "
+                f"{reserved['interpreter']} B); the state's "
+                f"measured live bytes {live} = "
+                f"{out['hbm']['state_ratio']:.4f} of the estimate's")
+            _check_master_state(scope)
+    finally:
+        amp.disable()
+    return out
+
+
+def _cs_cap(card):
+    """(c) the headline network's for_test clone at batches 8, 16, 32, then
+    8 again under FLAGS_compile_cache_cap=2 (f32, cuDNN deterministic):
+    the evictions counted, the recaptured batch-8 outputs bitwise equal to
+    the first, the bytes each evicted graph freed (memory_reserved after
+    empty_cache, before and after the eviction), and the card's reserved
+    memory after the run below an uncapped executor's with the three
+    graphs alive."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import flags
+
+    main, startup, _, _, prediction = build_headline(with_prediction=True)
+    test_prog = main.clone(for_test=True)
+    rs = np.random.RandomState(SEED + 18)
+    feeds = {b: torch.from_numpy(rs.randint(
+        0, 256, (b, 224, 224, 3), dtype=np.uint8)).cuda()
+        for b in CS_CAP_BATCHES}
+
+    def run(exe, b):
+        # eager warm-up step, capture, one replay
+        return [exe.run(test_prog, feed={"data_u8": feeds[b]},
+                        fetch_list=[prediction], return_numpy=False)[0]
+                for _ in range(3)][-1].clone()
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with fluid.scope_guard(fluid.Scope()):
+            fluid.Executor().run(startup)
+            free = fluid.Executor()
+            for b in CS_CAP_BATCHES:
+                run(free, b)
+            if len(free.captured_steps(test_prog)) != 3:
+                raise AssertionError("the uncapped executor holds "
+                                     f"{len(free.captured_steps(test_prog))}"
+                                     " graphs")
+            _release()
+            three = torch.cuda.memory_reserved()
+            del free
+            _release()
+            base = torch.cuda.memory_reserved()
+            freed = []
+            with flags.flag_guard(compile_cache_cap=2):
+                exe = fluid.Executor()
+                evict = exe._prepared.on_evict
+
+                def measured(key, entry):
+                    _release()
+                    before = torch.cuda.memory_reserved()
+                    evict(key, entry)
+                    _release()
+                    freed.append(before - torch.cuda.memory_reserved())
+
+                exe._prepared.on_evict = measured
+                first = run(exe, CS_CAP_BATCHES[0])
+                for b in CS_CAP_BATCHES[1:]:
+                    run(exe, b)
+                again = run(exe, CS_CAP_BATCHES[0])
+                info = exe.compile_cache_info()
+                alive = len(exe.captured_steps(test_prog))
+            _release()
+            after = torch.cuda.memory_reserved()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if info["evictions"] != 2 or alive != 2 or len(freed) != 2:
+        raise AssertionError(f"cap 2: {info['evictions']} evictions, "
+                             f"{alive} graphs alive")
+    if not torch.equal(again, first):
+        raise AssertionError("the recaptured batch-8 outputs differ")
+    if not after < three or min(freed) <= 0:
+        raise AssertionError(f"reserved {after} B after eviction, {three} B "
+                             f"with three graphs alive; freed {freed}")
+    out = {"batches": list(CS_CAP_BATCHES) + [CS_CAP_BATCHES[0]],
+           "evictions": info["evictions"], "entries": info["entries"],
+           "freed_bytes": freed, "reserved_three_graphs": three,
+           "reserved_after_evictions": after, "reserved_no_graphs": base,
+           "recapture_bitwise": True}
+    log(f"[compile_services] (c) cap 2 over batches {out['batches']} "
+        f"{card}: {info['evictions']} evictions, the graphs of batches "
+        f"{CS_CAP_BATCHES[0]} and {CS_CAP_BATCHES[1]} freed "
+        f"{freed[0]} / {freed[1]} B reserved; reserved {after} B after "
+        f"(two graphs alive) < {three} B with three (uncapped), {base} B "
+        f"with none; the recaptured batch-{CS_CAP_BATCHES[0]} outputs "
+        f"bitwise equal to the first")
+    return out
+
+
+def l2_child(root):
+    """`python3 chip_smoke.py --l2-child DIR`: one fresh process of phase
+    compile_services (d): the kernels' extension loaded, then the headline
+    program (bf16 AMP, fused Momentum, batch HEADLINE_BATCH,
+    FLAGS_verify=full, cuDNN deterministic) under
+    FLAGS_compile_cache_dir=DIR, its startup and two steps (the eager
+    first step, the capture); prints one JSON line: the losses (hex), the
+    compile cache's payload, the prepare's host split, the monitor's
+    misses, the momentum launches and the extension's load seconds."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, flags, monitor
+    from paddle_tpu_torch.fusion import kernels as fk
+
+    from paddle_tpu_torch import cuda_build
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    # the kernels' extension (built by the parent) loaded here, so that
+    # the first eager step's time is the step's own
+    cuda_build.kernels()
+    kernel_load = time.perf_counter() - t0
+    main, startup, loss, _ = build_headline(plan=False)
+    one = {n: t[0] for n, t in _cs_feeds(SEED + 19, 1,
+                                         HEADLINE_BATCH).items()}
+    amp.enable("bfloat16")
+    with flags.flag_guard(fuse=True, verify="full", monitor=True,
+                          compile_cache_dir=root):
+        exe = fluid.Executor()
+        exe.run(startup)
+        monitor.reset()
+        fk.reset_launch_counts()
+        losses = [float(exe.run(main, feed=one, fetch_list=[loss],
+                                return_numpy=False)[0].reshape(-1)[0])
+                  for _ in range(2)]
+        torch.cuda.synchronize()
+        snap = monitor.registry().snapshot()
+        print(json.dumps({
+            "losses": [v.hex() for v in losses],
+            "info": exe.compile_cache_info(),
+            "prepare": exe.last_prepare,
+            "monitor_misses": sum(v for k, v in snap.items()
+                                  if "compile_cache_misses_total" in k),
+            "momentum_launches": fk.momentum_bucket.launches,
+            "mode": exe.step_mode(main),
+            "kernel_load_s": kernel_load,
+            "seconds": time.perf_counter() - t0}))
+
+
+def _cs_l2(card):
+    """(d) two fresh processes of the headline with one
+    FLAGS_compile_cache_dir: the first misses and puts, the second hits
+    (no miss on its monitor) with bitwise the first's losses; then the
+    main program's entry corrupted: a third counts one l2_fallback and
+    runs to the same losses."""
+    import tempfile
+
+    from paddle_tpu_torch.cache import L2Store
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_l2_")
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def child(tag):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--l2-child", root],
+            cwd=here, capture_output=True, text=True, timeout=CS_CHILD_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"l2 child {tag}: rc {proc.returncode}\n"
+                                 f"{proc.stderr[-4000:]}")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        got["wall_s"] = time.perf_counter() - t0
+        split = got["prepare"]
+        outcome = ("hit" if split.get("level") == "l2" else "fallback"
+                   if got["info"]["l2"]["fallbacks"] else "miss")
+        log(f"[compile_services] (d) {tag} process {card}: L2 {outcome} "
+            f"(main program); prepare host split "
+            + ", ".join(f"{k} {split[k]:.4f} s" for k in (
+                "l2_load", "fusion", "verify", "step_build", "first_step",
+                "capture") if k in split)
+            + f"; the kernels' extension loaded first in "
+            f"{got['kernel_load_s']:.2f} s; l2 {got['info']['l2']}; "
+            f"monitor misses "
+            f"{got['monitor_misses']}; momentum launches "
+            f"{got['momentum_launches']}; losses {got['losses']}; process "
+            f"{got['wall_s']:.1f} s")
+        return got
+
+    try:
+        cold = child("first")
+        warm = child("second")
+        store = L2Store(root)
+        big = max(store.entries(), key=lambda e: e["bytes"])
+        with open(big["path"], "r+b") as f:
+            f.seek(-8, 2)
+            tail = f.read(8)
+            f.seek(-8, 2)
+            f.write(bytes(b ^ 0xFF for b in tail))
+        hurt = child("third (main entry corrupted)")
+        entries = len(store.entries())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    l2c, l2w, l2h = (g["info"]["l2"] for g in (cold, warm, hurt))
+    if (l2c["misses"], l2c["puts"], l2c["hits"]) != (2, 2, 0):
+        raise AssertionError(f"first process: {l2c}")
+    if (l2w["hits"], l2w["puts"], warm["monitor_misses"]) != (2, 0, 0) \
+            or warm["prepare"].get("level") != "l2":
+        raise AssertionError(f"second process: {l2w}, "
+                             f"{warm['monitor_misses']} misses")
+    if (l2h["fallbacks"], l2h["hits"], l2h["puts"]) != (1, 1, 1):
+        raise AssertionError(f"third process: {l2h}")
+    for g in (cold, warm, hurt):
+        if g["mode"] != "graph" or g["momentum_launches"] \
+                != 2 * CF_HEAD_BUCKETS:
+            raise AssertionError(f"a process ran {g['mode']}, "
+                                 f"{g['momentum_launches']} launches")
+    if warm["losses"][0] != cold["losses"][0] \
+            or hurt["losses"][0] != cold["losses"][0]:
+        raise AssertionError(f"first-step losses differ: {cold['losses']} "
+                             f"{warm['losses']} {hurt['losses']}")
+
+    def saved(part):
+        return cold["prepare"].get(part, 0.0) - warm["prepare"].get(part,
+                                                                   0.0)
+
+    out = {"first": cold, "second": warm, "third": hurt,
+           "entries": entries,
+           "second_step_losses_equal": warm["losses"] == cold["losses"],
+           "saved_s": {p: saved(p) for p in (
+               "l2_load", "fusion", "verify", "step_build", "first_step",
+               "capture")},
+           "momentum_launches": sum(g["momentum_launches"]
+                                    for g in (cold, warm, hurt))}
+    log(f"[compile_services] (d) the L2 hit against the miss, host s by "
+        f"part: " + ", ".join(f"{k} {v:+.4f}"
+                              for k, v in out["saved_s"].items())
+        + f"; first-step losses bitwise equal in the three processes "
+        f"(second step too: {out['second_step_losses_equal']})")
+    return out
+
+
+def _cs_go_select(fluid, csp, n):
+    """A Go block computes n [256, 256] products on its own stream and
+    sends each through a buffered channel, then says "done" over a second
+    one; the main block waits for "done", and n Selects with a default
+    case receive the n values. Returns the n received vars."""
+    ch = csp.make_channel(dtype="float32", capacity=n)
+    done = csp.make_channel(dtype="float32", capacity=1)
+    x = fluid.layers.fill_constant(shape=[256, 256], dtype="float32",
+                                   value=0.5)
+    with csp.Go():
+        y = x
+        for k in range(n):
+            y = fluid.layers.matmul(y, x)
+            csp.channel_send(ch, fluid.layers.scale(y, scale=float(k + 1)))
+        csp.channel_send(done, x)
+    flag = fluid.layers.fill_constant(shape=[256, 256], dtype="float32",
+                                      value=0.0)
+    csp.channel_recv(done, flag)
+    outs = []
+    for _ in range(n):
+        got = fluid.layers.fill_constant(shape=[256, 256], dtype="float32",
+                                         value=-1.0)
+        sel = csp.Select()
+        with sel:
+            with sel.case(csp.channel_recv, ch, got):
+                pass
+            with sel.default():
+                pass
+        outs.append(got)
+    return outs
+
+
+def _cs_csp(card):
+    """(e) the Go/Select program on the card and on the host: equal
+    values."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import concurrency
+
+    got = {}
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            outs = _cs_go_select(fluid, concurrency, CS_CSP_VALUES)
+        exe = fluid.Executor(place)
+        got[str(place)] = exe.run(main, fetch_list=outs)
+        mode = exe.step_mode(main)
+    card_vals, host_vals = got.values()
+    for c, h in zip(card_vals, host_vals):
+        if not np.array_equal(c, h) or c[0, 0] == -1.0:
+            raise AssertionError("the Go/Select values differ on the card")
+    log(f"[compile_services] (e) a Go block sent {CS_CSP_VALUES} CUDA "
+        f"tensors through a buffered channel, Selects with a default case "
+        f"received them on {card}: equal to the host's (first "
+        f"{card_vals[0][0, 0]}, last {card_vals[-1][0, 0]}; {mode})")
+    return {"values": CS_CSP_VALUES, "equal_to_host": True}
+
+
+def phase_compile_services(card, headline_img_s):
+    """(a)-(e) of the module docstring. Prints its seconds."""
+    t = [time.perf_counter()]
+    result = _cs_verify(card, headline_img_s)
+    t.append(time.perf_counter())
+    _release()
+    result["cap"] = _cs_cap(card)
+    t.append(time.perf_counter())
+    _release()
+    result["l2"] = _cs_l2(card)
+    t.append(time.perf_counter())
+    result["csp"] = _cs_csp(card)
+    t.append(time.perf_counter())
+    parts = dict(zip(("verify_hbm", "cap", "l2", "csp"),
+                     (b - a for a, b in zip(t, t[1:]))))
+    log(f"[compile_services] phase {t[-1] - t[0]:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+    result.update(seconds=t[-1] - t[0], seconds_by_part=parts)
+    return result
+
+
 def _qkv(shape, dtype, gen):
     B, H, Sq, Sk, D = shape
     return [torch.randn(B, H, S, D, generator=gen, device="cuda").to(dtype)
@@ -6662,6 +7183,37 @@ def main_resilience():
     log(_device_line())
 
 
+def main_compile_services():
+    """`python3 chip_smoke.py --only compile_services`: the device check,
+    the build and phase compile_services alone, the headline it compares
+    with timed here (1 warm + CS_CALLS calls of iters=HEADLINE_K)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, flags
+
+    card_line = phase_device()
+    card = torch.cuda.get_device_name(0)
+    phase_build()
+    main, startup, loss, _ = build_headline()
+    feeds = _cs_feeds(SEED + 17, HEADLINE_K, HEADLINE_BATCH)
+    amp.enable("bfloat16")
+    try:
+        with flags.flag_guard(fuse=True), fluid.scope_guard(fluid.Scope()):
+            exe = fluid.Executor()
+            exe.run(startup)
+            dt, _ = _timed_calls(exe, main, feeds, [loss], HEADLINE_K,
+                                 CS_WARM, CS_CALLS)
+    finally:
+        amp.disable()
+    img_s = HEADLINE_BATCH * HEADLINE_K * CS_CALLS / dt
+    log(f"[compile_services] the headline: {img_s:.2f} img/s")
+    del feeds, exe
+    _release()
+    result = phase_compile_services(card, img_s)
+    log(card_line)
+    log(json.dumps({"compile_services": result}))
+    log(_device_line())
+
+
 def main():
     card_line = phase_device()
     card = torch.cuda.get_device_name(0)
@@ -6783,13 +7335,20 @@ def main():
     adam["launches_by_path"]["trainer_mlp_dropout"] = \
         resil["trainer_mlp_dropout"]["adam_launches"]
     _release()
+    services = phase_compile_services(card, headline["images_per_sec"])
+    momentum["launches_by_path"]["headline_verify_full"] = \
+        services["verify"]["momentum_launches"]
+    momentum["launches_by_path"]["headline_l2_processes"] = \
+        services["l2"]["momentum_launches"]
+    _release()
     rows += phase_flash(sass)
     log(card_line)
     log(json.dumps({"headline": headline, "monitor": monitored,
                     "parallel": parallel, "input": fed,
                     "se_resnext50": se, "vgg16": vgg, **seq,
                     "serve": served, "tail_ops": tail, "loss_ops": losses,
-                    "control_flow": flow, "resilience": resil}))
+                    "control_flow": flow, "resilience": resil,
+                    "compile_services": services}))
     log(json.dumps({"kernels": rows}))
     log(_device_line())
 
@@ -6803,5 +7362,9 @@ if __name__ == "__main__":
         main_control_flow()
     elif sys.argv[1:] == ["--only", "resilience"]:
         main_resilience()
+    elif sys.argv[1:] == ["--only", "compile_services"]:
+        main_compile_services()
+    elif sys.argv[1:2] == ["--l2-child"] and len(sys.argv) == 3:
+        l2_child(sys.argv[2])
     else:
         main()

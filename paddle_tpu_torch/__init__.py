@@ -25,7 +25,11 @@ reader or a DataPipe with events, io-format checkpoints and, under a
 `ResilienceConfig`, the fault-tolerant loop of `resilience` (async atomic
 checkpoints in the JAX package's layout, retry, the NaN guard, the grace
 save on SIGTERM, the hang watchdog, the chaos harness); `metrics` and
-`evaluator` accumulate what a run fetches.
+`evaluator` accumulate what a run fetches. When a step is prepared,
+`analysis` verifies the program under FLAGS_verify and the compile
+`cache` keeps it (an LRU under FLAGS_compile_cache_cap, a persistent
+store under FLAGS_compile_cache_dir); `debugger` prints and draws
+programs, and `concurrency` holds the CSP layers (channels, Go, Select).
 """
 
 from . import flags
@@ -92,6 +96,10 @@ from .parallel_executor import (BuildStrategy, ExecutionStrategy,
 from . import convert
 from . import profiler
 from . import monitor
+from . import analysis
+from . import cache
+from . import debugger
+from . import concurrency
 from . import trace
 from . import health
 from . import io

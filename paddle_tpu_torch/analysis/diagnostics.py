@@ -151,7 +151,7 @@ class Report:
         self.level = level
         self.context = context
         self.diagnostics = []
-        self.hbm = None          # HBM estimate (not ported: stays None)
+        self.hbm = None          # estimate dict from hbm.estimate_peak_hbm
         self.summary = {}        # program stats (ops/blocks/vars)
 
     def add(self, code, message, **loc):
@@ -210,6 +210,9 @@ class Report:
         if not verbose:
             shown = [d for d in shown if d.severity == Severity.ERROR]
         lines += [f"  {d}" for d in shown]
+        if self.hbm:
+            from .hbm import render_table
+            lines.append(render_table(self.hbm))
         return "\n".join(lines)
 
 

@@ -26,14 +26,27 @@ journals and ledgers:
                      (resilience.inspect_dir); either package's
                      checkpoints.
 
-The JAX CLI's other commands (trace ops, serve, fleet, cache, ...) and
-`monitor` over several journals (the fleet's clock-aligned merge) are not
-ported yet.
+  cache ls|prune|clear [--dir D] [--max-mb N] [--json]
+                     list, prune (oldest-used first) or empty the
+                     persistent compile cache (FLAGS_compile_cache_dir)
+  check [--model-dir D | --selftest] [--level basic|full] [--mesh A=N,..]
+        [--json] [--quiet]
+                     static program verification (analysis.verify) of a
+                     saved inference model, with the peak-HBM table at
+                     `full`; rc 0 clean, 1 on errors, 2 on usage errors
+  analyze graph|fusion [--model-dir D | --selftest] [--zero1 N] ...
+                     the SSA dataflow graph and its PTA03x hazards, or
+                     the fusion pass's plan
+
+The JAX CLI's other commands (trace ops, serve, fleet, shard, ...),
+`analyze schedule` (ROADMAP queue 1 item 6), `analyze pipeline` and
+`monitor` over several journals (item 8) are not ported yet.
 """
 
 import argparse
 import glob
 import json
+import os
 import sys
 
 
@@ -205,6 +218,382 @@ def _cmd_checkpoint(args):
     return 0
 
 
+def _fmt_age(seconds):
+    s = float(seconds)
+    if s < 60:
+        return f"{s:.0f}s"
+    if s < 3600:
+        return f"{s / 60:.0f}m"
+    if s < 86400:
+        return f"{s / 3600:.1f}h"
+    return f"{s / 86400:.1f}d"
+
+
+def _cmd_cache(args):
+    import json
+
+    from . import flags
+    from .cache import L2Store
+
+    root = args.dir or flags.get("compile_cache_dir")
+    if not root:
+        print("no cache dir: pass --dir or set FLAGS_compile_cache_dir",
+              file=sys.stderr)
+        return 2
+    if not os.path.isdir(root):
+        print(f"not a directory: {root}", file=sys.stderr)
+        return 2
+    store = L2Store(root)
+    if args.cache_action == "ls":
+        ents = store.entries()
+        if args.json:
+            print(json.dumps({
+                "dir": root,
+                "total_bytes": sum(e["bytes"] for e in ents),
+                "entries": ents,
+            }, indent=2))
+            return 0
+        if not ents:
+            print(f"{root}: empty")
+            return 0
+        print(f"{'digest':<18} {'kind':<20} {'bytes':>10} {'age':>7} "
+              f"{'torch':<16} status")
+        for e in ents:
+            print(f"{e['digest'][:16] + '..':<18} "
+                  f"{e.get('kind', '?'):<20} {e['bytes']:>10} "
+                  f"{_fmt_age(e['age_s']):>7} {e.get('torch', '?'):<16} "
+                  f"{'ok' if e['ok'] else 'CORRUPT'}")
+        total = sum(e["bytes"] for e in ents)
+        print(f"{len(ents)} entries, {total / 1e6:.1f} MB in {root}")
+        return 0
+    if args.cache_action == "prune":
+        max_mb = args.max_mb if args.max_mb is not None \
+            else flags.get("compile_cache_dir_max_mb")
+        removed = store.prune(int(max_mb) * (1 << 20))
+        print(f"pruned {removed} entries "
+              f"({store.total_bytes() / 1e6:.1f} MB resident, "
+              f"cap {max_mb} MB)")
+        return 0
+    if args.cache_action == "clear":
+        removed = store.clear()
+        print(f"removed {removed} entries from {root}")
+        return 0
+    return 2
+
+
+def _check_demo_program():
+    """Small MLP training program for `check --selftest`."""
+    import paddle_tpu_torch as fluid
+
+    main, start = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, start):
+        x = fluid.layers.data(name="x", shape=[8], dtype="float32")
+        y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+        h = fluid.layers.fc(x, 16, act="relu")
+        p = fluid.layers.fc(h, 1)
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(p, y))
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    return main, ["x", "y"], [loss.name]
+
+
+def _cmd_check(args):
+    import json
+
+    from . import analysis
+
+    mesh_axes = None
+    if args.mesh:
+        mesh_axes = {}
+        for part in args.mesh.split(","):
+            if not part.strip():
+                continue
+            k, _, v = part.partition("=")
+            try:
+                mesh_axes[k.strip()] = int(v)
+            except ValueError:
+                print(f"bad --mesh entry {part!r} (want name=size)",
+                      file=sys.stderr)
+                return 2
+
+    if args.selftest:
+        # 1) a well-formed training program must verify clean ...
+        prog, feeds, fetches = _check_demo_program()
+        clean = analysis.verify(prog, level="full", feed_names=feeds,
+                                fetch_names=fetches, mesh_axes=mesh_axes,
+                                context="check --selftest")
+        # 2) ... and the SAME program with an op knocked out must not:
+        # drop the first fc's matmul, leaving its output undefined
+        broken = prog.clone()
+        ops = broken.global_block().ops
+        del ops[next(i for i, op in enumerate(ops) if op.type == "mul")]
+        bad = analysis.verify(broken, level="full", feed_names=feeds,
+                              fetch_names=fetches, mesh_axes=mesh_axes,
+                              context="check --selftest (broken)")
+        ok = clean.ok and not bad.ok and "PTA001" in bad.codes()
+        if args.json:
+            print(json.dumps({"ok": ok, "clean": clean.to_dict(),
+                              "broken": bad.to_dict()}, indent=2))
+        else:
+            print(clean.render(verbose=not args.quiet))
+            print("--- intentionally broken program (must flag PTA001) ---")
+            print(bad.render(verbose=not args.quiet))
+            print(f"check selftest: {'OK' if ok else 'FAILED'}")
+        return 0 if ok else 1
+
+    if not args.model_dir:
+        print("check needs --model-dir or --selftest", file=sys.stderr)
+        return 2
+    from .core.framework import Program
+
+    model_path = os.path.join(args.model_dir, "__model__")
+    try:
+        with open(model_path) as f:
+            payload = json.load(f)
+    except (OSError, ValueError) as e:
+        print(f"cannot load {model_path}: {e}", file=sys.stderr)
+        return 2
+    program = Program.from_dict(payload["program"])
+    report = analysis.verify(
+        program, level=args.level,
+        feed_names=payload.get("feed_var_names"),
+        fetch_names=payload.get("fetch_var_names"),
+        mesh_axes=mesh_axes, context=f"check {args.model_dir}")
+    if args.json:
+        print(json.dumps(report.to_dict(), indent=2))
+    else:
+        print(report.render(verbose=not args.quiet))
+    return report.rc
+
+
+def _load_saved_program(model_dir):
+    """(program, feed_names, fetch_names) from a save_inference_model dir,
+    or an error string."""
+    import json
+
+    from .core.framework import Program
+
+    model_path = os.path.join(model_dir, "__model__")
+    try:
+        with open(model_path) as f:
+            payload = json.load(f)
+    except (OSError, ValueError) as e:
+        return f"cannot load {model_path}: {e}"
+    return (Program.from_dict(payload["program"]),
+            payload.get("feed_var_names"),
+            payload.get("fetch_var_names"))
+
+
+def _seed_cycle(program):
+    """Clone with a genuine def-use cycle appended (two scale ops reading
+    each other's outputs) — the `analyze graph --selftest` mutation."""
+    from .core.framework import OP_ROLE_ATTR_NAME, OpRole
+
+    clone = program.clone()
+    gb = clone.global_block()
+    for nm in ("a_cyc", "b_cyc"):
+        gb.create_var(name=nm, shape=[1], dtype="float32")
+    role = {OP_ROLE_ATTR_NAME: int(OpRole.Forward), "scale": 1.0}
+    gb.append_op(type="scale", inputs={"X": ["b_cyc"]},
+                 outputs={"Out": ["a_cyc"]}, attrs=dict(role))
+    gb.append_op(type="scale", inputs={"X": ["a_cyc"]},
+                 outputs={"Out": ["b_cyc"]}, attrs=dict(role))
+    return clone
+
+
+def _cmd_analyze(args):
+    import json
+
+    from .analysis import ProgramVerificationError, Report, dataflow
+
+    mesh_axes = None
+    if getattr(args, "mesh", None):
+        mesh_axes = {}
+        for part in args.mesh.split(","):
+            if not part.strip():
+                continue
+            k, _, v = part.partition("=")
+            try:
+                mesh_axes[k.strip()] = int(v)
+            except ValueError:
+                print(f"bad --mesh entry {part!r} (want name=size)",
+                      file=sys.stderr)
+                return 2
+
+    def _resolve_program():
+        """(program, feeds) for the non-selftest path, honoring --zero1."""
+        if not args.model_dir:
+            print(f"analyze {args.analyze_action} needs --model-dir or "
+                  f"--selftest", file=sys.stderr)
+            return None
+        loaded = _load_saved_program(args.model_dir)
+        if isinstance(loaded, str):
+            print(loaded, file=sys.stderr)
+            return None
+        program, feeds, _ = loaded
+        if args.zero1:
+            from .parallel import zero1 as _z1
+            program, _ = _z1.apply(program, args.zero1)
+        return program, feeds
+
+    if args.analyze_action in ("schedule", "pipeline"):
+        what = {"schedule": "the static overlap schedule (analysis/"
+                            "schedule.py): ROADMAP queue 1 item 6",
+                "pipeline": "the pipeline stage partition (parallel/"
+                            "pipeline): ROADMAP queue 1 item 8"}
+        print(f"analyze {args.analyze_action}: not ported yet — "
+              f"{what[args.analyze_action]}", file=sys.stderr)
+        return 2
+
+    if args.analyze_action == "graph":
+        if args.selftest:
+            prog, feeds, _ = _check_demo_program()
+            if args.zero1:
+                from .parallel import zero1 as _z1
+                prog, _ = _z1.apply(prog, args.zero1)
+            graph = dataflow.build_graph(prog, feed_names=feeds)
+            clean = Report(level="full", context="analyze graph --selftest")
+            dataflow.check_hazards(prog, clean, feed_names=feeds,
+                                   graph=graph)
+            seeded = Report(level="full",
+                            context="analyze graph --selftest (cyclic)")
+            dataflow.check_hazards(_seed_cycle(prog), seeded,
+                                   feed_names=feeds)
+            ok = clean.ok and not graph.has_cycle \
+                and not seeded.ok and "PTA030" in seeded.codes()
+            if args.json:
+                print(json.dumps({"ok": ok, "graph": graph.summary(),
+                                  "clean": clean.to_dict(),
+                                  "seeded": seeded.to_dict()}, indent=2))
+            else:
+                print(f"graph: {graph.summary()}")
+                print(clean.render(verbose=not args.quiet))
+                print("--- seeded cyclic clone (must flag PTA030) ---")
+                print(seeded.render(verbose=not args.quiet))
+                print(f"analyze graph selftest: {'OK' if ok else 'FAILED'}")
+            return 0 if ok else 1
+        resolved = _resolve_program()
+        if resolved is None:
+            return 2
+        program, feeds = resolved
+        report = Report(level="full",
+                        context=f"analyze graph {args.model_dir}")
+        graph = dataflow.check_hazards(program, report, feed_names=feeds)
+        if args.json:
+            print(json.dumps({"graph": graph.summary(),
+                              "report": report.to_dict()}, indent=2))
+        else:
+            print(f"graph: {graph.summary()}")
+            print(report.render(verbose=not args.quiet))
+        return report.rc
+
+    if args.analyze_action == "fusion":
+        from . import analysis, fusion
+
+        bucket_bytes = (args.bucket_mb << 20) if args.bucket_mb else None
+
+        def render(plan):
+            if plan is None:
+                return "fusion: nothing fused"
+            lines = [f"fusion: ops {plan.n_ops_before} -> "
+                     f"{plan.n_ops_after}  digest={plan.digest()}"]
+            for c in plan.chains:
+                lines.append(f"  chain  {'+'.join(c['types'])}  "
+                             f"{c['vars'][0]} -> {c['vars'][1]}  "
+                             f"benefit={c['benefit_us']}us")
+            for b in plan.buckets:
+                lines.append(f"  bucket fused_{b['opt']}_update x{b['n']} "
+                             f"bytes={b['bytes']} "
+                             f"shard_rows={b['shard_rows']}")
+            if plan.skipped and not args.quiet:
+                for base, why in plan.skipped:
+                    lines.append(f"  skipped {base}: {why}")
+            return "\n".join(lines)
+
+        if args.selftest:
+            import paddle_tpu_torch as fluid
+
+            # training demo: 6 params under adam -> one fused bucket,
+            # and the fused program must verify clean at level full
+            main, start = fluid.Program(), fluid.Program()
+            with fluid.unique_name.guard(), \
+                    fluid.program_guard(main, start):
+                x = fluid.layers.data(name="x", shape=[8],
+                                      dtype="float32")
+                y = fluid.layers.data(name="y", shape=[1],
+                                      dtype="float32")
+                h = fluid.layers.fc(x, 16, act="relu")
+                h2 = fluid.layers.fc(h, 8, act="relu")
+                p = fluid.layers.fc(h2, 1)
+                loss = fluid.layers.mean(
+                    fluid.layers.square_error_cost(p, y))
+                fluid.optimizer.Adam(learning_rate=0.01).minimize(loss)
+            fused, plan = fusion.apply(main, feed_names=["x", "y"],
+                                       fetch_names=[loss.name],
+                                       bucket_bytes=bucket_bytes)
+            rep = analysis.verify(fused, feed_names=["x", "y"],
+                                  fetch_names=[loss.name], level="full",
+                                  context="analyze fusion --selftest")
+            ok = plan is not None and bool(plan.buckets) \
+                and max(b["n"] for b in plan.buckets) >= 2 and rep.ok
+
+            # inference demo: an elementwise chain must fuse vertically
+            inf = fluid.Program()
+            with fluid.unique_name.guard(), \
+                    fluid.program_guard(inf, fluid.Program()):
+                xi = fluid.layers.data(name="x", shape=[64],
+                                       dtype="float32")
+                out = fluid.layers.scale(
+                    fluid.layers.sigmoid(fluid.layers.tanh(
+                        fluid.layers.relu(xi))), scale=2.0)
+            _, vplan = fusion.apply(inf, feed_names=["x"],
+                                    fetch_names=[out.name])
+            ok = ok and vplan is not None and len(vplan.chains) >= 1
+
+            # a hazardous source program must be REFUSED, never fused
+            refused, codes = False, []
+            try:
+                fusion.apply(_seed_cycle(main), feed_names=["x", "y"],
+                             fetch_names=[loss.name])
+            except ProgramVerificationError as e:
+                refused = True
+                codes = sorted(e.report.codes())
+            ok = ok and refused and "PTA030" in codes
+            if args.json:
+                print(json.dumps({
+                    "ok": bool(ok),
+                    "plan": plan.to_dict() if plan else None,
+                    "vertical": vplan.to_dict() if vplan else None,
+                    "verify_ok": rep.ok,
+                    "seeded_refused": refused,
+                    "seeded_codes": codes}, indent=2))
+            else:
+                print(render(plan))
+                print(render(vplan))
+                print("--- seeded cyclic source: "
+                      + ("refused " + str(codes) if refused
+                         else "NOT refused") + " ---")
+                print("analyze fusion selftest: "
+                      + ("OK" if ok else "FAILED"))
+            return 0 if ok else 1
+
+        resolved = _resolve_program()
+        if resolved is None:
+            return 2
+        program, feeds = resolved
+        try:
+            fused, plan = fusion.apply(program, feed_names=feeds,
+                                       bucket_bytes=bucket_bytes)
+        except ProgramVerificationError as e:
+            print(e.report.render(verbose=not args.quiet),
+                  file=sys.stderr)
+            return 1
+        if args.json:
+            print(json.dumps(plan.to_dict() if plan else None, indent=2))
+        else:
+            print(render(plan))
+        return 0
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="paddle_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -253,10 +642,145 @@ def main(argv=None):
     ci.add_argument("--json", action="store_true",
                     help="emit the report as JSON")
 
+    ca = sub.add_parser("cache", help="persistent compile-cache store "
+                                      "(FLAGS_compile_cache_dir)")
+    casub = ca.add_subparsers(dest="cache_action", required=True)
+    cal = casub.add_parser("ls", help="list entries: digest, kind, bytes, "
+                                      "age, torch version")
+    cal.add_argument("--dir", default=None,
+                     help="store directory (default "
+                          "FLAGS_compile_cache_dir)")
+    cal.add_argument("--json", action="store_true",
+                     help="emit the listing as JSON")
+    cap_ = casub.add_parser("prune", help="delete oldest-used entries "
+                                          "until the store fits the cap")
+    cap_.add_argument("--dir", default=None,
+                      help="store directory (default "
+                           "FLAGS_compile_cache_dir)")
+    cap_.add_argument("--max-mb", type=int, default=None,
+                      help="size cap in MiB (default "
+                           "FLAGS_compile_cache_dir_max_mb)")
+    cac = casub.add_parser("clear", help="delete every entry")
+    cac.add_argument("--dir", default=None,
+                     help="store directory (default "
+                          "FLAGS_compile_cache_dir)")
+
+    ck = sub.add_parser("check", help="static program verification: graph/"
+                                      "safety/sharding checks and the "
+                                      "peak-HBM estimate (docs/analysis.md)")
+    ck.add_argument("--model-dir", default=None,
+                    help="save_inference_model directory to verify")
+    ck.add_argument("--level", default="full", choices=["basic", "full"],
+                    help="basic: structure + shape contracts; full: adds "
+                         "safety/sharding checks and the HBM table")
+    ck.add_argument("--mesh", default=None, metavar="NAME=SIZE,...",
+                    help="mesh axes for the sharding checks and per-replica "
+                         "HBM accounting, e.g. dp=4,mp=2")
+    ck.add_argument("--selftest", action="store_true",
+                    help="verify a clean demo program AND an intentionally "
+                         "broken clone (must flag PTA001); rc 0 when both "
+                         "behave")
+    ck.add_argument("--json", action="store_true",
+                    help="emit the report as JSON")
+    ck.add_argument("--quiet", action="store_true",
+                    help="show errors only, not warnings")
+
+    an = sub.add_parser("analyze", help="SSA dataflow graph, PTA03x hazard "
+                                        "detection and the fusion plan; "
+                                        "the overlap schedule and the "
+                                        "pipeline partition are not ported")
+    ansub = an.add_subparsers(dest="analyze_action", required=True)
+    ag = ansub.add_parser("graph", help="build the SSA def-use dependency "
+                                        "graph and run the dataflow hazard "
+                                        "detector (PTA030-PTA034)")
+    ag.add_argument("--model-dir", default=None,
+                    help="save_inference_model directory to analyze")
+    ag.add_argument("--zero1", type=int, default=0, metavar="N",
+                    help="apply the ZeRO-1 rewrite with N shards before "
+                         "analyzing")
+    ag.add_argument("--selftest", action="store_true",
+                    help="analyze a clean demo training program AND a "
+                         "seeded cyclic clone (must flag PTA030); rc 0 "
+                         "when both behave")
+    ag.add_argument("--json", action="store_true",
+                    help="emit the graph summary and report as JSON")
+    ag.add_argument("--quiet", action="store_true",
+                    help="show errors only, not warnings")
+    asch = ansub.add_parser(
+        "schedule", help="not ported (ROADMAP queue 1 item 6): critical "
+                         "path and the bucketed reduce-scatter overlap plan")
+    asch.add_argument("--model-dir", default=None,
+                      help="save_inference_model directory to schedule")
+    asch.add_argument("--mesh", default="dp=8", metavar="NAME=SIZE,...",
+                      help="mesh axes for the ring collective-bytes model")
+    asch.add_argument("--zero1", type=int, default=0, metavar="N",
+                      help="apply the ZeRO-1 rewrite with N shards before "
+                           "scheduling")
+    asch.add_argument("--batch", type=int, default=1,
+                      help="batch size substituted for dynamic dims in the "
+                           "FLOPs model")
+    asch.add_argument("--bucket-bytes", type=int, default=None,
+                      help="override FLAGS_overlap_bucket_bytes for the "
+                           "gradient-bucketing plan")
+    asch.add_argument("--selftest", action="store_true",
+                      help="schedule a zero1-rewritten demo program (must "
+                           "hoist a non-empty bucket plan) AND verify a "
+                           "seeded collective-order divergence is rejected "
+                           "with PTA033; rc 0 when both behave")
+    asch.add_argument("--json", action="store_true",
+                      help="emit the schedule report as JSON")
+    asch.add_argument("--quiet", action="store_true",
+                      help="show errors only, not warnings")
+    afu = ansub.add_parser(
+        "fusion", help="cost-guided operator fusion plan: vertical "
+                       "elementwise chains and the bucketed fused weight "
+                       "update (docs/fusion.md)")
+    afu.add_argument("--model-dir", default=None,
+                     help="save_inference_model directory to plan fusion "
+                          "for")
+    afu.add_argument("--zero1", type=int, default=0, metavar="N",
+                     help="apply the ZeRO-1 rewrite with N shards before "
+                          "fusing (exercises shard-aware bucketing)")
+    afu.add_argument("--bucket-mb", type=int, default=None,
+                     help="override FLAGS_fuse_bucket_mb for the update "
+                          "bucketing")
+    afu.add_argument("--selftest", action="store_true",
+                     help="fuse a demo trainer (must bucket >= 2 adam "
+                          "updates and verify clean at level full), fuse "
+                          "a demo elementwise chain, AND verify a seeded "
+                          "cyclic source is refused with PTA030; rc 0 "
+                          "when all behave")
+    afu.add_argument("--json", action="store_true",
+                     help="emit the fusion plan as JSON")
+    afu.add_argument("--quiet", action="store_true",
+                     help="hide skipped-candidate reasons")
+    apl = ansub.add_parser(
+        "pipeline", help="not ported (ROADMAP queue 1 item 8): pp-axis "
+                         "stage partition and the 1F1B schedule's bubble")
+    apl.add_argument("--model-dir", default=None,
+                     help="save_inference_model directory to partition")
+    apl.add_argument("--stages", type=int, default=2,
+                     help="pipeline stage count (pp axis size)")
+    apl.add_argument("--microbatches", type=int, default=4,
+                     help="1F1B microbatches per step")
+    apl.add_argument("--batch", type=int, default=1,
+                     help="batch size substituted for dynamic dims in the "
+                          "FLOPs/bytes models")
+    apl.add_argument("--selftest", action="store_true",
+                     help="1F1B-execute the demo net (bitwise loss parity "
+                          "vs unpartitioned, bubble <= analytic bound) AND "
+                          "verify a seeded backwards-edge split is refused "
+                          "with PTA040; rc 0 when all hold")
+    apl.add_argument("--json", action="store_true",
+                     help="emit the report as JSON")
+    apl.add_argument("--quiet", action="store_true",
+                     help="show errors only, not warnings")
+
     args = parser.parse_args(argv)
     commands = {"version": _cmd_version, "flags": _cmd_flags,
                 "monitor": _cmd_monitor, "health": _cmd_health,
-                "checkpoint": _cmd_checkpoint}
+                "checkpoint": _cmd_checkpoint, "cache": _cmd_cache,
+                "check": _cmd_check, "analyze": _cmd_analyze}
     return commands[args.command](args)
 
 

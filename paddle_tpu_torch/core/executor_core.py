@@ -37,14 +37,18 @@ READER_OPS = frozenset({
     "create_random_data_generator", "create_shuffle_reader",
     "create_batch_reader", "create_double_buffer_reader",
     "create_datapipe_reader", "create_multi_pass_reader", "read"})
+# The CSP ops (ops/concurrency_ops.py): channels are host objects, `go`
+# starts a thread, `select` polls on the host.
+CSP_OPS = frozenset({"channel_create", "channel_send", "channel_recv",
+                     "channel_close", "go", "select"})
 # Op types whose kernels run on the host, which a graph cannot hold (the
 # JAX package's `no_trace` ops, paddle_tpu/executor.py:121-127): the file
-# IO ops (ops/io_ops.py) and the reader ops, which also have side effects,
-# so dead-code elimination keeps them. Random ops are not among them: they
-# draw from a RandomStream, whose generator the captured graph advances at
-# every replay.
+# IO ops (ops/io_ops.py), the reader ops and the CSP ops, which also have
+# side effects, so dead-code elimination keeps them. Random ops are not
+# among them: they draw from a RandomStream, whose generator the captured
+# graph advances at every replay.
 HOST_OPS = frozenset({"save", "load", "save_combine", "load_combine",
-                      "delete_var"}) | READER_OPS
+                      "delete_var"}) | READER_OPS | CSP_OPS
 # Op types that read device values on the host: no side effects, so
 # dead-code elimination may drop them, but a graph cannot hold them. A
 # program with one runs through the interpreter, prepared and cached as

@@ -23,8 +23,16 @@ executor_core.RandomStream per (Executor, program), seeded once from
 `program.random_seed`, on either path. A program holding a host op (the
 file IO ops of fluid.io) runs on the interpreter and is prepared afresh at
 every run, as the JAX package runs such programs eagerly, uncached.
-`compile_cache_info()` counts the prepared steps and captured graphs in
-the JAX package's payload, which the serving engine reads.
+Prepared steps live in a cache.CompileCache (`_prepared`): an LRU under
+FLAGS_compile_cache_cap whose eviction drops the entry's captured graphs
+with it, and, under FLAGS_compile_cache_dir, a persistent store of
+prepared plans that a later process reads instead of running the fusion
+pass. FLAGS_verify checks the program to run (analysis.ensure_verified)
+when a prepare misses, before anything of it is launched; a program with
+a host op, run uncached, is not verified, as the JAX package does not
+verify its eager runs. `compile_cache_info()` gives the cache's payload,
+which the serving engine reads; `last_prepare` the host seconds of the
+last prepare that missed, by part.
 
 `feed` may be a datapipe.DataPipe (anything with next_feed()), as in the
 JAX package (paddle_tpu/executor.py:357-370): the run pulls the pipe's
@@ -67,6 +75,7 @@ before anything of the run is touched.
 """
 
 import base64
+import json
 import sys
 import time
 import weakref
@@ -74,9 +83,10 @@ import weakref
 import numpy as np
 import torch
 
-from . import amp, flags, fusion, health, monitor
+from . import amp, analysis, flags, fusion, health, monitor
+from . import cache as _cache
 from .core import dtypes, executor_core
-from .core.framework import Variable, default_main_program
+from .core.framework import Program, Variable, default_main_program
 from .core.lod_tensor import LoDTensor
 from .core.places import CUDAPlace, device_for
 from .core.registry import SeqTensor
@@ -94,6 +104,13 @@ flags.define(
     "passes as one replay of a captured CUDA graph. Off: every step goes "
     "through the interpreter, which Executor.step_mode then reports (to "
     "compare the two paths).")
+flags.define(
+    "donate_feed_buffers", bool, True,
+    "Give a staged DataPipe chunk's device ring slot back to its feeder as "
+    "soon as the run that read it is enqueued (ChunkLease.release), so the "
+    "next transfer refills it. Off: the run keeps the chunk's tensors "
+    "readable after run() — the slot leaves the ring and the feeder "
+    "allocates a fresh one (debugging). Values are the same either way.")
 
 
 def as_numpy(value):
@@ -225,6 +242,33 @@ def _has_host_ops(program):
                for b in program.blocks for op in b.ops)
 
 
+# the FLAGS_verify levels in order: an L2 entry verified at a level covers
+# the levels below it
+_VERIFY_RANK = {lvl: i for i, lvl in enumerate(analysis.LEVELS)}
+
+
+def _encode_plan(run_prog, plan):
+    """The L2 payload of a prepared step: the program the fusion pass
+    rewrote and its FusionPlan's fields, as JSON; both None when the pass
+    left the program as it was."""
+    return json.dumps({
+        "program": run_prog.to_dict() if plan is not None else None,
+        "plan": None if plan is None else {
+            "chains": plan.chains, "buckets": plan.buckets,
+            "skipped": plan.skipped, "n_ops_before": plan.n_ops_before,
+            "n_ops_after": plan.n_ops_after,
+            "bucket_bytes": plan.bucket_bytes},
+    }, sort_keys=True).encode("utf-8")
+
+
+def _decode_plan(payload):
+    """(program to run or None, FusionPlan or None) from an L2 payload."""
+    d = json.loads(payload.decode("utf-8"))
+    if d["plan"] is None:
+        return None, None
+    return Program.from_dict(d["program"]), fusion.FusionPlan(**d["plan"])
+
+
 def _has_reader_ops(program):
     return any(op.type in executor_core.READER_OPS
                for b in program.blocks for op in b.ops)
@@ -234,9 +278,10 @@ class _Graph:
     """The captured step of one prepared program in one scope: None until
     the step after its eager warm-up step."""
 
-    def __init__(self):
+    def __init__(self, times=None):
         self.warm = False
         self.captured = None
+        self.times = times  # the prepare's Executor.last_prepare dict
 
 
 class _Run:
@@ -251,8 +296,10 @@ class _Run:
     dispatch. `iters` and `t_dispatch` (perf_counter at its first step)
     are set by Executor._run."""
 
-    def __init__(self, mode, written, hplan, key, fingerprint, miss, probe):
+    def __init__(self, mode, written, hplan, key, fingerprint, miss, probe,
+                 times=None):
         self.step = None
+        self.times = times
         self.mode = mode
         self.written = written
         self.hplan = hplan
@@ -277,18 +324,23 @@ class Executor:
         # program -> executor_core.RandomStream; a program that is gone
         # drops its own
         self._rngs = weakref.WeakKeyDictionary()
-        self._prepared = {}
+        # prepared key -> (program to run, FusionPlan or None, step); its
+        # hits are cached prepares and replays, its misses prepares and
+        # captures
+        self._prepared = _cache.CompileCache("executor",
+                                             on_evict=self._evicted)
         self._modes = {}   # program id -> "graph" / "interpreter"
-        # scope -> {prepared key: _Graph}; a scope that is gone drops its own
+        # scope -> {prepared key: _Graph}; a scope that is gone drops its
+        # own, and an evicted prepared key its graphs
         self._graphs = weakref.WeakKeyDictionary()
+        # host seconds of the last prepare that missed, by part: l2_load,
+        # fusion, verify, step_build, then first_step and capture as its
+        # first steps run; "level" is "l2" when the plan came from the store
+        self.last_prepare = None
         self._stream = None  # side stream of warm-up steps and captures
         # the data-parallel group the steps run over (OpContext.dp): set by
         # the ParallelExecutor that drives this executor; None otherwise
         self.dp = None
-        # compile_cache_info(): hits are cached prepares and replays,
-        # misses are prepares and captures
-        self._hits = 0
-        self._misses = 0
         # program id -> steps run (the health ledger's step index)
         self._step_counter = {}
         # prepared key -> host seconds of its compile work (compile_info)
@@ -308,6 +360,7 @@ class Executor:
         FetchFuture a fetch instead (return_numpy is then ignored).
         `feed_var_name`, `fetch_var_name` and `use_program_cache` are
         accepted for API parity."""
+        _cache.refuse_compile_service("Executor.run")
         if program is None:
             program = default_main_program()
         if scope is None:
@@ -356,7 +409,7 @@ class Executor:
                     outs, [t for t in feed.values()
                            if isinstance(t, torch.Tensor)])
         finally:
-            if lease is not None:
+            if lease is not None and flags.get("donate_feed_buffers"):
                 lease.release(stream)
         if flags.get("benchmark"):
             self._benchmark(done, len(outs))
@@ -380,12 +433,13 @@ class Executor:
         return outs, done
 
     def _run(self, program, scope, feed, fetch_names, iters, mon,
-             kind="executor", wire=None):
+             kind="executor", wire=None, verify=None):
         """One run of `program` (K steps with `iters`): (fetch tensors,
         its _Run). The monitor's phases land on `mon` (None: off); health
         records carry `kind`. Feeds that `wire` (a datapipe WireSpec)
         covers are decoded in the step, or at feed time in a program
-        with a host op."""
+        with a host op. `verify` is the context FLAGS_verify checks the
+        program in ({mesh_axes, zplan, context}; a ParallelExecutor's)."""
         feed = feed if feed is not None else {}
         if isinstance(feed, (list, tuple)) and iters is None:
             iters = len(feed)
@@ -410,7 +464,7 @@ class Executor:
             mon.phase("feed_encode", time.perf_counter() - t_enc)
         tp = time.perf_counter()
         done = self._stepper(program, scope, first, fetch_names, iters,
-                             mon, wire)
+                             mon, wire, verify)
         prepare_s = time.perf_counter() - tp
         done.iters = iters
         done.t_dispatch = tc = time.perf_counter()
@@ -425,6 +479,10 @@ class Executor:
                 stacked)
         if mon is not None:
             call_s = time.perf_counter() - tc
+            if done.times is not None and done.times.get("level") == "l2":
+                # warm start: the plan read from FLAGS_compile_cache_dir
+                mon.phase("cache_load", prepare_s)
+                prepare_s = 0.0
             if done.miss or done.compile_s:
                 compile_s = prepare_s + done.compile_s
                 mon.phase("compile", compile_s)
@@ -469,24 +527,31 @@ class Executor:
         return self._modes[id(program)]
 
     def compile_cache_info(self):
-        """The JAX package's compile-cache payload (paddle_tpu/cache
-        CompileCache.info) for this executor: "entries" counts its prepared
-        steps plus its captured CUDA graphs, "hits" the prepares it found
-        cached plus the replays, "misses" the prepares plus the captures.
-        Nothing is evicted, and there is no on-disk cache (the "l2" block
-        is all zero or None). The serving engine diffs "entries" across
-        its warm-up to count steady-state compiles."""
-        return {
-            "entries": len(self._prepared) + sum(
-                g.captured is not None for graphs in self._graphs.values()
-                for g in graphs.values()),
-            "hits": self._hits,
-            "misses": self._misses,
-            "evictions": 0,
-            "l2": {"enabled": False, "dir": None, "hits": 0, "misses": 0,
-                   "fallbacks": 0, "puts": 0, "put_bytes": 0,
-                   "remote_hits": 0, "remote_misses": 0, "service": None},
-        }
+        """The compile cache's payload (cache.CompileCache.info), as the
+        JAX package gives it: "entries" counts the prepared steps plus
+        their captured CUDA graphs, "hits" the prepares found cached plus
+        the replays, "misses" the prepares plus the captures, "evictions"
+        the prepared steps FLAGS_compile_cache_cap evicted (with their
+        graphs), "l2" the persistent store's counters. The serving engine
+        diffs "entries" across its warm-up to count steady-state
+        compiles."""
+        info = self._prepared.info()
+        info["entries"] += sum(
+            g.captured is not None for graphs in self._graphs.values()
+            for g in graphs.values())
+        return info
+
+    def _evicted(self, key, entry):
+        """A prepared step the cap evicted: its captured graphs go with it
+        (the CapturedStep holds the CUDA graph, its static feed and fetch
+        buffers and, through them, its private memory pool)."""
+        for graphs in self._graphs.values():
+            graphs.pop(key, None)
+        self._compile_s.pop(key, None)
+
+    def _l2_extra(self):
+        """Device context folded into the persistent-cache digest."""
+        return (("device", self.device.type, self.device.index),)
 
     def captured_steps(self, program, scope=None):
         """[CapturedStep] of `program`'s steps captured in `scope` (the
@@ -602,14 +667,19 @@ class Executor:
             torch.stack([v.lengths for v in vals]),
             None if any(h is None for h in hosts) else np.stack(hosts))
 
-    def _prepare(self, program, feeds, fetch_names, wire=None):
-        """key, (program to run, FusionPlan or None, step), hit, cached
+    def _prepare(self, program, feeds, fetch_names, wire=None, mon=None,
+                 verify=None):
+        """key, (program to run, FusionPlan or None, step), level — cached
         per (program id, mutation, fusion flags, amp policy, feeds' names,
-        shapes and dtypes, fetches, health plan, wire spec): FLAGS_fuse
-        rewrites a clone once, and repeat steps reuse it. Under a WireSpec
-        the step decodes the covered feeds first (WireSpec.wrap_step).
-        Under FLAGS_health the step also fetches the grads and returns
-        their stats rows last (HealthPlan.wrap_step)."""
+        shapes and dtypes, fetches, health plan, wire spec); level is "l1"
+        on a hit, "l2" when the plan came from FLAGS_compile_cache_dir,
+        else None. A miss runs the fusion pass (FLAGS_fuse rewrites a
+        clone once, and repeat steps reuse it) or reads its result from
+        the store, checks the program to run under FLAGS_verify, and
+        builds the step. Under a WireSpec the step decodes the covered
+        feeds first (WireSpec.wrap_step). Under FLAGS_health the step also
+        fetches the grads and returns their stats rows last
+        (HealthPlan.wrap_step). `verify` is the check's context (_run)."""
         fuse = flags.get("fuse")
         hplan = health.plan_if_enabled(program)
         specs = tuple(sorted(
@@ -622,14 +692,48 @@ class Executor:
                tuple(fetch_names),
                ("health", hplan.digest if hplan is not None else None),
                ("wire", wire.fingerprint() if wire is not None else None))
-        hit = self._prepared.get(key)
+        cache = self._prepared
+        hit = cache.get(key, count_miss=False)
         if hit is not None:
-            self._hits += 1
-            return key, hit, True
-        run_prog, plan = program, None
-        if fuse:
-            run_prog, plan = fusion.apply(program, feed_names=list(feeds),
-                                          fetch_names=fetch_names)
+            return key, hit, "l1"
+        # a program with a host op (save, load, ...) is a one-off, run
+        # uncached and unverified, as the JAX package runs it eagerly
+        uncached = _has_host_ops(program)
+        times = {}
+        clock = time.perf_counter
+        digest = loaded = None
+        if not uncached and cache.l2_enabled():
+            t0 = clock()
+            digest = cache.l2_digest(program, key[2:],
+                                     extra=self._l2_extra())
+            loaded = cache.l2_load(digest, _decode_plan, mon=mon)
+            times["l2_load"] = clock() - t0
+        if loaded is not None:
+            (run_prog, plan), meta = loaded
+            run_prog = run_prog if run_prog is not None else program
+            verified = meta.get("verified", "off")
+            times["level"] = "l2"
+        else:
+            t0 = clock()
+            run_prog, plan = program, None
+            if fuse:
+                run_prog, plan = fusion.apply(
+                    program, feed_names=list(feeds), fetch_names=fetch_names)
+            times["fusion"] = clock() - t0
+            verified = "off"
+        level = flags.get("verify")
+        # an unknown level ranks above all: ensure_verified names it
+        if not uncached and _VERIFY_RANK.get(level, len(_VERIFY_RANK)) \
+                > _VERIFY_RANK.get(verified, 0):
+            t0 = clock()
+            analysis.ensure_verified(
+                run_prog, feed_names=list(feeds),
+                fetch_names=list(fetch_names),
+                donate_state=not flags.get("debug_nans"),
+                **(verify or {"context": "executor"}))
+            times["verify"] = clock() - t0
+            verified = level
+        t0 = clock()
         run_plan = health.plan_for(run_prog) if hplan is not None else None
         step = executor_core.build_step_fn(
             run_prog, list(fetch_names) + (
@@ -644,43 +748,49 @@ class Executor:
         if run_plan is not None:
             step = run_plan.wrap_step(step, len(fetch_names))
         step.hplan = run_plan
+        times["step_build"] = clock() - t0
         hit = (run_prog, plan, step)
-        # a program with a host op (save, load, ...) is a one-off, run
-        # uncached, as the JAX package runs it eagerly
-        if step.blocker is None \
-                or step.blocker.type not in executor_core.HOST_OPS:
-            self._misses += 1
-            self._prepared[key] = hit
-        return key, hit, False
+        if uncached:
+            return key, hit, None
+        self.last_prepare = times
+        cache.misses += 1
+        if digest is not None and loaded is None:
+            # the counterpart of the JAX package's aot_sink: the plan is
+            # stored once, after the prepare that computed it
+            cache.l2_put(digest, _encode_plan(run_prog, plan),
+                         meta={"verified": verified})
+        cache.put(key, hit, mon=mon)
+        return key, hit, times.get("level")
 
     def _stepper(self, program, scope, feeds, fetch_names, iters=None,
-                 mon=None, wire=None):
+                 mon=None, wire=None, verify=None):
         """A _Run whose step(feeds) runs one step of `program` each call,
         on the path its prepared entry chose. `mon` gets the prepared
         key's cache outcome (a program with a host op, run uncached, gets
         kind "executor_eager" instead); on a miss with
         FLAGS_monitor_hlo_cost the first eager step runs under the compile
         probe, which counts `iters` steps' FLOPs from it."""
-        key, (run_prog, _, step), hit = self._prepare(program, feeds,
-                                                      fetch_names, wire)
+        key, (run_prog, _, step), level = self._prepare(
+            program, feeds, fetch_names, wire, mon, verify)
         mode = self._modes[id(program)] = self._mode_of(step)
-        uncached = step.blocker is not None \
-            and step.blocker.type in executor_core.HOST_OPS
-        miss = not hit and not uncached
+        uncached = level is None and _has_host_ops(program)
+        # an L2 hit builds and captures its step as a miss does
+        miss = level != "l1" and not uncached
         fp = probe = None
         if mon is not None:
             fp = monitor.fingerprint_of(key)
             if uncached:
                 mon.kind = "executor_eager"
             else:
-                mon.mark_cache(hit, fingerprint=fp,
-                               level="l1" if hit else None)
+                mon.mark_cache(level is not None, fingerprint=fp,
+                               level=level)
             if miss:
                 _trace_costs.register_program(fp, run_prog)
                 if flags.get("monitor_hlo_cost"):
                     probe = monitor.compile_probe(fp, iters or 1)
         done = _Run(mode, executor_core.written_persistables(run_prog),
-                    step.hplan, key, fp, miss, probe)
+                    step.hplan, key, fp, miss, probe,
+                    self.last_prepare if miss else None)
 
         def first_step(f):
             """The prepared program's first eager step: compile work,
@@ -693,8 +803,11 @@ class Executor:
                 with probe:
                     outs = self._interpret(program, run_prog, step, scope,
                                            f)
-            done.compile_s += time.perf_counter() - t0
+            spent = time.perf_counter() - t0
+            done.compile_s += spent
             done.eager_first += 1
+            if done.times is not None:
+                done.times["first_step"] = spent
             return outs
 
         def interpret(f):
@@ -705,7 +818,8 @@ class Executor:
         if mode == "interpreter":
             done.step = interpret
             return done
-        graph = self._graphs.setdefault(scope, {}).setdefault(key, _Graph())
+        graph = self._graphs.setdefault(scope, {}).setdefault(
+            key, _Graph(done.times))
         if graph.captured is not None:
             graph.captured.sync_scope(scope)
 
@@ -736,10 +850,13 @@ class Executor:
                 graph.captured = executor_core.compile_step_fn(
                     step, scope, state_in, written, f, self._rng(program),
                     stream)
-                self._misses += 1
-                done.compile_s += time.perf_counter() - t0
+                self._prepared.misses += 1
+                spent = time.perf_counter() - t0
+                done.compile_s += spent
+                if graph.times is not None:
+                    graph.times["capture"] = spent
             else:
-                self._hits += 1
+                self._prepared.hits += 1
             return graph.captured.run(f)
 
         done.step = run_step

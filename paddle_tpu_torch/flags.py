@@ -118,6 +118,26 @@ define("benchmark", bool, False,
        "Synchronize and time each executor run (reference FLAGS_benchmark): "
        "after the run, wait for its last event, set the benchmark_run_ms "
        "gauge and print the time with the card's peak memory to stderr.")
+# The JAX package's three opt-ins that act on XLA's multi-step scan or its
+# buffer donation. The port runs iters=K as K replays of one captured step
+# (no scan carry) and writes state in place (no donation), so each is
+# accepted and gates nothing; tests/test_torch_compile_cache.py holds
+# values bitwise equal with each on and off.
+define("fuse_optimizer_ops", bool, False,
+       "Accepted for the JAX package's name: there it concatenates small "
+       "sgd/momentum updates into one call, which defeats XLA's in-place "
+       "donation. In the port the bucketed update kernels of FLAGS_fuse "
+       "are the batched update; this flag gates nothing.")
+define("pack_small_state", bool, False,
+       "Accepted for the JAX package's name: there it packs small state "
+       "into one lax.scan carry buffer under iters=K. The port runs "
+       "iters=K as K replays of one captured step, with no carry; this "
+       "flag gates nothing.")
+define("fold_ema_multi_step", bool, False,
+       "Accepted for the JAX package's name: there it keeps batch-norm "
+       "running statistics out of the lax.scan carry under iters=K and "
+       "folds them after the scan. The port runs iters=K as K replays of "
+       "one captured step, with no carry; this flag gates nothing.")
 define("monitor", bool, True,
        "Step-level training telemetry (paddle_tpu_torch.monitor): per-step "
        "phase breakdown, prepared-step cache hit/miss accounting, "

@@ -1,7 +1,7 @@
 """Layer library (reference python/paddle/fluid/layers/). The port carries
-the modules the training path builds with, control flow and the
-learning-rate schedulers; `device` (get_places) and detection wait for
-later slices."""
+the modules the training path builds with, control flow, `device`
+(get_places) and the learning-rate schedulers; detection waits for a
+later slice (ROADMAP queue 1 item 9)."""
 
 from . import ops
 from .ops import *
@@ -13,6 +13,8 @@ from . import control_flow
 from .control_flow import *
 from . import io
 from .io import *
+from . import device
+from .device import *
 from . import learning_rate_scheduler
 from .learning_rate_scheduler import *
 
@@ -22,6 +24,7 @@ __all__ = (
     + nn.__all__
     + control_flow.__all__
     + io.__all__
+    + device.__all__
     + learning_rate_scheduler.__all__
     + ["elementwise_binary_dispatch"]
 )

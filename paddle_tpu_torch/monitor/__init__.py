@@ -20,7 +20,8 @@ from .mfu import CHIP_PEAK_TFLOPS, chip_peak_flops, mfu
 from .registry import (DEFAULT_MS_BUCKETS, Counter, Gauge, Histogram,
                        MetricsRegistry)
 from .skew import measure_replica_ms, replica_skew
-from .step import (StepRecord, compile_info, compile_probe, enabled,
+from .step import (StepRecord, cache_evicted, cache_l2, compile_info,
+                   compile_probe, enabled,
                    exposition, fingerprint_of, last_step, record_compile,
                    registry, reset, restore_steps, step_begin, step_end,
                    steps_done)
@@ -31,7 +32,8 @@ __all__ = [
     "last_step", "StepRecord", "fingerprint_of", "steps_done",
     "restore_steps",
     # compile-cache visibility
-    "compile_info", "record_compile", "compile_probe",
+    "compile_info", "record_compile", "compile_probe", "cache_evicted",
+    "cache_l2",
     # replica skew
     "measure_replica_ms", "replica_skew",
     # MFU accounting

@@ -21,11 +21,11 @@ Schema (one object per line; optional fields omitted when absent):
                 of a prepared program and the CUDA graph's capture,
                 "dispatch" the replays' or the interpreter's enqueue time)
   cache         "hit" | "miss"  (the prepared-step cache's outcome)
-  cache_level   "l1" | "l2" on hits (the JAX package's persistent cache;
-                the port has no L2 and writes "l1")
+  cache_level   "l1" | "l2" on hits ("l2": the prepared plan came from
+                FLAGS_compile_cache_dir)
   cache_evictions    L1 entries evicted by FLAGS_compile_cache_cap
   cache_l2_fallback  reason string when a persistent entry was corrupt/
-                     stale/undeserializable and the step recompiled
+                     stale/undecodable and the step was prepared afresh
   fingerprint   8-hex id of the prepared-step key (joins compile_info)
   datapipe      per-stage delta stats when the step pulled from a DataPipe
   wire          {feed: wire-format repr} when a WireSpec rode the chunk

@@ -120,7 +120,7 @@ class StepRecord:
         self.t0 = time.perf_counter()
         self.phases = {}        # name -> seconds
         self.cache = None       # "hit" | "miss"
-        self.cache_level = None  # "l1" on a hit (the port has no L2)
+        self.cache_level = None  # "l1" | "l2" on a hit
         self.fingerprint = None
         self.extra = None    # journal-only extras
         self.intervals = []  # (name, t0, t1) per occurrence — the phase
@@ -146,8 +146,9 @@ class StepRecord:
             self.phase(name, t1 - t0, interval=(t0, t1))
 
     def mark_cache(self, hit, fingerprint=None, level=None):
-        """level: "l1" (in-process) on a hit; the JAX package's "l2"
-        (a persistent warm start) has no counterpart in the port."""
+        """level: "l1" (in-process) or "l2" (the prepared plan read from
+        the persistent store) on a hit. A warm-started process therefore
+        reports compile_cache_misses == 0, as the JAX package's does."""
         self.cache = "hit" if hit else "miss"
         self.cache_level = level if hit else None
         self.fingerprint = fingerprint
@@ -156,6 +157,34 @@ class StepRecord:
             "compile_cache_misses_total",
             help="executor compile-cache lookups",
             cache=self.kind).inc()
+
+
+def cache_evicted(kind="executor"):
+    """Count one compile-cache eviction (FLAGS_compile_cache_cap)."""
+    _registry.counter("compile_cache_evictions_total",
+                      help="compile-cache entries evicted by the cap",
+                      cache=kind).inc()
+
+
+_L2_HELP = {
+    "hits": "persistent compile-cache loads (warm starts)",
+    "misses": "persistent compile-cache lookups with no entry",
+    "fallbacks": "corrupt/stale/undecodable persistent entries "
+                 "prepared over",
+    "puts": "prepared plans written into the persistent store",
+    "put_bytes": "bytes written to the persistent store",
+}
+
+
+def cache_l2(kind, which, n=1):
+    """Count one persistent (L2) compile-cache event:
+    compile_cache_l2_<which>_total{cache=kind}. Callers
+    (paddle_tpu_torch.cache) gate on enabled() so FLAGS_monitor=0 keeps
+    the registry untouched."""
+    _registry.counter(
+        f"compile_cache_l2_{which}_total",
+        help=_L2_HELP.get(which, "persistent compile-cache events"),
+        cache=kind).inc(n)
 
 
 def step_begin(kind="executor"):

@@ -9,7 +9,7 @@ every optimizer rule), the structured losses (CTC, CRF, NCE, hierarchical
 sigmoid), the metrics, the rest of the nn ops, the host file IO ops of
 fluid.io, the reader ops (readers held in the scope, `read`), control
 flow (while, conditional blocks, tensor arrays, rank tables, the
-recurrent ops) and beam search."""
+recurrent ops), beam search and the CSP ops (channels, go, select)."""
 
 from . import util
 from . import tensor_ops
@@ -28,3 +28,4 @@ from . import loss_ops
 from . import collective_ops
 from . import io_ops
 from . import reader_ops
+from . import concurrency_ops

@@ -32,11 +32,14 @@ fused update kernels stay the single-card code path.
 The step monitor rides every run as it does the Executor's (kind
 "parallel_executor"; per-rank skew under FLAGS_monitor_replica_skew), and
 so do FLAGS_health, `async_fetch` (executor.FetchFuture, over the
-gathered fetches) and the resilience hooks (chaos.on_run and the hang
-watchdog, labelled "parallel_executor"). Not ported yet, each refused with
-NotImplementedError: autoshard and tensor parallelism and the overlap
-schedule (ROADMAP queue 1 item 6), the compile cache (item 5), DataPipe
-feeds and ragged feeds (item 3).
+gathered fetches), the resilience hooks (chaos.on_run and the hang
+watchdog, labelled "parallel_executor") and the compile cache (the rank's
+Executor's, kind "parallel_executor"). FLAGS_verify checks the rewritten
+program with the mesh and the zero1 plan in scope, and at `full` sets the
+measured `hbm_live_bytes_per_replica` gauge after a prepare's first run.
+Not ported yet, each refused with NotImplementedError: autoshard and
+tensor parallelism and the overlap schedule (ROADMAP queue 1 item 6),
+DataPipe feeds and ragged feeds (item 3).
 """
 
 import time
@@ -44,13 +47,15 @@ import time
 import numpy as np
 import torch
 
-from . import flags, monitor
+from . import analysis, flags, monitor
+from . import cache as _cache
 from .core.framework import Variable, default_main_program, grad_var_name
 from .core.framework import Operator, OpRole
 from .core.lod_tensor import LoDTensor
 from .core.places import CPUPlace, CUDAPlace
 from .core.registry import SeqTensor
 from .core.scope import global_scope
+from .core.executor_core import collect_state_names as _collect_state
 from .executor import Executor, as_numpy, fetch_futures
 from .ops import collective_ops
 from .parallel import mesh as _mesh
@@ -196,6 +201,7 @@ class ParallelExecutor:
                               if backend == "nccl" else 0)
         self._exe = Executor(place)  # raises for a card that is not there
         self._exe.dp = self._mesh if self._mesh.distributed else None
+        self._exe._prepared.kind = "parallel_executor"
         # rewritten program clones, keyed on the source program identity +
         # mutation counter and the strategy; strong refs keep id() stable
         # for the Executor's caches
@@ -214,7 +220,9 @@ class ParallelExecutor:
         return self._exe.step_mode(self._last_program)
 
     def compile_cache_info(self):
-        raise _not_ported("the compile cache (ROADMAP queue 1 item 5)")
+        """This rank's compile-cache payload (Executor.compile_cache_info
+        of the Executor its steps run on; cache.CompileCache.info)."""
+        return self._exe.compile_cache_info()
 
     # ------------------------------------------------------------------
     def _prepare_program(self, program, use_zero1, gss, dp_n):
@@ -302,6 +310,7 @@ class ParallelExecutor:
         # Executor.run); every site below gates on `mon is not None`
         mon = monitor.step_begin("parallel_executor") \
             if monitor.enabled() else None
+        _cache.refuse_compile_service("ParallelExecutor.run")
         for name, what in _UNPORTED_FLAGS.items():
             if flags.get(name):
                 raise _not_ported(f"FLAGS_{name} ({what})")
@@ -374,8 +383,25 @@ class ParallelExecutor:
         # their readback
         with _watchdog.armed("parallel_executor"):
             _chaos.on_run("parallel_executor")
+            verify = {"mesh_axes": dict(self._mesh.shape),
+                      "zplan": zplan if use_zero1 and zplan.entries
+                      else None,
+                      "context": "parallel_executor"}
             outs, done = self._exe._run(run_program, scope, local, fetch_names,
-                                        iters, mon, kind="parallel_executor")
+                                        iters, mon, kind="parallel_executor",
+                                        verify=verify)
+            if done.times is not None and flags.get("verify") == "full":
+                # measured counterpart of the analysis_peak_hbm gauge: the
+                # bytes this rank holds for the step's state and fetches
+                # (the estimate is held against it within 2x in the tests)
+                state_in, _ = _collect_state(run_program, scope)
+                live = analysis.measured_live_bytes(
+                    [scope.find_var(n) for n in state_in] + list(outs))
+                monitor.registry().gauge(
+                    "hbm_live_bytes_per_replica",
+                    help="measured per-device resident bytes of the step "
+                         "state + fetches",
+                ).set(float(live))
             replica_ms = replica_ids = None
             if mon is not None and flags.get("monitor_replica_skew"):
                 # wait for this rank's step, then all-gather every rank's

@@ -902,7 +902,8 @@ class Server:
     def _cache_aggregate(self):
         """Summed compile-cache counters across this server's executors
         (Executor.compile_cache_info: misses are prepares plus captures;
-        the port has no on-disk L2 cache, so its counters stay 0)."""
+        the l2 counters move under FLAGS_compile_cache_dir, the remote ones
+        stay 0: the compile service is not ported)."""
         agg = {"l1_misses": 0, "l2_hits": 0, "l2_remote_hits": 0,
                "l2_remote_misses": 0, "l2_puts": 0, "l2_fallbacks": 0}
         for exe, _ in self._replicas:

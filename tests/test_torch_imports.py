@@ -189,13 +189,22 @@ def test_the_training_services_slice_is_among_the_checked_sources(module):
     assert os.path.join(PORT, module) in set(_sources())
 
 
+@pytest.mark.parametrize("module", [
+    "analysis/__init__.py", "analysis/verifier.py", "analysis/safety.py",
+    "analysis/hbm.py", "analysis/plans.py", "cache/__init__.py",
+    "cache/keys.py", "cache/store.py", "debugger.py", "concurrency.py",
+    "ops/concurrency_ops.py", "layers/device.py"])
+def test_the_compile_services_slice_is_among_the_checked_sources(module):
+    """The compile-time services (FLAGS_verify, the compile cache, the
+    debugger, CSP) are checked by the test above."""
+    assert os.path.join(PORT, module) in set(_sources())
+
+
 # names of the JAX package's top level whose modules wait in ROADMAP
-# queue 1 (the distributed stack and memory passes, the compile cache,
-# CSP concurrency, the debugger), and is_compiled_with_tpu, which asks
-# JAX for a TPU
+# queue 1 item 8 (the distributed transpiler and the memory passes), and
+# is_compiled_with_tpu, which asks JAX for a TPU
 TOP_LEVEL_EXCEPTIONS = {"DistributeTranspiler", "memory_optimize",
-                        "release_memory", "cache", "concurrency",
-                        "debugger", "is_compiled_with_tpu"}
+                        "release_memory", "is_compiled_with_tpu"}
 
 
 def _public_names(package):

@@ -2,7 +2,8 @@
 has a port kernel, or is on the list of types still missing.
 
 The builders are the public functions of the port's `layers` modules,
-`optimizer`, `clip`, `initializer`, `nets` and `regularizer`. An op type
+`optimizer`, `clip`, `initializer`, `nets`, `regularizer` and
+`concurrency`. An op type
 reaches a program through a string: `append_op("matmul", ...)`, but also
 `_reduce("reduce_sum", ...)` or the module-level `_unary_ops` list that
 layers/ops.py makes functions from. So the walk takes every string
@@ -40,8 +41,9 @@ from paddle_tpu_torch.core import scope as tscope
 BUILDER_MODULES = [
     "paddle_tpu_torch.layers.ops", "paddle_tpu_torch.layers.tensor",
     "paddle_tpu_torch.layers.nn", "paddle_tpu_torch.layers.control_flow",
-    "paddle_tpu_torch.layers.io",
+    "paddle_tpu_torch.layers.io", "paddle_tpu_torch.layers.device",
     "paddle_tpu_torch.layers.learning_rate_scheduler",
+    "paddle_tpu_torch.concurrency",
     "paddle_tpu_torch.optimizer", "paddle_tpu_torch.clip",
     "paddle_tpu_torch.initializer", "paddle_tpu_torch.nets",
     "paddle_tpu_torch.regularizer",
