@@ -66,7 +66,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 the timed calls monitored (FLAGS_monitor, on by default)
                 and journaled to chiprun_out/headline_journal.jsonl
   6a. monitor — the run-time instruments on the same program and state:
-                the same calls with FLAGS_monitor=0 (the monitored
+                1 warm + 3 calls with FLAGS_monitor=0 (the monitored
                 headline at >= 0.95 of it; momentum launches 4 a step);
                 the journal, one record a call, through `python3 -m
                 paddle_tpu_torch monitor`; on a fresh prepare with
@@ -85,7 +85,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
   6b. parallel — the headline's program, feeds and timing through
                 fluid.ParallelExecutor(use_cuda=True) over a one-rank NCCL
                 group (parallel.distributed.initialize, file:// rendezvous
-                in a temp dir): 1 warm + 2 timed iters=40 calls through the
+                in a temp dir): 1 warm + 1 timed iters=40 calls through the
                 captured step, its gradient all-reduces and global-batch
                 collectives inside the graph; step_mode "graph", the
                 momentum kernel's launches = buckets x steps, the
@@ -101,7 +101,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 batch 128) trained from it through DataPipe.from_recordio
                 -> map(random 224 crop and flip, INPUT_WORKERS processes)
                 -> batch(128) -> prefetch_to_device(CUDAPlace(0),
-                chunk=40) fed to Executor.run: (a) 1 warm + 3 timed calls
+                chunk=40) fed to Executor.run: (a) 1 warm + 2 timed calls
                 through the captured step: img/s and its ratio to the
                 headline's, the monitor's feed_wait a call, the pipe's
                 per-stage stats, the link's share, one replay traced
@@ -126,7 +126,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 (vgg16_bn_drop + fc(102, softmax), Adam(1e-3), ten dropout
                 ops), each FLAGS_fuse=1 under bf16 AMP, batch 64,
                 Executor.run(iters=10) over a seeded feed stack made on the
-                card, 1 warm + 3 timed calls through the captured step,
+                card, 1 warm + 2 timed calls through the captured step,
                 fetching the loss and the last dropout's mask: img/s, peak
                 memory, launches = buckets x steps, every step's mask keeps
                 1 - p within 0.01 and differs from the step before, f32
@@ -147,7 +147,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 ragged batches drawn as the synthetic readers draw them,
                 bucketed (create_bucketed_seq_tensor) to one flat total per
                 feed and stacked on the card, Executor.run(iters=10), 1 warm
-                + 3 timed calls through the captured step: words/s (review
+                + 2 timed calls through the captured step: words/s (review
                 tokens; target tokens), step ms, peak memory, adam_bucket_
                 launches = buckets x steps, f32 state; one replayed step
                 traced (idle share, top-10 in chiprun_out/); the loop
@@ -288,7 +288,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 --only resilience`
  10g. compile_services — the compile-time services: (a) the headline
                 (bf16 AMP, fused Momentum, batch 128) under
-                FLAGS_verify=full, 1 warm + 2 timed calls of iters=40
+                FLAGS_verify=full, 1 warm + 1 timed calls of iters=40
                 through the captured step: no error-severity diagnostic,
                 the verify's host seconds on the miss, img/s as a ratio to
                 the same run's headline, momentum launches 4 a step; the
@@ -317,7 +317,35 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 with a default case receive them: equal to the host's
                 ([compile_services] lines). Alone: `python3 chip_smoke.py
                 --only compile_services`
- 11. flash    — the flash-attention kernels (both wgmma fed by TMA; f32
+ 11. continuous — serving's continuous batching and the fleet: (a) greedy
+                NMT decode at published widths (seq_to_seq_net(512, 512,
+                512, 30000, 30000), random weights from SEED): the
+                sources encoded once through the Executor, then
+                models/machine_translation.greedy_step_program (the
+                attention_lstm_step, arg_max, the target embedding's
+                lookup) served by a ContinuousServer of 8 slots at the
+                one rung 8 under bench.py's A/B mix (3 streams of 48
+                steps, 16 requests of 2 joining mid-stream): every
+                request bitwise its solo replay through a plain Executor
+                at 8 rows, zero steady-state captures, the first 8 steps
+                of each request card = host (tokens; h within rtol 1e-4);
+                step ms by rung (CUDA events), tokens/s, host ms a step,
+                the short requests' p99 solo, continuous and under
+                run-to-completion FIFO; (b) the default ladder (1, 2, 4,
+                8) on the same requests: for each rung pair, bitwise or
+                the largest ulp gap of h; (c) a two-head program through
+                the InterOpRunner, a CUDA stream a branch, bitwise the
+                single program's, its overlap efficiency; (d) the
+                headline network's inference model served under bf16 by
+                2 `python -m paddle_tpu_torch fleet replica` processes
+                behind a Router, 256 requests from 16 clients, one
+                replica SIGKILLed at half: zero lost, the answers within
+                phase serve's bf16 bound of an in-process Server's,
+                routed img/s, p50/p99, retries, seconds until the router
+                marked the killed replica dead; the survivor drained,
+                exit 0 ([continuous] lines). Alone: `python3
+                chip_smoke.py --only continuous`
+ 12. flash    — the flash-attention kernels (both wgmma fed by TMA; f32
                 in 3xTF32 split products after its split prologue) against
                 their plain torch version on the card, causal and not, at
                 the CPU tests' shapes, the tiles' edges (129 q rows over
@@ -373,21 +401,21 @@ HEADLINE_K = 40
 HEADLINE_WARM = 2
 HEADLINE_CALLS = 5
 PARALLEL_WARM = 1
-PARALLEL_CALLS = 2
+PARALLEL_CALLS = 1
 # host vs card losses under bf16 AMP: five bf16 ulps (5 x 2^-8)
 PARITY_AMP_RTOL = 2e-2
 # SE-ResNeXt-50 and VGG-16 under bf16 AMP: batch 64, iters=10 a call,
-# 1 warm + 3 timed calls; the README MLP and the MNIST conv net: batch
+# 1 warm + 2 timed calls; the README MLP and the MNIST conv net: batch
 # 128, 30 single steps
 IMAGE_BATCH = 64
 IMAGE_K = 10
 IMAGE_WARM = 1
-IMAGE_CALLS = 3
+IMAGE_CALLS = 2
 ADAM_BATCH = 128
 ADAM_STEPS = 30
 # the sequence configs (benchmark/fluid's stacked_dynamic_lstm and
 # machine_translation) in f32 with Adam, as fluid_benchmark.py runs them:
-# batch 128, iters=10 a call, 1 warm + 3 timed calls; every ragged feed
+# batch 128, iters=10 a call, 1 warm + 2 timed calls; every ragged feed
 # tail-padded to one flat total, the steps' largest rounded up to a
 # multiple of SEQ_BUCKET tokens (fluid_benchmark.bucket_totals). The
 # LSTM's loop bound is --max_seq_len 128 (the longest synthetic review
@@ -395,7 +423,7 @@ ADAM_STEPS = 30
 SEQ_BATCH = 128
 SEQ_K = 10
 SEQ_WARM = 1
-SEQ_CALLS = 3
+SEQ_CALLS = 2
 SEQ_BUCKET = 64
 LSTM_MAX_LEN = 128
 IMDB_VOCAB = 5148
@@ -409,7 +437,7 @@ SEQ_PARITY_BATCH = 16
 KEEP_TOL = 0.01
 
 # phase monitor: the headline's monitored img/s against FLAGS_monitor=0
-# (the same warm and timed calls) must keep MONITOR_MIN_RATIO; the compile
+# (MONITOR_WARM + MONITOR_CALLS calls) must keep MONITOR_MIN_RATIO; the compile
 # probe's model FLOPs must equal the step's convolution and matmul FLOPs
 # counted from the program's shapes (_analytic_step_flops; 2 a
 # multiply-add); the FLAGS_benchmark, FLAGS_check_nan_inf and FLAGS_health
@@ -419,6 +447,9 @@ KEEP_TOL = 0.01
 # MONITOR_TRACE_STEPS replays
 MONITOR_MIN_RATIO = 0.95
 MONITOR_K = 10
+# the headline re-run unmonitored: MONITOR_WARM + MONITOR_CALLS calls
+MONITOR_WARM = 1
+MONITOR_CALLS = 3
 MONITOR_HEALTH_RTOL = 2e-2
 MONITOR_TRACE_STEPS = 3
 
@@ -456,7 +487,7 @@ TAIL_RULE_ULPS = 4
 TAIL_DECAY_STEPS = 10
 TAIL_K = 10
 TAIL_WARM = 1
-TAIL_CALLS = 3
+TAIL_CALLS = 2
 TAIL_OPT_STEPS = 3
 TAIL_OPT_TIMED = 3
 TAIL_OPTIMIZERS = {
@@ -559,7 +590,7 @@ RES_MLP_BATCH = 128
 RES_MLP_CHUNK = 4
 RES_MLP_DISPATCHES = 3
 RES_MLP_KILL = 2
-RES_ASYNC_CALLS = 3
+RES_ASYNC_CALLS = 2
 
 # phase input: the headline's program trained from a RecordIO file of
 # INPUT_IMAGES seeded INPUT_SIDE^2 x 3 uint8 images through a DataPipe:
@@ -575,7 +606,7 @@ INPUT_IMAGES = 2560
 INPUT_SIDE = 256
 INPUT_WORKERS = min(8, (os.cpu_count() or 2) // 2)
 INPUT_WARM = 1
-INPUT_CALLS = 3
+INPUT_CALLS = 2
 INPUT_WIRE_STEPS = 3
 INPUT_WIRE_BATCH = 32
 INPUT_READER_STEPS = 20
@@ -590,10 +621,37 @@ INPUT_LINK_REPS = 3
 # FLAGS_compile_cache_cap=2; (d) each fresh process of the L2 warm start
 # within CS_CHILD_S seconds; (e) CS_CSP_VALUES tensors through a channel
 CS_WARM = 1
-CS_CALLS = 2
+CS_CALLS = 1
 CS_CAP_BATCHES = (8, 16, 32)
 CS_CHILD_S = 300
 CS_CSP_VALUES = 4
+
+# phase continuous: (a) greedy NMT streams at published widths through a
+# ContinuousServer of CONT_SLOTS slots at the one rung CONT_SLOTS —
+# bench.py's A/B mix (bench.py:531-533): CONT_LONG streams of
+# CONT_LONG_STEPS, CONT_SHORT requests of CONT_SHORT_STEPS joining
+# mid-stream — sources padded to CONT_TS; each rung's step timed
+# CONT_STEP_REPS times; the first CONT_CHECK_STEPS steps of each request
+# against the host's run of the same step (h within CONT_HOST_RTOL /
+# CONT_HOST_ATOL, tokens equal); (b) the default ladder; (c) two heads of
+# CONT_IO_WIDTH on two streams; (d) CONT_FLEET_REPLICAS `fleet replica`
+# processes, CONT_FLEET_REQUESTS requests from CONT_FLEET_CLIENTS
+# clients, each replica up within CONT_FLEET_START_S
+CONT_SLOTS = 8
+CONT_LONG = 3
+CONT_LONG_STEPS = 48
+CONT_SHORT = 16
+CONT_SHORT_STEPS = 2
+CONT_TS = 16
+CONT_STEP_REPS = 20
+CONT_CHECK_STEPS = 8
+CONT_HOST_RTOL = 1e-4
+CONT_HOST_ATOL = 1e-6
+CONT_IO_WIDTH = 1024
+CONT_FLEET_REPLICAS = 2
+CONT_FLEET_REQUESTS = 256
+CONT_FLEET_CLIENTS = 16
+CONT_FLEET_START_S = 240
 
 SEED = 20261016
 BATCH = 32
@@ -1652,8 +1710,8 @@ def _fenced_ms(exe, main, feeds, fetch, iters):
 def phase_monitor(card_line, headline, rerun):
     """The run-time instruments on the headline (bench.py's program, bf16
     AMP, fused Momentum, batch 128, through the captured step):
-    (1) the headline's monitored img/s beside the same calls with
-    FLAGS_monitor=0; (2) its journal, one record a call, through `python3
+    (1) the headline's monitored img/s beside MONITOR_WARM +
+    MONITOR_CALLS calls with FLAGS_monitor=0; (2) its journal, one record a call, through `python3
     -m paddle_tpu_torch monitor`; (3) the compile probe's model FLOPs an
     image and the MFU against the card's peak; (4) FLAGS_benchmark's gauge
     beside the same call's host clock; (5) FLAGS_health: its cost a step,
@@ -1683,23 +1741,23 @@ def phase_monitor(card_line, headline, rerun):
     amp.enable("bfloat16")
     try:
         with flags.flag_guard(fuse=True):
-            # (1) the same calls as the headline's, unmonitored
+            # (1) the headline re-run unmonitored (fewer calls: a rate)
             scope, exe = fresh()
             fk.reset_launch_counts()
             with fluid.scope_guard(scope), flags.flag_guard(monitor=False):
                 steps_before = monitor.steps_done()
                 dt, _ = _timed_calls(exe, main, feeds, [loss], HEADLINE_K,
-                                     HEADLINE_WARM, HEADLINE_CALLS)
+                                     MONITOR_WARM, MONITOR_CALLS)
                 torch.cuda.synchronize()
                 if monitor.steps_done() != steps_before:
                     raise AssertionError("FLAGS_monitor=0 recorded a step")
-            steps = (HEADLINE_WARM + HEADLINE_CALLS) * HEADLINE_K
+            steps = (MONITOR_WARM + MONITOR_CALLS) * HEADLINE_K
             launches = fk.momentum_bucket.launches
             if launches != len(buckets) * steps:
                 raise AssertionError(
                     f"unmonitored: momentum kernel launched {launches} "
                     f"times, not {len(buckets)} x {steps}")
-            off = HEADLINE_BATCH * HEADLINE_K * HEADLINE_CALLS / dt
+            off = HEADLINE_BATCH * HEADLINE_K * MONITOR_CALLS / dt
             on = headline["images_per_sec"]
             ratio = on / off
             result.update(monitored_images_per_sec=on,
@@ -1707,8 +1765,8 @@ def phase_monitor(card_line, headline, rerun):
                           monitored_over_unmonitored=ratio,
                           unmonitored_launches=launches)
             log(f"{tag} headline img/s monitored (journal on, phase "
-                f"headline) {on:.2f} vs FLAGS_monitor=0 {off:.2f} (same "
-                f"{HEADLINE_WARM} warm + {HEADLINE_CALLS} timed calls of "
+                f"headline) {on:.2f} vs FLAGS_monitor=0 {off:.2f} "
+                f"({MONITOR_WARM} warm + {MONITOR_CALLS} timed calls of "
                 f"iters={HEADLINE_K}): ratio {ratio:.4f}; momentum_bucket "
                 f"launches unmonitored {launches} = {len(buckets)} x "
                 f"{steps} steps (monitored: "
@@ -2380,7 +2438,7 @@ def _stage_sums(deltas):
 
 def _input_speed(main, loss, buckets, init, path, place, headline_img_s,
                  result):
-    """(a) 1 warm + 3 timed calls of HEADLINE_K steps fed by the pipe, as
+    """(a) 1 warm + 2 timed calls of HEADLINE_K steps fed by the pipe, as
     the headline phase times its calls: img/s and its ratio to the
     headline's, feed_wait, per-stage stats, the link's share, one replay
     traced (idle share), peak memory, the momentum kernel's launches."""
@@ -3631,6 +3689,38 @@ def _serve_load(server, images, clients, n, replay_ms):
     }
 
 
+def _train_and_save_headline(rs, model_dir, params_dir=None):
+    """The headline's network trained SERVE_TRAIN_STEPS steps at batch
+    BATCH under bf16 AMP (fused Momentum), so the running statistics
+    move, then saved with io.save_inference_model (and, with
+    `params_dir`, io.save_params). Returns the losses."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, flags
+
+    main, startup, loss, _, prediction = build_headline(
+        with_prediction=True)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    u8 = rs.randint(0, 256, (SERVE_TRAIN_STEPS, BATCH, 224, 224, 3),
+                    dtype=np.uint8)
+    lab = rs.randint(0, 1000, (SERVE_TRAIN_STEPS, BATCH, 1)).astype(
+        np.int32)
+    with fluid.scope_guard(fluid.Scope()), flags.flag_guard(fuse=True):
+        exe.run(startup)
+        with amp.auto_cast():
+            losses = [float(exe.run(
+                main, feed={"data_u8": u8[k], "label": lab[k]},
+                fetch_list=[loss])[0].reshape(-1)[0])
+                for k in range(SERVE_TRAIN_STEPS)]
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"[serve] training losses {losses}")
+        fluid.io.save_inference_model(model_dir, ["data_u8"],
+                                      [prediction], exe,
+                                      main_program=main)
+        if params_dir is not None:
+            fluid.io.save_params(exe, params_dir, main_program=main)
+    return losses
+
+
 def phase_serve(card_line):
     """The serving slice on the card: the headline's network trained 3
     steps under bf16 AMP and saved with io.save_inference_model, served by
@@ -3658,26 +3748,7 @@ def phase_serve(card_line):
     server = None
     try:
         # 1. train briefly, so the running statistics move, and save
-        main, startup, loss, _, prediction = build_headline(
-            with_prediction=True)
-        exe = fluid.Executor(place)
-        u8 = rs.randint(0, 256, (SERVE_TRAIN_STEPS, BATCH, 224, 224, 3),
-                        dtype=np.uint8)
-        lab = rs.randint(0, 1000, (SERVE_TRAIN_STEPS, BATCH, 1)).astype(
-            np.int32)
-        with fluid.scope_guard(fluid.Scope()), flags.flag_guard(fuse=True):
-            exe.run(startup)
-            with amp.auto_cast():
-                losses = [float(exe.run(
-                    main, feed={"data_u8": u8[k], "label": lab[k]},
-                    fetch_list=[loss])[0].reshape(-1)[0])
-                    for k in range(SERVE_TRAIN_STEPS)]
-            if not np.all(np.isfinite(losses)):
-                raise AssertionError(f"[serve] training losses {losses}")
-            fluid.io.save_inference_model(model_dir, ["data_u8"],
-                                          [prediction], exe,
-                                          main_program=main)
-            fluid.io.save_params(exe, params_dir, main_program=main)
+        losses = _train_and_save_headline(rs, model_dir, params_dir)
         files = os.listdir(model_dir)
         nbytes = sum(os.path.getsize(os.path.join(model_dir, f))
                      for f in files)
@@ -3686,7 +3757,6 @@ def phase_serve(card_line):
         log(f"[serve] trained {SERVE_TRAIN_STEPS} steps at batch {BATCH} "
             f"under bf16 AMP (losses {losses}); save_inference_model: "
             f"{len(files)} files, {nbytes} bytes")
-        del exe, u8, lab
         _release()
 
         # the parity requests and their references: the host's f32 and
@@ -7053,6 +7123,504 @@ def phase_flash(sass):
     return rows
 
 
+def _cont_nmt():
+    """The NMT's training program at its published widths, random
+    weights from SEED in a card scope; CONT_SOURCES synthetic WMT14
+    sources (4..15 ids, seq_batches' draw) as one ragged batch."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.lod_tensor import LoDTensor
+    from paddle_tpu_torch.models import machine_translation as mt
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        mt.seq_to_seq_net(512, 512, 512, WMT_DICT, WMT_DICT)
+    main.random_seed = startup.random_seed = SEED
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+    rs = np.random.RandomState(SEED + 18)
+    src = [rs.randint(3, WMT_DICT, rs.randint(4, 16))
+           for _ in range(CONT_LONG + CONT_SHORT)]
+    offs = np.concatenate([[0], np.cumsum([len(s) for s in src])])
+    lt = LoDTensor(np.concatenate(src).astype(np.int64)[:, None],
+                   [offs.tolist()])
+    t0 = time.perf_counter()
+    feeds = mt.greedy_feeds(exe, main, lt, CONT_TS, scope=scope)
+    return main, scope, feeds, time.perf_counter() - t0
+
+
+def _cont_server(prog, names, fetch, state, scope, buckets, interop=False):
+    from paddle_tpu_torch import serve
+
+    srv = serve.ContinuousServer(
+        config=serve.ContinuousConfig(max_slots=CONT_SLOTS,
+                                      slot_buckets=buckets))
+    srv.add_model("m", prog, names, fetch, state=state, scope=scope,
+                  slo_ms=100.0, interop=interop)
+    t0 = time.perf_counter()
+    srv.start()
+    return srv, (time.perf_counter() - t0) * 1e3
+
+
+def _cont_traffic(srv, feeds):
+    """bench.py's A/B mix (bench.py:531-533): each short alone (solo),
+    then CONT_LONG streams of CONT_LONG_STEPS with the shorts of
+    CONT_SHORT_STEPS submitted one after another while they run. ->
+    ({solo_ms, cont_ms, mixed_s, steps, tokens}, results in feed order)."""
+    longs, shorts = feeds[:CONT_LONG], feeds[CONT_LONG:]
+    solo_ms, cont_ms = [], []
+    for f in shorts:
+        t0 = time.perf_counter()
+        srv.infer(f, steps=CONT_SHORT_STEPS, timeout=120)
+        solo_ms.append((time.perf_counter() - t0) * 1e3)
+    steps0 = srv.model_stats("m")["steps"]
+    t_mix = time.perf_counter()
+    futs = [srv.submit(f, steps=CONT_LONG_STEPS) for f in longs]
+    short_res = []
+    for f in shorts:
+        t0 = time.perf_counter()
+        short_res.append(srv.infer(f, steps=CONT_SHORT_STEPS, timeout=120))
+        cont_ms.append((time.perf_counter() - t0) * 1e3)
+    long_res = [f.result(timeout=300) for f in futs]
+    mixed_s = time.perf_counter() - t_mix
+    steps = srv.model_stats("m")["steps"] - steps0
+    tokens = CONT_LONG * CONT_LONG_STEPS + CONT_SHORT * CONT_SHORT_STEPS
+    return ({"solo_ms": solo_ms, "cont_ms": cont_ms, "mixed_s": mixed_s,
+             "steps": steps, "tokens": tokens}, long_res + short_res)
+
+
+def _cont_step_ms(srv, rungs):
+    """Each rung's model step (feeds gathered from the bank: load, replay,
+    fetch copies) between two CUDA events, median of CONT_STEP_REPS, with
+    the loop stopped."""
+    m = srv.models["m"]
+    out = {}
+    for b in rungs:
+        feed = m.bank.gather(np.full(b, m.bank.scratch, dtype=np.int32))
+        times = []
+        for _ in range(CONT_STEP_REPS):
+            e0, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            e0.record()
+            m.run_step(feed)
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+        out[str(b)] = statistics.median(times)
+    return out
+
+
+def _cont_solo(exe, prog, fetch, state, scope, feed, steps, rows):
+    """One stream replayed alone through a plain Executor at `rows` rows
+    (its row first, zero pad rows, as the slot bank pads a rung): its
+    [steps] tokens, [steps, D] h, and the step inputs it ran on."""
+    import paddle_tpu_torch as fluid
+
+    cur = {n: np.zeros((rows,) + np.shape(v), np.asarray(v).dtype)
+           for n, v in feed.items()}
+    for n, v in feed.items():
+        cur[n][0] = v
+    toks, hs, inputs = [], [], []
+    names = [state["prev_emb"], state["prev_c"]]
+    with fluid.scope_guard(scope):
+        for _ in range(steps):
+            inputs.append({n: v[:1].copy() for n, v in cur.items()})
+            t, h, emb, c = exe.run(prog, feed=cur,
+                                   fetch_list=list(fetch) + names)
+            toks.append(t[0])
+            hs.append(h[0])
+            for n, v in (("prev_emb", emb), ("prev_h", h), ("prev_c", c)):
+                cur[n] = np.zeros_like(cur[n])
+                cur[n][0] = v[0]
+    return np.asarray(toks), np.stack(hs), inputs
+
+
+def _ulps(a, b):
+    a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    b = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return int(np.abs(a - b).max()) if a.size else 0
+
+
+def _cont_ladder_pairs(prog, fetch, scope, feeds):
+    """(b) the same step at each rung of the default ladder on the same
+    live rows (the first CONT_SLOTS streams' initial feeds, padded with
+    zero rows): for each rung pair, whether the rows both hold are
+    bitwise equal, else the largest ulp gap of h."""
+    import paddle_tpu_torch as fluid
+
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    rungs = (1, 2, 4, 8)
+    live = feeds[:CONT_SLOTS]
+    hs = {}
+    with fluid.scope_guard(scope):
+        for b in rungs:
+            feed = {n: np.stack([f[n] for f in live[:b]]) for n in live[0]}
+            for _ in range(3):  # eager, capture, replay
+                hs[b] = exe.run(prog, feed=feed, fetch_list=fetch)[1]
+    pairs = {}
+    for i, a in enumerate(rungs):
+        for b in rungs[i + 1:]:
+            k = min(a, b)
+            gap = _ulps(hs[a][:k], hs[b][:k])
+            pairs[f"{a}-{b}"] = "bitwise" if gap == 0 else gap
+    return pairs
+
+
+def _cont_greedy(card_line):
+    """(a) greedy NMT decode at published widths through the
+    ContinuousServer at a fixed rung; (b) the default ladder."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.models import machine_translation as mt
+
+    main, scope, feeds, encode_s = _cont_nmt()
+    prog, names, fetch, state = mt.greedy_step_program(main, CONT_TS)
+    res = {"sources": len(feeds), "max_source_len": CONT_TS,
+           "encode_s": encode_s}
+    log(f"[continuous] (a) NMT seq_to_seq_net(512, 512, 512, {WMT_DICT}, "
+        f"{WMT_DICT}): {len(feeds)} sources encoded in one Executor run "
+        f"({encode_s:.3f} s), padded to {CONT_TS}")
+    srv, warm_ms = _cont_server(prog, names, fetch, state, scope,
+                                (CONT_SLOTS,))
+    try:
+        load, got = _cont_traffic(srv, feeds)
+        stats = srv.stats()
+    finally:
+        srv.stop()
+    if stats["steady_state_compiles"] != 0:
+        raise AssertionError(f"[continuous] steady-state captures: "
+                             f"{stats['steady_state_compiles']}")
+    m = srv.models["m"]
+    res["fixed_rung_step_ms"] = _cont_step_ms(srv, (CONT_SLOTS,))
+    p99 = lambda v: float(np.percentile(np.asarray(v), 99))  # noqa: E731
+    # run to completion (bench.py:579-590): the same arrival order served
+    # FIFO, each request decoded to its end before the next starts, at
+    # one row through a plain Executor (warmed first: eager, capture)
+    fexe = fluid.Executor(fluid.CUDAPlace(0))
+    _cont_solo(fexe, prog, fetch, state, scope, feeds[0], 3, 1)
+    t_base = time.perf_counter()
+    fifo_ms = []
+    for i, f in enumerate(feeds):
+        k = CONT_LONG_STEPS if i < CONT_LONG else CONT_SHORT_STEPS
+        _cont_solo(fexe, prog, fetch, state, scope, f, k, 1)
+        if i >= CONT_LONG:
+            fifo_ms.append((time.perf_counter() - t_base) * 1e3)
+    res.update(
+        warmup_ms=warm_ms, steady_state_compiles=0,
+        model_steps=load["steps"], tokens=load["tokens"],
+        tokens_per_sec=load["tokens"] / load["mixed_s"],
+        host_ms_per_step=load["mixed_s"] * 1e3 / load["steps"],
+        short_p99_solo_ms=p99(load["solo_ms"]),
+        short_p99_continuous_ms=p99(load["cont_ms"]),
+        short_p99_fifo_ms=p99(fifo_ms))
+    res["continuous_over_fifo"] = (res["short_p99_continuous_ms"]
+                                   / res["short_p99_fifo_ms"])
+    # every request bitwise its solo replay at the fixed rung; each step
+    # of its first CONT_CHECK_STEPS against the host's run of that step
+    sexe = fluid.Executor(fluid.CUDAPlace(0))
+    host_scope = fluid.Scope()
+    state_np = convert.numpy_state(scope, main)
+    convert.load_numpy_state(
+        host_scope, prog, {n: np.asarray(state_np[n])
+                           for n, v in prog.global_block().vars.items()
+                           if v.persistable}, fluid.CPUPlace())
+    del state_np
+    hexe = fluid.Executor(fluid.CPUPlace())
+    worst, checked = 0.0, 0
+    for i, (f, out) in enumerate(zip(feeds, got)):
+        k = CONT_LONG_STEPS if i < CONT_LONG else CONT_SHORT_STEPS
+        toks, hs, inputs = _cont_solo(sexe, prog, fetch, state, scope, f,
+                                      k, CONT_SLOTS)
+        if not (np.array_equal(out[0], toks) and np.array_equal(out[1], hs)):
+            raise AssertionError(
+                f"[continuous] request {i}: not bitwise its solo replay at "
+                f"rung {CONT_SLOTS}")
+        with fluid.scope_guard(host_scope):
+            for t, inp in enumerate(inputs[:CONT_CHECK_STEPS]):
+                ht, hh = hexe.run(prog, feed=inp, fetch_list=fetch)
+                if int(ht[0]) != int(toks[t]):
+                    raise AssertionError(
+                        f"[continuous] request {i} step {t}: token "
+                        f"{int(toks[t])} on the card, {int(ht[0])} on the "
+                        f"host")
+                err = np.abs(hs[t] - hh[0])
+                bound = CONT_HOST_RTOL * np.abs(hh[0]) + CONT_HOST_ATOL
+                if np.any(err > bound):
+                    raise AssertionError(
+                        f"[continuous] request {i} step {t}: h card vs "
+                        f"host outside rtol {CONT_HOST_RTOL:g} (largest "
+                        f"difference {float(err.max()):.3e})")
+                worst = max(worst, float((err / bound).max()))
+                checked += 1
+    res.update(bitwise_vs_solo=len(feeds), host_steps_checked=checked,
+               host_h_max_share_of_bound=worst)
+    log(f"[continuous] (a) {card_line}: rung {CONT_SLOTS} warm-up "
+        f"{warm_ms:.1f} ms; {load['steps']} model steps, "
+        f"{res['tokens_per_sec']:.1f} tokens/s, host "
+        f"{res['host_ms_per_step']:.3f} ms a step, device "
+        f"{res['fixed_rung_step_ms']} ms a step (CUDA events); short "
+        f"p99 solo {res['short_p99_solo_ms']:.3f} / continuous "
+        f"{res['short_p99_continuous_ms']:.3f} / FIFO "
+        f"{res['short_p99_fifo_ms']:.3f} ms (ratio "
+        f"{res['continuous_over_fifo']:.4f}); all {len(feeds)} requests "
+        f"bitwise their solo replay at rung {CONT_SLOTS}; zero "
+        f"steady-state captures; {checked} steps card = host (tokens; h "
+        f"within rtol {CONT_HOST_RTOL:g} + atol {CONT_HOST_ATOL:g}: at "
+        f"most {worst:.3f} of the bound)")
+    # (b) the default ladder, the same requests
+    srv2, warm2 = _cont_server(prog, names, fetch, state, scope, None)
+    try:
+        load2, got2 = _cont_traffic(srv2, feeds)
+        stats2 = srv2.stats()
+    finally:
+        srv2.stop()
+    if stats2["steady_state_compiles"] != 0:
+        raise AssertionError("[continuous] (b) steady-state captures")
+    same = sum(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+               for a, b in zip(got, got2))
+    tok_same = sum(np.array_equal(a[0], b[0]) for a, b in zip(got, got2))
+    h_gap = max(_ulps(a[1], b[1]) for a, b in zip(got, got2))
+    pairs = _cont_ladder_pairs(prog, fetch, scope, feeds)
+    res["ladder"] = {
+        "rungs": list(srv2.models["m"].bank.rungs), "warmup_ms": warm2,
+        "step_ms": _cont_step_ms(srv2, srv2.models["m"].bank.rungs),
+        "tokens_per_sec": load2["tokens"] / load2["mixed_s"],
+        "requests_bitwise_fixed_rung": same,
+        "requests_same_tokens": tok_same, "h_max_ulps": h_gap,
+        "rung_pairs": pairs}
+    log(f"[continuous] (b) default ladder {res['ladder']['rungs']}: step "
+        f"ms {res['ladder']['step_ms']}; {same} of {len(feeds)} requests "
+        f"bitwise the fixed rung's ({tok_same} the same tokens, h within "
+        f"{h_gap} ulps); rung pairs (bitwise or the largest ulp gap of h): "
+        f"{pairs}")
+    del srv, srv2, m
+    return res
+
+
+def _cont_interop(card_line):
+    """(c) a two-head program (CONT_IO_WIDTH in, a tanh tower as the
+    state, a relu tower beside it) through the InterOpRunner, each
+    branch on its own stream, against the single program: bitwise."""
+    import paddle_tpu_torch as fluid
+
+    w = CONT_IO_WIDTH
+    prog, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(prog, startup):
+        x = fluid.layers.data(name="x", shape=[w], dtype="float32")
+        a = fluid.layers.fc(fluid.layers.fc(x, 4 * w, act="tanh"), w,
+                            act="tanh")
+        b = fluid.layers.fc(fluid.layers.fc(x, 4 * w, act="relu"), w)
+    prog.random_seed = startup.random_seed = SEED
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        fluid.Executor(fluid.CUDAPlace(0)).run(startup)
+    rs = np.random.RandomState(SEED + 19)
+    rows = [{"x": rs.randn(w).astype(np.float32)} for _ in range(6)]
+    outs, eff = {}, None
+    for interop in (False, True):
+        srv, _ = _cont_server(prog, ["x"], [a, b], {"x": a.name}, scope,
+                              (CONT_SLOTS,), interop=interop)
+        try:
+            with srv:
+                futs = [srv.submit(r, steps=4 + i) for i, r in
+                        enumerate(rows)]
+                outs[interop] = [f.result(timeout=120) for f in futs]
+            runner = srv.models["m"].runner
+            if interop:
+                if runner is None or len(runner.streams) != 2:
+                    raise AssertionError("[continuous] (c) no two-stream "
+                                         "runner")
+                eff = runner.last_efficiency
+                costs = list(runner.branch_cost_ms)
+            if srv.stats()["steady_state_compiles"]:
+                raise AssertionError("[continuous] (c) steady captures")
+        finally:
+            srv.stop()
+    for p, q in zip(outs[False], outs[True]):
+        if not all(np.array_equal(u, v) for u, v in zip(p, q)):
+            raise AssertionError("[continuous] (c) interop outputs differ "
+                                 "from the single program's")
+    log(f"[continuous] (c) {card_line}: two heads ({w} -> {4 * w} -> {w}) "
+        f"on two streams bitwise the single program's over {len(rows)} "
+        f"streams; branch ms {costs}; overlap efficiency {eff}")
+    return {"width": w, "streams": len(rows), "bitwise": True,
+            "branch_cost_ms": costs, "overlap_efficiency": eff}
+
+
+def _cont_fleet(card_line):
+    """(d) the fleet on one card: the headline network's inference model
+    trained and saved as phase serve's, CONT_FLEET_REPLICAS `fleet
+    replica` processes serving it under bf16 AMP (max batch 8) behind a
+    Router; CONT_FLEET_REQUESTS one-image requests from
+    CONT_FLEET_CLIENTS clients, one replica SIGKILLed after half of them.
+    Zero lost; each answer within phase serve's bf16 bound of an
+    in-process Server's at the closest bucket."""
+    import json as _json
+    import signal
+    import tempfile
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, serve
+    from paddle_tpu_torch.serve.fleet import DEAD, FleetConfig, Router
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    model_dir = os.path.join(tmp, "model")
+    rs = np.random.RandomState(SEED + 20)
+    # trained as phase serve's, so that bf16 rows are well conditioned
+    # (at its initial running statistics the network's softmax saturates)
+    _train_and_save_headline(rs, model_dir)
+    _release()
+    images = rs.randint(0, 256, (CONT_FLEET_CLIENTS, 224, 224, 3),
+                        dtype=np.uint8)
+    bodies = [_json.dumps({"inputs": {"data_u8": im[None].tolist()}}
+                          ).encode() for im in images]
+    procs, router, result = [], None, {}
+    try:
+        t0 = time.perf_counter()
+        pfs = [os.path.join(tmp, f"port{i}")
+               for i in range(CONT_FLEET_REPLICAS)]
+        for i, pf in enumerate(pfs):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "paddle_tpu_torch", "fleet",
+                 "replica", "--model-dir", model_dir, "--place", "cuda",
+                 "--amp", "bfloat16", "--max-batch", "8", "--port", "0",
+                 "--port-file", pf, "--name", f"r{i}"],
+                stdout=subprocess.DEVNULL,
+                stderr=open(os.path.join(OUT_DIR, f"fleet_r{i}.log"), "w")))
+        endpoints = {}
+        deadline = time.monotonic() + CONT_FLEET_START_S
+        for i, pf in enumerate(pfs):
+            while not os.path.exists(pf):
+                if time.monotonic() > deadline or procs[i].poll() is not None:
+                    raise AssertionError(f"[continuous] (d) replica r{i} "
+                                         f"did not start")
+                time.sleep(0.05)
+            endpoints[f"r{i}"] = f"127.0.0.1:{open(pf).read().strip()}"
+        router = Router(endpoints, config=FleetConfig(probe_interval_s=0.1))
+        router.start()
+        if router.membership.healthy_count() != CONT_FLEET_REPLICAS:
+            raise AssertionError("[continuous] (d) replicas not healthy")
+        start_s = time.perf_counter() - t0
+        # the in-process Server's answers, the bound's reference: each
+        # image at each bucket (the first row of a batch of its copies) —
+        # a row's bf16 bits follow the batch size its dispatch ran at,
+        # and a replica's batches mix the clients' requests
+        amp.enable("bfloat16")
+        try:
+            with serve.Server.from_inference_model(
+                    model_dir, place=fluid.CUDAPlace(0),
+                    config=serve.ServeConfig(max_batch=8)) as local:
+                want = {b: [local.infer({"data_u8": np.repeat(
+                    im[None], b, axis=0)}, timeout=120)[0][0]
+                    for im in images] for b in local.config.buckets}
+        finally:
+            amp.disable()
+        codes, answers, lock = {}, {}, threading.Lock()
+        order = iter(range(CONT_FLEET_REQUESTS)).__next__
+        killed, dead_s = threading.Event(), []
+
+        def client(c):
+            while True:
+                with lock:
+                    try:
+                        i = order()
+                    except StopIteration:
+                        return
+                    if i == CONT_FLEET_REQUESTS // 2 and not killed.is_set():
+                        os.kill(procs[1].pid, signal.SIGKILL)
+                        killed.set()
+                        threading.Thread(target=watch, daemon=True,
+                                         args=(time.perf_counter(),)).start()
+                status, _, body = router.route(bodies[i % len(bodies)])
+                with lock:
+                    codes[status] = codes.get(status, 0) + 1
+                    if status == 200 and i % len(bodies) not in answers:
+                        answers[i % len(bodies)] = body
+
+        def watch(t_kill):
+            while router.membership.get("r1").state != DEAD:
+                time.sleep(0.001)
+            dead_s.append(time.perf_counter() - t_kill)
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(CONT_FLEET_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        st = router.stats()
+        if set(codes) != {200} or sum(codes.values()) \
+                != CONT_FLEET_REQUESTS:
+            raise AssertionError(f"[continuous] (d) lost requests: {codes}")
+        worst, at_one = 0.0, 0
+        for j, body in answers.items():
+            got = np.asarray(_json.loads(body)["outputs"][0], np.float32)
+            errs = {b: float((np.abs(got[0] - w[j]) / np.abs(w[j]).max()
+                              ).max()) for b, w in want.items()}
+            b = min(errs, key=errs.get)
+            worst = max(worst, _rows_close(
+                got[0], want[b][j], PARITY_AMP_RTOL,
+                f"fleet answer {j}: largest difference over the row's top "
+                f"by bucket {errs}; closest"))
+            at_one += errs[1] <= PARITY_AMP_RTOL
+        result = {
+            "replicas": CONT_FLEET_REPLICAS,
+            "requests": CONT_FLEET_REQUESTS,
+            "clients": CONT_FLEET_CLIENTS, "lost": 0,
+            "start_s": start_s, "wall_s": wall,
+            "images_per_sec": CONT_FLEET_REQUESTS / wall,
+            "p50_ms": st["p50_ms"], "p99_ms": st["p99_ms"],
+            "retries": st["retries"],
+            "dead_after_kill_s": dead_s[0] if dead_s else None,
+            "answers_checked": len(answers), "max_rel_vs_local": worst,
+            "answers_within_bound_of_bucket_1": at_one}
+        log(f"[continuous] (d) {card_line}: {CONT_FLEET_REPLICAS} `fleet "
+            f"replica` processes up in {start_s:.1f} s; "
+            f"{CONT_FLEET_REQUESTS} requests from {CONT_FLEET_CLIENTS} "
+            f"clients, r1 SIGKILLed at half: 0 lost, "
+            f"{result['images_per_sec']:.1f} img/s routed, p50 "
+            f"{st['p50_ms']:.2f} / p99 {st['p99_ms']:.2f} ms, "
+            f"{st['retries']} retries, r1 dead after "
+            f"{result['dead_after_kill_s']} s; answers within rtol "
+            f"{PARITY_AMP_RTOL:g} of the in-process Server's at the "
+            f"closest bucket (largest {worst:.3e}; {at_one} of "
+            f"{len(answers)} also of its batch-1 answer)")
+        report = router.drain("r0", timeout_s=60.0)
+        result["drain_exit"] = procs[0].wait(timeout=60)
+        if not report["drained"] or result["drain_exit"] != 0:
+            raise AssertionError(f"[continuous] (d) drain: {report}, "
+                                 f"exit {result['drain_exit']}")
+    finally:
+        if router is not None:
+            router.stop()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return result
+
+
+def phase_continuous(card_line):
+    """Serving's continuous batching and the fleet on the card: (a) greedy
+    NMT streams at published widths joining and leaving a running batch,
+    (b) the default ladder, (c) interop streams, (d) the fleet."""
+    t0 = time.perf_counter()
+    result = {"nmt": _cont_greedy(card_line)}
+    _release()
+    result["interop"] = _cont_interop(card_line)
+    _release()
+    result["fleet"] = _cont_fleet(card_line)
+    _release()
+    result["seconds"] = time.perf_counter() - t0
+    log(f"[continuous] phase {result['seconds']:.1f} s")
+    return result
+
+
 def _device_line():
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7214,6 +7782,17 @@ def main_compile_services():
     log(_device_line())
 
 
+def main_continuous():
+    """`python3 chip_smoke.py --only continuous`: the device check and
+    phase continuous alone (its slice launches no hand-written kernel:
+    nothing to build)."""
+    card_line = phase_device()
+    result = phase_continuous(card_line)
+    log(card_line)
+    log(json.dumps({"continuous": result}))
+    log(_device_line())
+
+
 def main():
     card_line = phase_device()
     card = torch.cuda.get_device_name(0)
@@ -7341,6 +7920,8 @@ def main():
     momentum["launches_by_path"]["headline_l2_processes"] = \
         services["l2"]["momentum_launches"]
     _release()
+    continuous = phase_continuous(card_line)
+    _release()
     rows += phase_flash(sass)
     log(card_line)
     log(json.dumps({"headline": headline, "monitor": monitored,
@@ -7348,7 +7929,8 @@ def main():
                     "se_resnext50": se, "vgg16": vgg, **seq,
                     "serve": served, "tail_ops": tail, "loss_ops": losses,
                     "control_flow": flow, "resilience": resil,
-                    "compile_services": services}))
+                    "compile_services": services,
+                    "continuous": continuous}))
     log(json.dumps({"kernels": rows}))
     log(_device_line())
 
@@ -7364,6 +7946,8 @@ if __name__ == "__main__":
         main_resilience()
     elif sys.argv[1:] == ["--only", "compile_services"]:
         main_compile_services()
+    elif sys.argv[1:] == ["--only", "continuous"]:
+        main_continuous()
     elif sys.argv[1:2] == ["--l2-child"] and len(sys.argv) == 3:
         l2_child(sys.argv[2])
     else:

@@ -58,7 +58,8 @@ cost models to plan collective/compute overlap.
 import random
 
 from ..core.framework import Block, OpRole, VarType
-from .verifier import COLLECTIVE_OPS, _RUNTIME_VAR_TYPES, op_role, sub_blocks
+from .verifier import (COLLECTIVE_OPS, _RUNTIME_VAR_TYPES, bound_names,
+                       op_role, sub_blocks)
 
 __all__ = ["Node", "DependencyGraph", "build_graph", "check_hazards",
            "VIEW_OPS", "DATAFLOW_CODES"]
@@ -507,13 +508,19 @@ def check_hazards(program, report, feed_names=None, donate_state=True,
             block_idx=0, op_idx=min(cyc),
             op_type=graph.nodes[min(cyc)].op.type)
 
-    # PTA031: grad op reads a later version than its paired forward op
+    # PTA031: grad op reads a later version than its paired forward op.
+    # A control-flow op's own outputs among its reads (the names it binds,
+    # verifier.bound_names) are not: its grad reads the value the op
+    # wrote, and the value before it from the op's snapshots (InitStates)
     fwd_reads = {}  # (op type, name) -> [versions read by forward nodes]
+    own = set()     # (op type, name, version) a control-flow op wrote
     for node in graph.nodes:
         if node.op.type.endswith("_grad"):
             continue
         for name, v in node.reads.items():
             fwd_reads.setdefault((node.op.type, name), []).append(v)
+        for name in bound_names(node.op) & set(node.writes):
+            own.add((node.op.type, name, node.writes[name]))
     for node in graph.nodes:
         if node.role != OpRole.Backward \
                 or not node.op.type.endswith("_grad"):
@@ -530,7 +537,7 @@ def check_hazards(program, report, feed_names=None, donate_state=True,
             # every candidate pairing, the value was overwritten between
             # forward and backward
             vf = max(vfs)
-            if vg > vf:
+            if vg > vf and (base, name, vg) not in own:
                 report.add(
                     "PTA031",
                     f"grad op reads {name!r} at SSA version {vg}, but "

@@ -18,6 +18,10 @@ defined at each program point:
 Sub-block scoping: ops carrying a Block-valued attr (while/cond and
 friends) execute their sub-block against the parent's defined-set; names
 the sub-block writes into parent-declared vars escape back conservatively.
+What such an op binds for its block at run time (`bound_names`: a
+recurrent op's memories and step inputs, a conditional_block's own
+outputs) is written at the op, and the grads of those names count as
+declared.
 
 The walk never mutates the input program: contract replay runs against a
 throwaway clone because `InferShapeContext.set_output_dim` refines var
@@ -25,8 +29,10 @@ shapes in place.
 
 A copy of the JAX package's verifier (paddle_tpu/analysis/verifier.py)
 over the port's IR, registry and shape contracts, with the same codes,
-messages and locations, but one: the partial gradients backward.py sums
-(`_ACCUMULATION_PART`) are not PTA008. The port's registry has no
+messages and locations, but two: the partial gradients backward.py sums
+(`_ACCUMULATION_PART`) are not PTA008, and the names control-flow ops bind
+(`bound_names`) are neither PTA001 nor, as grads, PTA008 (ROADMAP §3 item
+18). The port's registry has no
 `no_trace` mark: every such op type of the JAX package has a shape
 contract, so the mark never decides a PTA005 there, and the port leaves it
 out.
@@ -39,7 +45,8 @@ from ..core import shape_inference
 from ..core.framework import Block, OpRole, OP_ROLE_ATTR_NAME, VarType
 
 __all__ = ["check_structure", "check_contracts", "check_grad_pairing",
-           "op_role", "sub_blocks", "written_names", "COLLECTIVE_OPS"]
+           "op_role", "sub_blocks", "written_names", "bound_names",
+           "COLLECTIVE_OPS"]
 
 # op types that move data across replicas; their issue order must be a
 # single total order on every replica (see safety.check_collective_order)
@@ -94,6 +101,37 @@ def written_names(block):
     return out
 
 
+# attrs of the recurrent ops naming what the op binds in its block at run
+# time (recurrent, dynamic_recurrent: layers/control_flow.py)
+_BOUND_ATTRS = ("pre_mem_names", "step_input_names", "static_input_names",
+                "closure_names")
+
+
+def bound_names(op):
+    """The names a control-flow op binds for its block at run time, which
+    the verifier takes as written at the op: a recurrent op's memories and
+    step inputs, and every name an op reads that its own block writes —
+    a conditional_block's outputs, whose value where the predicate fails
+    the op keeps (IfElse's branch outputs). Empty for an op without a
+    block. The JAX package's verifier follows none of them (ROADMAP §3
+    item 18)."""
+    blocks = sub_blocks(op)
+    if not blocks:
+        return set()
+    out = {n for key in _BOUND_ATTRS for n in op.attrs.get(key, ()) if n}
+    written = set().union(*(written_names(b) for b in blocks))
+    out.update(n for n in op.input_arg_names() if n in written)
+    return out
+
+
+def _bound_grads(program):
+    """`<x>@GRAD` of every name a control-flow op of `program` binds: the
+    grads backward makes for them (IfElse's branch outputs are declared in
+    their branch's block, their grads in none)."""
+    return {f"{n}@GRAD" for b in program.blocks for op in b.ops
+            for n in bound_names(op)}
+
+
 def _registered(op_type):
     if registry.get_op_def(op_type) is not None:
         return True
@@ -104,7 +142,7 @@ def _registered(op_type):
     return False
 
 
-def _walk(block, defined, feed_names, report, touched):
+def _walk(block, defined, feed_names, report, touched, bound_grads):
     """Verify one block's ops against the inherited defined-set. Returns
     the set of names written by this block (for parent escape)."""
     # names written later in THIS block — used to tell "use before def"
@@ -113,6 +151,9 @@ def _walk(block, defined, feed_names, report, touched):
 
     for i, op in enumerate(block.ops):
         loc = dict(block_idx=block.idx, op_idx=i, op_type=op.type)
+        # what a control-flow op binds for its block is written at the op
+        bound = bound_names(op)
+        defined.update(bound)
         # ---- inputs: declared? defined yet? -------------------------------
         for name in op.input_arg_names():
             if not name:   # empty slot entry = optional input, skipped
@@ -163,7 +204,8 @@ def _walk(block, defined, feed_names, report, touched):
                     var=name, **loc)
             seen.add(name)
             if not block.has_var_recursive(name) \
-                    and not _ACCUMULATION_PART.search(name):
+                    and not _ACCUMULATION_PART.search(name) \
+                    and name not in bound_grads:
                 report.add(
                     "PTA008",
                     f"op writes {name!r} which is declared in no reachable "
@@ -176,7 +218,8 @@ def _walk(block, defined, feed_names, report, touched):
                 f"op type {op.type!r} has no registered kernel", **loc)
         # ---- sub-blocks (while/cond) --------------------------------------
         for sb in sub_blocks(op):
-            escaped = _walk(sb, set(defined), feed_names, report, touched)
+            escaped = _walk(sb, set(defined), feed_names, report, touched,
+                            bound_grads)
             # writes to parent-declared vars escape the sub-block
             defined.update(escaped)
         defined.update(seen)
@@ -194,7 +237,7 @@ def check_structure(program, report, feed_names=None, fetch_names=None):
                     or var.type in _RUNTIME_VAR_TYPES:
                 defined.add(name)
     touched = set()
-    _walk(gb, defined, feed_set, report, touched)
+    _walk(gb, defined, feed_set, report, touched, _bound_grads(program))
     # dangling vars: declared, never read or written anywhere, and not an
     # input/output the runtime manages
     keep = set(fetch_names or ())

@@ -38,7 +38,20 @@ journals and ledgers:
                      the SSA dataflow graph and its PTA03x hazards, or
                      the fusion pass's plan
 
-The JAX CLI's other commands (trace ops, serve, fleet, shard, ...),
+  serve --model-dir D [--place cuda|cpu] [--http PORT | --selftest N]
+                     serve a saved inference model with the batching
+                     engine, behind the HTTP frontend or a synthetic
+                     load (stats JSON; rc 1 on a steady-state capture)
+  fleet replica --model-dir D [--place cuda|cpu] [--router H:P] ...
+  fleet router --replicas H:P,... [--autoscale-model-dir D] ...
+                     one serving replica process (drains clean on
+                     /admin/drain or SIGTERM), or the fleet router over
+                     replicas; --place defaults to the first card in
+                     every command (the JAX package's replica: cpu);
+                     --master, --obs and --compile-service are refused
+                     (ROADMAP queue 1 item 8)
+
+The JAX CLI's other commands (trace ops, shard, elastic, obs, ...),
 `analyze schedule` (ROADMAP queue 1 item 6), `analyze pipeline` and
 `monitor` over several journals (item 8) are not ported yet.
 """
@@ -594,6 +607,262 @@ def _cmd_analyze(args):
         return 0
 
 
+def _place(name):
+    """--place cuda|cpu -> a Place: the first card unless `cpu` (the
+    port's rule; the JAX package's `fleet replica` defaults to cpu)."""
+    from .core.places import CPUPlace, CUDAPlace
+
+    return CPUPlace() if name == "cpu" else CUDAPlace(0)
+
+
+def _refuse_item8(args, command):
+    """rc 2 with the reason when an option links to a service of ROADMAP
+    queue 1 item 8 (the elastic master, obs/, the distributed compile
+    service); None when there is none."""
+    names = {"master": "--master (the elastic master's registry)",
+             "obs": "--obs (the fleet obs collector)",
+             "compile_service": "--compile-service (the distributed "
+                                "compile service)"}
+    used = [text for key, text in names.items()
+            if getattr(args, key, None)]
+    if not used:
+        return None
+    verb = "is" if len(used) == 1 else "are"
+    print(f"{command}: {', '.join(used)} {verb} not ported yet (ROADMAP "
+          f"queue 1 item 8)", file=sys.stderr)
+    return 2
+
+
+def _cmd_serve(args):
+    import threading
+
+    import numpy as np
+
+    from . import flags
+    from .serve import ServeConfig, Server
+    from .serve.http import serve_http
+
+    if args.cache_dir:
+        # the persistent store of prepared plans: bucket warm-up loads the
+        # plans an earlier process stored (FLAGS_compile_cache_dir)
+        flags.set("compile_cache_dir", args.cache_dir)
+    config = ServeConfig(
+        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+        replicas=args.replicas, slo_ms=args.slo_ms,
+        max_queue_rows=args.max_queue_rows)
+    try:
+        server = Server.from_inference_model(
+            args.model_dir, place=_place(args.place), config=config)
+    except (OSError, ValueError) as e:
+        print(f"cannot load inference model: {e}", file=sys.stderr)
+        return 1
+    server.start()
+    print(f"ready: buckets={list(server.config.buckets)} "
+          f"replicas={config.replicas} "
+          f"warm_compiles={server._warm_entries}", file=sys.stderr)
+    if args.http is not None:
+        print(f"http frontend on {args.host}:{args.http}", file=sys.stderr)
+        serve_http(server, host=args.host, port=args.http)
+        return 0
+    # selftest: synthetic single-example requests from the feed shapes,
+    # a handful of concurrent clients so the batcher actually batches
+    n, per = args.selftest, max(1, args.selftest // 8)
+    rng = np.random.RandomState(0)
+
+    def fire(k):
+        for _ in range(k):
+            feed = {name: rng.standard_normal(
+                server._example_shape(name)).astype(
+                server._feed_dtype(name))
+                for name in server.feed_names}
+            server.submit(feed).result()
+
+    threads = [threading.Thread(target=fire, args=(per,))
+               for _ in range(-(-n // per))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    stats = server.stats()
+    server.stop()
+    print(json.dumps(stats, indent=2))
+    return 0 if stats["steady_state_compiles"] == 0 else 1
+
+
+def _cmd_fleet_replica(args):
+    import signal
+    import threading
+
+    from . import flags
+    from .serve import ServeConfig, Server
+    from .serve.http import make_http_server
+
+    refused = _refuse_item8(args, "fleet replica")
+    if refused is not None:
+        return refused
+    if args.cache_dir:
+        # fleet spin-up: the replicas share one store of prepared plans,
+        # so only the first one prepares each bucket from scratch
+        flags.set("compile_cache_dir", args.cache_dir)
+    if args.chaos_kill_at is not None or args.chaos_hang_at is not None \
+            or args.chaos_delay_ms is not None:
+        from .resilience import chaos
+
+        monkey = chaos.ChaosMonkey()
+        if args.chaos_kill_at is not None:
+            monkey.add(chaos.Fault("replica_kill", at=args.chaos_kill_at))
+        if args.chaos_hang_at is not None:
+            monkey.add(chaos.Fault("replica_hang", at=args.chaos_hang_at,
+                                   times=args.chaos_hang_times,
+                                   delay_ms=args.chaos_hang_ms))
+        if args.chaos_delay_ms is not None:
+            # every dispatch: a deterministic per-batch service-time
+            # floor -> replica capacity ~= 1000/delay_ms batches/s on
+            # any host, which makes autoscale drills reproducible
+            monkey.add(chaos.Fault("delay", at=0, times=1 << 62,
+                                   delay_ms=args.chaos_delay_ms))
+        chaos.install(monkey)
+    config = ServeConfig(
+        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+        replicas=args.replicas, max_queue_rows=args.max_queue_rows,
+        slo_ms=args.slo_ms)
+    try:
+        server = Server.from_inference_model(
+            args.model_dir, place=_place(args.place), config=config)
+    except (OSError, ValueError) as e:
+        print(f"cannot load inference model: {e}", file=sys.stderr)
+        return 1
+    if args.amp:
+        from . import amp
+
+        amp.enable(args.amp)
+    server.start()
+    # a drained replica's frontend shuts itself down -> serve_forever
+    # returns -> this process exits 0: the rolling-restart contract
+    httpd = make_http_server(server, host=args.host, port=args.port,
+                             shutdown_on_drain=True)
+    port = httpd.server_address[1]
+    endpoint = f"{args.host}:{port}"
+    name = args.name or f"replica-{port}"
+    if args.port_file:
+        # written whole, then renamed: a reader never sees a partial port
+        tmp = f"{args.port_file}.tmp"
+        with open(tmp, "w") as f:
+            f.write(f"{port}\n")
+        os.replace(tmp, args.port_file)
+    print(f"replica {name} serving on {endpoint}", file=sys.stderr)
+
+    stop_beats = threading.Event()
+    if args.router:
+        import http.client
+
+        def _register_loop():
+            body = json.dumps({"name": name, "endpoint": endpoint})
+            while not server._stop and not stop_beats.is_set():
+                try:
+                    host, rport = args.router.rsplit(":", 1)
+                    conn = http.client.HTTPConnection(host, int(rport),
+                                                      timeout=2.0)
+                    try:
+                        conn.request("POST", "/admin/register", body=body)
+                        conn.getresponse().read()
+                    finally:
+                        conn.close()
+                except OSError:
+                    pass  # router restart: next beat re-registers
+                stop_beats.wait(max(0.5, args.ttl / 3.0))
+
+        threading.Thread(target=_register_loop, name="fleet-register",
+                         daemon=True).start()
+
+    def _sigterm(signum, frame):
+        # SIGTERM = drain, not die: finish the backlog, THEN stop the
+        # HTTP loop — same ordering as /admin/drain's shutdown_on_drain
+        # path, so serve_forever() only returns once the queue is empty
+        def _drain_then_exit():
+            server.drain()
+            httpd.shutdown()
+
+        threading.Thread(target=_drain_then_exit, name="serve-drain-sig",
+                         daemon=True).start()
+
+    signal.signal(signal.SIGTERM, _sigterm)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        server.drain()
+    finally:
+        httpd.server_close()
+        stop_beats.set()
+    stats = server.stats()
+    server.stop()
+    leftover = stats["queue_rows"]
+    print(f"replica {name} exiting: drained queue_rows={leftover}",
+          file=sys.stderr)
+    return 0 if leftover == 0 else 1
+
+
+def _cmd_fleet_router(args):
+    from .serve.fleet import FleetConfig, Router, serve_fleet
+
+    refused = _refuse_item8(args, "fleet router")
+    if refused is not None:
+        return refused
+    replicas = {}
+    if args.replicas:
+        for i, ep in enumerate(e for e in args.replicas.split(",") if e):
+            replicas[f"r{i}"] = ep
+    if not replicas and not args.autoscale_model_dir:
+        print("router needs --replicas (or --autoscale-model-dir); "
+              "replicas may also join over POST /admin/register",
+              file=sys.stderr)
+        return 1
+    config = FleetConfig(
+        probe_interval_s=args.probe_interval,
+        request_deadline_ms=args.deadline_ms,
+        attempt_timeout_ms=args.attempt_timeout_ms,
+        max_attempts=args.max_attempts, hedge_ms=args.hedge_ms)
+    router = Router(replicas, config=config)
+    autoscaler = None
+    if args.autoscale_model_dir:
+        import tempfile
+
+        from .serve.fleet import (Autoscaler, AutoscalerConfig,
+                                  ProcessReplicaSpawner)
+
+        workdir = tempfile.mkdtemp(prefix="fleet_autoscale_")
+        argv_base = [sys.executable, "-m", "paddle_tpu_torch", "fleet",
+                     "replica", "--model-dir", args.autoscale_model_dir,
+                     "--port", "0"]
+        if args.autoscale_cache_dir:
+            argv_base += ["--cache-dir", args.autoscale_cache_dir]
+        spawner = ProcessReplicaSpawner(
+            argv_base, workdir,
+            per_replica_cache=not args.autoscale_cache_dir)
+        autoscaler = Autoscaler(router, spawner, AutoscalerConfig(
+            target_p99_ms=args.autoscale_target_p99_ms,
+            high_queue_rows=args.autoscale_queue_rows,
+            min_replicas=args.autoscale_min,
+            max_replicas=args.autoscale_max,
+            interval_s=args.autoscale_interval,
+            cooldown_out_s=args.autoscale_cooldown_out,
+            cooldown_in_s=args.autoscale_cooldown_in)).start()
+    print(f"fleet router on {args.host}:{args.port} over "
+          f"{sorted(replicas.values()) or 'registered replicas'}",
+          file=sys.stderr)
+    serve_fleet(router, host=args.host, port=args.port)
+    if autoscaler is not None:
+        autoscaler.stop()
+        autoscaler.spawner.stop_all()
+    return 0
+
+
+def _cmd_fleet(args):
+    if args.fleet_action == "replica":
+        return _cmd_fleet_replica(args)
+    return _cmd_fleet_router(args)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="paddle_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -776,11 +1045,148 @@ def main(argv=None):
     apl.add_argument("--quiet", action="store_true",
                      help="show errors only, not warnings")
 
+    s = sub.add_parser("serve", help="serve a saved inference model with "
+                                     "the batching engine")
+    s.add_argument("--model-dir", required=True,
+                   help="save_inference_model directory")
+    s.add_argument("--place", default="cuda", choices=["cuda", "cpu"],
+                   help="the first CUDA card (default) or the host")
+    s.add_argument("--max-batch", type=int, default=8)
+    s.add_argument("--max-wait-ms", type=float, default=2.0)
+    s.add_argument("--replicas", type=int, default=1)
+    s.add_argument("--slo-ms", type=float, default=None)
+    s.add_argument("--max-queue-rows", type=int, default=None)
+    s.add_argument("--http", type=int, default=None, metavar="PORT",
+                   help="expose the HTTP frontend on PORT (blocking)")
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--selftest", type=int, default=64, metavar="N",
+                   help="without --http: fire N synthetic requests from "
+                        "concurrent clients and print stats JSON")
+    s.add_argument("--cache-dir", default=None,
+                   help="persistent compile-cache directory "
+                        "(FLAGS_compile_cache_dir): warm-up loads the "
+                        "prepared plans earlier processes stored")
+
+    f = sub.add_parser("fleet", help="multi-replica serving: replica and "
+                                     "router processes")
+    fsub = f.add_subparsers(dest="fleet_action", required=True)
+    fr = fsub.add_parser("replica", help="run one serving replica process "
+                                         "(drains clean on /admin/drain "
+                                         "or SIGTERM)")
+    fr.add_argument("--model-dir", required=True,
+                    help="save_inference_model directory")
+    fr.add_argument("--place", default="cuda", choices=["cuda", "cpu"],
+                    help="the first CUDA card (default; the JAX "
+                         "package's replica defaults to the host) or the "
+                         "host")
+    fr.add_argument("--amp", default=None, choices=["bfloat16"],
+                    help="serve under bf16 AMP (amp.enable)")
+    fr.add_argument("--host", default="127.0.0.1")
+    fr.add_argument("--port", type=int, default=0,
+                    help="HTTP port (0 = ephemeral; see --port-file)")
+    fr.add_argument("--port-file", default=None,
+                    help="write the bound port here once listening")
+    fr.add_argument("--name", default=None,
+                    help="replica name (default replica-<port>)")
+    fr.add_argument("--max-batch", type=int, default=8)
+    fr.add_argument("--max-wait-ms", type=float, default=2.0)
+    fr.add_argument("--replicas", type=int, default=1,
+                    help="engine executor replicas inside this process "
+                         "(one card each)")
+    fr.add_argument("--max-queue-rows", type=int, default=None)
+    fr.add_argument("--slo-ms", type=float, default=None,
+                    help="latency SLO; violations count "
+                         "serve_slo_violations_total and trigger "
+                         "flight-recorder dumps under FLAGS_trace")
+    fr.add_argument("--router", default=None, metavar="HOST:PORT",
+                    help="register with this fleet router over HTTP")
+    fr.add_argument("--master", default=None, metavar="HOST:PORT",
+                    help="not ported (ROADMAP queue 1 item 8): heartbeat "
+                         "an elastic-master TTL registration")
+    fr.add_argument("--ttl", type=float, default=10.0,
+                    help="registration TTL seconds (--router beats every "
+                         "ttl/3)")
+    fr.add_argument("--chaos-kill-at", type=int, default=None, metavar="N",
+                    help="SIGKILL this replica on its Nth executor "
+                         "dispatch (failover drill)")
+    fr.add_argument("--chaos-hang-at", type=int, default=None, metavar="N",
+                    help="hang this replica on its Nth executor dispatch")
+    fr.add_argument("--chaos-hang-ms", type=float, default=None,
+                    help="hang duration (default: effectively forever)")
+    fr.add_argument("--chaos-hang-times", type=int, default=1,
+                    metavar="K",
+                    help="hang on K consecutive dispatches from "
+                         "--chaos-hang-at (straggler drills)")
+    fr.add_argument("--chaos-delay-ms", type=float, default=None,
+                    help="sleep this long on EVERY executor dispatch: a "
+                         "deterministic service-time floor, so capacity "
+                         "drills see the same queueing on any host")
+    fr.add_argument("--obs", default=None, metavar="HOST:PORT",
+                    help="not ported (ROADMAP queue 1 item 8): push "
+                         "metrics/journal/trace snapshots to an obs "
+                         "collector")
+    fr.add_argument("--cache-dir", default=None,
+                    help="persistent compile-cache directory shared by "
+                         "the fleet (FLAGS_compile_cache_dir): only the "
+                         "first replica prepares each plan, the rest "
+                         "load it")
+    fr.add_argument("--compile-service", default=None, metavar="HOST:PORT",
+                    help="not ported (ROADMAP queue 1 item 8): the "
+                         "distributed compile service")
+    fo = fsub.add_parser("router", help="run the fleet router over a "
+                                        "replica set")
+    fo.add_argument("--replicas", default="",
+                    help="comma-separated replica host:port list")
+    fo.add_argument("--master", default=None, metavar="HOST:PORT",
+                    help="not ported (ROADMAP queue 1 item 8): discover "
+                         "replicas from an elastic-master registry")
+    fo.add_argument("--host", default="127.0.0.1")
+    fo.add_argument("--port", type=int, default=8100)
+    fo.add_argument("--probe-interval", type=float, default=0.5)
+    fo.add_argument("--deadline-ms", type=float, default=30000.0,
+                    help="per-request routing deadline")
+    fo.add_argument("--attempt-timeout-ms", type=float, default=None,
+                    help="per-attempt transport timeout")
+    fo.add_argument("--max-attempts", type=int, default=3)
+    fo.add_argument("--hedge-ms", type=float, default=None,
+                    help="hedge a silent first attempt after this long")
+    fo.add_argument("--obs", default=None, metavar="HOST:PORT",
+                    help="not ported (ROADMAP queue 1 item 8): push "
+                         "router metrics to an obs collector")
+    fo.add_argument("--autoscale-model-dir", default=None, metavar="DIR",
+                    help="enable the autoscaler: spawn `fleet replica` "
+                         "processes serving this save_inference_model "
+                         "dir when the latency target breaches, drain "
+                         "them away when load calms")
+    fo.add_argument("--autoscale-min", type=int, default=1,
+                    help="autoscaler floor (replicas)")
+    fo.add_argument("--autoscale-max", type=int, default=4,
+                    help="autoscaler ceiling (replicas)")
+    fo.add_argument("--autoscale-target-p99-ms", type=float, default=500.0,
+                    help="windowed router p99 the autoscaler holds")
+    fo.add_argument("--autoscale-queue-rows", type=float, default=None,
+                    help="queued rows across the fleet that also arm "
+                         "scale-out")
+    fo.add_argument("--autoscale-interval", type=float, default=1.0,
+                    help="control-loop tick seconds")
+    fo.add_argument("--autoscale-cooldown-out", type=float, default=5.0,
+                    help="seconds between scale-outs")
+    fo.add_argument("--autoscale-cooldown-in", type=float, default=30.0,
+                    help="seconds between scale-ins")
+    fo.add_argument("--autoscale-cache-dir", default=None,
+                    help="shared --cache-dir for spawned replicas "
+                         "(default: per-replica dirs under a temp "
+                         "workdir)")
+    fo.add_argument("--compile-service", default=None, metavar="HOST:PORT",
+                    help="not ported (ROADMAP queue 1 item 8): pass "
+                         "through to spawned replicas")
+
     args = parser.parse_args(argv)
     commands = {"version": _cmd_version, "flags": _cmd_flags,
                 "monitor": _cmd_monitor, "health": _cmd_health,
                 "checkpoint": _cmd_checkpoint, "cache": _cmd_cache,
-                "check": _cmd_check, "analyze": _cmd_analyze}
+                "check": _cmd_check, "analyze": _cmd_analyze,
+                "serve": _cmd_serve, "fleet": _cmd_fleet}
     return commands[args.command](args)
 
 

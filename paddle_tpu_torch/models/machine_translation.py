@@ -8,7 +8,10 @@ sequence_softmax) is the fused attention_lstm_decoder op. Ragged batches
 travel as SeqTensors (data + lengths), so every shape in the step is
 static. `beam_decode` translates with a trained net: the host drives the
 loop, and each step runs one attention_lstm_step program and one
-beam_search program (ROADMAP queue 1 item 4).
+beam_search program (ROADMAP queue 1 item 4). `greedy_step_program` is
+the same decoder step closed over its own argmax and target-embedding
+lookup, for greedy streams served by serve.continuous.ContinuousServer;
+`greedy_feeds` encodes a source batch into one request feed a source.
 """
 
 import weakref
@@ -158,18 +161,141 @@ def _step_programs(train_prog, weight_names, BK, K, V, E, D, Ts, He,
     return step_prog, beam_prog, beam_fetch, decode_prog, decode_fetch
 
 
-def _padded(lt):
+def _padded(lt, width=None):
     """A fetched ragged LoDTensor as ([B, Ts, ...] zero-padded, [B, Ts]
-    mask)."""
+    mask), Ts = `width` (default: the longest sequence)."""
     data = np.asarray(lt.numpy())
     offs = lt.last_level_offsets()
     lens = [b - a for a, b in zip(offs, offs[1:])]
-    o = np.zeros((len(lens), max(lens)) + data.shape[1:], data.dtype)
-    m = np.zeros((len(lens), max(lens)), "float32")
+    width = max(lens) if width is None else int(width)
+    if max(lens) > width:
+        raise ValueError(f"a source of {max(lens)} tokens exceeds "
+                         f"max_source_len {width}")
+    o = np.zeros((len(lens), width) + data.shape[1:], data.dtype)
+    m = np.zeros((len(lens), width), "float32")
     for i, (a, b) in enumerate(zip(offs, offs[1:])):
         o[i, : b - a] = data[a:b]
         m[i, : b - a] = 1.0
     return o, m
+
+
+def _decoder_wiring(train_prog):
+    """({slot: weight name} of the decoder op, the target embedding's
+    table name): the op's own input names are the source of truth,
+    whatever the layers named them."""
+    dec_op = _decoder_op(train_prog)
+    weight_names = {s: dec_op.input(s)[0] for s in (
+        "WAttState", "WAttScore", "WStep", "BStep", "WOut", "BOut")}
+    table_n = next(
+        op for op in train_prog.global_block().ops
+        if op.type == "lookup_table"
+        and op.input("Ids")[0] == "target_sequence").input("W")[0]
+    return weight_names, table_n
+
+
+def _decoder_op(train_prog):
+    return next(op for b in train_prog.blocks for op in b.ops
+                if op.type == "attention_lstm_decoder")
+
+
+def _encode(exe, train_prog, src_lod_tensor, scope, max_source_len=None):
+    """The encoder once, through a clone(for_test=True): (evec [B, Ts,
+    He], eproj [B, Ts, D], source mask [B, Ts], decoder boot [B, D]) as
+    numpy, zero-padded to `max_source_len` (default: the longest
+    source)."""
+    dec_op = _decoder_op(train_prog)
+    infer_prog = _cached(train_prog, ("infer",),
+                         lambda: train_prog.clone(for_test=True))
+    evec, eproj, boot = exe.run(
+        infer_prog, feed={"source_sequence": src_lod_tensor},
+        fetch_list=[dec_op.input("EncoderVec")[0],
+                    dec_op.input("EncoderProj")[0],
+                    dec_op.input("DecoderBoot")[0]], scope=scope)
+    evec_p, src_mask = _padded(evec, max_source_len)
+    eproj_p, _ = _padded(eproj, max_source_len)
+    return evec_p, eproj_p, src_mask, np.asarray(boot)
+
+
+def greedy_step_program(train_prog, max_source_len):
+    """One greedy decode step of a trained seq_to_seq_net, for a
+    ContinuousServer: (program, feed names, output fetches, state map).
+
+    Feeds, one row a stream: "prev_emb" [E], "prev_h" and "prev_c" [D]
+    (the recurrent state) and "enc_vec" [Ts, He], "enc_proj" [Ts, D],
+    "src_mask" [Ts] (the stream's encoded source, zero-padded to
+    Ts = max_source_len; static for the stream). The step runs
+    attention_lstm_step, takes the arg_max of its log-probs as the token
+    and looks the token up in the trained target embedding as the next
+    "prev_emb". Outputs: the token [1] (int64) and the new h [D]; state:
+    prev_emb <- the looked-up embedding, prev_h <- h, prev_c <- c. The
+    weights are read from the scope by their training names."""
+    weight_names, table_n = _decoder_wiring(train_prog)
+    gb = train_prog.global_block()
+    V, E = gb.vars[table_n].shape
+    D = gb.vars[weight_names["WOut"]].shape[0]
+    He = gb.vars[weight_names["WStep"]].shape[0] - D - E
+    Ts = int(max_source_len)
+    prog = fluid.Program()
+    with fluid.program_guard(prog, fluid.Program()):
+        pe = fluid.layers.data(name="prev_emb", shape=[E], dtype="float32")
+        ph = fluid.layers.data(name="prev_h", shape=[D], dtype="float32")
+        pc = fluid.layers.data(name="prev_c", shape=[D], dtype="float32")
+        ev = fluid.layers.data(name="enc_vec", shape=[Ts, He],
+                               dtype="float32")
+        ej = fluid.layers.data(name="enc_proj", shape=[Ts, D],
+                               dtype="float32")
+        sm = fluid.layers.data(name="src_mask", shape=[Ts], dtype="float32")
+        blk = prog.global_block()
+        for n in list(weight_names.values()) + [table_n]:
+            v = gb.vars[n]
+            blk.create_var(name=n, shape=v.shape, dtype=v.dtype,
+                           persistable=True)
+        h = blk.create_var(name="greedy_h", shape=[-1, D], dtype="float32")
+        c = blk.create_var(name="greedy_c", shape=[-1, D], dtype="float32")
+        lp = blk.create_var(name="greedy_logprobs", shape=[-1, V],
+                            dtype="float32")
+        blk.append_op(
+            type="attention_lstm_step",
+            inputs={"PrevEmb": [pe.name], "PrevH": [ph.name],
+                    "PrevC": [pc.name], "EncoderVec": [ev.name],
+                    "EncoderProj": [ej.name], "SrcMask": [sm.name],
+                    **{s: [n] for s, n in weight_names.items()}},
+            outputs={"H": [h.name], "C": [c.name], "LogProbs": [lp.name]},
+            attrs={})
+        tok = blk.create_var(name="greedy_token", shape=[-1],
+                             dtype="int64")
+        blk.append_op(type="arg_max", inputs={"X": [lp.name]},
+                      outputs={"Out": [tok.name]}, attrs={"axis": 1})
+        ids = fluid.layers.reshape(tok, shape=[-1, 1])
+        emb = blk.create_var(name="greedy_next_emb", shape=[-1, E],
+                             dtype="float32")
+        blk.append_op(type="lookup_table",
+                      inputs={"W": [table_n], "Ids": [ids.name]},
+                      outputs={"Out": [emb.name]},
+                      attrs={"padding_idx": -1})
+    feeds = ["prev_emb", "prev_h", "prev_c", "enc_vec", "enc_proj",
+             "src_mask"]
+    state = {"prev_emb": emb.name, "prev_h": h.name, "prev_c": c.name}
+    return prog, feeds, [tok, h], state
+
+
+def greedy_feeds(exe, train_prog, src_lod_tensor, max_source_len,
+                 start_id=0, scope=None):
+    """One greedy_step_program request feed per source of the batch: the
+    encoder runs once for the batch, as beam_decode's does; each stream
+    starts from the start token's embedding, the decoder boot as h and
+    zeros as c."""
+    scope = scope if scope is not None else fluid.global_scope()
+    _, table_n = _decoder_wiring(train_prog)
+    evec, eproj, mask, boot = _encode(exe, train_prog, src_lod_tensor,
+                                      scope, max_source_len)
+    table = as_numpy(scope.find_var(table_n))
+    start = table[start_id].astype("float32")
+    return [{"prev_emb": start, "prev_h": boot[i].astype("float32"),
+             "prev_c": np.zeros_like(boot[i], dtype="float32"),
+             "enc_vec": evec[i].astype("float32"),
+             "enc_proj": eproj[i].astype("float32"),
+             "src_mask": mask[i]} for i in range(len(boot))]
 
 
 def beam_decode(exe, train_prog, src_lod_tensor, beam_size=4, max_len=16,
@@ -192,27 +318,10 @@ def beam_decode(exe, train_prog, src_lod_tensor, beam_size=4, max_len=16,
     Returns (sentences, scores): per-beam token-id lists and accumulated
     log-prob floats, source-major, beam-minor."""
     scope = scope if scope is not None else fluid.global_scope()
-    # the decoder's wiring in the train program (the op's own input names
-    # are the source of truth, whatever the layers named them)
-    dec_op = next(op for b in train_prog.blocks for op in b.ops
-                  if op.type == "attention_lstm_decoder")
-    evec_n = dec_op.input("EncoderVec")[0]
-    eproj_n = dec_op.input("EncoderProj")[0]
-    boot_n = dec_op.input("DecoderBoot")[0]
-    weight_names = {s: dec_op.input(s)[0] for s in (
-        "WAttState", "WAttScore", "WStep", "BStep", "WOut", "BOut")}
-    table_n = next(
-        op for op in train_prog.global_block().ops
-        if op.type == "lookup_table"
-        and op.input("Ids")[0] == "target_sequence").input("W")[0]
+    weight_names, table_n = _decoder_wiring(train_prog)
 
-    infer_prog = _cached(train_prog, ("infer",),
-                         lambda: train_prog.clone(for_test=True))
-    evec, eproj, boot = exe.run(
-        infer_prog, feed={"source_sequence": src_lod_tensor},
-        fetch_list=[evec_n, eproj_n, boot_n], scope=scope)
-    evec_p, src_mask = _padded(evec)
-    eproj_p, _ = _padded(eproj)
+    evec_p, eproj_p, src_mask, boot = _encode(exe, train_prog,
+                                              src_lod_tensor, scope)
     B, Ts, He = evec_p.shape
     D = boot.shape[-1]
     K = beam_size

@@ -12,13 +12,23 @@ and p50/p95/p99 land in the monitor registry.
     with server:                       # start() captures every bucket
         y, = server.submit({"x": example}).result()
 
-`serve_http(server)` runs the same engine behind a stdlib HTTP frontend;
-`ModelSet` hosts N named one-shot Servers behind one submit/stats
-surface. The JAX package's continuous batching (serve/continuous) and
-fleet tier (serve/fleet) are not ported yet.
+`python -m paddle_tpu_torch serve --model-dir model_dir` runs the same
+engine behind a stdlib HTTP frontend (or a synthetic-load selftest), and
+`paddle_tpu_torch.serve.fleet` runs N such replicas behind a
+fault-tolerant router (health-checked least-queue routing, retries,
+graceful drain).
+
+Multi-model: `ModelSet` hosts N named one-shot Servers behind one
+submit/stats surface; `serve.continuous.ContinuousServer` hosts N named
+models inside ONE iteration-level step loop (requests join and leave a
+running batch every model step — autoregressive decode without
+head-of-line blocking). Both speak the same HTTP "model" field and
+per-model SLO metrics the fleet router and autoscaler consume.
 """
 
+from . import continuous, fleet
 from .buckets import bucket_for, ladder, pad_rows
+from .continuous import ContinuousConfig, ContinuousServer
 from .engine import (SERVE_MS_BUCKETS, ModelSet, ServeConfig, ServeError,
                      Server, ServerClosed, ServerDraining,
                      ServerOverloaded, UnknownModel)
@@ -27,6 +37,8 @@ from .http import make_http_server, serve_http
 __all__ = [
     "Server", "ServeConfig", "ServeError", "ServerOverloaded",
     "ServerClosed", "ServerDraining", "UnknownModel", "ModelSet",
-    "SERVE_MS_BUCKETS", "ladder", "bucket_for", "pad_rows",
+    "ContinuousServer", "ContinuousConfig", "SERVE_MS_BUCKETS",
+    "ladder", "bucket_for", "pad_rows",
     "serve_http", "make_http_server",
+    "fleet", "continuous",
 ]

@@ -31,10 +31,9 @@ Endpoints:
     GET  /stats       Server.stats() as JSON
     GET  /metrics     Prometheus text exposition of the monitor registry
 
-"steps"/"seed" drive the JAX package's continuous engine, which is not
-ported yet (nor is its fleet router): the port serves one-shot engines
-(Server, ModelSet), where "steps" other than 1 is a 400. A copy of the JAX
-package's paddle_tpu/serve/http.py.
+A one-shot engine (Server, ModelSet) answers "steps" other than 1 with a
+400; a ContinuousServer decodes K steps for the request, its feeds one
+example. A copy of the JAX package's paddle_tpu/serve/http.py.
 
 ThreadingHTTPServer gives one thread per connection; each handler
 thread parks on its request's Future, so concurrent connections batch

@@ -213,10 +213,15 @@ def _both(builder, level, **kw):
 #    verifier takes them as declared (analysis/verifier.py);
 #  * IfElse: the port splits the rows as the reference Fluid does (§3 item
 #    10), so its program differs (split/merge ops in place of
-#    logical_not/multiplex); both packages refuse it with PTA001/PTA008 at
-#    its sub-block reads and grads, at other op indices, and the port's
-#    split/merge ops (no shape contract) add PTA005 where the JAX
-#    package's unread logical_not grad gives PTA003.
+#    logical_not/multiplex). The JAX package refuses it with PTA001 at its
+#    conditional blocks' reads of their own outputs, PTA008 at its grads'
+#    writes and, at `full`, PTA031 at those grads' reads; the port's
+#    verifier takes what a control-flow op binds for its block as written
+#    at the op (analysis/verifier.py::bound_names, ROADMAP §3 item 18) and
+#    passes it. Its split/merge ops (no shape contract) add PTA005 where
+#    the JAX package's unread logical_not grad gives PTA003;
+#  * DynamicRNN: the JAX package refuses the block's read of its memory
+#    (PTA001, never written by any op); the port's op binds it.
 DIFFERENCES = {
     "batch_norm": {"basic": ([], []),
                    "full": (["PTA031"] * 2, [])},
@@ -224,11 +229,10 @@ DIFFERENCES = {
                        "full": (["PTA008"] * 3 + ["PTA031"] * 18, [])},
     "piecewise": {"basic": ([], []), "full": (["PTA032"], [])},
     "ifelse": {"basic": (["PTA001"] * 2 + ["PTA003"] + ["PTA008"] * 3,
-                         ["PTA001"] * 6 + ["PTA005"] * 2 + ["PTA008"] * 2),
+                         ["PTA005"] * 2),
                "full": (["PTA001"] * 2 + ["PTA003"] + ["PTA008"] * 3
-                        + ["PTA031"] * 2,
-                        ["PTA001"] * 6 + ["PTA005"] * 2 + ["PTA008"] * 2
-                        + ["PTA031"] * 6)},
+                        + ["PTA031"] * 2, ["PTA005"] * 2)},
+    "dynamic_rnn": {"basic": (["PTA001"], []), "full": (["PTA001"], [])},
 }
 
 BUILDERS = {"mlp": _mlp, "conv": _conv, "embedding": _embedding,
@@ -249,16 +253,56 @@ def test_verify_gives_the_jax_packages_diagnostics(name, level):
 
 @pytest.mark.parametrize("name", ["mlp", "conv", "embedding", "while",
                                   "batch_norm", "resnet_cifar10",
-                                  "piecewise"])
+                                  "piecewise", "ifelse", "dynamic_rnn"])
 def test_training_programs_verify_clean_in_the_port(name):
-    """The IfElse and DynamicRNN programs are refused at their sub-block
-    reads (PTA001) by both packages alike: verify does not follow the
-    names those layers write into their blocks."""
+    """Every BUILDERS program verifies clean at `full` in the port, the
+    IfElse and DynamicRNN programs among them (the names their ops bind
+    for their blocks are written at the op; the JAX package refuses both,
+    DIFFERENCES)."""
     main, feeds, fetches = _build(fluid, BUILDERS[name])
     r = analysis.verify(main, level="full", feed_names=feeds,
                         fetch_names=fetches)
     assert r.ok and r.rc == 0, [str(d) for d in r.errors()]
     assert r.summary["n_ops"] > 0
+
+
+@pytest.mark.parametrize("level", ["basic", "full"])
+@pytest.mark.parametrize("name", ["ifelse", "dynamic_rnn"])
+def test_control_flow_programs_verify_clean_at_both_levels(name, level):
+    main, feeds, fetches = _build(fluid, BUILDERS[name])
+    r = analysis.verify(main, level=level, feed_names=feeds,
+                        fetch_names=fetches)
+    assert r.ok and r.rc == 0, [str(d) for d in r.errors()]
+
+
+def _swap_block_ops(main):
+    """DynamicRNN's step block with its two ops swapped: the add reads the
+    mean before the op that writes it."""
+    ops = main.blocks[1].ops
+    ops[0], ops[1] = ops[1], ops[0]
+    return "reduce_mean_0.tmp_0"
+
+
+def _drop_branch_split(main):
+    """IfElse's true block without its split: the branch reads a row set
+    nothing writes, which its conditional_block no longer binds."""
+    ops = main.blocks[1].ops
+    del ops[next(i for i, op in enumerate(ops)
+                 if op.type == "split_lod_tensor")]
+    return "ifelse_0.tmp_0"
+
+
+@pytest.mark.parametrize("name,mutate", [("dynamic_rnn", _swap_block_ops),
+                                         ("ifelse", _drop_branch_split)])
+def test_a_real_read_before_write_in_a_block_is_still_pta001(name, mutate):
+    """What a control-flow op binds is written at the op; a name its block
+    reads before any op writes it is still refused."""
+    main, feeds, fetches = _build(fluid, BUILDERS[name])
+    var = mutate(main)
+    r = analysis.verify(main, level="basic", feed_names=feeds,
+                        fetch_names=fetches)
+    assert not r.ok
+    assert ("PTA001", var) in {(d.code, d.var) for d in r.errors()}
 
 
 def test_zero1_rewritten_program_verifies_as_the_jax_package():

@@ -200,6 +200,103 @@ def test_the_compile_services_slice_is_among_the_checked_sources(module):
     assert os.path.join(PORT, module) in set(_sources())
 
 
+@pytest.mark.parametrize("module", [
+    "serve/continuous/__init__.py", "serve/continuous/slots.py",
+    "serve/continuous/interop.py", "serve/continuous/scheduler.py",
+    "serve/fleet/__init__.py", "serve/fleet/membership.py",
+    "serve/fleet/health.py", "serve/fleet/policy.py",
+    "serve/fleet/router.py", "serve/fleet/autoscaler.py",
+    "parallel/master.py", "serve/http.py", "cli.py"])
+def test_the_continuous_and_fleet_slice_is_among_the_checked_sources(
+        module):
+    """Continuous batching, the fleet and the membership table are
+    checked by the test above."""
+    assert os.path.join(PORT, module) in set(_sources())
+
+
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch.serve.continuous", "paddle_tpu_torch.serve.fleet",
+    "paddle_tpu_torch.parallel.master"])
+def test_serving_modules_load_no_jax_in_a_fresh_interpreter(module):
+    """Importing each of the continuous/fleet modules alone, in a fresh
+    interpreter, loads neither jax nor the JAX package."""
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        f"import {module}\n"
+        "print('\\n'.join(sorted(set(sys.modules) - before)))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    loaded = proc.stdout.split()
+    assert module in loaded
+    assert [m for m in loaded if _foreign(m)] == []
+
+
+def test_serve_exports_every_name_of_the_jax_packages():
+    """paddle_tpu_torch.serve's __all__ holds every name of
+    paddle_tpu.serve's, each of the same kind; the continuous and fleet
+    subpackages hold every name of theirs."""
+    import types
+
+    from paddle_tpu import serve as jserve
+    from paddle_tpu.serve import continuous as jcont
+    from paddle_tpu.serve import fleet as jfleet
+
+    from paddle_tpu_torch import serve as tserve
+    from paddle_tpu_torch.serve import continuous as tcont
+    from paddle_tpu_torch.serve import fleet as tfleet
+
+    def kind(v):
+        if isinstance(v, types.ModuleType):
+            return "module"
+        return "class" if isinstance(v, type) else "callable" \
+            if callable(v) else type(v).__name__
+
+    for jmod, tmod in ((jserve, tserve), (jcont, tcont),
+                       (jfleet, tfleet)):
+        assert sorted(set(jmod.__all__) - set(tmod.__all__)) == []
+        for n in jmod.__all__:
+            assert kind(getattr(tmod, n)) == kind(getattr(jmod, n)), n
+
+
+def _cuda_marked(path):
+    """Names of the test functions in `path` marked `cuda`."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    out = []
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) and any(
+                isinstance(d, ast.Attribute) and d.attr == "cuda"
+                for d in node.decorator_list):
+            out.append(node.name)
+    return out
+
+
+@pytest.mark.parametrize("name", ["test_torch_continuous_card.py",
+                                  "test_torch_fleet.py"])
+def test_the_new_serving_files_cuda_cases_skip_without_a_card(name):
+    """Every `cuda`-marked test of the continuous and fleet files skips
+    where there is no card (none fails, none passes); the card file
+    imports no JAX."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the cases run")
+    path = os.path.join(REPO, "tests", name)
+    marked = _cuda_marked(path)
+    assert marked
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", path, "-q", "-p",
+         "no:cacheprovider", "-m", "cuda", "-rs"],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert f"{len(marked)} skipped" in proc.stdout, proc.stdout[-2000:]
+    if name.endswith("_card.py"):
+        assert [m for m in _imported_modules(path) if _foreign(m)] == []
+    assert " passed" not in proc.stdout and " failed" not in proc.stdout
+
+
 # names of the JAX package's top level whose modules wait in ROADMAP
 # queue 1 item 8 (the distributed transpiler and the memory passes), and
 # is_compiled_with_tpu, which asks JAX for a TPU
