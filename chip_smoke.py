@@ -54,8 +54,8 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 NHWC 224x224x3 input cast and scaled on the card, int32
                 labels, ResNet-50, Momentum(0.01, 0.9), FLAGS_fuse=1, bf16
                 AMP (amp.enable("bfloat16")), batch 128, Executor.run(
-                iters=40) over a seeded feed stack moved to the card once: 2
-                warm calls, then 5 timed calls from the first dispatch to one
+                iters=20) over a seeded feed stack moved to the card once: 1
+                warm call, then 3 timed calls from the first dispatch to one
                 scalar fetch (resnet50_train_images_per_sec), through the
                 captured step; the same program through the interpreter (one
                 warm and one timed iters=4 call); one replayed step and one
@@ -66,7 +66,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 the timed calls monitored (FLAGS_monitor, on by default)
                 and journaled to chiprun_out/headline_journal.jsonl
   6a. monitor — the run-time instruments on the same program and state:
-                1 warm + 3 calls with FLAGS_monitor=0 (the monitored
+                1 warm + 2 calls with FLAGS_monitor=0 (the monitored
                 headline at >= 0.95 of it; momentum launches 4 a step);
                 the journal, one record a call, through `python3 -m
                 paddle_tpu_torch monitor`; on a fresh prepare with
@@ -75,7 +75,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 image and mfu against monitor.chip_peak_flops();
                 FLAGS_benchmark's gauge beside the host clock;
                 FLAGS_check_nan_inf's cost (off, on, on, off calls of
-                iters=10); a profiler session over 3 replays exported as
+                iters=5); a profiler session over 3 replays exported as
                 one chrome trace (host lane, 4 momentum_kernel rows a
                 replay) and trace.costs' slowest ops; FLAGS_health's cost
                 a step, one interpreter step's stats against float64
@@ -85,7 +85,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
   6b. parallel — the headline's program, feeds and timing through
                 fluid.ParallelExecutor(use_cuda=True) over a one-rank NCCL
                 group (parallel.distributed.initialize, file:// rendezvous
-                in a temp dir): 1 warm + 1 timed iters=40 calls through the
+                in a temp dir): 1 warm + 1 timed iters=20 calls through the
                 captured step, its gradient all-reduces and global-batch
                 collectives inside the graph; step_mode "graph", the
                 momentum kernel's launches = buckets x steps, the
@@ -101,7 +101,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 batch 128) trained from it through DataPipe.from_recordio
                 -> map(random 224 crop and flip, INPUT_WORKERS processes)
                 -> batch(128) -> prefetch_to_device(CUDAPlace(0),
-                chunk=40) fed to Executor.run: (a) 1 warm + 2 timed calls
+                chunk=20) fed to Executor.run: (a) 1 warm + 2 timed calls
                 through the captured step: img/s and its ratio to the
                 headline's, the monitor's feed_wait a call, the pipe's
                 per-stage stats, the link's share, one replay traced
@@ -125,7 +125,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 0.9), dropout 0.2 before the classifier) and VGG-16
                 (vgg16_bn_drop + fc(102, softmax), Adam(1e-3), ten dropout
                 ops), each FLAGS_fuse=1 under bf16 AMP, batch 64,
-                Executor.run(iters=10) over a seeded feed stack made on the
+                Executor.run(iters=5) over a seeded feed stack made on the
                 card, 1 warm + 2 timed calls through the captured step,
                 fetching the loss and the last dropout's mask: img/s, peak
                 memory, launches = buckets x steps, every step's mask keeps
@@ -146,15 +146,15 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 everywhere, decoder caps 32/32; [nmt]), batch 128, seeded
                 ragged batches drawn as the synthetic readers draw them,
                 bucketed (create_bucketed_seq_tensor) to one flat total per
-                feed and stacked on the card, Executor.run(iters=10), 1 warm
+                feed and stacked on the card, Executor.run(iters=5), 1 warm
                 + 2 timed calls through the captured step: words/s (review
                 tokens; target tokens), step ms, peak memory, adam_bucket_
                 launches = buckets x steps, f32 state; one replayed step
                 traced (idle share, top-10 in chiprun_out/); the loop
                 ops' forwards timed alone (the derived grads run each
-                again); the embedding grads bitwise run to run; graph vs interpreter over 3 steps at batch 32
-                bitwise; host vs card within rtol 1e-4 over 3 steps at
-                batch 16
+                again); the embedding grads bitwise run to run; graph vs
+                interpreter over 3 steps at batch 32 bitwise; host vs card
+                within rtol 1e-4 over 2 steps at batch 16
  10. parity   — a small ResNet trained 2 steps on the card and on the host
                 from the same weights must agree, in fp32 and under bf16 AMP
  10b. serve  — the serving slice: the headline's network (uint8 NHWC
@@ -193,7 +193,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 equal to the schedule at the step counter's value, img/s
                 beside the headline's; (c) each of the eight new update
                 rules trains fp32 ResNet-50 (NHWC 224x224x3, batch 32)
-                for 3 steps, graph and interpreter bitwise equal, step
+                for 2 steps, graph and interpreter bitwise equal, step
                 ms; the phase's seconds ([tail_ops] lines)
  10d. loss_ops — the structured losses, the metrics and the rest of the
                 nn ops: (a) every op type the slice registered (warpctc,
@@ -211,9 +211,9 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 nce's negatives) by their laws on both; (b) the
                 PaddlePaddle book's label_semantic_roles db_lstm with its
                 CRF at the book's widths and batch (10 sentences of 10-60
-                tokens), SGD on exponential_decay: 4 steps through the
+                tokens), SGD on exponential_decay: 2 steps through the
                 captured step bitwise equal to the interpreter, host
-                losses within rtol 1e-4, 4 more replays timed (tokens/s,
+                losses within rtol 1e-4, 2 more replays timed (tokens/s,
                 ms a step), decoded tags in range, chunk_eval
                 on the test program through the interpreter, no
                 hand-written kernel launched ([loss_ops] lines). Alone:
@@ -234,9 +234,9 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 beam_search op alone, card against host, bitwise, on the
                 decode's candidates (NEG_INF ties) and on them rounded
                 (live ties); (b) the headline's program under
-                piecewise_decay([10, 50, 90], [0.1, 0.01, 0.001, 1e-4]),
+                piecewise_decay([10, 30, 90], [0.1, 0.01, 0.001, 1e-4]),
                 bf16 AMP, fused Momentum, batch 128, 1 warm + 1 timed
-                calls of iters=40 through the captured step: one
+                calls of iters=20 through the captured step: one
                 CapturedStep, no capture after the first call, momentum
                 launches 4 a step, every step's rate equal to the numpy
                 schedule, img/s at >= 0.97 of the same run's headline;
@@ -244,8 +244,8 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 first boundary; (c) the reference benchmark's
                 gate-by-gate LSTM in a DynamicRNN (embedding and hidden
                 512, vocabulary 5148, f32, fused Adam) at batch 16,
-                reviews of 16-64 tokens bucketed: 3 steps card vs host
-                within rtol 1e-4, graph vs interpreter bitwise, 3 more
+                reviews of 16-64 tokens bucketed: 2 steps card vs host
+                within rtol 1e-4, graph vs interpreter bitwise, 2 more
                 replays timed (ms a step, words/s); (d) a small program
                 of each new op family (While with its grad, Switch,
                 IfElse on mixed rows, StaticRNN, tensor arrays, the
@@ -255,7 +255,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
  10f. resilience — the training services: (a) fluid.Trainer over the
                 headline's network (Momentum(0.01, 0.9), FLAGS_fuse, bf16
                 AMP) fed by a DataPipe over a seeded in-memory pool of
-                uint8 images, batch 128, prefetch_to_device(chunk=8), 2
+                uint8 images, batch 128, prefetch_to_device(chunk=2), 2
                 epochs of 6 dispatches: img/s over the dispatches after
                 the first and its ratio to the same run's headline, the
                 event counts, momentum launches 4 a step; (b) the same
@@ -288,7 +288,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 --only resilience`
  10g. compile_services — the compile-time services: (a) the headline
                 (bf16 AMP, fused Momentum, batch 128) under
-                FLAGS_verify=full, 1 warm + 1 timed calls of iters=40
+                FLAGS_verify=full, 1 warm + 1 timed calls of iters=20
                 through the captured step: no error-severity diagnostic,
                 the verify's host seconds on the miss, img/s as a ratio to
                 the same run's headline, momentum launches 4 a step; the
@@ -338,14 +338,38 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 single program's, its overlap efficiency; (d) the
                 headline network's inference model served under bf16 by
                 2 `python -m paddle_tpu_torch fleet replica` processes
-                behind a Router, 256 requests from 16 clients, one
+                behind a Router, 128 requests from 16 clients, one
                 replica SIGKILLed at half: zero lost, the answers within
                 phase serve's bf16 bound of an in-process Server's,
                 routed img/s, p50/p99, retries, seconds until the router
                 marked the killed replica dead; the survivor drained,
                 exit 0 ([continuous] lines). Alone: `python3
                 chip_smoke.py --only continuous`
- 12. flash    — the flash-attention kernels (both wgmma fed by TMA; f32
+ 12. pserver  — the parameter server: pserver processes launched through
+                `python -m paddle_tpu_torch train --role pserver` (this
+                script as their child, `--pserver-child`), on ports the OS
+                picked, each killed in a `finally`; (a) bench.py's
+                headline (bf16, batch 128, Momentum) trained PS_STEPS steps
+                (the first warm) by this process against one pserver,
+                after a pull of its params, and (b) against two (the split
+                path: split_byref, split blocks and their accumulators)
+                from the same start pushed to them: each bitwise equal to
+                the untranspiled program's plain Executor run (FLAGS_fuse
+                =0, captured) over the losses and every persistable the
+                trainer writes; img/s beside the plain run's, a step split
+                into the trainer's compute (CUDA events), send, the
+                pserver's round (its optimize blocks timed by the pserver
+                process) and recv, bytes and GB/s each way; (c) the
+                distributed lookup table at the NMT's source vocabulary
+                (30,000 x 512) over two pservers, 50 steps of 2,048 Zipf
+                ids: the loss falls over 3x, each pserver holds only its
+                shard, every grown row within rtol 1e-5 of a dense replay
+                on the card (captured), prefetch ms and rows/s; (d)
+                memory_optimize on the headline: renames, 2 interpreter
+                steps bitwise the unoptimized program's, peak memory each
+                way ([pserver] lines). Alone: `python3 chip_smoke.py
+                --only pserver`
+ 13. flash    — the flash-attention kernels (both wgmma fed by TMA; f32
                 in 3xTF32 split products after its split prologue) against
                 their plain torch version on the card, causal and not, at
                 the CPU tests' shapes, the tiles' edges (129 q rows over
@@ -395,42 +419,45 @@ TF32_PRODUCTS = 3
 # the L2 cache of one H100 (50 MB): timed buckets rotate over more
 L2_BYTES = 50 * 2 ** 20
 GRAPH_REPLAYS = 100
-# bench.py's headline run: batch 128, iters=40 a call, 2 warm + 5 timed
+# bench.py's headline program: batch 128, iters=HEADLINE_K a call,
+# HEADLINE_WARM + HEADLINE_CALLS timed (cut from 40 and 2 + 5 to keep the
+# script well inside its time limit)
 HEADLINE_BATCH = 128
-HEADLINE_K = 40
-HEADLINE_WARM = 2
-HEADLINE_CALLS = 5
+HEADLINE_K = 20
+HEADLINE_WARM = 1
+HEADLINE_CALLS = 3
 PARALLEL_WARM = 1
 PARALLEL_CALLS = 1
 # host vs card losses under bf16 AMP: five bf16 ulps (5 x 2^-8)
 PARITY_AMP_RTOL = 2e-2
-# SE-ResNeXt-50 and VGG-16 under bf16 AMP: batch 64, iters=10 a call,
+# SE-ResNeXt-50 and VGG-16 under bf16 AMP: batch 64, iters=5 a call,
 # 1 warm + 2 timed calls; the README MLP and the MNIST conv net: batch
 # 128, 30 single steps
 IMAGE_BATCH = 64
-IMAGE_K = 10
+IMAGE_K = 5
 IMAGE_WARM = 1
 IMAGE_CALLS = 2
 ADAM_BATCH = 128
 ADAM_STEPS = 30
 # the sequence configs (benchmark/fluid's stacked_dynamic_lstm and
 # machine_translation) in f32 with Adam, as fluid_benchmark.py runs them:
-# batch 128, iters=10 a call, 1 warm + 2 timed calls; every ragged feed
+# batch 128, iters=5 a call, 1 warm + 2 timed calls; every ragged feed
 # tail-padded to one flat total, the steps' largest rounded up to a
 # multiple of SEQ_BUCKET tokens (fluid_benchmark.bucket_totals). The
 # LSTM's loop bound is --max_seq_len 128 (the longest synthetic review
 # has 127 tokens); the NMT's are seq_to_seq_net's defaults, 32 and 32.
 SEQ_BATCH = 128
-SEQ_K = 10
+SEQ_K = 5
 SEQ_WARM = 1
 SEQ_CALLS = 2
 SEQ_BUCKET = 64
 LSTM_MAX_LEN = 128
 IMDB_VOCAB = 5148
 WMT_DICT = 30000
-# host vs card at full width: 3 steps at this batch (the host's f32
-# matmuls over the 30000-word softmax set its size)
+# host vs card at full width: SEQ_PARITY_STEPS steps at this batch (the
+# host's f32 matmuls over the 30000-word softmax set its size)
 SEQ_PARITY_BATCH = 16
+SEQ_PARITY_STEPS = 2
 # a fetched dropout mask keeps 1 - p of its elements within this: the
 # smallest mask checked holds 64 x 512 elements, whose keep fraction's
 # standard deviation at p = 0.5 is 2.8e-3
@@ -446,10 +473,10 @@ KEEP_TOL = 0.01
 # MONITOR_HEALTH_RTOL (bf16 grads); the profiler session spans
 # MONITOR_TRACE_STEPS replays
 MONITOR_MIN_RATIO = 0.95
-MONITOR_K = 10
+MONITOR_K = 5
 # the headline re-run unmonitored: MONITOR_WARM + MONITOR_CALLS calls
 MONITOR_WARM = 1
-MONITOR_CALLS = 3
+MONITOR_CALLS = 2
 MONITOR_HEALTH_RTOL = 2e-2
 MONITOR_TRACE_STEPS = 3
 
@@ -488,8 +515,8 @@ TAIL_DECAY_STEPS = 10
 TAIL_K = 10
 TAIL_WARM = 1
 TAIL_CALLS = 2
-TAIL_OPT_STEPS = 3
-TAIL_OPT_TIMED = 3
+TAIL_OPT_STEPS = 2
+TAIL_OPT_TIMED = 2
 TAIL_OPTIMIZERS = {
     "adamax": lambda f: f.optimizer.Adamax(learning_rate=1e-3),
     "adagrad": lambda f: f.optimizer.Adagrad(learning_rate=0.01),
@@ -539,7 +566,7 @@ SRL_SLOTS = ["word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2",
              "verb", "mark", "target"]
 SRL_BATCH = 10
 SRL_LEN = (10, 60)
-SRL_STEPS = 4
+SRL_STEPS = 2
 SRL_RTOL = 1e-4
 # phase control_flow: (a) the NMT trained CF_NMT_STEPS fused-Adam steps at
 # batch CF_NMT_BATCH, then beam_decode (beam CF_BEAM, max_len CF_MAX_LEN)
@@ -547,7 +574,7 @@ SRL_RTOL = 1e-4
 # reference ImageNet recipes' schedule, cut to boundaries the timed calls
 # cross), CF_HEAD_WARM + CF_HEAD_CALLS calls of iters=HEADLINE_K; (c) the
 # gate-by-gate DynamicRNN LSTM at its published widths, batch
-# CF_DRNN_BATCH, reviews of CF_DRNN_LEN tokens, 3 checked and
+# CF_DRNN_BATCH, reviews of CF_DRNN_LEN tokens, CF_DRNN_STEPS checked and
 # CF_DRNN_TIMED timed steps; card vs host within CF_RTOL, and beams that
 # differ only where the host's K-th/(K+1)-th margin is under CF_NEAR_TIE
 # (or, where the card took the same K candidates in another order, the
@@ -556,7 +583,7 @@ CF_NMT_BATCH = 32
 CF_NMT_STEPS = 3
 CF_BEAM = 4
 CF_MAX_LEN = 16
-CF_BOUNDARIES = [10, 50, 90]
+CF_BOUNDARIES = [10, 30, 90]
 CF_VALUES = [0.1, 0.01, 0.001, 0.0001]
 CF_HEAD_WARM = 1
 CF_HEAD_CALLS = 1
@@ -565,7 +592,8 @@ CF_HEAD_BUCKETS = 4  # the headline's fused momentum buckets
 CF_DRNN_WIDTH = 512
 CF_DRNN_BATCH = 16
 CF_DRNN_LEN = (16, 65)
-CF_DRNN_TIMED = 3
+CF_DRNN_STEPS = 2
+CF_DRNN_TIMED = 2
 CF_RTOL = 1e-4
 CF_NEAR_TIE = 1e-4
 
@@ -578,7 +606,7 @@ CF_NEAR_TIE = 1e-4
 # epoch, killed after dispatch RES_MLP_KILL; async_fetch over
 # RES_ASYNC_CALLS calls of RES_CHUNK steps
 RES_POOL = 512
-RES_CHUNK = 8
+RES_CHUNK = 2
 RES_EPOCHS = 2
 RES_DISPATCHES = 6
 RES_INTERVAL = 10
@@ -649,9 +677,35 @@ CONT_HOST_RTOL = 1e-4
 CONT_HOST_ATOL = 1e-6
 CONT_IO_WIDTH = 1024
 CONT_FLEET_REPLICAS = 2
-CONT_FLEET_REQUESTS = 256
+CONT_FLEET_REQUESTS = 128
 CONT_FLEET_CLIENTS = 16
 CONT_FLEET_START_S = 240
+
+# phase pserver: (a) bench.py's headline program (uint8 224², batch
+# HEADLINE_BATCH, bf16 AMP, Momentum(0.01, 0.9)) trained PS_STEPS steps
+# (the first warm) by this process against one pserver process, and (b)
+# against two (the split path), each held bitwise to the untranspiled
+# program's plain Executor run (FLAGS_fuse=0, cuDNN deterministic) from
+# the same start; (c) the distributed lookup table: PS_TABLE ([vocab,
+# width]: the NMT's source vocabulary and width) mod-sharded over two
+# pservers, the embedding -> fc -> square error model under
+# SGD(PS_TABLE_LR), PS_TABLE_STEPS steps of PS_TABLE_IDS ids (128 x 16)
+# drawn Zipf(PS_TABLE_ZIPF) over a seeded permutation of the vocabulary,
+# held to a dense replay on the card within PS_TABLE_RTOL; (d)
+# memory_optimize on the headline program, PS_MEMOPT_STEPS interpreter
+# steps each way. Every pserver is a `python -m paddle_tpu_torch train
+# --role pserver` process, up within PS_START_S and killed past
+# PS_DEADLINE_S
+PS_STEPS = 4
+PS_TABLE = (30000, 512)
+PS_TABLE_IDS = 128 * 16
+PS_TABLE_STEPS = 50
+PS_TABLE_LR = 0.5
+PS_TABLE_ZIPF = 1.7
+PS_TABLE_RTOL = 1e-5
+PS_MEMOPT_STEPS = 2
+PS_START_S = 180
+PS_DEADLINE_S = 600
 
 SEED = 20261016
 BATCH = 32
@@ -683,6 +737,25 @@ GRAD_TOL = {"atol": 5e-5, "rtol": 1e-3}
 
 def log(msg):
     print(msg, flush=True)
+    # the same line behind the script's seconds so far, for the time a
+    # part of a phase takes
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_timeline.txt"), "a") as f:
+        f.write(f"{time.perf_counter() - _LAPS['start']:8.1f} {msg}\n")
+
+
+_LAPS = {"start": time.perf_counter(), "last": time.perf_counter(),
+         "seconds": {}}
+
+
+def lap(name):
+    """Close the wall-clock lap `name` (the seconds since the last lap) and
+    print it with the script's seconds so far: the whole script must end
+    well inside its 1,200 s, so each phase's share is in the log."""
+    now = time.perf_counter()
+    secs = _LAPS["seconds"][name] = round(now - _LAPS["last"], 1)
+    _LAPS["last"] = now
+    log(f"[time] {name} {secs} s; script {now - _LAPS['start']:.1f} s")
 
 
 def phase_device():
@@ -690,6 +763,8 @@ def phase_device():
         sys.exit("chip_smoke: torch.cuda.is_available() is False — this "
                  "script measures the port on a CUDA card and has no host "
                  "fallback")
+    if os.path.exists(os.path.join(OUT_DIR, "chip_smoke_timeline.txt")):
+        os.remove(os.path.join(OUT_DIR, "chip_smoke_timeline.txt"))
     # fp32 means fp32: no TF32 in cuDNN convolutions or cuBLAS products
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1385,32 +1460,49 @@ def trace_step(exe, main, feed, fetch, kernel="momentum_kernel",
             exe.run(main, feed=feed, fetch_list=fetch)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        device = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-        rows = sum(e.count for e in device if kernel in e.key)
+        device = _device_rows(prof)
+        busy_ms = sum(ms for ms, _ in device.values())
+        rows = sum(n for key, (_, n) in device.items() if kernel in key)
         if expect is None or rows == expect or attempt == TRACE_ATTEMPTS:
             break
         log(f"[profile] trace {attempt} of at most {TRACE_ATTEMPTS}: {rows} "
             f"{kernel} rows, not {expect}, among "
-            f"{sum(e.count for e in device)} device rows; wall "
+            f"{sum(n for _, n in device.values())} device rows; wall "
             f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms; tracing the "
             f"step again")
     if table is not None:
-        device.sort(key=lambda e: -e.self_device_time_total)
+        ranked = sorted(device.items(), key=lambda kv: -kv[1][0])
         os.makedirs(OUT_DIR, exist_ok=True)
         with open(os.path.join(OUT_DIR, f"{table}_profile.txt"), "w") as f:
-            for e in device:
-                f.write(f"{e.self_device_time_total / 1e3:10.3f} "
-                        f"{e.count:7d}  {e.key}\n")
-        log(f"[profile] {table}: {sum(e.count for e in device)} device "
-            f"rows; top 10 by device ms (calls):")
-        for e in device[:10]:
-            log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} "
-                f"({e.count:5d})  {e.key[:70]}")
-    draw_ms = sum(e.self_device_time_total for e in device
-                  if "distribution" in e.key) / 1e3
+            for key, (ms, n) in ranked:
+                f.write(f"{ms:10.3f} {n:7d}  {key}\n")
+        log(f"[profile] {table}: {sum(n for _, n in device.values())} "
+            f"device rows; top 10 by device ms (calls):")
+        for key, (ms, n) in ranked[:10]:
+            log(f"[profile]   {ms:8.3f} ({n:5d})  {key[:70]}")
+    draw_ms = sum(ms for key, (ms, _) in device.items()
+                  if "distribution" in key)
     return wall_ms, busy_ms, 1 - busy_ms / wall_ms, rows, draw_ms
+
+
+def _device_rows(prof):
+    """{name: [device ms, count]} of a profiled region's device events
+    (kernels, copies, sets): the rows and times key_averages() gives them,
+    summed from the raw trace without building a FunctionEvent an event,
+    which takes seconds for a step of ~10^5 kernels."""
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+
+    rows = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != torch.autograd.DeviceType.CUDA
+                or e.is_async() or e.start_thread_id() != e.end_thread_id()
+                or getattr(e, "is_hidden_event", lambda: False)()
+                or _filter_name(e.name())):
+            continue
+        row = rows.setdefault(_rewrite_name(e.name()), [0.0, 0])
+        row[0] += e.duration_ns() / 1e6
+        row[1] += 1
+    return rows
 
 
 def profile_step(exe, main, feed, fetch, warm_ms, name,
@@ -1524,7 +1616,7 @@ def _losses(out):
 
 def phase_headline(card, journal):
     """bench.py's headline run through the port: bf16 AMP, fused Momentum,
-    batch 128, Executor.run(iters=40) replayed from the captured step,
+    batch 128, Executor.run(iters=HEADLINE_K) replayed from the captured step,
     monitored (FLAGS_monitor, on by default) and its calls journaled to
     `journal`; the interpreter beside it; traces; graph vs interpreter
     bitwise. Returns (its numbers, what phase monitor reruns: the program,
@@ -3398,14 +3490,14 @@ def _embedding_grad_bitwise(main, scope, feed):
 
 
 def _seq_parity(m, init, card_line):
-    """3 steps of the full-width model at batch SEQ_PARITY_BATCH on the
-    host and on the card from the same weights, fused Adam: losses within
-    rtol 1e-4 (the repo's fp32 bound)."""
+    """SEQ_PARITY_STEPS steps of the full-width model at batch
+    SEQ_PARITY_BATCH on the host and on the card from the same weights,
+    fused Adam: losses within rtol 1e-4 (the repo's fp32 bound)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import convert, flags
 
-    batches = seq_batches(m["name"], np.random.RandomState(SEED + 1), 3,
-                          SEQ_PARITY_BATCH)
+    batches = seq_batches(m["name"], np.random.RandomState(SEED + 1),
+                          SEQ_PARITY_STEPS, SEQ_PARITY_BATCH)
     out = {}
     for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
         scope = fluid.Scope()
@@ -3420,7 +3512,8 @@ def _seq_parity(m, init, card_line):
         _release()
     host, card = out["CPUPlace()"], out["CUDAPlace(0)"]
     rel = max(abs(c / h - 1) for c, h in zip(card, host))
-    log(f"[{m['name']}] host vs card, 3 steps at batch {SEQ_PARITY_BATCH} "
+    log(f"[{m['name']}] host vs card, {SEQ_PARITY_STEPS} steps at batch "
+        f"{SEQ_PARITY_BATCH} "
         f"from one weight set: losses host {host} card {card}; largest "
         f"relative difference {rel:.3e} (rtol 1e-4) [{card_line}]")
     np.testing.assert_allclose(card, host, rtol=1e-4)
@@ -5479,9 +5572,10 @@ def _cf_headline(card, headline_img_s):
 
 def _cf_drnn(card_line, lstm_words_s):
     """(c) the gate-by-gate DynamicRNN LSTM at published widths, f32,
-    fused Adam: 3 steps on the host and on the card (the captured step)
-    from one state, losses within CF_RTOL; the same 3 steps through the
-    interpreter on the card, bitwise; CF_DRNN_TIMED more replays timed."""
+    fused Adam: CF_DRNN_STEPS steps on the host and on the card (the
+    captured step) from one state, losses within CF_RTOL; the same steps
+    through the interpreter on the card, bitwise; CF_DRNN_TIMED more
+    replays timed."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import convert, flags
     from paddle_tpu_torch.fusion import kernels as fk
@@ -5493,7 +5587,7 @@ def _cf_drnn(card_line, lstm_words_s):
                            fetch_names=[loss.name])
     n_buckets = sum(b["opt"] == "adam" for b in plan.buckets)
     rs = np.random.RandomState(SEED + 17)
-    batches = seq_batches("stacked_lstm", rs, 3 + CF_DRNN_TIMED,
+    batches = seq_batches("stacked_lstm", rs, CF_DRNN_STEPS + CF_DRNN_TIMED,
                           CF_DRNN_BATCH, CF_DRNN_LEN)
     total = -(-max(sum(len(s) for s in b["words"]) for b in batches)
               // SEQ_BUCKET) * SEQ_BUCKET
@@ -5514,13 +5608,13 @@ def _cf_drnn(card_line, lstm_words_s):
         with fluid.scope_guard(scope), flags.flag_guard(
                 fuse=True, cuda_graph=graph):
             lv = [float(exe.run(main, feed=f, fetch_list=[loss])[0]
-                        .reshape(-1)[0]) for f in feeds[:3]]
+                        .reshape(-1)[0]) for f in feeds[:CF_DRNN_STEPS]]
             out[name] = {"losses": lv, "mode": exe.step_mode(main),
                          "state": convert.numpy_state(scope, main)}
             if graph:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                for f in feeds[3:]:
+                for f in feeds[CF_DRNN_STEPS:]:
                     last = exe.run(main, feed=f, fetch_list=[loss],
                                    return_numpy=False)[0]
                 _fence(last)
@@ -5536,7 +5630,7 @@ def _cf_drnn(card_line, lstm_words_s):
         np.array_equal(graph["state"][n], v)
         for n, v in interp["state"].items())
     words = np.mean([sum(len(s) for s in b["words"])
-                     for b in batches[3:]])
+                     for b in batches[CF_DRNN_STEPS:]])
     words_s = words / graph["ms"] * 1e3
     log(f"[control_flow] (c) DynamicRNN LSTM (embedding {CF_DRNN_WIDTH}, "
         f"hidden {CF_DRNN_WIDTH}, vocabulary {IMDB_VOCAB}, one layer, f32, "
@@ -5545,12 +5639,12 @@ def _cf_drnn(card_line, lstm_words_s):
         f"(the loop's trip count): {graph['mode']}; losses host "
         f"{host['losses']} card {graph['losses']}, largest relative "
         f"difference {rel:.3e} (rtol {CF_RTOL:g}); graph vs interpreter "
-        f"over 3 steps: {'bitwise equal' if equal else 'DIFFER'}; "
+        f"over {CF_DRNN_STEPS} steps: {'bitwise equal' if equal else 'DIFFER'}; "
         f"{graph['ms']:.2f} ms a step over {CF_DRNN_TIMED} replays, "
         f"{words_s:.1f} words/s beside the fused dynamic_lstm's "
         f"{lstm_words_s} (phase stacked_lstm, batch {SEQ_BATCH}); "
         f"adam_bucket_ launches {graph['launches']} ({n_buckets} buckets x "
-        f"{3 + CF_DRNN_TIMED} steps) [{card_line}]")
+        f"{CF_DRNN_STEPS + CF_DRNN_TIMED} steps) [{card_line}]")
     np.testing.assert_allclose(graph["losses"], host["losses"],
                                rtol=CF_RTOL)
     if graph["mode"] != "graph" or interp["mode"] != "interpreter":
@@ -5558,10 +5652,10 @@ def _cf_drnn(card_line, lstm_words_s):
                              f"{interp['mode']}")
     if not equal:
         raise AssertionError("DynamicRNN: graph and interpreter differ")
-    if graph["launches"] != n_buckets * (3 + CF_DRNN_TIMED):
+    if graph["launches"] != n_buckets * (CF_DRNN_STEPS + CF_DRNN_TIMED):
         raise AssertionError(f"adam kernel launched {graph['launches']} "
                              f"times, expected {n_buckets} buckets x "
-                             f"{3 + CF_DRNN_TIMED} steps")
+                             f"{CF_DRNN_STEPS + CF_DRNN_TIMED} steps")
     return {"tokens_bucket": total, "losses_host": host["losses"],
             "losses_card": graph["losses"], "max_rel": rel,
             "bitwise": equal, "step_ms": graph["ms"], "words_per_sec":
@@ -7621,6 +7715,589 @@ def phase_continuous(card_line):
     return result
 
 
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def build_table(distributed=True):
+    """The distributed-table model of the JAX package's tests
+    (tests/test_sparse_table.py) at PS_TABLE: ids -> embedding (is_sparse;
+    is_distributed unless `distributed` is False, the dense replay) -> fc
+    -> square error, SGD(PS_TABLE_LR)."""
+    import paddle_tpu_torch as fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ids = fluid.layers.data(name="ids", shape=[1], dtype="int64")
+        label = fluid.layers.data(name="label", shape=[1], dtype="float32")
+        emb = fluid.layers.embedding(
+            ids, size=list(PS_TABLE), is_sparse=True,
+            is_distributed=distributed,
+            param_attr=fluid.ParamAttr(name="table_w"))
+        fc = fluid.layers.fc(input=emb, size=1,
+                             param_attr=fluid.ParamAttr(name="fc_w"))
+        loss = fluid.layers.mean(
+            fluid.layers.square_error_cost(input=fc, label=label))
+        fluid.optimizer.SGD(learning_rate=PS_TABLE_LR).minimize(loss)
+    main.random_seed = startup.random_seed = SEED
+    return main, startup, loss
+
+
+def _ps_transpile(model, pservers):
+    """(trainer program, its startup, loss, DistributeTranspiler) of
+    `model` ("headline" or "table") for `pservers`."""
+    import paddle_tpu_torch as fluid
+
+    if model == "headline":
+        main, startup, loss, _ = build_headline(plan=False)
+    else:
+        main, startup, loss = build_table()
+    t = fluid.DistributeTranspiler()
+    t.transpile(0, program=main, startup_program=startup, pservers=pservers,
+                trainers=1)
+    return main, startup, loss, t
+
+
+def pserver_child(model, dump):
+    """`python3 chip_smoke.py --pserver-child MODEL DIR`, exec'd by `python
+    -m paddle_tpu_torch train --role pserver` (PADDLE_PSERVERS,
+    PADDLE_CURRENT_ENDPOINT): the pserver program of MODEL for this
+    endpoint, its startup and then its service on the card, until the
+    trainer stops it. Each round's optimize blocks are timed (host clock;
+    CUDA events from the first block's start to the last block's end).
+    Prints one JSON line: the rounds, the kernels' launches, and a table's
+    row count (its rows and values saved to DIR)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.executor import Executor
+    from paddle_tpu_torch.fusion import kernels as fk
+    from paddle_tpu_torch.parallel import rpc
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ep = os.environ["PADDLE_CURRENT_ENDPOINT"]
+    t = _ps_transpile(model, os.environ["PADDLE_PSERVERS"])[3]
+    pp = t.get_pserver_program(ep)
+    sp = t.get_startup_program(ep, pp)
+    rounds, cur = [], {}
+    run_block, barrier = (Executor.run_block_eager,
+                          rpc.VariableServer._handle_batch_barrier)
+
+    def timed_block(self, block, scope):
+        if not cur:
+            cur["t0"] = time.perf_counter()
+            cur["start"] = torch.cuda.Event(enable_timing=True)
+            cur["start"].record()
+        run_block(self, block, scope)
+
+    def timed_barrier(self):
+        cur.clear()
+        barrier(self)
+        if cur:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            end.synchronize()
+            rounds.append([(time.perf_counter() - cur["t0"]) * 1e3,
+                           cur["start"].elapsed_time(end)])
+
+    Executor.run_block_eager = timed_block
+    rpc.VariableServer._handle_batch_barrier = timed_barrier
+    fk.reset_launch_counts()
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(sp, scope=scope)
+    exe.run(pp, scope=scope)  # serves until the trainer sends exit
+    torch.cuda.synchronize()
+    out = {"endpoint": ep, "blocks": len(pp.blocks) - 1, "rounds": rounds,
+           "momentum_launches": fk.momentum_bucket.launches,
+           "adam_launches": fk.adam_bucket.launches}
+    table = scope.find_var("table_w")
+    if table is not None:
+        rows = table.rows()
+        np.savez(os.path.join(dump, f"table_{ep.rsplit(':', 1)[1]}.npz"),
+                 rows=rows, values=table.gather(rows, auto_grow=False))
+        out["table_rows"] = len(table)
+    print(json.dumps(out), flush=True)
+
+
+def _ps_launch(model, n, dump):
+    """n pserver processes of `model` on ports the OS picked."""
+    eps = [f"127.0.0.1:{_free_port()}" for _ in range(n)]
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for i, ep in enumerate(eps):
+        path = os.path.join(OUT_DIR, f"pserver_{model}{n}_{i}.log")
+        with open(path, "w") as out:
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "paddle_tpu_torch", "train", "--role",
+                 "pserver", "--pservers", ",".join(eps),
+                 "--current-endpoint", ep, os.path.join(here, "chip_smoke.py"),
+                 "--pserver-child", model, dump],
+                cwd=here, stdout=out, stderr=subprocess.STDOUT), path))
+    return {"model": model, "eps": eps, "procs": procs,
+            "t0": time.monotonic()}
+
+
+def _ps_wait(cluster):
+    """Until every pserver of `cluster` accepts a connection; fails on one
+    that exited or is not up within PS_START_S. Returns the seconds."""
+    import socket
+
+    for ep, (proc, path) in zip(cluster["eps"], cluster["procs"]):
+        host, port = ep.rsplit(":", 1)
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"[pserver] {ep} exited with "
+                                     f"{proc.returncode} (see {path})")
+            try:
+                socket.create_connection((host, int(port)), timeout=1).close()
+                break
+            except OSError:
+                if time.monotonic() > cluster["t0"] + PS_START_S:
+                    raise AssertionError(f"[pserver] {ep} not up within "
+                                         f"{PS_START_S} s (see {path})")
+                time.sleep(0.05)
+    return time.monotonic() - cluster["t0"]
+
+
+def _ps_stop(cluster):
+    """Stop the pservers of `cluster` (the trainer's clients send exit),
+    wait for each, which must exit 0, and return their reports."""
+    from paddle_tpu_torch.ops import rpc_ops
+    from paddle_tpu_torch.parallel import rpc
+
+    rpc_ops.reset_clients()
+    for ep in cluster["eps"]:
+        try:
+            rpc.VariableClient(ep, connect_timeout=0.3).shutdown()
+        except OSError:
+            pass
+    reports = []
+    for proc, path in cluster["procs"]:
+        proc.wait(timeout=max(1.0, cluster["t0"] + PS_DEADLINE_S
+                              - time.monotonic()))
+        with open(path) as f:
+            lines = f.read().strip().splitlines()
+        if proc.returncode != 0:
+            raise AssertionError(f"[pserver] exited with {proc.returncode}: "
+                                 f"{lines[-5:]}")
+        reports.append(json.loads(lines[-1]))
+    return reports
+
+
+def _ps_kill(clusters):
+    """Kill every pserver process still alive; returns how many were."""
+    alive = 0
+    for cluster in clusters:
+        for proc, _ in cluster["procs"]:
+            if proc.poll() is None:
+                alive += 1
+                proc.kill()
+                proc.wait(timeout=30)
+    return alive
+
+
+def _ps_recvs(main):
+    """[(param, [(block or param name, endpoint, rows)])] the trainer
+    program receives, a split param's blocks in order."""
+    gb = main.global_block()
+    out = {}
+    for op in main.global_block().ops:
+        if op.type == "recv":
+            for name, ep in zip(op.output("Out"), op.attrs["epmap"]):
+                out.setdefault(name.split(".block")[0], []).append(
+                    (name, ep, gb.vars[name].shape[0]))
+    return out
+
+
+def _ps_pull(main, scope):
+    """Each param the trainer program receives, got from its pserver
+    before the first round (a split param's blocks joined) and copied into
+    `scope`'s tensor."""
+    from paddle_tpu_torch.ops import rpc_ops
+
+    for name, parts in _ps_recvs(main).items():
+        scope.find_var(name).copy_(torch.from_numpy(np.concatenate(
+            [rpc_ops._client(ep).get_var(b) for b, ep, _ in parts])))
+
+
+def _ps_push(main, state):
+    """`state`'s value of each param the trainer program receives, sent to
+    its pserver before the first round (a split param's blocks by their
+    rows): the pservers start where `state` does."""
+    from paddle_tpu_torch.ops import rpc_ops
+
+    for name, parts in _ps_recvs(main).items():
+        at = 0
+        for block, ep, rows in parts:
+            rpc_ops._client(ep).send_var(block, state[name][at:at + rows])
+            at += rows
+
+
+def _ps_steps(exe, main, loss, scope, feeds):
+    """The trainer program's steps: (the losses as tensors, each step's
+    wall ms and its parts: the trainer's compute on the card (CUDA events
+    from the step's start to the send's), send (device-to-host and the
+    wire), the pserver's round (the send barrier), recv (the wire and
+    host-to-device), the fetch barrier; bytes each way)."""
+    from paddle_tpu_torch.ops import rpc_ops
+
+    losses, steps = [], []
+    for f in feeds:
+        rpc_ops.reset_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=f, fetch_list=[loss], scope=scope,
+                      return_numpy=False)
+        _fence(out[0])
+        wall = (time.perf_counter() - t0) * 1e3
+        st = rpc_ops.stats
+        losses.append(out[0].reshape(-1)[0].float().cpu())
+        steps.append({
+            "wall_ms": wall,
+            "compute_ms": start.elapsed_time(rpc_ops.send_event),
+            "send_ms": st["send_s"] * 1e3,
+            "round_ms": st["send_barrier_s"] * 1e3,
+            "recv_ms": st["recv_s"] * 1e3,
+            "fetch_barrier_ms": st["fetch_barrier_s"] * 1e3,
+            "bytes_out": st["send_bytes"], "bytes_in": st["recv_bytes"]})
+    return losses, steps
+
+
+def _ps_headline_feeds():
+    rs = np.random.RandomState(SEED + 29)
+    return [{"data_u8": torch.from_numpy(rs.randint(
+                 0, 256, (HEADLINE_BATCH, 224, 224, 3),
+                 dtype=np.uint8)).cuda(),
+             "label": torch.from_numpy(rs.randint(
+                 0, 1000, (HEADLINE_BATCH, 1)).astype(np.int32)).cuda()}
+            for _ in range(PS_STEPS)]
+
+
+def _ps_plain(start, feeds):
+    """The untranspiled headline program through a plain Executor
+    (FLAGS_fuse=0, bf16 AMP) from `start`: (losses, state, the replays'
+    ms, step mode)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, convert, flags
+
+    main, startup, loss, _ = build_headline(plan=False)
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    convert.load_numpy_state(scope, main, start, fluid.CUDAPlace(0))
+    losses, ms = [], []
+    with flags.flag_guard(fuse=False), amp.auto_cast():
+        for f in feeds:
+            t0 = time.perf_counter()
+            out = exe.run(main, feed=f, fetch_list=[loss], scope=scope,
+                          return_numpy=False)
+            _fence(out[0])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(out[0].reshape(-1)[0].float().cpu())
+    return losses, convert.numpy_state(scope, main), ms, exe.step_mode(main)
+
+
+def _ps_headline(tag, cluster, start, feeds, plain):
+    """The headline's trainer against `cluster` from `start` (None: pull
+    the pservers' own start; else push it to them), bitwise against the
+    plain run (`plain`, None: run it here from the start). Returns (its
+    numbers, the start, the plain run)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, convert, flags
+    from paddle_tpu_torch.core import executor_core
+
+    main, startup, loss, _ = _ps_transpile("headline",
+                                           ",".join(cluster["eps"]))
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    if start is None:
+        _ps_pull(main, scope)
+        start = convert.numpy_state(scope, main)
+    else:
+        convert.load_numpy_state(scope, main, start, fluid.CUDAPlace(0))
+        _ps_push(main, start)
+    with flags.flag_guard(fuse=False), amp.auto_cast():
+        losses, steps = _ps_steps(exe, main, loss, scope, feeds)
+    if exe.step_mode(main) != "interpreter":
+        raise AssertionError(f"[pserver] {tag}: the trainer ran "
+                             f"{exe.step_mode(main)}")
+    state = convert.numpy_state(scope, main)
+    reports = _ps_stop(cluster)
+    if plain is None:
+        plain = _ps_plain(start, feeds)
+    plosses, pstate, pms, pmode = plain
+    written = executor_core.written_persistables(main)
+    diff = {n: float(np.abs(state[n].astype(np.float64) - pstate[n]).max())
+            for n in written if not np.array_equal(state[n], pstate[n])}
+    loss_equal = all(torch.equal(a, b) for a, b in zip(losses, plosses))
+    timed = steps[1:]
+    n = len(timed)
+    avg = {k: sum(s[k] for s in timed) / n for k in timed[0]}
+    img_s = HEADLINE_BATCH * n / (sum(s["wall_ms"] for s in timed) / 1e3)
+    replays = pms[2:]
+    plain_img_s = HEADLINE_BATCH * len(replays) / (sum(replays) / 1e3)
+    rounds = [r for rep in reports for r in rep["rounds"][1:]]
+    result = {
+        "pservers": len(cluster["eps"]),
+        "blocks": [rep["blocks"] for rep in reports],
+        "steps": PS_STEPS, "images_per_sec": img_s,
+        "plain_images_per_sec": plain_img_s, "plain_mode": pmode,
+        "step_ms": avg, "plain_replay_ms": replays,
+        "pserver_round_host_ms": [r[0] for r in rounds],
+        "pserver_round_device_ms": [r[1] for r in rounds],
+        "send_GB_s": avg["bytes_out"] / avg["send_ms"] / 1e6,
+        "recv_GB_s": avg["bytes_in"] / avg["recv_ms"] / 1e6,
+        "losses": [float(v) for v in losses],
+        "bitwise": loss_equal and not diff, "params_checked": len(written),
+        "momentum_launches": sum(rep["momentum_launches"]
+                                 for rep in reports),
+        "adam_launches": sum(rep["adam_launches"] for rep in reports)}
+    log(f"[pserver] {tag}: {len(cluster['eps'])} pserver(s) "
+        f"({result['blocks']} optimize blocks), {PS_STEPS} steps at batch "
+        f"{HEADLINE_BATCH}, bf16: {img_s:.2f} img/s against the plain "
+        f"Executor's {plain_img_s:.2f} ({pmode}); a step {avg['wall_ms']:.1f}"
+        f" ms = trainer compute {avg['compute_ms']:.1f} (CUDA events) + "
+        f"send {avg['send_ms']:.1f} + pserver round "
+        f"{avg['round_ms']:.1f} + recv {avg['recv_ms']:.1f} + fetch "
+        f"barrier {avg['fetch_barrier_ms']:.1f} + the rest; "
+        f"{avg['bytes_out'] / 1e6:.1f} MB out at "
+        f"{result['send_GB_s']:.3f} GB/s, {avg['bytes_in'] / 1e6:.1f} MB in "
+        f"at {result['recv_GB_s']:.3f} GB/s; the pservers' optimize blocks "
+        f"a round {[round(r[0], 2) for r in rounds]} host ms, "
+        f"{[round(r[1], 3) for r in rounds]} device ms; losses "
+        f"{result['losses']}; vs the plain run: "
+        f"{'bitwise equal' if result['bitwise'] else 'DIFFER'} "
+        f"(losses and {len(written)} written persistables)"
+        + ("" if not diff else f", {len(diff)} differ, largest "
+           f"{sorted(diff.items(), key=lambda kv: -kv[1])[:5]}"))
+    if not result["bitwise"]:
+        raise AssertionError(f"[pserver] {tag}: not bitwise equal to the "
+                             f"plain Executor run")
+    return result, start, plain
+
+
+def _ps_zipf_feeds(rs):
+    vocab = PS_TABLE[0]
+    p = 1.0 / np.arange(1, vocab + 1) ** PS_TABLE_ZIPF
+    p /= p.sum()
+    perm = rs.permutation(vocab)
+    target = rs.uniform(-1, 1, vocab).astype(np.float32)
+    feeds = []
+    for _ in range(PS_TABLE_STEPS):
+        ids = perm[rs.choice(vocab, PS_TABLE_IDS, p=p)].astype(np.int64)
+        feeds.append({"ids": ids.reshape(-1, 1),
+                      "label": target[ids].reshape(-1, 1)})
+    return feeds
+
+
+def _ps_table(cluster, dump):
+    """(c) the distributed table: PS_TABLE_STEPS steps against two
+    pservers from the pulled start; the loss falls over 3x; each pserver
+    holds only its shard's ids; every grown row equals a dense replay on
+    the card (the untranspiled is_sparse program, captured) within
+    PS_TABLE_RTOL."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.selected_rows import SparseTable
+    from paddle_tpu_torch.ops import rpc_ops
+
+    main, startup, loss, _ = _ps_transpile("table", ",".join(cluster["eps"]))
+    feeds = _ps_zipf_feeds(np.random.RandomState(SEED + 31))
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    _ps_pull(main, scope)
+    start = {n: scope.find_var(n).cpu().numpy().copy()
+             for n in _ps_recvs(main)}
+    rpc_ops.reset_stats()
+    t0 = time.perf_counter()
+    losses = [float(exe.run(main, feed=f, fetch_list=[loss],
+                            scope=scope)[0].reshape(-1)[0]) for f in feeds]
+    wall = time.perf_counter() - t0
+    st = dict(rpc_ops.stats)
+    reports = _ps_stop(cluster)
+    tables = [np.load(os.path.join(dump, f"table_{ep.rsplit(':', 1)[1]}"
+                                         f".npz")) for ep in cluster["eps"]]
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    shards = [bool(np.all(t["rows"] % len(tables) == i))
+              for i, t in enumerate(tables)]
+    # the dense replay: the table's rows at the pservers' first-touch init
+    # (SparseTable's per-id draw), the rest of the state pulled
+    rmain, rstartup, rloss = build_table(distributed=False)
+    rscope = fluid.Scope()
+    rexe = fluid.Executor()
+    rexe.run(rstartup, scope=rscope)
+    seen = np.unique(np.concatenate([f["ids"][:, 0] for f in feeds]))
+    init = np.zeros(PS_TABLE, np.float32)
+    init[seen] = SparseTable(PS_TABLE[1], height=PS_TABLE[0]).gather(seen)
+    rscope.find_var("table_w").copy_(torch.from_numpy(init))
+    for n, arr in start.items():
+        rscope.find_var(n).copy_(torch.from_numpy(arr))
+    rlosses = [float(rexe.run(rmain, feed=f, fetch_list=[rloss],
+                              scope=rscope)[0].reshape(-1)[0])
+               for f in feeds]
+    dense = rscope.find_var("table_w").cpu().numpy()
+    grown = np.concatenate([t["rows"] for t in tables])
+    got = np.concatenate([t["values"] for t in tables])
+    want = dense[grown]
+    err = np.abs(got.astype(np.float64) - want) / np.maximum(
+        np.abs(want), 1e-30)
+    close = np.allclose(got, want, rtol=PS_TABLE_RTOL, atol=0)
+    prefetch_s = st.get("prefetch_s", 0.0)
+    result = {
+        "steps": PS_TABLE_STEPS, "ids_a_step": PS_TABLE_IDS,
+        "rows_grown": [int(t["rows"].size) for t in tables],
+        "distinct_ids": int(seen.size), "shards_only": shards,
+        "loss_first10": float(first), "loss_last10": float(last),
+        "loss_ratio": float(last / first),
+        "replay_mode": rexe.step_mode(rmain),
+        "replay_loss_max_rel": float(np.max(np.abs(
+            np.array(losses) - rlosses) / np.abs(rlosses))),
+        "rows_max_rel_err": float(err.max()), "rows_close": bool(close),
+        "rows_bitwise": bool(np.array_equal(got, want)),
+        "step_ms": wall / PS_TABLE_STEPS * 1e3,
+        "prefetch_ms": prefetch_s / PS_TABLE_STEPS * 1e3,
+        "prefetch_rows_per_sec": st.get("prefetch_rows", 0) / prefetch_s,
+        "pserver_round_host_ms": [round(r[0], 3) for rep in reports
+                                  for r in rep["rounds"][-3:]]}
+    log(f"[pserver] (c) table {PS_TABLE[0]} x {PS_TABLE[1]} over 2 "
+        f"pservers, {PS_TABLE_STEPS} steps of {PS_TABLE_IDS} Zipf("
+        f"{PS_TABLE_ZIPF}) ids: loss {first:.4f} -> {last:.4f} (x"
+        f"{last / first:.3f}); {seen.size} distinct ids, rows grown "
+        f"{result['rows_grown']}, each pserver only its shard {shards}; "
+        f"a step {result['step_ms']:.2f} ms, prefetch "
+        f"{result['prefetch_ms']:.2f} ms a step "
+        f"({result['prefetch_rows_per_sec']:.0f} rows/s); the dense replay "
+        f"({result['replay_mode']}): rows within rtol "
+        f"{result['rows_max_rel_err']:.3g} (limit {PS_TABLE_RTOL}; "
+        f"{'bitwise' if result['rows_bitwise'] else 'not bitwise'}), "
+        f"losses within {result['replay_loss_max_rel']:.3g}")
+    if not (last < 0.3 * first and all(shards) and close
+            and result["replay_mode"] == "graph"):
+        raise AssertionError(f"[pserver] (c) failed: {result}")
+    return result
+
+
+def _ps_memopt(feeds):
+    """(d) memory_optimize on the headline program: PS_MEMOPT_STEPS
+    interpreter steps (bf16 AMP, unfused) from one state with and without
+    it: the losses bitwise; the renames and each run's peak memory."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, convert, flags
+
+    out, init = {}, None
+    for opt in (False, True):
+        main, startup, loss, _ = build_headline(plan=False)
+        renames = fluid.memory_optimize(main) if opt else {}
+        scope = fluid.Scope()
+        exe = fluid.Executor()
+        exe.run(startup, scope=scope)
+        if init is None:
+            init = convert.numpy_state(scope, main)
+        else:
+            convert.load_numpy_state(scope, main, init, fluid.CUDAPlace(0))
+        _release()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        # FLAGS_fuse=0: the fusion pass's hazard check (PTA031) pairs a
+        # grad op with its forward op by var name, which a rename reuses
+        with flags.flag_guard(fuse=False, cuda_graph=False), amp.auto_cast():
+            losses = [exe.run(main, feed=f, fetch_list=[loss], scope=scope,
+                              return_numpy=False)[0].reshape(-1)[0]
+                      .float().cpu() for f in feeds[:PS_MEMOPT_STEPS]]
+        out[opt] = {"renames": len(renames), "losses": losses,
+                    "peak_bytes": torch.cuda.max_memory_allocated() - base,
+                    "mode": exe.step_mode(main)}
+        del exe, scope
+        _release()
+    equal = all(torch.equal(a, b) for a, b in zip(out[False]["losses"],
+                                                  out[True]["losses"]))
+    result = {"renames": out[True]["renames"], "bitwise": equal,
+              "losses": [float(v) for v in out[True]["losses"]],
+              "peak_bytes": out[False]["peak_bytes"],
+              "peak_bytes_optimized": out[True]["peak_bytes"],
+              "mode": out[True]["mode"]}
+    log(f"[pserver] (d) memory_optimize on the headline: "
+        f"{result['renames']} renames; {PS_MEMOPT_STEPS} interpreter steps "
+        f"(bf16, unfused): losses {result['losses']} "
+        f"{'bitwise equal' if equal else 'DIFFER'} to the unoptimized "
+        f"program's; peak memory above the state {result['peak_bytes']} B "
+        f"without, {result['peak_bytes_optimized']} B with it")
+    if not equal or result["mode"] != "interpreter":
+        raise AssertionError(f"[pserver] (d) failed: {result}")
+    return result
+
+
+def phase_pserver(card_line):
+    """The parameter server on the card (module docstring, phase 12):
+    (a)-(d); every pserver process stopped, none left alive."""
+    import tempfile
+
+    from paddle_tpu_torch.fusion import kernels as fk
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    dump = tempfile.mkdtemp(prefix="chip_smoke_pserver_")
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    clusters = [_ps_launch("headline", 1, dump),
+                _ps_launch("headline", 2, dump),
+                _ps_launch("table", 2, dump)]
+    result = {}
+    try:
+        feeds = _ps_headline_feeds()
+        # (d) needs no pserver: it runs while they start
+        result["memory_optimize"] = _ps_memopt(feeds)
+        up = [_ps_wait(c) for c in clusters]
+        log(f"[pserver] {sum(len(c['eps']) for c in clusters)} pserver "
+            f"processes up after {[round(s, 1) for s in up]} s")
+        fk.reset_launch_counts()
+        result["one"], start, plain = _ps_headline("(a) the headline",
+                                                   clusters[0], None, feeds,
+                                                   None)
+        result["two"], _, _ = _ps_headline("(b) the split path",
+                                           clusters[1], start, feeds, plain)
+        trainer_launches = fk.momentum_bucket.launches + \
+            fk.adam_bucket.launches
+        del plain
+        _release()
+        result["table"] = _ps_table(clusters[2], dump)
+        _release()
+        result["trainer_launches"] = trainer_launches
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        left = _ps_kill(clusters)
+        shutil.rmtree(dump, ignore_errors=True)
+    if left:
+        raise AssertionError(f"[pserver] {left} pserver process(es) left "
+                             f"alive")
+    if trainer_launches or any(result[k]["momentum_launches"]
+                               or result[k]["adam_launches"]
+                               for k in ("one", "two")):
+        raise AssertionError("[pserver] a hand-written kernel ran on the "
+                             "pserver path")
+    result["seconds"] = time.perf_counter() - t0
+    log(f"[pserver] phase {result['seconds']:.1f} s; {card_line}")
+    return result
+
+
+def main_pserver():
+    """`python3 chip_smoke.py --only pserver`: the device check and phase
+    pserver alone (its path launches no hand-written kernel; (d)'s fused
+    update builds the kernels)."""
+    card_line = phase_device()
+    phase_build()
+    result = phase_pserver(card_line)
+    log(card_line)
+    log(json.dumps({"pserver": result}))
+    log(_device_line())
+
+
 def _device_line():
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7797,6 +8474,7 @@ def main():
     card_line = phase_device()
     card = torch.cuda.get_device_name(0)
     sass = phase_build()
+    lap("device_and_build")
     resnet = build_resnet50()
     mlp = build_mlp()
     images = {name: build_image_model(name)
@@ -7844,6 +8522,7 @@ def main():
             **{name: bucket_members(m["main"], m["buckets"])
                for name, m in seqs.items()}}}
     del head
+    lap("plan")
     rows = phase_kernels({
         "momentum_bucket": {"resnet50": numels(resnet[3]),
                             "se_resnext50": numels(
@@ -7855,49 +8534,63 @@ def main():
                            for name, m in seqs.items()}}},
         members)
     momentum, adam = rows[0], rows[1]
+    lap("kernels")
     paths = {"resnet50_fp32": phase_resnet(*resnet, card)}
     _release()
+    lap("resnet")
     headline, rerun = phase_headline(
         card, os.path.join(OUT_DIR, "headline_journal.jsonl"))
     paths["headline"] = headline["momentum_launches"]
     _release()
+    lap("headline")
     monitored = phase_monitor(card_line, headline, rerun)
     paths["headline_unmonitored"] = monitored["unmonitored_launches"]
     del rerun
     _release()
+    lap("monitor")
     parallel = phase_parallel(card, headline["images_per_sec"])
     paths["parallel_executor"] = parallel["momentum_launches"]
     _release()
+    lap("parallel")
     fed = phase_input(card_line, headline["images_per_sec"])
     paths["input"] = fed["momentum_launches"]
     _release()
+    lap("input")
     se = phase_image(images["se_resnext50"], card)
     paths["se_resnext50"] = se["launches"]
     momentum["launches"], momentum["launches_by_path"] = (
         headline["momentum_launches"], paths)
+    lap("se_resnext50")
     vgg = phase_image(images["vgg16"], card)
+    lap("vgg16")
     mnist = images["mnist_cnn"]
     paths = {"vgg16": vgg["launches"],
              "mlp": phase_adam("mlp", *mlp, [784]),
              "mnist_cnn": phase_adam("mnist_cnn", mnist["main"],
                                      mnist["startup"], mnist["loss"],
                                      mnist["buckets"], mnist["shape"])}
+    lap("adam")
     seq = {}
     for name, m in seqs.items():
         seq[name] = phase_seq(m, card_line)
         paths[name] = seq[name]["launches"]
+        lap(name)
     del seqs
     adam["launches"], adam["launches_by_path"] = vgg["launches"], paths
     phase_parity(amp=False)
     phase_parity(amp=True)
+    lap("parity")
     served = phase_serve(card_line)
     _release()
+    lap("serve")
     tail = phase_tail_ops(card, headline["images_per_sec"])
     momentum["launches_by_path"]["headline_clip_decay"] = \
         tail["clip_decay"]["momentum_launches"]
     _release()
+    lap("tail_ops")
     losses = phase_loss_ops(card_line)
     _release()
+    lap("loss_ops")
     flow = phase_control_flow(card, card_line, headline["images_per_sec"],
                               seq["stacked_lstm"]["words_per_sec"])
     momentum["launches_by_path"]["headline_piecewise"] = \
@@ -7907,6 +8600,7 @@ def main():
     adam["launches_by_path"]["dynamic_rnn_lstm"] = \
         flow["dynamic_rnn_lstm"]["adam_launches"]
     _release()
+    lap("control_flow")
     resil = phase_resilience(card, headline["images_per_sec"])
     for path in ("trainer_headline", "trainer_checkpointed"):
         momentum["launches_by_path"][path] = \
@@ -7914,15 +8608,27 @@ def main():
     adam["launches_by_path"]["trainer_mlp_dropout"] = \
         resil["trainer_mlp_dropout"]["adam_launches"]
     _release()
+    lap("resilience")
     services = phase_compile_services(card, headline["images_per_sec"])
     momentum["launches_by_path"]["headline_verify_full"] = \
         services["verify"]["momentum_launches"]
     momentum["launches_by_path"]["headline_l2_processes"] = \
         services["l2"]["momentum_launches"]
     _release()
+    lap("compile_services")
     continuous = phase_continuous(card_line)
     _release()
+    lap("continuous")
+    pserver = phase_pserver(card_line)
+    for path in ("one", "two"):
+        momentum["launches_by_path"][f"pserver_{path}"] = \
+            pserver[path]["momentum_launches"]
+    momentum["launches_by_path"]["pserver_trainer"] = \
+        pserver["trainer_launches"]
+    _release()
+    lap("pserver")
     rows += phase_flash(sass)
+    lap("flash")
     log(card_line)
     log(json.dumps({"headline": headline, "monitor": monitored,
                     "parallel": parallel, "input": fed,
@@ -7930,7 +8636,8 @@ def main():
                     "serve": served, "tail_ops": tail, "loss_ops": losses,
                     "control_flow": flow, "resilience": resil,
                     "compile_services": services,
-                    "continuous": continuous}))
+                    "continuous": continuous, "pserver": pserver,
+                    "seconds_by_phase": _LAPS["seconds"]}))
     log(json.dumps({"kernels": rows}))
     log(_device_line())
 
@@ -7948,6 +8655,10 @@ if __name__ == "__main__":
         main_compile_services()
     elif sys.argv[1:] == ["--only", "continuous"]:
         main_continuous()
+    elif sys.argv[1:] == ["--only", "pserver"]:
+        main_pserver()
+    elif sys.argv[1:2] == ["--pserver-child"] and len(sys.argv) == 4:
+        pserver_child(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == ["--l2-child"] and len(sys.argv) == 3:
         l2_child(sys.argv[2])
     else:

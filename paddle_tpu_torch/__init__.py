@@ -30,6 +30,11 @@ save on SIGTERM, the hang watchdog, the chaos harness); `metrics` and
 `cache` keeps it (an LRU under FLAGS_compile_cache_cap, a persistent
 store under FLAGS_compile_cache_dir); `debugger` prints and draws
 programs, and `concurrency` holds the CSP layers (channels, Go, Select).
+`DistributeTranspiler` rewrites a program into a trainer's and parameter
+servers' programs, which talk over `parallel.rpc`'s TCP runtime (sparse
+gradients as `core.selected_rows.SelectedRows`, a distributed lookup
+table as a pserver's `SparseTable`); `memory_optimize` and
+`release_memory` reuse and free a program's dead vars.
 """
 
 from . import flags
@@ -117,7 +122,8 @@ from .io import (
     clean_checkpoint,
 )
 from . import transpiler
-from .transpiler import InferenceTranspiler
+from .transpiler import (DistributeTranspiler, InferenceTranspiler,
+                         memory_optimize, release_memory)
 from . import metrics
 from . import evaluator
 from . import resilience

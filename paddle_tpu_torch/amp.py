@@ -150,15 +150,18 @@ def _base_type(op_type):
 def _cast_value(v, target, only_from=None):
     """Cast a float tensor (or SeqTensor data) to `target`; ints/bools and
     None pass through. `only_from` restricts which source dtypes convert.
-    The JAX package also casts SelectedRows values; the port has no
-    SelectedRows yet, so that branch is left out."""
+    A SelectedRows casts its values (the JAX package's branch)."""
     from .core.registry import SeqTensor
+    from .core.selected_rows import SelectedRows
 
     if v is None:
         return v
     if isinstance(v, SeqTensor):
         d = _cast_value(v.data, target, only_from)
         return v if d is v.data else SeqTensor(d, v.lengths)
+    if isinstance(v, SelectedRows):
+        d = _cast_value(v.values, target, only_from)
+        return v if d is v.values else SelectedRows(v.rows, d, v.height)
     if not isinstance(v, torch.Tensor) or not v.dtype.is_floating_point:
         return v
     name = dtypes.canonicalize(v.dtype)

@@ -51,6 +51,16 @@ journals and ledgers:
                      --master, --obs and --compile-service are refused
                      (ROADMAP queue 1 item 8)
 
+  train [--role trainer|pserver] [--trainers N] [--trainer-id I]
+        [--pservers H:P,...] [--current-endpoint H:P] SCRIPT [ARGS ...]
+                     exec a training script with the parameter-server
+                     cluster environment: PADDLE_TRAINING_ROLE,
+                     PADDLE_TRAINERS, PADDLE_TRAINER_ID, PADDLE_PSERVERS
+                     and PADDLE_CURRENT_ENDPOINT (the JAX command's
+                     names; fluid.Trainer itself reads the reference's
+                     PADDLE_PSERVER_IPS, PADDLE_PSERVER_PORT and
+                     PADDLE_CURRENT_IP, as the JAX package's does)
+
 The JAX CLI's other commands (trace ops, shard, elastic, obs, ...),
 `analyze schedule` (ROADMAP queue 1 item 6), `analyze pipeline` and
 `monitor` over several journals (item 8) are not ported yet.
@@ -76,6 +86,21 @@ def _cmd_version(args):
     else:
         print(f"torch {torch.__version__}; 0 device(s): no CUDA card")
     return 0
+
+
+def _cmd_train(args):
+    """Exec `args.script` in this process with the cluster environment
+    (the JAX package's `train`, paddle_tpu/cli.py:1545-1556)."""
+    env = dict(os.environ)
+    env["PADDLE_TRAINING_ROLE"] = args.role.upper()
+    env["PADDLE_TRAINERS"] = str(args.trainers)
+    env["PADDLE_TRAINER_ID"] = str(args.trainer_id)
+    if args.pservers:
+        env["PADDLE_PSERVERS"] = args.pservers
+    if args.current_endpoint:
+        env["PADDLE_CURRENT_ENDPOINT"] = args.current_endpoint
+    cmd = [sys.executable, args.script] + args.script_args
+    os.execve(sys.executable, cmd, env)
 
 
 def _cmd_flags(args):
@@ -1181,8 +1206,22 @@ def main(argv=None):
                     help="not ported (ROADMAP queue 1 item 8): pass "
                          "through to spawned replicas")
 
+    t = sub.add_parser("train", help="launch a training script with "
+                                     "cluster environment")
+    t.add_argument("--role", default="trainer",
+                   choices=["trainer", "pserver"])
+    t.add_argument("--trainers", type=int, default=1)
+    t.add_argument("--trainer-id", type=int, default=0)
+    t.add_argument("--pservers", default="",
+                   help="comma-separated host:port list")
+    t.add_argument("--current-endpoint", default="",
+                   help="this pserver's host:port")
+    t.add_argument("script")
+    t.add_argument("script_args", nargs=argparse.REMAINDER)
+
     args = parser.parse_args(argv)
     commands = {"version": _cmd_version, "flags": _cmd_flags,
+                "train": _cmd_train,
                 "monitor": _cmd_monitor, "health": _cmd_health,
                 "checkpoint": _cmd_checkpoint, "cache": _cmd_cache,
                 "check": _cmd_check, "analyze": _cmd_analyze,

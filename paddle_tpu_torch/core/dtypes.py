@@ -60,3 +60,15 @@ def to_torch(dtype):
 
 def is_float(dtype):
     return canonicalize(dtype) in FLOAT_DTYPES
+
+
+def to_host(value):
+    """A tensor as numpy, after one device-to-host copy; bf16, which numpy
+    lacks, widened to float32 (exactly). Anything else through
+    np.asarray."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach()
+        if value.dtype == torch.bfloat16:
+            value = value.float()
+        return value.cpu().numpy()
+    return np.asarray(value)

@@ -48,7 +48,15 @@ CSP_OPS = frozenset({"channel_create", "channel_send", "channel_recv",
 # among them: they draw from a RandomStream, whose generator the captured
 # graph advances at every replay.
 HOST_OPS = frozenset({"save", "load", "save_combine", "load_combine",
-                      "delete_var"}) | READER_OPS | CSP_OPS
+                      "delete_var"}) | READER_OPS | CSP_OPS | frozenset({
+    # the parameter server's RPC ops (ops/rpc_ops.py, and prefetch in
+    # ops/sparse_ops.py): each talks to a pserver over a socket, and the
+    # trainer's send and recv are the step's side effects
+    "send", "recv", "send_vars", "send_barrier", "fetch_barrier",
+    "listen_and_serv", "prefetch",
+    # a pserver's startup op that makes its SparseTable, a host object
+    # held in the scope
+    "init_sparse_table"})
 # Op types that read device values on the host: no side effects, so
 # dead-code elimination may drop them, but a graph cannot hold them. A
 # program with one runs through the interpreter, prepared and cached as
@@ -59,9 +67,12 @@ HOST_OPS = frozenset({"save", "load", "save_combine", "load_combine",
 # host), the rank-table family (the JAX package's no_trace ops, which
 # read the lengths), IfElse's row split and merge (the rows are found on
 # the host), `print` and the JAX package's other no_trace ops (feed,
-# fetch, get_places). A data-dependent loop inside a CUDA graph
+# fetch, get_places), and the distributed table's id ops (split_ids and
+# merge_ids shard and join ids on the host; lookup_sparse_table gathers
+# from a pserver's host table). A data-dependent loop inside a CUDA graph
 # needs the graph's conditional nodes (ROADMAP).
 HOST_SYNC_OPS = frozenset({
+    "split_ids", "merge_ids", "lookup_sparse_table",
     "chunk_eval", "while", "while_grad",
     "write_to_array", "read_from_array", "write_to_array_grad",
     "read_from_array_grad", "lod_array_length",
@@ -76,12 +87,16 @@ HOST_SYNC_OPS = frozenset({
 def first_non_finite(named_values):
     """(name, "NaN" or "Inf") of the first of `named_values` ((name,
     value) pairs) that holds NaN/Inf, or None. A SeqTensor is checked by
-    its data; values that are not floating-point tensors are skipped. One
-    reduction over all of them gives one flag, read once; the culprit is
-    looked for only when it is set."""
+    its data, a SelectedRows by its values (the JAX package's check,
+    paddle_tpu/core/executor_core.py:26-36); values that are not
+    floating-point tensors are skipped. One reduction over all of them
+    gives one flag, read once; the culprit is looked for only when it is
+    set."""
+    from .selected_rows import SelectedRows
+
     named = []
     for name, v in named_values:
-        v = registry.seq_data(v)
+        v = v.values if isinstance(v, SelectedRows) else registry.seq_data(v)
         if isinstance(v, torch.Tensor) and v.is_floating_point():
             named.append((name, v))
     if not named:

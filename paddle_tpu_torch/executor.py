@@ -242,6 +242,14 @@ def _has_host_ops(program):
                for b in program.blocks for op in b.ops)
 
 
+def _block_touched_names(block):
+    names = set()
+    for op in block.ops:
+        names.update(op.input_arg_names())
+        names.update(op.output_arg_names())
+    return names
+
+
 # the FLAGS_verify levels in order: an L2 entry verified at a level covers
 # the levels below it
 _VERIFY_RANK = {lvl: i for i, lvl in enumerate(analysis.LEVELS)}
@@ -924,8 +932,38 @@ class Executor:
         fetches, new_mut = step(mut, const, feeds, self._rng(program),
                                 scope=scope)
         for n in written:
-            if n in new_mut:
+            # a value the step left as it read it goes back to nobody: a
+            # pserver's blocks (listen_and_serv) write the scope itself
+            if n in new_mut and new_mut[n] is not mut.get(n):
                 scope.var(n)
                 scope.set_var(n, new_mut[n])
         return executor_core.unshared(
             fetches, [new_mut[n] for n in written if n in new_mut])
+
+    def run_block_eager(self, block, scope):
+        """Run one block's ops eagerly against `scope` on this executor's
+        place (reference listen_and_serv_op.cc ParallelExecuteBlocks: a
+        nested Executor::RunPreparedContext on a sub-block; the JAX
+        package's Executor.run_block_eager). Only durable vars are written
+        back: persistable ones, or ones already in the scope; a block's
+        temporaries (grad.merged) stay out."""
+        env = {}
+        for n in _block_touched_names(block):
+            v = scope.find_var(n)
+            if v is not None:
+                env[n] = self._to_device(v, None) \
+                    if isinstance(v, LoDTensor) else v
+        ctx = executor_core.OpContext(self.place, self._rng(block.program),
+                                      scope=scope)
+        with torch.no_grad():
+            executor_core.run_ops(block.ops, env, ctx)
+        gb = block.program.global_block()
+        for op in block.ops:
+            for n in op.output_arg_names():
+                if n not in env:
+                    continue
+                var = block.vars.get(n) or gb.vars.get(n)
+                if (var is not None and var.persistable) or \
+                        scope.find_var(n) is not None:
+                    scope.var(n)
+                    scope.set_var(n, env[n])

@@ -285,8 +285,25 @@ def _fuse_elementwise(clone, feed_names, fetch_names):
 # ---------------------------------------------------------------------------
 # horizontal pass: fused bucketed weight update
 # ---------------------------------------------------------------------------
-def _member_of(gb, i, op, fam):
-    """Member descriptor for optimizer op `op`, or None if ineligible."""
+def sparse_grad_names(ops):
+    """Names that hold a SelectedRows at run time: the W@GRAD of an
+    is_sparse lookup_table_grad, and a sum or scale of such names only
+    (math_ops: all-sparse sums stay sparse). An update whose Grad is one
+    stays on the per-op path, as the JAX package's FLAGS_fuse leaves it
+    (paddle_tpu/core/executor_core.py:160-171, which finds it by value)."""
+    sparse = set()
+    for op in ops:
+        if op.type == "lookup_table_grad" and op.attrs.get("is_sparse"):
+            sparse.update(op.output("W@GRAD"))
+        elif op.type in ("sum", "scale") and op.input("X") and all(
+                n in sparse for n in op.input("X")):
+            sparse.update(op.output("Out"))
+    return sparse
+
+
+def _member_of(gb, i, op, fam, sparse):
+    """Member descriptor for optimizer op `op`, or None if ineligible (a
+    Grad of `sparse`, a SelectedRows, among them)."""
     from ..core.framework import VarType
 
     def one(slots, name):
@@ -295,7 +312,7 @@ def _member_of(gb, i, op, fam):
 
     pname, gname = one(op.inputs, "Param"), one(op.inputs, "Grad")
     lr, pout = one(op.inputs, "LearningRate"), one(op.outputs, "ParamOut")
-    if not (pname and gname and lr and pout):
+    if not (pname and gname and lr and pout) or gname in sparse:
         return None
     pvar, gvar = gb.vars.get(pname), gb.vars.get(gname)
     if pvar is None or pvar.shape is None or any(
@@ -396,11 +413,12 @@ def _fuse_optimizers(clone, bucket_bytes):
     gb = clone.global_block()
     ops = gb.ops
     groups, seen, skipped = {}, set(), []
+    sparse = sparse_grad_names(ops)
     for i, op in enumerate(ops):
         fam = FUSABLE_OPT.get(op.type)
         if fam is None:
             continue
-        m = _member_of(gb, i, op, fam)
+        m = _member_of(gb, i, op, fam, sparse)
         if m is None:
             skipped.append(((op.inputs.get("Param") or ["?"])[0],
                             "wiring outside the fusable contract"))

@@ -1,7 +1,8 @@
-"""IO layers (reference python/paddle/fluid/layers/io.py): `data` and the
-reader family (the JAX package's layers/io.py:140-314), whose ops
-(ops/reader_ops.py) run on the host. ListenAndServ and Send/Recv wait for
-the slice that ports the parameter server (ROADMAP queue 1 item 8)."""
+"""IO layers (reference python/paddle/fluid/layers/io.py): `data`, the
+parameter server's ListenAndServ (with its BlockGuardServ), Send and Recv
+(the JAX package's layers/io.py:40-140; their ops are ops/rpc_ops.py's),
+and the reader family (layers/io.py:140-314), whose ops
+(ops/reader_ops.py) run on the host."""
 
 from .. import unique_name
 from ..core.framework import (VarType, default_main_program,
@@ -9,7 +10,8 @@ from ..core.framework import (VarType, default_main_program,
 from ..layer_helper import LayerHelper
 
 __all__ = [
-    "data", "open_recordio_file", "open_files", "open_datapipe",
+    "data", "BlockGuardServ", "ListenAndServ", "Send", "Recv",
+    "open_recordio_file", "open_files", "open_datapipe",
     "read_file", "shuffle", "batch", "double_buffer", "multi_pass",
     "random_data_generator",
 ]
@@ -37,6 +39,102 @@ def data(name, shape, append_batch_size=True, dtype="float32", lod_level=0,
         lod_level=lod_level,
         is_data=True,
     )
+
+
+class BlockGuardServ:
+    """reference layers/io.py BlockGuardServ: the block of a
+    ListenAndServ, whose ops are its optimize block."""
+
+    def __init__(self, server):
+        if not isinstance(server, ListenAndServ):
+            raise TypeError("BlockGuardServ takes a ListenAndServ")
+        self.server = server
+        self.main_program = server.helper.main_program
+
+    def __enter__(self):
+        self.main_program.create_block()
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        if exc_type is not None:
+            return False
+        sub_block = self.main_program.current_block()
+        self.main_program.rollback()
+        self.server.complete_op(sub_block)
+        return True
+
+
+class ListenAndServ:
+    """reference layers/io.py:109 — the pserver's blocking service op."""
+
+    def __init__(self, endpoint, inputs, fan_in=1, optimizer_mode=True):
+        self.helper = LayerHelper("listen_and_serv")
+        self.inputs = inputs
+        self.outputs = []
+        self.endpoint = endpoint
+        self.fan_in = fan_in
+
+    def do(self):
+        return BlockGuardServ(self)
+
+    @staticmethod
+    def _params_and_grads(block):
+        params, grads = [], []
+        for op in block.ops:
+            if "Grad" in op.inputs and "Param" in op.inputs:
+                params.append(op.input("Param")[0])
+                grads.append(op.input("Grad")[0])
+        return params, grads
+
+    def get_params_and_grads(self):
+        return self._params_and_grads(
+            self.helper.main_program.current_block())
+
+    def complete_op(self, sub_block):
+        params, grads = self._params_and_grads(sub_block)
+        self.helper.main_program.current_block().append_op(
+            "listen_and_serv",
+            {"X": self.inputs},
+            {},
+            {
+                "endpoint": self.endpoint,
+                "Fanin": self.fan_in,
+                "OptimizeBlock": sub_block,
+                "ParamList": params,
+                "GradList": grads,
+            },
+        )
+
+
+def Send(endpoints, send_vars, get_vars=None):
+    """reference layers/io.py:179 — send vars to pservers and fetch
+    `get_vars` back."""
+    assert isinstance(send_vars, list)
+    epmap = endpoints.split(",")
+    endpoints = list(set(epmap))
+    helper = LayerHelper("Send", **locals())
+    if not get_vars:
+        get_vars = []
+    helper.append_op(
+        "send",
+        {"X": send_vars},
+        {"Out": get_vars},
+        {"endpoints": endpoints, "epmap": epmap},
+    )
+    return get_vars
+
+
+def Recv(endpoints, get_vars):
+    """reference layers/io.py:218."""
+    assert isinstance(get_vars, list)
+    epmap = endpoints.split(",")
+    endpoints = list(set(epmap))
+    helper = LayerHelper("Recv", **locals())
+    helper.append_op(
+        "recv", {"X": get_vars}, {"Out": get_vars},
+        {"endpoints": endpoints, "epmap": epmap},
+    )
+    return get_vars
 
 
 # ---------------------------------------------------------------------------

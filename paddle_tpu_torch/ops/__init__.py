@@ -9,7 +9,8 @@ every optimizer rule), the structured losses (CTC, CRF, NCE, hierarchical
 sigmoid), the metrics, the rest of the nn ops, the host file IO ops of
 fluid.io, the reader ops (readers held in the scope, `read`), control
 flow (while, conditional blocks, tensor arrays, rank tables, the
-recurrent ops), beam search and the CSP ops (channels, go, select)."""
+recurrent ops), beam search, the CSP ops (channels, go, select), and the
+parameter server's RPC and distributed-table ops."""
 
 from . import util
 from . import tensor_ops
@@ -29,3 +30,4 @@ from . import collective_ops
 from . import io_ops
 from . import reader_ops
 from . import concurrency_ops
+from . import rpc_ops

@@ -21,7 +21,7 @@ communicates nothing. Every collective any of these issues is counted on
 `launch.launches` (replays of a captured step included).
 
 collective_permute and pipeline_send/recv wait for the pipeline and ring
-slice (ROADMAP queue 1 item 10).
+slice (ROADMAP queue 1 item 8).
 """
 
 import torch

@@ -98,8 +98,12 @@ for _name, _fn in [
 def sum_op(ctx, ins, attrs):
     """reference operators/sum_op.cc — add N tensors (grad accumulation).
     Tensor arrays (the grads of two reads of one array) merge slot by
-    slot; a slot only one of them holds rides through."""
+    slot; a slot only one of them holds rides through. SelectedRows
+    (sparse gradients) follow the reference's SelectedRowsAddTo: all
+    sparse stays sparse (rows and values concatenated, duplicates left
+    for the consumer to merge); a mix with dense tensors densifies."""
     xs = many(ins, "X")
+    from ..core.selected_rows import SelectedRows
     from .control_flow_ops import TensorArray
 
     if any(isinstance(x, TensorArray) for x in xs):
@@ -113,6 +117,13 @@ def sum_op(ctx, ins, attrs):
                     prev = merged.items[idx] if idx < len(merged) else None
                     merged.write(idx, item if prev is None else prev + item)
         return out(Out=merged)
+    if any(isinstance(x, SelectedRows) for x in xs):
+        if all(isinstance(x, SelectedRows) for x in xs):
+            return out(Out=SelectedRows(
+                torch.cat([x.rows.reshape(-1) for x in xs]),
+                torch.cat([x.values for x in xs]), xs[0].height))
+        xs = [x.to_dense() if isinstance(x, SelectedRows) else x
+              for x in xs]
     acc = xs[0]
     for x in xs[1:]:
         acc = acc + x
@@ -124,6 +135,13 @@ def scale_op(ctx, ins, attrs):
     x = first(ins, "X")
     s = attrs.get("scale", 1.0)
     b = attrs.get("bias", 0.0)
+    from ..core.selected_rows import SelectedRows
+
+    if isinstance(x, SelectedRows):  # a sparse grad's scaling (pserver)
+        if b != 0.0:
+            raise ValueError("scale with a bias is undefined on SelectedRows")
+        v = x.values
+        return out(Out=SelectedRows(x.rows, (v * s).to(v.dtype), x.height))
     o = x * s + b if attrs.get("bias_after_scale", True) else (x + b) * s
     return out(Out=o.to(x.dtype))
 

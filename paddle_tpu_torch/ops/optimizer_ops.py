@@ -14,8 +14,44 @@ from .util import first, out
 
 @register_op("sgd")
 def sgd_op(ctx, ins, attrs):
+    """reference operators/sgd_op.cc: the dense update, and its two sparse
+    paths: a SelectedRows grad on a dense param (`_merged_rows`, then
+    p - lr·merged into a copy of the param) and a SelectedRows grad on a
+    pserver's SparseTable (the table's host update, which merges the same
+    way: the two give the same bits)."""
     p, g, lr = first(ins, "Param"), first(ins, "Grad"), first(ins, "LearningRate")
+    from ..core.selected_rows import SelectedRows, SparseTable
+
+    if isinstance(p, SparseTable):
+        if not isinstance(g, SelectedRows):
+            raise TypeError(
+                f"SparseTable sgd needs a SelectedRows grad, got {type(g)}")
+        p.sgd_update(g, float(lr.reshape(())))
+        return out(ParamOut=p)
+    if isinstance(g, SelectedRows):
+        rows, merged = _merged_rows(g.rows, g.values.to(p.dtype))
+        upd = p.clone()
+        upd.index_put_((rows,), -(lr.reshape(()).to(p.dtype) * merged),
+                       accumulate=True)
+        return out(ParamOut=upd)
     return out(ParamOut=p - lr.reshape(()).to(p.dtype) * g.to(p.dtype))
+
+
+def _merged_rows(rows, values):
+    """(rows, merged values), each id's values summed in the order they
+    came (the reference's MergeAdd; SparseTable.sgd_update's np.add.at),
+    at static shapes, so that a captured step holds it: the R rows sorted
+    stably, segment k's sum at position k of an [R, ...] buffer
+    (index_put_ with accumulate=True adds in order on the card too), and
+    each position past the last segment row 0 with a zero sum, which
+    leaves the param as it is."""
+    rows, perm = torch.sort(rows.reshape(-1).long(), stable=True)
+    first = torch.ones_like(rows, dtype=torch.bool)
+    first[1:] = rows[1:] != rows[:-1]
+    seg = torch.cumsum(first, 0) - 1
+    merged = torch.zeros_like(values).index_put_((seg,), values[perm],
+                                                 accumulate=True)
+    return torch.zeros_like(rows).index_put_((seg,), rows), merged
 
 
 @register_op("momentum")

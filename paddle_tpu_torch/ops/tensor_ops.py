@@ -55,6 +55,23 @@ def split_op(ctx, ins, attrs):
     return out(Out=list(parts))
 
 
+@register_op("split_byref")
+def split_byref_op(ctx, ins, attrs):
+    """reference operators/split_byref_op.cc: X cut along axis 0 into parts
+    of `sections` rows, each a view of X (no copy). The parameter
+    server's trainer program splits a gradient with it into the blocks
+    it sends; the JAX package's transpiler emits it but registers no
+    kernel for it (ROADMAP §3)."""
+    x = first(ins, "X")
+    if attrs.get("axis", 0) != 0:
+        raise ValueError("split_byref splits along axis 0 only")
+    sections = [int(n) for n in attrs["sections"]]
+    if sum(sections) != x.shape[0]:
+        raise ValueError(f"split_byref: sections {sections} do not add up "
+                         f"to {x.shape[0]} rows")
+    return out(Out=list(torch.split(x, sections, dim=0)))
+
+
 @register_op("reshape")
 def reshape_op(ctx, ins, attrs):
     """A 0 in `shape` copies the input's dim (reference reshape_op.cc). The

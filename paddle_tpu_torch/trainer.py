@@ -9,10 +9,14 @@ chunks fed straight to Executor.run, `iters` = the pipe's chunk). With a
 ResilienceConfig both loops run under a ResilientRunner: restore at start
 (params, optimizer state, the global step, the pipe's source position and
 the program's random stream), retried dispatch, the NaN guard, the
-checkpoint cadence and the grace save on SIGTERM/SIGINT. The JAX
-package's runner also resizes an elastic fleet (Resized) and its Trainer
-transpiles for a parameter server under PADDLE_TRAINING_ROLE; both wait
-for the distributed stack (ROADMAP queue 1 item 8) and raise here.
+checkpoint cadence and the grace save on SIGTERM/SIGINT. Under
+PADDLE_TRAINING_ROLE (TRAINER or PSERVER, with the reference's
+PADDLE_PSERVER_IPS, PADDLE_PSERVER_PORT, PADDLE_CURRENT_IP,
+PADDLE_TRAINERS and PADDLE_TRAINER_ID) the programs are transpiled for a
+parameter server (DistributeTranspiler), and a PSERVER's train() serves
+until a trainer stops it. The JAX package's runner also resizes an
+elastic fleet (Resized), which waits for the rest of the distributed
+stack (ROADMAP queue 1 item 8) and raises here.
 """
 
 import contextlib
@@ -96,13 +100,6 @@ def check_and_get_place(place):
     return place
 
 
-def _not_ported_role():
-    return NotImplementedError(
-        "PADDLE_TRAINING_ROLE: the parameter-server run needs "
-        "DistributeTranspiler, which is not yet ported to paddle_tpu_torch "
-        "(ROADMAP queue 1 item 8)")
-
-
 class Trainer:
     """reference trainer.py:88.
 
@@ -143,8 +140,7 @@ class Trainer:
             optimizer.minimize(loss, self.startup_program)
 
         self.place = check_and_get_place(place)
-        if "PADDLE_TRAINING_ROLE" in os.environ:
-            raise _not_ported_role()
+        self._dist_transpile_if_necessary()
 
         with scope_guard(self.scope):
             Executor(self.place).run(self.startup_program)
@@ -176,12 +172,43 @@ class Trainer:
                 resilience_config, scope=self.scope,
                 program=self.train_program, place=self.place)
 
+    def _dist_transpile_if_necessary(self):
+        """Cluster bootstrap from the environment (reference
+        trainer.py:148-196; the JAX package's, with its env names)."""
+        if "PADDLE_TRAINING_ROLE" not in os.environ:
+            return
+        from .transpiler import DistributeTranspiler
+
+        training_role = os.environ["PADDLE_TRAINING_ROLE"]
+        port = os.environ.get("PADDLE_PSERVER_PORT", "6174")
+        pserver_ips = os.environ.get("PADDLE_PSERVER_IPS", "")
+        eplist = [f"{ip}:{port}" for ip in pserver_ips.split(",") if ip]
+        trainers = int(os.environ.get("PADDLE_TRAINERS", "1"))
+        trainer_id = int(os.environ.get("PADDLE_TRAINER_ID", "0"))
+        current_endpoint = (
+            os.environ.get("PADDLE_CURRENT_IP", "127.0.0.1") + ":" + port)
+        t = DistributeTranspiler()
+        t.transpile(trainer_id, pservers=",".join(eplist), trainers=trainers,
+                    program=self.train_program,
+                    startup_program=self.startup_program)
+        if training_role == "PSERVER":
+            self.train_program = t.get_pserver_program(current_endpoint)
+            self.startup_program = t.get_startup_program(
+                current_endpoint, self.train_program)
+        elif training_role == "TRAINER":
+            self.train_program = t.get_trainer_program()
+        else:
+            raise ValueError("PADDLE_TRAINING_ROLE must be PSERVER or TRAINER")
+
     def stop(self):
         self.__stop = True
 
     def train(self, num_epochs, event_handler, reader=None, feed_order=None):
-        if os.environ.get("PADDLE_TRAINING_ROLE"):
-            raise _not_ported_role()
+        if os.environ.get("PADDLE_TRAINING_ROLE", "") == "PSERVER":
+            # serves until a trainer sends exit
+            with scope_guard(self.scope):
+                Executor(self.place).run(self.train_program)
+            return
         self._train_by_executor(num_epochs, event_handler, reader, feed_order)
 
     def test(self, reader, feed_order):

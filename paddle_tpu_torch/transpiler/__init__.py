@@ -1,7 +1,17 @@
 """Program transpilers (reference python/paddle/fluid/transpiler/): the
-InferenceTranspiler. The distribute and memory-optimization transpilers of
-the JAX package are not ported yet."""
+distribute transpiler with its placement policies, the inference
+transpiler and the memory-optimization passes."""
 
+from .distribute_transpiler import DistributeTranspiler
 from .inference_transpiler import InferenceTranspiler
+from .memory_optimization_transpiler import memory_optimize, release_memory
+from .ps_dispatcher import HashName, RoundRobin
 
-__all__ = ["InferenceTranspiler"]
+__all__ = [
+    "DistributeTranspiler",
+    "InferenceTranspiler",
+    "memory_optimize",
+    "release_memory",
+    "HashName",
+    "RoundRobin",
+]

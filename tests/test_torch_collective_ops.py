@@ -170,7 +170,7 @@ def test_refusals():
     with pytest.raises(ValueError, match="unknown reduction"):
         _port("all_reduce", {"X": np.ones(2, np.float32)}, reduction="prod")
     with pytest.raises(NotImplementedError):
-        treg.lookup("collective_permute")  # with ring attention, item 10
+        treg.lookup("collective_permute")  # with ring attention, item 8
 
 
 def test_launches_are_counted_and_max_has_no_gradient(tmp_path):

@@ -273,10 +273,43 @@ def _cuda_marked(path):
     return out
 
 
+@pytest.mark.parametrize("module", [
+    "core/selected_rows.py", "ops/sparse_ops.py", "ops/rpc_ops.py",
+    "parallel/rpc.py", "transpiler/distribute_transpiler.py",
+    "transpiler/ps_dispatcher.py",
+    "transpiler/memory_optimization_transpiler.py", "layers/io.py",
+    "trainer.py", "cli.py"])
+def test_the_parameter_server_slice_is_among_the_checked_sources(module):
+    """The parameter server (SelectedRows and the sparse table, the RPC
+    runtime and its ops, the transpilers) is checked by the test above."""
+    assert os.path.join(PORT, module) in set(_sources())
+
+
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch.parallel.rpc", "paddle_tpu_torch.transpiler"])
+def test_parameter_server_modules_load_no_jax_in_a_fresh_interpreter(
+        module):
+    """Importing the RPC runtime or the transpilers alone, in a fresh
+    interpreter, loads neither jax nor the JAX package."""
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        f"import {module}\n"
+        "print('\\n'.join(sorted(set(sys.modules) - before)))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    loaded = proc.stdout.split()
+    assert module in loaded
+    assert [m for m in loaded if _foreign(m)] == []
+
+
 @pytest.mark.parametrize("name", ["test_torch_continuous_card.py",
-                                  "test_torch_fleet.py"])
+                                  "test_torch_fleet.py",
+                                  "test_torch_pserver_card.py"])
 def test_the_new_serving_files_cuda_cases_skip_without_a_card(name):
-    """Every `cuda`-marked test of the continuous and fleet files skips
+    """Every `cuda`-marked test of the continuous, fleet and pserver
+    files skips
     where there is no card (none fails, none passes); the card file
     imports no JAX."""
     import torch
@@ -297,11 +330,9 @@ def test_the_new_serving_files_cuda_cases_skip_without_a_card(name):
     assert " passed" not in proc.stdout and " failed" not in proc.stdout
 
 
-# names of the JAX package's top level whose modules wait in ROADMAP
-# queue 1 item 8 (the distributed transpiler and the memory passes), and
+# the one name of the JAX package's top level the port leaves out:
 # is_compiled_with_tpu, which asks JAX for a TPU
-TOP_LEVEL_EXCEPTIONS = {"DistributeTranspiler", "memory_optimize",
-                        "release_memory", "is_compiled_with_tpu"}
+TOP_LEVEL_EXCEPTIONS = {"is_compiled_with_tpu"}
 
 
 def _public_names(package):

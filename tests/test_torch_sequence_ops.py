@@ -195,13 +195,28 @@ def test_lookup_table(ids, padding_idx):
         assert not to["Out"][0][0][flat == padding_idx].any()
 
 
-def test_lookup_table_grad_refuses_the_sparse_gradient():
+def test_lookup_table_grad_sparse_is_the_jax_packages():
+    """The sparse gradient, which the port once refused (ROADMAP queue 1
+    item 8), is now the JAX package's: a SelectedRows of the ids and the
+    rows of Out@GRAD (a padding id's row zeroed), of W's height; its
+    dense form is the dense gradient."""
     rs = np.random.RandomState(3)
     ins = {"W": [rs.randn(6, 4).astype(np.float32)],
            "Ids": [rs.randint(0, 6, (5, 1)).astype(np.int64)],
            "Out@GRAD": [rs.randn(5, 4).astype(np.float32)]}
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _run_port("lookup_table_grad", ins, {"is_sparse": True})
+    attrs = {"is_sparse": True, "padding_idx": int(ins["Ids"][0][1, 0])}
+    j = jreg.run_kernel(jreg.lookup("lookup_table_grad"), jcore.OpContext(),
+                        {s: [_to_jax(v) for v in vs]
+                         for s, vs in ins.items()}, dict(attrs))["W@GRAD"][0]
+    t = treg.run_kernel(treg.lookup("lookup_table_grad"),
+                        tcore.OpContext(tfluid.CPUPlace()),
+                        {s: [_to_port(v) for v in vs]
+                         for s, vs in ins.items()}, dict(attrs))["W@GRAD"][0]
+    assert t.height == j.height == 6
+    np.testing.assert_array_equal(t.rows.numpy(), np.asarray(j.rows))
+    np.testing.assert_array_equal(t.values.numpy(), np.asarray(j.values))
+    np.testing.assert_array_equal(t.to_dense().numpy(),
+                                  np.asarray(j.to_dense()))
 
 
 @pytest.mark.parametrize("axis", [0, 1])

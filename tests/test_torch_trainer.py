@@ -343,11 +343,25 @@ def test_fetch_metrics_off_fetches_nothing():
     assert metrics == [1, 0] * (STEPS // 2)
 
 
-def test_the_parameter_server_role_waits_for_the_distributed_stack(
-        monkeypatch):
+def test_the_trainer_role_transpiles_as_the_jax_package(monkeypatch):
+    """Under PADDLE_TRAINING_ROLE=TRAINER, which the port once refused
+    (ROADMAP queue 1 item 8), both packages' Trainers transpile the
+    train program for the pservers of PADDLE_PSERVER_IPS:PORT into the
+    same trainer program: no optimizer op, the grads sent, the params
+    received."""
     monkeypatch.setenv("PADDLE_TRAINING_ROLE", "TRAINER")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _port_trainer()
+    monkeypatch.setenv("PADDLE_PSERVER_IPS", "127.0.0.1")
+    monkeypatch.setenv("PADDLE_PSERVER_PORT", "1")
+    t = _port_trainer()
+    jfluid.unique_name.switch()
+    j = jfluid.Trainer(train_func=_train_func(jfluid),
+                       optimizer_func=_momentum(jfluid),
+                       place=jfluid.CPUPlace())
+    types = [op.type for op in t.train_program.global_block().ops]
+    assert "momentum" not in types
+    assert {"send_vars", "send_barrier", "recv", "fetch_barrier"} <= \
+        set(types)
+    assert t.train_program.desc_str() == j.train_program.desc_str()
 
 
 def test_the_optimizer_must_be_an_optimizer():
