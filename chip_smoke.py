@@ -369,7 +369,34 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 steps bitwise the unoptimized program's, peak memory each
                 way ([pserver] lines). Alone: `python3 chip_smoke.py
                 --only pserver`
- 13. flash    — the flash-attention kernels (both wgmma fed by TMA; f32
+ 13. detection — detection and the native runtimes: (a) SSD300 (VGG-16
+                base, fc6 dilated, four extra layers, conv4_3 L2-normalized
+                with a learnable scale; multi_box_head: 8,732 priors, 21
+                classes; 26.3 M parameters) trained at batch SSD_BATCH
+                under bf16 AMP and FLAGS_fuse with Momentum(0.001, 0.9) on
+                seeded synthetic images with 1-8 painted boxes: 1 warm step
+                and 20 on one batch, on the interpreter (its host ops);
+                every loss finite, the last 5 below the first 5; img/s and
+                a step split into the card's work (one traced step), each
+                host op's host and wait ms and the interpreter's other host
+                time; the momentum kernel's launches = buckets x steps; (b)
+                prior_box, iou_similarity and box_coder card vs host within
+                1e-6 and the five host ops bitwise, at SSD300's widths; the
+                loss at batch 2 in fp32 card vs host within 1e-4, each of 3
+                steps from the host's state, any mined negative that
+                differs printed; (c) detection_output at SSD's test
+                settings and DetectionMAP (11point, overlap 0.5, difficult
+                left out) over 2 batches of 32 with (a)'s weights: ms a
+                batch, detections an image, the mAPs; the accumulated mAP
+                equal to the one-shot detection_map over both; (d) roi_pool
+                at Fast R-CNN's VGG-16 widths (X [2, 512, 38, 63] ReLU'd,
+                128 ROIs, some over the edge, 1/16, 7x7): forward and
+                gradient bitwise the host's, ms of each; (e) the MNIST conv
+                net trained 5 steps on the card and saved; the native C++
+                predictor within 1e-4 of the card's Executor on the saved
+                model, host ms a batch ([detection] lines). Alone:
+                `python3 chip_smoke.py --only detection`
+ 14. flash    — the flash-attention kernels (both wgmma fed by TMA; f32
                 in 3xTF32 split products after its split prologue) against
                 their plain torch version on the card, causal and not, at
                 the CPU tests' shapes, the tiles' edges (129 q rows over
@@ -706,6 +733,41 @@ PS_TABLE_RTOL = 1e-5
 PS_MEMOPT_STEPS = 2
 PS_START_S = 180
 PS_DEADLINE_S = 600
+
+# Phase detection: (a) SSD300 (VOC's 21 classes, 8,732 priors) trained on
+# the card under bf16 AMP and FLAGS_fuse, Momentum(SSD_LR, 0.9), batch
+# SSD_BATCH: SSD_WARM step, then SSD_STEPS on one fixed batch of synthetic
+# images with 1-SSD_MAX_GT boxes each; (b) the five host ops card vs host
+# bitwise, the box ops within SSD_BOX_RTOL, the whole loss at
+# SSD_PARITY_BATCH in fp32 over SSD_PARITY_STEPS within SSD_PARITY_RTOL;
+# (c) detection_output at SSD's test settings (SSD_NMS) and DetectionMAP
+# over SSD_INFER_BATCHES batches; (d) roi_pool at Fast R-CNN's VGG-16
+# widths (ROI_X, ROI_PER_IMAGE ROIs an image, 1/16, ROI_BINS x ROI_BINS);
+# (e) the native predictor on the MNIST conv net trained NATIVE_STEPS
+# steps at NATIVE_BATCH, within NATIVE_RTOL of the card's Executor
+SSD_CLASSES = 21
+SSD_SIDE = 300
+SSD_PRIORS = 8732
+SSD_BATCH = 32
+SSD_WARM = 1
+SSD_STEPS = 20
+SSD_LR = 0.001
+SSD_MAX_GT = 8
+SSD_PARITY_BATCH = 2
+SSD_PARITY_STEPS = 3
+SSD_PARITY_RTOL = 1e-4
+SSD_BOX_RTOL = 1e-6
+SSD_INFER_BATCHES = 2
+SSD_NMS = {"nms_threshold": 0.45, "nms_top_k": 400, "keep_top_k": 200,
+           "score_threshold": 0.01}
+ROI_X = (2, 512, 38, 63)
+ROI_PER_IMAGE = 64
+ROI_SCALE = 1.0 / 16
+ROI_BINS = 7
+DET_REPS = 5
+NATIVE_STEPS = 5
+NATIVE_BATCH = 64
+NATIVE_RTOL = 1e-4
 
 SEED = 20261016
 BATCH = 32
@@ -8286,6 +8348,707 @@ def phase_pserver(card_line):
     return result
 
 
+def build_ssd300(fluid, train=True):
+    """SSD300 (Liu et al., ECCV 2016) built with the port's layers: VGG-16's
+    conv1_1 to conv5_3 with 2x2/2 max pools (pool3 ceil_mode: 75 -> 38),
+    pool5 3x3/1, fc6 a 3x3 conv of 1024 with dilation 6, fc7 1x1 1024; the
+    extra layers 1x1 256 + 3x3/2 512 (10x10), 1x1 128 + 3x3/2 256 (5x5),
+    1x1 128 + 3x3 valid 256 (3x3), 1x1 128 + 3x3 valid 256 (1x1); conv4_3
+    L2-normalized over channels times a learnable [512] scale that starts
+    at 20; multi_box_head over conv4_3, fc7 and the four extra maps
+    (min_ratio 20, max_ratio 90, steps 8/16/32/64/100/300, 3x3 heads): 8,732
+    priors, SSD_CLASSES classes. train: ssd_loss at its defaults, summed
+    over the priors, Momentum(SSD_LR, 0.9); else detection_output at SSD's test
+    settings (SSD_NMS) over the softmaxed scores and a DetectionMAP
+    evaluator (11point, overlap 0.5, the difficult flags)."""
+    from paddle_tpu_torch.initializer import Constant
+
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        image = L.data(name="image", shape=[3, SSD_SIDE, SSD_SIDE],
+                       dtype="float32")
+        gt_box = L.data(name="gt_box", shape=[4], dtype="float32",
+                        lod_level=1)
+        gt_label = L.data(name="gt_label", shape=[1], dtype="int64",
+                          lod_level=1)
+
+        def conv(x, n, k=3, pad=1, stride=1, dilation=1):
+            return L.conv2d(input=x, num_filters=n,
+                            filter_size=k, stride=stride, padding=pad,
+                            dilation=dilation, act="relu")
+
+        x = image
+        for i, (width, reps) in enumerate(((64, 2), (128, 2), (256, 3),
+                                           (512, 3), (512, 3))):
+            for _ in range(reps):
+                x = conv(x, width)
+            if i == 3:
+                conv4_3 = x
+            if i < 4:
+                x = L.pool2d(x, pool_size=2, pool_stride=2, pool_type="max",
+                             ceil_mode=i == 2)
+        x = L.pool2d(x, pool_size=3, pool_stride=1, pool_padding=1,
+                     pool_type="max")
+        x = conv(conv(x, 1024, pad=6, dilation=6), 1024, k=1, pad=0)
+        scale = L.create_parameter(shape=[512], dtype="float32",
+                                   default_initializer=Constant(20.0))
+        maps = [L.elementwise_mul(L.l2_normalize(conv4_3, axis=1), scale,
+                                  axis=1), x]
+        for width, stride, pad in ((512, 2, 1), (256, 2, 1), (256, 1, 0),
+                                   (256, 1, 0)):
+            x = conv(conv(x, width // 2, k=1, pad=0), width, stride=stride,
+                     pad=pad)
+            maps.append(x)
+        locs, confs, boxes, variances = L.multi_box_head(
+            inputs=maps, image=image, base_size=SSD_SIDE,
+            num_classes=SSD_CLASSES,
+            aspect_ratios=[[2.0], [2.0, 3.0], [2.0, 3.0], [2.0, 3.0], [2.0],
+                           [2.0]],
+            min_ratio=20, max_ratio=90, steps=[8, 16, 32, 64, 100, 300],
+            flip=True, kernel_size=3, pad=1)
+        net = {"main": main, "startup": startup, "boxes": boxes,
+               "variances": variances}
+        if train:
+            loss = L.reduce_sum(L.ssd_loss(locs, confs, gt_box, gt_label,
+                                           boxes, variances))
+            fluid.optimizer.Momentum(learning_rate=SSD_LR,
+                                     momentum=0.9).minimize(loss)
+            net["loss"] = loss
+            net["neg"] = next(op for op in main.global_block().ops
+                              if op.type == "mine_hard_examples"
+                              ).output("NegIndices")[0]
+        else:
+            difficult = L.data(name="gt_difficult", shape=[1],
+                               dtype="int32", lod_level=1)
+            scores = L.reshape(L.softmax(L.reshape(
+                confs, shape=[-1, SSD_CLASSES], inplace=False)),
+                shape=[-1, boxes.shape[0], SSD_CLASSES], inplace=False)
+            nmsed = L.detection_output(locs, scores, boxes, variances,
+                                       **SSD_NMS)
+            ev = fluid.evaluator.DetectionMAP(
+                nmsed, gt_label, gt_box, difficult, class_num=SSD_CLASSES,
+                overlap_threshold=0.5, evaluate_difficult=False,
+                ap_version="11point")
+            net["nmsed"] = nmsed
+            net["evaluator"] = ev
+    main.random_seed = startup.random_seed = SEED
+    return net
+
+
+def ssd_batch(rs, batch):
+    """A seeded synthetic VOC-like batch: float images with 1-SSD_MAX_GT
+    boxes each (width and height 0.05-0.9 of the image), labels 1-20, one
+    in ten boxes difficult; each box painted into its image (a label's
+    color over noise), so the boxes can be learned."""
+    side = SSD_SIDE
+    images = (rs.rand(batch, 3, side, side) * 0.25).astype(np.float32)
+    boxes, labels, difficult, lengths = [], [], [], []
+    for b in range(batch):
+        n = rs.randint(1, SSD_MAX_GT + 1)
+        lengths.append(n)
+        for _ in range(n):
+            w, h = rs.uniform(0.05, 0.9, size=2)
+            x0, y0 = rs.uniform(0, 1 - w), rs.uniform(0, 1 - h)
+            label = rs.randint(1, SSD_CLASSES)
+            boxes.append([x0, y0, x0 + w, y0 + h])
+            labels.append(label)
+            difficult.append(int(rs.rand() < 0.1))
+            c0, r0 = int(x0 * side), int(y0 * side)
+            c1, r1 = int((x0 + w) * side), int((y0 + h) * side)
+            images[b, label % 3, r0:r1, c0:c1] = 0.25 + 0.75 * label / 20
+    return {"image": images, "gt_box": np.asarray(boxes, np.float32),
+            "gt_label": np.asarray(labels, np.int64).reshape(-1, 1),
+            "gt_difficult": np.asarray(difficult, np.int32).reshape(-1, 1),
+            "lengths": lengths}
+
+
+def ssd_feed(fluid, batch, place, names=("image", "gt_box", "gt_label")):
+    """The batch as feeds on `place`: the images a tensor there, the
+    ground truth LoDTensors of its lengths."""
+    feed = {}
+    for name in names:
+        if name == "image":
+            feed[name] = torch.from_numpy(batch[name]).to(
+                "cpu" if isinstance(place, fluid.CPUPlace) else "cuda")
+        else:
+            feed[name] = fluid.create_lod_tensor(
+                batch[name], [batch["lengths"]], place)
+    return feed
+
+
+def _ssd_host_split(dops, steps):
+    """{op: [host ms, wait ms] a step} from detection_ops.host_stats."""
+    return {op: [round(v[1] * 1e3 / steps, 3), round(v[2] * 1e3 / steps, 3)]
+            for op, v in sorted(dops.host_stats.items())}
+
+
+def _ssd_train(card_line):
+    """(a): SSD300 trained on the card (module docstring, phase 13)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, flags, fusion
+    from paddle_tpu_torch.fusion import kernels as fk
+    from paddle_tpu_torch.ops import detection_ops as dops
+
+    net = build_ssd300(fluid)
+    main, startup, loss = net["main"], net["startup"], net["loss"]
+    _, plan = fusion.apply(main, feed_names=["image", "gt_box", "gt_label"],
+                           fetch_names=[loss.name])
+    buckets = [b for b in plan.buckets if b["opt"] == "momentum"]
+    n_params = sum(int(np.prod(p.shape))
+                   for p in main.global_block().all_parameters())
+    log(f"[detection] (a) SSD300: {n_params} parameters, "
+        f"{net['boxes'].shape[0]} priors; ops {plan.n_ops_before} -> "
+        f"{plan.n_ops_after}; {len(buckets)} fused momentum buckets of "
+        f"{[b['numel'] for b in buckets]}")
+    if net["boxes"].shape[0] != SSD_PRIORS:
+        raise AssertionError(f"SSD300 has {net['boxes'].shape[0]} priors")
+    rs = np.random.RandomState(SEED + 20)
+    batch = ssd_batch(rs, SSD_BATCH)
+    place = fluid.CUDAPlace(0)
+    feed = ssd_feed(fluid, batch, place)
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    losses, walls, runs, steps = [], [], [], SSD_WARM + SSD_STEPS
+    amp.enable("bfloat16")
+    try:
+        with flags.flag_guard(fuse=True), fluid.scope_guard(scope):
+            exe.run(startup)
+            torch.cuda.synchronize()
+            fk.reset_launch_counts()
+            for step in range(steps):
+                if step == SSD_WARM:
+                    dops.reset_host_stats()
+                t0 = time.perf_counter()
+                outs = exe.run(main, feed=feed, fetch_list=[loss],
+                               return_numpy=False)
+                t1 = time.perf_counter()
+                losses.append(float(outs[0].reshape(-1)[0].float().item()))
+                if step >= SSD_WARM:
+                    walls.append(time.perf_counter() - t0)
+                    runs.append(t1 - t0)
+            launches = fk.momentum_bucket.launches
+            split = _ssd_host_split(dops, SSD_STEPS)
+            mode = exe.step_mode(main)
+            wall_ms, busy_ms, idle, rows, _ = trace_step(
+                exe, main, feed, [loss])
+            peak = torch.cuda.max_memory_allocated()
+    finally:
+        amp.disable()
+    timed = losses[SSD_WARM:]
+    first, last = float(np.mean(timed[:5])), float(np.mean(timed[-5:]))
+    step_ms = statistics.median(walls) * 1e3
+    host_ms = sum(h + w for h, w in split.values())
+    other_ms = statistics.median(runs) * 1e3 - host_ms
+    result = {
+        "parameters": n_params, "priors": SSD_PRIORS, "mode": mode,
+        "losses": [round(v, 5) for v in losses],
+        "first5_mean": first, "last5_mean": last, "ratio": last / first,
+        "images_per_sec": SSD_BATCH / statistics.median(walls),
+        "step_ms": step_ms, "device_busy_ms": busy_ms,
+        "traced_wall_ms": wall_ms, "idle_share": idle,
+        "host_ops_ms": split, "interpreter_other_host_ms": other_ms,
+        "momentum_launches": launches, "buckets": len(buckets),
+        "traced_momentum_rows": rows, "peak_bytes": peak}
+    log(f"[detection] (a) {steps} steps ({mode}) at batch {SSD_BATCH}, bf16 "
+        f"AMP, fused momentum: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"mean of the first 5 timed {first:.4f}, of the last 5 {last:.4f} "
+        f"(ratio {last / first:.4f}); {result['images_per_sec']:.2f} img/s, "
+        f"a step {step_ms:.2f} ms; peak {peak / 2**30:.2f} GiB")
+    log(f"[detection] (a) a step's split: the card's work {busy_ms:.2f} ms "
+        f"(one traced step, wall {wall_ms:.2f} ms, idle {idle:.3f}); host "
+        f"ops [host ms, wait for the card ms] {split}; the interpreter's "
+        f"other host time {other_ms:.2f} ms; momentum launches {launches} "
+        f"({len(buckets)} buckets x {steps} steps); {card_line}")
+    if mode != "interpreter":
+        raise AssertionError(f"SSD300 ran as {mode!r}: its host ops keep it "
+                             f"on the interpreter")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"SSD300 loss not finite: {losses}")
+    if not last < first:
+        raise AssertionError(f"SSD300 loss did not fall: {timed}")
+    if launches != len(buckets) * steps or not launches:
+        raise AssertionError(f"momentum kernel launched {launches} times in "
+                             f"{steps} steps of {len(buckets)} buckets")
+    return result, scope, batch
+
+
+def _compare(name, card, host, bitwise, worst):
+    """card (a tensor or SeqTensor) against host: bitwise, or within
+    SSD_BOX_RTOL; the worst relative error joins `worst`."""
+    from paddle_tpu_torch.core.registry import SeqTensor
+
+    if isinstance(card, SeqTensor):
+        if not torch.equal(card.lengths.cpu(), host.lengths.cpu()):
+            raise AssertionError(f"{name}: lengths differ card vs host")
+        card, host = card.data, host.data
+    c, h = card.cpu(), host.cpu()
+    if c.shape != h.shape or c.dtype != h.dtype:
+        raise AssertionError(f"{name}: {tuple(c.shape)} {c.dtype} on the "
+                             f"card, {tuple(h.shape)} {h.dtype} on the host")
+    if bitwise:
+        if not torch.equal(c, h):
+            raise AssertionError(f"{name}: card and host differ")
+        worst[name] = max(worst.get(name, 0.0), 0.0)
+        return
+    err = (c.double() - h.double()).abs()
+    rel = float((err / h.double().abs().clamp_min(1e-30)).max()) \
+        if c.numel() else 0.0
+    worst[name] = max(worst.get(name, 0.0), rel)
+    torch.testing.assert_close(c, h, rtol=SSD_BOX_RTOL, atol=0.0,
+                               msg=lambda m: f"{name}: card vs host beyond "
+                                             f"rtol {SSD_BOX_RTOL}: {m}")
+
+
+def _ssd_ops_card_host(batch):
+    """(b): the box ops within SSD_BOX_RTOL and the five host ops bitwise,
+    card against host, at SSD300's full width (8,732 priors, batch 32)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor_core, registry
+    from paddle_tpu_torch.core.registry import SeqTensor
+    from paddle_tpu_torch.ops import detection_ops as dops
+
+    net = build_ssd300(fluid)
+    places = {"card": fluid.CUDAPlace(0), "host": fluid.CPUPlace()}
+    ctx = {k: executor_core.OpContext(p) for k, p in places.items()}
+    dev = {"card": torch.device("cuda"), "host": torch.device("cpu")}
+    worst = {}
+
+    def to(v, d):
+        if isinstance(v, SeqTensor):
+            return SeqTensor(v.data.to(d), v.lengths.to(d),
+                             host_lengths=v.host_lengths)
+        return v.to(d)
+
+    def run(op_type, ins, attrs):
+        outs = {}
+        for k in ("card", "host"):
+            moved = {slot: [to(v, dev[k]) for v in vals]
+                     for slot, vals in ins.items()}
+            outs[k] = registry.run_kernel(registry.lookup(op_type), ctx[k],
+                                          moved, attrs)
+        return outs
+
+    def check(op_type, outs, bitwise):
+        for slot, vals in outs["host"].items():
+            _compare(f"{op_type}.{slot}", outs["card"][slot][0], vals[0],
+                     bitwise, worst)
+
+    # prior_box at each of the six maps, as the program's ops call it
+    priors, variances = {"card": [], "host": []}, {"card": [], "host": []}
+    image = torch.empty((1, 3, SSD_SIDE, SSD_SIDE))
+    for op, side in zip([op for op in net["main"].global_block().ops
+                         if op.type == "prior_box"], (38, 19, 10, 5, 3, 1)):
+        outs = run("prior_box", {"Input": [torch.empty((1, 1, side, side))],
+                                 "Image": [image]}, op.attrs)
+        check("prior_box", outs, bitwise=False)
+        for k in outs:
+            priors[k].append(outs[k]["Boxes"][0].reshape(-1, 4))
+            variances[k].append(outs[k]["Variances"][0].reshape(-1, 4))
+    prior = torch.cat(priors["host"])
+    pvar = torch.cat(variances["host"])
+    lens = np.asarray(batch["lengths"], np.int32)
+
+    def seq(a):
+        return SeqTensor(torch.from_numpy(a), torch.from_numpy(lens),
+                         host_lengths=lens)
+
+    gt_box, gt_label = seq(batch["gt_box"]), seq(batch["gt_label"])
+    outs = run("iou_similarity", {"X": [gt_box], "Y": [prior]}, {})
+    check("iou_similarity", outs, bitwise=False)
+    iou = outs["host"]["Out"][0]
+    outs = run("box_coder", {"PriorBox": [prior], "PriorBoxVar": [pvar],
+                             "TargetBox": [gt_box.data]},
+               {"code_type": "encode_center_size"})
+    check("box_coder(encode)", outs, bitwise=False)
+    # the five host ops on the same arrays
+    outs = run("bipartite_match", {"DistMat": [iou]},
+               {"match_type": "per_prediction", "dist_threshold": 0.5})
+    check("bipartite_match", outs, bitwise=True)
+    match = outs["host"]["ColToRowMatchIndices"][0]
+    mdist = outs["host"]["ColToRowMatchDist"][0]
+    gen = torch.Generator().manual_seed(SEED)
+    cls_loss = torch.rand((SSD_BATCH * SSD_PRIORS, 1), generator=gen) * 3
+    outs = run("mine_hard_examples", {"ClsLoss": [cls_loss],
+                                      "MatchIndices": [match],
+                                      "MatchDist": [mdist]},
+               {"neg_pos_ratio": 3.0, "neg_dist_threshold": 0.5})
+    check("mine_hard_examples", outs, bitwise=True)
+    neg = outs["host"]["NegIndices"][0]
+    outs = run("target_assign", {"X": [gt_label], "MatchIndices": [match],
+                                 "NegIndices": [neg]}, {"mismatch_value": 0})
+    check("target_assign(labels)", outs, bitwise=True)
+    outs = run("target_assign", {"X": [gt_box], "MatchIndices": [match]}, {})
+    check("target_assign(boxes)", outs, bitwise=True)
+    target = outs["host"]["Out"][0]
+    outs = run("box_coder", {"PriorBox": [prior], "PriorBoxVar": [pvar],
+                             "TargetBox": [target]},
+               {"code_type": "encode_center_size", "elementwise": True})
+    check("box_coder(elementwise)", outs, bitwise=False)
+    loc = torch.randn((SSD_BATCH, SSD_PRIORS, 4), generator=gen) * 0.5
+    outs = run("box_coder", {"PriorBox": [prior], "PriorBoxVar": [pvar],
+                             "TargetBox": [loc]},
+               {"code_type": "decode_center_size"})
+    check("box_coder(decode)", outs, bitwise=False)
+    decoded = outs["host"]["OutputBox"][0]
+    scores = torch.softmax(torch.randn(
+        (SSD_BATCH, SSD_CLASSES, SSD_PRIORS), generator=gen) * 2, dim=1)
+    dops.reset_host_stats()
+    outs = run("multiclass_nms", {"BBoxes": [decoded], "Scores": [scores]},
+               dict(SSD_NMS, background_label=0))
+    check("multiclass_nms", outs, bitwise=True)
+    nms_ms = dops.host_stats["multiclass_nms"][1] * 1e3 / 2
+    det = outs["host"]["Out"][0]
+    label = seq(np.concatenate([batch["gt_label"].astype(np.float32),
+                                batch["gt_difficult"].astype(np.float32),
+                                batch["gt_box"]], axis=1))
+    outs = run("detection_map", {"DetectRes": [det], "Label": [label]},
+               {"class_num": SSD_CLASSES, "overlap_threshold": 0.5,
+                "evaluate_difficult": False, "ap_type": "11point"})
+    check("detection_map", outs, bitwise=True)
+    log(f"[detection] (b) card vs host at 8,732 priors, batch {SSD_BATCH}: "
+        f"the five host ops bitwise; box ops' worst relative error "
+        f"{ {k: v for k, v in worst.items() if v} } (rtol {SSD_BOX_RTOL}); "
+        f"NMS of {int(det.data.shape[0])} detections {nms_ms:.1f} host ms "
+        f"({SSD_CLASSES - 1} classes x {SSD_BATCH} images, top "
+        f"{SSD_NMS['nms_top_k']})")
+    return {"worst_rel": worst, "nms_host_ms_full_scores": nms_ms}
+
+
+def _ssd_loss_card_host():
+    """(b): SSD300's whole loss at SSD_PARITY_BATCH, fp32, fused momentum,
+    card against host for SSD_PARITY_STEPS steps, each step from the
+    host's state (its parameters and velocities put into the card's scope
+    first): the host's fp32 convolutions and cuDNN's round differently,
+    and training a deep net carries that apart step by step, so each step
+    is compared from one state. Each image's mined negatives compared, and
+    any that differ printed."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert, flags
+
+    net = build_ssd300(fluid)
+    main, startup = net["main"], net["startup"]
+    batch = ssd_batch(np.random.RandomState(SEED + 21), SSD_PARITY_BATCH)
+    places = {"host": fluid.CPUPlace(), "card": fluid.CUDAPlace(0)}
+    scopes = {k: fluid.Scope() for k in places}
+    exes = {k: fluid.Executor(p) for k, p in places.items()}
+    feeds = {k: ssd_feed(fluid, batch, p) for k, p in places.items()}
+    losses = {k: [] for k in places}
+    secs = {k: 0.0 for k in places}
+    differ = []
+    with flags.flag_guard(fuse=True):
+        with fluid.scope_guard(scopes["host"]):
+            exes["host"].run(startup)
+        for step in range(SSD_PARITY_STEPS):
+            state = convert.numpy_state(scopes["host"], main)
+            convert.load_numpy_state(scopes["card"], main, state,
+                                     places["card"])
+            negs = {}
+            for k in ("host", "card"):
+                with fluid.scope_guard(scopes[k]):
+                    t0 = time.perf_counter()
+                    loss, neg = exes[k].run(
+                        main, feed=feeds[k],
+                        fetch_list=[net["loss"], net["neg"]],
+                        return_numpy=False)
+                    losses[k].append(float(loss.reshape(-1)[0].item()))
+                    secs[k] += time.perf_counter() - t0
+                rows = neg.data.reshape(-1).cpu().numpy()
+                ends = np.cumsum(neg.lengths.cpu().numpy())
+                negs[k] = np.split(rows, ends[:-1])
+            for image, (c, h) in enumerate(zip(negs["card"], negs["host"])):
+                if not np.array_equal(c, h):
+                    differ.append({
+                        "step": step, "image": image,
+                        "card_only": sorted(set(c.tolist())
+                                            - set(h.tolist())),
+                        "host_only": sorted(set(h.tolist())
+                                            - set(c.tolist()))})
+    rel = max(abs(c - h) / abs(h) for c, h in zip(losses["card"],
+                                                    losses["host"]))
+    log(f"[detection] (b) the loss at batch {SSD_PARITY_BATCH} fp32, each "
+        f"step from the host's state: card {losses['card']} host "
+        f"{losses['host']}: worst relative {rel:.3e} (rtol "
+        f"{SSD_PARITY_RTOL}); {SSD_PARITY_STEPS} steps {secs['host']:.1f} s "
+        f"on the host, {secs['card']:.1f} s on the card")
+    if differ:
+        log(f"[detection] (b) hard-negative mining picked other negatives "
+            f"on the card (a last-bit difference in the loss it ranks): "
+            f"{differ}")
+    else:
+        log("[detection] (b) every step mined the same negatives on both")
+    if not rel <= SSD_PARITY_RTOL:
+        raise AssertionError(f"SSD300 loss card vs host: {rel:.3e} > "
+                             f"{SSD_PARITY_RTOL}")
+    return {"card": losses["card"], "host": losses["host"], "worst_rel": rel,
+            "negatives_differ": differ}
+
+
+def _ssd_infer(train_scope, trained_batch):
+    """(c): detection_output and DetectionMAP over SSD_INFER_BATCHES batches
+    of SSD_BATCH with (a)'s weights; the accumulated mAP equal to the
+    one-shot detection_map over the batches together."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor_core, registry
+    from paddle_tpu_torch.core.registry import SeqTensor
+    from paddle_tpu_torch.ops import detection_ops as dops
+
+    net = build_ssd300(fluid, train=False)
+    main, ev = net["main"], net["evaluator"]
+    cur, accum = ev.get_map_var()
+    place = fluid.CUDAPlace(0)
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    rs = np.random.RandomState(SEED + 22)
+    batches = [trained_batch] + [ssd_batch(rs, SSD_BATCH)
+                                 for _ in range(SSD_INFER_BATCHES - 1)]
+    names = ("image", "gt_box", "gt_label", "gt_difficult")
+    maps, dets, walls, splits = [], [], [], []
+    with fluid.scope_guard(scope):
+        exe.run(net["startup"])
+        for p in main.global_block().all_parameters():
+            scope.set_var(p.name, train_scope.find_var(p.name))
+        ev.reset(exe)
+        for b in batches:
+            feed = ssd_feed(fluid, b, place, names)
+            torch.cuda.synchronize()
+            dops.reset_host_stats()
+            t0 = time.perf_counter()
+            d, c, a = exe.run(main, feed=feed,
+                              fetch_list=[net["nmsed"], cur, accum],
+                              return_numpy=False)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            splits.append(_ssd_host_split(dops, 1))
+            dets.append(d)
+            maps.append((float(c.reshape(-1)[0].item()),
+                         float(a.reshape(-1)[0].item())))
+        busy = trace_step(exe, main, feed, [net["nmsed"], cur, accum])[1]
+    # the one-shot mAP over every image of the batches at once
+    det = SeqTensor(torch.cat([d.data.cpu() for d in dets]),
+                    torch.cat([d.lengths.cpu() for d in dets]))
+    rows = np.concatenate([np.concatenate(
+        [b["gt_label"].astype(np.float32), b["gt_difficult"].astype(
+            np.float32), b["gt_box"]], axis=1) for b in batches])
+    lens = np.concatenate([b["lengths"] for b in batches]).astype(np.int32)
+    once = registry.run_kernel(
+        registry.lookup("detection_map"),
+        executor_core.OpContext(fluid.CPUPlace()),
+        {"DetectRes": [det], "Label": [SeqTensor(torch.from_numpy(rows),
+                                                 torch.from_numpy(lens))]},
+        {"class_num": SSD_CLASSES, "overlap_threshold": 0.5,
+         "evaluate_difficult": False, "ap_type": "11point"})["MAP"][0]
+    once = float(once.reshape(-1)[0])
+    per_image = [float((d.data[:, 0] >= 0).sum().item()) / SSD_BATCH
+                 for d in dets]
+    log(f"[detection] (c) detection_output ({SSD_NMS}) and DetectionMAP "
+        f"(11point, overlap 0.5, difficult left out) over "
+        f"{len(batches)} batches of {SSD_BATCH}: ms a batch {walls} "
+        f"(the card's forward busy {busy:.2f} ms in a traced batch; host ops "
+        f"[host ms, wait ms] {splits}); detections an image {per_image}; "
+        f"mAP (batch, accumulated) {maps}; one-shot over both {once}")
+    if maps[-1][1] != once:
+        raise AssertionError(f"accumulated mAP {maps[-1][1]} != one-shot "
+                             f"{once}")
+    return {"ms_a_batch": walls, "forward_busy_ms": busy,
+            "host_ops_ms": splits, "detections_an_image": per_image,
+            "map": maps, "one_shot_map": once}
+
+
+def _roi_pool_card_host():
+    """(d): roi_pool at Fast R-CNN's VGG-16 widths, forward and gradient
+    card against host bitwise; ms of each on the card."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor_core, registry
+
+    rs = np.random.RandomState(SEED + 23)
+    n, c, h, w = ROI_X
+    x = torch.relu(torch.from_numpy(rs.randn(*ROI_X).astype(np.float32)))
+    side_h, side_w = h / ROI_SCALE, w / ROI_SCALE
+    rois = []
+    for b in range(n):
+        for _ in range(ROI_PER_IMAGE):
+            bw, bh = rs.uniform(16, side_w * 0.7), rs.uniform(16, side_h * 0.7)
+            x0 = rs.uniform(-0.15 * side_w, side_w - 0.5 * bw)
+            y0 = rs.uniform(-0.15 * side_h, side_h - 0.5 * bh)
+            rois.append([b, x0, y0, x0 + bw, y0 + bh])
+    rois = torch.from_numpy(np.asarray(rois, np.float32))
+    crossing = int(((rois[:, 1] < 0) | (rois[:, 2] < 0)
+                    | (rois[:, 3] >= side_w) | (rois[:, 4] >= side_h)).sum())
+    g = torch.from_numpy(rs.randn(n * ROI_PER_IMAGE, c, ROI_BINS,
+                                  ROI_BINS).astype(np.float32))
+    attrs = {"pooled_height": ROI_BINS, "pooled_width": ROI_BINS,
+             "spatial_scale": ROI_SCALE}
+    fwd, bwd = registry.lookup("roi_pool"), registry.lookup("roi_pool_grad")
+    res, ms = {}, {}
+    for k, place in (("host", fluid.CPUPlace()), ("card", fluid.CUDAPlace(0))):
+        ctx = executor_core.OpContext(place)
+        d = ctx.device
+        xi, ri, gi = x.to(d), rois.to(d), g.to(d)
+        t0 = time.perf_counter()
+        o = registry.run_kernel(fwd, ctx, {"X": [xi], "ROIs": [ri]},
+                                attrs)["Out"][0]
+        gx = registry.run_kernel(bwd, ctx, {"X": [xi], "ROIs": [ri],
+                                            "Out@GRAD": [gi]},
+                                 attrs)["X@GRAD"][0]
+        res[k] = (o.cpu(), gx.cpu())
+        if k == "host":
+            ms["host_s"] = time.perf_counter() - t0
+            continue
+        for name, fn in (("forward", lambda: registry.run_kernel(
+                fwd, ctx, {"X": [xi], "ROIs": [ri]}, attrs)),
+                         ("backward", lambda: registry.run_kernel(
+                             bwd, ctx, {"X": [xi], "ROIs": [ri],
+                                        "Out@GRAD": [gi]}, attrs))):
+            times = []
+            for _ in range(DET_REPS):
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+                fn()
+                e1.record()
+                e1.synchronize()
+                times.append(e0.elapsed_time(e1))
+            ms[name] = statistics.median(times)
+    ties = int((res["host"][0] == 0).sum())
+    log(f"[detection] (d) roi_pool X {list(ROI_X)} ReLU'd, "
+        f"{n * ROI_PER_IMAGE} ROIs ({crossing} crossing the map's edge), "
+        f"1/16, {ROI_BINS}x{ROI_BINS}: {ties} of {res['host'][0].numel()} "
+        f"bins' max is a tied 0; forward {ms['forward']:.3f} ms, backward "
+        f"(the derived grad: forward again, then the tie-split backward) "
+        f"{ms['backward']:.3f} ms on the card (median of {DET_REPS}); the "
+        f"host's pair {ms['host_s']:.1f} s")
+    for i, what in enumerate(("forward", "gradient")):
+        if not torch.equal(res["card"][i], res["host"][i]):
+            raise AssertionError(f"roi_pool {what}: card and host differ")
+    # the layer's program on the card: its first step eager, its second
+    # captured; sum(roi_pool(x) * g) gives x's gradient for cotangent g
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        L = fluid.layers
+        xv = L.data(name="x", shape=list(ROI_X[1:]), dtype="float32")
+        xv.stop_gradient = False
+        rv = L.data(name="rois", shape=[5], dtype="float32")
+        gv = L.data(name="g", shape=[c, ROI_BINS, ROI_BINS],
+                    dtype="float32")
+        o = L.roi_pool(xv, rv, ROI_BINS, ROI_BINS, ROI_SCALE)
+        fluid.backward.append_backward(L.reduce_sum(L.elementwise_mul(o, gv)))
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    feed = {"x": x.cuda(), "rois": rois.cuda(), "g": g.cuda()}
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        for step in range(2):
+            got = exe.run(main, feed=feed, fetch_list=[o, "x@GRAD"],
+                          return_numpy=False)
+            for i, what in enumerate(("forward", "gradient")):
+                if not torch.equal(got[i].cpu(), res["host"][i]):
+                    raise AssertionError(
+                        f"roi_pool's program, step {step} "
+                        f"({exe.step_mode(main)}): {what} differs from the "
+                        f"host's kernel")
+        mode = exe.step_mode(main)
+    log(f"[detection] (d) layers.roi_pool's program on the card, its forward "
+        f"and x's gradient bitwise the host's, eager and then as {mode!r}")
+    if mode != "graph":
+        raise AssertionError(f"roi_pool's program ran as {mode!r}")
+    return {"forward_ms": ms["forward"], "backward_ms": ms["backward"],
+            "rois_crossing_edge": crossing, "tied_zero_bins": ties,
+            "program_mode": mode}
+
+
+def _native_predictor():
+    """(e): the MNIST conv net trained on the card, saved, and served by
+    the native C++ predictor on the host, against the card's Executor on
+    the saved model."""
+    import tempfile
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import mnist
+    from paddle_tpu_torch.native.infer import NativePredictor
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.layers.data(name="img", shape=[1, 28, 28],
+                                dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        probs = mnist.cnn_model(img)
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(input=probs,
+                                                             label=label))
+        fluid.optimizer.AdamOptimizer(learning_rate=1e-3).minimize(loss)
+    main.random_seed = startup.random_seed = SEED
+    rs = np.random.RandomState(SEED + 24)
+    place = fluid.CUDAPlace(0)
+    exe = fluid.Executor(place)
+    root = tempfile.mkdtemp(prefix="chip_smoke_native_")
+    try:
+        with fluid.scope_guard(fluid.Scope()):
+            exe.run(startup)
+            for _ in range(NATIVE_STEPS):
+                exe.run(main, feed={
+                    "img": rs.rand(NATIVE_BATCH, 1, 28, 28).astype(
+                        np.float32),
+                    "label": rs.randint(0, 10, (NATIVE_BATCH, 1)).astype(
+                        np.int64)}, fetch_list=[loss])
+            fluid.io.save_inference_model(root, ["img"], [probs], exe,
+                                          main_program=main)
+        x = rs.rand(NATIVE_BATCH, 1, 28, 28).astype(np.float32)
+        with fluid.scope_guard(fluid.Scope()):
+            prog, feeds, fetches = fluid.io.load_inference_model(root, exe)
+            want = exe.run(prog, feed={feeds[0]: x}, fetch_list=fetches)[0]
+        pred = NativePredictor(root)
+        got = pred.run({"img": x})[0]
+        times = []
+        for _ in range(DET_REPS):
+            t0 = time.perf_counter()
+            pred.run({"img": x})
+            times.append((time.perf_counter() - t0) * 1e3)
+        pred.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    host_ms = statistics.median(times)
+    log(f"[detection] (e) the MNIST conv net, {NATIVE_STEPS} steps on the "
+        f"card, saved; the native predictor (C++, the host) against the "
+        f"card's Executor on the saved model: worst relative {rel:.3e} "
+        f"(rtol {NATIVE_RTOL}); {host_ms:.2f} host ms a batch of "
+        f"{NATIVE_BATCH} (median of {DET_REPS})")
+    np.testing.assert_allclose(got, want, rtol=NATIVE_RTOL, atol=0)
+    return {"worst_rel": rel, "host_ms_a_batch": host_ms}
+
+
+def phase_detection(card_line):
+    """Detection and the native runtimes on the card (module docstring,
+    phase 13): (a)-(e)."""
+    t0 = time.perf_counter()
+    result = {}
+    result["ssd300"], scope, batch = _ssd_train(card_line)
+    _release()
+    result["card_host"] = _ssd_ops_card_host(batch)
+    result["loss_card_host"] = _ssd_loss_card_host()
+    _release()
+    result["inference"] = _ssd_infer(scope, batch)
+    del scope
+    _release()
+    result["roi_pool"] = _roi_pool_card_host()
+    _release()
+    result["native"] = _native_predictor()
+    result["seconds"] = time.perf_counter() - t0
+    log(f"[detection] phase {result['seconds']:.1f} s; {card_line}")
+    return result
+
+
+def main_detection():
+    """`python3 chip_smoke.py --only detection`: the device check, the
+    build (the fused momentum kernel of SSD300's path) and phase detection
+    alone."""
+    card_line = phase_device()
+    phase_build()
+    result = phase_detection(card_line)
+    log(card_line)
+    log(json.dumps({"detection": result}))
+    log(_device_line())
+
+
 def main_pserver():
     """`python3 chip_smoke.py --only pserver`: the device check and phase
     pserver alone (its path launches no hand-written kernel; (d)'s fused
@@ -8627,6 +9390,11 @@ def main():
         pserver["trainer_launches"]
     _release()
     lap("pserver")
+    detection = phase_detection(card_line)
+    momentum["launches_by_path"]["ssd300"] = \
+        detection["ssd300"]["momentum_launches"]
+    _release()
+    lap("detection")
     rows += phase_flash(sass)
     lap("flash")
     log(card_line)
@@ -8637,6 +9405,7 @@ def main():
                     "control_flow": flow, "resilience": resil,
                     "compile_services": services,
                     "continuous": continuous, "pserver": pserver,
+                    "detection": detection,
                     "seconds_by_phase": _LAPS["seconds"]}))
     log(json.dumps({"kernels": rows}))
     log(_device_line())
@@ -8657,6 +9426,8 @@ if __name__ == "__main__":
         main_continuous()
     elif sys.argv[1:] == ["--only", "pserver"]:
         main_pserver()
+    elif sys.argv[1:] == ["--only", "detection"]:
+        main_detection()
     elif sys.argv[1:2] == ["--pserver-child"] and len(sys.argv) == 4:
         pserver_child(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == ["--l2-child"] and len(sys.argv) == 3:

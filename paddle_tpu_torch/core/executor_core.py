@@ -67,9 +67,11 @@ HOST_OPS = frozenset({"save", "load", "save_combine", "load_combine",
 # host), the rank-table family (the JAX package's no_trace ops, which
 # read the lengths), IfElse's row split and merge (the rows are found on
 # the host), `print` and the JAX package's other no_trace ops (feed,
-# fetch, get_places), and the distributed table's id ops (split_ids and
+# fetch, get_places), the distributed table's id ops (split_ids and
 # merge_ids shard and join ids on the host; lookup_sparse_table gathers
-# from a pserver's host table). A data-dependent loop inside a CUDA graph
+# from a pserver's host table), and detection's matching, mining, NMS and
+# mAP (ops/detection_ops.py, the JAX package's no_trace detection ops:
+# greedy loops whose counts are known only after them). A data-dependent loop inside a CUDA graph
 # needs the graph's conditional nodes (ROADMAP).
 HOST_SYNC_OPS = frozenset({
     "split_ids", "merge_ids", "lookup_sparse_table",
@@ -81,7 +83,9 @@ HOST_SYNC_OPS = frozenset({
     "reorder_lod_tensor_by_rank_grad", "shrink_rnn_memory",
     "print", "feed", "fetch", "get_places",
     "split_lod_tensor", "split_lod_tensor_grad", "merge_lod_tensor",
-    "merge_lod_tensor_grad"})
+    "merge_lod_tensor_grad",
+    "bipartite_match", "target_assign", "mine_hard_examples",
+    "multiclass_nms", "detection_map"})
 
 
 def first_non_finite(named_values):

@@ -2,8 +2,8 @@
 the JAX package's paddle_tpu/evaluator.py): Evaluator base with state vars
 + reset program, Accuracy, ChunkEvaluator, EditDistance. States live as
 persistable vars updated by in-graph ops and are read back through
-executor.fetch_var. DetectionMAP needs the detection layers, not yet
-ported (ROADMAP queue 1 item 9): building one raises."""
+executor.fetch_var; DetectionMAP chains detection_map's accumulators
+through them."""
 
 import numpy as np
 
@@ -205,12 +205,73 @@ class EditDistance(Evaluator):
 
 
 class DetectionMAP(Evaluator):
-    """Detection mAP evaluator (reference evaluator.py:257). Its
-    detection_map op lives in layers/detection.py, which the port lacks
-    (ROADMAP queue 1 item 9)."""
+    """Detection mAP evaluator (reference evaluator.py:257): a current-batch
+    mAP plus an accumulative mAP chained through persistable
+    (pos_count, true_pos, false_pos) state and a has_state flag.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "evaluator.DetectionMAP needs layers.detection (detection_map), "
-            "which is not yet ported to paddle_tpu_torch (ROADMAP queue 1 "
-            "item 9)")
+    cur_map, accum_map = DetectionMAP(...).get_map_var(); call reset(exe)
+    at the start of each pass.
+    """
+
+    def __init__(self, input, gt_label, gt_box, gt_difficult=None,
+                 class_num=None, background_label=0, overlap_threshold=0.5,
+                 evaluate_difficult=True, ap_version="integral"):
+        super().__init__("map_eval")
+        from .layers import detection as detection_layers
+
+        gt_label = layers.cast(x=gt_label, dtype=gt_box.dtype)
+        if gt_difficult is not None:
+            gt_difficult = layers.cast(x=gt_difficult, dtype=gt_box.dtype)
+            label = layers.concat([gt_label, gt_difficult, gt_box], axis=1)
+        else:
+            label = layers.concat([gt_label, gt_box], axis=1)
+        # ragged detections/labels: the concat must carry X's LoD
+        label.lod_level = max(getattr(gt_label, "lod_level", 0),
+                              getattr(gt_box, "lod_level", 0))
+
+        cur_map = detection_layers.detection_map(
+            input, label, class_num, background_label,
+            overlap_threshold=overlap_threshold,
+            evaluate_difficult=evaluate_difficult,
+            ap_version=ap_version)
+
+        self.create_state(suffix="accum_pos_count", dtype="int32",
+                          shape=[class_num, 1])
+        self.create_state(suffix="accum_true_pos", dtype="float32",
+                          shape=[0, 2])
+        self.create_state(suffix="accum_false_pos", dtype="float32",
+                          shape=[0, 2])
+
+        self.has_state = self.helper.create_variable(
+            name=unique_name.generate("map_eval_has_state"),
+            persistable=True, dtype="int32", shape=[1])
+        self.helper.set_variable_initializer(self.has_state, Constant(0))
+
+        accum_map = detection_layers.detection_map(
+            input, label, class_num, background_label,
+            overlap_threshold=overlap_threshold,
+            evaluate_difficult=evaluate_difficult,
+            has_state=self.has_state, input_states=self.states,
+            out_states=self.states, ap_version=ap_version)
+
+        layers.fill_constant(
+            shape=[1], value=1, dtype="int32", out=self.has_state)
+
+        self.cur_map = cur_map
+        self.accum_map = accum_map
+        self.metrics += [cur_map, accum_map]
+
+    def get_map_var(self):
+        return self.cur_map, self.accum_map
+
+    def reset(self, executor, reset_program=None):
+        """Only has_state is cleared (reference evaluator.py:379): with
+        has_state==0 the op re-seeds its accumulators from scratch, so the
+        ragged state tensors need no zero-fill."""
+        if reset_program is None:
+            reset_program = Program()
+        with program_guard(main_program=reset_program):
+            var = _clone_var_(reset_program.current_block(), self.has_state)
+            layers.fill_constant(
+                shape=var.shape, value=0, dtype=var.dtype, out=var)
+        executor.run(reset_program)

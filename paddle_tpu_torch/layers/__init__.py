@@ -1,7 +1,7 @@
 """Layer library (reference python/paddle/fluid/layers/). The port carries
 the modules the training path builds with, control flow, `device`
-(get_places) and the learning-rate schedulers; detection waits for a
-later slice (ROADMAP queue 1 item 9)."""
+(get_places), detection (SSD's head, loss and output, VOC mAP) and the
+learning-rate schedulers."""
 
 from . import ops
 from .ops import *
@@ -15,6 +15,8 @@ from . import io
 from .io import *
 from . import device
 from .device import *
+from . import detection
+from .detection import *
 from . import learning_rate_scheduler
 from .learning_rate_scheduler import *
 
@@ -25,6 +27,7 @@ __all__ = (
     + control_flow.__all__
     + io.__all__
     + device.__all__
+    + detection.__all__
     + learning_rate_scheduler.__all__
     + ["elementwise_binary_dispatch"]
 )

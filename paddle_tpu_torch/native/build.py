@@ -19,14 +19,15 @@ BUILD_DIR = os.path.join(_HERE, "build")
 LD_FLAGS = ["-l:libstdc++.so.6"]
 
 
-def build_library(name, sources, extra_flags=()):
+def build_library(name, sources, extra_flags=(), deps=()):
     """Compile `sources` (file names in this directory) into
-    build/lib<name>.so; returns its path. Rebuilds when a source is newer
-    than the library."""
+    build/lib<name>.so; returns its path. Rebuilds when a source or a
+    header it includes (`deps`) is newer than the library."""
     out = os.path.join(BUILD_DIR, f"lib{name}.so")
     srcs = [os.path.join(_HERE, s) for s in sources]
+    watch = srcs + [os.path.join(_HERE, d) for d in deps]
     if os.path.exists(out) and all(
-            os.path.getmtime(out) >= os.path.getmtime(s) for s in srcs):
+            os.path.getmtime(out) >= os.path.getmtime(s) for s in watch):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(prefix=f".lib{name}.", suffix=".so",
@@ -41,8 +42,8 @@ def build_library(name, sources, extra_flags=()):
         raise RuntimeError(
             f"native build failed: {' '.join(cmd)}\n{e.stderr}") from e
     except FileNotFoundError:
-        raise RuntimeError("g++ not found: the native RecordIO library "
-                           "cannot be built") from None
+        raise RuntimeError(f"g++ not found: the native library {name!r} "
+                           f"cannot be built") from None
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
@@ -51,3 +52,13 @@ def build_library(name, sources, extra_flags=()):
 
 def recordio_lib():
     return build_library("recordio", ["recordio.cc"], ["-lz"])
+
+
+def infer_lib():
+    """The native inference predictor (infer.cc over runtime.h)."""
+    return build_library("ptinfer", ["infer.cc"], deps=["runtime.h"])
+
+
+def train_lib():
+    """The native training runtime (train.cc over runtime.h)."""
+    return build_library("pttrain", ["train.cc"], deps=["runtime.h"])

@@ -9,8 +9,9 @@ every optimizer rule), the structured losses (CTC, CRF, NCE, hierarchical
 sigmoid), the metrics, the rest of the nn ops, the host file IO ops of
 fluid.io, the reader ops (readers held in the scope, `read`), control
 flow (while, conditional blocks, tensor arrays, rank tables, the
-recurrent ops), beam search, the CSP ops (channels, go, select), and the
-parameter server's RPC and distributed-table ops."""
+recurrent ops), beam search, the CSP ops (channels, go, select), the parameter server's
+RPC and distributed-table ops, and detection (SSD's priors, matching,
+mining and NMS, VOC mAP, roi_pool)."""
 
 from . import util
 from . import tensor_ops
@@ -31,3 +32,4 @@ from . import io_ops
 from . import reader_ops
 from . import concurrency_ops
 from . import rpc_ops
+from . import detection_ops

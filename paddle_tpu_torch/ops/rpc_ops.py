@@ -32,6 +32,7 @@ import torch
 from ..core import registry
 from ..core.dtypes import to_host
 from ..core.lod_tensor import LoDTensor
+from ..core.places import CUDAPlace, device_for
 from ..core.registry import SeqTensor, register_op
 from ..core.selected_rows import SelectedRows, SparseTable
 from ..parallel import rpc as rpc_runtime
@@ -211,13 +212,17 @@ def save_pserver_checkpoint(path, scope, names):
     rpc_runtime.dump_crc_blob(path, state)
 
 
-def load_pserver_checkpoint(path, scope, device="cpu"):
-    """Put the state of `path` back into `scope`, tensors on `device`;
-    returns the names, sorted."""
+def load_pserver_checkpoint(path, scope, device=None):
+    """Put the state of `path` back into `scope`, tensors on `device` (a
+    torch.device or its name); returns the names, sorted. With no device
+    the tensors go to the card, CUDAPlace(0), which raises where there is
+    none: the host only when the caller names it."""
+    device = device_for(CUDAPlace(0)) if device is None else \
+        torch.device(device)
     state = rpc_runtime.load_crc_blob(path)
     for n, v in state.items():
         scope.var(n)
-        scope.set_var(n, to_device(v, torch.device(device)))
+        scope.set_var(n, to_device(v, device))
     return sorted(state)
 
 

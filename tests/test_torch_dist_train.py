@@ -842,3 +842,32 @@ def test_bf16_crosses_the_wire_as_its_float32_values():
     got = trpc.deserialize_var(jmsg)
     assert got.dtype == np.float32
     np.testing.assert_array_equal(got, x.float().numpy())
+
+
+def _pserver_checkpoint(tmp_path):
+    path = str(tmp_path / "pserver.ckpt")
+    scope = tfluid.Scope()
+    scope.var("W")
+    scope.set_var("W", torch.arange(12, dtype=torch.float32).reshape(3, 4))
+    trpc_ops.save_pserver_checkpoint(path, scope, ["W"])
+    return path
+
+
+def test_load_pserver_checkpoint_goes_to_the_card_unless_told(
+        tmp_path, monkeypatch):
+    """With no device argument the state goes to the card, CUDAPlace(0):
+    where there is none it raises, never loading onto the host instead."""
+    path = _pserver_checkpoint(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        trpc_ops.load_pserver_checkpoint(path, tfluid.Scope())
+
+
+def test_load_pserver_checkpoint_on_the_host_when_asked(tmp_path):
+    path = _pserver_checkpoint(tmp_path)
+    scope = tfluid.Scope()
+    assert trpc_ops.load_pserver_checkpoint(path, scope, "cpu") == ["W"]
+    w = scope.find_var("W")
+    assert w.device.type == "cpu"
+    np.testing.assert_array_equal(
+        w.numpy(), np.arange(12, dtype=np.float32).reshape(3, 4))

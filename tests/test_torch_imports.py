@@ -306,7 +306,8 @@ def test_parameter_server_modules_load_no_jax_in_a_fresh_interpreter(
 
 @pytest.mark.parametrize("name", ["test_torch_continuous_card.py",
                                   "test_torch_fleet.py",
-                                  "test_torch_pserver_card.py"])
+                                  "test_torch_pserver_card.py",
+                                  "test_torch_detection_card.py"])
 def test_the_new_serving_files_cuda_cases_skip_without_a_card(name):
     """Every `cuda`-marked test of the continuous, fleet and pserver
     files skips
@@ -328,6 +329,37 @@ def test_the_new_serving_files_cuda_cases_skip_without_a_card(name):
     if name.endswith("_card.py"):
         assert [m for m in _imported_modules(path) if _foreign(m)] == []
     assert " passed" not in proc.stdout and " failed" not in proc.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "ops/detection_ops.py", "layers/detection.py", "evaluator.py",
+    "native/build.py", "native/infer.py", "native/train.py"])
+def test_the_detection_and_native_slice_is_among_the_checked_sources(
+        module):
+    """Detection (its ops, layers and the mAP evaluator) and the native
+    CPU runtimes' bindings are checked by the test above."""
+    assert os.path.join(PORT, module) in set(_sources())
+
+
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch.native.infer", "paddle_tpu_torch.native.train",
+    "paddle_tpu_torch.layers.detection"])
+def test_detection_and_native_modules_load_no_jax_in_a_fresh_interpreter(
+        module):
+    """The native bindings and the detection layers, imported alone in a
+    fresh interpreter, load neither jax nor the JAX package (the bindings
+    keep their own copy of the NHWC guard)."""
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        f"import {module}\n"
+        "print('\\n'.join(sorted(set(sys.modules) - before)))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    loaded = proc.stdout.split()
+    assert module in loaded
+    assert [m for m in loaded if _foreign(m)] == []
 
 
 # the one name of the JAX package's top level the port leaves out:

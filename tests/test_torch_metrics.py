@@ -6,8 +6,8 @@ numpy inputs in both packages gives the same values, exactly (host numpy,
 the same arithmetic). evaluator: Accuracy, ChunkEvaluator and
 EditDistance build the same program in both packages (desc_str), and two
 batches run through it accumulate to the same eval() values; reset()
-zeroes the states; DetectionMAP raises until the detection layers are
-ported (ROADMAP queue 1 item 9).
+zeroes the states; DetectionMAP builds the same program and gives the
+same current and accumulated mAPs over random batches, reset included.
 """
 
 import numpy as np
@@ -242,6 +242,73 @@ def test_edit_distance_evaluator():
         np.testing.assert_allclose(a, b, rtol=1e-6)
 
 
+def _dmap_batch(package, rs, n_images=3, classes=4):
+    """Seeded detections and ground truths of `n_images` images, as LoD
+    feeds: per image 1-4 boxes with labels, difficult flags, and 0-6
+    detections near them (some of other classes)."""
+    gtl, gtd, gtb, det, glen, dlen = [], [], [], [], [], []
+    for _ in range(n_images):
+        n = rs.randint(1, 5)
+        glen.append(n)
+        for _ in range(n):
+            x0, y0 = rs.uniform(0, 0.6, 2)
+            w, h = rs.uniform(0.1, 0.4, 2)
+            box = [x0, y0, x0 + w, y0 + h]
+            label = rs.randint(1, classes)
+            gtl.append([label])
+            gtd.append([float(rs.rand() < 0.2)])
+            gtb.append(box)
+            for _ in range(rs.randint(0, 3)):
+                jitter = rs.uniform(-0.05, 0.05, 4)
+                cls = label if rs.rand() < 0.8 else rs.randint(1, classes)
+                det.append([cls, round(rs.rand(), 3)] + list(box + jitter))
+        if len(det) == sum(dlen):  # the reference's no-detection row
+            det.append([-1, 0, 0, 0, 0, 0])
+        dlen.append(len(det) - sum(dlen))
+    place = package.CPUPlace()
+
+    def lod(rows, lens):
+        return package.create_lod_tensor(np.asarray(rows, np.float32), [lens],
+                                         place)
+
+    return {"det": lod(det, dlen), "gtl": lod(gtl, glen),
+            "gtd": lod(gtd, glen), "gtb": lod(gtb, glen)}
+
+
 def test_detection_map_evaluator_waits_for_the_detection_layers():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        evaluator.DetectionMAP(None, None, None, class_num=3)
+    """The evaluator (its detection layers ported) builds the JAX
+    package's program; three random batches, a reset and one more give
+    the JAX package's current and accumulated mAPs."""
+    res = {}
+    for package, ev in ((jfluid, jevaluator), (fluid, evaluator)):
+        main, startup = package.Program(), package.Program()
+        with package.unique_name.guard(), \
+                package.program_guard(main, startup):
+            L = package.layers
+            det = L.data(name="det", shape=[6], dtype="float32", lod_level=1)
+            gtl = L.data(name="gtl", shape=[1], dtype="float32", lod_level=1)
+            gtd = L.data(name="gtd", shape=[1], dtype="float32", lod_level=1)
+            gtb = L.data(name="gtb", shape=[4], dtype="float32", lod_level=1)
+            dmap = ev.DetectionMAP(det, gtl, gtb, gtd, class_num=4,
+                                   overlap_threshold=0.5,
+                                   evaluate_difficult=False,
+                                   ap_version="11point")
+            cur, accum = dmap.get_map_var()
+        rs = np.random.RandomState(6)
+        scope = package.Scope()
+        with package.scope_guard(scope):
+            exe = package.Executor(package.CPUPlace())
+            exe.run(startup)
+            dmap.reset(exe)
+            vals = [exe.run(main, feed=_dmap_batch(package, rs),
+                            fetch_list=[cur, accum]) for _ in range(3)]
+            dmap.reset(exe)
+            vals.append(exe.run(main, feed=_dmap_batch(package, rs),
+                                fetch_list=[cur, accum]))
+        res[package] = (main.desc_str(),
+                        np.asarray(vals, np.float64).reshape(4, 2))
+    assert res[fluid][0] == res[jfluid][0]
+    np.testing.assert_array_equal(res[fluid][1], res[jfluid][1])
+    got = res[fluid][1]
+    assert got[0, 0] == got[0, 1] and got[3, 0] == got[3, 1]
+    assert 0 < got[:, 0].max() and 0 <= got.min() and got.max() <= 1
