@@ -150,9 +150,9 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 + 2 timed calls through the captured step: words/s (review
                 tokens; target tokens), step ms, peak memory, adam_bucket_
                 launches = buckets x steps, f32 state; one replayed step
-                traced (idle share, top-10 in chiprun_out/); the loop
-                ops' forwards timed alone (the derived grads run each
-                again); the embedding grads bitwise run to run; graph vs
+                traced (idle share, top-10 in chiprun_out/); the stacked
+                LSTM's loop ops' forwards timed alone (the derived grads
+                run each again); the embedding grads bitwise run to run; graph vs
                 interpreter over 3 steps at batch 32 bitwise; host vs card
                 within rtol 1e-4 over 2 steps at batch 16
  10. parity   — a small ResNet trained 2 steps on the card and on the host
@@ -307,7 +307,8 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 executor's with the three graphs alive; (d) three fresh
                 processes (`--l2-child`) of the headline under
                 FLAGS_verify=full, its startup and two steps each, one
-                FLAGS_compile_cache_dir: the first misses L2 and puts,
+                FLAGS_compile_cache_dir (all three started at once; each
+                imports and builds its program, then waits for its turn): the first misses L2 and puts,
                 the second hits (the monitor counts no miss), the third,
                 after the main program's entry is corrupted, counts one
                 l2_fallback; first-step losses bitwise equal; each
@@ -365,10 +366,11 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 ids: the loss falls over 3x, each pserver holds only its
                 shard, every grown row within rtol 1e-5 of a dense replay
                 on the card (captured), prefetch ms and rows/s; (d)
-                memory_optimize on the headline: renames, 2 interpreter
-                steps bitwise the unoptimized program's, peak memory each
-                way ([pserver] lines). Alone: `python3 chip_smoke.py
-                --only pserver`
+                memory_optimize on the headline: renames, 2 steps under
+                FLAGS_fuse (the first eager, the second captured) bitwise
+                the unoptimized fused program's, momentum launches and
+                peak memory each way ([pserver] lines). Alone: `python3
+                chip_smoke.py --only pserver`
  13. detection — detection and the native runtimes: (a) SSD300 (VGG-16
                 base, fc6 dilated, four extra layers, conv4_3 L2-normalized
                 with a learnable scale; multi_box_head: 8,732 priors, 21
@@ -413,13 +415,47 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 timed beside the plain version and torch's
                 scaled_dot_product_attention, and the split prologue beside
                 its plain twin
+ 15. ring     — ring attention at the flash table's full width (B=1,
+                H=32, S=4096, D=128), bf16 and f32, causal and not: (a) a
+                one-rank sp group (gloo): ring_flash_attention bitwise
+                flash_fwd over the whole sequence; (b) RING_WORLD = 4 sp
+                ranks, one process each (`--ring-child`), sharing the card
+                over a gloo group (NCCL refuses two ranks on one device),
+                their permutes through pinned host buffers: each hop
+                flash_fwd on the card at [1, 32, 1024, 128], the gathered
+                output against flash_fwd over the whole sequence
+                (RING_TOL) and against plain attention in float64 on the
+                same inputs (FLASH_TOL), the flash launches idx + 1 a rank
+                causal and 4 not (10 and 16 over the ring), each hop's
+                kernel ms and each rotation's permute ms (CUDA events);
+                ring_attention f32, forward and q/k/v grads against plain
+                attention in float64 (RING_TOL); the ranks' logs in
+                chiprun_out/ring_r*.log ([ring] lines). Alone: `python3
+                chip_smoke.py --only ring`
+ 16. pipeline — the headline's program (bf16 AMP, FLAGS_fuse, batch 128)
+                through parallel.pipeline.PipelineRunner, PIPE_MICRO = 4
+                microbatches of 32, PIPE_STEPS steps, at one stage and at
+                PIPE_STAGES = 4 from one state: losses and every
+                persistable bitwise; each cell a program of its own,
+                captured once; img/s over the steps after the captures
+                beside the headline's; the plan's balance and cut bytes;
+                the structural bubble (= 3/7) and the one measured on the
+                card's timeline; peak memory; momentum_bucket launches =
+                the optimizer cells' fused buckets x steps; and `python
+                -m paddle_tpu_torch analyze pipeline --selftest --stages 4
+                --microbatches 4` on the card, rc 0, started beside phase
+                ring and waited for before this phase's first step
+                ([pipeline] lines).
+                Alone: `python3 chip_smoke.py --only pipeline`
 Then one JSON line of the paths' numbers (the monitor phase's under
 "monitor"), one of per-kernel numbers (launches on every path that runs the
 kernel; momentum's "headline_unmonitored" path is the monitor phase's
-unmonitored calls), and as the last line
+unmonitored calls; the flash rows' launches are the ring's, the path that
+runs them, with the entry point's beside them), and as the last line
 {"ok": true, "device": {...}}.
 """
 
+import atexit
 import gc
 import json
 import os
@@ -445,7 +481,9 @@ TF32_PRODUCTS = 3
 
 # the L2 cache of one H100 (50 MB): timed buckets rotate over more
 L2_BYTES = 50 * 2 ** 20
-GRAPH_REPLAYS = 100
+# replays of a timed graph in each of _graph_ms's 5 windows (cut from 100
+# to keep the script's time)
+GRAPH_REPLAYS = 40
 # bench.py's headline program: batch 128, iters=HEADLINE_K a call,
 # HEADLINE_WARM + HEADLINE_CALLS timed (cut from 40 and 2 + 5 to keep the
 # script well inside its time limit)
@@ -483,6 +521,9 @@ IMDB_VOCAB = 5148
 WMT_DICT = 30000
 # host vs card at full width: SEQ_PARITY_STEPS steps at this batch (the
 # host's f32 matmuls over the 30000-word softmax set its size)
+# the loop ops' forwards timed alone: the stacked LSTM's only (the NMT's
+# took 20 s of the script and measure the same recompute share)
+LOOP_FORWARD_TAGS = ("stacked_lstm",)
 SEQ_PARITY_BATCH = 16
 SEQ_PARITY_STEPS = 2
 # a fetched dropout mask keeps 1 - p of its elements within this: the
@@ -768,6 +809,20 @@ DET_REPS = 5
 NATIVE_STEPS = 5
 NATIVE_BATCH = 64
 NATIVE_RTOL = 1e-4
+
+# ring attention (phase ring): sp ranks, one process each, sharing the
+# card over a gloo group; f32 held at the JAX ring test's bound
+RING_WORLD = 4
+RING_TOL = {torch.float32: {"atol": 3e-5, "rtol": 1e-4},
+            torch.bfloat16: {"atol": 2e-3, "rtol": 1.6e-2}}
+RING_CHILD_S = 300
+# pipeline parallelism (phase pipeline): the headline at batch 128 in 4
+# stages of 4 microbatches of 32; the first step captures the forward and
+# backward cells, the second the optimizer cells, the rest are timed
+PIPE_STAGES = 4
+PIPE_MICRO = 4
+PIPE_STEPS = 4
+PIPE_CLI_S = 300
 
 SEED = 20261016
 BATCH = 32
@@ -3677,15 +3732,17 @@ def phase_seq(m, card_line):
         _release()
         seconds["traces_and_embedding_grads"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        loops = _loop_forward_ms(main, init, per_step[0], [loss])
-        result.update(loop_forward_ms=loops,
-                      recompute_share=sum(loops.values()) / result["step_ms"])
-        log(f"[{tag}] {card_line}: the loop ops' forwards alone, each "
-            f"replayed from a graph at a step's inputs: "
-            f"{ {k: round(v, 3) for k, v in loops.items()} } ms; each runs "
-            f"again inside its derived grad: that recompute is "
-            f"{result['recompute_share']:.3f} of the {result['step_ms']:.2f} "
-            f"ms step")
+        if tag in LOOP_FORWARD_TAGS:
+            loops = _loop_forward_ms(main, init, per_step[0], [loss])
+            result.update(loop_forward_ms=loops,
+                          recompute_share=sum(loops.values())
+                          / result["step_ms"])
+            log(f"[{tag}] {card_line}: the loop ops' forwards alone, each "
+                f"replayed from a graph at a step's inputs: "
+                f"{ {k: round(v, 3) for k, v in loops.items()} } ms; each "
+                f"runs again inside its derived grad: that recompute is "
+                f"{result['recompute_share']:.3f} of the "
+                f"{result['step_ms']:.2f} ms step")
         seconds["loop_forwards"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         small = seq_feeds([{n: v[:BATCH] for n, v in b.items()}
@@ -6788,15 +6845,16 @@ def _cs_cap(card):
     return out
 
 
-def l2_child(root):
-    """`python3 chip_smoke.py --l2-child DIR`: one fresh process of phase
-    compile_services (d): the kernels' extension loaded, then the headline
-    program (bf16 AMP, fused Momentum, batch HEADLINE_BATCH,
-    FLAGS_verify=full, cuDNN deterministic) under
-    FLAGS_compile_cache_dir=DIR, its startup and two steps (the eager
-    first step, the capture); prints one JSON line: the losses (hex), the
-    compile cache's payload, the prepare's host split, the monitor's
-    misses, the momentum launches and the extension's load seconds."""
+def l2_child(root, go):
+    """`python3 chip_smoke.py --l2-child DIR GO`: one fresh process of
+    phase compile_services (d): the kernels' extension loaded and the
+    headline program (bf16 AMP, fused Momentum, batch HEADLINE_BATCH)
+    built; then, once the file GO exists, under FLAGS_verify=full, cuDNN
+    deterministic and FLAGS_compile_cache_dir=DIR, its startup and two
+    steps (the eager first step, the capture); prints one JSON line: the
+    losses (hex), the compile cache's payload, the prepare's host split,
+    the monitor's misses, the momentum launches and the extension's load
+    seconds."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import amp, flags, monitor
     from paddle_tpu_torch.fusion import kernels as fk
@@ -6814,6 +6872,12 @@ def l2_child(root):
     main, startup, loss, _ = build_headline(plan=False)
     one = {n: t[0] for n, t in _cs_feeds(SEED + 19, 1,
                                          HEADLINE_BATCH).items()}
+    deadline = time.monotonic() + CS_CHILD_S
+    while not os.path.exists(go):
+        if time.monotonic() > deadline:
+            sys.exit(f"l2 child: no {go} within {CS_CHILD_S} s")
+        time.sleep(0.02)
+    t0 = time.perf_counter()
     amp.enable("bfloat16")
     with flags.flag_guard(fuse=True, verify="full", monitor=True,
                           compile_cache_dir=root):
@@ -6835,7 +6899,7 @@ def l2_child(root):
             "momentum_launches": fk.momentum_bucket.launches,
             "mode": exe.step_mode(main),
             "kernel_load_s": kernel_load,
-            "seconds": time.perf_counter() - t0}))
+            "seconds": time.perf_counter() - t0}))  # from the go
 
 
 def _cs_l2(card):
@@ -6843,23 +6907,34 @@ def _cs_l2(card):
     FLAGS_compile_cache_dir: the first misses and puts, the second hits
     (no miss on its monitor) with bitwise the first's losses; then the
     main program's entry corrupted: a third counts one l2_fallback and
-    runs to the same losses."""
+    runs to the same losses. The three start at once, import and build
+    their programs side by side, and each runs once the one before it has
+    ended (its go file)."""
     import tempfile
 
     from paddle_tpu_torch.cache import L2Store
 
     root = tempfile.mkdtemp(prefix="chip_smoke_l2_")
+    gates = tempfile.mkdtemp(prefix="chip_smoke_l2_go_")
     here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--l2-child", root,
+         os.path.join(gates, str(i))], cwd=here, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for i in range(3)]
 
-    def child(tag):
+    def child(i, tag):
+        proc = procs[i]
+        open(os.path.join(gates, str(i)), "w").close()
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--l2-child", root],
-            cwd=here, capture_output=True, text=True, timeout=CS_CHILD_S)
+        try:
+            out, err = proc.communicate(timeout=CS_CHILD_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
         if proc.returncode != 0:
             raise AssertionError(f"l2 child {tag}: rc {proc.returncode}\n"
-                                 f"{proc.stderr[-4000:]}")
-        got = json.loads(proc.stdout.strip().splitlines()[-1])
+                                 f"{err[-4000:]}")
+        got = json.loads(out.strip().splitlines()[-1])
         got["wall_s"] = time.perf_counter() - t0
         split = got["prepare"]
         outcome = ("hit" if split.get("level") == "l2" else "fallback"
@@ -6874,12 +6949,12 @@ def _cs_l2(card):
             f"monitor misses "
             f"{got['monitor_misses']}; momentum launches "
             f"{got['momentum_launches']}; losses {got['losses']}; process "
-            f"{got['wall_s']:.1f} s")
+            f"{got['wall_s']:.1f} s from its go")
         return got
 
     try:
-        cold = child("first")
-        warm = child("second")
+        cold = child(0, "first")
+        warm = child(1, "second")
         store = L2Store(root)
         big = max(store.entries(), key=lambda e: e["bytes"])
         with open(big["path"], "r+b") as f:
@@ -6887,10 +6962,15 @@ def _cs_l2(card):
             tail = f.read(8)
             f.seek(-8, 2)
             f.write(bytes(b ^ 0xFF for b in tail))
-        hurt = child("third (main entry corrupted)")
+        hurt = child(2, "third (main entry corrupted)")
         entries = len(store.entries())
     finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
         shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(gates, ignore_errors=True)
     l2c, l2w, l2h = (g["info"]["l2"] for g in (cold, warm, hurt))
     if (l2c["misses"], l2c["puts"], l2c["hits"]) != (2, 2, 0):
         raise AssertionError(f"first process: {l2c}")
@@ -8246,11 +8326,13 @@ def _ps_table(cluster, dump):
 
 
 def _ps_memopt(feeds):
-    """(d) memory_optimize on the headline program: PS_MEMOPT_STEPS
-    interpreter steps (bf16 AMP, unfused) from one state with and without
-    it: the losses bitwise; the renames and each run's peak memory."""
+    """(d) memory_optimize on the headline program: PS_MEMOPT_STEPS steps
+    (bf16 AMP, FLAGS_fuse, the first eager, the next captured) from one
+    state with and without it: the losses bitwise; the renames, each
+    run's peak memory and momentum launches."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import amp, convert, flags
+    from paddle_tpu_torch.fusion import kernels as fk
 
     out, init = {}, None
     for opt in (False, True):
@@ -8266,15 +8348,17 @@ def _ps_memopt(feeds):
         _release()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        # FLAGS_fuse=0: the fusion pass's hazard check (PTA031) pairs a
-        # grad op with its forward op by var name, which a rename reuses
-        with flags.flag_guard(fuse=False, cuda_graph=False), amp.auto_cast():
+        fk.reset_launch_counts()
+        # fused and captured: the fusion pass's hazard check pairs a grad
+        # op with the forward op it came from, so a rename is no hazard
+        with flags.flag_guard(fuse=True), amp.auto_cast():
             losses = [exe.run(main, feed=f, fetch_list=[loss], scope=scope,
                               return_numpy=False)[0].reshape(-1)[0]
                       .float().cpu() for f in feeds[:PS_MEMOPT_STEPS]]
         out[opt] = {"renames": len(renames), "losses": losses,
                     "peak_bytes": torch.cuda.max_memory_allocated() - base,
-                    "mode": exe.step_mode(main)}
+                    "mode": exe.step_mode(main),
+                    "momentum_launches": fk.momentum_bucket.launches}
         del exe, scope
         _release()
     equal = all(torch.equal(a, b) for a, b in zip(out[False]["losses"],
@@ -8283,14 +8367,23 @@ def _ps_memopt(feeds):
               "losses": [float(v) for v in out[True]["losses"]],
               "peak_bytes": out[False]["peak_bytes"],
               "peak_bytes_optimized": out[True]["peak_bytes"],
-              "mode": out[True]["mode"]}
+              "mode": out[True]["mode"],
+              "momentum_launches": out[True]["momentum_launches"],
+              "momentum_launches_unoptimized":
+                  out[False]["momentum_launches"]}
     log(f"[pserver] (d) memory_optimize on the headline: "
-        f"{result['renames']} renames; {PS_MEMOPT_STEPS} interpreter steps "
-        f"(bf16, unfused): losses {result['losses']} "
-        f"{'bitwise equal' if equal else 'DIFFER'} to the unoptimized "
-        f"program's; peak memory above the state {result['peak_bytes']} B "
-        f"without, {result['peak_bytes_optimized']} B with it")
-    if not equal or result["mode"] != "interpreter":
+        f"{result['renames']} renames; {PS_MEMOPT_STEPS} steps (bf16, "
+        f"FLAGS_fuse, step mode {result['mode']}): losses "
+        f"{result['losses']} {'bitwise equal' if equal else 'DIFFER'} to "
+        f"the unoptimized program's; momentum_bucket launches "
+        f"{result['momentum_launches']} (unoptimized "
+        f"{result['momentum_launches_unoptimized']}); peak memory above the "
+        f"state {result['peak_bytes']} B without, "
+        f"{result['peak_bytes_optimized']} B with it")
+    if not equal or result["mode"] != "graph" \
+            or not result["momentum_launches"] \
+            or result["momentum_launches"] \
+            != result["momentum_launches_unoptimized"]:
         raise AssertionError(f"[pserver] (d) failed: {result}")
     return result
 
@@ -9037,6 +9130,540 @@ def phase_detection(card_line):
     return result
 
 
+def _ring_inputs(gen_seed, dtype=torch.float32):
+    """The full-width q, k, v [B, H, S, D] (and a cotangent) on the card,
+    drawn from one seeded generator: every rank draws the same tensors and
+    keeps its sequence shard."""
+    B, H, S, _, D = FLASH_FULL
+    gen = torch.Generator(device="cuda").manual_seed(gen_seed)
+    return [torch.randn(B, H, S, D, generator=gen, device="cuda").to(dtype)
+            for _ in range(4)]
+
+
+def ring_child(spec_path, rank):
+    """One rank of phase ring (b): joins a RING_WORLD-rank gloo group on
+    card 0 (`--ring-child SPEC RANK`), and on the mesh {"sp": W} runs
+    ring_flash_attention at full width, bf16 and f32, causal and not (a
+    warm run, then the counted and timed one), and ring_attention f32 with
+    its q/k/v grads; saves its output shards and grads and writes its
+    counts and hop times as JSON."""
+    from paddle_tpu_torch.ops import collective_ops
+    from paddle_tpu_torch.parallel import distributed, flash, make_mesh, ring
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    world, out_dir = spec["world"], spec["out"]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize("file://" + spec["rendezvous"], world, rank,
+                           local_device_ids=[0], backend="gloo")
+    try:
+        mesh = make_mesh({"sp": world})
+        S = FLASH_FULL[2] // world
+        sl = slice(rank * S, (rank + 1) * S)
+        q, k, v, dout = _ring_inputs(SEED + 31)
+        res = {"flash": {}, "plain": {}}
+        for dtype in (torch.bfloat16, torch.float32):
+            qs, ks, vs = (t.to(dtype)[:, :, sl].contiguous()
+                          for t in (q, k, v))
+            for causal in (False, True):
+                ring.ring_flash_attention(qs, ks, vs, mesh, causal=causal)
+                torch.cuda.synchronize()
+                flash.reset_launch_counts()
+                collective_ops.reset_launch_counts()
+                hops = []
+                t0 = time.perf_counter()
+                out = ring.ring_flash_attention(qs, ks, vs, mesh,
+                                                causal=causal, timings=hops)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                key = f"{str(dtype).split('.')[1]}_{causal}"
+                res["flash"][key] = {
+                    "launches": flash.flash_fwd.launches,
+                    "sm90_launches": flash.flash_fwd.sm90_launches,
+                    "tf32_launches": flash.flash_fwd.tf32_launches,
+                    "split_launches": flash.split_tf32.launches,
+                    "permutes": collective_ops.launch.launches,
+                    "host_staged_bytes":
+                        collective_ops.permute.host_staged_bytes,
+                    "hops": hops, "wall_ms": wall * 1e3}
+                torch.save(out.cpu(), os.path.join(
+                    out_dir, f"flash_{key}.{rank}.pt"))
+        for causal in (False, True):
+            leaves = [t[:, :, sl].clone().requires_grad_(True)
+                      for t in (q, k, v)]
+            collective_ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = ring.ring_attention(*leaves, mesh, causal=causal)
+            (out * dout[:, :, sl]).sum().backward()
+            torch.cuda.synchronize()
+            res["plain"][str(causal)] = {
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "permutes": collective_ops.launch.launches}
+            torch.save([out.detach().cpu()] + [t.grad.cpu() for t in leaves],
+                        os.path.join(out_dir, f"plain_{causal}.{rank}.pt"))
+            del out, leaves
+        with open(os.path.join(out_dir, f"result.{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _ring_one_rank():
+    """(a) one rank: a one-rank sp group (gloo, card 0); the ring is one
+    hop and equals flash_fwd over the whole sequence bitwise. Returns the
+    ring's own launches by dtype."""
+    import tempfile
+
+    from paddle_tpu_torch.parallel import distributed, flash, make_mesh, ring
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ring1_")
+    distributed.initialize("file://" + os.path.join(tmp, "rendezvous"), 1,
+                           0, local_device_ids=[0], backend="gloo")
+    launches = {}
+    try:
+        mesh = make_mesh({"sp": 1})
+        q, k, v, _ = _ring_inputs(SEED + 31)
+        D = q.shape[-1]
+        for dtype in (torch.bfloat16, torch.float32):
+            qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+            n = 0
+            for causal in (False, True):
+                flash.reset_launch_counts()
+                got = ring.ring_flash_attention(qd, kd, vd, mesh,
+                                                causal=causal)
+                torch.cuda.synchronize()
+                n += flash.flash_fwd.launches
+                want, _ = flash.flash_fwd(qd, kd, vd, D ** -0.5, causal)
+                bits = torch.int16 if dtype == torch.bfloat16 \
+                    else torch.int32
+                if got.dtype != dtype or not torch.equal(got.view(bits),
+                                                         want.view(bits)):
+                    raise AssertionError(
+                        f"[ring] (a) one rank {dtype} causal={causal}: not "
+                        f"bitwise flash_fwd over the sequence")
+            launches[str(dtype).split(".")[1]] = n
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[ring] (a) one-rank sp group at {list(FLASH_FULL[:3])}+"
+        f"[{FLASH_FULL[4]}]: ring_flash_attention == flash_fwd over the "
+        f"whole sequence bitwise, bf16 and f32, causal and not (one hop; "
+        f"kernel launches {launches})")
+    return launches
+
+
+def _dense_attention(q, k, v, dout, causal, heads=8):
+    """Plain attention over the whole sequence in float64, a few heads at
+    a time: (out, dq, dk, dv), or (out,) where `dout` is None."""
+    grads = dout is not None
+    outs = [[], [], [], []] if grads else [[]]
+    S = q.shape[2]
+    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    for h in range(0, q.shape[1], heads):
+        with torch.set_grad_enabled(grads):
+            t = [x[:, h:h + heads].double().requires_grad_(grads)
+                 for x in (q, k, v)]
+            s = t[0] @ t[1].transpose(-1, -2) / q.shape[-1] ** 0.5
+            if causal:
+                s = s.masked_fill(~mask, float("-inf"))
+            out = torch.softmax(s, -1) @ t[2]
+        if grads:
+            (out * dout[:, h:h + heads].double()).sum().backward()
+        for lst, x in zip(outs, [out.detach()] + [x.grad for x in t]):
+            lst.append(x.float())
+        del s, out, t
+    return [torch.cat(x, 1) for x in outs]
+
+
+def phase_ring(card):
+    """Ring attention on the card (module docstring, phase 15): (a) one
+    rank, bitwise; (b) RING_WORLD gloo ranks sharing the card, each hop
+    the flash kernel, against flash_fwd over the whole sequence, and the
+    plain ring's forward and grads against plain attention. Returns the
+    numbers and each flash kernel's launches on the ring path."""
+    import tempfile
+
+    from paddle_tpu_torch.parallel import flash
+
+    result = {"one_rank_launches": _ring_one_rank()}
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ring_")
+    spec = os.path.join(tmp, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"world": RING_WORLD, "out": tmp,
+                   "rendezvous": os.path.join(tmp, "rendezvous")}, f)
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(RING_WORLD):
+            path = os.path.join(OUT_DIR, f"ring_r{r}.log")
+            with open(path, "w") as out:
+                procs.append((subprocess.Popen(
+                    [sys.executable, os.path.join(here, "chip_smoke.py"),
+                     "--ring-child", spec, str(r)], cwd=here, stdout=out,
+                    stderr=subprocess.STDOUT), path))
+        deadline = time.monotonic() + RING_CHILD_S
+        for p, path in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+            if p.returncode != 0:
+                raise AssertionError(f"[ring] rank exited {p.returncode} "
+                                     f"(see {path})")
+        children_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(RING_WORLD):
+            with open(os.path.join(tmp, f"result.{r}.json")) as f:
+                ranks.append(json.load(f))
+        q, k, v, dout = _ring_inputs(SEED + 31)
+        D = q.shape[-1]
+        flash_rows = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            for causal in (False, True):
+                key = f"{name}_{causal}"
+                got = torch.cat([torch.load(os.path.join(
+                    tmp, f"flash_{key}.{r}.pt")) for r in range(RING_WORLD)],
+                    dim=2).cuda()
+                qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+                want, _ = flash.flash_fwd(qd, kd, vd, D ** -0.5, causal)
+                err = (got.float() - want.float()).abs().max().item()
+                torch.testing.assert_close(
+                    got, want, **RING_TOL[dtype],
+                    msg=f"[ring] (b) {key}: gathered ring output vs "
+                        f"flash_fwd over the whole sequence")
+                # the hops' kernel (at [1, H, S/n, D], full and diagonal)
+                # held against plain attention in float64 on the same
+                # (dtype-rounded) inputs, at the flash phase's bound
+                plain_out = _dense_attention(qd, kd, vd, None, causal)[0]
+                plain_err = (got.float() - plain_out).abs().max().item()
+                torch.testing.assert_close(
+                    got.float(), plain_out, **FLASH_TOL[dtype],
+                    msg=f"[ring] (b) {key}: gathered ring output vs plain "
+                        f"attention (float64)")
+                del plain_out
+                per_rank = [rk["flash"][key] for rk in ranks]
+                launches = [x["launches"] for x in per_rank]
+                want_l = ([i + 1 for i in range(RING_WORLD)] if causal
+                          else [RING_WORLD] * RING_WORLD)
+                if launches != want_l:
+                    raise AssertionError(f"[ring] (b) {key}: flash launches "
+                                         f"by rank {launches}, not {want_l}")
+                which = "sm90_launches" if dtype == torch.bfloat16 \
+                    else "tf32_launches"
+                if [x[which] for x in per_rank] != want_l:
+                    raise AssertionError(f"[ring] (b) {key}: the {which} "
+                                         f"counts differ")
+                hops = [h for x in per_rank for h in x["hops"]]
+                kern = [h["kernel_ms"] for h in hops if h["case"] != "skip"]
+                perm = [h["permute_ms"] for h in hops
+                        if h["hop"] < RING_WORLD - 1]
+                row = flash_rows[key] = {
+                    "max_abs_err": err, "max_abs_err_plain": plain_err,
+                    "launches_by_rank": launches,
+                    "launches": sum(launches),
+                    "split_launches": sum(x["split_launches"]
+                                          for x in per_rank),
+                    "permutes_by_rank": [x["permutes"] for x in per_rank],
+                    "host_staged_bytes": sum(x["host_staged_bytes"]
+                                             for x in per_rank),
+                    "hop_kernel_ms_median": statistics.median(kern),
+                    "hop_kernel_ms": [round(x, 4) for x in kern],
+                    "permute_ms_median": statistics.median(perm),
+                    "ring_wall_ms_by_rank": [round(x["wall_ms"], 2)
+                                             for x in per_rank]}
+                log(f"[ring] (b) sp={RING_WORLD} gloo ranks on one card, "
+                    f"{name} causal={causal}: gathered output == flash_fwd "
+                    f"over the whole sequence within {RING_TOL[dtype]} "
+                    f"(max |err| {err:.3e}), and == plain attention "
+                    f"(float64) within {FLASH_TOL[dtype]} (max |err| "
+                    f"{plain_err:.3e}); flash launches by rank "
+                    f"{launches} ({row['launches']}); a hop's kernel "
+                    f"{row['hop_kernel_ms_median']:.4f} ms median of "
+                    f"{len(kern)}, a rotation's permute (k or v over the "
+                    f"pinned host wire) {row['permute_ms_median']:.3f} ms "
+                    f"median; {row['host_staged_bytes']} bytes staged; a "
+                    f"rank's ring {row['ring_wall_ms_by_rank']} ms")
+        result["flash"] = flash_rows
+        plain = {}
+        for causal in (False, True):
+            got = [torch.load(os.path.join(tmp, f"plain_{causal}.{r}.pt"))
+                   for r in range(RING_WORLD)]
+            got = [torch.cat([g[i] for g in got], dim=2).cuda()
+                   for i in range(4)]
+            want = _dense_attention(q, k, v, dout, causal)
+            errs = {}
+            for n, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+                errs[n] = (a - b).abs().max().item()
+                torch.testing.assert_close(
+                    a, b, **RING_TOL[torch.float32],
+                    msg=f"[ring] (b) ring_attention causal={causal} {n} vs "
+                        f"plain attention")
+            plain[str(causal)] = {
+                "max_abs_err": errs,
+                "ms_by_rank": [round(rk["plain"][str(causal)]["ms"], 2)
+                               for rk in ranks],
+                "permutes_by_rank": [rk["plain"][str(causal)]["permutes"]
+                                     for rk in ranks]}
+            log(f"[ring] (b) ring_attention f32 causal={causal}: forward "
+                f"and q/k/v grads == plain attention (float64) within "
+                f"{RING_TOL[torch.float32]}, max |err| {errs}; forward + "
+                f"backward {plain[str(causal)]['ms_by_rank']} ms by rank, "
+                f"permutes {plain[str(causal)]['permutes_by_rank']}")
+        result["plain"] = plain
+        result["children_s"] = children_s
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    causal_n = flash_rows["bfloat16_True"]["launches"]
+    full_n = flash_rows["bfloat16_False"]["launches"]
+    if (causal_n, full_n) != (10, 16):
+        raise AssertionError(f"[ring] flash launches over the ring "
+                             f"{causal_n} causal, {full_n} not")
+    result["launches"] = {
+        name: {"ring_sp4_causal": flash_rows[f"{name}_True"]["launches"],
+               "ring_sp4_full": flash_rows[f"{name}_False"]["launches"],
+               "ring_one_rank": result["one_rank_launches"][name]}
+        for name in ("bfloat16", "float32")}
+    result["split_launches"] = sum(
+        flash_rows[f"float32_{c}"]["split_launches"] for c in (False, True))
+    return result
+
+
+def _pipe_feeds():
+    rs = np.random.RandomState(SEED + 37)
+    return [{"data_u8": torch.from_numpy(rs.randint(
+                 0, 256, (HEADLINE_BATCH, 224, 224, 3),
+                 dtype=np.uint8)).cuda(),
+             "label": torch.from_numpy(rs.randint(
+                 0, 1000, (HEADLINE_BATCH, 1)).astype(np.int32)).cuda()}
+            for _ in range(PIPE_STEPS)]
+
+
+def _pipe_run(n_stages, feeds, init):
+    """The headline program through PipelineRunner at n_stages, PIPE_MICRO
+    microbatches, FLAGS_fuse and bf16 AMP, from `init` (None: its own
+    startup, returned): the losses, the state, the timed steps' img/s,
+    the plan's numbers, the bubbles, peak memory, the momentum kernel's
+    launches and the fused buckets of the optimizer cells."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, convert, flags, fusion
+    from paddle_tpu_torch.fusion import kernels as fk
+    from paddle_tpu_torch.parallel import pipeline as pl
+
+    main, startup, loss, _ = build_headline(plan=False)
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    if init is None:
+        init = convert.numpy_state(scope, main)
+    else:
+        convert.load_numpy_state(scope, main, init, fluid.CUDAPlace(0))
+    t0 = time.perf_counter()
+    runner = pl.PipelineRunner(main, n_stages, loss_name=loss.name,
+                               feed_names=["data_u8", "label"],
+                               n_microbatches=PIPE_MICRO, scope=scope,
+                               batch_size=HEADLINE_BATCH // PIPE_MICRO)
+    build_s = time.perf_counter() - t0
+    buckets = 0
+    for (_, phase), sp in runner.stages.items():
+        if phase != pl.PHASE_OPT:
+            continue
+        _, fplan = fusion.apply(
+            sp.program, feed_names=sp.data_feeds + sp.local_in + [
+                n + pl.PP_IN_SUFFIX for n in sp.boundary_in],
+            fetch_names=sp.fetch_names)
+        buckets += sum(b["opt"] == "momentum" for b in fplan.buckets)
+    _release()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_launch_counts()
+    losses, times, reps = [], [], []
+    with flags.flag_guard(fuse=True), amp.auto_cast():
+        for f in feeds:
+            t1 = time.perf_counter()
+            rep = runner.run(f)
+            times.append(time.perf_counter() - t1)
+            losses.append(rep["loss"].reshape(-1)[0])
+            reps.append(rep)
+    launches = fk.momentum_bucket.launches
+    modes = sorted({runner._exe.step_mode(sp.program)
+                    for sp in runner.stages.values()})
+    captures = [len(runner._exe.captured_steps(sp.program, scope))
+                for sp in runner.stages.values()]
+    rep = reps[-1]
+    out = {
+        "losses": [float(x) for x in losses],
+        "loss_bits": [np.float32(x).tobytes().hex() for x in losses],
+        "state": convert.numpy_state(scope, main),
+        "images_per_sec": HEADLINE_BATCH * (len(times) - 2)
+                          / sum(times[2:]),
+        "step_s": [round(t, 4) for t in times], "build_s": build_s,
+        "balance": runner.plan.balance(),
+        "cut_bytes": runner.plan.cut_bytes,
+        "stage_flops": runner.plan.stage_flops,
+        "cells": len(runner.stages),
+        "bubble_fraction": rep["bubble_fraction"],
+        "bubble_measured": rep["bubble_measured"],
+        "bubble_analytic": rep["bubble_analytic"],
+        "makespan_ms": rep["makespan_s"] * 1e3,
+        "peak_bytes": torch.cuda.max_memory_allocated() - base,
+        "momentum_launches": launches, "opt_buckets": buckets,
+        "modes": modes, "captures": captures}
+    del runner, exe, scope
+    _release()
+    return out, init
+
+
+_PIPE_CLI = {}
+
+
+def start_pipe_cli():
+    """Start phase pipeline's `python -m paddle_tpu_torch analyze pipeline
+    --selftest` on the card in the background, once (its output in
+    chiprun_out/pipeline_cli.{out,err}). The whole script starts it beside
+    phase ring, whose rank processes spend their first seconds importing,
+    and phase pipeline waits for it before its own first step, so that it
+    overlaps none of that phase's timed steps. A selftest still running
+    when the script exits is killed."""
+    if _PIPE_CLI:
+        return
+    os.makedirs(OUT_DIR, exist_ok=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    files = [open(os.path.join(OUT_DIR, f"pipeline_cli.{x}"), "w+")
+             for x in ("out", "err")]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch", "analyze", "pipeline",
+         "--selftest", "--stages", str(PIPE_STAGES), "--microbatches",
+         str(PIPE_MICRO)], cwd=here, stdout=files[0], stderr=files[1])
+    _PIPE_CLI.update(files=files, t0=time.perf_counter(), proc=proc)
+    atexit.register(_stop_pipe_cli)
+
+
+def _stop_pipe_cli():
+    proc = _PIPE_CLI.get("proc")
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def wait_pipe_cli():
+    """Wait for the selftest (starting it if it is not running): (its rc,
+    stdout, stderr, seconds from its start, seconds waited here)."""
+    start_pipe_cli()
+    proc, t1 = _PIPE_CLI["proc"], time.perf_counter()
+    try:
+        proc.wait(timeout=max(PIPE_CLI_S - (t1 - _PIPE_CLI["t0"]), 1))
+    except subprocess.TimeoutExpired:
+        _stop_pipe_cli()
+        raise AssertionError(f"[pipeline] the CLI selftest ran over "
+                             f"{PIPE_CLI_S} s")
+    t2 = time.perf_counter()
+    text = []
+    for f in _PIPE_CLI["files"]:
+        f.seek(0)
+        text.append(f.read())
+        f.close()
+    return proc.returncode, text[0], text[1], t2 - _PIPE_CLI["t0"], t2 - t1
+
+
+def phase_pipeline(card, headline_ips):
+    """Pipeline parallelism on the card (module docstring, phase 16)."""
+    cli_rc, cli_out, cli_err, cli_s, cli_wait = wait_pipe_cli()
+    log(f"[pipeline] python -m paddle_tpu_torch analyze pipeline --selftest "
+        f"--stages {PIPE_STAGES} --microbatches {PIPE_MICRO} (on the card, "
+        f"started beside phase ring): rc {cli_rc} in {cli_s:.1f} s, "
+        f"{cli_wait:.1f} s of it waited for here: "
+        + (cli_out.strip().splitlines()[-1] if cli_out.strip()
+           else cli_err[-500:]))
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        feeds = _pipe_feeds()
+        one, init = _pipe_run(1, feeds, None)
+        many, _ = _pipe_run(PIPE_STAGES, feeds, init)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    del init, feeds
+    bad = [n for n in one["state"]
+           if not np.array_equal(one["state"][n], many["state"][n])]
+    equal = one["loss_bits"] == many["loss_bits"] and not bad \
+        and sorted(one["state"]) == sorted(many["state"])
+    n_state = len(one["state"])
+    analytic = (PIPE_STAGES - 1) / (PIPE_MICRO + PIPE_STAGES - 1)
+    for r, p in ((one, 1), (many, PIPE_STAGES)):
+        log(f"[pipeline] headline (bf16 AMP, fused Momentum, batch "
+            f"{HEADLINE_BATCH}) in {p} stage(s) x {PIPE_MICRO} microbatches "
+            f"of {HEADLINE_BATCH // PIPE_MICRO}: {r['cells']} cells, modes "
+            f"{r['modes']}, captures by cell {r['captures']}; losses "
+            f"{r['losses']}; {r['images_per_sec']:.2f} img/s over steps 3-"
+            f"{PIPE_STEPS} (headline {headline_ips} img/s; steps "
+            f"{r['step_s']} s); plan balance {r['balance']:.4f}, cut "
+            f"{r['cut_bytes'] / 1e6:.2f} MB a microbatch, stage GFLOP "
+            f"{[round(f / 1e9, 2) for f in r['stage_flops']]}; bubble "
+            f"structural {r['bubble_fraction']:.6f} (analytic "
+            f"{r['bubble_analytic']:.6f}), measured "
+            f"{r['bubble_measured']:.4f} (makespan {r['makespan_ms']:.2f} "
+            f"ms); peak memory above the state "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB; momentum_bucket launches "
+            f"{r['momentum_launches']} = {r['opt_buckets']} fused buckets "
+            f"x {PIPE_STEPS} steps")
+    log(f"[pipeline] {PIPE_STAGES} stages vs 1: losses and all {n_state} "
+        f"persistables {'bitwise equal' if equal else 'DIFFER: ' + str(bad[:5])}")
+    problems = []
+    if not equal:
+        problems.append("not bitwise")
+    if abs(many["bubble_fraction"] - analytic) > 1e-12:
+        problems.append(f"structural bubble {many['bubble_fraction']}")
+    for r in (one, many):
+        if r["momentum_launches"] != r["opt_buckets"] * PIPE_STEPS \
+                or not r["momentum_launches"]:
+            problems.append(f"momentum launches {r['momentum_launches']}")
+        if r["modes"] != ["graph"] or set(r["captures"]) != {1}:
+            problems.append(f"cells {r['modes']} {r['captures']}")
+    if cli_rc != 0:
+        problems.append(f"selftest rc {cli_rc}: {cli_err[-2000:]}")
+    if problems:
+        raise AssertionError(f"[pipeline] failed: {problems}")
+    for r in (one, many):
+        del r["state"], r["loss_bits"]
+    return {"one_stage": one, "stages": many, "bitwise": equal,
+            "persistables": n_state, "headline_images_per_sec": headline_ips,
+            "ratio_to_one_stage": many["images_per_sec"]
+                                  / one["images_per_sec"],
+            "cli_selftest_rc": cli_rc, "cli_selftest_s": cli_s,
+            "cli_selftest_waited_s": cli_wait}
+
+
+def main_ring():
+    """`python3 chip_smoke.py --only ring`: the device check, the build
+    and phase ring alone."""
+    card_line = phase_device()
+    phase_build()
+    lap("device_and_build")
+    result = phase_ring(card_line)
+    lap("ring")
+    log(card_line)
+    log(json.dumps({"ring": result}))
+    log(_device_line())
+
+
+def main_pipeline():
+    """`python3 chip_smoke.py --only pipeline`: the device check, the
+    build and phase pipeline alone (the headline's img/s is the whole
+    script's: not measured here)."""
+    card_line = phase_device()
+    phase_build()
+    lap("device_and_build")
+    result = phase_pipeline(card_line, None)
+    lap("pipeline")
+    log(card_line)
+    log(json.dumps({"pipeline": result}))
+    log(_device_line())
+
+
 def main_detection():
     """`python3 chip_smoke.py --only detection`: the device check, the
     build (the fused momentum kernel of SSD300's path) and phase detection
@@ -9388,6 +10015,8 @@ def main():
             pserver[path]["momentum_launches"]
     momentum["launches_by_path"]["pserver_trainer"] = \
         pserver["trainer_launches"]
+    momentum["launches_by_path"]["pserver_memopt"] = \
+        pserver["memory_optimize"]["momentum_launches"]
     _release()
     lap("pserver")
     detection = phase_detection(card_line)
@@ -9395,7 +10024,30 @@ def main():
         detection["ssd300"]["momentum_launches"]
     _release()
     lap("detection")
-    rows += phase_flash(sass)
+    start_pipe_cli()
+    ring = phase_ring(card_line)
+    _release()
+    lap("ring")
+    pipe = phase_pipeline(card_line, headline["images_per_sec"])
+    momentum["launches_by_path"]["pipeline_one_stage"] = \
+        pipe["one_stage"]["momentum_launches"]
+    momentum["launches_by_path"]["pipeline_stages"] = \
+        pipe["stages"]["momentum_launches"]
+    _release()
+    lap("pipeline")
+    entry = phase_flash(sass)
+    # the flash rows' launches: the ring's (the path that runs them), the
+    # entry point's beside them
+    for row, name in zip(entry[:2], ("bfloat16", "float32")):
+        row["launches_by_path"] = dict(ring["launches"][name],
+                                       flash_attention_entry=row["launches"])
+        row["launches"] = ring["launches"][name]["ring_sp4_causal"] \
+            + ring["launches"][name]["ring_sp4_full"]
+    entry[2]["launches_by_path"] = {"ring_sp4": ring["split_launches"],
+                                    "flash_attention_entry":
+                                        entry[2]["launches"]}
+    entry[2]["launches"] = ring["split_launches"]
+    rows += entry
     lap("flash")
     log(card_line)
     log(json.dumps({"headline": headline, "monitor": monitored,
@@ -9405,7 +10057,8 @@ def main():
                     "control_flow": flow, "resilience": resil,
                     "compile_services": services,
                     "continuous": continuous, "pserver": pserver,
-                    "detection": detection,
+                    "detection": detection, "ring": ring,
+                    "pipeline": pipe,
                     "seconds_by_phase": _LAPS["seconds"]}))
     log(json.dumps({"kernels": rows}))
     log(_device_line())
@@ -9428,9 +10081,15 @@ if __name__ == "__main__":
         main_pserver()
     elif sys.argv[1:] == ["--only", "detection"]:
         main_detection()
+    elif sys.argv[1:] == ["--only", "ring"]:
+        main_ring()
+    elif sys.argv[1:] == ["--only", "pipeline"]:
+        main_pipeline()
+    elif sys.argv[1:2] == ["--ring-child"] and len(sys.argv) == 4:
+        ring_child(sys.argv[2], int(sys.argv[3]))
     elif sys.argv[1:2] == ["--pserver-child"] and len(sys.argv) == 4:
         pserver_child(sys.argv[2], sys.argv[3])
-    elif sys.argv[1:2] == ["--l2-child"] and len(sys.argv) == 3:
-        l2_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--l2-child"] and len(sys.argv) == 4:
+        l2_child(sys.argv[2], sys.argv[3])
     else:
         main()

@@ -509,35 +509,54 @@ def check_hazards(program, report, feed_names=None, donate_state=True,
             op_type=graph.nodes[min(cyc)].op.type)
 
     # PTA031: grad op reads a later version than its paired forward op.
-    # A control-flow op's own outputs among its reads (the names it binds,
-    # verifier.bound_names) are not: its grad reads the value the op
-    # wrote, and the value before it from the op's snapshots (InitStates)
+    # The pair is the forward op backward.py made the grad op from
+    # (Operator.fwd_op): a grad op whose forward op is in this block is
+    # held to the versions that op read, or wrote where it binds the name
+    # (a control-flow op's grad reads the value the op wrote,
+    # verifier.bound_names). A grad op whose forward op is not in this
+    # block (none recorded: built by hand or loaded from a desc; or left
+    # in another program, as a pipeline stage's backward cell leaves it)
+    # falls back to the JAX package's pairing by (op type, name), which
+    # memory_optimize's reused names defeat (ROADMAP §3 item 27)
+    node_of = {id(node.op): node for node in graph.nodes}
     fwd_reads = {}  # (op type, name) -> [versions read by forward nodes]
     own = set()     # (op type, name, version) a control-flow op wrote
+    bound = {}      # forward node idx -> the names it binds and writes
     for node in graph.nodes:
         if node.op.type.endswith("_grad"):
             continue
         for name, v in node.reads.items():
             fwd_reads.setdefault((node.op.type, name), []).append(v)
-        for name in bound_names(node.op) & set(node.writes):
+        bound[node.idx] = bound_names(node.op) & set(node.writes)
+        for name in bound[node.idx]:
             own.add((node.op.type, name, node.writes[name]))
     for node in graph.nodes:
         if node.role != OpRole.Backward \
                 or not node.op.type.endswith("_grad"):
             continue
         base = node.op.type[:-5]
+        fwd = node_of.get(id(node.op.fwd_op))
         for name, vg in node.reads.items():
-            if name.endswith("@GRAD"):
-                continue
-            vfs = fwd_reads.get((base, name))
-            if not vfs:
-                continue
-            # compare against the LATEST version any forward op of the
-            # base type consumed: if the grad sees a version newer than
-            # every candidate pairing, the value was overwritten between
-            # forward and backward
-            vf = max(vfs)
-            if vg > vf and (base, name, vg) not in own:
+            if fwd is not None:
+                if name not in fwd.reads:
+                    continue
+                vf = fwd.reads[name]
+                if name in bound.get(fwd.idx, ()):
+                    vf = max(vf, fwd.writes[name])
+                exempt = False
+            else:
+                if name.endswith("@GRAD"):
+                    continue
+                vfs = fwd_reads.get((base, name))
+                if not vfs:
+                    continue
+                # compare against the LATEST version any forward op of
+                # the base type consumed: if the grad sees a version newer
+                # than every candidate pairing, the value was overwritten
+                # between forward and backward
+                vf = max(vfs)
+                exempt = (base, name, vg) in own
+            if vg > vf and not exempt:
                 report.add(
                     "PTA031",
                     f"grad op reads {name!r} at SSA version {vg}, but "

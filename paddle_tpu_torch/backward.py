@@ -161,7 +161,12 @@ def _append_backward_ops(block, target_names, no_grad, grad_map, checkpoint_segm
             for d in grad_descs:
                 attrs = dict(d.get("attrs") or {})
                 attrs[OP_ROLE_ATTR_NAME] = OpRole.Backward
-                block.append_op(d["type"], d.get("inputs"), d.get("outputs"), attrs)
+                g_op = block.append_op(d["type"], d.get("inputs"),
+                                       d.get("outputs"), attrs)
+                # the forward op this grad op came from: the dataflow
+                # check's PTA031 pairs them by it (a deep copy of the
+                # program, clone included, keeps the reference)
+                g_op.fwd_op = op
             for canonical, parts in pending_sums:
                 block.append_op(
                     "sum", {"X": parts}, {"Out": [canonical]},

@@ -37,6 +37,14 @@ journals and ledgers:
   analyze graph|fusion [--model-dir D | --selftest] [--zero1 N] ...
                      the SSA dataflow graph and its PTA03x hazards, or
                      the fusion pass's plan
+  analyze pipeline [--model-dir D | --selftest] [--stages P]
+        [--microbatches M] [--place cuda|cpu] ...
+                     the pp-axis stage partition, its PTA040/041
+                     legality and the 1F1B bubble; --selftest trains the
+                     demo MLP through PipelineRunner (on the card unless
+                     --place cpu): losses bitwise the n_stages=1 run's,
+                     the bubble (p-1)/(m+p-1), a seeded backwards edge
+                     refused with PTA040
 
   serve --model-dir D [--place cuda|cpu] [--http PORT | --selftest N]
                      serve a saved inference model with the batching
@@ -62,8 +70,8 @@ journals and ledgers:
                      PADDLE_CURRENT_IP, as the JAX package's does)
 
 The JAX CLI's other commands (trace ops, shard, elastic, obs, ...),
-`analyze schedule` (ROADMAP queue 1 item 6), `analyze pipeline` and
-`monitor` over several journals (item 8) are not ported yet.
+`analyze schedule` (ROADMAP queue 1 item 6) and `monitor` over several
+journals (item 8) are not ported yet.
 """
 
 import argparse
@@ -473,14 +481,13 @@ def _cmd_analyze(args):
             program, _ = _z1.apply(program, args.zero1)
         return program, feeds
 
-    if args.analyze_action in ("schedule", "pipeline"):
-        what = {"schedule": "the static overlap schedule (analysis/"
-                            "schedule.py): ROADMAP queue 1 item 6",
-                "pipeline": "the pipeline stage partition (parallel/"
-                            "pipeline): ROADMAP queue 1 item 8"}
-        print(f"analyze {args.analyze_action}: not ported yet — "
-              f"{what[args.analyze_action]}", file=sys.stderr)
+    if args.analyze_action == "schedule":
+        print("analyze schedule: not ported yet — the static overlap "
+              "schedule (analysis/schedule.py): ROADMAP queue 1 item 6",
+              file=sys.stderr)
         return 2
+    if args.analyze_action == "pipeline":
+        return _cmd_analyze_pipeline(args)
 
     if args.analyze_action == "graph":
         if args.selftest:
@@ -630,6 +637,171 @@ def _cmd_analyze(args):
         else:
             print(render(plan))
         return 0
+
+
+def _pipeline_demo_program():
+    """Fixed-name 3-layer MLP trainer for `analyze pipeline --selftest` —
+    explicit layer names so two builds yield identical param names (and
+    therefore identical startup init) for the parity comparison (the JAX
+    command's net)."""
+    import paddle_tpu_torch as fluid
+
+    main, start = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, start):
+        x = fluid.layers.data(name="x", shape=[16], dtype="float32")
+        y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+        h = fluid.layers.fc(x, 32, act="relu", name="pls1")
+        h = fluid.layers.fc(h, 16, act="relu", name="pls2")
+        p = fluid.layers.fc(h, 1, name="pls3")
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(p, y))
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    return main, start, ["x", "y"], loss.name
+
+
+def _pipeline_selftest(p, m, place):
+    """The selftest's result dict: the demo net through PipelineRunner at
+    p stages and at one (same microbatching, same start), its structural
+    bubble, and a seeded backwards-edge split (must be refused, PTA040)."""
+    import numpy as np
+
+    from .analysis import ProgramVerificationError
+    from .core.scope import Scope
+    from .executor import Executor
+    from .parallel import pipeline as pl
+
+    rng = np.random.RandomState(0)
+    feed = {"x": rng.randn(4 * m, 16).astype(np.float32),
+            "y": rng.randn(4 * m, 1).astype(np.float32)}
+
+    def run(n_stages):
+        main, start, feeds, loss_name = _pipeline_demo_program()
+        scope = Scope()
+        Executor(place).run(start, scope=scope)
+        runner = pl.PipelineRunner(
+            main, n_stages, loss_name=loss_name, feed_names=feeds,
+            n_microbatches=m, scope=scope, batch_size=4 * m, place=place)
+        reports = [runner.run(feed) for _ in range(2)]
+        return [np.asarray(r["loss"]) for r in reports], reports[-1]
+
+    ref_losses, _ = run(1)
+    losses, rep = run(p)
+    parity = all(a.tobytes() == b.tobytes()
+                 for a, b in zip(ref_losses, losses))
+    bound = pl.analytic_bubble(p, m)
+    bubble_ok = abs(rep["bubble_fraction"] - bound) <= 1e-9
+
+    # a split that sends forward data to an EARLIER stage must be
+    # refused, never silently executed
+    main, start, feeds, loss_name = _pipeline_demo_program()
+    plan = pl.partition(main, max(2, p), feed_names=feeds,
+                        batch_size=4 * m)
+    # force a forward def-use edge to run BACKWARDS: producer (the first
+    # matmul) onto the last stage, its consumer onto stage 0
+    ops = main.global_block().ops
+    u = min(i for i, op in enumerate(ops)
+            if plan.phases[i] == pl.PHASE_FWD and op.type == "mul")
+    outs = set(ops[u].output_arg_names())
+    v = min(i for i, op in enumerate(ops)
+            if i > u and plan.phases[i] == pl.PHASE_FWD
+            and outs & set(op.input_arg_names()))
+    plan.assignment[u] = plan.n_stages - 1
+    plan.assignment[v] = 0
+    rejected, codes = False, []
+    try:
+        pl.build_stage_programs(main, plan, feed_names=feeds,
+                                fetch_names=[loss_name])
+    except ProgramVerificationError as e:
+        rejected = True
+        codes = sorted(e.report.codes())
+    return {
+        "ok": parity and bubble_ok and rejected and "PTA040" in codes,
+        "parity_bitwise": parity,
+        "losses": [float(np.asarray(x).reshape(-1)[0]) for x in losses],
+        "bubble_fraction": rep["bubble_fraction"],
+        "bubble_analytic": bound,
+        "bubble_measured": rep["bubble_measured"],
+        "n_stages": p, "n_microbatches": m,
+        "seeded_rejected": rejected, "seeded_codes": codes,
+        "plan": rep["plan"],
+    }
+
+
+def _cmd_analyze_pipeline(args):
+    """`analyze pipeline`: partition a program over the pp axis, verify
+    the split (PTA040/041), and report the 1F1B schedule + bubble.
+
+    --selftest additionally 1F1B-executes the demo net at the requested
+    stage count (on --place), asserts bitwise loss parity against an
+    unpartitioned (n_stages=1) replay with identical microbatching,
+    asserts the structural bubble equals the analytic (p-1)/(m+p-1)
+    bound, and asserts a seeded backwards-edge mutation is REFUSED with
+    PTA040. rc 0 ok, 1 contract violated / illegal split, 2 usage
+    error."""
+    from . import flags
+    from .analysis import Report
+    from .parallel import pipeline as pl
+
+    p, m = args.stages, args.microbatches
+    if p is None:
+        p = flags.get("pipeline_stages") or 2
+    if p < 1 or m < 1:
+        print("--stages and --microbatches must be >= 1", file=sys.stderr)
+        return 2
+
+    if args.selftest:
+        result = _pipeline_selftest(p, m, _place(args.place))
+        if args.json:
+            print(json.dumps(result, indent=2))
+        else:
+            print(f"pipeline: {p} stages x {m} microbatches  "
+                  f"bubble {result['bubble_fraction']:.4f} "
+                  f"(analytic {result['bubble_analytic']:.4f}, measured "
+                  f"{result['bubble_measured']:.4f})")
+            print(f"  bitwise loss parity vs n_stages=1: "
+                  f"{result['parity_bitwise']}")
+            codes = result["seeded_codes"]
+            print(f"--- seeded backwards-edge clone: "
+                  f"{'rejected ' + str(codes) if result['seeded_rejected'] else 'NOT rejected'}"
+                  f" ---")
+            print(f"analyze pipeline selftest: "
+                  f"{'OK' if result['ok'] else 'FAILED'}")
+        return 0 if result["ok"] else 1
+
+    if not args.model_dir:
+        print("analyze pipeline needs --model-dir or --selftest",
+              file=sys.stderr)
+        return 2
+    loaded = _load_saved_program(args.model_dir)
+    if isinstance(loaded, str):
+        print(loaded, file=sys.stderr)
+        return 2
+    program, feeds, _ = loaded
+    try:
+        plan = pl.partition(program, p, feed_names=feeds,
+                            batch_size=args.batch)
+    except ValueError as e:
+        print(f"analyze pipeline error: {e}", file=sys.stderr)
+        return 2
+    report = Report(level="full",
+                    context=f"analyze pipeline {args.model_dir}")
+    pl.check_partition(program, plan, report, feed_names=feeds)
+    sim = pl.simulate_schedule(pl.schedule_1f1b(p, m))
+    out = {
+        "plan": plan.to_dict(),
+        "bubble_analytic": pl.analytic_bubble(p, m),
+        "bubble_fraction": sim["bubble_fraction"],
+        "n_microbatches": m,
+        "report": report.to_dict(),
+    }
+    if args.json:
+        print(json.dumps(out, indent=2))
+    else:
+        print(plan.describe())
+        print(f"  1F1B x {m} microbatches: bubble "
+              f"{sim['bubble_fraction']:.4f} "
+              f"(analytic {out['bubble_analytic']:.4f})")
+        print(report.render(verbose=not args.quiet))
+    return report.rc
 
 
 def _place(name):
@@ -980,9 +1152,9 @@ def main(argv=None):
                     help="show errors only, not warnings")
 
     an = sub.add_parser("analyze", help="SSA dataflow graph, PTA03x hazard "
-                                        "detection and the fusion plan; "
-                                        "the overlap schedule and the "
-                                        "pipeline partition are not ported")
+                                        "detection, the fusion plan and "
+                                        "the pipeline partition; the "
+                                        "overlap schedule is not ported")
     ansub = an.add_subparsers(dest="analyze_action", required=True)
     ag = ansub.add_parser("graph", help="build the SSA def-use dependency "
                                         "graph and run the dataflow hazard "
@@ -1049,12 +1221,14 @@ def main(argv=None):
     afu.add_argument("--quiet", action="store_true",
                      help="hide skipped-candidate reasons")
     apl = ansub.add_parser(
-        "pipeline", help="not ported (ROADMAP queue 1 item 8): pp-axis "
-                         "stage partition and the 1F1B schedule's bubble")
+        "pipeline", help="pp-axis stage partition (parallel.pipeline): "
+                         "min-cut plan, PTA040/041 legality, and the 1F1B "
+                         "schedule's bubble fraction")
     apl.add_argument("--model-dir", default=None,
                      help="save_inference_model directory to partition")
-    apl.add_argument("--stages", type=int, default=2,
-                     help="pipeline stage count (pp axis size)")
+    apl.add_argument("--stages", type=int, default=None,
+                     help="pipeline stage count (pp axis size; default "
+                          "FLAGS_pipeline_stages, 2 where that is 0)")
     apl.add_argument("--microbatches", type=int, default=4,
                      help="1F1B microbatches per step")
     apl.add_argument("--batch", type=int, default=1,
@@ -1062,9 +1236,12 @@ def main(argv=None):
                           "FLOPs/bytes models")
     apl.add_argument("--selftest", action="store_true",
                      help="1F1B-execute the demo net (bitwise loss parity "
-                          "vs unpartitioned, bubble <= analytic bound) AND "
+                          "vs unpartitioned, bubble = analytic bound) AND "
                           "verify a seeded backwards-edge split is refused "
                           "with PTA040; rc 0 when all hold")
+    apl.add_argument("--place", default="cuda", choices=["cuda", "cpu"],
+                     help="where --selftest trains (default: the first "
+                          "card)")
     apl.add_argument("--json", action="store_true",
                      help="emit the report as JSON")
     apl.add_argument("--quiet", action="store_true",

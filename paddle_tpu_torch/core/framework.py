@@ -202,6 +202,8 @@ class Operator:
         self.inputs = _normalize_slots(inputs)
         self.outputs = _normalize_slots(outputs)
         self.attrs = dict(attrs or {})
+        # a grad op's forward op (backward.py sets it); not part of the desc
+        self.fwd_op = None
         prog = block.program
         self.attrs.setdefault(OP_ROLE_ATTR_NAME, prog._op_role)
         if prog._op_role_var:

@@ -11,7 +11,14 @@
 // PyTorch's current stream of the operands' device and raises if the
 // launch was refused. It does not synchronise.
 
-#include <torch/extension.h>
+// ATen's tensor and the two factories used, and PyTorch's pybind11 type
+// casters, instead of torch/extension.h: that header pulls in the whole
+// C++ frontend (torch/all.h), which more than doubles this file's compile
+// time, the longest step of the build.
+#include <ATen/core/Tensor.h>
+#include <ATen/ops/empty.h>
+#include <ATen/ops/empty_like.h>
+#include <torch/csrc/utils/pybind.h>
 
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
@@ -41,19 +48,19 @@ namespace {
 
 // Lanes: contiguous 1-D f32 of one length on one CUDA device; the scalar
 // (lr or lr_t): one f32 element on the same device.
-void check(const std::vector<torch::Tensor>& lanes,
-           const torch::Tensor& scalar) {
+void check(const std::vector<at::Tensor>& lanes,
+           const at::Tensor& scalar) {
   const auto& first = lanes.front();
   for (const auto& t : lanes) {
     TORCH_CHECK(t.is_cuda() && t.device() == first.device(),
                 "every lane must be on one CUDA device");
-    TORCH_CHECK(t.scalar_type() == torch::kFloat32, "float32 lanes only");
+    TORCH_CHECK(t.scalar_type() == at::kFloat, "float32 lanes only");
     TORCH_CHECK(t.dim() == 1 && t.is_contiguous() &&
                     t.numel() == first.numel(),
                 "lanes must be contiguous 1-D of one length");
   }
   TORCH_CHECK(scalar.device() == first.device() &&
-                  scalar.scalar_type() == torch::kFloat32 &&
+                  scalar.scalar_type() == at::kFloat &&
                   scalar.numel() == 1,
               "the scalar operand must be one f32 element on the lanes' "
               "device");
@@ -65,7 +72,7 @@ void check_launch(int err) {
 }
 
 int run_adam(const std::vector<AdamMember>& members,
-             const torch::Tensor& lr_t, double b1, double omb1, double b2,
+             const at::Tensor& lr_t, double b1, double omb1, double b2,
              double omb2, double eps) {
   int launches = 0;
   check_launch(adam_bucket_launch(
@@ -79,13 +86,13 @@ int run_adam(const std::vector<AdamMember>& members,
 
 }  // namespace
 
-std::vector<torch::Tensor> momentum_bucket(torch::Tensor p, torch::Tensor g,
-                                           torch::Tensor v, torch::Tensor lr,
-                                           double mu, bool nesterov) {
+std::vector<at::Tensor> momentum_bucket(at::Tensor p, at::Tensor g,
+                                        at::Tensor v, at::Tensor lr,
+                                        double mu, bool nesterov) {
   check({p, g, v}, lr);
   const c10::cuda::CUDAGuard guard(p.device());
-  auto p_out = torch::empty_like(p);
-  auto v_out = torch::empty_like(v);
+  auto p_out = at::empty_like(p);
+  auto v_out = at::empty_like(v);
   if (p.numel() > 0) {
     check_launch(momentum_bucket_launch(
         p.data_ptr<float>(), g.data_ptr<float>(), v.data_ptr<float>(),
@@ -103,16 +110,16 @@ std::vector<torch::Tensor> momentum_bucket(torch::Tensor p, torch::Tensor g,
 //
 // adam_bucket: one flat f32 bucket, results in fresh lanes (the TPU
 // kernel's signature; one member of the kernel's table).
-std::vector<torch::Tensor> adam_bucket(torch::Tensor p, torch::Tensor g,
-                                       torch::Tensor m1, torch::Tensor m2,
-                                       torch::Tensor lr_t, double b1,
-                                       double omb1, double b2, double omb2,
-                                       double eps) {
+std::vector<at::Tensor> adam_bucket(at::Tensor p, at::Tensor g,
+                                    at::Tensor m1, at::Tensor m2,
+                                    at::Tensor lr_t, double b1,
+                                    double omb1, double b2, double omb2,
+                                    double eps) {
   check({p, g, m1, m2}, lr_t);
   const c10::cuda::CUDAGuard guard(p.device());
-  auto p_out = torch::empty_like(p);
-  auto m1_out = torch::empty_like(m1);
-  auto m2_out = torch::empty_like(m2);
+  auto p_out = at::empty_like(p);
+  auto m1_out = at::empty_like(m1);
+  auto m2_out = at::empty_like(m2);
   run_adam({AdamMember{p.data_ptr<float>(), g.data_ptr<float>(),
                        m1.data_ptr<float>(), m2.data_ptr<float>(),
                        p_out.data_ptr<float>(), m1_out.data_ptr<float>(),
@@ -127,11 +134,11 @@ std::vector<torch::Tensor> adam_bucket(torch::Tensor p, torch::Tensor g,
 // that no two operands share memory before anything reaches here. Returns
 // the number of launches: one unless the bucket has more members than the
 // kernel's parameter table holds.
-int64_t adam_bucket_inplace(std::vector<torch::Tensor> ps,
-                            std::vector<torch::Tensor> gs,
-                            std::vector<torch::Tensor> m1s,
-                            std::vector<torch::Tensor> m2s,
-                            torch::Tensor lr_t, double b1, double omb1,
+int64_t adam_bucket_inplace(std::vector<at::Tensor> ps,
+                            std::vector<at::Tensor> gs,
+                            std::vector<at::Tensor> m1s,
+                            std::vector<at::Tensor> m2s,
+                            at::Tensor lr_t, double b1, double omb1,
                             double b2, double omb2, double eps) {
   TORCH_CHECK(!ps.empty() && gs.size() == ps.size() &&
                   m1s.size() == ps.size() && m2s.size() == ps.size(),
@@ -140,7 +147,7 @@ int64_t adam_bucket_inplace(std::vector<torch::Tensor> ps,
   TORCH_CHECK(device.is_cuda(), "adam_bucket_: the bucket must be on a CUDA "
               "device");
   TORCH_CHECK(lr_t.device() == device &&
-                  lr_t.scalar_type() == torch::kFloat32 && lr_t.numel() == 1,
+                  lr_t.scalar_type() == at::kFloat && lr_t.numel() == 1,
               "adam_bucket_: lr_t must be one f32 element on the bucket's "
               "device");
   std::vector<AdamMember> members;
@@ -154,11 +161,11 @@ int64_t adam_bucket_inplace(std::vector<torch::Tensor> ps,
                   "one length, on the bucket's device");
     }
     for (const auto* t : {&ps[k], &m1s[k], &m2s[k]}) {
-      TORCH_CHECK(t->scalar_type() == torch::kFloat32,
+      TORCH_CHECK(t->scalar_type() == at::kFloat,
                   "adam_bucket_: p, m1 and m2 must be float32");
     }
-    const bool bf16 = gs[k].scalar_type() == torch::kBFloat16;
-    TORCH_CHECK(bf16 || gs[k].scalar_type() == torch::kFloat32,
+    const bool bf16 = gs[k].scalar_type() == at::kBFloat16;
+    TORCH_CHECK(bf16 || gs[k].scalar_type() == at::kFloat,
                 "adam_bucket_: g must be float32 or bfloat16");
     float* p = ps[k].data_ptr<float>();
     float* m1 = m1s[k].data_ptr<float>();
@@ -178,9 +185,9 @@ int64_t adam_bucket_inplace(std::vector<torch::Tensor> ps,
 // refused here. f32 goes through split_tf32 and flash_fwd_tf32 instead.
 // Returns out [B, H, Sq, D] bf16 and lse [B, H, Sq] f32, both fresh and
 // contiguous.
-std::vector<torch::Tensor> flash_fwd(torch::Tensor q, torch::Tensor k,
-                                     torch::Tensor v, double scale,
-                                     bool causal, int64_t head_dim) {
+std::vector<at::Tensor> flash_fwd(at::Tensor q, at::Tensor k,
+                                  at::Tensor v, double scale,
+                                  bool causal, int64_t head_dim) {
   for (const auto* t : {&q, &k, &v}) {
     TORCH_CHECK(t->is_cuda() && t->device() == q.device(),
                 "q, k and v must be on one CUDA device");
@@ -188,7 +195,7 @@ std::vector<torch::Tensor> flash_fwd(torch::Tensor q, torch::Tensor k,
     TORCH_CHECK(t->scalar_type() == q.scalar_type(),
                 "q, k and v must share one dtype");
   }
-  TORCH_CHECK(q.scalar_type() == torch::kBFloat16,
+  TORCH_CHECK(q.scalar_type() == at::kBFloat16,
               "flash_fwd takes bfloat16 (float32 goes through split_tf32 "
               "and flash_fwd_tf32)");
   const int64_t B = q.size(0), H = q.size(1), Sq = q.size(2);
@@ -216,8 +223,8 @@ std::vector<torch::Tensor> flash_fwd(torch::Tensor q, torch::Tensor k,
   TORCH_CHECK(B * H <= INT32_MAX && Sq <= INT32_MAX && Sk <= INT32_MAX,
               "flash_fwd: B*H, Sq and Sk must fit in int32");
   const c10::cuda::CUDAGuard guard(q.device());
-  auto out = torch::empty({B, H, Sq, D}, q.options());
-  auto lse = torch::empty({B, H, Sq}, q.options().dtype(torch::kFloat32));
+  auto out = at::empty({B, H, Sq, D}, q.options());
+  auto lse = at::empty({B, H, Sq}, q.options().dtype(at::kFloat));
   if (B * H > 0 && Sq > 0) {
     const int64_t qst[3] = {q.stride(0), q.stride(1), q.stride(2)};
     const int64_t kst[3] = {k.stride(0), k.stride(1), k.stride(2)};
@@ -239,11 +246,11 @@ std::vector<torch::Tensor> flash_fwd(torch::Tensor q, torch::Tensor k,
 // [B, H, D, Sk8] (Dk = D rounded up to 4, Sk8 = Sk rounded up to 8; within
 // each group of 8 keys Vᵀ's column p holds key [0,2,4,6,1,3,5,7][p]),
 // fresh and contiguous; parallel/flash.py::split_tf32_plain is its twin.
-std::vector<torch::Tensor> split_tf32(torch::Tensor k, torch::Tensor v) {
+std::vector<at::Tensor> split_tf32(at::Tensor k, at::Tensor v) {
   TORCH_CHECK(k.is_cuda() && v.device() == k.device(),
               "k and v must be on one CUDA device");
-  TORCH_CHECK(k.scalar_type() == torch::kFloat32 &&
-                  v.scalar_type() == torch::kFloat32,
+  TORCH_CHECK(k.scalar_type() == at::kFloat &&
+                  v.scalar_type() == at::kFloat,
               "split_tf32 takes float32");
   TORCH_CHECK(k.dim() == 4 && v.sizes() == k.sizes(),
               "k and v must both be [B, H, Sk, D] (Dv != Dk is not taken)");
@@ -256,10 +263,10 @@ std::vector<torch::Tensor> split_tf32(torch::Tensor k, torch::Tensor v) {
   if (v.stride(3) != 1) v = v.contiguous();
   const c10::cuda::CUDAGuard guard(k.device());
   const int64_t Dk = (D + 3) / 4 * 4, Sk8 = (Sk + 7) / 8 * 8;
-  auto kb = torch::empty({B, H, Sk, Dk}, k.options());
-  auto ks = torch::empty_like(kb);
-  auto vtb = torch::empty({B, H, D, Sk8}, k.options());
-  auto vts = torch::empty_like(vtb);
+  auto kb = at::empty({B, H, Sk, Dk}, k.options());
+  auto ks = at::empty_like(kb);
+  auto vtb = at::empty({B, H, D, Sk8}, k.options());
+  auto vts = at::empty_like(vtb);
   if (B * H > 0 && Sk > 0) {
     const int64_t kst[3] = {k.stride(0), k.stride(1), k.stride(2)};
     const int64_t vst[3] = {v.stride(0), v.stride(1), v.stride(2)};
@@ -277,11 +284,11 @@ std::vector<torch::Tensor> split_tf32(torch::Tensor k, torch::Tensor v) {
 // contiguous, read in place) and the four parts split_tf32 made of k and v
 // on q's device. Returns out [B, H, Sq, D] f32 and lse [B, H, Sq] f32,
 // both fresh and contiguous.
-std::vector<torch::Tensor> flash_fwd_tf32(torch::Tensor q, torch::Tensor kb,
-                                          torch::Tensor ks, torch::Tensor vtb,
-                                          torch::Tensor vts, double scale,
-                                          bool causal) {
-  TORCH_CHECK(q.is_cuda() && q.scalar_type() == torch::kFloat32 &&
+std::vector<at::Tensor> flash_fwd_tf32(at::Tensor q, at::Tensor kb,
+                                       at::Tensor ks, at::Tensor vtb,
+                                       at::Tensor vts, double scale,
+                                       bool causal) {
+  TORCH_CHECK(q.is_cuda() && q.scalar_type() == at::kFloat &&
                   q.dim() == 4,
               "flash_fwd_tf32: q must be [B, H, Sq, D] float32 on a CUDA "
               "device");
@@ -292,13 +299,13 @@ std::vector<torch::Tensor> flash_fwd_tf32(torch::Tensor q, torch::Tensor kb,
   const int64_t Dk = (D + 3) / 4 * 4, Sk8 = (Sk + 7) / 8 * 8;
   for (const auto* t : {&kb, &ks, &vtb, &vts}) {
     TORCH_CHECK(t->device() == q.device() &&
-                    t->scalar_type() == torch::kFloat32 && t->is_contiguous(),
+                    t->scalar_type() == at::kFloat && t->is_contiguous(),
                 "flash_fwd_tf32: the parts must be contiguous float32 on q's "
                 "device");
   }
-  TORCH_CHECK(Sk >= 0 && kb.sizes() == torch::IntArrayRef({B, H, Sk, Dk}) &&
+  TORCH_CHECK(Sk >= 0 && kb.sizes() == at::IntArrayRef({B, H, Sk, Dk}) &&
                   ks.sizes() == kb.sizes() &&
-                  vtb.sizes() == torch::IntArrayRef({B, H, D, Sk8}) &&
+                  vtb.sizes() == at::IntArrayRef({B, H, D, Sk8}) &&
                   vts.sizes() == vtb.sizes(),
               "flash_fwd_tf32: the parts must be split_tf32's of k and v "
               "[B, H, Sk, D] beside q [B, H, Sq, D]");
@@ -306,8 +313,8 @@ std::vector<torch::Tensor> flash_fwd_tf32(torch::Tensor q, torch::Tensor kb,
               "flash_fwd: B*H, Sq and Sk must fit in int32");
   if (q.stride(3) != 1) q = q.contiguous();
   const c10::cuda::CUDAGuard guard(q.device());
-  auto out = torch::empty({B, H, Sq, D}, q.options());
-  auto lse = torch::empty({B, H, Sq}, q.options());
+  auto out = at::empty({B, H, Sq, D}, q.options());
+  auto lse = at::empty({B, H, Sq}, q.options());
   if (B * H > 0 && Sq > 0) {
     const int64_t qst[3] = {q.stride(0), q.stride(1), q.stride(2)};
     check_launch(flash_fwd_tf32_launch(

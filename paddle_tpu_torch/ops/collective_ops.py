@@ -1,4 +1,5 @@
-"""Collective ops over the step's data-parallel group.
+"""Collective ops over the step's mesh: the data-parallel collectives over
+its dp axis, and the point-to-point permutes over its sp and pp axes.
 
 Reference parity: operators/nccl/nccl_op.cu.cc (AllReduce/Reduce/Bcast) and
 framework/details/nccl_all_reduce_op_handle.cc. The JAX package lowers
@@ -9,7 +10,8 @@ torch.distributed group, which ParallelExecutor hands the step as
 without a group): with no group every op here is an identity (zero1's:
 the single-device reshape, as the JAX package's off-mesh lowering), and
 inside a group of any size, one included, each calls the collective —
-NCCL on a card, gloo on the host.
+NCCL on a card, gloo on the host — over the dp axis's group
+(`Mesh.group`; the default group when dp spans it).
 
 Gradients take the convention of a value summed over ranks (psum's
 transpose is psum): a rank's cotangent of a collective's output is its
@@ -20,8 +22,15 @@ whole gradient on every rank (the `mean` op's loss); its backward
 communicates nothing. Every collective any of these issues is counted on
 `launch.launches` (replays of a captured step included).
 
-collective_permute and pipeline_send/recv wait for the pipeline and ring
-slice (ROADMAP queue 1 item 8).
+`collective_permute` and the pipeline pair mirror the JAX package's
+ppermute lowerings: each is an identity where its axis is not in the
+step's mesh (or has one rank), which is how the host-driven
+PipelineRunner runs them, and otherwise a permutation of the ranks'
+values along the axis (`permute`: P2P send/recv over the axis's group,
+`dist.batch_isend_irecv`). gloo moves host memory only, so under a gloo
+group a card tensor travels through pinned host buffers: that is the
+wire of such a group (ranks sharing one card, which NCCL refuses),
+counted on `permute.host_staged_bytes`, and the copies are explicit.
 """
 
 import torch
@@ -33,7 +42,8 @@ from ..core.registry import register_op
 from .util import first, out
 
 __all__ = ["COLLECTIVE_RW", "launch", "psum", "psum_replicated",
-           "all_gather", "reduce_scatter", "broadcast", "reset_launch_counts"]
+           "all_gather", "reduce_scatter", "broadcast", "permute",
+           "reset_launch_counts"]
 
 REDUCTIONS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
               "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
@@ -47,9 +57,9 @@ _reduce_scatter_tensor = getattr(dist, "reduce_scatter_single", None) \
 
 
 def launch(call, *args, **kwargs):
-    """Issue one collective `call` over the default group (which every
-    parallel.mesh.Mesh spans), synchronously on the current stream, and
-    count it."""
+    """Issue one collective `call` (over the group its `group` keyword
+    names; the default group without one), synchronously on the current
+    stream, and count it."""
     call(*args, **kwargs)
     launch.launches += 1
 
@@ -59,6 +69,7 @@ cuda_build.count_launches(launch, "launches")
 
 def reset_launch_counts():
     launch.launches = 0
+    permute.host_staged_bytes = 0
 
 
 # ---------------------------------------------------------------------------
@@ -66,7 +77,7 @@ def reset_launch_counts():
 # ---------------------------------------------------------------------------
 def _reduced(x, dp, op=dist.ReduceOp.SUM):
     y = torch.clone(x, memory_format=torch.contiguous_format)
-    launch(dist.all_reduce, y, op=op)
+    launch(dist.all_reduce, y, op=op, group=dp.group)
     return y
 
 
@@ -74,7 +85,7 @@ def _gathered(x, dp):
     """[size, *x.shape]: every rank's x, in rank order."""
     flat = x.contiguous().reshape(-1)
     y = flat.new_empty((dp.size * flat.shape[0],))
-    launch(_all_gather_tensor, y, flat)
+    launch(_all_gather_tensor, y, flat, group=dp.group)
     return y.reshape((dp.size,) + tuple(x.shape))
 
 
@@ -89,7 +100,7 @@ def _scattered(x, dp):
     k = n // dp.size
     if dp.backend == "nccl":
         y = x.new_empty((k,) + tuple(x.shape[1:]))
-        launch(_reduce_scatter_tensor, y, x.contiguous())
+        launch(_reduce_scatter_tensor, y, x.contiguous(), group=dp.group)
         return y
     return _reduced(x, dp)[dp.rank * k:(dp.rank + 1) * k]
 
@@ -143,7 +154,9 @@ class _Broadcast(torch.autograd.Function):
     def forward(ctx, x, dp, root):
         ctx.dp, ctx.root = dp, root
         y = torch.clone(x, memory_format=torch.contiguous_format)
-        launch(dist.broadcast, y, root)
+        src = root if dp.group is None else dist.get_global_rank(dp.group,
+                                                                 root)
+        launch(dist.broadcast, y, src, group=dp.group)
         return y
 
     @staticmethod
@@ -188,6 +201,86 @@ def reduce_scatter(x, dp):
 
 def broadcast(x, dp, root=0):
     return _Broadcast.apply(x, dp, root)
+
+
+def _p2p(ops):
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+
+
+def _permuted(x, axis, perm):
+    """This rank's value after the permutation `perm` of (source,
+    destination) positions on `axis` (a parallel.mesh.MeshAxis): its x
+    goes to every destination it is the source of, and it takes the value
+    of its source, or zeros where no pair names it a destination (the
+    ppermute contract). One batch of sends and receives over the axis's
+    group, counted once on `launch.launches`."""
+    me = axis.rank
+    dsts = [d for s, d in perm if s == me]
+    srcs = [s for s, d in perm if d == me]
+    if len(srcs) > 1:
+        raise ValueError(f"permute: position {me} on {axis.name!r} is the "
+                         f"destination of {srcs}")
+    x = x.contiguous()
+    staged = axis.backend == "gloo" and x.is_cuda
+    if staged:  # gloo takes host memory: the pinned host wire
+        wire = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        wire.copy_(x)
+        permute.host_staged_bytes += x.numel() * x.element_size() \
+            * len([d for d in dsts if d != me])
+    else:
+        wire = x
+    recv = None
+    ops = []
+    for d in dsts:
+        if d != me:
+            ops.append(dist.P2POp(dist.isend, wire, axis.global_rank(d),
+                                  group=axis.group))
+    if srcs and srcs[0] != me:
+        recv = torch.empty(wire.shape, dtype=wire.dtype, pin_memory=staged)
+        ops.append(dist.P2POp(dist.irecv, recv, axis.global_rank(srcs[0]),
+                              group=axis.group))
+    if ops:
+        launch(_p2p, ops)
+    if not srcs:
+        return torch.zeros_like(x)
+    if srcs[0] == me:
+        return x.clone()
+    if staged:
+        permute.host_staged_bytes += recv.numel() * recv.element_size()
+        return recv.to(x.device)
+    return recv
+
+
+class _Permute(torch.autograd.Function):
+    """ppermute and its transpose: the cotangent goes back along the
+    inverse permutation (what makes ring attention differentiable)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, perm):
+        ctx.axis, ctx.perm = axis, perm
+        return _permuted(x, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = [(d, s) for s, d in ctx.perm]
+        return _permuted(g, ctx.axis, inverse), None, None
+
+
+def permute(x, axis, perm):
+    """x permuted over the ranks of `axis` (a parallel.mesh.MeshAxis, or
+    None: the identity) by `perm`, a list of (source, destination)
+    positions; differentiable."""
+    if axis is None:
+        return x
+    return _Permute.apply(x, axis, [tuple(int(v) for v in p) for p in perm])
+
+
+permute.host_staged_bytes = 0
+
+
+def _mesh_axis(ctx, name):
+    return ctx.dp.axis(name) if ctx.dp is not None else None
 
 
 # ---------------------------------------------------------------------------
@@ -287,3 +380,36 @@ def zero1_gather_op(ctx, ins, attrs):
     if dp is not None:
         x = _gathered(x.reshape(-1), dp)
     return out(Out=x.reshape(-1)[:numel].reshape(shape))
+
+
+@register_op("collective_permute")
+def collective_permute_op(ctx, ins, attrs):
+    """ppermute over `axis_name`: this rank's X goes to the positions
+    `perm` maps it to; an identity where the axis is not in the step's
+    mesh."""
+    axis = _mesh_axis(ctx, attrs.get("axis_name", "dp"))
+    return out(Out=permute(first(ins, "X"), axis, attrs["perm"]))
+
+
+def _pp_shift(ctx, x, attrs):
+    """The pipeline boundary pair's lowering: a permute `peer` hops along
+    the pp axis where it is in the step's mesh, the identity otherwise
+    (the host-driven runner moves the value between stage programs
+    itself, so there the ops mark the boundary for the analyses)."""
+    axis = _mesh_axis(ctx, attrs.get("axis_name", "pp"))
+    if axis is None:
+        return x
+    hop = int(attrs.get("peer", 1))
+    return permute(x, axis, [(i, (i + hop) % axis.size)
+                             for i in range(axis.size)])
+
+
+@register_op("pipeline_send")
+def pipeline_send_op(ctx, ins, attrs):
+    return out(Out=_pp_shift(ctx, first(ins, "X"), attrs))
+
+
+@register_op("pipeline_recv")
+def pipeline_recv_op(ctx, ins, attrs):
+    # the shift happened on the send side; recv materializes the arrival
+    return out(Out=first(ins, "X"))

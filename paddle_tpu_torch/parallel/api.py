@@ -3,9 +3,9 @@ over the device mesh (the JAX package's parallel/api.py).
 
 These are pure annotations on the IR: `set_sharding` records a spec on a
 Variable, `sharding_scope` seeds every parameter built inside a block.
-The port's ParallelExecutor runs the dp axis only, so a spec naming
-another axis is carried in the Program but placed by nothing yet (ROADMAP
-queue 1 item 5's tensor-parallel leftover); zero1 leaves an annotated
+The port's ParallelExecutor shards over the dp axis only, so a spec
+naming another axis is carried in the Program but placed by nothing yet
+(tensor parallelism, ROADMAP queue 1 item 6); zero1 leaves an annotated
 parameter on the replicated path, as in the JAX package.
 
     fluid.parallel.set_sharding(w, (None, "mp"))   # shard columns over mp

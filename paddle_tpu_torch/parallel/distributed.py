@@ -54,15 +54,18 @@ class ClusterEnv:
 
 
 def initialize(coordinator_address=None, num_processes=None, process_id=None,
-               local_device_ids=None):
+               local_device_ids=None, backend=None):
     """Create the default process group; a second call is a no-op.
 
     coordinator_address: rank 0's "host:port", or "file://<path>" of a
     rendezvous file every rank can reach. num_processes / process_id: the
     world size and this rank (default 1 and 0). local_device_ids: the
     local CUDA cards of this rank; the first is its card and the group's
-    backend is NCCL. None makes a CPU rank over gloo. Any failure (no
-    card, NCCL missing, a rendezvous that times out) raises."""
+    backend is NCCL. None makes a CPU rank over gloo. `backend="gloo"`
+    with a card makes a card rank over gloo: ranks that share one card
+    (NCCL refuses two ranks on one device), whose P2P values go through
+    pinned host buffers (ops/collective_ops.py). Any failure (no card,
+    NCCL missing, a rendezvous that times out) raises."""
     if dist.is_initialized():
         return
     world = 1 if num_processes is None else int(num_processes)
@@ -81,6 +84,10 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
                 f"rank {rank} asks for cuda:{card}, but this process sees "
                 f"{torch.cuda.device_count()} CUDA device(s)")
         torch.cuda.set_device(card)
+        if backend not in (None, "nccl"):
+            dist.init_process_group(backend, init_method=init_method,
+                                    world_size=world, rank=rank)
+            return
         dist.init_process_group(
             "nccl", init_method=init_method, world_size=world, rank=rank,
             device_id=torch.device("cuda", card))

@@ -172,8 +172,10 @@ class ParallelExecutor:
     no group, one rank whose collectives are identities. use_cuda runs on
     this rank's card (the one initialize selected, or devices[rank]) over
     NCCL, and raises without a card; use_cuda=False runs on the host over
-    gloo. mesh_shape may name only the dp axis (any other axis of size > 1
-    raises NotImplementedError) and must cover the whole group."""
+    gloo. mesh_shape must cover the whole group; its dp axis carries the
+    data parallelism (an mp axis of more than one rank raises
+    NotImplementedError), and its pp and sp axes the boundary ops and
+    permutes of the programs run on it."""
 
     def __init__(self, use_cuda=True, loss_name=None, main_program=None,
                  share_vars_from=None, exec_strategy=None,
@@ -193,7 +195,7 @@ class ParallelExecutor:
                 f"ParallelExecutor(use_cuda={use_cuda}) runs over {want}, "
                 f"but the process group's backend is {backend}")
         if devices is not None:
-            place = devices[self._mesh.rank]
+            place = devices[self._mesh.world_rank]
         elif not use_cuda:
             place = CPUPlace()
         else:

@@ -100,6 +100,18 @@ def check_mesh_compat(ckpt_mesh, expect_mesh):
                 f"model or restore onto a mesh with matching {ax}.")
 
 
+def _saved_mesh(manifest):
+    """The geometry a checkpoint was saved on: its mesh section, with the
+    pipeline section's stage count as pp where the mesh names none (the
+    host-driven PipelineRunner runs every stage in one process, on no
+    mesh)."""
+    mesh = dict(manifest.get("mesh") or {})
+    pinfo = manifest.get("pipeline")
+    if pinfo and "pp" not in mesh:
+        mesh["pp"] = int(pinfo.get("stages", 1))
+    return mesh or None
+
+
 def _storable(v):
     """A scope value as a dense tensor, or None where a checkpoint cannot
     hold it (ragged values, host objects)."""
@@ -399,9 +411,18 @@ class CheckpointManager:
         }
         if zinfo:
             manifest["zero1"] = zinfo
-        # The JAX package's `autoshard` and `pipeline` sections wait for
-        # those slices (ROADMAP queue 1 items 6, 8): the port writes
-        # neither key, and restore ignores them.
+        # The JAX package's `autoshard` section waits for its slice
+        # (ROADMAP queue 1 item 6): the port writes no such key.
+        # Pipeline parallelism (parallel.pipeline): stage count, pp axis,
+        # microbatches, schedule. Purely descriptive — the snapshot holds
+        # every stage's params in full layout — but `checkpoint inspect`
+        # renders it, and restore refuses a pp-mismatched target
+        # (`_saved_mesh`).
+        from ..parallel import pipeline as _pipeline
+
+        pinfo = _pipeline.manifest_section()
+        if pinfo:
+            manifest["pipeline"] = pinfo
         if self.mesh_axes:
             manifest["mesh"] = {str(a): int(s)
                                 for a, s in self.mesh_axes.items()}
@@ -478,7 +499,7 @@ class CheckpointManager:
         with open(mpath) as f:
             manifest = json.load(f)
         if expect_mesh is not None:
-            check_mesh_compat(manifest.get("mesh"), expect_mesh)
+            check_mesh_compat(_saved_mesh(manifest), expect_mesh)
         scope = scope if scope is not None else global_scope()
         declared = None
         if program is not None:

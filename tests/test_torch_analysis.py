@@ -714,3 +714,160 @@ def test_ensure_verified_memo_is_capped_fifo():
         again = analysis.ensure_verified(main, feed_names=feeds,
                                          fetch_names=fetches)
     assert again is not first  # the oldest entry went first
+
+
+# ---------------------------------------------------------------------------
+# PTA031 pairs a grad op with the forward op it came from (ROADMAP §3 item
+# 27): memory_optimize's reused names no longer read as hazards
+# ---------------------------------------------------------------------------
+def _pta031(main, feeds):
+    from paddle_tpu_torch.analysis import dataflow
+    from paddle_tpu_torch.analysis.diagnostics import Report
+
+    report = Report(level="full", context="t")
+    dataflow.check_hazards(main, report, feed_names=feeds)
+    return [d for d in report.diagnostics if d.code == "PTA031"]
+
+
+def test_pta031_holds_a_grad_op_to_its_own_forward_op():
+    """Two relus read x before and after x is rewritten; the first one's
+    grad reads the rewritten x. Paired by type and name, the grad's
+    version is no later than the second relu's read and nothing fires;
+    paired with its own forward op it is a hazard. A grad op with no
+    recorded forward op keeps the pairing by name."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        gb = main.global_block()
+        x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+        for n in ("a", "b", "a@GRAD"):
+            gb.create_var(name=n, shape=[-1, 4], dtype="float32")
+        relu1 = gb.append_op(type="relu", inputs={"X": [x.name]},
+                             outputs={"Out": ["a"]})
+        gb.append_op(type="scale", inputs={"X": [x.name]},
+                     outputs={"Out": [x.name]}, attrs={"scale": 2.0})
+        gb.append_op(type="relu", inputs={"X": [x.name]},
+                     outputs={"Out": ["b"]})
+        grad = gb.append_op(
+            type="relu_grad",
+            inputs={"X": [x.name], "Out@GRAD": ["a@GRAD"]},
+            outputs={"X@GRAD": ["x@GRAD"]}, attrs=_role(OpRole.Backward))
+    assert _pta031(main, ["x", "a@GRAD"]) == []  # the pairing by name
+    grad.fwd_op = relu1
+    found = _pta031(main, ["x", "a@GRAD"])
+    assert [(d.op_type, d.var) for d in found] == [("relu_grad", "x")]
+    assert "consumed version 0" in found[0].message
+    # a clone keeps the pairing
+    assert [d.var for d in _pta031(main.clone(), ["x", "a@GRAD"])] == ["x"]
+
+
+def test_pta031_pairs_by_name_when_the_forward_op_is_not_in_the_block():
+    """x is rewritten between a relu's read and its grad's. Whether the
+    grad op records no forward op, one of another program (a pipeline
+    cell's grad ops do), or the relu itself, the hazard fires: the first
+    two by the JAX package's pairing by (type, name)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        gb = main.global_block()
+        x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+        for n in ("a", "a@GRAD"):
+            gb.create_var(name=n, shape=[-1, 4], dtype="float32")
+        relu = gb.append_op(type="relu", inputs={"X": [x.name]},
+                            outputs={"Out": ["a"]})
+        gb.append_op(type="scale", inputs={"X": [x.name]},
+                     outputs={"Out": [x.name]}, attrs={"scale": 2.0})
+        grad = gb.append_op(
+            type="relu_grad",
+            inputs={"X": [x.name], "Out@GRAD": ["a@GRAD"]},
+            outputs={"X@GRAD": ["x@GRAD"]}, attrs=_role(OpRole.Backward))
+    elsewhere = main.clone().global_block().ops[0]
+    assert elsewhere.type == "relu" and elsewhere not in gb.ops
+    for fwd in (None, elsewhere, relu):
+        grad.fwd_op = fwd
+        found = _pta031(main, ["x", "a@GRAD"])
+        assert [(d.op_type, d.var) for d in found] == [("relu_grad", "x")]
+
+
+def test_backward_records_each_grad_ops_forward_op():
+    main, _, _ = _build(fluid, _mlp)
+    ops = main.global_block().ops
+    grads = [op for op in ops if op.type.endswith("_grad")]
+    assert grads and all(op.fwd_op in ops for op in grads)
+    for op in grads:
+        assert op.type == op.fwd_op.type + "_grad"
+    assert all(op.fwd_op is None for op in ops
+               if not op.type.endswith("_grad"))
+    clone = main.clone()
+    cops = clone.global_block().ops
+    assert all(op.fwd_op in cops for op in cops if op.type.endswith("_grad"))
+
+
+def _residual_conv(pkg):
+    x = pkg.layers.data(name="x", shape=[3, 8, 8], dtype="float32")
+    y = pkg.layers.data(name="y", shape=[1], dtype="int64")
+    h = pkg.layers.conv2d(input=x, num_filters=4, filter_size=3, padding=1,
+                          bias_attr=False)
+    h = pkg.layers.batch_norm(input=h, act="relu")
+    for _ in range(2):
+        b = pkg.layers.conv2d(input=h, num_filters=4, filter_size=3,
+                              padding=1, bias_attr=False)
+        b = pkg.layers.batch_norm(input=b, act="relu")
+        b = pkg.layers.conv2d(input=b, num_filters=4, filter_size=3,
+                              padding=1, bias_attr=False)
+        b = pkg.layers.batch_norm(input=b)
+        h = pkg.layers.relu(pkg.layers.elementwise_add(h, b))
+    h = pkg.layers.pool2d(input=h, pool_size=2, pool_type="avg",
+                          global_pooling=True)
+    p = pkg.layers.fc(input=h, size=4, act="softmax")
+    loss = pkg.layers.mean(pkg.layers.cross_entropy(input=p, label=y))
+    pkg.optimizer.Momentum(learning_rate=0.05, momentum=0.9).minimize(loss)
+    return loss
+
+
+def _residual_losses(optimize, fuse, steps=3):
+    from paddle_tpu_torch import convert
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        loss = _residual_conv(fluid)
+    renames = fluid.memory_optimize(main) if optimize else {}
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CPUPlace())
+    torch.manual_seed(0)
+    exe.run(startup, scope=scope)
+    rs = np.random.RandomState(0)
+    state = {n: rs.randn(*a.shape).astype(a.dtype) * 0.1 if a.ndim > 1
+             else a for n, a in convert.numpy_state(scope, main).items()}
+    convert.load_numpy_state(scope, main, state, fluid.CPUPlace())
+    feeds = [{"x": rs.randn(8, 3, 8, 8).astype(np.float32),
+              "y": rs.randint(0, 4, (8, 1)).astype(np.int64)}
+             for _ in range(steps)]
+    with flags.flag_guard(fuse=fuse):
+        losses = [exe.run(main, feed=f, fetch_list=[loss],
+                          scope=scope)[0].tobytes() for f in feeds]
+    return losses, renames, main, exe
+
+
+def test_a_memory_optimized_residual_net_fuses():
+    """memory_optimize reuses names across a residual net's forward and
+    backward; paired by (type, name) its grad ops read as PTA031 hazards
+    and FLAGS_fuse refused the program. Paired by forward op none fires:
+    the fused optimized program trains bitwise as the fused unoptimized
+    one, which trains bitwise as the unfused."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _residual_conv(fluid)
+    assert fluid.memory_optimize(main)
+    assert _pta031(main, ["x", "y"]) == []
+    for op in main.global_block().ops:  # the pairing by name still fires
+        op.fwd_op = None
+    assert _pta031(main, ["x", "y"])
+    plain, _, _, _ = _residual_losses(False, True)
+    got, renames, omain, _ = _residual_losses(True, True)
+    assert renames and got == plain
+    assert got == _residual_losses(False, False)[0]
+    from paddle_tpu_torch import fusion
+
+    _, plan = fusion.apply(omain, feed_names=["x", "y"],
+                           fetch_names=[omain.global_block().ops[-1]
+                                        .output_arg_names()[0]])
+    assert plan is not None and plan.buckets

@@ -85,8 +85,7 @@ def test_cli_analyze_selftests_ok(action, capsys):
     assert f"analyze {action} selftest: OK" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("action,item", [("schedule", "item 6"),
-                                         ("pipeline", "item 8")])
+@pytest.mark.parametrize("action,item", [("schedule", "item 6")])
 def test_cli_analyze_unported_actions_name_their_item(action, item, capsys):
     assert cli_main(["analyze", action, "--selftest"]) == 2
     err = capsys.readouterr().err

@@ -32,10 +32,14 @@ from paddle_tpu_torch import CPUPlace
 from paddle_tpu_torch.core import registry as treg
 from paddle_tpu_torch.core.executor_core import OpContext
 from paddle_tpu_torch.ops import collective_ops as tcoll
+from paddle_tpu_torch.parallel.mesh import MeshAxis
 
 import torch_dp_worker as worker
 
 WORLDS = (1, 2, 4)
+# position 1 of a two-rank axis (no group: nothing is sent before the
+# permutation is checked)
+_AXIS2 = MeshAxis("sp", 2, 1, [0, 1], None, "gloo")
 SEED = 5
 OPS = ["all_reduce_sum", "all_reduce_mean", "all_reduce_max",
        "all_reduce_min", "all_reduce_sum_grad", "all_reduce_mean_grad",
@@ -169,8 +173,9 @@ def test_collective_table_is_the_jax_packages():
 def test_refusals():
     with pytest.raises(ValueError, match="unknown reduction"):
         _port("all_reduce", {"X": np.ones(2, np.float32)}, reduction="prod")
-    with pytest.raises(NotImplementedError):
-        treg.lookup("collective_permute")  # with ring attention, item 8
+    with pytest.raises(ValueError, match="destination of"):
+        # two sources for one destination: no permutation
+        tcoll._permuted(torch.ones(2), _AXIS2, [(0, 1), (1, 1)])
 
 
 def test_launches_are_counted_and_max_has_no_gradient(tmp_path):

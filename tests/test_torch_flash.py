@@ -79,12 +79,17 @@ def test_parallel_package_exports():
     from paddle_tpu_torch import parallel
 
     # flash and, since the data-parallel slice, the mesh, the bootstrap,
-    # zero1 and the sharding annotations: names of the JAX package's
-    # parallel package, which has more (ring attention, autoshard, ...)
+    # zero1 and the sharding annotations; since the ring and pipeline
+    # slice, the RPC runtime, ring attention and the pipeline: names of the
+    # JAX package's parallel package, which has more (autoshard, elastic,
+    # the sharded embedding)
     assert sorted(parallel.__all__) == sorted([
-        "mesh", "distributed", "api", "flash", "zero1", "make_mesh",
-        "data_parallel_mesh", "mesh_scope", "mesh_geometry", "MeshSpec",
-        "set_sharding", "get_sharding", "sharding_scope", "flash_attention"])
+        "mesh", "distributed", "api", "flash", "zero1", "rpc", "ring",
+        "pipeline", "make_mesh", "data_parallel_mesh", "mesh_scope",
+        "mesh_geometry", "MeshSpec", "set_sharding", "get_sharding",
+        "sharding_scope", "flash_attention", "ring_attention",
+        "ring_attention_sharded", "ring_flash_attention",
+        "ring_flash_attention_sharded"])
     assert set(parallel.__all__) <= set(jparallel.__all__)
     assert tfluid.parallel.flash_attention is tflash.flash_attention
 

@@ -307,7 +307,8 @@ def test_parameter_server_modules_load_no_jax_in_a_fresh_interpreter(
 @pytest.mark.parametrize("name", ["test_torch_continuous_card.py",
                                   "test_torch_fleet.py",
                                   "test_torch_pserver_card.py",
-                                  "test_torch_detection_card.py"])
+                                  "test_torch_detection_card.py",
+                                  "test_torch_ring_pipeline_card.py"])
 def test_the_new_serving_files_cuda_cases_skip_without_a_card(name):
     """Every `cuda`-marked test of the continuous, fleet and pserver
     files skips
@@ -360,6 +361,82 @@ def test_detection_and_native_modules_load_no_jax_in_a_fresh_interpreter(
     loaded = proc.stdout.split()
     assert module in loaded
     assert [m for m in loaded if _foreign(m)] == []
+
+
+@pytest.mark.parametrize("module", [
+    "parallel/ring.py", "parallel/mesh.py", "parallel/distributed.py",
+    "parallel/pipeline/__init__.py", "parallel/pipeline/partition.py",
+    "parallel/pipeline/rewrite.py", "parallel/pipeline/schedule.py",
+    "parallel/pipeline/runner.py", "ops/collective_ops.py",
+    "analysis/dataflow.py", "backward.py", "resilience/checkpoint.py"])
+def test_the_ring_and_pipeline_slice_is_among_the_checked_sources(module):
+    """Ring attention, the pipeline package, the permute ops and the
+    PTA031 pairing are checked by the test above."""
+    assert os.path.join(PORT, module) in set(_sources())
+
+
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch.parallel.ring", "paddle_tpu_torch.parallel.pipeline"])
+def test_ring_and_pipeline_modules_load_no_jax_in_a_fresh_interpreter(
+        module):
+    """The ring and the pipeline package, imported alone in a fresh
+    interpreter, load neither jax nor the JAX package (the pipeline keeps
+    its own copies of the JAX package's pure-Python schedule and
+    partition)."""
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        f"import {module}\n"
+        "print('\\n'.join(sorted(set(sys.modules) - before)))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    loaded = proc.stdout.split()
+    assert module in loaded
+    assert [m for m in loaded if _foreign(m)] == []
+
+
+# the JAX parallel package's names the port leaves out, each with the
+# ROADMAP queue 1 item that owns it: autoshard and the sharded embedding
+# (item 6), the elastic controller (item 8 (b))
+PARALLEL_EXCEPTIONS = {
+    "autoshard": "item 6", "sharded_embedding": "item 6",
+    "shard_table": "item 6", "sharded_embedding_lookup": "item 6",
+    "elastic": "item 8 (b)", "ElasticController": "item 8 (b)",
+    "ElasticConfig": "item 8 (b)", "ElasticError": "item 8 (b)",
+    "Resized": "item 8 (b)", "RescalePolicy": "item 8 (b)",
+    "LinearRescale": "item 8 (b)", "ConstantRescale": "item 8 (b)",
+}
+
+
+def test_the_parallel_package_has_the_jax_packages_names():
+    """The port's `parallel` lists every name of the JAX package's
+    `parallel.__all__` but the stated exceptions (the ring's four names
+    among them), and `parallel.pipeline` the JAX package's names."""
+    import paddle_tpu.parallel as jpar
+    import paddle_tpu.parallel.pipeline as jpipe
+    import paddle_tpu_torch.parallel as tpar
+    import paddle_tpu_torch.parallel.pipeline as tpipe
+
+    assert sorted(set(jpar.__all__) - set(tpar.__all__)) == \
+        sorted(PARALLEL_EXCEPTIONS)
+    assert not set(PARALLEL_EXCEPTIONS) & set(dir(tpar))
+    for n in ("ring_attention", "ring_attention_sharded",
+              "ring_flash_attention", "ring_flash_attention_sharded",
+              "pipeline", "ring"):
+        assert n in tpar.__all__ and hasattr(tpar, n), n
+    assert sorted(tpipe.__all__) == sorted(jpipe.__all__)
+    for n in tpipe.__all__:
+        assert hasattr(tpipe, n), n
+
+
+def test_the_ring_worker_imports_only_the_port():
+    """The worker the ring tests run as their ranks
+    (tests/torch_ring_worker.py) imports neither jax nor the JAX
+    package."""
+    path = os.path.join(REPO, "tests", "torch_ring_worker.py")
+    bad = [m for m in _imported_modules(path) if _foreign(m)]
+    assert bad == [], f"{path} imports {bad}"
 
 
 # the one name of the JAX package's top level the port leaves out:

@@ -50,10 +50,10 @@ BUILDER_MODULES = [
 ]
 
 # no layer function appends a type the port lacks (roi_pool, the last,
-# came with detection); the registry's remaining gap is the pipeline's
-# and the ring's collectives (NOT_PORTED), which no layer appends
+# came with detection), and the registry has no gap left: the pipeline's
+# and the ring's collectives came with the ring and the pipeline
 MISSING = {}
-NOT_PORTED = {"collective_permute", "pipeline_send", "pipeline_recv"}
+NOT_PORTED = set()
 
 # the op types this slice registered (the tentpole's list)
 SLICE = (
@@ -162,14 +162,17 @@ def test_the_loss_and_nn_rest_slice_is_registered():
 def test_an_unported_type_says_so():
     with pytest.raises(NotImplementedError,
                        match="not yet ported to paddle_tpu_torch"):
-        treg.lookup("collective_permute")
+        treg.lookup("no_such_op_type")
 
 
 def test_the_port_registers_every_jax_op_type_but_the_distributed_three():
-    """The registries differ by the ring's and the pipeline's collectives
-    (ROADMAP queue 1 item 8) alone; detection's nine types are in."""
+    """Every JAX op type has a kernel in the port: the ring's and the
+    pipeline's collectives (ROADMAP queue 1 item 8 (a)) were the last;
+    detection's nine types are in."""
     port = {t for t, d in treg._registry.items() if d.fn is not None}
-    assert _reference_types() - port == NOT_PORTED
+    assert _reference_types() - port == NOT_PORTED == set()
+    for t in ("collective_permute", "pipeline_send", "pipeline_recv"):
+        assert treg.get_op_def(t).fn is not None, t
     for t in ("roi_pool", "iou_similarity", "box_coder", "prior_box",
               "bipartite_match", "target_assign", "mine_hard_examples",
               "multiclass_nms", "detection_map"):

@@ -462,7 +462,7 @@ def test_async_fetch_futures_equal_the_synchronous_fetches(one_rank):
 
 
 def test_mesh_axes_other_than_dp_raise(one_rank):
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         _mlp_pe(mesh_shape={"dp": 1, "mp": 2})
     with pytest.raises(ValueError, match="needs 2 ranks"):
         _mlp_pe(mesh_shape={"dp": 2})
