@@ -447,6 +447,37 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 ring and waited for before this phase's first step
                 ([pipeline] lines).
                 Alone: `python3 chip_smoke.py --only pipeline`
+ 17. elastic  — the control plane: this process hosts a
+                parallel.master.MasterService and an obs Collector (both
+                on ports the OS picks); ELASTIC_WORLD = 2 card ranks
+                sharing the card over gloo (`--elastic-child` processes)
+                train bench.py's headline (uint8 NHWC 224², bf16 AMP,
+                Momentum(0.01, 0.9), FLAGS_fuse, global batch 128) from
+                one seeded state through ParallelExecutor.run under a
+                ResilientRunner holding an ElasticController, each with
+                FLAGS_compile_service (the master), FLAGS_obs_push (the
+                collector), a plan store and a journal of its own: steps
+                0-2 at world 2, then w1 takes worker_preempt (it drains
+                and exits) and w0 runs steps 3-5 at world 1, then w0's
+                worker_join spawns a joiner and steps 6-8 run at world 2.
+                Checked: w0's worlds [1, 2] and 2 resizes; the joiner's
+                first step 6 (none lost or repeated); every loss within
+                PARITY_AMP_RTOL of a one-rank PE's run here from the same
+                state on the same feeds; after each resize every rank's
+                persistables bitwise the committed checkpoint (loaded
+                here); at world 2 the ranks' persistables bitwise equal
+                after every step; momentum_bucket launches 4 x the steps
+                a rank ran (the op route: gloo steps run on the
+                interpreter), the kernel bitwise its twin at the
+                headline's buckets; the joiner's prepare a compile-service
+                hit, w0's at world 1 a clean miss; the collector's summary
+                listing the workers; `obs timeline` and `monitor` over the
+                workers' journals rc 0 with the per-step skew. Printed:
+                each resize's ms and parts, step ms at each world, the
+                gloo all-reduce's share of a step and its bytes, peak
+                memory per rank ([elastic] lines; the workers' logs in
+                chiprun_out/elastic_*.log).
+                Alone: `python3 chip_smoke.py --only elastic`
 Then one JSON line of the paths' numbers (the monitor phase's under
 "monitor"), one of per-kernel numbers (launches on every path that runs the
 kernel; momentum's "headline_unmonitored" path is the monitor phase's
@@ -823,6 +854,19 @@ PIPE_STAGES = 4
 PIPE_MICRO = 4
 PIPE_STEPS = 4
 PIPE_CLI_S = 300
+
+# phase elastic: bench.py's headline (bf16 AMP, fused Momentum, batch
+# HEADLINE_BATCH) trained ELASTIC_STEPS global steps by ELASTIC_WORLD
+# card ranks sharing the card over gloo (`--elastic-child` processes)
+# under ElasticControllers: the rank "w1" preempted after step
+# ELASTIC_PREEMPT_AT, a joiner spawned by "w0" after step
+# ELASTIC_JOIN_AT; every loss within PARITY_AMP_RTOL of a one-rank PE's
+# run of the same steps; each process killed past ELASTIC_CHILD_S
+ELASTIC_WORLD = 2
+ELASTIC_STEPS = 9
+ELASTIC_PREEMPT_AT = 2
+ELASTIC_JOIN_AT = 5
+ELASTIC_CHILD_S = 300
 
 SEED = 20261016
 BATCH = 32
@@ -9637,6 +9681,554 @@ def phase_pipeline(card, headline_ips):
             "cli_selftest_waited_s": cli_wait}
 
 
+def _elastic_feed(step):
+    """Global step `step`'s batch of the elastic drill, the same on every
+    rank and world (a rank keeps its rows)."""
+    rs = np.random.RandomState(SEED + 41 + step)
+    return {"data_u8": rs.randint(0, 256, (HEADLINE_BATCH, 224, 224, 3),
+                                  dtype=np.uint8),
+            "label": rs.randint(0, 1000, (HEADLINE_BATCH, 1)).astype(
+                np.int32)}
+
+
+def _state_digest(scope, main):
+    """blake2b over every checkpoint var of `main` in `scope` (the
+    persistables a resilience checkpoint holds: names, dtypes, shapes and
+    bytes, in name order): equal digests are equal states bit for bit."""
+    import hashlib
+
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch import io as fio
+
+    keep = {v.name for v in main.list_vars() if fio._is_checkpoint_var(v)}
+    state = {n: a for n, a in convert.numpy_state(scope, main).items()
+             if n in keep}
+    h = hashlib.blake2b(digest_size=16)
+    for n in sorted(state):
+        a = np.ascontiguousarray(state[n])
+        h.update(f"{n}|{a.dtype.str}|{a.shape}|".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def elastic_child(spec_path, name, joiner):
+    """`python3 chip_smoke.py --elastic-child SPEC NAME [--joiner]`: one
+    worker of phase elastic. A card rank on card 0 (a gloo group formed
+    on it by its ElasticController, TF32 off) that trains the headline
+    through ParallelExecutor.run under a ResilientRunner, with the plan
+    store, journal and obs identity of its own, the compile service and
+    the collector of the spec; w1 takes worker_preempt after
+    ELASTIC_PREEMPT_AT, w0 worker_join after ELASTIC_JOIN_AT (the joiner
+    is this command with --joiner), and every incumbent then waits for the
+    joiner and polls. Its output goes to chiprun_out/elastic_<name>.log;
+    it writes <out>/<name>[_joiner].json: per step its world, loss, ms,
+    the gloo wire's seconds and bytes and the state's digest; the resizes'
+    parts and the digest after each adopt; the compile cache's counters
+    of each ParallelExecutor; peak memory; momentum launches."""
+    tag = name + ("_joiner" if joiner else "")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    log_fd = os.open(os.path.join(OUT_DIR, f"elastic_{tag}.log"),
+                     os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    os.dup2(log_fd, 1)
+    os.dup2(log_fd, 2)
+    import faulthandler
+
+    faulthandler.dump_traceback_later(ELASTIC_CHILD_S, exit=True)
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, convert, cuda_build, flags
+    from paddle_tpu_torch.fusion import kernels as fk
+    from paddle_tpu_torch.ops import collective_ops
+    from paddle_tpu_torch.parallel import MeshSpec
+    from paddle_tpu_torch.parallel.elastic import (ConstantRescale,
+                                                   ElasticConfig,
+                                                   ElasticController,
+                                                   Resized)
+    from paddle_tpu_torch.resilience import (Preempted, ResilienceConfig,
+                                             ResilientRunner, chaos)
+
+    t_start = time.perf_counter()
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda_build.kernels()  # built by the parent: loaded here
+    place = fluid.CUDAPlace(0)
+    main, startup, loss, _ = build_headline(plan=False)
+    scope = fluid.Scope()
+    fluid.Executor(place).run(startup, scope=scope)
+    deadline = time.monotonic() + ELASTIC_CHILD_S
+    while not os.path.exists(spec["init"]):  # the parent writes it whole
+        if time.monotonic() > deadline:
+            raise AssertionError(f"no start state {spec['init']}")
+        time.sleep(0.05)
+    with np.load(spec["init"]) as data:
+        convert.load_numpy_state(scope, main, dict(data), place)
+    flags.set("fuse", True)
+    flags.set("compile_cache_dir", os.path.join(spec["work"], f"plans_{tag}"))
+    flags.set("compile_service", spec["master"])
+    flags.set("obs_push", spec["collector"])
+    flags.set("obs_replica", tag)
+    flags.set("obs_push_interval_s", 0.5)
+    flags.set("monitor_journal", os.path.join(OUT_DIR,
+                                              f"elastic_{tag}.jsonl"))
+    here = os.path.abspath(__file__)
+    monkey = chaos.ChaosMonkey()
+    if not joiner and name == "w1":
+        monkey.add(chaos.Fault("worker_preempt", at=ELASTIC_PREEMPT_AT))
+    if not joiner and name == "w0":
+        monkey.add(chaos.Fault("worker_join", at=ELASTIC_JOIN_AT, argv=[
+            sys.executable, here, "--elastic-child", spec_path, "w1",
+            "--joiner"]))
+    chaos.install(monkey)
+    ctl = ElasticController(ElasticConfig(
+        spec["master"], name=name, ttl=30.0, heartbeat_interval=0.1,
+        start_world=None if joiner else ELASTIC_WORLD,
+        barrier_timeout=60.0, resize_timeout=ELASTIC_CHILD_S,
+        policy=ConstantRescale(), mesh_spec=MeshSpec(),
+        local_device_ids=[0], backend="gloo"))
+    runner = ResilientRunner(
+        ResilienceConfig(checkpoint_dir=spec["checkpoint_dir"],
+                         async_checkpoints=False, restore_on_start=False,
+                         save_on_preempt=False, elastic=ctl),
+        scope=scope, program=main, place=place)
+
+    def make_pe():
+        return fluid.ParallelExecutor(use_cuda=True, loss_name=loss.name,
+                                      main_program=main)
+
+    res = {"name": name, "joiner": joiner, "steps": [], "resizes": [],
+           "left": False, "caches": [], "start_s": None}
+    amp.enable("bfloat16")
+    fk.reset_launch_counts()
+    collective_ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with fluid.scope_guard(scope), runner.session():
+            res["start_s"] = time.perf_counter() - t_start
+            if joiner:
+                manifest = runner.adopt(
+                    expect_mesh=MeshSpec().geometry(ctl.world_size))
+                assert manifest is not None, "nothing committed to adopt"
+                res["resizes"].append({
+                    "world": ctl.world_size, "serial": manifest["serial"],
+                    "step": manifest["step"], "parts": None,
+                    "digest": _state_digest(scope, main)})
+            pe, fresh = make_pe(), True
+            while runner.global_step < ELASTIC_STEPS:
+                s = runner.global_step
+                feed = _elastic_feed(s)
+                wire_s = collective_ops.launch.host_wire_s
+                wire_b = collective_ops.launch.host_staged_bytes
+                t0 = time.perf_counter()
+                out, = runner.run_step(
+                    lambda: pe.run([loss.name], feed=feed))
+                ms = (time.perf_counter() - t0) * 1e3
+                rec = {"step": s, "world": ctl.world_size, "ms": ms,
+                       "loss": float(np.asarray(out).reshape(-1)[0]),
+                       "wire_s": collective_ops.launch.host_wire_s - wire_s,
+                       "wire_bytes": collective_ops.launch.host_staged_bytes
+                       - wire_b, "mode": pe.step_mode(),
+                       "first_after_resize": fresh}
+                if fresh:
+                    res["caches"].append(dict(pe.compile_cache_info()["l2"],
+                                              world=ctl.world_size))
+                    fresh = False
+                # the state this step left (after_step changes none of it
+                # unless it resizes, which the resize's record covers)
+                rec["digest"] = _state_digest(scope, main)
+                res["steps"].append(rec)
+                try:
+                    runner.after_step([out])
+                    if s == ELASTIC_JOIN_AT \
+                            and ctl.world_size < ELASTIC_WORLD:
+                        # the joiner is on its way: wait until it joined,
+                        # then take the resize at this boundary
+                        deadline = time.monotonic() + ELASTIC_CHILD_S
+                        while not ctl.resize_pending() or len(
+                                ctl.membership()["members"]) \
+                                < ELASTIC_WORLD:
+                            if time.monotonic() > deadline:
+                                raise AssertionError("no joiner joined")
+                            time.sleep(0.02)
+                        ctl.poll(runner)
+                except Resized as r:
+                    res["resizes"].append({
+                        "world": r.world_size,
+                        "serial": (r.manifest or {}).get("serial"),
+                        "step": (r.manifest or {}).get("step"),
+                        "parts": ctl.last_resize,
+                        "digest": _state_digest(scope, main)})
+                    pe, fresh = make_pe(), True
+    except Preempted:
+        res["left"] = True
+    finally:
+        amp.disable()
+    from paddle_tpu_torch import monitor
+
+    res["resize_gauge_ms"] = monitor.registry().gauge(
+        "elastic_resize_duration_ms").value
+    res["momentum_launches"] = fk.momentum_bucket.launches
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["seconds"] = time.perf_counter() - t_start
+    with open(os.path.join(spec["out"], f"{tag}.json"), "w") as f:
+        json.dump(res, f)
+    for p in monkey.spawned:
+        try:
+            p.wait(timeout=ELASTIC_CHILD_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            raise
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
+def _elastic_reference(main, startup, loss, init):
+    """The drill's steps through a ParallelExecutor with no group (one
+    rank) from `init`: the losses."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, convert, flags
+
+    scope = fluid.Scope()
+    convert.load_numpy_state(scope, main, init, fluid.CUDAPlace(0))
+    losses = []
+    amp.enable("bfloat16")
+    try:
+        with flags.flag_guard(fuse=True), fluid.scope_guard(scope):
+            pe = fluid.ParallelExecutor(use_cuda=True, loss_name=loss.name,
+                                        main_program=main)
+            for s in range(ELASTIC_STEPS):
+                out, = pe.run([loss.name], feed=_elastic_feed(s))
+                losses.append(float(np.asarray(out).reshape(-1)[0]))
+    finally:
+        amp.disable()
+    del pe, scope
+    _release()
+    return losses
+
+
+def phase_elastic(card_line):
+    """The control plane on the card (module docstring, phase 17)."""
+    import tempfile
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert, obs
+    from paddle_tpu_torch.parallel.master import MasterService
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    svc = MasterService()
+    master = f"127.0.0.1:{svc.serve()}"
+    col = obs.Collector(ttl_s=600.0)
+    httpd = obs.make_obs_http(col, port=0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    collector = f"127.0.0.1:{httpd.server_address[1]}"
+    procs, cli = [], {}
+    try:
+        out = os.path.join(work, "out")
+        os.makedirs(out)
+        spec = {"master": master, "collector": collector, "work": work,
+                "out": out, "init": os.path.join(work, "init.npz"),
+                "checkpoint_dir": os.path.join(work, "ckpt")}
+        spec_path = os.path.join(work, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        # the workers import and build while the start state is made here
+        # (they wait for its file)
+        for name in ("w0", "w1"):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(here, "chip_smoke.py"),
+                 "--elastic-child", spec_path, name], cwd=here,
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
+        main, startup, loss, buckets = build_headline()
+        scope = fluid.Scope()
+        fluid.Executor().run(startup, scope=scope)
+        init = convert.numpy_state(scope, main)
+        del scope
+        np.savez(os.path.join(work, "init.tmp.npz"), **init)
+        os.replace(os.path.join(work, "init.tmp.npz"), spec["init"])
+        # the one-rank reference while the workers start
+        ref = _elastic_reference(main, startup, loss, init)
+        deadline = time.monotonic() + ELASTIC_CHILD_S
+        for p, name in zip(procs, ("w0", "w1")):
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"[elastic] {name} ran over "
+                                     f"{ELASTIC_CHILD_S} s")
+            if p.returncode != 0:
+                raise AssertionError(
+                    f"[elastic] {name} exited {p.returncode} (see "
+                    f"{OUT_DIR}/elastic_{name}.log)")
+        drill_s = time.perf_counter() - t0
+        cli = _elastic_cli(collector, here)
+        res = {}
+        for tag in _ELASTIC_TAGS:
+            path = os.path.join(out, f"{tag}.json")
+            if not os.path.exists(path):
+                raise AssertionError(f"[elastic] {tag} wrote no result (see "
+                                     f"{OUT_DIR}/elastic_{tag}.log)")
+            with open(path) as f:
+                res[tag] = json.load(f)
+        result = _elastic_checks(res, ref, main, spec, buckets)
+        result["drill_s"] = drill_s
+        result.update(_elastic_obs(col, cli))
+        result["kernel_max_abs_err"] = _elastic_kernel_check(buckets)
+        log(f"[elastic] momentum_bucket at the headline's {len(buckets)} "
+            f"bucket sizes {[b['numel'] for b in buckets]}: bitwise its "
+            f"plain twin on the card (max |err| "
+            f"{result['kernel_max_abs_err']})")
+        return result
+    finally:
+        for p in procs + list(cli.values()):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        httpd.shutdown()
+        httpd.server_close()
+        svc.stop()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _elastic_checks(res, ref, main, spec, buckets):
+    """Phase elastic's checks over the workers' results (module
+    docstring); prints the [elastic] lines and returns the numbers."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.resilience import CheckpointManager
+
+    w0, w1, joiner = res["w0"], res["w1"], res["w1_joiner"]
+    problems = []
+    worlds = [r["world"] for r in w0["resizes"]]
+    if worlds != [1, 2]:
+        problems.append(f"w0's worlds {worlds}")
+    steps = {t: [r["step"] for r in res[t]["steps"]] for t in res}
+    if steps["w0"] != list(range(ELASTIC_STEPS)):
+        problems.append(f"w0 ran steps {steps['w0']}")
+    if not w1["left"] or steps["w1"] != list(range(ELASTIC_PREEMPT_AT + 1)):
+        problems.append(f"w1 left {w1['left']} after {steps['w1']}")
+    want_join = list(range(ELASTIC_JOIN_AT + 1, ELASTIC_STEPS))
+    if steps["w1_joiner"] != want_join:
+        problems.append(f"the joiner ran {steps['w1_joiner']}")
+    # losses against the one-rank run
+    worst = 0.0
+    for t, r in res.items():
+        for rec in r["steps"]:
+            want = ref[rec["step"]]
+            rel = abs(rec["loss"] - want) / abs(want)
+            worst = max(worst, rel)
+            if not np.isfinite(rec["loss"]) or rel > PARITY_AMP_RTOL:
+                problems.append(f"{t} step {rec['step']} loss "
+                                f"{rec['loss']} vs {want}")
+    # world 2: the ranks' states equal after every step they shared
+    digests = {}
+    for t, r in res.items():
+        for rec in r["steps"]:
+            if "digest" in rec and rec["world"] == ELASTIC_WORLD:
+                digests.setdefault(rec["step"], set()).add(rec["digest"])
+    shared = sorted(k for k, v in digests.items())
+    unequal = [k for k in shared if len(digests[k]) != 1]
+    if unequal:
+        problems.append(f"world-2 states differ after steps {unequal}")
+    # after each resize: every rank's state is the committed checkpoint
+    cm = CheckpointManager(spec["checkpoint_dir"], async_write=False)
+    committed = {}
+    for t, r in res.items():
+        for z in r["resizes"]:
+            serial = z["serial"]
+            if serial not in committed:
+                scope = fluid.Scope()
+                man = cm.restore(scope=scope, program=main,
+                                 place=fluid.CPUPlace(), serial=serial)
+                committed[serial] = (man["step"], _state_digest(scope, main))
+                del scope
+            if z["digest"] != committed[serial][1]:
+                problems.append(f"{t}'s state after the resize to world "
+                                f"{z['world']} is not serial {serial}")
+    # rank 0's state at each resize point is what it committed
+    at = {rec["step"]: rec.get("digest") for rec in w0["steps"]}
+    for serial, (step, dig) in committed.items():
+        if at.get(step - 1) != dig:
+            problems.append(f"serial {serial} is not w0's state after "
+                            f"step {step - 1}")
+    # momentum: 4 buckets x the steps a rank ran, on the op route
+    n_buckets = len(buckets)
+    for t, r in res.items():
+        if r["momentum_launches"] != n_buckets * len(r["steps"]):
+            problems.append(f"{t} momentum launches "
+                            f"{r['momentum_launches']}, not {n_buckets} x "
+                            f"{len(r['steps'])}")
+        if {rec["mode"] for rec in r["steps"]} != {"interpreter"}:
+            problems.append(f"{t} modes "
+                            f"{sorted({rec['mode'] for rec in r['steps']})}")
+    # the compile service: the joiner's prepare a hit, w0's at world 1 a
+    # clean miss
+    j_cache = joiner["caches"][0]
+    w0_one = [c for c in w0["caches"] if c["world"] == 1]
+    if j_cache["remote_hits"] < 1:
+        problems.append(f"the joiner's prepare {j_cache}")
+    if not w0_one or w0_one[0]["remote_hits"] != 0 \
+            or w0_one[0]["remote_misses"] < 1 or w0_one[0]["fallbacks"]:
+        problems.append(f"w0's prepare at world 1 {w0_one}")
+    if problems:
+        raise AssertionError(f"[elastic] failed: {problems}")
+
+    def median_ms(world, rows):
+        xs = [x["ms"] for x in rows if x["world"] == world
+              and not x["first_after_resize"]]
+        return statistics.median(xs) if xs else None
+
+    rows = [x for t in ("w0",) for x in res[t]["steps"]]
+    step_ms = {w: median_ms(w, rows) for w in (1, 2)}
+    share = {}
+    for w in (1, 2):
+        xs = [x for x in rows if x["world"] == w
+              and not x["first_after_resize"]]
+        share[w] = {"wire_share": sum(x["wire_s"] for x in xs) * 1e3
+                    / sum(x["ms"] for x in xs) if xs else None,
+                    "wire_bytes_per_step": statistics.median(
+                        x["wire_bytes"] for x in xs) if xs else None}
+    resizes = []
+    for z, kind in zip(w0["resizes"], ("shrink", "grow")):
+        first = next(x for x in w0["steps"] if x["step"] == z["step"])
+        resizes.append(dict(z["parts"], kind=kind, world=z["world"],
+                            first_step_after_ms=first["ms"]))
+        p = z["parts"]
+        log(f"[elastic] resize {kind} to world {z['world']} at step "
+            f"{z['step']}: {p['total']:.1f} ms (barriers "
+            f"{p['barriers']:.1f}, rank 0's checkpoint "
+            f"{p['checkpoint']:.1f}, group re-form {p.get('reform', 0):.1f}, "
+            f"adopt {p['adopt']:.1f} ms); the first step after it "
+            f"{first['ms']:.1f} ms (a new ParallelExecutor's prepare "
+            f"included)")
+    log(f"[elastic] gauge elastic_resize_duration_ms (w0, the last "
+        f"resize): {w0['resize_gauge_ms']:.1f} ms")
+    for w in (2, 1):
+        log(f"[elastic] world {w}: step {step_ms[w]:.1f} ms median (w0, "
+            f"first steps after a resize left out; interpreter, gloo on "
+            f"one card); the gloo all-reduce's pinned host wire "
+            f"{share[w]['wire_share']:.3f} of a step, "
+            f"{share[w]['wire_bytes_per_step'] / 1e6:.1f} MB a step "
+            f"copied through the host")
+    log(f"[elastic] losses within {PARITY_AMP_RTOL} of the one-rank PE's "
+        f"(worst relative {worst:.3e}); steps run: {steps}; world-2 "
+        f"states bitwise equal across ranks after steps {shared}; every "
+        f"state after a resize bitwise its committed serial "
+        f"{sorted(committed)}; momentum_bucket launches "
+        f"{ {t: r['momentum_launches'] for t, r in res.items()} } = "
+        f"{n_buckets} x steps")
+    log(f"[elastic] compile service: the joiner's first prepare "
+        f"remote_hits {j_cache['remote_hits']}, w0's at world 1 "
+        f"remote_misses {w0_one[0]['remote_misses']}, remote_hits 0; peak "
+        f"memory by rank "
+        f"{ {t: round(r['peak_bytes'] / 2**30, 2) for t, r in res.items()} }"
+        f" GiB; from a worker's imports to its group formed (program "
+        f"built, state loaded, the start barrier) "
+        f"{ {t: round(r['start_s'], 1) for t, r in res.items()} } s")
+    return {"worlds": worlds, "resizes": resizes, "step_ms": step_ms,
+            "wire": share, "steps": steps, "worst_rel": worst,
+            "reference_losses": ref,
+            "losses": {t: [x["loss"] for x in r["steps"]]
+                       for t, r in res.items()},
+            "momentum_launches": sum(r["momentum_launches"]
+                                     for r in res.values()),
+            "momentum_launches_by_rank": {t: r["momentum_launches"]
+                                          for t, r in res.items()},
+            "caches": {t: r["caches"] for t, r in res.items()},
+            "peak_bytes": {t: r["peak_bytes"] for t, r in res.items()},
+            "start_s": {t: r["start_s"] for t, r in res.items()},
+            "resize_gauge_ms": w0["resize_gauge_ms"]}
+
+
+_ELASTIC_TAGS = ("w0", "w1", "w1_joiner")
+
+
+def _elastic_cli(collector, here):
+    """Start `python -m paddle_tpu_torch obs timeline` over the collector
+    and `monitor` over the workers' journals (they run beside the phase's
+    other checks): {name: Popen}."""
+    journals = [os.path.join(OUT_DIR, f"elastic_{n}.jsonl")
+                for n in _ELASTIC_TAGS]
+    cmds = {"timeline": [sys.executable, "-m", "paddle_tpu_torch", "obs",
+                         "timeline", "--collector", collector],
+            "monitor": [sys.executable, "-m", "paddle_tpu_torch", "monitor",
+                        *journals]}
+    return {k: subprocess.Popen(c, cwd=here, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+            for k, c in cmds.items()}
+
+
+def _elastic_obs(col, running):
+    """The collector's summary lists the workers; the two commands of
+    `running` (_elastic_cli) exit 0, `monitor` with the per-step skew."""
+    summary = col.summary()
+    procs = {p["labels"].get("replica"): p for p in summary["processes"]}
+    names = _ELASTIC_TAGS
+    missing = [n for n in names if n not in procs
+               or not procs[n]["journal_steps"]]
+    if missing:
+        raise AssertionError(f"[elastic] the collector lacks {missing}: "
+                             f"{sorted(procs)}")
+    outs = {k: p.communicate(timeout=120) for k, p in running.items()}
+    for k, p in running.items():
+        if p.returncode != 0:
+            raise AssertionError(f"[elastic] {k} rc {p.returncode}: "
+                                 f"{outs[k][1][-2000:]}")
+    skew = [ln for ln in outs["monitor"][0].splitlines()
+            if ln.startswith("fleet:")]
+    if not skew or "max skew" not in skew[0]:
+        raise AssertionError(f"[elastic] monitor printed no skew: "
+                             f"{outs['monitor'][0][-2000:]}")
+    tl_lines = outs["timeline"][0].strip().splitlines()
+    seen = ", ".join(f"{n}: {procs[n]['journal_steps']} journal steps"
+                     for n in names)
+    log(f"[elastic] collector: {len(summary['processes'])} processes "
+        f"({seen}), {summary['fleet']['pushes']} pushes, "
+        f"{summary['fleet']['dropped_snapshots']} dropped")
+    log(f"[elastic] python -m paddle_tpu_torch monitor <3 journals>: rc 0; "
+        f"{skew[0]}")
+    log(f"[elastic] python -m paddle_tpu_torch obs timeline --collector: rc "
+        f"0; {tl_lines[0] if tl_lines else ''}")
+    with open(os.path.join(OUT_DIR, "elastic_obs.txt"), "w") as f:
+        f.write(outs["timeline"][0] + "\n" + outs["monitor"][0])
+    return {"collector_processes": sorted(procs),
+            "journal_steps": {n: procs[n]["journal_steps"] for n in names},
+            "monitor_skew": skew[0]}
+
+
+def _elastic_kernel_check(buckets):
+    """momentum_bucket against its plain twin on the card at each of the
+    headline's bucket sizes, bitwise (phase kernels' check, here for the
+    path this phase runs); returns the max |err| (0.0)."""
+    from paddle_tpu_torch.fusion import kernels as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 43)
+    lr = torch.full((), 0.01, device="cuda")
+    err = {"momentum_bucket": 0.0}
+    for b in buckets:
+        p, g, v = _lanes(b["numel"], 3, gen)
+        _bitwise("momentum_bucket", fk.momentum_bucket(p, g, v, lr, 0.9,
+                                                       False),
+                 fk.momentum_bucket_plain(p, g, v, lr, 0.9, False), err,
+                 f"elastic bucket n={b['numel']}")
+        del p, g, v
+    torch.cuda.synchronize()
+    return err["momentum_bucket"]
+
+
+def main_elastic():
+    """`python3 chip_smoke.py --only elastic`: the device check, the build
+    and phase elastic alone."""
+    card_line = phase_device()
+    phase_build()
+    lap("device_and_build")
+    result = phase_elastic(card_line)
+    lap("elastic")
+    log(card_line)
+    log(json.dumps({"elastic": result}))
+    log(_device_line())
+
+
 def main_ring():
     """`python3 chip_smoke.py --only ring`: the device check, the build
     and phase ring alone."""
@@ -10035,6 +10627,10 @@ def main():
         pipe["stages"]["momentum_launches"]
     _release()
     lap("pipeline")
+    elastic = phase_elastic(card_line)
+    momentum["launches_by_path"]["elastic"] = elastic["momentum_launches"]
+    _release()
+    lap("elastic")
     entry = phase_flash(sass)
     # the flash rows' launches: the ring's (the path that runs them), the
     # entry point's beside them
@@ -10058,7 +10654,7 @@ def main():
                     "compile_services": services,
                     "continuous": continuous, "pserver": pserver,
                     "detection": detection, "ring": ring,
-                    "pipeline": pipe,
+                    "pipeline": pipe, "elastic": elastic,
                     "seconds_by_phase": _LAPS["seconds"]}))
     log(json.dumps({"kernels": rows}))
     log(_device_line())
@@ -10085,6 +10681,10 @@ if __name__ == "__main__":
         main_ring()
     elif sys.argv[1:] == ["--only", "pipeline"]:
         main_pipeline()
+    elif sys.argv[1:] == ["--only", "elastic"]:
+        main_elastic()
+    elif sys.argv[1:2] == ["--elastic-child"] and len(sys.argv) in (4, 5):
+        elastic_child(sys.argv[2], sys.argv[3], sys.argv[4:] == ["--joiner"])
     elif sys.argv[1:2] == ["--ring-child"] and len(sys.argv) == 4:
         ring_child(sys.argv[2], int(sys.argv[3]))
     elif sys.argv[1:2] == ["--pserver-child"] and len(sys.argv) == 4:

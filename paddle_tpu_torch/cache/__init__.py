@@ -28,20 +28,21 @@ The Executor owns one CompileCache (kind "executor"; the one under a
 ParallelExecutor has kind "parallel_executor"). Instance counters
 (hits/misses/evictions + the l2_* family) always track and surface
 through compile_cache_info(); monitor-registry counters also tick when
-FLAGS_monitor is on. Not ported: the distributed compile service
-(cache/service.py, over parallel.master: ROADMAP queue 1 item 8).
-FLAGS_compile_service is defined, runs refuse it while it is set, and the
-remote_* counters stay 0.
+FLAGS_monitor is on. Under FLAGS_compile_service a local-L2 miss asks the
+distributed compile service (cache/service.py, over parallel.master) for
+a peer's entry before preparing (counted as remote_hits / remote_misses),
+and a prepare that missed publishes its entry there.
 """
 
 from collections import OrderedDict
 
 from .. import flags
+from . import service
 from .keys import environment, is_digest, program_digest, stable_digest
 from .store import L2Store
 
 __all__ = ["CompileCache", "L2Store", "default_store", "environment",
-           "is_digest", "program_digest", "stable_digest"]
+           "is_digest", "program_digest", "service", "stable_digest"]
 
 flags.define(
     "compile_cache_cap", int, 0,
@@ -64,23 +65,6 @@ flags.define(
     "Size cap for FLAGS_compile_cache_dir in MiB. After every store "
     "write the directory is pruned oldest-used-first (mtime LRU) down "
     "to the cap; <= 0 leaves it unbounded.")
-flags.define(
-    "compile_service", str, "",
-    "Not ported: host:port of the JAX package's distributed compile "
-    "service (cache/service.py over parallel.master, ROADMAP queue 1 "
-    "item 8). Executor.run and ParallelExecutor.run raise "
-    "NotImplementedError while it is set.")
-
-
-def refuse_compile_service(who):
-    """The NotImplementedError a run raises while FLAGS_compile_service is
-    set."""
-    if flags.get("compile_service"):
-        raise NotImplementedError(
-            f"{who}: FLAGS_compile_service (the distributed compile "
-            f"service, ROADMAP queue 1 item 8) is not ported to "
-            f"paddle_tpu_torch yet")
-
 
 def default_store():
     """L2Store at FLAGS_compile_cache_dir, or None when the flag is empty
@@ -117,6 +101,11 @@ class CompileCache:
         self.l2_fallbacks = 0
         self.l2_puts = 0
         self.l2_put_bytes = 0
+        # distributed compile service (FLAGS_compile_service): local-L2
+        # misses satisfied by fetching a peer's entry vs. escalated to a
+        # local prepare (we won the single-flight lease, or no service)
+        self.l2_remote_hits = 0
+        self.l2_remote_misses = 0
 
     # -- L1 ------------------------------------------------------------
     def get(self, key, count_miss=True):
@@ -195,8 +184,8 @@ class CompileCache:
                 "fallbacks": self.l2_fallbacks,
                 "puts": self.l2_puts,
                 "put_bytes": self.l2_put_bytes,
-                "remote_hits": 0,
-                "remote_misses": 0,
+                "remote_hits": self.l2_remote_hits,
+                "remote_misses": self.l2_remote_misses,
                 "service": flags.get("compile_service") or None,
             },
         }
@@ -225,9 +214,12 @@ class CompileCache:
             return None
         outcome, payload, header = store.get(digest)
         if outcome == "miss":
-            self.l2_misses += 1
-            _l2_count("misses", self.kind)
-            return None
+            payload = self._remote_fetch(digest, store, mon)
+            if payload is None:
+                self.l2_misses += 1
+                _l2_count("misses", self.kind)
+                return None
+            outcome, payload, header = "hit", payload[0], payload[1]
         if outcome != "hit":
             self.count_l2_fallback(mon, reason=outcome)
             return None
@@ -243,6 +235,46 @@ class CompileCache:
         _l2_count("hits", self.kind)
         return value, header.get("meta") or {}
 
+    def _remote_fetch(self, digest, store, mon=None):
+        """fetch_compiled: satisfy a local-L2 miss from the distributed
+        compile service. Returns (payload bytes, header) of the entry
+        (committed to the local store first, exactly as a local put would
+        land) or None — None means THIS process prepares, either because
+        it won the single-flight lease, the leaseholder died, or the
+        service is off/unreachable."""
+        if not service.enabled():
+            return None
+        blob = service.fetch_blob(digest, wait_s=0.0)
+        if blob is None:
+            if service.try_lease(digest):
+                # our lease: prepare here; l2_put publishes the entry
+                self.l2_remote_misses += 1
+                _l2_count("remote_misses", self.kind)
+                return None
+            # someone else is preparing this digest right now — park for
+            # their publish instead of burning a duplicate prepare
+            blob = service.fetch_blob(digest, wait_s=service.WAIT_S)
+        if blob is None:
+            self.l2_remote_misses += 1
+            _l2_count("remote_misses", self.kind)
+            return None
+        # commit through put_blob (framing + digest + checksum checks),
+        # then re-read: the fetched entry must be exactly as trustworthy
+        # as a locally written one, or we fall back to preparing
+        max_mb = int(flags.get("compile_cache_dir_max_mb"))
+        if not store.put_blob(
+                digest, blob,
+                max_bytes=max_mb * (1 << 20) if max_mb > 0 else None):
+            self.count_l2_fallback(mon, reason="remote_corrupt")
+            return None
+        outcome, payload, header = store.get(digest)
+        if outcome != "hit" or payload is None:
+            self.count_l2_fallback(mon, reason=f"remote_{outcome}")
+            return None
+        self.l2_remote_hits += 1
+        _l2_count("remote_hits", self.kind)
+        return payload, header
+
     def count_l2_fallback(self, mon=None, reason=None):
         self.l2_fallbacks += 1
         _l2_count("fallbacks", self.kind)
@@ -253,8 +285,11 @@ class CompileCache:
 
     def l2_put(self, digest, payload, meta=None):
         """Commit one entry (the counterpart of the JAX package's
-        aot_sink, called once after a prepare that missed L2); returns the
-        bytes written. A failed write raises."""
+        aot_sink, called once after a prepare that missed L2) and, under
+        FLAGS_compile_service, publish it to the service (releasing our
+        single-flight lease; a failed publish only costs the peers their
+        lease-expiry wait); returns the bytes written. A failed write
+        raises."""
         store = self.store()
         max_mb = int(flags.get("compile_cache_dir_max_mb"))
         nbytes = store.put(
@@ -264,4 +299,8 @@ class CompileCache:
         self.l2_put_bytes += nbytes
         _l2_count("puts", self.kind)
         _l2_count("put_bytes", self.kind, nbytes)
+        if service.enabled():
+            blob = store.read_blob(digest)
+            if blob is not None:
+                service.offer_blob(digest, blob)
         return nbytes

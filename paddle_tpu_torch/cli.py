@@ -7,9 +7,12 @@ journals and ledgers:
 
   version            print version + backend info
   flags              list registered runtime flags (FLAGS_* env overrides)
-  monitor JOURNAL    summarize a FLAGS_monitor_journal step journal
+  monitor JOURNAL... summarize a FLAGS_monitor_journal step journal
                      (step/phase timings, compile-cache hit rate, replica
-                     skew); --json emits the summary as JSON.
+                     skew); several journals (one a process) give a
+                     per-process table and the fleet merge: per-step
+                     cross-process skew and stragglers (obs.
+                     merge_step_timeline); --json emits it as JSON.
   health summary LEDGER
                      summarize a FLAGS_health_ledger run ledger (loss
                      curve, grad norms, detector events, divergence
@@ -55,9 +58,32 @@ journals and ledgers:
                      one serving replica process (drains clean on
                      /admin/drain or SIGTERM), or the fleet router over
                      replicas; --place defaults to the first card in
-                     every command (the JAX package's replica: cpu);
-                     --master, --obs and --compile-service are refused
-                     (ROADMAP queue 1 item 8)
+                     every command (the JAX package's replica: cpu). A
+                     replica's --master registers it (kind "serve") in
+                     an elastic master's registry through a Heartbeater,
+                     and the router's --master discovers replicas there
+                     (MasterClient.lookup); --obs pushes to an obs
+                     collector; --compile-service warm-starts a replica
+                     from its peers' prepared plans
+  elastic status --master HOST:PORT [--json]
+  elastic drain NAME --master HOST:PORT
+                     membership snapshot of an elastic training job
+                     (epoch, world size, members), or a manual
+                     scale-down: the survivors resize at their next step
+                     boundary
+  obs collect [--port P] [--scrape [NAME=]HOST:PORT] ...
+  obs top --collector HOST:PORT [--once] [--json]
+  obs timeline [--collector HOST:PORT] [--dump DIR ...] [--out F]
+                     fleet observability: the collector (push sink,
+                     scrape poller, aggregated /metrics), its live
+                     table, the merged step timeline and chrome trace
+  trace ops --model-dir D [--place cuda|cpu] [--batch N] [--top K]
+  trace summary DIR
+  trace dump [--out D] [--selftest]
+                     per-op cost attribution of a saved model's first
+                     step (FLAGS_monitor_hlo_cost's FLOP probe), a
+                     flight-recorder dump's span table, or a dump of
+                     this process's recorder
 
   train [--role trainer|pserver] [--trainers N] [--trainer-id I]
         [--pservers H:P,...] [--current-endpoint H:P] SCRIPT [ARGS ...]
@@ -69,9 +95,8 @@ journals and ledgers:
                      PADDLE_PSERVER_IPS, PADDLE_PSERVER_PORT and
                      PADDLE_CURRENT_IP, as the JAX package's does)
 
-The JAX CLI's other commands (trace ops, shard, elastic, obs, ...),
-`analyze schedule` (ROADMAP queue 1 item 6) and `monitor` over several
-journals (item 8) are not ported yet.
+The JAX CLI's `shard` and `analyze schedule` (ROADMAP queue 1 item 6)
+are not ported yet.
 """
 
 import argparse
@@ -126,21 +151,67 @@ def _cmd_monitor(args):
     for pat in args.journal:
         hits = sorted(glob.glob(pat))
         paths.extend(p for p in (hits or [pat]) if p not in paths)
-    if len(paths) > 1:
-        print("several journals: the fleet merge of the JAX package's CLI "
-              "is not ported yet (ROADMAP queue 1 item 8)", file=sys.stderr)
-        return 2
-    try:
-        records = read_journal(paths[0])
-    except OSError as e:
-        print(f"cannot read journal: {e}", file=sys.stderr)
-        return 1
-    summary = summarize_journal(records)
+    journals = {}
+    for path in paths:
+        try:
+            journals[path] = read_journal(path)
+        except OSError as e:
+            print(f"cannot read journal: {e}", file=sys.stderr)
+            return 1
+    if len(journals) == 1:
+        summary = summarize_journal(next(iter(journals.values())))
+        if args.json:
+            print(json.dumps(summary, indent=2))
+        else:
+            print(format_summary(summary))
+        return 0
+
+    # several journals = one per fleet process: per-process summaries
+    # plus the obs clock-aligned merge (same-host processes share the
+    # epoch clock, so offset 0 per journal) for cross-replica skew
+    from .obs import merge_step_timeline
+
+    summaries = {p: summarize_journal(r) for p, r in journals.items()}
+    merged = merge_step_timeline(
+        [{"name": os.path.basename(p) or p, "journal": r,
+          "offset_s": 0.0} for p, r in journals.items()])
     if args.json:
-        print(json.dumps(summary, indent=2))
+        print(json.dumps({"journals": summaries,
+                          "fleet": {k: merged[k] for k in
+                                    ("steps", "stragglers")}}, indent=2))
+        return 0
+    hdr = (f"{'journal':<28}{'steps':>7}{'mean_ms':>10}{'p50_ms':>9}"
+           f"{'p95_ms':>9}{'cache_hit%':>11}")
+    print(hdr)
+    print("-" * len(hdr))
+    for path, s in summaries.items():
+        ms = s.get("step_ms") or {}
+        cache = s.get("cache") or {}
+        lookups = (cache.get("hit") or 0) + (cache.get("miss") or 0)
+        hit = 100.0 * (cache.get("hit") or 0) / lookups if lookups \
+            else None
+        print(f"{os.path.basename(path) or path:<28.27}"
+              f"{s.get('steps', 0):>7}"
+              f"{_opt_num(ms.get('mean')):>10}"
+              f"{_opt_num(ms.get('p50')):>9}"
+              f"{_opt_num(ms.get('p95')):>9}"
+              f"{_opt_num(hit):>11}")
+    steps = merged["steps"]
+    if steps:
+        worst = max(steps, key=lambda s: s["skew_ms"])
+        print(f"fleet: {len(steps)} step(s) aligned across processes; "
+              f"max skew {worst['skew_ms']:.1f} ms at step "
+              f"{worst['step']} (slowest {worst['slowest']})")
+        for name, run in sorted(merged["stragglers"].items()):
+            print(f"straggler: {name} slowest on {run} consecutive "
+                  f"step(s)")
     else:
-        print(format_summary(summary))
+        print("fleet: no step overlap between the journals")
     return 0
+
+
+def _opt_num(v, spec="{:.1f}"):
+    return "-" if v is None else spec.format(v)
 
 
 def _cmd_health(args):
@@ -812,24 +883,6 @@ def _place(name):
     return CPUPlace() if name == "cpu" else CUDAPlace(0)
 
 
-def _refuse_item8(args, command):
-    """rc 2 with the reason when an option links to a service of ROADMAP
-    queue 1 item 8 (the elastic master, obs/, the distributed compile
-    service); None when there is none."""
-    names = {"master": "--master (the elastic master's registry)",
-             "obs": "--obs (the fleet obs collector)",
-             "compile_service": "--compile-service (the distributed "
-                                "compile service)"}
-    used = [text for key, text in names.items()
-            if getattr(args, key, None)]
-    if not used:
-        return None
-    verb = "is" if len(used) == 1 else "are"
-    print(f"{command}: {', '.join(used)} {verb} not ported yet (ROADMAP "
-          f"queue 1 item 8)", file=sys.stderr)
-    return 2
-
-
 def _cmd_serve(args):
     import threading
 
@@ -894,13 +947,19 @@ def _cmd_fleet_replica(args):
     from .serve import ServeConfig, Server
     from .serve.http import make_http_server
 
-    refused = _refuse_item8(args, "fleet replica")
-    if refused is not None:
-        return refused
     if args.cache_dir:
         # fleet spin-up: the replicas share one store of prepared plans,
         # so only the first one prepares each bucket from scratch
         flags.set("compile_cache_dir", args.cache_dir)
+    if args.compile_service:
+        # ... or each replica has its own store (the compile service
+        # commits fetched plans there) and the first MISSER prepares
+        # while the rest fetch the plan by digest
+        if not args.cache_dir:
+            print("fleet replica: --compile-service needs --cache-dir, the "
+                  "store its fetched plans land in", file=sys.stderr)
+            return 2
+        flags.set("compile_service", args.compile_service)
     if args.chaos_kill_at is not None or args.chaos_hang_at is not None \
             or args.chaos_delay_ms is not None:
         from .resilience import chaos
@@ -949,8 +1008,22 @@ def _cmd_fleet_replica(args):
         os.replace(tmp, args.port_file)
     print(f"replica {name} serving on {endpoint}", file=sys.stderr)
 
+    obs_client = None
+    if args.obs:
+        from . import obs as obs_mod
+
+        obs_client = obs_mod.maybe_start("replica", replica=name,
+                                         endpoint=args.obs)
+
+    heartbeater = None
     stop_beats = threading.Event()
-    if args.router:
+    if args.master:
+        from .parallel.master import Heartbeater, MasterClient
+
+        heartbeater = Heartbeater(MasterClient(args.master), "serve",
+                                  name, endpoint, ttl=args.ttl)
+        heartbeater.start()
+    elif args.router:
         import http.client
 
         def _register_loop():
@@ -991,8 +1064,14 @@ def _cmd_fleet_replica(args):
     finally:
         httpd.server_close()
         stop_beats.set()
+        if heartbeater is not None:
+            heartbeater.close()
     stats = server.stats()
     server.stop()
+    if obs_client is not None:
+        # final push AFTER stop: the collector sees the terminal journal
+        # tail and any shutdown trace dump
+        obs_client.stop()
     leftover = stats["queue_rows"]
     print(f"replica {name} exiting: drained queue_rows={leftover}",
           file=sys.stderr)
@@ -1002,24 +1081,32 @@ def _cmd_fleet_replica(args):
 def _cmd_fleet_router(args):
     from .serve.fleet import FleetConfig, Router, serve_fleet
 
-    refused = _refuse_item8(args, "fleet router")
-    if refused is not None:
-        return refused
     replicas = {}
     if args.replicas:
         for i, ep in enumerate(e for e in args.replicas.split(",") if e):
             replicas[f"r{i}"] = ep
-    if not replicas and not args.autoscale_model_dir:
-        print("router needs --replicas (or --autoscale-model-dir); "
-              "replicas may also join over POST /admin/register",
-              file=sys.stderr)
+    discover = None
+    if args.master:
+        from .parallel.master import MasterClient
+
+        client = MasterClient(args.master)
+        discover = lambda: client.lookup("serve")  # noqa: E731
+    if not replicas and discover is None and not args.autoscale_model_dir:
+        print("router needs --replicas, --master or "
+              "--autoscale-model-dir; replicas may also join over POST "
+              "/admin/register", file=sys.stderr)
         return 1
     config = FleetConfig(
         probe_interval_s=args.probe_interval,
         request_deadline_ms=args.deadline_ms,
         attempt_timeout_ms=args.attempt_timeout_ms,
         max_attempts=args.max_attempts, hedge_ms=args.hedge_ms)
-    router = Router(replicas, config=config)
+    router = Router(replicas, config=config, discover=discover)
+    obs_client = None
+    if args.obs:
+        from . import obs as obs_mod
+
+        obs_client = obs_mod.maybe_start("router", endpoint=args.obs)
     autoscaler = None
     if args.autoscale_model_dir:
         import tempfile
@@ -1031,6 +1118,8 @@ def _cmd_fleet_router(args):
         argv_base = [sys.executable, "-m", "paddle_tpu_torch", "fleet",
                      "replica", "--model-dir", args.autoscale_model_dir,
                      "--port", "0"]
+        if args.compile_service:
+            argv_base += ["--compile-service", args.compile_service]
         if args.autoscale_cache_dir:
             argv_base += ["--cache-dir", args.autoscale_cache_dir]
         spawner = ProcessReplicaSpawner(
@@ -1045,13 +1134,264 @@ def _cmd_fleet_router(args):
             cooldown_out_s=args.autoscale_cooldown_out,
             cooldown_in_s=args.autoscale_cooldown_in)).start()
     print(f"fleet router on {args.host}:{args.port} over "
-          f"{sorted(replicas.values()) or 'registered replicas'}",
+          f"{sorted(replicas.values()) or 'registered replicas'}"
+          f"{' and master-discovered replicas' if discover else ''}",
           file=sys.stderr)
     serve_fleet(router, host=args.host, port=args.port)
     if autoscaler is not None:
         autoscaler.stop()
         autoscaler.spawner.stop_all()
+    if obs_client is not None:
+        obs_client.stop()
     return 0
+
+
+def _cmd_elastic(args):
+    from .parallel import elastic as elastic_mod
+
+    if args.elastic_action == "status":
+        try:
+            st = elastic_mod.fetch_status(args.master, timeout=args.timeout)
+        except OSError as e:
+            print(f"cannot reach master {args.master}: {e}",
+                  file=sys.stderr)
+            return 1
+        if args.json:
+            print(json.dumps(st, indent=2))
+        else:
+            print(f"elastic job at {st['endpoint']}: epoch={st['epoch']} "
+                  f"world_size={st['world_size']}")
+            for name, addr in sorted(st["members"].items()):
+                print(f"  {name}" + (f"  {addr}" if addr else ""))
+        return 0
+    if args.elastic_action == "drain":
+        from .parallel.master import MasterClient
+
+        client = MasterClient(args.master, connect_timeout=args.timeout)
+        try:
+            r = client.elastic_leave(args.name)
+        except OSError as e:
+            print(f"cannot reach master {args.master}: {e}",
+                  file=sys.stderr)
+            return 1
+        finally:
+            client.close()
+        print(f"drained {args.name}: membership epoch now {r['epoch']} "
+              f"(survivors resize at their next step boundary)")
+        return 0
+    return 1
+
+
+def _cmd_obs(args):
+    from . import obs as obs_mod
+
+    if args.obs_action == "collect":
+        import threading
+
+        col = obs_mod.Collector(ttl_s=args.ttl,
+                                straggler_ratio=args.straggler_ratio,
+                                straggler_steps=args.straggler_steps)
+        for target in args.scrape or []:
+            name, _, endpoint = target.rpartition("=")
+            col.add_scrape_target(name or endpoint, endpoint)
+        httpd = obs_mod.make_obs_http(col, host=args.host, port=args.port)
+        port = httpd.server_address[1]
+        if args.port_file:
+            with open(args.port_file, "w") as f:
+                f.write(f"{port}\n")
+        print(f"obs collector on {args.host}:{port} "
+              f"(POST /v1/obs/push, GET /metrics /v1/obs/summary "
+              f"/v1/obs/timeline; {len(args.scrape or [])} scrape "
+              f"target(s))", file=sys.stderr)
+        stop = threading.Event()
+        if args.scrape:
+            col.scrape_tick()
+
+            def _scrape_loop():
+                while not stop.wait(args.scrape_interval):
+                    col.scrape_tick()
+
+            threading.Thread(target=_scrape_loop, name="obs-scrape",
+                             daemon=True).start()
+        try:
+            httpd.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            stop.set()
+            httpd.server_close()
+        return 0
+
+    if args.obs_action == "top":
+        return obs_mod.run_top(
+            args.collector, interval_s=args.interval, once=args.once,
+            json_out=args.json, iterations=args.iterations)
+
+    if args.obs_action == "timeline":
+        from .trace import load_dump
+
+        dump_dirs = []        # [(lane name or None, dir)]
+        merged_steps = None
+        if args.collector:
+            import http.client
+
+            try:
+                host, port = args.collector.rsplit(":", 1)
+                conn = http.client.HTTPConnection(host, int(port),
+                                                  timeout=5.0)
+                try:
+                    conn.request("GET", "/v1/obs/timeline")
+                    resp = conn.getresponse()
+                    body = resp.read()
+                    if resp.status != 200:
+                        raise OSError(f"HTTP {resp.status}")
+                finally:
+                    conn.close()
+                tl = json.loads(body)
+            except (OSError, ValueError) as e:
+                print(f"cannot reach collector {args.collector}: {e}",
+                      file=sys.stderr)
+                return 2
+            merged_steps = tl.get("timeline")
+            dump_dirs.extend((d.get("replica"), d["dir"])
+                             for d in tl.get("dumps", []))
+        for d in args.dump or []:
+            dump_dirs.append((None, d))
+        if not dump_dirs and merged_steps is None:
+            print("obs timeline needs --collector and/or --dump",
+                  file=sys.stderr)
+            return 2
+        dumps, names = [], []
+        for lane, d in dump_dirs:
+            try:
+                dumps.append(load_dump(d))
+            except (OSError, ValueError) as e:
+                print(f"skipping dump {d}: {e}", file=sys.stderr)
+                continue
+            names.append(lane or os.path.basename(d.rstrip("/")))
+        if merged_steps is not None:
+            print(obs_mod.format_timeline(merged_steps))
+        if dumps:
+            trace = obs_mod.merge_chrome_traces(dumps, names=names)
+            lanes = {e['pid'] for e in trace['traceEvents']}
+            print(f"merged trace: {len(dumps)} dump(s), "
+                  f"{len(lanes)} pid lane(s), "
+                  f"{sum(1 for e in trace['traceEvents'] if e['ph'] == 'X')}"
+                  f" span event(s)")
+            if args.out:
+                with open(args.out, "w") as f:
+                    json.dump(trace, f)
+                print(f"wrote {args.out}")
+        elif args.out:
+            print("no trace dumps to merge (nothing written)",
+                  file=sys.stderr)
+            return 1
+        return 0
+    return 1
+
+
+def _cmd_trace(args):
+    from . import trace
+
+    if args.trace_action == "ops":
+        import numpy as np
+
+        from . import flags
+        from .core.scope import Scope, scope_guard
+        from .executor import Executor
+        from .io import load_inference_model
+
+        flags.set("monitor", True)
+        flags.set("monitor_hlo_cost", True)
+        flags.set("trace", True)
+        exe = Executor(_place(args.place))
+        scope = Scope()
+        try:
+            with scope_guard(scope):
+                program, feed_names, fetch_targets = load_inference_model(
+                    args.model_dir, exe)
+        except (OSError, ValueError) as e:
+            print(f"cannot load inference model: {e}", file=sys.stderr)
+            return 1
+        feed = {}
+        for name in feed_names:
+            var = program.global_block().var(name)
+            shape = [args.batch if d is None or d < 0 else d
+                     for d in var.shape]
+            feed[name] = np.zeros(shape, dtype=var.dtype)
+        with scope_guard(scope):
+            exe.run(program, feed=feed, fetch_list=fetch_targets)
+        report = trace.slowest_ops(batch_size=args.batch, top=args.top)
+        if report is None:
+            print("no compile recorded — nothing to attribute",
+                  file=sys.stderr)
+            return 1
+        if args.json:
+            print(json.dumps(report, indent=2))
+        else:
+            print(trace.format_ops_table(report))
+        return 0
+
+    if args.trace_action == "summary":
+        try:
+            loaded = trace.load_dump(args.dir)
+        except (OSError, ValueError) as e:
+            print(f"cannot load dump: {e}", file=sys.stderr)
+            return 1
+        man, spans = loaded["manifest"], loaded["spans"]
+        print(f"dump: {args.dir}")
+        print(f"  reason={man.get('reason')} format={man.get('format')} "
+              f"spans={len(spans)} dropped={man.get('dropped')} "
+              f"traces={man.get('traces')}")
+        by_name = {}
+        for sp in spans:
+            agg = by_name.setdefault(sp["name"], [0, 0.0])
+            agg[0] += 1
+            agg[1] += sp["t1"] - sp["t0"]
+        print(f"  {'span':<24} {'count':>6} {'total_ms':>10} {'avg_ms':>9}")
+        for name, (n, tot) in sorted(by_name.items(),
+                                     key=lambda kv: -kv[1][1]):
+            print(f"  {name:<24} {n:>6} {tot * 1e3:>10.2f} "
+                  f"{tot * 1e3 / n:>9.3f}")
+        slow = sorted(spans, key=lambda s: s["t0"] - s["t1"])[:5]
+        print("  slowest spans:")
+        for sp in slow:
+            print(f"    {(sp['t1'] - sp['t0']) * 1e3:>9.2f} ms  "
+                  f"{sp['name']}  trace={sp['trace'][:8]} "
+                  f"thread={sp.get('thread')}")
+        return 0
+
+    if args.trace_action == "dump":
+        from . import flags
+
+        if args.selftest:
+            import time
+
+            flags.set("trace", True)
+            with trace.span("selftest.root", kind="selftest"):
+                t0 = time.perf_counter()
+                with trace.span("selftest.child", n=1):
+                    pass
+                trace.record("selftest.retro", t0, time.perf_counter())
+        if not trace.enabled():
+            print("tracing is off (FLAGS_trace=0) — nothing recorded",
+                  file=sys.stderr)
+            return 1
+        path = trace.dump(reason="manual", out_dir=args.out)
+        spans, dropped = trace.snapshot()
+        print(f"dump written: {path} ({len(spans)} spans, "
+              f"{dropped} dropped)")
+        if args.selftest:
+            loaded = trace.load_dump(path)
+            names = {sp["name"] for sp in loaded["spans"]}
+            want = {"selftest.root", "selftest.child", "selftest.retro"}
+            if not want <= names:
+                print(f"selftest FAILED: missing {want - names}",
+                      file=sys.stderr)
+                return 1
+            print("selftest ok: record -> dump -> load round-trip")
+        return 0
+    return 1
 
 
 def _cmd_fleet(args):
@@ -1070,7 +1410,10 @@ def main(argv=None):
     m = sub.add_parser("monitor", help="summarize a step journal "
                                        "(FLAGS_monitor_journal)")
     m.add_argument("journal", nargs="+",
-                   help="JSONL step journal path; a glob OK")
+                   help="JSONL step journal path(s); globs OK. Several "
+                        "journals render a per-process comparison table "
+                        "plus the clock-aligned cross-replica skew/"
+                        "straggler merge")
     m.add_argument("--json", action="store_true",
                    help="emit the summary as JSON instead of a table")
 
@@ -1303,8 +1646,8 @@ def main(argv=None):
     fr.add_argument("--router", default=None, metavar="HOST:PORT",
                     help="register with this fleet router over HTTP")
     fr.add_argument("--master", default=None, metavar="HOST:PORT",
-                    help="not ported (ROADMAP queue 1 item 8): heartbeat "
-                         "an elastic-master TTL registration")
+                    help="heartbeat a TTL'd registration (kind serve) "
+                         "in this elastic master's registry")
     fr.add_argument("--ttl", type=float, default=10.0,
                     help="registration TTL seconds (--router beats every "
                          "ttl/3)")
@@ -1324,24 +1667,24 @@ def main(argv=None):
                          "deterministic service-time floor, so capacity "
                          "drills see the same queueing on any host")
     fr.add_argument("--obs", default=None, metavar="HOST:PORT",
-                    help="not ported (ROADMAP queue 1 item 8): push "
-                         "metrics/journal/trace snapshots to an obs "
-                         "collector")
+                    help="push metrics/journal/trace snapshots to this "
+                         "obs collector")
     fr.add_argument("--cache-dir", default=None,
                     help="persistent compile-cache directory shared by "
                          "the fleet (FLAGS_compile_cache_dir): only the "
                          "first replica prepares each plan, the rest "
                          "load it")
     fr.add_argument("--compile-service", default=None, metavar="HOST:PORT",
-                    help="not ported (ROADMAP queue 1 item 8): the "
-                         "distributed compile service")
+                    help="the distributed compile service (an elastic "
+                         "master): fetch peers' prepared plans by digest "
+                         "into this replica's --cache-dir (required)")
     fo = fsub.add_parser("router", help="run the fleet router over a "
                                         "replica set")
     fo.add_argument("--replicas", default="",
                     help="comma-separated replica host:port list")
     fo.add_argument("--master", default=None, metavar="HOST:PORT",
-                    help="not ported (ROADMAP queue 1 item 8): discover "
-                         "replicas from an elastic-master registry")
+                    help="discover replicas (kind serve) from this "
+                         "elastic master's registry")
     fo.add_argument("--host", default="127.0.0.1")
     fo.add_argument("--port", type=int, default=8100)
     fo.add_argument("--probe-interval", type=float, default=0.5)
@@ -1353,8 +1696,7 @@ def main(argv=None):
     fo.add_argument("--hedge-ms", type=float, default=None,
                     help="hedge a silent first attempt after this long")
     fo.add_argument("--obs", default=None, metavar="HOST:PORT",
-                    help="not ported (ROADMAP queue 1 item 8): push "
-                         "router metrics to an obs collector")
+                    help="push router metrics to this obs collector")
     fo.add_argument("--autoscale-model-dir", default=None, metavar="DIR",
                     help="enable the autoscaler: spawn `fleet replica` "
                          "processes serving this save_inference_model "
@@ -1380,8 +1722,104 @@ def main(argv=None):
                          "(default: per-replica dirs under a temp "
                          "workdir)")
     fo.add_argument("--compile-service", default=None, metavar="HOST:PORT",
-                    help="not ported (ROADMAP queue 1 item 8): pass "
-                         "through to spawned replicas")
+                    help="pass through to spawned replicas")
+
+    tr = sub.add_parser("trace", help="flight-recorder dumps and per-op "
+                                      "cost attribution")
+    trsub = tr.add_subparsers(dest="trace_action", required=True)
+    tro = trsub.add_parser("ops", help="compile a saved model once and "
+                                       "print the slowest-ops table")
+    tro.add_argument("--model-dir", required=True,
+                     help="save_inference_model directory")
+    tro.add_argument("--place", default="cuda", choices=["cuda", "cpu"],
+                     help="the first CUDA card (default) or the host")
+    tro.add_argument("--batch", type=int, default=1,
+                     help="batch size substituted for dynamic dims")
+    tro.add_argument("--top", type=int, default=10,
+                     help="rows in the table")
+    tro.add_argument("--json", action="store_true",
+                     help="emit the report as JSON")
+    trs = trsub.add_parser("summary", help="summarize a flight-recorder "
+                                           "dump directory")
+    trs.add_argument("dir", help="dump directory (holds manifest.json)")
+    trd = trsub.add_parser("dump", help="dump the in-process flight "
+                                        "recorder")
+    trd.add_argument("--out", default=None,
+                     help="output base dir (default FLAGS_trace_dump_dir "
+                          "or cwd)")
+    trd.add_argument("--selftest", action="store_true",
+                     help="record synthetic spans first and verify the "
+                          "dump loads back")
+
+    ob = sub.add_parser("obs", help="fleet-wide observability: collector "
+                                    "sink, live top table, merged "
+                                    "timeline")
+    obsub = ob.add_subparsers(dest="obs_action", required=True)
+    obc = obsub.add_parser("collect", help="run the fleet collector "
+                                           "(push sink + scrape poller + "
+                                           "aggregated /metrics)")
+    obc.add_argument("--host", default="127.0.0.1")
+    obc.add_argument("--port", type=int, default=9200,
+                     help="HTTP port (0 = ephemeral; see --port-file)")
+    obc.add_argument("--port-file", default=None,
+                     help="write the bound port here once listening")
+    obc.add_argument("--ttl", type=float, default=None,
+                     help="stale-process expiry seconds "
+                          "(default FLAGS_obs_ttl_s)")
+    obc.add_argument("--scrape", action="append", default=None,
+                     metavar="[NAME=]HOST:PORT",
+                     help="poll this /metrics exposition as a fleet "
+                          "member (repeatable)")
+    obc.add_argument("--scrape-interval", type=float, default=2.0)
+    obc.add_argument("--straggler-ratio", type=float, default=1.2,
+                     help="slowest/median step-time ratio that counts "
+                          "toward straggler attribution")
+    obc.add_argument("--straggler-steps", type=int, default=3,
+                     help="consecutive slowest steps before "
+                          "fleet_straggler{replica=} fires")
+    obt = obsub.add_parser("top", help="live fleet table over the "
+                                       "collector summary (redraws in "
+                                       "place on a TTY)")
+    obt.add_argument("--collector", required=True, metavar="HOST:PORT")
+    obt.add_argument("--interval", type=float, default=2.0)
+    obt.add_argument("--once", action="store_true",
+                     help="print one frame and exit")
+    obt.add_argument("--json", action="store_true",
+                     help="emit raw summary JSON frames")
+    obt.add_argument("--iterations", type=int, default=None,
+                     help=argparse.SUPPRESS)
+    obl = obsub.add_parser("timeline", help="merged fleet timeline: "
+                                            "cross-replica skew table + "
+                                            "one chrome trace with a pid "
+                                            "lane per process")
+    obl.add_argument("--collector", default=None, metavar="HOST:PORT",
+                     help="pull the step timeline and known dumps from "
+                          "this collector")
+    obl.add_argument("--dump", action="append", default=None,
+                     metavar="DIR",
+                     help="merge this flight-recorder dump directory "
+                          "(repeatable)")
+    obl.add_argument("--out", default=None,
+                     help="write the merged chrome trace JSON here")
+
+    e = sub.add_parser("elastic", help="elastic training membership: "
+                                       "status snapshot and manual drain")
+    esub = e.add_subparsers(dest="elastic_action", required=True)
+    es = esub.add_parser("status", help="epoch, world size and members of "
+                                        "a running elastic job")
+    es.add_argument("--master", required=True, metavar="HOST:PORT",
+                    help="the job's parallel.master endpoint")
+    es.add_argument("--timeout", type=float, default=10.0,
+                    help="master connect timeout seconds")
+    es.add_argument("--json", action="store_true",
+                    help="emit the snapshot as JSON")
+    ed = esub.add_parser("drain", help="remove a worker from the "
+                                       "membership (manual scale-down)")
+    ed.add_argument("name", help="worker membership name to remove")
+    ed.add_argument("--master", required=True, metavar="HOST:PORT",
+                    help="the job's parallel.master endpoint")
+    ed.add_argument("--timeout", type=float, default=10.0,
+                    help="master connect timeout seconds")
 
     t = sub.add_parser("train", help="launch a training script with "
                                      "cluster environment")
@@ -1402,7 +1840,9 @@ def main(argv=None):
                 "monitor": _cmd_monitor, "health": _cmd_health,
                 "checkpoint": _cmd_checkpoint, "cache": _cmd_cache,
                 "check": _cmd_check, "analyze": _cmd_analyze,
-                "serve": _cmd_serve, "fleet": _cmd_fleet}
+                "serve": _cmd_serve, "fleet": _cmd_fleet,
+                "elastic": _cmd_elastic, "obs": _cmd_obs,
+                "trace": _cmd_trace}
     return commands[args.command](args)
 
 

@@ -368,7 +368,6 @@ class Executor:
         FetchFuture a fetch instead (return_numpy is then ignored).
         `feed_var_name`, `fetch_var_name` and `use_program_cache` are
         accepted for API parity."""
-        _cache.refuse_compile_service("Executor.run")
         if program is None:
             program = default_main_program()
         if scope is None:
@@ -558,8 +557,20 @@ class Executor:
         self._compile_s.pop(key, None)
 
     def _l2_extra(self):
-        """Device context folded into the persistent-cache digest."""
+        """Device context folded into the persistent-cache digest (the
+        mesh is in the prepared key's tail, which the digest takes in)."""
         return (("device", self.device.type, self.device.index),)
+
+    def _mesh_key(self):
+        """(axis sizes, backend) of the data-parallel group the steps run
+        over, or () without one: part of the prepared key, so a plan
+        rewritten for one world (its collectives, its zero1 layout) is
+        never loaded by a rank of another, and an elastic resize takes a
+        clean miss."""
+        if self.dp is None:
+            return ()
+        return (tuple((str(a), int(n)) for a, n in self.dp.shape.items()),
+                self.dp.backend)
 
     def captured_steps(self, program, scope=None):
         """[CapturedStep] of `program`'s steps captured in `scope` (the
@@ -699,7 +710,8 @@ class Executor:
                flags.get("fuse_bucket_mb"), amp.fingerprint(), specs,
                tuple(fetch_names),
                ("health", hplan.digest if hplan is not None else None),
-               ("wire", wire.fingerprint() if wire is not None else None))
+               ("wire", wire.fingerprint() if wire is not None else None),
+               ("mesh",) + self._mesh_key())
         cache = self._prepared
         hit = cache.get(key, count_miss=False)
         if hit is not None:
@@ -875,9 +887,15 @@ class Executor:
         every run, before any capture: FLAGS_debug_nans and FLAGS_cuda_graph
         may flip between runs."""
         if (self.device.type == "cuda" and step.blocker is None
-                and flags.get("cuda_graph") and not flags.get("debug_nans")):
+                and flags.get("cuda_graph") and not flags.get("debug_nans")
+                and not self._host_collectives()):
             return "graph"
         return "interpreter"
+
+    def _host_collectives(self):
+        """Whether the steps' collectives go over gloo (ranks sharing one
+        card): gloo's host calls cannot be captured in a CUDA graph."""
+        return self.dp is not None and self.dp.backend == "gloo"
 
     def _side_stream(self):
         if self._stream is None:

@@ -173,6 +173,10 @@ _L2_HELP = {
                  "prepared over",
     "puts": "prepared plans written into the persistent store",
     "put_bytes": "bytes written to the persistent store",
+    "remote_hits": "local-store misses served by the distributed compile "
+                   "service (a peer's entry)",
+    "remote_misses": "local-store misses the compile service could not "
+                     "serve (prepared here)",
 }
 
 

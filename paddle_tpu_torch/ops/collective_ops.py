@@ -30,8 +30,15 @@ values along the axis (`permute`: P2P send/recv over the axis's group,
 `dist.batch_isend_irecv`). gloo moves host memory only, so under a gloo
 group a card tensor travels through pinned host buffers: that is the
 wire of such a group (ranks sharing one card, which NCCL refuses),
-counted on `permute.host_staged_bytes`, and the copies are explicit.
+counted on `permute.host_staged_bytes`, and the copies are explicit. The
+data-parallel collectives take the same wire there: a card tensor is
+copied into a pinned host buffer, reduced or gathered by gloo and copied
+back (`launch.host_staged_bytes` counts both copies, `launch.host_wire_s`
+the host seconds from the first copy to the last, after the card's queued
+work finished).
 """
+
+import time
 
 import torch
 import torch.distributed as dist
@@ -69,7 +76,42 @@ cuda_build.count_launches(launch, "launches")
 
 def reset_launch_counts():
     launch.launches = 0
+    launch.host_staged_bytes = 0
+    launch.host_wire_s = 0.0
     permute.host_staged_bytes = 0
+
+
+launch.host_staged_bytes = 0
+launch.host_wire_s = 0.0
+
+
+def _staged(call, dst, src, dp, **kwargs):
+    """`call(dst, src, **kwargs)` over gloo for card tensors: `src` through
+    a pinned host buffer into a pinned host `dst`, then back into `dst`'s
+    card tensor (`dst is src` for the in-place collectives). The card's
+    queued work is waited for first, so `launch.host_wire_s` holds the
+    wire's time alone."""
+    torch.cuda.current_stream(src.device).synchronize()
+    t0 = time.perf_counter()
+    h_src = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    h_src.copy_(src)
+    h_dst = h_src if dst is src else torch.empty(
+        dst.shape, dtype=dst.dtype, pin_memory=True)
+    if dst is src:
+        launch(call, h_src, group=dp.group, **kwargs)
+    else:
+        launch(call, h_dst, h_src, group=dp.group, **kwargs)
+    dst.copy_(h_dst)
+    launch.host_staged_bytes += src.numel() * src.element_size() \
+        + dst.numel() * dst.element_size()
+    launch.host_wire_s += time.perf_counter() - t0
+    return dst
+
+
+def _host_wire(dp, x):
+    """Whether a collective of `x` over `dp` takes the pinned host wire:
+    a card tensor in a gloo group (ranks sharing one card)."""
+    return dp.backend == "gloo" and x.is_cuda
 
 
 # ---------------------------------------------------------------------------
@@ -77,6 +119,8 @@ def reset_launch_counts():
 # ---------------------------------------------------------------------------
 def _reduced(x, dp, op=dist.ReduceOp.SUM):
     y = torch.clone(x, memory_format=torch.contiguous_format)
+    if _host_wire(dp, y):
+        return _staged(dist.all_reduce, y, y, dp, op=op)
     launch(dist.all_reduce, y, op=op, group=dp.group)
     return y
 
@@ -85,7 +129,10 @@ def _gathered(x, dp):
     """[size, *x.shape]: every rank's x, in rank order."""
     flat = x.contiguous().reshape(-1)
     y = flat.new_empty((dp.size * flat.shape[0],))
-    launch(_all_gather_tensor, y, flat, group=dp.group)
+    if _host_wire(dp, flat):
+        _staged(_all_gather_tensor, y, flat, dp)
+    else:
+        launch(_all_gather_tensor, y, flat, group=dp.group)
     return y.reshape((dp.size,) + tuple(x.shape))
 
 
@@ -156,6 +203,8 @@ class _Broadcast(torch.autograd.Function):
         y = torch.clone(x, memory_format=torch.contiguous_format)
         src = root if dp.group is None else dist.get_global_rank(dp.group,
                                                                  root)
+        if _host_wire(dp, y):
+            return _staged(dist.broadcast, y, y, dp, src=src)
         launch(dist.broadcast, y, src, group=dp.group)
         return y
 

@@ -10,9 +10,18 @@ In the port one process drives one card (or, for a CPU rank, the host):
 `initialize` creates the default process group that ParallelExecutor's dp
 axis spans. A CUDA rank (one named by `local_device_ids`) joins over NCCL
 on `cuda:<local_device_ids[0]>`; a CPU rank joins over gloo. The
-rendezvous is rank 0's `host:port` (`tcp://`) or a shared file
-(`file://<path>`). A group of one process is a real group too, so one card
-runs its collectives through NCCL.
+rendezvous is rank 0's `host:port` (`tcp://`), a shared file
+(`file://<path>`) or a torch.distributed Store the caller made. A group of
+one process is a real group too, so one card runs its collectives through
+NCCL.
+
+An elastic resize re-forms the group (`reform`): the old default group is
+destroyed and a new one made with the new world's dense ranks under a
+rendezvous of the new membership epoch (parallel/elastic.py). The JAX
+package re-forms a device subset inside one process; in the port a rank
+is a process, so the group itself changes. Each formation bumps
+`generation()`: a Mesh made under an older generation is stale, and the
+collectives over it refuse to run (parallel/mesh.py, Mesh.check_live).
 """
 
 import os
@@ -20,7 +29,12 @@ import os
 import torch
 import torch.distributed as dist
 
-__all__ = ["init_from_env", "initialize", "is_initialized", "ClusterEnv"]
+__all__ = ["init_from_env", "initialize", "is_initialized", "ClusterEnv",
+           "reform", "generation", "card"]
+
+# [formations of the default group in this process, this rank's card (the
+# local_device_ids[0] of the last formation) or None]
+_state = [0, None]
 
 
 class ClusterEnv:
@@ -57,8 +71,9 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
                local_device_ids=None, backend=None):
     """Create the default process group; a second call is a no-op.
 
-    coordinator_address: rank 0's "host:port", or "file://<path>" of a
-    rendezvous file every rank can reach. num_processes / process_id: the
+    coordinator_address: rank 0's "host:port", "file://<path>" of a
+    rendezvous file every rank can reach, or a torch.distributed.Store
+    (its rendezvous made by the caller). num_processes / process_id: the
     world size and this rank (default 1 and 0). local_device_ids: the
     local CUDA cards of this rank; the first is its card and the group's
     backend is NCCL. None makes a CPU rank over gloo. `backend="gloo"`
@@ -73,9 +88,13 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
     if coordinator_address is None:
         raise ValueError("initialize needs a coordinator_address: rank 0's "
                          "host:port or file://<rendezvous file>")
-    init_method = (coordinator_address
-                   if coordinator_address.startswith(("tcp://", "file://"))
-                   else f"tcp://{coordinator_address}")
+    if isinstance(coordinator_address, dist.Store):
+        rdv = {"store": coordinator_address}
+    else:
+        rdv = {"init_method": coordinator_address
+               if coordinator_address.startswith(("tcp://", "file://"))
+               else f"tcp://{coordinator_address}"}
+    card = None
     if local_device_ids:
         card = int(local_device_ids[0])
         if not torch.cuda.is_available() \
@@ -85,15 +104,38 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
                 f"{torch.cuda.device_count()} CUDA device(s)")
         torch.cuda.set_device(card)
         if backend not in (None, "nccl"):
-            dist.init_process_group(backend, init_method=init_method,
-                                    world_size=world, rank=rank)
-            return
-        dist.init_process_group(
-            "nccl", init_method=init_method, world_size=world, rank=rank,
-            device_id=torch.device("cuda", card))
+            dist.init_process_group(backend, world_size=world, rank=rank,
+                                    **rdv)
+        else:
+            dist.init_process_group(
+                "nccl", world_size=world, rank=rank,
+                device_id=torch.device("cuda", card), **rdv)
     else:
-        dist.init_process_group("gloo", init_method=init_method,
-                                world_size=world, rank=rank)
+        dist.init_process_group("gloo", world_size=world, rank=rank, **rdv)
+    _state[:] = [_state[0] + 1, card]
+
+
+def reform(coordinator_address, num_processes, process_id,
+           local_device_ids=None, backend=None):
+    """Destroy the default group, if there is one, and create a new one
+    (`initialize`'s arguments): the elastic resize's group re-form. Every
+    Mesh made before is stale after it (`generation`). Any failure
+    raises; the process is then left without a group."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    initialize(coordinator_address, num_processes, process_id,
+               local_device_ids=local_device_ids, backend=backend)
+
+
+def generation():
+    """How many times this process formed a default group (0: never)."""
+    return _state[0]
+
+
+def card():
+    """The card this rank's group was formed on (local_device_ids[0]), or
+    None for a CPU rank or without a group."""
+    return _state[1] if dist.is_initialized() else None
 
 
 def init_from_env():

@@ -18,6 +18,8 @@ import math
 
 import torch.distributed as dist
 
+from . import distributed as _distributed
+
 __all__ = ["Mesh", "MeshAxis", "make_mesh", "data_parallel_mesh",
            "current_mesh", "mesh_scope", "mesh_geometry", "MeshSpec",
            "DP_AXIS", "MP_AXIS", "PP_AXIS", "SP_AXIS"]
@@ -61,10 +63,14 @@ class Mesh:
     group: None when dp spans the default group), which the dp
     collectives run over; `shape` is {axis: size}. A group destroyed
     (torch.distributed.destroy_process_group) stays destroyed, and a
-    collective over it raises."""
+    collective over it raises. `generation` is the group formation the
+    mesh was made under (distributed.generation()): after an elastic
+    re-form the mesh is stale and `check_live` raises."""
 
     def __init__(self, shape, axes=None):
         self.distributed = dist.is_initialized()
+        self.generation = _distributed.generation() if self.distributed \
+            else None
         self.world_rank = dist.get_rank() if self.distributed else 0
         self.backend = dist.get_backend() if self.distributed else None
         self.shape = dict(shape)
@@ -73,6 +79,20 @@ class Mesh:
         self.size = dp.size if dp is not None else 1
         self.rank = dp.rank if dp is not None else 0
         self.group = dp.group if dp is not None else None
+
+    def check_live(self):
+        """Raise where the group this mesh spans is gone: destroyed, or
+        re-formed since (an elastic resize). A mesh without a group is
+        always live."""
+        if not self.distributed:
+            return
+        if not dist.is_initialized() \
+                or _distributed.generation() != self.generation:
+            raise RuntimeError(
+                f"{self!r} spans a process group that was destroyed or "
+                f"re-formed (group formation {self.generation}, now "
+                f"{_distributed.generation()}): after an elastic resize, "
+                f"make the ParallelExecutor (and its mesh) anew")
 
     def axis(self, name):
         """The MeshAxis `name`, or None where the axis has one rank or is

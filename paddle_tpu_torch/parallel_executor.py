@@ -37,6 +37,18 @@ watchdog, labelled "parallel_executor") and the compile cache (the rank's
 Executor's, kind "parallel_executor"). FLAGS_verify checks the rewritten
 program with the mesh and the zero1 plan in scope, and at `full` sets the
 measured `hbm_live_bytes_per_replica` gauge after a prepare's first run.
+Ranks that share one card (NCCL refuses two ranks on one device) form a
+gloo group on it (`distributed.initialize(..., local_device_ids=[card],
+backend="gloo")`): `use_cuda=True` then runs each rank's step on the card
+with its collectives over gloo, whose wire is pinned host memory
+(ops/collective_ops.py). A gloo collective cannot be captured in a CUDA
+graph, so such a step runs on the interpreter (`step_mode()` says
+"interpreter"), and zero1's gradient reduce-scatter there is the
+all-reduce and this rank's slice (gloo has none). The prepared key and the
+persistent cache's digest take in the mesh geometry and backend, so a
+rank whose group an elastic resize re-formed takes a clean miss and never
+loads a plan made for another world; a ParallelExecutor made before the
+re-form refuses to run (parallel.mesh.Mesh.check_live).
 Not ported yet, each refused with NotImplementedError: autoshard and
 tensor parallelism and the overlap schedule (ROADMAP queue 1 item 6),
 DataPipe feeds and ragged feeds (item 3).
@@ -48,7 +60,6 @@ import numpy as np
 import torch
 
 from . import analysis, flags, monitor
-from . import cache as _cache
 from .core.framework import Variable, default_main_program, grad_var_name
 from .core.framework import Operator, OpRole
 from .core.lod_tensor import LoDTensor
@@ -58,6 +69,7 @@ from .core.scope import global_scope
 from .core.executor_core import collect_state_names as _collect_state
 from .executor import Executor, as_numpy, fetch_futures
 from .ops import collective_ops
+from .parallel import distributed as _distributed
 from .parallel import mesh as _mesh
 from .parallel import zero1 as _zero1
 from .resilience import chaos as _chaos
@@ -189,18 +201,26 @@ class ParallelExecutor:
                        else global_scope())
         self._mesh = _mesh.make_mesh(mesh_shape, devices=devices)
         backend = self._mesh.backend
-        want = "nccl" if use_cuda else "gloo"
-        if backend is not None and backend != want:
+        card = _distributed.card()
+        # a card rank runs over NCCL, or over gloo where its group was
+        # formed on a card it shares with other ranks; a CPU rank over gloo
+        if backend is not None and (
+                (not use_cuda and backend != "gloo")
+                or (use_cuda and backend not in ("nccl", "gloo"))
+                or (use_cuda and backend == "gloo" and card is None)):
             raise ValueError(
-                f"ParallelExecutor(use_cuda={use_cuda}) runs over {want}, "
-                f"but the process group's backend is {backend}")
+                f"ParallelExecutor(use_cuda={use_cuda}) runs over "
+                f"{'nccl, or gloo on a card' if use_cuda else 'gloo'}, "
+                f"but the process group's backend is {backend}"
+                f"{' on no card' if card is None else ''}")
         if devices is not None:
             place = devices[self._mesh.world_rank]
         elif not use_cuda:
             place = CPUPlace()
+        elif backend is None:
+            place = CUDAPlace(0)
         else:
-            place = CUDAPlace(torch.cuda.current_device()
-                              if backend == "nccl" else 0)
+            place = CUDAPlace(torch.cuda.current_device())
         self._exe = Executor(place)  # raises for a card that is not there
         self._exe.dp = self._mesh if self._mesh.distributed else None
         self._exe._prepared.kind = "parallel_executor"
@@ -312,7 +332,7 @@ class ParallelExecutor:
         # Executor.run); every site below gates on `mon is not None`
         mon = monitor.step_begin("parallel_executor") \
             if monitor.enabled() else None
-        _cache.refuse_compile_service("ParallelExecutor.run")
+        self._mesh.check_live()
         for name, what in _UNPORTED_FLAGS.items():
             if flags.get(name):
                 raise _not_ported(f"FLAGS_{name} ({what})")

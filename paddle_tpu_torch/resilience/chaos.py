@@ -30,8 +30,9 @@ installed the dying trainer grace-saves, drains its membership, and the
 survivors resize within one step boundary instead of one TTL.
 worker_join spawns a fresh trainer subprocess (`argv`, tracked in
 monkey.spawned) at step N, so a grow-the-fleet drill is scriptable the
-same way a kill is. The port has no ElasticController yet (ROADMAP queue
-1 item 8): `install()` refuses a monkey holding either kind.
+same way a kill is. The port's runner hears the SIGTERM at the same
+boundary (it runs the chaos hook before the elastic poll), so every rank
+of the group agrees there that this one leaves.
 
 load_spike is the traffic fault: it is TIME-windowed, not index-keyed
 — `at` is seconds since the load generator started, and the fault is
@@ -252,18 +253,7 @@ def _poison_tree(value):
 
 _active = [None]
 
-# the faults that act on the elastic controller, which the port lacks
-_ELASTIC_KINDS = ("worker_preempt", "worker_join")
-
-
 def install(monkey):
-    elastic = sorted({f.kind for f in monkey.faults
-                      if f.kind in _ELASTIC_KINDS})
-    if elastic:
-        raise NotImplementedError(
-            f"chaos faults {elastic} act on the elastic controller, which "
-            f"is not yet ported to paddle_tpu_torch (ROADMAP queue 1 "
-            f"item 8)")
     _active[0] = monkey
     return monkey
 

@@ -69,9 +69,12 @@ class ResilienceConfig:
     handle_signals:          install SIGTERM/SIGINT handlers in session()
     save_on_preempt:         blocking grace-save before raising Preempted
     restore_on_start:        restore() picks up the latest checkpoint
-    elastic:                 a parallel.elastic.ElasticController in the
-                             JAX package; the port has none yet (ROADMAP
-                             queue 1 item 8), so anything but None raises
+    elastic:                 a parallel.elastic.ElasticController; the
+                             runner starts it in session(), polls it at
+                             every step boundary (raising Resized on an
+                             epoch change) and drains membership before
+                             raising Preempted so the survivors resize
+                             immediately instead of waiting out the TTL
     """
 
     def __init__(self, checkpoint_dir=None, checkpoint_interval=0,
@@ -89,11 +92,7 @@ class ResilienceConfig:
         self.handle_signals = bool(handle_signals)
         self.save_on_preempt = bool(save_on_preempt)
         self.restore_on_start = bool(restore_on_start)
-        if elastic is not None:
-            raise NotImplementedError(
-                "ResilienceConfig(elastic=...): the elastic controller is "
-                "not yet ported to paddle_tpu_torch (ROADMAP queue 1 "
-                "item 8)")
+        self.elastic = elastic
 
 
 class ResilientRunner:
@@ -119,6 +118,7 @@ class ResilientRunner:
             self.retry = cfg.retry
         self.guard = NanGuard(policy=cfg.nan_policy)
         self.preempt = PreemptionHandler() if cfg.handle_signals else None
+        self.elastic = cfg.elastic
         self.executor = None  # bind(): whose random stream rides along
         self._in_session = False
 
@@ -154,13 +154,18 @@ class ResilientRunner:
         @contextlib.contextmanager
         def _session():
             self._in_session = True
-            # the JAX package starts fleet observability here
-            # (obs.maybe_start, pushed to FLAGS_obs_push's collector);
-            # the port's obs/ waits for ROADMAP queue 1 item 8
+            # fleet observability rides the session lifecycle: a no-op
+            # unless FLAGS_obs_push names a collector
+            from ..obs import maybe_start as _obs_start
+
+            obs_client = _obs_start("trainer")
             if self.checkpoint is not None:
                 # the snapshot's pinned buffers, before the first step
                 self.checkpoint.reserve(self.scope, self.program)
             try:
+                if self.elastic is not None \
+                        and not getattr(self.elastic, "_started", False):
+                    self.elastic.start(self)
                 if self.preempt is not None:
                     with self.preempt:
                         yield self
@@ -168,8 +173,14 @@ class ResilientRunner:
                     yield self
             finally:
                 self._in_session = False
+                if self.elastic is not None:
+                    self.elastic.stop()
                 if self.checkpoint is not None:
                     self.checkpoint.wait()
+                if obs_client is not None:
+                    # final push after the drain: the collector sees the
+                    # terminal journal tail and any shutdown trace dump
+                    obs_client.stop()
 
         return _session()
 
@@ -191,6 +202,29 @@ class ResilientRunner:
         if pipe is not None and "datapipe" in manifest \
                 and hasattr(pipe, "restore_state"):
             pipe.restore_state(manifest["datapipe"])
+        return manifest
+
+    def adopt(self, pipe=None, expect_mesh=None):
+        """Adopt the newest COMMITTED checkpoint regardless of
+        restore_on_start — the elastic resize path: every survivor
+        re-seats itself on the fleet's resume point after the commit
+        barrier. expect_mesh ({axis: size}) makes the restore refuse a
+        checkpoint whose mp/pp geometry conflicts with the re-formed mesh.
+        Returns the manifest, or None when there is nothing to adopt."""
+        if self.checkpoint is None:
+            return None
+        self.checkpoint.wait()  # a cadence save may still be in flight
+        manifest = self.checkpoint.restore(
+            scope=self.scope, program=self.program, place=self.place,
+            expect_mesh=expect_mesh)
+        if manifest is None:
+            return None
+        self._reseat(manifest)
+        if pipe is not None:
+            # tear down the live iteration before repositioning the source
+            pipe.close()
+            if "datapipe" in manifest and hasattr(pipe, "restore_state"):
+                pipe.restore_state(manifest["datapipe"])
         return manifest
 
     def _rollback(self, pipe):
@@ -283,9 +317,20 @@ class ResilientRunner:
             self.save(pipe=pipe)
         if monkey is not None:
             monkey.on_step(s)  # may deliver an injected SIGTERM
-        if self.preempt is not None and self.preempt.pending() is not None:
+        leaving = self.preempt is not None \
+            and self.preempt.pending() is not None
+        if self.elastic is not None:
+            # after the chaos hook (the JAX package polls before it): in
+            # a group every rank must learn at this boundary that one of
+            # them leaves, so the poll's agreement carries `leaving`
+            self.elastic.poll(self, pipe=pipe, leaving=leaving)
+        if leaving:
             serial = None
             if cfg.save_on_preempt and self.checkpoint is not None:
                 serial = self.save(pipe=pipe, block=True)
+            if self.elastic is not None:
+                # SIGTERM-drain: leave the membership before dying so the
+                # survivors resize immediately instead of waiting the TTL
+                self.elastic.drain()
             self.preempt.raise_preempted(checkpoint_serial=serial)
         return metrics

@@ -33,24 +33,9 @@ import torch
 
 from ... import monitor
 from ...analysis.dataflow import build_graph
+from ...obs.timeline import overlap_efficiency
 
 __all__ = ["independent_branches", "InterOpRunner", "overlap_efficiency"]
-
-
-def overlap_efficiency(compute_ms, comm_ms, measured_step_ms):
-    """Fraction of off-critical-path time hidden under the critical
-    path, in [0, 1]: whatever the measured step took beyond `compute_ms`
-    is exposed, so hidden = comm - exposed. 1.0 = the step ran at the
-    compute cost (perfect overlap), 0.0 = fully serialized (measured >=
-    compute + comm). None when `comm_ms` is zero or absent — there is
-    nothing to hide. A copy of the JAX package's
-    paddle_tpu/obs/timeline.py::overlap_efficiency (obs/ is not ported
-    yet, ROADMAP queue 1 item 8)."""
-    if not comm_ms or comm_ms <= 0 or measured_step_ms is None \
-            or compute_ms is None:
-        return None
-    exposed = max(0.0, float(measured_step_ms) - float(compute_ms))
-    return max(0.0, min(1.0, (float(comm_ms) - exposed) / float(comm_ms)))
 
 
 def _closure(graph, start):

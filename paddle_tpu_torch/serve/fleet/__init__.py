@@ -27,9 +27,12 @@ Router.drain so nothing accepted is lost).
 
 `python -m paddle_tpu_torch fleet replica|router ...` runs either half as
 a process (a replica serves on the first card unless `--place cpu`);
-`make_fleet_http` is the router's own HTTP frontend. The JAX package's
-links to the elastic master (replica discovery and heartbeats), to obs/
-and to the distributed compile service come with ROADMAP queue 1 item 8.
+`make_fleet_http` is the router's own HTTP frontend. A replica's
+`--master` registers it in the elastic master's registry through a
+parallel.master.Heartbeater and the router's `--master` discovers the
+registered replicas (MasterClient.lookup, the prober's `discover`);
+`--obs` pushes to an obs collector and `--compile-service` warm-starts a
+replica from its peers' prepared plans.
 
 A port of the JAX package's paddle_tpu/serve/fleet.
 """

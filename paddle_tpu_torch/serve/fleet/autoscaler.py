@@ -24,10 +24,10 @@ and holds `target_p99_ms` with the standard guards against flapping:
 Scale-out spawns replica processes through a pluggable spawner and
 registers them on the router's membership (the unified epoch-fenced
 MembershipTable — the same join/TTL/reap contract elastic training
-uses); the prober grants routability on the first passing probe. (The
-JAX package's warm scale-out through the distributed compile service
-comes with ROADMAP queue 1 item 8; a `--cache-dir` shared by the
-replicas warm-starts their prepared plans, FLAGS_compile_cache_dir.)
+uses); the prober grants routability on the first passing probe. A
+spawned replica warm-starts its prepared plans from a `--cache-dir`
+shared by the replicas (FLAGS_compile_cache_dir) or, per-replica dirs,
+through the distributed compile service (`--compile-service`).
 
 Scale-in NEVER kills: it picks a victim (LIFO over surge capacity),
 runs `Router.drain()` — LAME_DUCK, finish the backlog, exit — and only

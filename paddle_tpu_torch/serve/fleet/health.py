@@ -17,8 +17,8 @@ state machine:
                                      or post-warmup compiles appeared
 
 The prober also expires heartbeat TTLs and, when a `discover` source is
-wired (a callable returning {name: endpoint}; the JAX package's elastic
-master registry comes with ROADMAP queue 1 item 8), folds newly
+wired (a callable returning {name: endpoint}, such as the elastic
+master registry's lookup("serve")), folds newly
 registered replicas into membership — so a fleet can grow without
 touching the router.
 

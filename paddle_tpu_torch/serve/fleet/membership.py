@@ -2,8 +2,8 @@
 
 Liveness rides the elastic master's `MembershipTable`
 (parallel/master.py): ONE TTL'd, epoch-fenced membership primitive
-serves both control planes — elastic trainers (ROADMAP queue 1 item 8 in
-the port) and the serving fleet.
+serves both control planes — elastic trainers (parallel/elastic.py,
+through the master's RPC ops) and the serving fleet.
 The fleet carries no TTL arithmetic of its own: a heartbeat refreshes a
 table lease, a lapse IS a leave (the table bumps its epoch and the next
 beat must re-JOIN under a strictly newer one, so a zombie can never

@@ -9,14 +9,14 @@ chunks fed straight to Executor.run, `iters` = the pipe's chunk). With a
 ResilienceConfig both loops run under a ResilientRunner: restore at start
 (params, optimizer state, the global step, the pipe's source position and
 the program's random stream), retried dispatch, the NaN guard, the
-checkpoint cadence and the grace save on SIGTERM/SIGINT. Under
-PADDLE_TRAINING_ROLE (TRAINER or PSERVER, with the reference's
+checkpoint cadence and the grace save on SIGTERM/SIGINT, and, with
+ResilienceConfig(elastic=...), the elastic resize: the loop re-enters on
+Resized as on RolledBack, a ParallelExecutor made anew over the re-formed
+group. Under PADDLE_TRAINING_ROLE (TRAINER or PSERVER, with the reference's
 PADDLE_PSERVER_IPS, PADDLE_PSERVER_PORT, PADDLE_CURRENT_IP,
 PADDLE_TRAINERS and PADDLE_TRAINER_ID) the programs are transpiled for a
 parameter server (DistributeTranspiler), and a PSERVER's train() serves
-until a trainer stops it. The JAX package's runner also resizes an
-elastic fleet (Resized), which waits for the rest of the distributed
-stack (ROADMAP queue 1 item 8) and raises here.
+until a trainer stops it.
 """
 
 import contextlib
@@ -290,7 +290,12 @@ class Trainer:
         id — stable across restores, unlike a per-epoch index. The JAX
         package reseats its executor's step counter after a restore, from
         which it folds each step's random key; the port's stream is a
-        generator whose state the checkpoint carries (runner.bind)."""
+        generator whose state the checkpoint carries (runner.bind). With
+        ResilienceConfig(elastic=...) the runner also polls the
+        ElasticController each step: a membership change raises Resized
+        after the scope+pipe adopted the fleet's commit checkpoint, and the
+        loop re-enters on the re-formed group exactly like a rollback."""
+        from .parallel.elastic import Resized
         from .resilience import RolledBack
 
         runner = self._resilience.bind(exe)
@@ -318,9 +323,10 @@ class Trainer:
                         event_handler(EndStepEvent(
                             epoch_id, runner.global_step - 1, metrics,
                             monitor=snap))
-                except RolledBack:
+                except (RolledBack, Resized):
                     # scope, pipe and random stream re-seated on a
-                    # checkpoint; re-enter the epoch loop from the
+                    # checkpoint (rollback, or the elastic commit point
+                    # after a resize); re-enter the epoch loop from the
                     # restored position
                     epoch_id = int(runner.state.get("epoch", epoch_id))
                     continue
@@ -339,12 +345,20 @@ class Trainer:
             feeder = self._get_or_make_feeder(feed_order)
             exe = None
             if self.parallel:
-                pe = ParallelExecutor(
-                    use_cuda=not isinstance(self.place, CPUPlace),
-                    loss_name=self.train_func_outputs[0].name,
-                    main_program=self.train_program,
-                )
-                run = lambda feed, fetch: pe.run(fetch_list=fetch, feed=feed)
+                pes = []
+
+                def run(feed, fetch):
+                    # made at the first step, inside the runner's session
+                    # (an elastic controller forms the group there), and
+                    # anew after a resize re-formed it (run.reset)
+                    if not pes:
+                        pes.append(ParallelExecutor(
+                            use_cuda=not isinstance(self.place, CPUPlace),
+                            loss_name=self.train_func_outputs[0].name,
+                            main_program=self.train_program))
+                    return pes[0].run(fetch_list=fetch, feed=feed)
+
+                run.reset = pes.clear
             else:
                 exe = Executor(self.place)
                 run = lambda feed, fetch: exe.run(
@@ -390,7 +404,10 @@ class Trainer:
         seekable source position, so restore resumes params + step counter
         but replays the current epoch's records from its start (use a
         datapipe for exact mid-epoch resume); a nan_policy=restore
-        rollback likewise restarts the epoch at the checkpoint's params."""
+        rollback likewise restarts the epoch at the checkpoint's params,
+        and so does an elastic resize (Resized), on a ParallelExecutor
+        made anew over the re-formed group."""
+        from .parallel.elastic import Resized
         from .resilience import RolledBack
 
         with runner.session():
@@ -413,7 +430,9 @@ class Trainer:
                             if monitor_mod.enabled() else None
                         event_handler(EndStepEvent(epoch_id, step_id,
                                                    metrics, monitor=snap))
-                except RolledBack:
+                except (RolledBack, Resized) as e:
+                    if isinstance(e, Resized) and hasattr(run, "reset"):
+                        run.reset()
                     epoch_id = int(runner.state.get("epoch", epoch_id))
                     continue
                 event_handler(EndEpochEvent(epoch_id))

@@ -3,8 +3,8 @@ package's `python -m paddle_tpu` (paddle_tpu/cli.py) on the same files.
 
 Journals and health ledgers written by each package (the nets of
 test_torch_monitor_step and test_torch_health) are read by both CLIs: the
-`monitor` and `health summary|compare` commands print the same text, as
-tables and as --json, and exit with the same codes (0; `health compare`
+`monitor` (one journal, or several: the fleet merge) and `health
+summary|compare` commands print the same text, as tables and as --json, and exit with the same codes (0; `health compare`
 1 on a violated tolerance; 1 or 2 on a file that cannot be read, with the
 same message). `version` and `flags` print the JAX package's line
 formats, and the module runs as `python -m paddle_tpu_torch`.
@@ -109,10 +109,24 @@ def test_monitor_on_a_missing_journal(capsys, tmp_path):
 
 
 def test_monitor_refuses_several_journals(capsys, files):
-    rc = cli.main(["monitor", files["jax_journal"], files["port_journal"]])
-    assert rc == 2
-    assert "not ported yet (ROADMAP queue 1 item 8)" in \
-        capsys.readouterr().err
+    """Several journals (one a process): the fleet merge, refused until
+    the control plane was ported (the name is kept) — the per-process
+    table and the cross-process skew and stragglers print the JAX CLI's
+    text, as a table and as --json."""
+    for extra in ([], ["--json"]):
+        got = _both(capsys, ["monitor", files["jax_journal"],
+                             files["port_journal"]] + extra)
+        assert got["port"] == got["jax"]
+        rc, out, _ = got["port"]
+        assert rc == 0
+        if extra:
+            merged = json.loads(out)
+            assert len(merged["journals"]) == 2
+            assert [s["step"] for s in merged["fleet"]["steps"]] == \
+                [1, 2, 3, 4, 5]
+        else:
+            assert out.splitlines()[0].startswith("journal")
+            assert "fleet: 5 step(s) aligned across processes" in out
 
 
 @pytest.mark.parametrize("json_flag", [[], ["--json"]])
@@ -174,3 +188,54 @@ def test_the_module_runs_as_a_command(files):
         cwd=REPO, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.splitlines()[0] == "steps: 5  kinds: executor"
+
+
+def _spans(n, t0):
+    return [{"trace": f"t{i}", "span": f"s{i}", "parent": None,
+             "name": "step" if i % 2 else "resize", "kind": "span",
+             "t0": t0 + i, "t1": t0 + i + 0.25 * (i + 1),
+             "thread": "MainThread"} for i in range(n)]
+
+
+def test_trace_summary_prints_the_same_text(capsys, tmp_path):
+    """`trace summary DIR` of a flight-recorder dump the port wrote: the
+    JAX CLI's text."""
+    from paddle_tpu_torch.trace import write_dump
+
+    d = write_dump(str(tmp_path / "dump"), _spans(5, 100.0))
+    got = _both(capsys, ["trace", "summary", d])
+    assert got["port"] == got["jax"]
+    assert got["port"][0] == 0 and "spans=5" in got["port"][1]
+    assert cli.main(["trace", "summary", str(tmp_path / "none")]) == 1
+
+
+def test_trace_dump_selftest_and_ops(capsys, tmp_path):
+    """`trace dump --selftest` records, dumps and loads back its spans;
+    `trace ops` prints a saved model's per-op cost table (on the host:
+    --place cpu)."""
+    import paddle_tpu_torch as fluid
+
+    try:
+        assert cli.main(["trace", "dump", "--selftest", "--out",
+                         str(tmp_path)]) == 0
+        assert "selftest ok" in capsys.readouterr().out
+        prog, start = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(prog, start):
+            x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+            y = fluid.layers.fc(input=x, size=3)
+        exe = fluid.Executor(fluid.CPUPlace())
+        with fluid.scope_guard(fluid.Scope()):
+            exe.run(start)
+            with fluid.program_guard(prog, start):
+                fluid.io.save_inference_model(str(tmp_path / "m"), ["x"],
+                                              [y], exe)
+        assert cli.main(["trace", "ops", "--model-dir",
+                         str(tmp_path / "m"), "--place", "cpu", "--batch",
+                         "2", "--json"]) == 0
+        report = json.loads(capsys.readouterr().out)
+        # the probe counts the product's multiply-adds, 2 x B x K x N
+        assert report["total_flops"] == 2 * 2 * 4 * 3
+        assert [r["op"] for r in report["ops"]][0] == "mul"
+        assert report["measured"]
+    finally:
+        flags.reset()

@@ -10,7 +10,8 @@ prepares from the store, counts no miss and computes the same loss
 bitwise), corrupt, stale and truncated entries that fall back — counted,
 never raised — store maintenance (prune, clear), and
 ParallelExecutor.compile_cache_info() on a one-rank gloo group (the `cache`
-CLI is tests/test_torch_cli_check.py's). Also the
+CLI is tests/test_torch_cli_check.py's), and the distributed compile
+service (FLAGS_compile_service) against a live master. Also the
 JAX package's four flags that act on XLA's scan carry or donation: values
 bitwise equal with each on and off.
 """
@@ -493,13 +494,44 @@ def test_scan_carry_and_donation_flags_change_no_value(name):
         np.testing.assert_array_equal(got[1][n], want[1][n])
 
 
-def test_compile_service_is_refused_while_set():
-    main, startup, loss = _mlp()
-    exe = fluid.Executor(fluid.CPUPlace())
-    with flags.flag_guard(compile_service="localhost:1"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            exe.run(startup)
-    assert exe.compile_cache_info()["l2"]["service"] is None
+def test_compile_service_is_refused_while_set(tmp_path):
+    """FLAGS_compile_service (refused until the control plane was ported;
+    the name is kept): the first executor to miss a plan wins the lease,
+    prepares it and publishes it to the master; a second process's
+    executor with a store of its own fetches it (remote hit, committed to
+    its store) and computes the same loss bitwise."""
+    from paddle_tpu_torch.cache import service
+    from paddle_tpu_torch.parallel.master import MasterService
+
+    main, startup, loss = _momentum_net()
+    feed = {"img": np.random.RandomState(0).rand(4, 3, 8, 8).astype(
+                np.float32),
+            "lab": np.arange(4).reshape(4, 1).astype(np.int64)}
+    svc = MasterService()
+    ep = f"127.0.0.1:{svc.serve()}"
+    outs, infos = [], []
+    try:
+        for i in range(2):
+            scope = fluid.Scope()
+            exe = fluid.Executor(fluid.CPUPlace())
+            with fluid.scope_guard(scope), flags.flag_guard(
+                    fuse=True, compile_service=ep,
+                    compile_cache_dir=str(tmp_path / f"store{i}")):
+                exe.run(startup)
+                outs.append(exe.run(main, feed=feed, fetch_list=[loss])[0])
+                infos.append(exe.compile_cache_info()["l2"])
+            service.reset()
+        stats = svc.compiled_stats()
+    finally:
+        service.reset()
+        svc.stop()
+    assert (infos[0]["remote_hits"], infos[0]["puts"]) == (0, 2)
+    assert infos[0]["remote_misses"] == 2 and infos[0]["service"] == ep
+    assert (infos[1]["remote_hits"], infos[1]["remote_misses"]) == (2, 0)
+    assert infos[1]["puts"] == 0 and infos[1]["hits"] == 2
+    assert stats["puts"] == 2 and stats["hits"] == 2
+    np.testing.assert_array_equal(outs[0], outs[1])
+    assert len(L2Store(str(tmp_path / "store1")).entries()) == 2
 
 
 # ---------------------------------------------------------------------------

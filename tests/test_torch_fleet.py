@@ -10,10 +10,12 @@ chaos contracts — killing 1 of 3 replicas under concurrent load loses
 zero accepted requests, and draining one finishes its backlog with zero
 drops. Fast tests inject fetch/transport/clock so no probe interval is
 ever slept through. Adapted where the JAX case needs what the port
-leaves to ROADMAP queue 1 item 8:
-  * test_cli_replica_master_sigterm_drains_and_exits_clean registers
-    the replica with a router over HTTP (`--router`) instead of the
-    elastic master (`--master`, refused: test_cli_refuses_item_8_links);
+needs:
+  * test_cli_replica_router_sigterm_drains_and_exits_clean registers
+    the replica with a router over HTTP (`--router`); the elastic
+    master's registration (`--master`), the obs push and the compile
+    service's warm start are test_cli_refuses_item_8_links's cases (its
+    name kept from when the port refused them);
   * the SIGKILLed subprocess drill runs `python -m paddle_tpu_torch fleet
     replica --place cpu` processes, each under its own deadline and
     killed in a `finally`; it is not marked slow (the JAX case is).
@@ -892,6 +894,228 @@ def test_cli_replica_router_sigterm_drains_and_exits_clean(
         t.join(timeout=10)
 
 
+def _post(endpoint, path, body):
+    req = urllib.request.Request(f"http://{endpoint}{path}",
+                                 data=json.dumps(body).encode(),
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=10) as resp:
+        return resp.status
+
+
+class _ReplicaThread:
+    """`fleet replica --place cpu ...` run by cli.main on a thread (its
+    SIGTERM handler captured, signal.signal needing the main thread),
+    stopped by POST /admin/drain: serve_forever then returns and the
+    command its rc."""
+
+    def __init__(self, tmp_path, monkeypatch, model_dir, name, *extra):
+        import signal as _signal
+
+        from paddle_tpu_torch.cli import main as cli_main
+
+        monkeypatch.setattr(_signal, "signal", lambda *a: None)
+        self.pf = tmp_path / f"port_{name}"
+        self.rc = []
+        argv = ["fleet", "replica", "--model-dir", str(model_dir),
+                "--place", "cpu", "--port", "0", "--port-file",
+                str(self.pf), "--name", name, *extra]
+        self.thread = threading.Thread(
+            target=lambda: self.rc.append(cli_main(argv)), daemon=True)
+        self.thread.start()
+        _wait_for(lambda: self.pf.exists() or not self.thread.is_alive(),
+                  120, f"replica {name}'s port file")
+        assert self.thread.is_alive(), self.rc
+        self.endpoint = f"127.0.0.1:{self.pf.read_text().strip()}"
+
+    def infer(self):
+        req = urllib.request.Request(f"http://{self.endpoint}/v1/infer",
+                                     data=_BODY, method="POST")
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            return resp.status
+
+    def drain(self):
+        _post(self.endpoint, "/admin/drain", {})
+        self.thread.join(timeout=60)
+        assert not self.thread.is_alive() and self.rc == [0], self.rc
+
+
+def _collector():
+    from paddle_tpu_torch import obs
+
+    col = obs.Collector()
+    httpd = obs.make_obs_http(col, port=0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return col, httpd, f"127.0.0.1:{httpd.server_address[1]}"
+
+
+def _roles(col):
+    return {p["labels"].get("role") for p in col.summary()["processes"]}
+
+
+def _replica_master(tmp_path, monkeypatch):
+    """--master: the replica registers (kind serve) in the master's
+    registry through a Heartbeater; its drain closes the beats."""
+    from paddle_tpu_torch.parallel.master import MasterService
+
+    svc = MasterService()
+    ep = f"127.0.0.1:{svc.serve()}"
+    try:
+        rep = _ReplicaThread(tmp_path, monkeypatch, _save_model(tmp_path),
+                             "m0", "--master", ep, "--ttl", "30")
+        _wait_for(lambda: "m0" in svc.lookup("serve"), 30,
+                  "the registration")
+        assert svc.lookup("serve") == {"m0": rep.endpoint}
+        rep.drain()
+    finally:
+        svc.stop()
+
+
+def _replica_obs(tmp_path, monkeypatch):
+    """--obs: the replica pushes to the collector, which lists it with
+    its role and name."""
+    col, httpd, ep = _collector()
+    try:
+        rep = _ReplicaThread(tmp_path, monkeypatch, _save_model(tmp_path),
+                             "o0", "--obs", ep)
+        assert rep.infer() == 200
+        rep.drain()  # the final push lands after the drain
+        procs = col.summary()["processes"]
+        assert any(p["labels"].get("role") == "replica"
+                   and p["labels"].get("replica") == "o0" for p in procs)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+
+def _replica_compile_service(tmp_path, monkeypatch):
+    """--compile-service: the first replica prepares its bucket plans and
+    publishes them; a second, with a store of its own, warm-starts from
+    them (the master served its fetches), preparing none itself."""
+    from paddle_tpu_torch.parallel.master import MasterService
+
+    svc = MasterService()
+    ep = f"127.0.0.1:{svc.serve()}"
+    model_dir = _save_model(tmp_path)
+    try:
+        from paddle_tpu_torch.cli import main as cli_main
+
+        # the fetched plans need a store of the replica's own
+        assert cli_main(["fleet", "replica", "--model-dir", str(model_dir),
+                         "--place", "cpu", "--compile-service", ep]) == 2
+        first = _ReplicaThread(tmp_path, monkeypatch, model_dir, "c0",
+                               "--compile-service", ep, "--cache-dir",
+                               str(tmp_path / "c0_store"))
+        first.drain()
+        stats = svc.compiled_stats()
+        assert stats["puts"] >= 1 and stats["entries"] >= 1, stats
+        second = _ReplicaThread(tmp_path, monkeypatch, model_dir, "c1",
+                                "--compile-service", ep, "--cache-dir",
+                                str(tmp_path / "c1_store"))
+        assert second.infer() == 200
+        second.drain()
+        after = svc.compiled_stats()
+        assert after["hits"] >= stats["entries"], after
+        assert after["puts"] == stats["puts"], after
+    finally:
+        svc.stop()
+
+
+def _router_run(monkeypatch, argv, during):
+    """`fleet router ...` by cli.main with serve_fleet replaced by
+    `during(router)`: the command's wiring, without a blocking frontend."""
+    from paddle_tpu_torch.cli import main as cli_main
+    from paddle_tpu_torch.serve import fleet as fleet_mod
+
+    monkeypatch.setattr(fleet_mod, "serve_fleet",
+                        lambda router, host, port: during(router))
+    return cli_main(["fleet", "router", "--port", "0", *argv])
+
+
+def _router_master(tmp_path, monkeypatch):
+    """--master: the router discovers a replica registered in the
+    master's registry and routes to it."""
+    from paddle_tpu_torch.parallel.master import MasterService
+
+    svc = MasterService()
+    ep = f"127.0.0.1:{svc.serve()}"
+    _, servers, httpds = _real_fleet(1)
+    server, httpd = servers[0], httpds[0]
+    seen = {}
+
+    def during(router):
+        router.prober.tick()
+        seen["state"] = router.membership.get("rA").state
+        seen["route"] = router.route(_BODY)
+
+    try:
+        svc.register("serve", "rA", f"127.0.0.1:{httpd.server_address[1]}",
+                     30.0)
+        assert _router_run(monkeypatch, ["--master", ep], during) == 0
+        assert seen["state"] == HEALTHY
+        status, hdrs, _ = seen["route"]
+        assert status == 200 and hdrs["X-Fleet-Replica"] == "rA"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.stop()
+        svc.stop()
+
+
+def _router_obs(tmp_path, monkeypatch):
+    """--obs: the router pushes to the collector (its final push on the
+    way out), which lists it with role router."""
+    col, httpd, ep = _collector()
+    try:
+        assert _router_run(monkeypatch, ["--replicas", "127.0.0.1:1",
+                                         "--obs", ep],
+                           lambda router: None) == 0
+        assert "router" in _roles(col)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+
+def _router_compile_service(tmp_path, monkeypatch):
+    """--compile-service passes through to the replicas the autoscaler
+    spawns (their argv), as the JAX router passes it."""
+    from paddle_tpu_torch.serve import fleet as fleet_mod
+
+    spawned = {}
+
+    class Spawner:
+        def __init__(self, argv_base, workdir, per_replica_cache=True):
+            spawned["argv"] = list(argv_base)
+
+        def stop_all(self):
+            pass
+
+    class Scaler:
+        def __init__(self, router, spawner, config):
+            self.spawner = spawner
+
+        def start(self):
+            return self
+
+        def stop(self):
+            pass
+
+    monkeypatch.setattr(fleet_mod, "ProcessReplicaSpawner", Spawner)
+    monkeypatch.setattr(fleet_mod, "Autoscaler", Scaler)
+    assert _router_run(monkeypatch, [
+        "--autoscale-model-dir", str(tmp_path), "--compile-service",
+        "127.0.0.1:9"], lambda router: None) == 0
+    argv = spawned["argv"]
+    assert argv[argv.index("--compile-service") + 1] == "127.0.0.1:9"
+
+
+_LINK_CASES = {("replica", "--master"): _replica_master,
+               ("replica", "--obs"): _replica_obs,
+               ("replica", "--compile-service"): _replica_compile_service,
+               ("router", "--master"): _router_master,
+               ("router", "--obs"): _router_obs,
+               ("router", "--compile-service"): _router_compile_service}
+
+
 @pytest.mark.parametrize("argv,flag", [
     (["fleet", "replica", "--master", "127.0.0.1:1"], "--master"),
     (["fleet", "replica", "--obs", "127.0.0.1:1"], "--obs"),
@@ -903,18 +1127,22 @@ def test_cli_replica_router_sigterm_drains_and_exits_clean(
       "127.0.0.1:1"], "--obs"),
     (["fleet", "router", "--replicas", "127.0.0.1:1",
       "--compile-service", "127.0.0.1:1"], "--compile-service")])
-def test_cli_refuses_item_8_links(tmp_path, capsys, argv, flag):
-    """The links to the elastic master, obs/ and the distributed compile
-    service are refused with rc 2 and a message naming ROADMAP queue 1
-    item 8 — never silently ignored — before anything is served."""
-    from paddle_tpu_torch.cli import main as cli_main
+def test_cli_refuses_item_8_links(tmp_path, monkeypatch, argv, flag):
+    """`fleet replica|router` with --master, --obs and --compile-service,
+    each the JAX package's link (refused until the control plane was
+    ported; the name and cases are kept): registration at an elastic
+    master and discovery by the router, the obs push, the compile
+    service's warm start and its pass-through to spawned replicas. The
+    case's argv names the command and the link; each case runs it
+    against a live master or collector of its own."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.cache import service
 
-    if argv[1] == "replica":
-        argv = argv[:2] + ["--model-dir", str(tmp_path / "none"),
-                           "--place", "cpu"] + argv[2:]
-    assert cli_main(argv) == 2
-    err = capsys.readouterr().err
-    assert flag in err and "item 8" in err
+    try:
+        _LINK_CASES[(argv[1], flag)](tmp_path, monkeypatch)
+    finally:
+        flags.reset()
+        service.reset()
 
 
 @pytest.mark.parametrize("command", [["serve", "--selftest", "1"],

@@ -398,14 +398,10 @@ def test_ring_and_pipeline_modules_load_no_jax_in_a_fresh_interpreter(
 
 # the JAX parallel package's names the port leaves out, each with the
 # ROADMAP queue 1 item that owns it: autoshard and the sharded embedding
-# (item 6), the elastic controller (item 8 (b))
+# (item 6)
 PARALLEL_EXCEPTIONS = {
     "autoshard": "item 6", "sharded_embedding": "item 6",
     "shard_table": "item 6", "sharded_embedding_lookup": "item 6",
-    "elastic": "item 8 (b)", "ElasticController": "item 8 (b)",
-    "ElasticConfig": "item 8 (b)", "ElasticError": "item 8 (b)",
-    "Resized": "item 8 (b)", "RescalePolicy": "item 8 (b)",
-    "LinearRescale": "item 8 (b)", "ConstantRescale": "item 8 (b)",
 }
 
 
@@ -423,11 +419,52 @@ def test_the_parallel_package_has_the_jax_packages_names():
     assert not set(PARALLEL_EXCEPTIONS) & set(dir(tpar))
     for n in ("ring_attention", "ring_attention_sharded",
               "ring_flash_attention", "ring_flash_attention_sharded",
-              "pipeline", "ring"):
+              "pipeline", "ring", "elastic", "ElasticController",
+              "Resized"):
         assert n in tpar.__all__ and hasattr(tpar, n), n
     assert sorted(tpipe.__all__) == sorted(jpipe.__all__)
     for n in tpipe.__all__:
         assert hasattr(tpipe, n), n
+
+
+@pytest.mark.parametrize("module", [
+    "parallel/master.py", "parallel/elastic.py", "cache/service.py",
+    "cache/__init__.py", "obs/__init__.py", "obs/client.py",
+    "obs/collector.py", "obs/timeline.py", "obs/top.py",
+    "resilience/loop.py", "resilience/chaos.py", "cli.py"])
+def test_the_control_plane_slice_is_among_the_checked_sources(module):
+    """The elastic master and controller, the compile service's client
+    and fleet observability are checked by the test above."""
+    assert os.path.join(PORT, module) in set(_sources())
+
+
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch.parallel.master", "paddle_tpu_torch.parallel.elastic",
+    "paddle_tpu_torch.cache.service", "paddle_tpu_torch.obs"])
+def test_control_plane_modules_load_no_jax_in_a_fresh_interpreter(module):
+    """The control plane's modules, imported alone in a fresh
+    interpreter, load neither jax nor the JAX package (the master keeps
+    its own copy of the JAX package's pure-Python service)."""
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        f"import {module}\n"
+        "print('\\n'.join(sorted(set(sys.modules) - before)))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    loaded = proc.stdout.split()
+    assert module in loaded
+    assert [m for m in loaded if _foreign(m)] == []
+
+
+def test_the_elastic_worker_imports_only_the_port():
+    """The worker the elastic tests run as their ranks
+    (tests/torch_elastic_worker.py) imports neither jax nor the JAX
+    package."""
+    path = os.path.join(REPO, "tests", "torch_elastic_worker.py")
+    bad = [m for m in _imported_modules(path) if _foreign(m)]
+    assert bad == [], f"{path} imports {bad}"
 
 
 def test_the_ring_worker_imports_only_the_port():

@@ -404,7 +404,7 @@ def test_indivisible_batch_raises(tmp_path):
         worker.launch(2, cases, str(tmp_path / "w2"))
 
 
-def test_ragged_feeds_and_unported_paths_raise(one_rank):
+def test_ragged_feeds_and_unported_paths_raise(one_rank, tmp_path):
     pe, loss = _mlp_pe()
     x, y = batches("mlp")
     lod = tfluid.create_lod_tensor(x[0], [[4, 12]], tfluid.CPUPlace())
@@ -424,12 +424,27 @@ def test_ragged_feeds_and_unported_paths_raise(one_rank):
     with pytest.raises(NotImplementedError, match="autoshard"):
         pe.run([loss], feed={"img": x[0], "label": y[0]})
     pe._build_strategy.auto_sharding = None
-    # the compile cache is ported: its payload, and the distributed
-    # compile service (ROADMAP queue 1 item 8) refused while it is set
+    # the compile cache and the distributed compile service: a prepare
+    # that misses its store asks the master, wins the single-flight
+    # lease, prepares and publishes its plan (kind parallel_executor)
+    from paddle_tpu_torch.cache import service
+    from paddle_tpu_torch.parallel.master import MasterService
+
     assert pe.compile_cache_info()["l2"]["remote_hits"] == 0
-    with tflags.flag_guard(compile_service="localhost:1"), \
-            pytest.raises(NotImplementedError, match="item 8"):
-        pe.run([loss], feed={"img": x[0], "label": y[0]})
+    svc = MasterService()
+    ep = f"127.0.0.1:{svc.serve()}"
+    try:
+        with tflags.flag_guard(compile_service=ep,
+                               compile_cache_dir=str(tmp_path / "store")):
+            pe.run([loss], feed={"img": x[0], "label": y[0]})
+            info = pe.compile_cache_info()["l2"]
+        stats = svc.compiled_stats()
+    finally:
+        service.reset()
+        svc.stop()
+    assert (info["remote_misses"], info["remote_hits"], info["puts"]) == \
+        (1, 0, 1)
+    assert (stats["leases"], stats["puts"], stats["entries"]) == (1, 1, 1)
 
 
 def test_async_fetch_futures_equal_the_synchronous_fetches(one_rank):

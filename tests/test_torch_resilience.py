@@ -4,8 +4,8 @@ The port's counterparts of tests/test_resilience.py (retry and its
 classification, the NaN guard, the hang watchdog, preemption, atomic io
 and CheckpointManager checkpoints, inspect_dir, the datapipe's position,
 the chaos harness, and the Trainer killed and restored, retried, rolled
-back) — all but the master, heartbeater and elastic tests, whose
-subjects wait for the distributed stack (ROADMAP queue 1 item 8) — and
+back) — the master, heartbeater and elastic tests are
+tests/test_torch_master.py's and tests/test_torch_elastic.py's — and
 what only the port needs:
 
 - a program with dropout killed and restored ends bitwise equal to its
@@ -942,12 +942,50 @@ def test_chaos_load_spike_window_product_and_module_hook():
 
 @pytest.mark.parametrize("kind", ["worker_preempt", "worker_join"])
 def test_elastic_faults_and_config_wait_for_the_elastic_controller(kind):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        chaos.install(chaos.ChaosMonkey([chaos.Fault(kind, at=0,
-                                                     argv=["true"])]))
-    assert chaos.active() is None
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ResilienceConfig(elastic=object())
+    """The elastic faults through a runner holding an ElasticController
+    (both refused until the controller was ported; the name is kept):
+    the session joins the membership; worker_preempt's SIGTERM at its
+    step drains it (the member leaves) before Preempted is raised;
+    worker_join spawns its command at its step and the member stays."""
+    import sys
+
+    from paddle_tpu_torch.parallel.elastic import (ElasticConfig,
+                                                   ElasticController)
+    from paddle_tpu_torch.parallel.master import MasterService
+    from paddle_tpu_torch.resilience import ResilientRunner
+
+    main, startup, _ = _tiny_program()
+    svc = MasterService()
+    ctl = ElasticController(ElasticConfig(
+        svc, name="w0", ttl=30.0, heartbeat_interval=0.05,
+        checkpoint_on_resize=False, restore_on_resize=False))
+    argv = [sys.executable, "-c", "import sys; sys.exit(7)"]
+    monkey = chaos.install(chaos.ChaosMonkey([chaos.Fault(kind, at=1,
+                                                          argv=argv)]))
+    runner = ResilientRunner(ResilienceConfig(elastic=ctl),
+                             scope=_fresh_scope(startup), program=main,
+                             place=fluid.CPUPlace())
+    loss = [np.float32(0.5)]
+    try:
+        with runner.session():
+            assert svc.elastic_membership()["members"] == {"w0": ""}
+            runner.after_step(loss)
+            assert not monkey.injected
+            if kind == "worker_preempt":
+                with pytest.raises(Preempted):
+                    runner.after_step(loss)
+                assert svc.elastic_membership()["members"] == {}
+            else:
+                runner.after_step(loss)
+                assert len(monkey.spawned) == 1
+                assert monkey.spawned[0].wait(timeout=30) == 7
+                assert svc.elastic_membership()["members"] == {"w0": ""}
+                assert ctl.resizes == 0
+    finally:
+        chaos.uninstall()
+        svc.stop()
+    assert [k for k, _n, _l in monkey.injected] == [kind]
+    assert svc.elastic_membership()["members"] == {}  # stop() left
 
 
 def test_chaos_health_faults_scale_the_recorded_stats(tmp_path):
