@@ -478,6 +478,43 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
                 memory per rank ([elastic] lines; the workers' logs in
                 chiprun_out/elastic_*.log).
                 Alone: `python3 chip_smoke.py --only elastic`
+ 18. tensor_parallel — VGG-16 as phase vgg16 builds it (NCHW 224², global
+                batch 64, bf16 AMP, Adam(1e-3), FLAGS_fuse) with fc1's
+                weight [25088, 512] seeded (None, "mp") and fc2's
+                [512, 512] ("mp", None), through ParallelExecutor on gloo
+                card ranks sharing the card (`--tp-child` processes, which
+                import and build while this process runs a one-rank
+                ParallelExecutor over the same seeded feeds from the same
+                startup state; the whole script starts them beside phase
+                elastic): (a) dp 1 x mp 2, TP_STEPS steps with
+                auto_sharding on and TP_STEPS off, then the same ranks
+                as plain dp 2 over the unseeded program (the control);
+                (b) dp 2 x mp 2 under
+                BuildStrategy.Reduce (zero1 over dp), TP_REDUCE_STEPS
+                steps; (c) parallel.sharded_embedding_lookup of TP_IDS
+                Zipf(1.7) ids in a [30000, 512] bf16 table over mp = 2.
+                Checked: every step's loss within PARITY_AMP_RTOL of the
+                one-rank run, auto on and off; the plan total with 0
+                unresolved vars; after every step the state a rank holds
+                whole bitwise equal (checksums) across the mp ranks of
+                its dp position, the parameters across all ranks; fc1's
+                weight and Adam moments, gathered whole, after the first
+                step within TP_STATE_SLACK x max(PARITY_AMP_RTOL, the
+                control's distance) (relative norm) of the one-rank
+                run's: under bf16 AMP plain dp 2 already parts by more
+                than PARITY_AMP_RTOL (after the last step they are
+                printed beside the control's: each step's rounding
+                reroutes the next step's max pools and relus);
+                adam_bucket launches = buckets x steps on each rank, and
+                the kernel bitwise its twin at those buckets; (c)'s rows
+                bitwise F.embedding's and its table gradient within
+                TP_EMB_GRAD_ATOL of F.embedding's taken in f32 and
+                rounded to bf16. Printed: ms a step by rank at each mesh,
+                the gloo host wire's share of a warm step and the bytes
+                staged, the lowered collectives by kind with their
+                bytes, peak memory per rank ([tensor_parallel] lines; the
+                workers' logs in chiprun_out/tp_*.log).
+                Alone: `python3 chip_smoke.py --only tensor_parallel`
 Then one JSON line of the paths' numbers (the monitor phase's under
 "monitor"), one of per-kernel numbers (launches on every path that runs the
 kernel; momentum's "headline_unmonitored" path is the monitor phase's
@@ -867,6 +904,23 @@ ELASTIC_STEPS = 9
 ELASTIC_PREEMPT_AT = 2
 ELASTIC_JOIN_AT = 5
 ELASTIC_CHILD_S = 300
+
+# phase tensor_parallel: VGG-16 (phase vgg16's program and batch, bf16
+# AMP, Adam) with its fc pair split over mp on gloo ranks sharing the
+# card: (a) dp 1 x mp 2, TP_STEPS steps with auto_sharding on and as many
+# off; (b) dp 2 x mp 2 under BuildStrategy.Reduce, TP_REDUCE_STEPS steps;
+# (c) the sharded embedding at the NMT's table width over TP_IDS ids,
+# its table gradient within TP_EMB_GRAD_ATOL of F.embedding's taken in f32
+# and rounded to bf16 (the cotangent's sums are exact in f32)
+TP_STEPS = 5
+TP_REDUCE_STEPS = 3
+# fc1's state after step 1 against one rank: within TP_STATE_SLACK x the
+# larger of PARITY_AMP_RTOL and the plain dp 2 control's distance there
+# (_tp_checks)
+TP_STATE_SLACK = 1.5
+TP_IDS = 2048
+TP_EMB_GRAD_ATOL = 1e-6
+TP_CHILD_S = 400
 
 SEED = 20261016
 BATCH = 32
@@ -10452,6 +10506,575 @@ def main_continuous():
     log(_device_line())
 
 
+# ---------------------------------------------------------------------------
+# phase tensor_parallel: VGG-16 with its fc pair split over mp
+# ---------------------------------------------------------------------------
+def _vgg16_tp(seeds=True):
+    """phase vgg16's VGG-16 program (build_image_model) with, by `seeds`,
+    fc1's weight [25088, 512] seeded (None, "mp") and fc2's [512, 512]
+    ("mp", None) (a mesh without mp refuses the seeds, as the JAX
+    package's does): (model dict, fc1 name, fc2 name)."""
+    from paddle_tpu_torch.parallel import set_sharding
+
+    m = build_image_model("vgg16")
+    gb = m["main"].global_block()
+    fc1, fc2 = (next(op.input("Y")[0] for op in gb.ops if op.type == "mul"
+                     and tuple(gb.var(op.input("Y")[0]).shape) == shape)
+                for shape in ((25088, 512), (512, 512)))
+    if seeds:
+        set_sharding(gb.var(fc1), (None, "mp"))
+        set_sharding(gb.var(fc2), ("mp", None))
+    return m, fc1, fc2
+
+
+def _tp_feed(step, classes):
+    """Global batch `step` of phase tensor_parallel, made on the card from
+    a seed: the same tensors in every process."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 200 + step)
+    return {"img": torch.rand((IMAGE_BATCH, 3, 224, 224), generator=gen,
+                              device="cuda"),
+            "label": torch.randint(0, classes, (IMAGE_BATCH, 1),
+                                   generator=gen, device="cuda")}
+
+
+def _checksum(t):
+    """A position-weighted sum of a tensor's bits (int64, on the card):
+    equal tensors give equal sums, and one flipped bit changes it."""
+    flat = t.detach().reshape(-1).contiguous()
+    width = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+             8: torch.int64}[flat.element_size()]
+    bits = flat.view(width).to(torch.int64)
+    w = torch.arange(1, bits.numel() + 1, device=bits.device,
+                     dtype=torch.int64) * 2654435761 % 2147483647
+    return int((bits * w).sum() % 2305843009213693951)
+
+
+def tp_child(spec_path, rank):
+    """`python3 chip_smoke.py --tp-child SPEC RANK`: one rank of phase
+    tensor_parallel, a card rank on card 0 in a gloo group of the spec's
+    world laid out as its mesh (TF32 off). It builds VGG-16 with its fc
+    pair seeded, then waits for the spec's go file and runs each of its
+    runs from the startup state under bf16 AMP and FLAGS_fuse: per step
+    the loss, ms, the gloo wire's seconds and bytes, and checksums of the
+    state it holds whole (every persistable the lowering left whole; the
+    parameters among them); then the plan's totals, the lowering's
+    collectives, the fused buckets, adam_bucket launches, peak memory and
+    fc1's weight and moments gathered whole. With "embedding", (c): the
+    sharded embedding at the NMT's table width against F.embedding. Its
+    output goes to chiprun_out/tp_<tag>.<rank>.log; it writes
+    <out>/<tag>.<rank>.json (and rank 0 fc1's arrays as .npz)."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    tag, world = spec["tag"], spec["world"]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    log_fd = os.open(os.path.join(OUT_DIR, f"tp_{tag}.{rank}.log"),
+                     os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    os.dup2(log_fd, 1)
+    os.dup2(log_fd, 2)
+    import faulthandler
+
+    faulthandler.dump_traceback_later(TP_CHILD_S, exit=True)
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, cuda_build, flags
+    from paddle_tpu_torch.fusion import kernels as fk
+    from paddle_tpu_torch.ops import collective_ops
+    from paddle_tpu_torch.parallel import distributed, make_mesh
+    from paddle_tpu_torch.parallel.autoshard import lower
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize("file://" + spec["rendezvous"], world, rank,
+                           local_device_ids=[0], backend="gloo")
+    cuda_build.kernels()  # built by the parent: loaded here
+    models = {True: _vgg16_tp()}
+    place = fluid.CUDAPlace(0)
+    mesh = make_mesh(spec["mesh"])
+    deadline = time.monotonic() + TP_CHILD_S
+    while not os.path.exists(spec["go"]):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"no go file {spec['go']}")
+        time.sleep(0.05)
+    res = {"runs": {}, "rank": rank}
+    amp.enable("bfloat16")
+    try:
+        for run in spec["runs"]:
+            # a run on a mesh of its own is the control: plain data
+            # parallelism, the program without its seeds
+            seeded = "mesh" not in run
+            if seeded not in models:
+                models[seeded] = _vgg16_tp(seeds=False)
+            m, fc1, fc2 = models[seeded]
+            main, loss = m["main"], m["loss"]
+            fc1_names = (fc1, fc1 + "_moment1_0", fc1 + "_moment2_0")
+            scope = fluid.Scope()
+            fluid.Executor(place).run(m["startup"], scope=scope)
+            bs = fluid.BuildStrategy()
+            bs.auto_sharding = run["auto"]
+            if spec["reduce"]:
+                bs.reduce_strategy = fluid.BuildStrategy.ReduceStrategy.Reduce
+            out = {"steps": []}
+            with fluid.scope_guard(scope), flags.flag_guard(fuse=True):
+                pe = fluid.ParallelExecutor(
+                    use_cuda=True, loss_name=loss.name, main_program=main,
+                    build_strategy=bs,
+                    mesh_shape=run.get("mesh", spec["mesh"]))
+                fk.reset_launch_counts()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for k in range(run["steps"]):
+                    feed = _tp_feed(k, m["classes"])
+                    torch.cuda.synchronize()
+                    collective_ops.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    lv, = pe.run([loss], feed=feed)
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3
+                    prep = next(iter(pe._rewrite_cache.values()))
+                    local = prep.lowering.local if prep.lowering else {}
+                    whole = {n: _checksum(scope.find_var(n)) for n in
+                             sorted(scope.local_var_names())
+                             if n in main.global_block().vars
+                             and main.global_block().var(n).persistable
+                             and n not in local}
+                    params = {p.name for p in
+                              main.global_block().all_parameters()}
+                    out["steps"].append({
+                        "loss": float(np.asarray(lv).reshape(-1)[0]),
+                        "ms": ms,
+                        "wire_s": collective_ops.launch.host_wire_s,
+                        "staged_bytes":
+                            collective_ops.launch.host_staged_bytes,
+                        "collectives": collective_ops.launch.launches,
+                        "whole": whole,
+                        "params": {n: c for n, c in whole.items()
+                                   if n in params}})
+                    if k + 1 in (1, run["steps"]):
+                        # fc1's weight and moments, gathered whole (every
+                        # rank calls the gathers)
+                        fc1_state = {n: lower.full_value(
+                            n, scope.find_var(n)).float().cpu().numpy()
+                            for n in fc1_names}
+                        if rank == 0:
+                            np.savez(os.path.join(
+                                spec["out"],
+                                f"{tag}_{run['tag']}_step{k + 1}.npz"),
+                                **fc1_state)
+                        del fc1_state
+                out["peak_mem_gib"] = \
+                    torch.cuda.max_memory_allocated() / 2 ** 30
+                out["adam_launches"] = fk.adam_bucket.launches
+                out["buckets"] = [b["numel"] for _, plan, _ in
+                                  pe._exe._prepared.values()
+                                  if plan is not None for b in plan.buckets
+                                  if b["opt"] == "adam"]
+                out["step_mode"] = pe.step_mode()
+                plan = prep.aplan
+                if plan is not None:
+                    out["plan"] = {"digest": plan.digest(),
+                                   "n_vars": len(plan.specs),
+                                   "n_sharded": len(plan.sharded_names()),
+                                   "total": plan.is_total(),
+                                   "unresolved": list(plan.unresolved)}
+                    out["lowering"] = prep.lowering.describe()
+                out["local_shapes"] = {
+                    n: list(scope.find_var(n).shape) for n in (fc1, fc2)}
+            res["runs"][run["tag"]] = out
+            del pe, scope
+            torch.cuda.empty_cache()
+        if spec.get("embedding"):
+            res["embedding"] = _tp_embedding(mesh)
+    finally:
+        amp.disable()
+    with open(os.path.join(spec["out"], f"{tag}.{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def _tp_embedding(mesh):
+    """(c) parallel.sharded_embedding_lookup of TP_IDS ids drawn Zipf(1.7)
+    in a [WMT_DICT, 512] bf16 table row-sharded over mp, against
+    F.embedding on the whole table: the rows bitwise; the table's
+    gradient for a cotangent of multiples of 1/8 in [-1, 1] within
+    TP_EMB_GRAD_ATOL of F.embedding's dense gradient taken in f32 and
+    rounded to bf16 (the f32 sums of such values are exact, so that is
+    the exact gradient in bf16; F.embedding's own bf16 gradient, whose
+    sums round, is reported beside it); both timed (fwd + bwd, CUDA
+    events)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.parallel import (shard_table,
+                                           sharded_embedding_lookup)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 300)
+    table = torch.randn((WMT_DICT, 512), generator=gen, device="cuda",
+                        dtype=torch.float32).to(torch.bfloat16)
+    rs = np.random.RandomState(SEED + 301)
+    ids = torch.from_numpy((rs.zipf(1.7, TP_IDS) - 1) % WMT_DICT).cuda()
+    cot = (torch.randint(-8, 9, (TP_IDS, 512), generator=gen,
+                         device="cuda") / 8).to(torch.bfloat16)
+    shard = shard_table(table, mesh).requires_grad_(True)
+    dense = table.clone().requires_grad_(True)
+
+    def sharded():
+        shard.grad = None
+        rows = sharded_embedding_lookup(shard, ids, mesh)
+        rows.backward(cot)
+        return rows
+
+    def plain():
+        dense.grad = None
+        rows = F.embedding(ids, dense)
+        rows.backward(cot)
+        return rows
+
+    rows, want = sharded(), plain()
+    exact = table.float().requires_grad_(True)
+    F.embedding(ids, exact).backward(cot.float())
+    torch.cuda.synchronize()
+    ax = mesh.axis("mp")
+    n = WMT_DICT // ax.size
+    mine = slice(ax.rank * n, (ax.rank + 1) * n)
+    got = shard.grad.float()
+    grad_err = float((got - exact.grad[mine].to(torch.bfloat16).float())
+                     .abs().max())
+    out = {"rows_bitwise": bool(torch.equal(rows, want)),
+           "grad_max_abs_err": grad_err,
+           "bf16_dense_grad_max_abs_diff": float(
+               (got - dense.grad[mine].float()).abs().max()),
+           "distinct_ids": int(torch.unique(ids).numel()),
+           "ms": _time_ms(sharded, reps=10),
+           "plain_ms": _time_ms(plain, reps=10)}
+    return out
+
+
+def _tp_worker_specs(work, here):
+    """The specs of phase tensor_parallel's worker groups: (a) dp 1 x mp 2,
+    auto_sharding on then off, TP_STEPS steps each, then the control
+    (the same two ranks as plain dp 2, the program unseeded), and (c);
+    (b) dp 2 x mp 2 under BuildStrategy.Reduce, TP_REDUCE_STEPS steps.
+    Returns [(spec, spec path)]."""
+    groups = [("dp1mp2", {"dp": 1, "mp": 2}, False,
+               [{"tag": "auto", "auto": True, "steps": TP_STEPS},
+                {"tag": "off", "auto": False, "steps": TP_STEPS},
+                {"tag": "dp2_control", "auto": False, "steps": TP_STEPS,
+                 "mesh": {"dp": 2}}], True),
+              ("dp2mp2", {"dp": 2, "mp": 2}, True,
+               [{"tag": "reduce", "auto": True, "steps": TP_REDUCE_STEPS}],
+               False)]
+    out = []
+    for tag, mesh, reduce, runs, emb in groups:
+        spec = {"tag": tag, "mesh": mesh, "world": mesh["dp"] * mesh["mp"],
+                "reduce": reduce, "runs": runs, "embedding": emb,
+                "rendezvous": os.path.join(work, f"rdv.{tag}"),
+                "go": os.path.join(work, f"go.{tag}"), "out": work}
+        path = os.path.join(work, f"spec.{tag}.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        out.append((spec, path))
+    return out
+
+
+def _tp_reference(m, fc1):
+    """The one-rank ParallelExecutor's run (no group: the Executor's
+    captured step) of TP_STEPS steps from the startup state on the same
+    feeds, bf16 AMP, FLAGS_fuse: (losses, {step: fc1's weight and moments
+    as numpy}) after 1, TP_REDUCE_STEPS and TP_STEPS steps."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import amp, flags
+
+    main, loss = m["main"], m["loss"]
+    names = (fc1, fc1 + "_moment1_0", fc1 + "_moment2_0")
+    losses, snaps = [], {}
+    amp.enable("bfloat16")
+    try:
+        scope = fluid.Scope()
+        fluid.Executor(fluid.CUDAPlace(0)).run(m["startup"], scope=scope)
+        with fluid.scope_guard(scope), flags.flag_guard(fuse=True):
+            pe = fluid.ParallelExecutor(use_cuda=True, loss_name=loss.name,
+                                        main_program=main)
+            for k in range(TP_STEPS):
+                lv, = pe.run([loss], feed=_tp_feed(k, m["classes"]))
+                losses.append(float(np.asarray(lv).reshape(-1)[0]))
+                if k + 1 in (1, TP_REDUCE_STEPS, TP_STEPS):
+                    snaps[k + 1] = {n: scope.find_var(n).float().cpu()
+                                    .numpy() for n in names}
+        del pe, scope
+    finally:
+        amp.disable()
+    _release()
+    return losses, snaps
+
+
+def _rel(got, want):
+    """||got - want|| / ||want|| (Frobenius)."""
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want),
+                                                  1e-30))
+
+
+_TP_WORKERS = {}
+
+
+def start_tensor_parallel():
+    """Start phase tensor_parallel's workers, once: each imports, builds
+    VGG-16 and joins its group, then waits for its group's go file. The
+    whole script starts them beside phase elastic, whose steps their
+    setup overlaps and none of whose checks they touch; workers still
+    running when the script exits are killed."""
+    import tempfile
+
+    if _TP_WORKERS:
+        return
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    specs = _tp_worker_specs(work, here)
+    procs = [(spec["tag"], r, subprocess.Popen(
+        [sys.executable, os.path.join(here, "chip_smoke.py"), "--tp-child",
+         path, str(r)], cwd=here, stdout=subprocess.DEVNULL,
+        stderr=subprocess.DEVNULL))
+        for spec, path in specs for r in range(spec["world"])]
+    _TP_WORKERS.update(work=work, specs=specs, procs=procs,
+                       t0=time.perf_counter())
+    atexit.register(_stop_tensor_parallel)
+
+
+def _stop_tensor_parallel():
+    for _, _, p in _TP_WORKERS.get("procs", ()):
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    if _TP_WORKERS.get("work"):
+        shutil.rmtree(_TP_WORKERS["work"], ignore_errors=True)
+
+
+def phase_tensor_parallel(card_line):
+    """Tensor parallelism on the card (module docstring, phase 18)."""
+    from paddle_tpu_torch.fusion import kernels as fk
+
+    start_tensor_parallel()
+    work, specs, procs = (_TP_WORKERS[k] for k in ("work", "specs",
+                                                    "procs"))
+    try:
+        t0 = time.perf_counter()
+        m, fc1, fc2 = _vgg16_tp(seeds=False)
+        ref, snaps = _tp_reference(m, fc1)
+        ref_s = time.perf_counter() - t0
+        deadline = time.monotonic() + TP_CHILD_S
+        res = {}
+        for spec, _ in specs:
+            t1 = time.perf_counter()
+            with open(spec["go"], "w") as f:
+                f.write("go")
+            for tag, r, p in procs:
+                if tag != spec["tag"]:
+                    continue
+                try:
+                    p.wait(timeout=max(deadline - time.monotonic(), 1))
+                except subprocess.TimeoutExpired:
+                    raise AssertionError(f"[tensor_parallel] {tag} rank {r} "
+                                         f"ran over {TP_CHILD_S} s")
+                if p.returncode != 0:
+                    raise AssertionError(
+                        f"[tensor_parallel] {tag} rank {r} exited "
+                        f"{p.returncode} (see {OUT_DIR}/tp_{tag}.{r}.log)")
+            res[spec["tag"]] = [json.load(open(os.path.join(
+                work, f"{spec['tag']}.{r}.json")))
+                for r in range(spec["world"])]
+            res[spec["tag"] + "_s"] = time.perf_counter() - t1
+        arrays = {(f"{spec['tag']}_{run['tag']}", k): dict(np.load(
+            os.path.join(work, f"{spec['tag']}_{run['tag']}_step{k}.npz")))
+            for spec, _ in specs for run in spec["runs"]
+            for k in {1, run["steps"]}}
+        result = _tp_checks(res, specs, ref, snaps, arrays, fc1, fc2)
+        result.update(reference_s=ref_s, reference_losses=ref,
+                      workers_started_s_before=t0 - _TP_WORKERS["t0"])
+        result["kernel_max_abs_err"] = _tp_kernel_check(result["buckets"])
+        log(f"[tensor_parallel] adam_bucket at the TP runs' bucket sizes "
+            f"{result['buckets']}: bitwise its plain twin on the card (max "
+            f"|err| {result['kernel_max_abs_err']})")
+        return result
+    finally:
+        _stop_tensor_parallel()
+        fk.reset_launch_counts()
+
+
+def _tp_checks(res, specs, ref, snaps, arrays, fc1, fc2):
+    """Phase tensor_parallel's checks over the workers' results; prints
+    the [tensor_parallel] lines and returns the numbers. fc1's weight and
+    moments are held to the one-rank run's after the first step, where
+    they hold one gradient, within TP_STATE_SLACK times the larger of
+    PARITY_AMP_RTOL and the control's distance there (plain dp 2 over
+    the same ranks, the path PE had before tensor parallelism): under
+    bf16 AMP a VGG-16 gradient summed in another order already parts by
+    more than PARITY_AMP_RTOL, and a lost or doubled partial sum over mp
+    parts by far more. After the last step they are reported beside the
+    control's: every step's rounding reroutes the next one's max pools
+    and relus."""
+    problems, out = [], {"runs": {}, "buckets": []}
+    control = {}
+    for spec, _ in specs:
+        for run in spec["runs"]:
+            if "mesh" in run:
+                got = arrays[(f"{spec['tag']}_{run['tag']}", 1)]
+                control = {n: _rel(got[n], snaps[1][n]) for n in snaps[1]}
+    bound = {n: TP_STATE_SLACK * max(PARITY_AMP_RTOL, e)
+             for n, e in control.items()}
+    out["fc1_step1_bound"] = bound
+    for spec, _ in specs:
+        ranks = res[spec["tag"]]
+        for run in spec["runs"]:
+            key = f"{spec['tag']}_{run['tag']}"
+            mesh = run.get("mesh", spec["mesh"])
+            mp, dp = mesh.get("mp", 1), mesh.get("dp", 1)
+            is_control = "mesh" in run
+            rows = [r["runs"][run["tag"]] for r in ranks]
+            steps = run["steps"]
+            worst = 0.0
+            for r, row in enumerate(rows):
+                for k, st in enumerate(row["steps"]):
+                    rel = abs(st["loss"] - ref[k]) / abs(ref[k])
+                    worst = max(worst, rel)
+                    if not np.isfinite(st["loss"]) or rel > PARITY_AMP_RTOL:
+                        problems.append(f"{key} rank {r} step {k} loss "
+                                        f"{st['loss']} vs {ref[k]}")
+            plan = rows[0].get("plan")
+            if not is_control and (not plan["total"]
+                                   or plan["unresolved"]):
+                problems.append(f"{key}: plan not total ({plan})")
+            # the state each rank holds whole: bitwise equal across the mp
+            # ranks of one dp position, the parameters across all ranks
+            for k in range(steps):
+                for d in range(dp):
+                    line = [rows[d * mp + j]["steps"][k]["whole"]
+                            for j in range(mp)]
+                    if any(x != line[0] for x in line[1:]):
+                        problems.append(f"{key} step {k}: dp {d}'s mp ranks "
+                                        f"hold different whole state")
+                params = [row["steps"][k]["params"] for row in rows]
+                if any(x != params[0] for x in params[1:]):
+                    problems.append(f"{key} step {k}: parameters differ "
+                                    f"across ranks")
+            launches = [row["adam_launches"] for row in rows]
+            nb = len(rows[0]["buckets"])
+            if any(n != nb * steps for n in launches) or nb == 0:
+                problems.append(f"{key}: adam_bucket launches {launches}, "
+                                f"not {nb} buckets x {steps} steps a rank")
+            if rows[0]["local_shapes"][fc1] != [25088, 512 // mp]:
+                problems.append(f"{key}: fc1 holds {rows[0]['local_shapes']}")
+            errs = {k: {n: _rel(arrays[(key, k)][n], snaps[k][n])
+                        for n in snaps[k]} for k in sorted({1, steps})}
+            if not is_control and any(e > bound[n]
+                                      for n, e in errs[1].items()):
+                problems.append(f"{key}: fc1's state after step 1 off the "
+                                f"one-rank run by {errs[1]}, over "
+                                f"{bound}")
+            ms = [[round(s["ms"], 2) for s in row["steps"]] for row in rows]
+            warm = [row["steps"][1:] for row in rows]
+            wire = [sum(s["wire_s"] for s in w) * 1e3
+                    / max(sum(s["ms"] for s in w), 1e-9) for w in warm]
+            staged = [w[-1]["staged_bytes"] for w in warm]
+            low = rows[0].get("lowering") or {"collectives": {},
+                                              "modes": {}}
+            out["buckets"] = sorted(set(out["buckets"])
+                                    | set(rows[0]["buckets"]))
+            out["runs"][key] = {
+                "mesh": mesh, "auto": run["auto"], "control": is_control,
+                "reduce": spec["reduce"], "steps": steps,
+                "losses": [[s["loss"] for s in row["steps"]]
+                           for row in rows],
+                "max_rel_loss_err": worst, "ms_by_rank": ms,
+                "wire_share_by_rank": wire,
+                "staged_bytes_a_step_by_rank": staged,
+                "collectives_a_step": rows[0]["steps"][-1]["collectives"],
+                "lowered": low["collectives"], "modes": low["modes"],
+                "plan": plan,
+                "fc1_rel_err_by_step": {str(k): v for k, v in errs.items()},
+                "peak_mem_gib_by_rank": [row["peak_mem_gib"]
+                                         for row in rows],
+                "adam_launches_by_rank": launches,
+                "buckets": rows[0]["buckets"],
+                "step_mode": rows[0]["step_mode"],
+                "local_shapes": rows[0]["local_shapes"]}
+            r = out["runs"][key]
+            shown = {k: {n.replace(fc1, "w"): round(v, 5)
+                         for n, v in e.items()} for k, e in errs.items()}
+            what = ("the control: plain dp 2, the program unseeded"
+                    if is_control else
+                    f"fc pair over mp (fc1 {r['local_shapes'][fc1]}, fc2 "
+                    f"{r['local_shapes'][fc2]} a rank)")
+            log(f"[tensor_parallel] {key}: VGG-16 224² batch "
+                f"{IMAGE_BATCH} bf16 AMP Adam, {what}, {steps} steps on "
+                f"{r['step_mode']}: losses within {worst:.2e} of one rank "
+                f"({[round(x, 5) for x in r['losses'][0]]}); ms a step by "
+                f"rank {ms}; gloo host wire {np.round(wire, 3).tolist()} of "
+                f"a warm step, {staged} bytes staged a step; "
+                + (f"plan {plan['n_sharded']}/{plan['n_vars']} vars "
+                   f"sharded, {len(plan['unresolved'])} unresolved; "
+                   f"lowered collectives {low['collectives']}; "
+                   if plan else "")
+                + f"{r['collectives_a_step']} collective launches a step; "
+                f"fc1 (w, moments) off one rank by step {shown}"
+                + ("" if is_control else
+                   f" (bound after step 1 {TP_STATE_SLACK} x max("
+                   f"{PARITY_AMP_RTOL}, the control's))")
+                + f"; peak mem "
+                f"{np.round(r['peak_mem_gib_by_rank'], 2).tolist()} GiB; "
+                f"adam_bucket launches {launches} ({nb} buckets "
+                f"{rows[0]['buckets']})")
+    emb = res["dp1mp2"][0]["embedding"]
+    for r, row in enumerate(res["dp1mp2"]):
+        e = row["embedding"]
+        if not e["rows_bitwise"] or e["grad_max_abs_err"] > TP_EMB_GRAD_ATOL:
+            problems.append(f"(c) rank {r}: {e}")
+    out["embedding"] = [row["embedding"] for row in res["dp1mp2"]]
+    log(f"[tensor_parallel] (c) sharded_embedding_lookup [{WMT_DICT}, 512] "
+        f"bf16 over mp=2, {TP_IDS} Zipf(1.7) ids ({emb['distinct_ids']} "
+        f"distinct): rows bitwise F.embedding's on both ranks; table grad "
+        f"max |err| against F.embedding's in f32, rounded to bf16, "
+        f"{[e['grad_max_abs_err'] for e in out['embedding']]} (against "
+        f"F.embedding's own bf16 grad "
+        f"{[e['bf16_dense_grad_max_abs_diff'] for e in out['embedding']]}"
+        f"); fwd+bwd {emb['ms']:.3f} ms a rank vs F.embedding "
+        f"{emb['plain_ms']:.3f} ms")
+    out["wall_s"] = {s["tag"]: res[s["tag"] + "_s"] for s, _ in specs}
+    if problems:
+        raise AssertionError("[tensor_parallel] " + "; ".join(problems))
+    return out
+
+
+def _tp_kernel_check(numels):
+    """adam_bucket against its plain twin on the card at each bucket size
+    the TP runs gave it, bitwise (phase kernels' check, for this path);
+    returns the max |err| (0.0)."""
+    from paddle_tpu_torch.fusion import kernels as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 44)
+    lr_t = torch.full((1,), 1e-3, device="cuda")
+    err = {"adam_bucket": 0.0}
+    for n in numels:
+        p, g, m1, m2 = _lanes(n, 4, gen)
+        m2 = m2.abs()
+        _bitwise("adam_bucket",
+                 fk.adam_bucket(p, g, m1, m2, lr_t, 0.9, 0.999, 1e-8),
+                 fk.adam_bucket_plain(p, g, m1, m2, lr_t, 0.9, 0.999, 1e-8),
+                 err, f"tensor_parallel bucket n={n}")
+        del p, g, m1, m2
+    torch.cuda.synchronize()
+    return err["adam_bucket"]
+
+
+def main_tensor_parallel():
+    """`python3 chip_smoke.py --only tensor_parallel`: the device check,
+    the build and phase tensor_parallel alone."""
+    card_line = phase_device()
+    phase_build()
+    lap("device_and_build")
+    result = phase_tensor_parallel(card_line)
+    lap("tensor_parallel")
+    log(card_line)
+    log(json.dumps({"tensor_parallel": result}))
+    log(_device_line())
+
+
 def main():
     card_line = phase_device()
     card = torch.cuda.get_device_name(0)
@@ -10627,10 +11250,18 @@ def main():
         pipe["stages"]["momentum_launches"]
     _release()
     lap("pipeline")
+    # phase tensor_parallel's workers set up beside phase elastic
+    start_tensor_parallel()
     elastic = phase_elastic(card_line)
     momentum["launches_by_path"]["elastic"] = elastic["momentum_launches"]
     _release()
     lap("elastic")
+    tp = phase_tensor_parallel(card_line)
+    for key, run in tp["runs"].items():
+        for r, n in enumerate(run["adam_launches_by_rank"]):
+            adam["launches_by_path"][f"tensor_parallel_{key}_rank{r}"] = n
+    _release()
+    lap("tensor_parallel")
     entry = phase_flash(sass)
     # the flash rows' launches: the ring's (the path that runs them), the
     # entry point's beside them
@@ -10655,6 +11286,7 @@ def main():
                     "continuous": continuous, "pserver": pserver,
                     "detection": detection, "ring": ring,
                     "pipeline": pipe, "elastic": elastic,
+                    "tensor_parallel": tp,
                     "seconds_by_phase": _LAPS["seconds"]}))
     log(json.dumps({"kernels": rows}))
     log(_device_line())
@@ -10683,6 +11315,10 @@ if __name__ == "__main__":
         main_pipeline()
     elif sys.argv[1:] == ["--only", "elastic"]:
         main_elastic()
+    elif sys.argv[1:] == ["--only", "tensor_parallel"]:
+        main_tensor_parallel()
+    elif sys.argv[1:2] == ["--tp-child"] and len(sys.argv) == 4:
+        tp_child(sys.argv[2], int(sys.argv[3]))
     elif sys.argv[1:2] == ["--elastic-child"] and len(sys.argv) in (4, 5):
         elastic_child(sys.argv[2], sys.argv[3], sys.argv[4:] == ["--joiner"])
     elif sys.argv[1:2] == ["--ring-child"] and len(sys.argv) == 4:

@@ -11,7 +11,8 @@ same codes and verdicts, over the port's IR:
     collective order) — `full`;
   * SSA dataflow-graph hazards (PTA03x, `dataflow`) — `full`;
   * sharding/plan validation (mesh axes, divisibility, the zero1 plan's
-    geometry) — `full`, when a mesh or plan is in scope;
+    geometry, the autoshard plan's totality and reshard-edge audit) —
+    `full`, when a mesh or plan is in scope;
   * a liveness-based peak-HBM estimate per replica — `full`, exported as
     the `analysis_peak_hbm_bytes_per_replica` gauge and the `check` CLI
     table.
@@ -20,9 +21,8 @@ Wired behind FLAGS_verify into the Executor's prepare: the verify runs on
 a prepared step's miss only, memoized per (program identity, mutation,
 level, feeds/fetches/mesh), so the steady-state cost of an enabled flag is
 zero and of the flag itself one check; it raises before anything of the
-step is launched. Not ported: the static overlap schedule (`schedule`)
-and the autoshard plan's audit, both ROADMAP queue 1 item 6 (`verify`
-refuses an autoshard plan).
+step is launched. Not ported: the static overlap schedule (`schedule`,
+ROADMAP queue 1 item 6).
 """
 
 from .. import flags

@@ -15,9 +15,7 @@ Three inputs, all optional, validated when present:
     axis's existence in the mesh when one is given.
 
 The JAX package's checks (paddle_tpu/analysis/plans.py) over the port's
-programs and its parallel.zero1 plan. The autoshard plan's audit needs
-parallel.autoshard, which is not ported (ROADMAP queue 1 item 6): given
-a plan, check_autoshard_plan raises NotImplementedError, never skips it.
+programs, its parallel.zero1 plan and its parallel.autoshard plan.
 """
 
 import numpy as np
@@ -75,15 +73,47 @@ def check_var_sharding(program, mesh_axes, report):
 
 
 def check_autoshard_plan(plan, report):
-    """PTA020/021/022/023 for a built autoshard ShardingPlan: not ported
-    (the plan's transition model lives in parallel.autoshard, ROADMAP
-    queue 1 item 6). None is the only plan the port verifies."""
+    """PTA020/021/022/023 for a built ShardingPlan."""
     if plan is None:
         return
-    raise NotImplementedError(
-        "verify: the autoshard plan checks (PTA022/PTA023) need "
-        "parallel.autoshard, which is not ported to paddle_tpu_torch yet "
-        "(ROADMAP queue 1 item 6)")
+    mesh_axes = plan.mesh_axes
+    for name, spec in sorted(plan.specs.items()):
+        if not spec:
+            continue
+        _spec_issues(name, spec, plan.shapes.get(name), mesh_axes, report,
+                     "autoshard plan")
+    if plan.unresolved:
+        report.add(
+            "PTA022",
+            f"autoshard plan has {len(plan.unresolved)} unresolved "
+            f"var(s): {sorted(plan.unresolved)[:8]}")
+    unassigned = [n for n, s in plan.specs.items() if s is None]
+    if unassigned:
+        report.add(
+            "PTA022",
+            f"autoshard plan is not total: {len(unassigned)} var(s) have "
+            f"no spec assigned: {sorted(unassigned)[:8]}")
+    # reshard-edge audit: the recorded bytes must reproduce under the
+    # current transition model, and the edge must reference plan vars
+    from ..parallel.autoshard.plan import transition_bytes
+    for e in plan.reshard_edges:
+        name = e.get("var")
+        if name not in plan.specs:
+            report.add(
+                "PTA023",
+                f"reshard edge references {name!r} which is not in the "
+                f"plan", var=name)
+            continue
+        want = transition_bytes(
+            plan.shapes.get(name), plan.dtypes.get(name, "float32"),
+            e.get("src"), e.get("dst"), mesh_axes)
+        got = int(e.get("bytes", 0))
+        if want and abs(got - want) > max(1, want // 100):
+            report.add(
+                "PTA023",
+                f"reshard edge for {name!r} records {got} B but the "
+                f"transition model yields {want} B "
+                f"({e.get('src')} -> {e.get('dst')})", var=name)
 
 
 def check_zero1_plan(plan, program, report, mesh_axes=None):

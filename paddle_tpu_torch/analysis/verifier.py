@@ -51,7 +51,8 @@ __all__ = ["check_structure", "check_contracts", "check_grad_pairing",
 # op types that move data across replicas; their issue order must be a
 # single total order on every replica (see safety.check_collective_order)
 COLLECTIVE_OPS = ("zero1_scatter", "zero1_gather", "all_reduce",
-                  "all_gather", "reduce_scatter", "broadcast")
+                  "all_gather", "reduce_scatter", "broadcast",
+                  "shard_gather", "shard_lookup_table")
 
 # var types the runtime materializes outside the op dataflow
 _RUNTIME_VAR_TYPES = (VarType.READER, VarType.FEED_MINIBATCH,

@@ -95,8 +95,28 @@ journals and ledgers:
                      PADDLE_PSERVER_IPS, PADDLE_PSERVER_PORT and
                      PADDLE_CURRENT_IP, as the JAX package's does)
 
-The JAX CLI's `shard` and `analyze schedule` (ROADMAP queue 1 item 6)
-are not ported yet.
+  shard plan [--model-dir DIR | --selftest] [--mesh dp=4,mp=2]
+        [--seed NAME=SPEC] [--batch-axis dp] [--json] [--quiet]
+                     propagate the program's set_sharding seeds (and
+                     --seed ones) over it and render the total
+                     ShardingPlan with its conflicts and reshard edges;
+                     --json emits plan.describe(). rc 0 total, 1 bad
+                     seed, 2 not total (or the selftest failed).
+  shard search [--model-dir DIR | --selftest] [--mesh ...] [--batch N]
+        [--hbm-budget BYTES] [--max-params N] [--rounds N]
+        [--peak-tflops F] [--link-gbps F] [--json] [--quiet]
+                     search seed placements for the largest params and
+                     keep the cheapest whole plan under the cost model
+                     (compute at the card's peak, collective bytes over
+                     its link, a peak-HBM budget); the defaults are one
+                     H100 SXM's data-sheet figures (989.4 dense bf16
+                     TFLOP/s, NVLink 450 GB/s each way), and
+                     --peak-tflops 275 --link-gbps 90 give the JAX
+                     command's. rc 0 ok, 1 error, 2 the searched plan
+                     costs more than the manual seeds.
+
+The JAX CLI's `analyze schedule` (ROADMAP queue 1 item 6) is not ported
+yet.
 """
 
 import argparse
@@ -480,6 +500,149 @@ def _cmd_check(args):
     else:
         print(report.render(verbose=not args.quiet))
     return report.rc
+
+
+def _search_default(name):
+    """search.py's default constant `name` (PEAK_FLOPS,
+    LINK_BYTES_PER_S)."""
+    from .parallel.autoshard import search
+
+    return getattr(search, name)
+
+
+def _shard_demo_program():
+    """Small embedding+fc net with mp seeds on the embedding table and the
+    first fc weight (the JAX command's demo net)."""
+    import paddle_tpu_torch as fluid
+
+    main, start = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, start):
+        ids = fluid.layers.data(name="ids", shape=[1], dtype="int64")
+        y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+        emb = fluid.layers.embedding(ids, size=[32, 16])
+        h = fluid.layers.fc(emb, 32, act="relu")
+        p = fluid.layers.fc(h, 1)
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(p, y))
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    gb = main.global_block()
+    embw = next(n for n, v in gb.vars.items()
+                if getattr(v, "persistable", False) and v.shape == (32, 16))
+    w1 = next(n for n, v in gb.vars.items()
+              if getattr(v, "persistable", False) and v.shape == (16, 32))
+    fluid.parallel.set_sharding(gb.var(embw), ("mp", None))
+    fluid.parallel.set_sharding(gb.var(w1), (None, "mp"))
+    return main
+
+
+def _shard_mesh(text):
+    """{axis: size} of a --mesh value, or None (printed) when malformed."""
+    mesh_axes = {}
+    for part in (text or "").split(","):
+        if not part.strip():
+            continue
+        k, _, v = part.partition("=")
+        try:
+            mesh_axes[k.strip()] = int(v)
+        except ValueError:
+            print(f"bad --mesh entry {part!r} (want name=size)",
+                  file=sys.stderr)
+            return None
+    if not mesh_axes:
+        print("empty --mesh", file=sys.stderr)
+        return None
+    return mesh_axes
+
+
+def _shard_program(args, action):
+    """The program `shard <action>` reads, or None (printed)."""
+    if args.selftest:
+        return _shard_demo_program()
+    if args.model_dir:
+        loaded = _load_saved_program(args.model_dir)
+        if isinstance(loaded, str):
+            print(loaded, file=sys.stderr)
+            return None
+        return loaded[0]
+    print(f"shard {action} needs --model-dir or --selftest",
+          file=sys.stderr)
+    return None
+
+
+def _cmd_shard(args):
+    import json
+
+    from .parallel import autoshard
+
+    mesh_axes = _shard_mesh(args.mesh)
+    if mesh_axes is None:
+        return 1
+    if args.shard_action == "search":
+        return _cmd_shard_search(args, mesh_axes)
+    seeds = {}
+    for s in args.seed or []:
+        name, _, spec_s = s.partition("=")
+        seeds[name.strip()] = tuple(
+            None if e.strip() in ("", "None", "none", "-") else e.strip()
+            for e in spec_s.split(","))
+    program = _shard_program(args, "plan")
+    if program is None:
+        return 1
+    try:
+        plan = autoshard.build_plan(program, mesh_axes,
+                                    batch_axis=args.batch_axis,
+                                    extra_seeds=seeds or None)
+    except (TypeError, ValueError) as e:
+        print(f"shard plan error: {e}", file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(plan.describe(), indent=2))
+    else:
+        print(plan.render(verbose=not args.quiet))
+    ok = plan.is_total() and not plan.unresolved
+    if args.selftest:
+        ok = ok and len(plan.sharded_names()) > 0
+        # stderr so --json stdout stays machine-parseable
+        print(f"shard plan selftest: {'OK' if ok else 'FAILED'}",
+              file=sys.stderr if args.json else sys.stdout)
+    return 0 if ok else 2
+
+
+def _cmd_shard_search(args, mesh_axes):
+    """`shard search`: enumerate seed placements, score whole plans with
+    the unified cost model, report the cheapest vs the manual seeds.
+    rc 0 search ok, 1 plan/search error, 2 selftest contract violated."""
+    import json
+
+    from .parallel import autoshard
+
+    program = _shard_program(args, "search")
+    if program is None:
+        return 1
+    try:
+        res = autoshard.search_plan(
+            program, mesh_axes, batch_axis=args.batch_axis,
+            batch_size=args.batch, hbm_budget=args.hbm_budget,
+            max_params=args.max_params, rounds=args.rounds,
+            peak_flops=args.peak_tflops * 1e12,
+            link_bytes_per_s=args.link_gbps * 1e9)
+    except (TypeError, ValueError) as e:
+        print(f"shard search error: {e}", file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(res.to_dict(), indent=2))
+    else:
+        print(res.render())
+        if not args.quiet:
+            print(res.plan.render(verbose=False))
+    ok = res.plan.is_total() and not res.plan.unresolved \
+        and res.cost["score_s"] <= res.manual_cost["score_s"]
+    if args.selftest:
+        # the searched plan must never lose to the manual seeds, and the
+        # demo net must actually end up sharded
+        ok = ok and len(res.plan.sharded_names()) > 0
+        print(f"shard search selftest: {'OK' if ok else 'FAILED'}",
+              file=sys.stderr if args.json else sys.stdout)
+    return 0 if ok else 2
 
 
 def _load_saved_program(model_dir):
@@ -1474,6 +1637,70 @@ def main(argv=None):
                      help="store directory (default "
                           "FLAGS_compile_cache_dir)")
 
+    sh = sub.add_parser("shard", help="autoshard: GSPMD-style sharding "
+                                      "plans over a program")
+    shsub = sh.add_subparsers(dest="shard_action", required=True)
+    shp = shsub.add_parser("plan", help="propagate seeds and render the "
+                                        "total ShardingPlan with per-edge "
+                                        "estimated reshard bytes")
+    shp.add_argument("--model-dir", default=None,
+                     help="save_inference_model directory to plan")
+    shp.add_argument("--selftest", action="store_true",
+                     help="build a small embedding+fc demo net, plan it, "
+                          "and verify the plan is total")
+    shp.add_argument("--mesh", default="dp=4,mp=2",
+                     help="mesh axes as name=size pairs (plan construction "
+                          "is analytic — no devices needed)")
+    shp.add_argument("--seed", action="append", metavar="NAME=SPEC",
+                     help="extra seed annotation, e.g. fc_0.w_0=None,mp "
+                          "(repeatable; entries are axis names or None)")
+    shp.add_argument("--batch-axis", default="dp",
+                     help="mesh axis seeded onto data vars' dim 0")
+    shp.add_argument("--json", action="store_true",
+                     help="emit plan.describe() as JSON")
+    shp.add_argument("--quiet", action="store_true",
+                     help="summary and edges only, no per-var table")
+    shse = shsub.add_parser(
+        "search", help="search candidate seed placements across the mesh "
+                       "axes and keep the whole-plan cheapest (unified "
+                       "compute + collective-bytes + peak-HBM cost model)")
+    shse.add_argument("--model-dir", default=None,
+                      help="save_inference_model directory to search")
+    shse.add_argument("--selftest", action="store_true",
+                      help="search the embedding+fc demo net and verify "
+                           "the searched plan never costs more than the "
+                           "manual seeds")
+    shse.add_argument("--mesh", default="dp=4,mp=2",
+                      help="mesh axes as name=size pairs")
+    shse.add_argument("--batch-axis", default="dp",
+                      help="mesh axis seeded onto data vars' dim 0")
+    shse.add_argument("--batch", type=int, default=8,
+                      help="batch size substituted for dynamic dims in "
+                           "the cost model")
+    shse.add_argument("--hbm-budget", type=int, default=None,
+                      metavar="BYTES",
+                      help="per-replica peak-HBM feasibility budget; "
+                           "plans over it are penalized out")
+    shse.add_argument("--max-params", type=int, default=8,
+                      help="search seed placements for the N largest "
+                           "params")
+    shse.add_argument("--rounds", type=int, default=2,
+                      help="greedy coordinate-descent passes")
+    shse.add_argument("--peak-tflops", type=float,
+                      default=_search_default("PEAK_FLOPS") / 1e12,
+                      help="the card's dense peak in the compute term "
+                           "(default: one H100 SXM's bf16 data-sheet "
+                           "figure; 275 gives the JAX command's)")
+    shse.add_argument("--link-gbps", type=float,
+                      default=_search_default("LINK_BYTES_PER_S") / 1e9,
+                      help="GB/s a card's collective bytes cross (default: "
+                           "one direction of an H100 SXM's NVLink, data "
+                           "sheet; 90 gives the JAX command's)")
+    shse.add_argument("--json", action="store_true",
+                      help="emit the search result as JSON")
+    shse.add_argument("--quiet", action="store_true",
+                      help="skip the winning plan's summary render")
+
     ck = sub.add_parser("check", help="static program verification: graph/"
                                       "safety/sharding checks and the "
                                       "peak-HBM estimate (docs/analysis.md)")
@@ -1839,6 +2066,7 @@ def main(argv=None):
                 "train": _cmd_train,
                 "monitor": _cmd_monitor, "health": _cmd_health,
                 "checkpoint": _cmd_checkpoint, "cache": _cmd_cache,
+                "shard": _cmd_shard,
                 "check": _cmd_check, "analyze": _cmd_analyze,
                 "serve": _cmd_serve, "fleet": _cmd_fleet,
                 "elastic": _cmd_elastic, "obs": _cmd_obs,

@@ -19,6 +19,7 @@ from .core import dtypes
 from .core.framework import VarType
 from .core.places import device_for
 from .parallel import zero1
+from .parallel.autoshard import lower as _lower
 
 
 def _persistable_vars(program):
@@ -60,14 +61,17 @@ def load_numpy_state(scope, program, arrays, place):
 def numpy_state(scope, program):
     """{name: np.ndarray} of every persistable var of `program` in scope,
     in the full layout: a zero1 accumulator, of which this rank holds its
-    row, is gathered over the ranks (parallel.zero1.full_layout), so every
-    rank of a ParallelExecutor calls this together."""
+    row, is gathered over the ranks (parallel.zero1.full_layout), and a
+    var sharded over the mp axis over its ranks
+    (parallel.autoshard.lower.full_value), so every rank of a
+    ParallelExecutor calls this together."""
     out = {}
     # sorted: the gathers are collectives, issued in one order on every rank
     for name in sorted(_persistable_vars(program)):
         v = scope.find_var(name)
         if v is not None:
             # a copy: the scope's tensors may be updated in place
-            out[name] = zero1.full_layout(name, v).detach().to(
+            v = _lower.full_value(name, zero1.full_layout(name, v))
+            out[name] = v.detach().to(
                 "cpu", copy=True).numpy()
     return out

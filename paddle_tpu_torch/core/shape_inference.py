@@ -461,7 +461,7 @@ def _batch_norm(ctx):
     ctx.set_output_dim("Y", x)
 
 
-@register_infer_shape("lookup_table")
+@register_infer_shape("lookup_table", "shard_lookup_table")
 def _lookup_table(ctx):
     w = ctx.input_dim("W")
     ids = ctx.input_dim("Ids")
@@ -1209,6 +1209,26 @@ def _coll_resize(ctx):
     property — left dynamic at build time."""
 
 
+@register_infer_shape("shard_gather", "shard_slice")
+def _shard_dim(ctx):
+    """X's shape with dim `dim` times (gather) or over (slice) `parts`,
+    the mesh axis's ranks (parallel/autoshard/lower.py)."""
+    x = ctx.input_dim("X")
+    if x is None:
+        return
+    d, parts = int(ctx.attr("dim")), int(ctx.attr("parts", 1) or 1)
+    ctx.enforce(0 <= d < len(x), f"dim {d} out of X{tuple(x)}")
+    out = list(x)
+    if out[d] >= 0:
+        if ctx.op.type == "shard_gather":
+            out[d] *= parts
+        else:
+            ctx.enforce(out[d] % parts == 0,
+                        f"X{tuple(x)} dim {d} not divisible by {parts}")
+            out[d] //= parts
+    ctx.set_output_dim("Out", tuple(out))
+
+
 @register_infer_shape("zero1_scatter")
 def _zero1_scatter(ctx):
     """[parts, ceil(numel/parts)] shard layout of the flattened input."""
@@ -1430,7 +1450,7 @@ def _reorder_lod_tensor_by_rank_grad(ctx):
         ctx.set_output_dim("X@GRAD", g)
 
 
-@register_infer_shape("lookup_table_grad")
+@register_infer_shape("lookup_table_grad", "shard_lookup_table_grad")
 def _lookup_table_grad(ctx):
     w = ctx.input_dim("W")
     g = ctx.input_dim("Out@GRAD")

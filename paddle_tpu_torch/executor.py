@@ -349,6 +349,9 @@ class Executor:
         # the data-parallel group the steps run over (OpContext.dp): set by
         # the ParallelExecutor that drives this executor; None otherwise
         self.dp = None
+        # the digest of the autoshard plan the ParallelExecutor lowered the
+        # steps' programs by (parallel/autoshard/lower.py), or None
+        self.plan_digest = None
         # program id -> steps run (the health ledger's step index)
         self._step_counter = {}
         # prepared key -> host seconds of its compile work (compile_info)
@@ -562,15 +565,15 @@ class Executor:
         return (("device", self.device.type, self.device.index),)
 
     def _mesh_key(self):
-        """(axis sizes, backend) of the data-parallel group the steps run
-        over, or () without one: part of the prepared key, so a plan
-        rewritten for one world (its collectives, its zero1 layout) is
-        never loaded by a rank of another, and an elastic resize takes a
-        clean miss."""
+        """(axis sizes, backend, autoshard plan digest) of the group the
+        steps run over, or () without one: part of the prepared key, so a
+        plan rewritten for one world (its collectives, its zero1 layout,
+        its tensor-parallel lowering) is never loaded by a rank of
+        another, and an elastic resize takes a clean miss."""
         if self.dp is None:
             return ()
         return (tuple((str(a), int(n)) for a, n in self.dp.shape.items()),
-                self.dp.backend)
+                self.dp.backend, self.plan_digest)
 
     def captured_steps(self, program, scope=None):
         """[CapturedStep] of `program`'s steps captured in `scope` (the

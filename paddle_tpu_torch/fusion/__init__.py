@@ -28,7 +28,8 @@ Two pass families:
   zero1-aware: shard-layout members ((parts, shard) tensors produced by
   parallel.zero1) bucket along the shard axis — `shard_rows` — keeping
   dim 0 pinned to the dp axis with no regather; the members' trailing
-  zero1_gather ops move with the fused op (fused update first, then the
+  zero1_gather ops (each with the shard_slice a tensor-parallel lowering
+  puts behind it) move with the fused op (fused update first, then the
   gathers, at the LAST member's position, where every scatter has
   already run). Unpacking is exact, so checkpoints keep their canonical
   layout.
@@ -361,12 +362,19 @@ def _member_of(gb, i, op, fam, sparse):
 
 
 def _find_gather(ops, m):
-    """Index of the zero1_gather consuming this member's @zero1_upd."""
+    """Indices of the zero1_gather consuming this member's @zero1_upd,
+    and of the shard_slice right behind it that keeps this rank's block
+    of a param the tensor-parallel lowering shards over mp (parallel/
+    autoshard/lower.py), which moves with it; None without a gather."""
     for k in range(m["idx"] + 1, len(ops)):
         op = ops[k]
         if op.type == "zero1_gather" \
                 and (op.inputs.get("X") or [None])[0] == m["pout"]:
-            return k
+            nxt = ops[k + 1] if k + 1 < len(ops) else None
+            if nxt is not None and nxt.type == "shard_slice" \
+                    and nxt.inputs.get("X") == op.outputs.get("Out"):
+                return [k, k + 1]
+            return [k]
     return None
 
 
@@ -387,6 +395,9 @@ def _interleave_safe(ops, members, gather_idxs):
     pouts = {m["pout"] for m in members}
     gather_outs = {(ops[k].outputs.get("Out") or [None])[0]
                    for k in gather_idxs}
+    # each moved gather's output -> the gather's index before the move
+    gathered_at = {(ops[k].outputs.get("Out") or [None])[0]: k
+                   for k in gather_idxs}
     for k in range(min(member_idxs), span_end + 1):
         if k in moved:
             continue
@@ -397,8 +408,10 @@ def _interleave_safe(ops, members, gather_idxs):
             # writes to a member input would now be seen by the fused op
             if any(in_pos.get(nm, k + 1) < k for nm in w):
                 return False
-            # the member outputs don't exist yet at this position
-            if (r | w) & pouts:
+            # the member outputs don't exist yet at this position, nor
+            # the outputs of a gather that ran before it and now moves
+            if (r | w) & pouts or any(
+                    gathered_at.get(nm, k) < k for nm in r | w):
                 return False
         else:
             # the moved gathers now run BEFORE this op
@@ -454,7 +467,7 @@ def _fuse_optimizers(clone, bucket_bytes):
                     skipped.append((bucket[0]["base"],
                                     "zero1 member without its gather"))
                     continue
-                gather_idxs = gs
+                gather_idxs = [k for g in gs for k in g]
             if not _interleave_safe(ops, bucket, gather_idxs):
                 skipped.append((bucket[0]["base"],
                                 "unsafe op interleave inside the bucket"))

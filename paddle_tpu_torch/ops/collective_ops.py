@@ -11,7 +11,10 @@ without a group): with no group every op here is an identity (zero1's:
 the single-device reshape, as the JAX package's off-mesh lowering), and
 inside a group of any size, one included, each calls the collective —
 NCCL on a card, gloo on the host — over the dp axis's group
-(`Mesh.group`; the default group when dp spans it).
+(`Mesh.group`; the default group when dp spans it). A dp axis of one rank
+in a larger group (a mesh whose other axes hold the ranks: `Mesh.solo`)
+makes them identities: a collective over it would reach the other axes'
+ranks.
 
 Gradients take the convention of a value summed over ranks (psum's
 transpose is psum): a rank's cotangent of a collective's output is its
@@ -50,6 +53,7 @@ from .util import first, out
 
 __all__ = ["COLLECTIVE_RW", "launch", "psum", "psum_replicated",
            "all_gather", "reduce_scatter", "broadcast", "permute",
+           "gather_dim", "slice_dim", "masked_rows", "scatter_rows",
            "reset_launch_counts"]
 
 REDUCTIONS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
@@ -108,6 +112,12 @@ def _staged(call, dst, src, dp, **kwargs):
     return dst
 
 
+def _solo(dp):
+    """Whether `dp` (a Mesh or a MeshAxis) has one rank in a larger group:
+    its collectives are identities (parallel/mesh.py)."""
+    return getattr(dp, "solo", False)
+
+
 def _host_wire(dp, x):
     """Whether a collective of `x` over `dp` takes the pinned host wire:
     a card tensor in a gloo group (ranks sharing one card)."""
@@ -119,6 +129,8 @@ def _host_wire(dp, x):
 # ---------------------------------------------------------------------------
 def _reduced(x, dp, op=dist.ReduceOp.SUM):
     y = torch.clone(x, memory_format=torch.contiguous_format)
+    if _solo(dp):
+        return y
     if _host_wire(dp, y):
         return _staged(dist.all_reduce, y, y, dp, op=op)
     launch(dist.all_reduce, y, op=op, group=dp.group)
@@ -128,6 +140,8 @@ def _reduced(x, dp, op=dist.ReduceOp.SUM):
 def _gathered(x, dp):
     """[size, *x.shape]: every rank's x, in rank order."""
     flat = x.contiguous().reshape(-1)
+    if _solo(dp):
+        return flat.clone().reshape((1,) + tuple(x.shape))
     y = flat.new_empty((dp.size * flat.shape[0],))
     if _host_wire(dp, flat):
         _staged(_all_gather_tensor, y, flat, dp)
@@ -145,7 +159,7 @@ def _scattered(x, dp):
         raise ValueError(f"reduce_scatter: dim 0 ({n}) not divisible by the "
                          f"{dp.size} ranks")
     k = n // dp.size
-    if dp.backend == "nccl":
+    if dp.backend == "nccl" and not _solo(dp):
         y = x.new_empty((k,) + tuple(x.shape[1:]))
         launch(_reduce_scatter_tensor, y, x.contiguous(), group=dp.group)
         return y
@@ -201,6 +215,8 @@ class _Broadcast(torch.autograd.Function):
     def forward(ctx, x, dp, root):
         ctx.dp, ctx.root = dp, root
         y = torch.clone(x, memory_format=torch.contiguous_format)
+        if _solo(dp):
+            return y
         src = root if dp.group is None else dist.get_global_rank(dp.group,
                                                                  root)
         if _host_wire(dp, y):
@@ -332,6 +348,77 @@ def _mesh_axis(ctx, name):
     return ctx.dp.axis(name) if ctx.dp is not None else None
 
 
+def _group_of(ctx, attrs):
+    """What a collective op communicates over: the step's mesh (its dp
+    axis) for axis_name "dp", the default; the mesh's MeshAxis for
+    another axis; None (the op is an identity) without a mesh, or where
+    the axis has one rank or is not in the mesh."""
+    name = attrs.get("axis_name", "dp")
+    if ctx.dp is None:
+        return None
+    return ctx.dp if name == "dp" else ctx.dp.axis(name)
+
+
+def gather_dim(x, axis, dim):
+    """Every rank's x along `axis` (a MeshAxis), concatenated in position
+    order on `dim`: the tiled all-gather of a value sharded there."""
+    if axis is None:
+        return x
+    return torch.cat(_gathered(x, axis).unbind(0), dim=dim)
+
+
+def slice_dim(x, axis, dim):
+    """This rank's block of x along `dim` (x whole over `axis`)."""
+    if axis is None:
+        return x
+    n = x.shape[dim]
+    if n % axis.size:
+        raise ValueError(f"dim {dim} of shape {tuple(x.shape)} is not "
+                         f"divisible by the {axis.size} ranks of "
+                         f"{axis.name!r}")
+    k = n // axis.size
+    return x.narrow(dim, axis.rank * k, k).clone(
+        memory_format=torch.contiguous_format)
+
+
+def _local_ids(ids, axis, rows):
+    """(the ids as rows of this rank's block of a row-sharded table of
+    `rows` rows a rank, whether each falls in the block)."""
+    local = ids.long() - axis.rank * rows
+    return local, (local >= 0) & (local < rows)
+
+
+def masked_rows(shard, ids, axis, padding_idx=None):
+    """The rows of a table sharded on its rows over `axis` (this rank's
+    `shard`) at global `ids`, zero where an id falls outside the rank's
+    block (or is `padding_idx`): the rank's part of the lookup, which a
+    sum over the axis completes."""
+    local, ok = _local_ids(ids, axis, shard.shape[0])
+    if padding_idx is not None and padding_idx >= 0:
+        ok = ok & (ids != padding_idx)
+    rows = shard[local.clamp(0, shard.shape[0] - 1)]
+    return torch.where(ok[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                        device=rows.device))
+
+
+def scatter_rows(g, ids, axis, rows, padding_idx=None, acc_dtype=None):
+    """The gradient of this rank's shard of `rows` rows from the
+    cotangent `g` [..., D] of a lookup at `ids`, the same on every rank:
+    the masked local scatter-add, no collective, summed in `acc_dtype`
+    (default g's) and returned in g's dtype. index_put_ with accumulate
+    adds each id's rows in order (the same bits every run)."""
+    local, ok = _local_ids(ids, axis, rows)
+    if padding_idx is not None and padding_idx >= 0:
+        ok = ok & (ids != padding_idx)
+    acc = acc_dtype or g.dtype
+    flat = g.reshape(-1, g.shape[-1])
+    keep = ok.reshape(-1)
+    out = torch.zeros((rows, g.shape[-1]), dtype=acc, device=g.device)
+    out.index_put_((local.reshape(-1)[keep],), flat[keep].to(acc),
+                   accumulate=True)
+    return out.to(g.dtype)
+
+
 # ---------------------------------------------------------------------------
 # the ops
 # ---------------------------------------------------------------------------
@@ -341,7 +428,7 @@ def all_reduce_op(ctx, ins, attrs):
     red = attrs.get("reduction", "sum")
     if red not in REDUCTIONS:
         raise ValueError(f"unknown reduction {red}")
-    dp = ctx.dp
+    dp = _group_of(ctx, attrs)
     if dp is None:
         return out(Out=x)
     if red in ("sum", "mean"):
@@ -357,23 +444,26 @@ def all_gather_op(ctx, ins, attrs):
     """[size, *X.shape]: every rank's X stacked in rank order (the JAX
     package's untiled all_gather)."""
     x = first(ins, "X")
-    return out(Out=x if ctx.dp is None else all_gather(x, ctx.dp))
+    dp = _group_of(ctx, attrs)
+    return out(Out=x if dp is None else all_gather(x, dp))
 
 
 @register_op("reduce_scatter")
 def reduce_scatter_op(ctx, ins, attrs):
     """This rank's rows of the sum over ranks of X (tiled on dim 0)."""
     x = first(ins, "X")
-    return out(Out=x if ctx.dp is None else reduce_scatter(x, ctx.dp))
+    dp = _group_of(ctx, attrs)
+    return out(Out=x if dp is None else reduce_scatter(x, dp))
 
 
 @register_op("broadcast")
 def broadcast_op(ctx, ins, attrs):
     """NCCL bcast parity: every rank takes the root's X."""
     x = first(ins, "X")
-    if ctx.dp is None:
+    dp = _group_of(ctx, attrs)
+    if dp is None:
         return out(Out=x)
-    return out(Out=broadcast(x, ctx.dp, int(attrs.get("root", 0))))
+    return out(Out=broadcast(x, dp, int(attrs.get("root", 0))))
 
 
 def _padded_flat(x, parts):
@@ -462,3 +552,58 @@ def pipeline_send_op(ctx, ins, attrs):
 def pipeline_recv_op(ctx, ins, attrs):
     # the shift happened on the send side; recv materializes the arrival
     return out(Out=first(ins, "X"))
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel lowering's ops (parallel/autoshard/lower.py): each an
+# identity where its axis is not in the step's mesh or has one rank
+# ---------------------------------------------------------------------------
+@register_op("shard_gather")
+def shard_gather_op(ctx, ins, attrs):
+    """X sharded on `dim` over `axis_name`, whole: every rank's block
+    concatenated in position order (the tiled all-gather)."""
+    axis = _mesh_axis(ctx, attrs["axis_name"])
+    return out(Out=gather_dim(first(ins, "X"), axis, int(attrs["dim"])))
+
+
+@register_op("shard_slice")
+def shard_slice_op(ctx, ins, attrs):
+    """This rank's block on `dim` of X, whole over `axis_name`."""
+    axis = _mesh_axis(ctx, attrs["axis_name"])
+    return out(Out=slice_dim(first(ins, "X"), axis, int(attrs["dim"])))
+
+
+def _lookup_ids(ids):
+    return ids.reshape(ids.shape[:-1]) if ids.shape[-1] == 1 else ids
+
+
+@register_op("shard_lookup_table")
+def shard_lookup_table_op(ctx, ins, attrs):
+    """lookup_table on W sharded on its rows over `axis_name`: the masked
+    local gather of this rank's rows, then their sum over the axis (an
+    all_reduce), which is the whole lookup on every rank."""
+    axis = _mesh_axis(ctx, attrs["axis_name"])
+    if axis is None:
+        from .tensor_ops import lookup_table_op
+
+        return lookup_table_op(ctx, ins, attrs)
+    w, ids = first(ins, "W"), _lookup_ids(first(ins, "Ids"))
+    return out(Out=_reduced(masked_rows(w, ids, axis,
+                                        attrs.get("padding_idx", None)),
+                            axis))
+
+
+@register_op("shard_lookup_table_grad")
+def shard_lookup_table_grad_op(ctx, ins, attrs):
+    """W@GRAD of shard_lookup_table: the masked local scatter-add of the
+    cotangent, which every rank holds whole; no collective."""
+    axis = _mesh_axis(ctx, attrs["axis_name"])
+    if axis is None:
+        from .sparse_ops import lookup_table_grad_op
+
+        return lookup_table_grad_op(ctx, ins, attrs)
+    w, ids = first(ins, "W"), _lookup_ids(first(ins, "Ids"))
+    g = first(ins, "Out@GRAD")
+    dense = scatter_rows(g, ids, axis, w.shape[0],
+                         attrs.get("padding_idx", None))
+    return out(**{"W@GRAD": dense.to(w.dtype)})

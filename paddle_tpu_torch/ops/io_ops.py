@@ -13,7 +13,10 @@ program holding one runs on the interpreter, never in a CUDA graph.
 Under ParallelExecutor's zero1 a rank holds its [1, shard] row of each
 sharded accumulator: a save writes the whole [W, shard] array, gathered
 over the ranks, as the JAX package does, and a load gives each rank its
-row of it (parallel/zero1.py saved_layout, loaded_row).
+row of it (parallel/zero1.py saved_layout, loaded_row). A var sharded
+over the mp axis is written whole, gathered over its ranks
+(parallel/autoshard/lower.py full_value); a load leaves it whole, and the
+next ParallelExecutor step keeps the rank's slice.
 """
 
 import json
@@ -25,6 +28,7 @@ import torch
 from ..core import dtypes
 from ..core.registry import SeqTensor, register_op
 from ..parallel import zero1
+from ..parallel.autoshard import lower as _lower
 from .util import first, many, out
 
 # the JAX package runs with 64-bit types off: what it writes is 32-bit
@@ -92,7 +96,8 @@ def save_op(ctx, ins, attrs):
     path = attrs["file_path"]
     if os.path.exists(path + ".npy") and not attrs.get("overwrite", True):
         raise RuntimeError(f"{path} exists and overwrite=False")
-    _save_one(path, zero1.saved_layout(ctx.current_op.input("X")[0], x))
+    name = ctx.current_op.input("X")[0]
+    _save_one(path, _lower.full_value(name, zero1.saved_layout(name, x)))
     return {}
 
 
@@ -110,7 +115,8 @@ def save_combine_op(ctx, ins, attrs):
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     arrays = {}
     for n, v in zip(names, xs):
-        data, lengths = _to_numpy(zero1.saved_layout(n, v))
+        data, lengths = _to_numpy(
+            _lower.full_value(n, zero1.saved_layout(n, v)))
         arrays[n] = data
         if lengths is not None:
             arrays[n + "@@lod"] = lengths

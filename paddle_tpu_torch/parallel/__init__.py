@@ -1,6 +1,10 @@
-"""Parallelism package of the port: the dp mesh over a torch.distributed
-group (`mesh.py`), the bootstrap (`distributed.py`), the ZeRO-1 sharded
-weight update (`zero1.py`), the sharding annotations (`api.py`), flash
+"""Parallelism package of the port: the dp × mp mesh over a
+torch.distributed group (`mesh.py`), the bootstrap (`distributed.py`), the
+ZeRO-1 sharded weight update (`zero1.py`), the sharding annotations
+(`api.py`), autoshard (`autoshard/`: the JAX package's propagation and plan
+search, and the port's own partitioner, which lowers a plan to each
+rank's program over the mp axis), the mp-sharded embedding
+(`sharded_embedding.py`), flash
 attention (`flash.py`, its forward a hand-written CUDA kernel), ring
 attention over the mesh's sp axis (`ring.py`, each hop the flash kernel),
 pipeline parallelism over its pp axis (`pipeline/`: partition, rewrite,
@@ -22,7 +26,8 @@ Reference mapping (SURVEY.md §2.4):
                            shim in paddle_tpu_torch/pipeline.py)
   go/master + etcd      -> master.py (task-lease master, TTL'd registry,
                            membership epochs) + elastic.py (resize)
-Autoshard and tensor parallelism come with ROADMAP queue 1 item 6.
+  (absent in reference) -> autoshard/ GSPMD-style propagation, lowered to
+                           explicit mp collectives (lower.py)
 """
 
 from . import api
@@ -35,19 +40,22 @@ from . import ring
 from . import pipeline
 from . import master
 from . import elastic
+from . import autoshard
+from . import sharded_embedding
 from .api import get_sharding, set_sharding, sharding_scope
 from .flash import flash_attention
 from .mesh import (MeshSpec, data_parallel_mesh, make_mesh, mesh_geometry,
                    mesh_scope)
 from .ring import (ring_attention, ring_attention_sharded,
                    ring_flash_attention, ring_flash_attention_sharded)
+from .sharded_embedding import shard_table, sharded_embedding_lookup
 from .elastic import (ElasticController, ElasticConfig, ElasticError,
                       Resized, RescalePolicy, LinearRescale,
                       ConstantRescale)
 
 __all__ = [
     "mesh", "distributed", "api", "flash", "zero1", "rpc", "ring",
-    "pipeline", "elastic",
+    "pipeline", "elastic", "autoshard", "sharded_embedding",
     "make_mesh", "data_parallel_mesh", "mesh_scope", "mesh_geometry",
     "MeshSpec", "ElasticController", "ElasticConfig", "ElasticError",
     "Resized", "RescalePolicy", "LinearRescale", "ConstantRescale",
@@ -55,4 +63,5 @@ __all__ = [
     "flash_attention",
     "ring_attention", "ring_attention_sharded",
     "ring_flash_attention", "ring_flash_attention_sharded",
+    "shard_table", "sharded_embedding_lookup",
 ]

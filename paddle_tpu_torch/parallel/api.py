@@ -3,10 +3,11 @@ over the device mesh (the JAX package's parallel/api.py).
 
 These are pure annotations on the IR: `set_sharding` records a spec on a
 Variable, `sharding_scope` seeds every parameter built inside a block.
-The port's ParallelExecutor shards over the dp axis only, so a spec
-naming another axis is carried in the Program but placed by nothing yet
-(tensor parallelism, ROADMAP queue 1 item 6); zero1 leaves an annotated
-parameter on the replicated path, as in the JAX package.
+ParallelExecutor propagates them over the program
+(parallel/autoshard) and, over a mesh with an mp axis of more than one
+rank, lowers the plan to each rank's program (parallel/autoshard/
+lower.py); zero1 leaves an annotated parameter on the replicated path,
+as in the JAX package.
 
     fluid.parallel.set_sharding(w, (None, "mp"))   # shard columns over mp
     fluid.parallel.set_sharding(w2, "mp")          # bare axis: shard dim 0

@@ -6,12 +6,15 @@ NCCLContextMap per device set (platform/nccl_helper.h:75); the JAX package
 names the axes of a jax.sharding.Mesh. In the port one process drives one
 card, so a mesh is the process group itself, its ranks in row-major order
 over the axes (the JAX package's `np.array(devices).reshape(dims)`): the
-axes a shape names, in the order it names them. Each axis of more than
-one rank has its rank, its size and a torch.distributed group of the
-ranks along it through this one (`Mesh.axis`). The dp axis carries the
-data-parallel collectives, pp the pipeline's boundary ops and sp ring
-attention's permutes. An mp axis of more than one rank raises
-NotImplementedError: tensor parallelism is ROADMAP queue 1 item 6.
+axes a shape names, in the order it names them (dp outer, mp inner for
+{"dp": D, "mp": M}). Each axis of more than one rank has its rank, its
+size and a torch.distributed group of the ranks along it through this
+one (`Mesh.axis`). The dp axis carries the data-parallel collectives, mp
+the tensor-parallel ones that parallel/autoshard/lower.py writes into
+the program, pp the pipeline's boundary ops and sp ring attention's
+permutes. An axis of one rank in a larger group is `solo`: its
+collectives are identities (ops/collective_ops.py), so a dp axis of one
+never reaches the ranks of the other axes.
 """
 
 import math
@@ -36,13 +39,17 @@ class MeshAxis:
     """One axis of a mesh as this rank sees it: `size` ranks, this rank at
     position `rank`, `ranks` the global ranks along the axis in position
     order, `group` their torch.distributed group (None: the default group,
-    when the axis spans it), whose backend is `backend`."""
+    when the axis spans it), whose backend is `backend`; `solo` where the
+    axis has one rank in a larger group (no group: its collectives are
+    identities)."""
 
-    __slots__ = ("name", "size", "rank", "ranks", "group", "backend")
+    __slots__ = ("name", "size", "rank", "ranks", "group", "backend",
+                 "solo")
 
-    def __init__(self, name, size, rank, ranks, group, backend):
+    def __init__(self, name, size, rank, ranks, group, backend, solo=False):
         self.name, self.size, self.rank = name, size, rank
         self.ranks, self.group, self.backend = tuple(ranks), group, backend
+        self.solo = solo
 
     def global_rank(self, position):
         """The global rank at `position` on this axis."""
@@ -79,6 +86,9 @@ class Mesh:
         self.size = dp.size if dp is not None else 1
         self.rank = dp.rank if dp is not None else 0
         self.group = dp.group if dp is not None else None
+        # a dp axis of one rank in a larger group: identities
+        self.solo = self.size == 1 and self.distributed \
+            and dist.get_world_size() > 1
 
     def check_live(self):
         """Raise where the group this mesh spans is gone: destroyed, or
@@ -114,7 +124,8 @@ def _axis_groups(shape):
     every axis of more than one rank that does not span the world, in one
     order (torch.distributed.new_group is a collective of the default
     group), and keeps the one it is on; an axis that spans the world runs
-    on the default group. Every group has the default group's backend."""
+    on the default group, and an axis of one rank in a larger group is
+    solo, with no group. Every group has the default group's backend."""
     names, dims = list(shape), [shape[a] for a in shape]
     world, me = _world(), dist.get_rank() if dist.is_initialized() else 0
     backend = dist.get_backend() if dist.is_initialized() else None
@@ -137,7 +148,8 @@ def _axis_groups(shape):
                 g = dist.new_group(ranks)
                 if ranks == mine:
                     group = g
-        axes[name] = MeshAxis(name, size, coords[k], mine, group, backend)
+        axes[name] = MeshAxis(name, size, coords[k], mine, group, backend,
+                              solo=size == 1 and world > 1)
     return axes
 
 
@@ -145,8 +157,7 @@ def make_mesh(shape=None, axis_names=None, devices=None):
     """The mesh of the default group. shape: dict axis -> size or a tuple
     (named dp, mp, pp, sp in order); default: every rank on dp. The sizes
     must multiply to the world size; `devices`, if given, must hold one
-    entry per rank. An mp axis of more than one rank raises
-    NotImplementedError."""
+    entry per rank."""
     world = _world()
     if devices is not None and len(devices) != world:
         raise ValueError(f"{len(devices)} devices for a group of {world} "
@@ -159,10 +170,6 @@ def make_mesh(shape=None, axis_names=None, devices=None):
                       (DP_AXIS, MP_AXIS, PP_AXIS, SP_AXIS)[: len(dims)])
         shape = dict(zip(names, dims))
     shape = {str(a): int(s) for a, s in shape.items()}
-    if shape.get(MP_AXIS, 1) > 1:
-        raise NotImplementedError(
-            f"mesh axis mp={shape[MP_AXIS]}: the port's mesh has no "
-            f"tensor-parallel axis yet (ROADMAP queue 1 item 6)")
     unknown = set(shape) - {DP_AXIS, MP_AXIS, PP_AXIS, SP_AXIS}
     if unknown:
         raise ValueError(f"mesh axes {sorted(unknown)}: the axes are dp, "
@@ -196,8 +203,8 @@ def mesh_geometry(mesh):
 class MeshSpec:
     """Re-formable mesh recipe (the JAX package's elastic-training helper):
     the non-dp axes are fixed by the model, the dp axis is whatever the
-    fleet supports. In the port mp must be 1 (see the module docstring),
-    and `build(dp)` needs a group of dp times the fixed axes' ranks."""
+    fleet supports. `build(dp)` needs a group of dp times the fixed axes'
+    ranks."""
 
     def __init__(self, **fixed_axes):
         self.fixed = {str(k): int(v) for k, v in fixed_axes.items()

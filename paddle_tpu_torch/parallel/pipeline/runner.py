@@ -17,7 +17,7 @@ the cell's var takes that dtype before the cell's first run, so the feed
 is not cast. Each cell is a program of its own, run through the port's
 Executor (prepared, verified and captured once, then replayed). The JAX
 runner's `parallel_executor=` (dp x pp) is not ported: ROADMAP queue 1
-item 6 takes it with the other axes.
+item 6 holds it.
 
 Executed through a plain Executor the stage boundary ops are identities
 (off the mesh), so a pipeline replay is bitwise equal to the same

@@ -49,11 +49,31 @@ persistent cache's digest take in the mesh geometry and backend, so a
 rank whose group an elastic resize re-formed takes a clean miss and never
 loads a plan made for another world; a ParallelExecutor made before the
 re-form refuses to run (parallel.mesh.Mesh.check_live).
-Not ported yet, each refused with NotImplementedError: autoshard and
-tensor parallelism and the overlap schedule (ROADMAP queue 1 item 6),
-DataPipe feeds and ragged feeds (item 3).
+Tensor parallelism: a mesh with an mp axis of more than one rank (dp
+outer, mp inner) runs the program the port's partitioner writes for this
+rank (parallel/autoshard/lower.py) from the ShardingPlan that
+propagation builds over the resolved program (after zero1, before the
+gradient all-reduce and the fusion pass, so buckets see local shapes):
+local shapes, local kernels, and explicit collectives over the mp
+sub-group. Each rank runs the startup program whole and keeps its slice
+of every mp-sharded persistable (lower.ensure_scope_local), so a sharded
+parameter is exactly the slice of the one-rank parameter; a fetch of an
+mp-sharded var comes back whole, gathered over mp. The plan's digest
+joins the prepared key and the persistent cache's digest
+(Executor.plan_digest).
+A stated difference: the JAX package propagates the seeds only with
+FLAGS_autoshard / BuildStrategy.auto_sharding on, and otherwise leaves
+the annotated state to XLA's partitioner. The port has no partitioner,
+so it propagates the seeds and lowers the plan whenever the mesh has an
+mp axis of more than one rank, auto_sharding on or off; "off" means, as
+in the JAX package, that the plan is not registered (no checkpoint
+manifest section) and sets no gauges.
+Not ported yet, each refused with NotImplementedError: the overlap
+schedule (ROADMAP queue 1 item 6), DataPipe feeds and ragged feeds (item
+3).
 """
 
+import math
 import time
 
 import numpy as np
@@ -69,9 +89,11 @@ from .core.scope import global_scope
 from .core.executor_core import collect_state_names as _collect_state
 from .executor import Executor, as_numpy, fetch_futures
 from .ops import collective_ops
+from .parallel import autoshard as _autoshard
 from .parallel import distributed as _distributed
 from .parallel import mesh as _mesh
 from .parallel import zero1 as _zero1
+from .parallel.autoshard import lower as _lower
 from .resilience import chaos as _chaos
 from .resilience import watchdog as _watchdog
 
@@ -79,8 +101,6 @@ __all__ = ["ParallelExecutor", "ExecutionStrategy", "BuildStrategy"]
 
 # flags the JAX package reads here; the port refuses them while they are on
 _UNPORTED_FLAGS = {
-    "autoshard": ("GSPMD-style autoshard: ROADMAP queue 1 item 6's "
-                  "tensor-parallel leftover"),
     "overlap_plan": ("the static overlap schedule of the zero1 "
                      "collectives: ROADMAP queue 1 item 6"),
 }
@@ -125,7 +145,9 @@ class BuildStrategy:
         # ZeRO-1 sharded weight update (arXiv 2004.13336): None defers to
         # FLAGS_zero1; True/False overrides the flag for this executor
         self.sharded_weight_update = None
-        # GSPMD-style autoshard: not ported (None defers to FLAGS_autoshard)
+        # GSPMD-style autoshard (parallel.autoshard): register the plan and
+        # set its gauges; the plan is lowered whenever the mesh has an mp
+        # axis of more than one rank. None defers to FLAGS_autoshard.
         self.auto_sharding = None
         self.debug_graphviz_path = ""
 
@@ -185,9 +207,9 @@ class ParallelExecutor:
     this rank's card (the one initialize selected, or devices[rank]) over
     NCCL, and raises without a card; use_cuda=False runs on the host over
     gloo. mesh_shape must cover the whole group; its dp axis carries the
-    data parallelism (an mp axis of more than one rank raises
-    NotImplementedError), and its pp and sp axes the boundary ops and
-    permutes of the programs run on it."""
+    data parallelism, its mp axis the tensor parallelism of the
+    set_sharding seeds (module docstring), and its pp and sp axes the
+    boundary ops and permutes of the programs run on it."""
 
     def __init__(self, use_cuda=True, loss_name=None, main_program=None,
                  share_vars_from=None, exec_strategy=None,
@@ -247,37 +269,59 @@ class ParallelExecutor:
         return self._exe.compile_cache_info()
 
     # ------------------------------------------------------------------
-    def _prepare_program(self, program, use_zero1, gss, dp_n):
+    def _prepare_program(self, program, use_zero1, gss, dp_n, use_auto):
         """The program this rank runs: zero1's rewrite (its gradient
         reduce-scatters carrying the GradientScaleStrategy) or the
-        GradientScaleStrategy.One scale ops, then, inside a group, the
-        all-reduce of every gradient zero1 does not reduce-scatter. Cached
-        per (program identity, mutation, zero1, scale strategy, dp size).
-        Returns (program, Zero1Plan)."""
-        key = (id(program), program._mutation, use_zero1, gss, dp_n)
+        GradientScaleStrategy.One scale ops; then, with autoshard on or
+        an mp axis of more than one rank, the ShardingPlan over that
+        program and its lowering for this rank (parallel/autoshard); then,
+        inside a group whose dp axis has more than one rank (or a group
+        of one), the all-reduce of every gradient zero1 does not
+        reduce-scatter. Cached per (program identity, mutation, zero1,
+        scale strategy, dp size, autoshard). Returns a _Prepared."""
+        key = (id(program), program._mutation, use_zero1, gss, dp_n,
+               use_auto)
         hit = self._rewrite_cache.get(key)
         if hit is not None:
             return hit
         one = gss == BuildStrategy.GradientScaleStrategy.One
         scale = float(dp_n) if one else 1.0
+        zero1_on = False
         if use_zero1:
             run, plan = _zero1.apply(program, dp_n, grad_scale=scale,
                                      mesh=self._mesh)
             if not plan.entries:
                 run = program
+            zero1_on = bool(plan.entries)
         else:
             plan = _zero1.build_plan(program, dp_n, mesh=self._mesh)
             run = program
             if one and plan.entries:
                 run = _zero1.apply_grad_scale(program, plan, scale)
-        if self._mesh.distributed:
-            reduced = {op.inputs["X"][0] for op in run.global_block().ops
-                       if op.type == "zero1_scatter" and op.attrs.get(
-                           "reduce", False)}
+        # the gradients zero1 reduce-scatters (before a lowering renames
+        # the scatters' inputs to their gathered whole)
+        reduced = {op.inputs["X"][0] for op in run.global_block().ops
+                   if op.type == "zero1_scatter" and op.attrs.get(
+                       "reduce", False)}
+        mesh_axes = dict(self._mesh.shape)
+        # the program in the JAX package's layout ([W, shard] zero1
+        # accumulators over dp): what the plan and the checks read
+        view = _global_view(run, plan) if zero1_on else run
+        aplan = low = None
+        if use_auto or mesh_axes.get(_mesh.MP_AXIS, 1) > 1:
+            aplan = _autoshard.build_plan(view, mesh_axes)  # bad seed: raise
+            low = _lower.lower(run, aplan)
+            run = low.program
+        else:
+            _autoshard.validate_seeds(program, mesh_axes)
+        if self._mesh.distributed and (
+                dp_n > 1 or math.prod(mesh_axes.values()) == 1):
             run = insert_grad_all_reduce(run, _optimized_params(program),
                                          reduced)
-        self._rewrite_cache[key] = (run, plan)
-        return run, plan
+        hit = _Prepared(run, plan, view, aplan, low,
+                        zero1_on or (low is not None and bool(low.local)))
+        self._rewrite_cache[key] = hit
+        return hit
 
     def _local_feed(self, feed, axis):
         """This rank's rows of a global-batch feed dict (batch on `axis`)."""
@@ -308,12 +352,23 @@ class ParallelExecutor:
             local[name] = value[index]
         return local
 
-    def _gathered(self, program, name, value, axis):
-        """A batch-leading fetch (its var's dim 0 is -1) as the global
-        batch, every rank's rows in rank order; any other as it is."""
+    def _gathered(self, program, name, value, axis, low):
+        """A fetch whole: an mp-sharded var's local block gathered over
+        mp (its dim shifted by `axis`, the batch axis, for iters' leading
+        step axis), then a batch-leading one (its var's dim 0 is -1) as
+        the global batch, every rank's rows in rank order; any other as
+        it is."""
+        if not isinstance(value, torch.Tensor):
+            return value
+        entry = low.local.get(name) if low is not None else None
+        if entry is not None:
+            d, whole, local = entry
+            if whole[d] != local[d] and value.shape[d + axis] == local[d]:
+                value = collective_ops.gather_dim(
+                    value, self._mesh.axis(_mesh.MP_AXIS), d + axis)
         var = program.global_block().vars.get(name)
         if self._mesh.size == 1 or var is None or not var.shape \
-                or var.shape[0] != -1 or not isinstance(value, torch.Tensor):
+                or var.shape[0] != -1:
             return value
         rows = collective_ops.all_gather(value, self._mesh)
         return torch.cat(rows.unbind(0), dim=axis)
@@ -337,9 +392,6 @@ class ParallelExecutor:
             if flags.get(name):
                 raise _not_ported(f"FLAGS_{name} ({what})")
         bs = self._build_strategy
-        if bs.auto_sharding:
-            raise _not_ported(f"BuildStrategy.auto_sharding "
-                              f"({_UNPORTED_FLAGS['autoshard']})")
         feed = feed if feed is not None else feed_dict
         if hasattr(feed, "next_feed"):
             raise _not_ported("a DataPipe feed (ROADMAP queue 1 item 3)")
@@ -363,14 +415,30 @@ class ParallelExecutor:
                 bs.reduce_strategy == BuildStrategy.ReduceStrategy.Reduce)
         dp_n = self._mesh.shape[_mesh.DP_AXIS]
         use_zero1 = bool(use_zero1) and dp_n >= 2
-        run_program, zplan = self._prepare_program(
-            program, use_zero1, bs.gradient_scale_strategy, dp_n)
+        use_auto = bs.auto_sharding
+        if use_auto is None:
+            use_auto = bool(flags.get("autoshard"))
+        use_auto = bool(use_auto) and math.prod(self._mesh.shape.values()) > 1
+        prep = self._prepare_program(
+            program, use_zero1, bs.gradient_scale_strategy, dp_n, use_auto)
+        run_program, zplan, aplan, low = (prep.program, prep.zplan,
+                                          prep.aplan, prep.lowering)
+        self._exe.plan_digest = aplan.digest() if aplan is not None else None
         if use_zero1 and zplan.entries:
             # accumulators live in this rank's [1, shard] row; a full-layout
             # scope (startup, or convert.load_numpy_state) converts here
             zplan.ensure_scope_sharded(scope)
         else:
             _zero1.ensure_scope_unsharded(scope, program)
+        if low is not None and low.local:
+            # this rank's slice of every mp-sharded persistable that the
+            # scope holds whole (startup, a restore, load_numpy_state)
+            _lower.register_lowering(low, self._mesh.axis(_mesh.MP_AXIS))
+            _lower.ensure_scope_local(scope, low)
+        if use_auto:
+            _autoshard.register_plan(aplan)
+            if mon is not None:
+                _plan_gauges(mon, aplan)
         if mon is not None and zplan.entries:
             # analytic ring-collective accounting for the dp gradient path
             # (bytes, not time); journal extras ride into the JSONL record
@@ -408,7 +476,18 @@ class ParallelExecutor:
             verify = {"mesh_axes": dict(self._mesh.shape),
                       "zplan": zplan if use_zero1 and zplan.entries
                       else None,
+                      "aplan": aplan if use_auto else None,
                       "context": "parallel_executor"}
+            if prep.local_layout:
+                # the checks read the global layout (the sharding and plan
+                # checks, the shape contracts of zero1's ops): they run on
+                # the program in the JAX package's layout, and not again on
+                # the rank's, whose descs hold this rank's shapes
+                analysis.ensure_verified(
+                    prep.view, feed_names=_feed_names_of(local),
+                    fetch_names=fetch_names,
+                    donate_state=not flags.get("debug_nans"), **verify)
+                verify = {"level": "off"}
             outs, done = self._exe._run(run_program, scope, local, fetch_names,
                                         iters, mon, kind="parallel_executor",
                                         verify=verify)
@@ -434,7 +513,7 @@ class ParallelExecutor:
                 if res is not None:
                     replica_ms, replica_ids = res
             axis = 0 if iters is None else 1
-            outs = [self._gathered(program, n, o, axis)
+            outs = [self._gathered(program, n, o, axis, low)
                     for n, o in zip(fetch_names, outs)]
             if async_fetch:
                 outs = fetch_futures(outs, self._exe.device)
@@ -460,3 +539,83 @@ class ParallelExecutor:
             if t is not None:
                 self._scope.set_var(p.name, collective_ops.broadcast(
                     t, self._mesh, 0))
+
+
+class _Prepared:
+    """What ParallelExecutor._prepare_program resolved: the program this
+    rank runs, the Zero1Plan, `view` (the program before the lowering and
+    the gradient all-reduce, in the JAX package's layout: what the plan
+    is built on and FLAGS_verify checks), the ShardingPlan and its
+    Lowering (None where no plan was built), and whether the rank's
+    program holds local shapes (zero1's rows or an mp lowering)."""
+
+    __slots__ = ("program", "zplan", "view", "aplan", "lowering",
+                 "local_layout")
+
+    def __init__(self, program, zplan, view, aplan, lowering,
+                 local_layout):
+        self.program = program
+        self.zplan = zplan
+        self.view = view
+        self.aplan = aplan
+        self.lowering = lowering
+        self.local_layout = local_layout
+
+
+def _global_view(program, zplan):
+    """A clone of the zero1-rewritten `program` whose shard-layout vars
+    hold the JAX package's [W, shard] shapes (this rank holds [1, shard]
+    of each): the view the ShardingPlan is built on."""
+    view = program.clone()
+    gb = view.global_block()
+    for e in zplan.entries:
+        names = [name for _, _, name, _ in e.accums] + [
+            e.grad + "@zero1_rs", e.param + "@zero1_shard",
+            e.param + "@zero1_upd"]
+        for name in names:
+            var = gb.vars.get(name)
+            if var is not None:
+                var.shape = (zplan.parts, e.shard)
+    return view
+
+
+def _feed_names_of(feed):
+    """The names a local feed (a dict, or iters' list of dicts) feeds."""
+    if isinstance(feed, list):
+        return list(feed[0]) if feed else []
+    return list(feed)
+
+
+def _plan_gauges(mon, aplan):
+    """The autoshard plan's gauges and journal extra, as the JAX
+    package's ParallelExecutor sets them."""
+    reg = monitor.registry()
+    reg.gauge(
+        "autoshard_reshard_bytes_per_step",
+        help="analytic per-step reshard traffic forced by plan "
+             "conflicts and locked-seed boundaries",
+    ).set(float(aplan.reshard_bytes_per_step()))
+    reg.gauge(
+        "autoshard_plan_vars",
+        help="variables covered by the active autoshard plan",
+    ).set(float(len(aplan.specs)))
+    reg.gauge(
+        "autoshard_plan_sharded_vars",
+        help="plan variables with at least one sharded dim",
+    ).set(float(len(aplan.sharded_names())))
+    reg.gauge(
+        "autoshard_conflicts_resolved",
+        help="propagation conflicts arbitrated by the cost model",
+    ).set(float(len(aplan.conflicts)))
+    reg.gauge(
+        "autoshard_unresolved_vars",
+        help="plan variables with no resolvable layout (should be 0)",
+    ).set(float(len(aplan.unresolved)))
+    if mon.extra is None:
+        mon.extra = {}
+    mon.extra["autoshard"] = {
+        "digest": aplan.digest(),
+        "sharded_vars": len(aplan.sharded_names()),
+        "conflicts": len(aplan.conflicts),
+        "reshard_bytes": int(aplan.reshard_bytes_per_step()),
+    }

@@ -6,8 +6,8 @@ The same layer calls build the same programs in both packages; `verify` at
 index, var), except where the port's program or its semantics differ,
 each listed in DIFFERENCES with its reason. The JAX package's mutation
 cases (tests/test_analysis.py) run on both packages' programs and fire the
-same codes, PTA001 to PTA034 (but PTA022/PTA023, the autoshard plan's,
-whose module is not ported: ROADMAP queue 1 item 6). `estimate_peak_hbm` gives the JAX package's
+same codes, PTA001 to PTA034, the autoshard plan's PTA022/PTA023
+included. `estimate_peak_hbm` gives the JAX package's
 bytes on the same program. Then the port's own wiring: ensure_verified's
 memo, the Executor refusing a broken program before any of its steps is
 launched, the fused headline-style program verifying clean at `full`,
@@ -317,11 +317,32 @@ def test_zero1_rewritten_program_verifies_as_the_jax_package():
 
 
 def test_verify_rejects_unknown_level_and_an_autoshard_plan():
+    """An unknown level raises; an autoshard plan verifies (PTA020-023 in
+    scope) with the JAX package's diagnostics, and a reshard edge whose
+    bytes the transition model does not reproduce is PTA023 in both."""
     main, feeds, fetches = _build(fluid, _mlp)
     with pytest.raises(ValueError, match="level"):
         analysis.verify(main, level="paranoid")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        analysis.verify(main, level="full", aplan=object())
+    reports = []
+    for pkg in (jfluid, fluid):
+        main, feeds, fetches = _build(pkg, _mlp)
+        gb = main.global_block()
+        pkg.parallel.set_sharding(gb.var("fc_0.w_0"), (None, "mp"))
+        pkg.parallel.set_sharding(gb.var("fc_1.w_0"), ("pp", None))
+        plan = pkg.parallel.autoshard.build_plan(
+            main, {"dp": 2, "mp": 2, "pp": 2})
+        reports.append(PACKAGES[pkg][0].verify(
+            main, level="full", feed_names=feeds, fetch_names=fetches,
+            mesh_axes={"dp": 2, "mp": 2, "pp": 2}, aplan=plan))
+        if pkg is fluid:
+            assert plan.is_total() and plan.sharded_names()
+            assert reports[-1].ok, [str(d) for d in reports[-1].errors()]
+            plan.reshard_edges.append({"var": "fc_0.w_0", "src": ("mp",),
+                                       "dst": (), "op": "x", "bytes": 1})
+            assert "PTA023" in analysis.verify(
+                main, level="full", feed_names=feeds, fetch_names=fetches,
+                mesh_axes={"dp": 2, "mp": 2, "pp": 2}, aplan=plan).codes()
+    assert _diags(reports[0]) == _diags(reports[1])
 
 
 # ---------------------------------------------------------------------------

@@ -256,12 +256,13 @@ def test_mesh_spec_reform(tmp_path):
     """MeshSpec over a group the controller re-forms: distributed.reform
     destroys the default group and makes a new one; a mesh of the old
     group is stale and refuses to run, a ParallelExecutor over it too,
-    and the new mesh is live. Only the dp axis is elastic; mp > 1 is item
-    6's."""
+    and the new mesh is live. Only the dp axis is elastic: the fixed axes
+    (mp, pp) multiply the ranks a dp of one needs."""
     spec = tmesh.MeshSpec()
     assert spec.geometry(3) == {"dp": 3}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         tmesh.MeshSpec(mp=2).build(1)
+    assert tmesh.MeshSpec(mp=2).geometry(2) == {"dp": 2, "mp": 2}
     assert tmesh.MeshSpec(pp=2).geometry(2) == {"dp": 2, "pp": 2}
     tdist.initialize("file://" + str(tmp_path / "rdv0"), 1, 0)
     try:

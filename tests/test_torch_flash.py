@@ -81,8 +81,9 @@ def test_parallel_package_exports():
     # flash and, since the data-parallel slice, the mesh, the bootstrap,
     # zero1 and the sharding annotations; since the ring and pipeline
     # slice, the RPC runtime, ring attention and the pipeline; since the
-    # control plane, the elastic controller: names of the JAX package's
-    # parallel package, which has more (autoshard, the sharded embedding)
+    # control plane, the elastic controller; since tensor parallelism,
+    # autoshard and the sharded embedding: the names of the JAX package's
+    # parallel package, all of them
     assert sorted(parallel.__all__) == sorted([
         "mesh", "distributed", "api", "flash", "zero1", "rpc", "ring",
         "pipeline", "elastic", "make_mesh", "data_parallel_mesh",
@@ -91,8 +92,9 @@ def test_parallel_package_exports():
         "ring_attention", "ring_attention_sharded", "ring_flash_attention",
         "ring_flash_attention_sharded", "ElasticController",
         "ElasticConfig", "ElasticError", "Resized", "RescalePolicy",
-        "LinearRescale", "ConstantRescale"])
-    assert set(parallel.__all__) <= set(jparallel.__all__)
+        "LinearRescale", "ConstantRescale", "autoshard",
+        "sharded_embedding", "shard_table", "sharded_embedding_lookup"])
+    assert set(parallel.__all__) == set(jparallel.__all__)
     assert tfluid.parallel.flash_attention is tflash.flash_attention
 
 

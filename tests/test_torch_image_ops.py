@@ -110,7 +110,11 @@ def test_the_family_is_the_jax_packages():
     assert jax_family == set(ACTIVATIONS)
     for op in ACTIVATIONS:
         assert treg.get_op_def(op) is not None, op
-        assert treg.get_op_def(op + "_grad") is None, op  # derived
+        # derived: no explicit grad kernel (a step run earlier in this
+        # process leaves the derived one cached under the grad's name)
+        grad = treg.get_op_def(op + "_grad")
+        assert grad is None or grad.fn.__qualname__.startswith(
+            "make_vjp_kernel."), op
 
 
 @pytest.mark.parametrize("op,attrs", ACT_CASES,

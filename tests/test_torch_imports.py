@@ -397,12 +397,9 @@ def test_ring_and_pipeline_modules_load_no_jax_in_a_fresh_interpreter(
 
 
 # the JAX parallel package's names the port leaves out, each with the
-# ROADMAP queue 1 item that owns it: autoshard and the sharded embedding
-# (item 6)
-PARALLEL_EXCEPTIONS = {
-    "autoshard": "item 6", "sharded_embedding": "item 6",
-    "shard_table": "item 6", "sharded_embedding_lookup": "item 6",
-}
+# ROADMAP queue 1 item that owns it: none since autoshard and the sharded
+# embedding came with tensor parallelism
+PARALLEL_EXCEPTIONS = {}
 
 
 def test_the_parallel_package_has_the_jax_packages_names():
@@ -420,7 +417,8 @@ def test_the_parallel_package_has_the_jax_packages_names():
     for n in ("ring_attention", "ring_attention_sharded",
               "ring_flash_attention", "ring_flash_attention_sharded",
               "pipeline", "ring", "elastic", "ElasticController",
-              "Resized"):
+              "Resized", "autoshard", "sharded_embedding", "shard_table",
+              "sharded_embedding_lookup"):
         assert n in tpar.__all__ and hasattr(tpar, n), n
     assert sorted(tpipe.__all__) == sorted(jpipe.__all__)
     for n in tpipe.__all__:
@@ -472,6 +470,47 @@ def test_the_ring_worker_imports_only_the_port():
     (tests/torch_ring_worker.py) imports neither jax nor the JAX
     package."""
     path = os.path.join(REPO, "tests", "torch_ring_worker.py")
+    bad = [m for m in _imported_modules(path) if _foreign(m)]
+    assert bad == [], f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("module", [
+    "parallel/autoshard/__init__.py", "parallel/autoshard/spec.py",
+    "parallel/autoshard/plan.py", "parallel/autoshard/rules.py",
+    "parallel/autoshard/propagate.py", "parallel/autoshard/search.py",
+    "parallel/autoshard/lower.py", "parallel/sharded_embedding.py",
+    "analysis/plans.py", "parallel_executor.py", "cli.py"])
+def test_the_tensor_parallel_slice_is_among_the_checked_sources(module):
+    """Autoshard, the port's partitioner, the sharded embedding and the
+    plan checks are checked by the test above."""
+    assert os.path.join(PORT, module) in set(_sources())
+
+
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch.parallel.autoshard",
+    "paddle_tpu_torch.parallel.autoshard.lower",
+    "paddle_tpu_torch.parallel.sharded_embedding"])
+def test_tensor_parallel_modules_load_no_jax_in_a_fresh_interpreter(module):
+    """Autoshard and the sharded embedding, imported alone in a fresh
+    interpreter, load neither jax nor the JAX package (autoshard keeps its
+    own copies of the JAX package's pure-Python modules)."""
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        f"import {module}\n"
+        "print('\\n'.join(sorted(set(sys.modules) - before)))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    loaded = proc.stdout.split()
+    assert module in loaded
+    assert [m for m in loaded if _foreign(m)] == []
+
+
+def test_the_tensor_parallel_worker_imports_only_the_port():
+    """The worker the tensor-parallel tests run as their ranks
+    (tests/torch_tp_worker.py) imports neither jax nor the JAX package."""
+    path = os.path.join(REPO, "tests", "torch_tp_worker.py")
     bad = [m for m in _imported_modules(path) if _foreign(m)]
     assert bad == [], f"{path} imports {bad}"
 

@@ -47,6 +47,7 @@ from paddle_tpu_torch.parallel import mesh as tmesh
 from paddle_tpu_torch.parallel import zero1 as tzero1
 
 import torch_dp_worker as worker
+import torch_tp_worker as tp_worker
 
 STEPS = 5
 BATCH = 16
@@ -420,10 +421,6 @@ def test_ragged_feeds_and_unported_paths_raise(one_rank, tmp_path):
     with tflags.flag_guard(overlap_plan=True), \
             pytest.raises(NotImplementedError, match="overlap schedule"):
         pe.run([loss], feed={"img": x[0], "label": y[0]})
-    pe._build_strategy.auto_sharding = True
-    with pytest.raises(NotImplementedError, match="autoshard"):
-        pe.run([loss], feed={"img": x[0], "label": y[0]})
-    pe._build_strategy.auto_sharding = None
     # the compile cache and the distributed compile service: a prepare
     # that misses its store asks the master, wins the single-flight
     # lease, prepares and publishes its plan (kind parallel_executor)
@@ -445,6 +442,12 @@ def test_ragged_feeds_and_unported_paths_raise(one_rank, tmp_path):
     assert (info["remote_misses"], info["remote_hits"], info["puts"]) == \
         (1, 0, 1)
     assert (stats["leases"], stats["puts"], stats["entries"]) == (1, 1, 1)
+    # autoshard is ported: on one rank, as on one JAX device, it is off
+    # (no plan is built or registered) and the step runs
+    pe._build_strategy.auto_sharding = True
+    out, = pe.run([loss], feed={"img": x[0], "label": y[0]})
+    assert np.isfinite(out).all()
+    assert tfluid.parallel.autoshard.active_plan() is None
 
 
 def test_async_fetch_futures_equal_the_synchronous_fetches(one_rank):
@@ -476,11 +479,29 @@ def test_async_fetch_futures_equal_the_synchronous_fetches(one_rank):
             np.testing.assert_array_equal(u, v)
 
 
-def test_mesh_axes_other_than_dp_raise(one_rank):
-    with pytest.raises(NotImplementedError, match="item 6"):
+def test_mesh_axes_other_than_dp_raise(one_rank, tmp_path):
+    """A mesh must cover the group: in a group of one, an mp axis of 2
+    needs 2 ranks, as a dp axis of 2 does. Over two ranks the mp axis
+    builds and runs (tests/torch_tp_worker.py: the mlp with its fc pair
+    split over mp, both ranks the same losses)."""
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         _mlp_pe(mesh_shape={"dp": 1, "mp": 2})
     with pytest.raises(ValueError, match="needs 2 ranks"):
         _mlp_pe(mesh_shape={"dp": 2})
+    init = str(tmp_path / "init.npz")
+    data = str(tmp_path / "data.npz")
+    tmain, tstart, _ = tp_worker.build(tfluid, "mlp", "sgd")
+    scope = tfluid.Scope()
+    tfluid.Executor(tfluid.CPUPlace()).run(tstart, scope=scope)
+    np.savez(init, **convert.numpy_state(scope, tmain))
+    np.savez(data, **tp_worker.batches("mlp", 2, 8))
+    got = tp_worker.launch(2, {"dp": 1, "mp": 2}, [{
+        "kind": "pe", "name": "mp2", "net": "mlp", "opt": "sgd",
+        "auto": False, "reduce": False, "init": init, "data": data,
+        "fetch_grads": []}], str(tmp_path / "mp2"))["mp2"]
+    assert np.isfinite(got[0]["losses"]).all()
+    np.testing.assert_array_equal(got[0]["losses"], got[1]["losses"])
+    assert tuple(got[1]["shape/w1"]) == (16, 16)
     pe, _ = _mlp_pe(mesh_shape={"dp": 1, "mp": 1})
     assert pe.device_count == 1
     pe, _ = _mlp_pe(devices=[tfluid.CPUPlace()])  # one place a rank
@@ -551,9 +572,9 @@ def test_mesh_without_a_group():
     spec = tmesh.MeshSpec(mp=1)
     assert spec.max_dp() == 1 and spec.geometry(1) == {"dp": 1, "mp": 1}
     assert spec.build(1).size == 1
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         tmesh.MeshSpec(mp=2).build(1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         tmesh.make_mesh((1, 2))
     with pytest.raises(ValueError):
         tmesh.data_parallel_mesh(2)

@@ -268,12 +268,15 @@ def test_on_the_mesh_the_ops_shift_along_their_axes(results, world):
 
 
 def test_mesh_axes_take_the_jax_packages_order():
-    """make_mesh names the axes as the JAX package does, and refuses mp."""
+    """make_mesh names the axes as the JAX package does; an mp axis, like
+    any other, needs its ranks (the tensor-parallel slice's tests run it
+    over two)."""
     m = tmesh.make_mesh((1, 1, 1, 1))
     assert list(m.shape) == ["dp", "mp", "pp", "sp"]
     assert m.axis("sp") is None and m.axis("pp") is None
+    assert m.axis("mp") is None
     assert tmesh.make_mesh({"sp": 1}).shape == {"sp": 1, "dp": 1}
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         tmesh.make_mesh({"mp": 2})
     with pytest.raises(ValueError, match="needs 4 ranks"):
         tmesh.make_mesh({"sp": 4})
