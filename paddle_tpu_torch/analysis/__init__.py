@@ -9,7 +9,8 @@ same codes and verdicts, over the port's IR:
   * safety analyses (read-after-update of a persistable the step writes
     in place, write-after-read from in-place rewiring, cross-replica
     collective order) — `full`;
-  * SSA dataflow-graph hazards (PTA03x, `dataflow`) — `full`;
+  * SSA dataflow-graph hazards (PTA03x, `dataflow`) plus the static
+    overlap scheduler (`schedule`) — `full`;
   * sharding/plan validation (mesh axes, divisibility, the zero1 plan's
     geometry, the autoshard plan's totality and reshard-edge audit) —
     `full`, when a mesh or plan is in scope;
@@ -21,14 +22,14 @@ Wired behind FLAGS_verify into the Executor's prepare: the verify runs on
 a prepared step's miss only, memoized per (program identity, mutation,
 level, feeds/fetches/mesh), so the steady-state cost of an enabled flag is
 zero and of the flag itself one check; it raises before anything of the
-step is launched. Not ported: the static overlap schedule (`schedule`,
-ROADMAP queue 1 item 6).
+step is launched.
 """
 
 from .. import flags
 from .diagnostics import (CATALOG, Diagnostic, ProgramVerificationError,
                           Report, Severity)
 from . import dataflow
+from . import schedule
 from . import plans as _plans
 from . import safety as _safety
 from . import verifier as _verifier
@@ -37,7 +38,7 @@ from .hbm import estimate_peak_hbm, measured_live_bytes
 __all__ = ["verify", "ensure_verified", "reset", "LEVELS",
            "Diagnostic", "Report", "Severity", "ProgramVerificationError",
            "CATALOG", "estimate_peak_hbm", "measured_live_bytes",
-           "dataflow"]
+           "dataflow", "schedule"]
 
 flags.define(
     "verify", str, "off",

@@ -40,6 +40,19 @@ journals and ledgers:
   analyze graph|fusion [--model-dir D | --selftest] [--zero1 N] ...
                      the SSA dataflow graph and its PTA03x hazards, or
                      the fusion pass's plan
+  analyze schedule [--model-dir D | --selftest] [--mesh dp=8] [--zero1 N]
+        [--batch N] [--bucket-bytes B] [--peak-tflops F] [--link-gbps F]
+        [--json] [--quiet]
+                     the critical path over the analytic cost models
+                     (compute at the card's peak, the zero1 collectives'
+                     ring bytes over its link) and the bucketed
+                     reduce-scatter overlap plan; the defaults are one
+                     H100 SXM's data-sheet figures, and --peak-tflops
+                     197 --link-gbps 180 give the JAX command's report.
+                     --selftest plans a zero1-rewritten demo program
+                     (buckets must hoist) and a seeded gather rewire
+                     (must be refused with PTA033); rc 0 ok, 1 refused
+                     or failed, 2 usage
   analyze pipeline [--model-dir D | --selftest] [--stages P]
         [--microbatches M] [--place cuda|cpu] ...
                      the pp-axis stage partition, its PTA040/041
@@ -114,9 +127,6 @@ journals and ledgers:
                      --peak-tflops 275 --link-gbps 90 give the JAX
                      command's. rc 0 ok, 1 error, 2 the searched plan
                      costs more than the manual seeds.
-
-The JAX CLI's `analyze schedule` (ROADMAP queue 1 item 6) is not ported
-yet.
 """
 
 import argparse
@@ -510,6 +520,14 @@ def _search_default(name):
     return getattr(search, name)
 
 
+def _schedule_default(name):
+    """analysis/schedule.py's default constant `name` (DEFAULT_PEAK_FLOPS,
+    DEFAULT_ICI_BYTES_PER_S)."""
+    from .analysis import schedule
+
+    return getattr(schedule, name)
+
+
 def _shard_demo_program():
     """Small embedding+fc net with mp seeds on the embedding table and the
     first fc weight (the JAX command's demo net)."""
@@ -716,10 +734,7 @@ def _cmd_analyze(args):
         return program, feeds
 
     if args.analyze_action == "schedule":
-        print("analyze schedule: not ported yet — the static overlap "
-              "schedule (analysis/schedule.py): ROADMAP queue 1 item 6",
-              file=sys.stderr)
-        return 2
+        return _cmd_analyze_schedule(args, mesh_axes)
     if args.analyze_action == "pipeline":
         return _cmd_analyze_pipeline(args)
 
@@ -871,6 +886,93 @@ def _cmd_analyze(args):
         else:
             print(render(plan))
         return 0
+
+
+def _seed_gather_rewire(program):
+    """Clone of a zero1-rewritten program whose first zero1_gather is
+    rewired to consume the PRE-update param shard: the flat index order
+    stays valid (PTA012-clean) but the gather no longer consumes the
+    update, the dependence-path divergence only PTA033 sees."""
+    clone = program.clone()
+    gb = clone.global_block()
+    gat = next(op for op in gb.ops if op.type == "zero1_gather")
+    pupd = gat.input("X")[0]
+    gat.rename_input(pupd, pupd.replace("@zero1_upd", "@zero1_shard"))
+    clone._mutation += 1
+    return clone
+
+
+def _cmd_analyze_schedule(args, mesh_axes):
+    """`analyze schedule`: the JAX command's report and rc codes, costed
+    at --peak-tflops / --link-gbps. A zero1-rewritten program is costed in
+    the JAX package's layout (zero1.global_view: [W, shard] where a rank
+    holds [1, shard]) and reordered as it is."""
+    import json
+
+    from .analysis import ProgramVerificationError, schedule
+    from .parallel import zero1 as _z1
+
+    knobs = {"peak_flops": args.peak_tflops * 1e12,
+             "ici_bytes_per_s": args.link_gbps * 1e9}
+    if args.selftest:
+        prog, feeds, _ = _check_demo_program()
+        parts = args.zero1 or (mesh_axes or {}).get("dp", 8)
+        z, zplan = _z1.apply(prog, parts)
+        sched = schedule.analyze(
+            _z1.global_view(z, zplan), mesh_axes=mesh_axes or {"dp": parts},
+            feed_names=feeds, batch_size=args.batch,
+            bucket_bytes=args.bucket_bytes, **knobs)
+        reordered, plan = schedule.apply_plan(z, sched.plan,
+                                              feed_names=feeds)
+        ok = sched.critical_path_ms > 0 and len(plan.buckets) > 0 \
+            and len(plan.moves) > 0 and reordered is not z
+        # the seeded divergence must be REJECTED, never silently scheduled
+        rejected = False
+        codes = []
+        try:
+            schedule.analyze(_seed_gather_rewire(z),
+                             mesh_axes=mesh_axes or {"dp": parts},
+                             feed_names=feeds, **knobs)
+        except ProgramVerificationError as e:
+            rejected = True
+            codes = sorted(e.report.codes())
+        ok = ok and rejected and "PTA033" in codes
+        if args.json:
+            print(json.dumps({"ok": ok, "schedule": sched.to_dict(),
+                              "seeded_rejected": rejected,
+                              "seeded_codes": codes}, indent=2))
+        else:
+            print(sched.render())
+            print(f"--- seeded gather-rewire clone: "
+                  f"{'rejected ' + str(codes) if rejected else 'NOT rejected'}"
+                  f" ---")
+            print(f"analyze schedule selftest: {'OK' if ok else 'FAILED'}")
+        return 0 if ok else 1
+
+    if not args.model_dir:
+        print("analyze schedule needs --model-dir or --selftest",
+              file=sys.stderr)
+        return 2
+    loaded = _load_saved_program(args.model_dir)
+    if isinstance(loaded, str):
+        print(loaded, file=sys.stderr)
+        return 2
+    program, feeds, _ = loaded
+    if args.zero1:
+        program, zplan = _z1.apply(program, args.zero1)
+        program = _z1.global_view(program, zplan)
+    try:
+        sched = schedule.analyze(
+            program, mesh_axes=mesh_axes, feed_names=feeds,
+            batch_size=args.batch, bucket_bytes=args.bucket_bytes, **knobs)
+    except ProgramVerificationError as e:
+        print(e.report.render(verbose=not args.quiet), file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(sched.to_dict(), indent=2))
+    else:
+        print(sched.render())
+    return 0
 
 
 def _pipeline_demo_program():
@@ -1722,9 +1824,9 @@ def main(argv=None):
                     help="show errors only, not warnings")
 
     an = sub.add_parser("analyze", help="SSA dataflow graph, PTA03x hazard "
-                                        "detection, the fusion plan and "
-                                        "the pipeline partition; the "
-                                        "overlap schedule is not ported")
+                                        "detection, the overlap schedule, "
+                                        "the fusion plan and the pipeline "
+                                        "partition")
     ansub = an.add_subparsers(dest="analyze_action", required=True)
     ag = ansub.add_parser("graph", help="build the SSA def-use dependency "
                                         "graph and run the dataflow hazard "
@@ -1743,8 +1845,8 @@ def main(argv=None):
     ag.add_argument("--quiet", action="store_true",
                     help="show errors only, not warnings")
     asch = ansub.add_parser(
-        "schedule", help="not ported (ROADMAP queue 1 item 6): critical "
-                         "path and the bucketed reduce-scatter overlap plan")
+        "schedule", help="critical path over the analytic cost models and "
+                         "the bucketed reduce-scatter overlap plan")
     asch.add_argument("--model-dir", default=None,
                       help="save_inference_model directory to schedule")
     asch.add_argument("--mesh", default="dp=8", metavar="NAME=SIZE,...",
@@ -1767,6 +1869,17 @@ def main(argv=None):
                       help="emit the schedule report as JSON")
     asch.add_argument("--quiet", action="store_true",
                       help="show errors only, not warnings")
+    asch.add_argument("--peak-tflops", type=float,
+                      default=_schedule_default("DEFAULT_PEAK_FLOPS") / 1e12,
+                      help="the card's dense peak a compute node is costed "
+                           "at (default: one H100 SXM's bf16 data-sheet "
+                           "figure; 197 gives the JAX command's)")
+    asch.add_argument("--link-gbps", type=float,
+                      default=_schedule_default("DEFAULT_ICI_BYTES_PER_S")
+                      / 1e9,
+                      help="GB/s a collective's ring bytes cross (default: "
+                           "one direction of an H100 SXM's NVLink, data "
+                           "sheet; 180 gives the JAX command's)")
     afu = ansub.add_parser(
         "fusion", help="cost-guided operator fusion plan: vertical "
                        "elementwise chains and the bucketed fused weight "

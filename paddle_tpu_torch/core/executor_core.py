@@ -232,6 +232,28 @@ class OpContext:
         # FLAGS_debug_nans keeps its runs on the interpreter (eager)
         self.debug_nans = eager and flags.get("debug_nans")
         self.profile = eager and profiler.enabled()
+        # {var name: finish()} of collectives issued asynchronously (the
+        # overlap schedule's hoisted reduce-scatters): run_ops finishes
+        # each before the first op that reads or writes its name
+        self.pending = {}
+
+    def defer(self, name, finish):
+        """Hold `finish` (the wait of an asynchronous collective writing
+        `name`) until an op reads or writes `name`, or the ops end."""
+        self.pending[name] = finish
+
+    def finish_pending(self, op=None):
+        """Finish the deferred collectives `op` reads or writes (every
+        one when `op` is None or has a sub-block)."""
+        if op is None or any(hasattr(v, "ops") for v in op.attrs.values()):
+            names = list(self.pending)
+        else:
+            names = [n for n in op.input_arg_names() + op.output_arg_names()
+                     if n in self.pending]
+        for n in names:
+            finish = self.pending.pop(n, None)
+            if finish is not None:
+                finish()
 
     def run_block(self, block, env):
         """Run a sub-block's ops against `env` (the control-flow ops).
@@ -273,16 +295,22 @@ def run_ops(ops, env, ctx, fetch_names=(), state_names=()):
     """Run `ops` in order on `env`. Before an op that writes a name of
     `state_names` (the persistables the step writes), every one of
     `fetch_names` already computed that shares that name's memory becomes
-    a copy (copy_aliased_fetches)."""
+    a copy (copy_aliased_fetches). A collective an op issued
+    asynchronously (OpContext.defer) is waited for before the first op
+    that reads or writes its output, and at the end."""
     state = set(state_names)
     watch = [n for n in fetch_names if n not in state]
     ctx.env = env
     for op in ops:
+        if ctx.pending:
+            ctx.finish_pending(op)
         if watch:
             written = [n for n in op.output_arg_names() if n in state]
             if written:
                 copy_aliased_fetches(env, watch, written)
         _run_one_op(op, env, ctx)
+    if ctx.pending:
+        ctx.finish_pending()
     return env
 
 

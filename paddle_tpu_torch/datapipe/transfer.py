@@ -24,6 +24,7 @@ by torch's round-to-nearest-even, numpy having no such dtype), the decode
 its jnp expression in torch ops, in its order.
 """
 
+import contextlib
 import functools
 
 import numpy as np
@@ -32,7 +33,7 @@ import torch
 from ..flags import define, get as get_flag
 
 __all__ = ["WireFormat", "WireSpec", "WIRE_KEY", "DONATE_KEY",
-           "pop_markers", "auto_wire"]
+           "pop_markers", "pull_feed", "staged_feed", "auto_wire"]
 
 WIRE_KEY = "__wire__"      # staged-chunk metadata: the chunk's WireSpec
 # staged-chunk metadata: the chunk's device buffers return to the feeder's
@@ -293,3 +294,44 @@ def pop_markers(feed):
     wire = feed.pop(WIRE_KEY, None)
     lease = feed.pop(DONATE_KEY, None)
     return feed, wire, lease
+
+
+def pull_feed(feed, iters, mon):
+    """A run's feed: a DataPipe's (duck-typed: `next_feed`) next staged
+    chunk, pulled in the monitor's `feed_wait` phase when `mon` is on,
+    with `iters` defaulted to the pipe's `feed_iters`; any other feed as
+    it is. Returns (feed, iters, pipe or None)."""
+    if not hasattr(feed, "next_feed"):
+        return feed, iters, None
+    pipe = feed
+    if iters is None:
+        iters = getattr(pipe, "feed_iters", None)
+    if mon is None:
+        return pipe.next_feed(), iters, pipe
+    with mon.timed("feed_wait"):
+        return pipe.next_feed(), iters, pipe
+
+
+@contextlib.contextmanager
+def staged_feed(feed, device):
+    """A run's feed with its transfer-engine markers popped (pop_markers):
+    yields (feed, wire_spec, keep). A chunk's lease is waited on, on
+    `device`'s current stream, before the body runs, and released after
+    it under FLAGS_donate_feed_buffers; keep(outs) copies each fetch that
+    is (a view of) the leased chunk, which must outlive it (outs as they
+    are without a lease)."""
+    feed, wire, lease = pop_markers(feed)
+    if lease is None:
+        yield feed, wire, lambda outs: outs
+        return
+    from ..core.executor_core import unshared
+
+    stream = torch.cuda.current_stream(device) \
+        if device.type == "cuda" else None
+    lease.wait(stream)
+    chunk = [t for t in feed.values() if isinstance(t, torch.Tensor)]
+    try:
+        yield feed, wire, lambda outs: unshared(outs, chunk)
+    finally:
+        if get_flag("donate_feed_buffers"):
+            lease.release(stream)

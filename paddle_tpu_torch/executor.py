@@ -91,7 +91,7 @@ from .core.lod_tensor import LoDTensor
 from .core.places import CUDAPlace, device_for
 from .core.registry import SeqTensor
 from .core.scope import global_scope
-from .datapipe.transfer import pop_markers
+from .datapipe.transfer import pull_feed, staged_feed
 from .resilience import chaos as _chaos
 from .resilience import watchdog as _watchdog
 from .trace import costs as _trace_costs
@@ -378,15 +378,7 @@ class Executor:
         # the ONE per-step monitor flag check; mon stays None when off and
         # every telemetry site below is gated on `mon is not None`
         mon = monitor.step_begin("executor") if monitor.enabled() else None
-        pipe = feed if hasattr(feed, "next_feed") else None
-        if pipe is not None:  # datapipe.DataPipe (duck-typed)
-            if iters is None:
-                iters = getattr(pipe, "feed_iters", None)
-            if mon is not None:
-                with mon.timed("feed_wait"):
-                    feed = pipe.next_feed()
-            else:
-                feed = pipe.next_feed()
+        feed, iters, pipe = pull_feed(feed, iters, mon)
         with _watchdog.armed("executor"):
             # fault injection (a no-op unless a ChaosMonkey is installed),
             # before the chunk's lease is waited on or released: a retried
@@ -403,24 +395,12 @@ class Executor:
                      return_numpy, async_fetch):
         """The body of run() that the watchdog watches: the run and its
         fetches' readback (futures under async_fetch)."""
-        feed, wire, lease = pop_markers(feed)
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in (fetch_list or [])]
-        stream = torch.cuda.current_stream(self.device) \
-            if self.device.type == "cuda" else None
-        if lease is not None:
-            lease.wait(stream)
-        try:
+        with staged_feed(feed, self.device) as (feed, wire, keep):
             outs, done = self._run(program, scope, feed, fetch_names, iters,
                                    mon, wire=wire)
-            if lease is not None:
-                # a fetch that is (a view of) the chunk must outlive it
-                outs = executor_core.unshared(
-                    outs, [t for t in feed.values()
-                           if isinstance(t, torch.Tensor)])
-        finally:
-            if lease is not None and flags.get("donate_feed_buffers"):
-                lease.release(stream)
+            outs = keep(outs)
         if flags.get("benchmark"):
             self._benchmark(done, len(outs))
         if flags.get("check_nan_inf") and done.mode == "graph":

@@ -70,9 +70,11 @@ _reduce_scatter_tensor = getattr(dist, "reduce_scatter_single", None) \
 def launch(call, *args, **kwargs):
     """Issue one collective `call` (over the group its `group` keyword
     names; the default group without one), synchronously on the current
-    stream, and count it."""
-    call(*args, **kwargs)
+    stream, and count it. With `async_op=True` it returns the call's
+    Work, whose wait() makes the current stream wait for it."""
+    work = call(*args, **kwargs)
     launch.launches += 1
+    return work
 
 
 cuda_build.count_launches(launch, "launches")
@@ -497,6 +499,9 @@ def zero1_scatter_op(ctx, ins, attrs):
     dp = _zero1_group(ctx, parts, "zero1_scatter")
     if dp is None:
         shard = flat.reshape(parts, -1)
+    elif attrs.get("reduce", False) and attrs.get("overlap_async") \
+            and dp.backend == "nccl" and not _solo(dp):
+        return out(Out=_scattered_async(ctx, flat, dp, scale))
     elif attrs.get("reduce", False):
         shard = _scattered(flat, dp).reshape(1, -1)
     else:
@@ -505,6 +510,29 @@ def zero1_scatter_op(ctx, ins, attrs):
     if scale != 1.0:
         shard = shard * float(scale)
     return out(Out=shard)
+
+
+def _scattered_async(ctx, flat, dp, scale):
+    """A scatter the overlap schedule hoisted (analysis/schedule.py), over
+    NCCL: the reduce-scatter issued with async_op=True, so the backward
+    ops after it run beside it, and its wait (with the scale after it)
+    deferred to the first op that reads or writes its output
+    (OpContext.defer). In a captured graph the collective is then a
+    branch off the step's stream, joined where its shard is read. The
+    sum is the same NCCL reduce-scatter as the synchronous path's."""
+    k = flat.shape[0] // dp.size
+    y = flat.new_empty((k,))
+    work = launch(_reduce_scatter_tensor, y, flat.contiguous(),
+                  group=dp.group, async_op=True)
+    shard = y.reshape(1, k)
+
+    def finish():
+        work.wait()
+        if scale != 1.0:
+            shard.mul_(float(scale))
+
+    ctx.defer(ctx.current_op.outputs["Out"][0], finish)
+    return shard
 
 
 @register_op("zero1_gather")

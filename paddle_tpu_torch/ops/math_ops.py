@@ -153,7 +153,10 @@ def mean_op(ctx, ins, attrs):
     (create_bucketed_seq_tensor) carries tail rows past sum(lengths) that
     do not count. Without padding the mask is all true and this is the
     plain mean. Under ParallelExecutor (ctx.dp) it is the global batch's
-    mean; ragged feeds do not run there."""
+    mean; over a SeqTensor that is the sum over the ranks' real tokens
+    over their count, both summed over the ranks (their token counts
+    differ, so it is not the mean of the ranks' means), and each real
+    token's cotangent is 1 / the global count, with no collective."""
     x = first(ins, "X")
     if isinstance(x, SeqTensor):
         data = x.data
@@ -161,6 +164,9 @@ def mean_op(ctx, ins, attrs):
         total = torch.sum(torch.where(m, data.to(torch.float32), 0.0))
         denom = torch.sum(m).to(torch.float32) * float(
             math.prod(data.shape[1:]) or 1)
+        if ctx.dp is not None:
+            both = psum_replicated(torch.stack([total, denom]), ctx.dp)
+            total, denom = both[0], both[1]
         return out(Out=(total / torch.clamp_min(denom, 1.0))
                    .to(data.dtype).reshape(1))
     m = x.mean().reshape(1)

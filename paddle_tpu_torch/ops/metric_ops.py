@@ -127,7 +127,8 @@ def edit_distance_op(ctx, ins, attrs):
     padded hyp axis, each row for the whole batch at once: a row's
     left-to-right recurrence row[j+1] = min(row[j] + 1, c[j]) is the
     running minimum of c[k] + (j - k), one cummin. Exact in f32: every
-    entry is a small integer."""
+    entry is a small integer. Under ParallelExecutor (ctx.dp)
+    SequenceNum is the global batch's, summed over the ranks."""
     h, hlen = _edit_padded(first(ins, "Hyps"))
     r, rlen = _edit_padded(first(ins, "Refs"))
     B, Th = h.shape
@@ -143,9 +144,10 @@ def edit_distance_op(ctx, ins, attrs):
     dist = torch.gather(dp, 1, rlen.long()[:, None])
     if attrs.get("normalized", True):
         dist = dist / torch.clamp_min(rlen.to(torch.float32), 1.0)[:, None]
-    return out(Out=dist.reshape(B, 1),
-               SequenceNum=torch.full((), B, dtype=torch.int64,
-                                      device=h.device))
+    num = torch.full((), B, dtype=torch.int64, device=h.device)
+    if ctx.dp is not None:
+        num = psum(num.reshape(1), ctx.dp).reshape(())
+    return out(Out=dist.reshape(B, 1), SequenceNum=num)
 
 
 set_stop_gradient_outputs("edit_distance", ["Out", "SequenceNum"])
@@ -184,7 +186,9 @@ def chunk_eval_op(ctx, ins, attrs):
     """reference chunk_eval_op.cc: chunk precision, recall and F1 of the
     Inference tags against the Label tags (IOB). It runs on the host, as
     in the JAX package: evaluation only, never inside a captured step
-    (executor_core.HOST_SYNC_OPS)."""
+    (executor_core.HOST_SYNC_OPS). Under ParallelExecutor (ctx.dp) the
+    three chunk counts are the global batch's, summed over the ranks (a
+    chunk never spans two sequences), and the ratios are taken of them."""
     inference, label = first(ins, "Inference"), first(ins, "Label")
     if isinstance(inference, SeqTensor):
         inf = inference.data.cpu().numpy()
@@ -196,9 +200,15 @@ def chunk_eval_op(ctx, ins, attrs):
     args = (lens, attrs["num_chunk_types"], attrs.get("chunk_scheme", "IOB"),
             set(attrs.get("excluded_chunk_types", [])))
     inf_chunks, lab_chunks = _iob_chunks(inf, *args), _iob_chunks(lab, *args)
+    n_inf, n_lab = len(inf_chunks), len(lab_chunks)
     correct = len(inf_chunks & lab_chunks)
-    p = correct / max(len(inf_chunks), 1)
-    r = correct / max(len(lab_chunks), 1)
+    if ctx.dp is not None:
+        counts = psum(torch.tensor([n_inf, n_lab, correct],
+                                   dtype=torch.int64, device=ctx.device),
+                      ctx.dp)
+        n_inf, n_lab, correct = (int(c) for c in counts.cpu())
+    p = correct / max(n_inf, 1)
+    r = correct / max(n_lab, 1)
     f1 = 2 * p * r / max(p + r, 1e-12)
 
     def value(v, dtype):
@@ -207,6 +217,6 @@ def chunk_eval_op(ctx, ins, attrs):
     return out(Precision=value(p, torch.float32),
                Recall=value(r, torch.float32),
                F1_Score=value(f1, torch.float32),
-               NumInferChunks=value(len(inf_chunks), torch.int64),
-               NumLabelChunks=value(len(lab_chunks), torch.int64),
+               NumInferChunks=value(n_inf, torch.int64),
+               NumLabelChunks=value(n_lab, torch.int64),
                NumCorrectChunks=value(correct, torch.int64))

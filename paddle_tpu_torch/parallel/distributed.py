@@ -22,6 +22,11 @@ package re-forms a device subset inside one process; in the port a rank
 is a process, so the group itself changes. Each formation bumps
 `generation()`: a Mesh made under an older generation is stale, and the
 collectives over it refuse to run (parallel/mesh.py, Mesh.check_live).
+
+`shutdown` takes a group down the same way on every rank: the card's
+queued work finished, a barrier, the meshes' sub-groups destroyed in the
+order they were made, then the default group. An NCCL communicator torn
+down while a peer's kernels still run on it can hang that peer.
 """
 
 import os
@@ -30,7 +35,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["init_from_env", "initialize", "is_initialized", "ClusterEnv",
-           "reform", "generation", "card"]
+           "reform", "generation", "card", "shutdown"]
 
 # [formations of the default group in this process, this rank's card (the
 # local_device_ids[0] of the last formation) or None]
@@ -121,10 +126,32 @@ def reform(coordinator_address, num_processes, process_id,
     (`initialize`'s arguments): the elastic resize's group re-form. Every
     Mesh made before is stale after it (`generation`). Any failure
     raises; the process is then left without a group."""
-    if dist.is_initialized():
-        dist.destroy_process_group()
+    shutdown(barrier=False)
     initialize(coordinator_address, num_processes, process_id,
                local_device_ids=local_device_ids, backend=backend)
+
+
+def shutdown(barrier=True):
+    """Destroy this process's group, if it has one, in one order on every
+    rank: wait for the card's queued work (its collectives among it), a
+    barrier over the default group (`barrier`: every rank calls shutdown
+    then; a resize's survivors do not meet a departed rank), every
+    sub-group the meshes made (parallel.mesh.destroy_groups, in the order
+    they were made), then the default group."""
+    if not dist.is_initialized():
+        return
+    from . import mesh
+
+    card_index = _state[1]
+    if card_index is not None:
+        torch.cuda.synchronize(card_index)
+    if barrier:
+        if dist.get_backend() == "nccl" and card_index is not None:
+            dist.barrier(device_ids=[card_index])
+        else:
+            dist.barrier()
+    mesh.destroy_groups()
+    dist.destroy_process_group()
 
 
 def generation():

@@ -115,6 +115,23 @@ class Mesh:
                 f"backend {self.backend})")
 
 
+# (group formation, group) of every sub-group _axis_groups made, in the
+# order it made them: the same order on every rank
+_GROUPS = []
+
+
+def destroy_groups():
+    """Destroy every sub-group the meshes of the current group formation
+    made, in the order they were made (every rank calls it, as
+    distributed.shutdown does, before the default group goes); those of
+    an earlier formation went with its default group."""
+    gen = _distributed.generation()
+    while _GROUPS:
+        made, group = _GROUPS.pop(0)
+        if made == gen and dist.is_initialized():
+            dist.destroy_process_group(group)
+
+
 def _world():
     return dist.get_world_size() if dist.is_initialized() else 1
 
@@ -146,6 +163,7 @@ def _axis_groups(shape):
                     continue  # not the first rank of a line along k
                 ranks = [base + i * strides[k] for i in range(size)]
                 g = dist.new_group(ranks)
+                _GROUPS.append((_distributed.generation(), g))
                 if ranks == mine:
                     group = g
         axes[name] = MeshAxis(name, size, coords[k], mine, group, backend,

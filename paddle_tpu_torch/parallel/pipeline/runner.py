@@ -15,9 +15,21 @@ fed to the cells that read them. An interface var keeps the dtype its
 producer wrote (under bf16 AMP a var declared float32 may carry bf16):
 the cell's var takes that dtype before the cell's first run, so the feed
 is not cast. Each cell is a program of its own, run through the port's
-Executor (prepared, verified and captured once, then replayed). The JAX
-runner's `parallel_executor=` (dp x pp) is not ported: ROADMAP queue 1
-item 6 holds it.
+Executor (prepared, verified and captured once, then replayed).
+
+dp x pp: with ``parallel_executor=`` (one ParallelExecutor, or an object
+whose ``get(stage_program)`` returns the one for a cell, as in the JAX
+package) each cell runs through that ParallelExecutor on this rank's
+rows. Microbatch mb is rows [mb*B/m, (mb+1)*B/m) of the global batch, as
+in the JAX package, and the rank keeps its dp share of each. Boundary
+values stay on the rank: nothing is gathered between cells (a ResNet-50
+boundary at microbatch 32 is ~25 MB of bf16). The forward cells' `mean`
+and batch norm take their global moments over dp; the backward cells
+hold no gradient collective, so the microbatches' gradients accumulate
+locally (f32, the JAX order), and the optimizer cell all-reduces the
+accumulated gradients once a step (or reduce-scatters them under zero1)
+before its update. Only the caller's fetches come back as the global
+batch.
 
 Executed through a plain Executor the stage boundary ops are identities
 (off the mesh), so a pipeline replay is bitwise equal to the same
@@ -68,11 +80,14 @@ class PipelineRunner:
     The caller runs the startup program into `scope` first; persistable
     state stays there across steps, exactly as with a plain Executor.
     `place` is the Executor's (the card, CUDAPlace(0), unless the caller
-    passes another)."""
+    passes another); with `parallel_executor` the cells run on its
+    Executor, in its scope (module docstring: dp x pp), and `place` is
+    not used."""
 
     def __init__(self, program, n_stages, loss_name=None, feed_names=(),
                  n_microbatches=1, fetch_names=None, scope=None, plan=None,
-                 batch_size=1, check=True, place=None):
+                 batch_size=1, parallel_executor=None, check=True,
+                 place=None):
         self.n_stages = int(n_stages)
         self.n_microbatches = int(n_microbatches)
         if self.n_stages < 1 or self.n_microbatches < 1:
@@ -93,7 +108,12 @@ class PipelineRunner:
         # imports the parallel package that owns this module
         from ...executor import Executor
 
-        self._exe = Executor(place)
+        self._pe = parallel_executor
+        if parallel_executor is None:
+            self._exe = Executor(place)
+        else:
+            # the cells' values live on the ParallelExecutors' card
+            self._exe = self._pe_of(next(iter(self.stages.values())))._exe
         self._clock = _Clock(self._exe.device)
         self._typed = set()  # cells whose interface dtypes are settled
         self.last_report = None
@@ -126,8 +146,16 @@ class PipelineRunner:
                 sp.program._mutation += 1
         self._typed.add(key)
 
+    def _pe_of(self, sp):
+        """The ParallelExecutor that runs cell `sp` (dp x pp)."""
+        pe = self._pe
+        return pe.get(sp) if callable(getattr(pe, "get", None)) else pe
+
     def _run_cell(self, sp, feed):
         self._adopt_dtypes(sp, feed)
+        if self._pe is not None:
+            return self._pe_of(sp)._run_cell(sp.program, feed,
+                                             sp.fetch_names)
         vals = self._exe.run(sp.program, feed=feed,
                              fetch_list=sp.fetch_names, scope=self.scope,
                              return_numpy=False)
@@ -198,8 +226,13 @@ class PipelineRunner:
         mb_feeds = _split_microbatches(
             {n: feed[n] for n in self.feed_names if n in feed}, m,
             self._exe.device)
+        if self._pe is not None:
+            # this rank's dp share of each microbatch's rows
+            pe = self._pe_of(next(iter(self.stages.values())))
+            mb_feeds = [pe._local_feed(f, 0) for f in mb_feeds]
         values = {}            # (var name, mb) -> tensor on the device
         per_mb_fetch = {}      # (fetch name, mb) -> tensor on the device
+        owner = {}             # fetch name -> the cell that makes it
         events = schedule_1f1b(p, m)
         pos = [0] * p
         marks = []             # (kind, stage, start mark, end mark)
@@ -232,6 +265,7 @@ class PipelineRunner:
                 self._store_outputs(sp, got, values, mb)
                 for n in sp.user_fetches:
                     per_mb_fetch[(n, mb)] = got[n]
+                    owner[n] = sp
                 if kind == "F":
                     fwd_done.add((s, mb))
                 pos[s] += 1
@@ -252,7 +286,12 @@ class PipelineRunner:
             acc = per_mb_fetch[(n, 0)].float()
             for mb in range(1, m):
                 acc = acc + per_mb_fetch[(n, mb)].float()
-            fetches[n] = (acc * inv_m).cpu().numpy()
+            acc = acc * inv_m
+            if self._pe is not None:
+                # a batch-leading fetch comes back as the global batch
+                acc = self._pe_of(owner[n])._gathered(
+                    owner[n].program, n, acc, 0, None)
+            fetches[n] = acc.cpu().numpy()
         loss = fetches.get(self.loss_name) if self.loss_name else None
 
         # structural bubble: unit-cost simulation of the executed event

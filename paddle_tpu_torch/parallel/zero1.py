@@ -56,7 +56,8 @@ from ..optimizer import ZERO1_SHARDABLE_SLOTS
 __all__ = ["Zero1Plan", "build_plan", "apply", "apply_grad_scale",
            "to_shard_layout", "from_shard_layout", "registered_entry",
            "canonicalize_snapshot", "full_layout", "saved_layout",
-           "loaded_row", "ensure_scope_unsharded", "reset_registry"]
+           "loaded_row", "ensure_scope_unsharded", "reset_registry",
+           "global_view"]
 
 flags.define(
     "zero1", bool, False,
@@ -464,16 +465,37 @@ def loaded_row(name, value):
 
 
 def ensure_scope_unsharded(scope, program):
-    """Undo the shard layout for accumulators in `scope` that belong to
-    `program` — the FLAGS_zero1=0 (or BuildStrategy flip) path after a
-    sharded run in the same process. Every rank calls it (a gather).
-    Cheap no-op when zero1 never ran."""
+    """Undo the shard layout for accumulators in `scope` that `program`'s
+    ops read or write — the FLAGS_zero1=0 (or BuildStrategy flip) path
+    after a sharded run in the same process. A program that holds an
+    accumulator's var but no op on it (a pipeline's forward or backward
+    cell) leaves it as it is. Every rank calls it (a gather). Cheap no-op
+    when zero1 never ran."""
     if not _REGISTRY:
         return
-    gb = program.global_block()
+    touched = {n for b in program.blocks for op in b.ops
+               for n in op.input_arg_names() + op.output_arg_names()}
     for name in list(_REGISTRY):
-        if name not in gb.vars:
+        if name not in touched:
             continue
         v = scope.find_var(name)
         if v is not None:
             scope.set_var(name, full_layout(name, v))
+
+
+def global_view(program, zplan):
+    """A clone of the zero1-rewritten `program` whose shard-layout vars
+    hold the JAX package's [W, shard] shapes (this rank holds [1, shard]
+    of each): the view the ShardingPlan, FLAGS_verify and the overlap
+    schedule's cost model read."""
+    view = program.clone()
+    gb = view.global_block()
+    for e in zplan.entries:
+        names = [name for _, _, name, _ in e.accums] + [
+            e.grad + "@zero1_rs", e.param + "@zero1_shard",
+            e.param + "@zero1_upd"]
+        for name in names:
+            var = gb.vars.get(name)
+            if var is not None:
+                var.shape = (zplan.parts, e.shard)
+    return view

@@ -68,9 +68,31 @@ so it propagates the seeds and lowers the plan whenever the mesh has an
 mp axis of more than one rank, auto_sharding on or off; "off" means, as
 in the JAX package, that the plan is not registered (no checkpoint
 manifest section) and sets no gauges.
-Not ported yet, each refused with NotImplementedError: the overlap
-schedule (ROADMAP queue 1 item 6), DataPipe feeds and ragged feeds (item
-3).
+The static overlap schedule (FLAGS_overlap_plan, analysis/schedule.py)
+reorders the zero1-resolved program under zero1 at dp >= 2, before the
+autoshard plan, the gradient all-reduce and the fusion pass (the JAX
+order: zero1, overlap, fuse): each bucket of gradient reduce-scatters
+moves up to just after the last of its gradients is made, the reorder
+refused (ProgramVerificationError) on any PTA03x hazard. Over NCCL a
+hoisted scatter is issued asynchronously and waited for on the step's
+stream before the first op that reads its shard (OpContext.defer), so in
+a captured graph the collective is a branch beside the rest of the
+backward; over gloo (synchronous) the reorder changes only the order.
+The plan's digest joins the prepared key and the persistent cache's
+digest (Executor.plan_digest): toggling the flag prepares anew. The step
+is bitwise the same with the flag on and off.
+A ragged feed (a LoDTensor with a LoD, or a SeqTensor) splits by
+sequences: rank r takes sequences [r*B/W, (r+1)*B/W) and their tokens,
+zero-padded to the global feed's token count, so a rank's shape is
+static for one global bucket and its loops keep their trip counts; the
+lod-aware reductions over the batch (`mean` over a SeqTensor,
+edit_distance's SequenceNum, chunk_eval's counts) sum over the ranks. A
+DataPipe feed is pulled in the monitor's `feed_wait` phase (iters
+defaults to its chunk size); each rank keeps its rows of the staged
+global chunk as views on the device and releases the chunk's lease after
+the step, as Executor.run does. `parallel.pipeline.PipelineRunner(
+parallel_executor=...)` runs each pipeline cell through `_run_cell` on
+this rank's rows (dp x pp).
 """
 
 import math
@@ -86,7 +108,8 @@ from .core.lod_tensor import LoDTensor
 from .core.places import CPUPlace, CUDAPlace
 from .core.registry import SeqTensor
 from .core.scope import global_scope
-from .core.executor_core import collect_state_names as _collect_state
+from .core import executor_core
+from .datapipe.transfer import pull_feed, staged_feed
 from .executor import Executor, as_numpy, fetch_futures
 from .ops import collective_ops
 from .parallel import autoshard as _autoshard
@@ -98,21 +121,6 @@ from .resilience import chaos as _chaos
 from .resilience import watchdog as _watchdog
 
 __all__ = ["ParallelExecutor", "ExecutionStrategy", "BuildStrategy"]
-
-# flags the JAX package reads here; the port refuses them while they are on
-_UNPORTED_FLAGS = {
-    "overlap_plan": ("the static overlap schedule of the zero1 "
-                     "collectives: ROADMAP queue 1 item 6"),
-}
-for _name, _what in _UNPORTED_FLAGS.items():
-    flags.define(_name, bool, False,
-                 f"Not ported: {_what}. ParallelExecutor.run raises "
-                 f"NotImplementedError while it is on.")
-
-
-def _not_ported(what):
-    return NotImplementedError(f"ParallelExecutor: {what} is not ported "
-                               f"to paddle_tpu_torch yet")
 
 
 class ExecutionStrategy:
@@ -166,11 +174,13 @@ def _optimized_params(program):
 def insert_grad_all_reduce(program, params, reduced):
     """Clone `program` with one `all_reduce` (sum) per gradient of
     `params` ({param: the grad its optimizer reads}), written under the
-    gradient's own name right after its last writer. The gradient is the
-    parameter's raw one (`<param>@GRAD`, before any regularization or
-    clipping, which then apply once to the global gradient) where the
-    program has it, else the one the optimizer reads. Gradients in
-    `reduced` (reduce-scattered by zero1) are left alone."""
+    gradient's own name right after its last writer, or first of all
+    where the program reads it but writes it nowhere (a pipeline's
+    optimizer cell, fed the gradients accumulated over the microbatches).
+    The gradient is the parameter's raw one (`<param>@GRAD`, before any
+    regularization or clipping, which then apply once to the global
+    gradient) where the program has it, else the one the optimizer reads.
+    Gradients in `reduced` (reduce-scattered by zero1) are left alone."""
     clone = program.clone()
     gb = clone.global_block()
     targets = set()
@@ -179,22 +189,27 @@ def insert_grad_all_reduce(program, params, reduced):
         g = raw if raw in gb.vars else g
         if g not in reduced:
             targets.add(g)
-    last = {}
+    last, read = {}, set()
     for i, op in enumerate(gb.ops):
+        read.update(n for n in op.input_arg_names() if n in targets)
         for n in op.output_arg_names():
             if n in targets:
                 last[n] = i
     after = {}
     for n, i in last.items():
         after.setdefault(i, []).append(n)
-    new_ops = []
+    after[-1] = sorted(read - set(last))
+
+    def reduce_op(n):
+        return Operator(gb, "all_reduce", {"X": [n]}, {"Out": [n]},
+                        {"reduction": "sum", "axis_name": _mesh.DP_AXIS,
+                         "op_role": OpRole.Backward})
+
+    new_ops = [reduce_op(n) for n in after[-1]]
     for i, op in enumerate(gb.ops):
         new_ops.append(op)
         for n in sorted(after.get(i, ())):
-            new_ops.append(Operator(
-                gb, "all_reduce", {"X": [n]}, {"Out": [n]},
-                {"reduction": "sum", "axis_name": _mesh.DP_AXIS,
-                 "op_role": OpRole.Backward}))
+            new_ops.append(reduce_op(n))
     gb.ops = new_ops
     clone._mutation += 1
     return clone
@@ -269,18 +284,22 @@ class ParallelExecutor:
         return self._exe.compile_cache_info()
 
     # ------------------------------------------------------------------
-    def _prepare_program(self, program, use_zero1, gss, dp_n, use_auto):
+    def _prepare_program(self, program, use_zero1, gss, dp_n, use_auto,
+                         overlap=None, feed_names=None):
         """The program this rank runs: zero1's rewrite (its gradient
         reduce-scatters carrying the GradientScaleStrategy) or the
-        GradientScaleStrategy.One scale ops; then, with autoshard on or
-        an mp axis of more than one rank, the ShardingPlan over that
-        program and its lowering for this rank (parallel/autoshard); then,
-        inside a group whose dp axis has more than one rank (or a group
-        of one), the all-reduce of every gradient zero1 does not
-        reduce-scatter. Cached per (program identity, mutation, zero1,
-        scale strategy, dp size, autoshard). Returns a _Prepared."""
+        GradientScaleStrategy.One scale ops; then, with `overlap` (the
+        bucket bytes of FLAGS_overlap_plan) under zero1, the static
+        overlap schedule's reorder (_overlap_program); then, with
+        autoshard on or an mp axis of more than one rank, the ShardingPlan
+        over that program and its lowering for this rank
+        (parallel/autoshard); then, inside a group whose dp axis has more
+        than one rank (or a group of one), the all-reduce of every
+        gradient zero1 does not reduce-scatter. Cached per (program
+        identity, mutation, zero1, scale strategy, dp size, autoshard,
+        overlap). Returns a _Prepared."""
         key = (id(program), program._mutation, use_zero1, gss, dp_n,
-               use_auto)
+               use_auto, overlap)
         hit = self._rewrite_cache.get(key)
         if hit is not None:
             return hit
@@ -298,6 +317,10 @@ class ParallelExecutor:
             run = program
             if one and plan.entries:
                 run = _zero1.apply_grad_scale(program, plan, scale)
+        osched = None
+        if overlap is not None and zero1_on:
+            run, osched = self._overlap_program(run, plan, overlap,
+                                                feed_names)
         # the gradients zero1 reduce-scatters (before a lowering renames
         # the scatters' inputs to their gathered whole)
         reduced = {op.inputs["X"][0] for op in run.global_block().ops
@@ -306,7 +329,7 @@ class ParallelExecutor:
         mesh_axes = dict(self._mesh.shape)
         # the program in the JAX package's layout ([W, shard] zero1
         # accumulators over dp): what the plan and the checks read
-        view = _global_view(run, plan) if zero1_on else run
+        view = _zero1.global_view(run, plan) if zero1_on else run
         aplan = low = None
         if use_auto or mesh_axes.get(_mesh.MP_AXIS, 1) > 1:
             aplan = _autoshard.build_plan(view, mesh_axes)  # bad seed: raise
@@ -319,20 +342,51 @@ class ParallelExecutor:
             run = insert_grad_all_reduce(run, _optimized_params(program),
                                          reduced)
         hit = _Prepared(run, plan, view, aplan, low,
-                        zero1_on or (low is not None and bool(low.local)))
+                        zero1_on or (low is not None and bool(low.local)),
+                        osched)
         self._rewrite_cache[key] = hit
         return hit
 
+    def _overlap_program(self, program, zplan, bucket_bytes,
+                         feed_names=None):
+        """The static overlap schedule (analysis.schedule) applied to the
+        zero1-resolved `program`: the legal zero1_scatter reduce-scatters
+        hoisted into the backward section, bucketed under `bucket_bytes`,
+        each marked `overlap_async` (issued asynchronously over NCCL and
+        waited for before its first reader: ops/collective_ops.py).
+        Returns (program', ScheduleReport); _prepare_program caches it. A
+        program carrying any PTA03x dataflow hazard raises
+        ProgramVerificationError: it is never silently reordered. The
+        costs are read off the program in the JAX package's layout
+        (zero1.global_view of `zplan`'s rewrite), so the report is the
+        JAX package's."""
+        sched = analysis.schedule.analyze(
+            _zero1.global_view(program, zplan),
+            mesh_axes=dict(self._mesh.shape), feed_names=feed_names,
+            bucket_bytes=bucket_bytes)
+        reordered, plan = analysis.schedule.apply_plan(
+            program, sched.plan, feed_names=feed_names)
+        if reordered is not program:
+            pos = {i: p for p, i in enumerate(plan.order)}
+            ops = reordered.global_block().ops
+            for i, _ in plan.moves:
+                ops[pos[i]].attrs["overlap_async"] = True
+            reordered._mutation += 1
+        return reordered, sched
+
     def _local_feed(self, feed, axis):
-        """This rank's rows of a global-batch feed dict (batch on `axis`)."""
+        """This rank's rows of a global-batch feed dict (batch on `axis`);
+        a ragged feed's sequences and their tokens (_local_seq)."""
         n_ranks, rank = self._mesh.size, self._mesh.rank
         local = {}
         for name, value in feed.items():
-            if isinstance(value, SeqTensor) or (
-                    isinstance(value, LoDTensor) and value.lod()):
-                raise _not_ported(
-                    f"a ragged feed ({name!r}) under ParallelExecutor "
-                    f"(ROADMAP queue 1 item 3)")
+            if isinstance(value, LoDTensor) and value.lod():
+                lengths = np.diff(np.asarray(
+                    value.last_level_offsets())).astype(np.int32)
+                value = SeqTensor(value.numpy(), lengths, lengths)
+            if isinstance(value, SeqTensor):
+                local[name] = self._local_seq(name, value, axis)
+                continue
             if isinstance(value, LoDTensor):
                 value = value.numpy()
             if not isinstance(value, torch.Tensor):
@@ -352,12 +406,48 @@ class ParallelExecutor:
             local[name] = value[index]
         return local
 
+    def _local_seq(self, name, seq, axis):
+        """This rank's part of a ragged feed: sequences [r*b, (r+1)*b) of
+        the B (b = B/W) and their tokens, zero-padded to the global feed's
+        token count N, so the rank's shape is the same for every batch of
+        one global bucket. With `axis` 1 (iters' stacked [K, ...] feed)
+        each step is split alike."""
+        data, lengths = (torch.as_tensor(np.asarray(v)) if not isinstance(
+            v, torch.Tensor) else v for v in (seq.data, seq.lengths))
+        host = seq.host_lengths
+        if host is None:
+            host = lengths.cpu().numpy()
+        host = np.asarray(host, dtype=np.int32)
+        if axis == 1:
+            steps = [self._local_seq(name, SeqTensor(
+                data[k], lengths[k], host[k]), 0)
+                for k in range(data.shape[0])]
+            return SeqTensor(torch.stack([t.data for t in steps]),
+                             torch.stack([t.lengths for t in steps]),
+                             np.stack([t.host_lengths for t in steps]))
+        n_ranks, rank = self._mesh.size, self._mesh.rank
+        if host.shape[0] % n_ranks:
+            raise ValueError(
+                f"ragged feed {name!r}: {host.shape[0]} sequences are not "
+                f"divisible by the {n_ranks} ranks of the dp axis")
+        b = host.shape[0] // n_ranks
+        offs = np.concatenate([[0], np.cumsum(host, dtype=np.int64)])
+        lo, hi = int(offs[rank * b]), int(offs[(rank + 1) * b])
+        rows = data[lo:hi]
+        if hi - lo < data.shape[0]:
+            rows = torch.cat([rows, rows.new_zeros(
+                (data.shape[0] - (hi - lo),) + tuple(data.shape[1:]))])
+        return SeqTensor(rows, lengths[rank * b:(rank + 1) * b],
+                         host[rank * b:(rank + 1) * b])
+
     def _gathered(self, program, name, value, axis, low):
         """A fetch whole: an mp-sharded var's local block gathered over
         mp (its dim shifted by `axis`, the batch axis, for iters' leading
         step axis), then a batch-leading one (its var's dim 0 is -1) as
         the global batch, every rank's rows in rank order; any other as
         it is."""
+        if isinstance(value, SeqTensor):
+            return self._gathered_seq(value, axis)
         if not isinstance(value, torch.Tensor):
             return value
         entry = low.local.get(name) if low is not None else None
@@ -373,28 +463,49 @@ class ParallelExecutor:
         rows = collective_ops.all_gather(value, self._mesh)
         return torch.cat(rows.unbind(0), dim=axis)
 
+    def _gathered_seq(self, seq, axis):
+        """A ragged fetch whole: every rank's sequences in rank order, their
+        real tokens first and the tail zero, in the rank's token count
+        (the global feed's: _local_seq). With `axis` 1 each step alike."""
+        if self._mesh.size == 1:
+            return seq
+        if axis == 1:
+            steps = [self._gathered_seq(SeqTensor(seq.data[k],
+                                                  seq.lengths[k]), 0)
+                     for k in range(seq.data.shape[0])]
+            return SeqTensor(torch.stack([t.data for t in steps]),
+                             torch.stack([t.lengths for t in steps]))
+        data = collective_ops.all_gather(seq.data, self._mesh)
+        lengths = collective_ops.all_gather(seq.lengths, self._mesh)
+        counts = lengths.sum(dim=1).tolist()
+        real = [data[r, :int(c)] for r, c in enumerate(counts)]
+        n = seq.data.shape[0]
+        flat = torch.cat(real)
+        if flat.shape[0] < n:
+            flat = torch.cat([flat, flat.new_zeros(
+                (n - flat.shape[0],) + tuple(flat.shape[1:]))])
+        return SeqTensor(flat, lengths.reshape(-1))
+
     # ------------------------------------------------------------------
     def run(self, fetch_list, feed=None, feed_dict=None, return_numpy=True,
             iters=None, async_fetch=False):
         """One data-parallel step over the ranks — or, with `iters=K`, K
         steps (feeds carry a leading [K] axis, the batch on axis 1, or are
-        a list of K global-batch dicts; fetches come back stacked
-        [K, ...]). A list of per-device feed dicts without `iters` is
-        concatenated into the global batch first (reference
-        feed_parallel). `async_fetch=True` returns a FetchFuture a fetch
-        (return_numpy is then ignored)."""
+        a list of K global-batch dicts; fetches come back stacked [K, ...]).
+        A list of per-device feed dicts without `iters` is concatenated
+        into the global batch first (reference feed_parallel). `feed` may
+        be a DataPipe: its next staged chunk is pulled in the monitor's
+        `feed_wait` phase, `iters` defaults to its chunk size, and its
+        transfer-engine markers are honoured as Executor.run honours them.
+        `async_fetch=True` returns a FetchFuture a fetch (return_numpy is
+        then ignored)."""
         # single flag check when monitoring is off (same contract as
         # Executor.run); every site below gates on `mon is not None`
         mon = monitor.step_begin("parallel_executor") \
             if monitor.enabled() else None
         self._mesh.check_live()
-        for name, what in _UNPORTED_FLAGS.items():
-            if flags.get(name):
-                raise _not_ported(f"FLAGS_{name} ({what})")
-        bs = self._build_strategy
         feed = feed if feed is not None else feed_dict
-        if hasattr(feed, "next_feed"):
-            raise _not_ported("a DataPipe feed (ROADMAP queue 1 item 3)")
+        feed, iters, pipe = pull_feed(feed, iters, mon)
         feed = feed if feed is not None else {}
         if isinstance(feed, list) and iters is None:
             # per-device feed list (reference feed_parallel): concatenate
@@ -407,8 +518,83 @@ class ParallelExecutor:
             feed = {k: np.concatenate(vs, axis=0) for k, vs in merged.items()}
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in fetch_list]
+        # the watchdog watches the step, the gathers of its fetches and
+        # their readback
+        with _watchdog.armed("parallel_executor"):
+            # fault injection, before the chunk's lease is waited on or
+            # released: a retried run finds the feed as it was
+            _chaos.on_run("parallel_executor")
+            device = self._exe.device
+            with staged_feed(feed, device) as (feed, wire, keep):
+                outs, done, skew = self._run_global(feed, fetch_names,
+                                                    iters, mon, wire)
+                outs = keep(outs)
+            if async_fetch:
+                outs = fetch_futures(outs, device)
+            elif return_numpy:
+                if mon is not None:
+                    with mon.timed("fetch_readback"):
+                        outs = as_numpy(outs)
+                else:
+                    outs = as_numpy(outs)
+        if mon is not None:
+            monitor.step_end(mon, iters=done.iters, datapipe=pipe,
+                             replica_ms=skew[0], replica_ids=skew[1])
+        return outs
 
-        program, scope = self._program, self._scope
+    def _run_global(self, feed, fetch_names, iters, mon, wire):
+        """The step of run() on the global batch: this rank's rows, its
+        step, and the fetches gathered whole: (fetches, the Executor's
+        _Run, (replica_ms, replica_ids) under FLAGS_monitor_replica_skew
+        or Nones)."""
+        t_enc = time.perf_counter()
+        axis = 0 if iters is None else 1
+        if isinstance(feed, list):
+            local = [self._local_feed(f, 0) for f in feed]
+        else:
+            local = self._local_feed(feed, axis)
+        if mon is not None:
+            mon.phase("feed_encode", time.perf_counter() - t_enc)
+        program = self._program
+        outs, done, prep = self._run_rank(program, local, fetch_names,
+                                          iters, mon, wire)
+        skew = (None, None)
+        if mon is not None and flags.get("monitor_replica_skew"):
+            # wait for this rank's step, then all-gather every rank's
+            # completion time: a host sync, hence the separate opt-in flag
+            leaf = outs[0] if outs else torch.empty(0,
+                                                   device=self._exe.device)
+            res = monitor.measure_replica_ms(leaf, done.t_dispatch)
+            if res is not None:
+                skew = res
+        outs = [self._gathered(program, n, o, axis, prep.lowering)
+                for n, o in zip(fetch_names, outs)]
+        return outs, done, skew
+
+    def _run_cell(self, program, feed, fetch_names):
+        """One step of `program` (a pipeline cell: parallel.pipeline's
+        PipelineRunner) on `feed`, already this rank's rows: {fetch name:
+        this rank's tensor}. Nothing is gathered: boundary values stay on
+        the rank, and the runner gathers only the caller's fetches."""
+        mon = monitor.step_begin("parallel_executor") \
+            if monitor.enabled() else None
+        self._mesh.check_live()
+        with _watchdog.armed("parallel_executor"):
+            _chaos.on_run("parallel_executor")
+            outs, done, _ = self._run_rank(program, feed, fetch_names, None,
+                                           mon)
+        if mon is not None:
+            monitor.step_end(mon, iters=done.iters)
+        return dict(zip(fetch_names, outs))
+
+    def _run_rank(self, program, local, fetch_names, iters, mon, wire=None):
+        """This rank's step of `program` on its rows `local`: the program
+        resolved for the strategy and the flags (_prepare_program), the
+        scope's layouts, the gauges, then the rank's Executor. Returns
+        (this rank's fetch tensors, the Executor's _Run, the
+        _Prepared)."""
+        bs = self._build_strategy
+        scope = self._scope
         use_zero1 = bs.sharded_weight_update
         if use_zero1 is None:
             use_zero1 = bool(flags.get("zero1")) or (
@@ -419,11 +605,16 @@ class ParallelExecutor:
         if use_auto is None:
             use_auto = bool(flags.get("autoshard"))
         use_auto = bool(use_auto) and math.prod(self._mesh.shape.values()) > 1
+        overlap = None
+        if flags.get("overlap_plan"):
+            overlap = int(flags.get("overlap_bucket_bytes")) \
+                or analysis.schedule.DEFAULT_BUCKET_BYTES
         prep = self._prepare_program(
-            program, use_zero1, bs.gradient_scale_strategy, dp_n, use_auto)
+            program, use_zero1, bs.gradient_scale_strategy, dp_n, use_auto,
+            overlap, _feed_names_of(local))
         run_program, zplan, aplan, low = (prep.program, prep.zplan,
                                           prep.aplan, prep.lowering)
-        self._exe.plan_digest = aplan.digest() if aplan is not None else None
+        self._exe.plan_digest = prep.digest()
         if use_zero1 and zplan.entries:
             # accumulators live in this rank's [1, shard] row; a full-layout
             # scope (startup, or convert.load_numpy_state) converts here
@@ -461,72 +652,51 @@ class ParallelExecutor:
                 k: int(v) for k, v in cb.items()}
             mon.extra["optimizer_state_bytes"] = int(osb)
             mon.extra["zero1"] = bool(use_zero1)
-        t_enc = time.perf_counter()
-        if isinstance(feed, list):
-            local = [self._local_feed(f, 0) for f in feed]
-        else:
-            local = self._local_feed(feed, 0 if iters is None else 1)
-        if mon is not None:
-            mon.phase("feed_encode", time.perf_counter() - t_enc)
+        osched = prep.osched
+        if mon is not None and osched is not None:
+            analysis.schedule.record_gauges(
+                osched, context="parallel_executor")
+            if mon.extra is None:
+                mon.extra = {}
+            mon.extra["overlap"] = {
+                "critical_path_ms": float(osched.critical_path_ms),
+                "hoistable_bytes": int(osched.plan.hoistable_bytes),
+                "buckets": len(osched.plan.buckets),
+                "moves": len(osched.plan.moves),
+                "digest": osched.plan.digest(),
+            }
         self._last_program = run_program
-        # the watchdog watches the step, the gathers of its fetches and
-        # their readback
-        with _watchdog.armed("parallel_executor"):
-            _chaos.on_run("parallel_executor")
-            verify = {"mesh_axes": dict(self._mesh.shape),
-                      "zplan": zplan if use_zero1 and zplan.entries
-                      else None,
-                      "aplan": aplan if use_auto else None,
-                      "context": "parallel_executor"}
-            if prep.local_layout:
-                # the checks read the global layout (the sharding and plan
-                # checks, the shape contracts of zero1's ops): they run on
-                # the program in the JAX package's layout, and not again on
-                # the rank's, whose descs hold this rank's shapes
-                analysis.ensure_verified(
-                    prep.view, feed_names=_feed_names_of(local),
-                    fetch_names=fetch_names,
-                    donate_state=not flags.get("debug_nans"), **verify)
-                verify = {"level": "off"}
-            outs, done = self._exe._run(run_program, scope, local, fetch_names,
-                                        iters, mon, kind="parallel_executor",
-                                        verify=verify)
-            if done.times is not None and flags.get("verify") == "full":
-                # measured counterpart of the analysis_peak_hbm gauge: the
-                # bytes this rank holds for the step's state and fetches
-                # (the estimate is held against it within 2x in the tests)
-                state_in, _ = _collect_state(run_program, scope)
-                live = analysis.measured_live_bytes(
-                    [scope.find_var(n) for n in state_in] + list(outs))
-                monitor.registry().gauge(
-                    "hbm_live_bytes_per_replica",
-                    help="measured per-device resident bytes of the step "
-                         "state + fetches",
-                ).set(float(live))
-            replica_ms = replica_ids = None
-            if mon is not None and flags.get("monitor_replica_skew"):
-                # wait for this rank's step, then all-gather every rank's
-                # completion time: a host sync, hence the separate opt-in flag
-                leaf = outs[0] if outs else torch.empty(0,
-                                                       device=self._exe.device)
-                res = monitor.measure_replica_ms(leaf, done.t_dispatch)
-                if res is not None:
-                    replica_ms, replica_ids = res
-            axis = 0 if iters is None else 1
-            outs = [self._gathered(program, n, o, axis, low)
-                    for n, o in zip(fetch_names, outs)]
-            if async_fetch:
-                outs = fetch_futures(outs, self._exe.device)
-            elif return_numpy:
-                if mon is not None:
-                    with mon.timed("fetch_readback"):
-                        outs = as_numpy(outs)
-                else:
-                    outs = as_numpy(outs)
-        if mon is not None:
-            monitor.step_end(mon, iters=done.iters, replica_ms=replica_ms,
-                             replica_ids=replica_ids)
-        return outs
+        verify = {"mesh_axes": dict(self._mesh.shape),
+                  "zplan": zplan if use_zero1 and zplan.entries else None,
+                  "aplan": aplan if use_auto else None,
+                  "context": "parallel_executor"}
+        if prep.local_layout:
+            # the checks read the global layout (the sharding and plan
+            # checks, the shape contracts of zero1's ops): they run on the
+            # program in the JAX package's layout, and not again on the
+            # rank's, whose descs hold this rank's shapes
+            analysis.ensure_verified(
+                prep.view, feed_names=_feed_names_of(local),
+                fetch_names=fetch_names,
+                donate_state=not flags.get("debug_nans"), **verify)
+            verify = {"level": "off"}
+        outs, done = self._exe._run(run_program, scope, local, fetch_names,
+                                    iters, mon, kind="parallel_executor",
+                                    wire=wire, verify=verify)
+        if done.times is not None and flags.get("verify") == "full":
+            # measured counterpart of the analysis_peak_hbm gauge: the
+            # bytes this rank holds for the step's state and fetches
+            # (the estimate is held against it within 2x in the tests)
+            state_in, _ = executor_core.collect_state_names(run_program,
+                                                            scope)
+            live = analysis.measured_live_bytes(
+                [scope.find_var(n) for n in state_in] + list(outs))
+            monitor.registry().gauge(
+                "hbm_live_bytes_per_replica",
+                help="measured per-device resident bytes of the step "
+                     "state + fetches",
+            ).set(float(live))
+        return outs, done, prep
 
     def bcast_params(self):
         """reference parallel_executor.py:242: every parameter takes rank
@@ -546,37 +716,33 @@ class _Prepared:
     rank runs, the Zero1Plan, `view` (the program before the lowering and
     the gradient all-reduce, in the JAX package's layout: what the plan
     is built on and FLAGS_verify checks), the ShardingPlan and its
-    Lowering (None where no plan was built), and whether the rank's
-    program holds local shapes (zero1's rows or an mp lowering)."""
+    Lowering (None where no plan was built), whether the rank's program
+    holds local shapes (zero1's rows or an mp lowering), and the overlap
+    schedule's ScheduleReport (None with FLAGS_overlap_plan off or
+    nothing to reorder)."""
 
     __slots__ = ("program", "zplan", "view", "aplan", "lowering",
-                 "local_layout")
+                 "local_layout", "osched")
 
     def __init__(self, program, zplan, view, aplan, lowering,
-                 local_layout):
+                 local_layout, osched=None):
         self.program = program
         self.zplan = zplan
         self.view = view
         self.aplan = aplan
         self.lowering = lowering
         self.local_layout = local_layout
+        self.osched = osched
 
-
-def _global_view(program, zplan):
-    """A clone of the zero1-rewritten `program` whose shard-layout vars
-    hold the JAX package's [W, shard] shapes (this rank holds [1, shard]
-    of each): the view the ShardingPlan is built on."""
-    view = program.clone()
-    gb = view.global_block()
-    for e in zplan.entries:
-        names = [name for _, _, name, _ in e.accums] + [
-            e.grad + "@zero1_rs", e.param + "@zero1_shard",
-            e.param + "@zero1_upd"]
-        for name in names:
-            var = gb.vars.get(name)
-            if var is not None:
-                var.shape = (zplan.parts, e.shard)
-    return view
+    def digest(self):
+        """The plans' part of the prepared key (Executor.plan_digest): the
+        autoshard plan's digest and the overlap plan's, or None."""
+        parts = []
+        if self.aplan is not None:
+            parts.append(self.aplan.digest())
+        if self.osched is not None:
+            parts.append("overlap:" + self.osched.plan.digest())
+        return "|".join(parts) or None
 
 
 def _feed_names_of(feed):

@@ -79,17 +79,10 @@ def test_cli_check_usage_errors(capsys):
     capsys.readouterr()
 
 
-@pytest.mark.parametrize("action", ["graph", "fusion"])
+@pytest.mark.parametrize("action", ["graph", "fusion", "schedule"])
 def test_cli_analyze_selftests_ok(action, capsys):
     assert cli_main(["analyze", action, "--selftest"]) == 0
     assert f"analyze {action} selftest: OK" in capsys.readouterr().out
-
-
-@pytest.mark.parametrize("action,item", [("schedule", "item 6")])
-def test_cli_analyze_unported_actions_name_their_item(action, item, capsys):
-    assert cli_main(["analyze", action, "--selftest"]) == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and item in err
 
 
 # ---------------------------------------------------------------------------

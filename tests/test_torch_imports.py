@@ -654,3 +654,31 @@ def test_same_inference_program(model):
     assert tinf.desc_str() == jinf.desc_str()
     assert not any(op.type.endswith("_grad") or op.type in (
         "momentum", "adam") for op in tinf.global_block().ops)
+
+
+@pytest.mark.parametrize("module", [
+    "analysis/schedule.py", "analysis/__init__.py", "parallel_executor.py",
+    "parallel/pipeline/runner.py", "parallel/zero1.py",
+    "ops/collective_ops.py", "ops/math_ops.py", "ops/metric_ops.py",
+    "core/executor_core.py", "cli.py"])
+def test_the_rest_of_data_parallelism_is_among_the_checked_sources(module):
+    """The overlap schedule, dp x pp and the ragged and DataPipe feeds
+    under ParallelExecutor are checked by the test above."""
+    assert os.path.join(PORT, module) in set(_sources())
+
+
+def test_the_schedule_loads_no_jax_and_analysis_exports_the_jax_names():
+    """analysis.schedule alone, in a fresh interpreter, loads no jax and
+    nothing of the JAX package; `analysis.__all__` is the JAX package's."""
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "import paddle_tpu_torch.analysis.schedule\n"
+        "print('\\n'.join(sorted(set(sys.modules) - before)))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    loaded = proc.stdout.split()
+    assert "paddle_tpu_torch.analysis.schedule" in loaded
+    assert [m for m in loaded if _foreign(m)] == []
+    assert tfluid.analysis.__all__ == jfluid.analysis.__all__

@@ -405,22 +405,17 @@ def test_indivisible_batch_raises(tmp_path):
         worker.launch(2, cases, str(tmp_path / "w2"))
 
 
-def test_ragged_feeds_and_unported_paths_raise(one_rank, tmp_path):
+def test_ragged_datapipe_and_overlap_paths_run(one_rank, tmp_path):
+    """On one rank: the compile cache under the distributed compile
+    service and autoshard (off at one rank); then the three paths
+    ParallelExecutor refused until the rest of data parallelism was
+    ported, which now run: a ragged feed (a
+    LoDTensor whose sequences cover the batch: the lod-aware mean over
+    its 16 tokens is the dense one's), a DataPipe feed (anything with
+    next_feed(); iters defaults to its feed_iters) and FLAGS_overlap_plan
+    (a no-op without zero1 at dp >= 2, bitwise the step without it)."""
     pe, loss = _mlp_pe()
     x, y = batches("mlp")
-    lod = tfluid.create_lod_tensor(x[0], [[4, 12]], tfluid.CPUPlace())
-    with pytest.raises(NotImplementedError, match="ragged feed"):
-        pe.run([loss], feed={"img": lod, "label": y[0]})
-
-    class Pipe:
-        def next_feed(self):
-            return {}
-
-    with pytest.raises(NotImplementedError, match="DataPipe"):
-        pe.run([loss], feed=Pipe())
-    with tflags.flag_guard(overlap_plan=True), \
-            pytest.raises(NotImplementedError, match="overlap schedule"):
-        pe.run([loss], feed={"img": x[0], "label": y[0]})
     # the compile cache and the distributed compile service: a prepare
     # that misses its store asks the master, wins the single-flight
     # lease, prepares and publishes its plan (kind parallel_executor)
@@ -448,6 +443,31 @@ def test_ragged_feeds_and_unported_paths_raise(one_rank, tmp_path):
     out, = pe.run([loss], feed={"img": x[0], "label": y[0]})
     assert np.isfinite(out).all()
     assert tfluid.parallel.autoshard.active_plan() is None
+    # the three paths, on a fresh program
+    pe, loss = _mlp_pe()
+    scope = tscope.global_scope()
+    before = {n: scope.find_var(n).clone() for n in scope.local_var_names()
+              if isinstance(scope.find_var(n), torch.Tensor)}
+    dense, = pe.run([loss], feed={"img": x[0], "label": y[0]})
+    for n, v in before.items():
+        scope.set_var(n, v.clone())
+    lod = tfluid.create_lod_tensor(x[0], [[4, 12]], tfluid.CPUPlace())
+    ragged, = pe.run([loss], feed={"img": lod, "label": y[0]})
+    np.testing.assert_allclose(ragged, dense, rtol=1e-6)
+
+    class Pipe:
+        feed_iters = 2
+
+        def next_feed(self):
+            return {"img": x[1:3], "label": y[1:3]}
+
+    piped, = pe.run([loss], feed=Pipe())
+    assert piped.shape == (2, 1) and np.isfinite(piped).all()
+    for n, v in before.items():
+        scope.set_var(n, v.clone())
+    with tflags.flag_guard(overlap_plan=True):
+        on, = pe.run([loss], feed={"img": x[0], "label": y[0]})
+    np.testing.assert_array_equal(on, dense)
 
 
 def test_async_fetch_futures_equal_the_synchronous_fetches(one_rank):

@@ -374,9 +374,10 @@ def test_the_executor_releases_each_chunk_after_its_run():
             leases.append(out[2])
         return out
 
-    import paddle_tpu_torch.executor as texecutor
+    # Executor.run pops the markers through transfer.staged_feed
+    import paddle_tpu_torch.datapipe.transfer as ttransfer
 
-    texecutor.pop_markers = spy
+    ttransfer.pop_markers = spy
     try:
         with fluid.scope_guard(fluid.Scope()):
             exe.run(startup)
@@ -388,7 +389,7 @@ def test_the_executor_releases_each_chunk_after_its_run():
                     break
                 n += 1
     finally:
-        texecutor.pop_markers = real
+        ttransfer.pop_markers = real
         pipe.close()
     assert n == 6 and len(leases) == 6
     assert all(lease.released for lease in leases)

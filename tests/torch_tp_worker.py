@@ -7,7 +7,8 @@ SPEC.json holds {"world": W, "mesh": {"dp": D, "mp": M}, "rendezvous":
 <path of a file that does not exist yet>, "out": <dir>, "cuda": bool,
 "cases": [...]}. The rank joins a W-rank gloo group through
 `parallel.distributed.initialize("file://...")` — on the host, or with
-"cuda" as a card rank on card 0 (ranks sharing the card; TF32 off) —
+"cuda" as a card rank on card 0 (ranks sharing the card; TF32 off), or
+with "nccl" too an NCCL group of one card a rank (card = rank) —
 runs every case in order and writes `<out>/<case name>.<rank>.npz`. A
 case (with "amp": bf16 AMP on) is
   {"kind": "pe", "name", "net", "opt", "auto", "reduce", "data", "init",
@@ -39,6 +40,8 @@ tests import `build` to make the same nets on the JAX side, and `launch`
 to run the ranks.
 """
 
+import faulthandler
+import gc
 import json
 import os
 import subprocess
@@ -178,7 +181,8 @@ def batches(net, steps, batch, seed=11):
 
 
 def _place(fluid, case):
-    return fluid.CUDAPlace(0) if case.get("cuda") else fluid.CPUPlace()
+    return fluid.CUDAPlace(case.get("card", 0)) if case.get("cuda") \
+        else fluid.CPUPlace()
 
 
 def _pe(case, mesh, rank):
@@ -346,23 +350,26 @@ def _shard_ops(case, mesh, rank):
                                  reduction="sum")}
 
 
-def launch(world, mesh, cases, tmp_dir, timeout=240, cuda=False):
+def launch(world, mesh, cases, tmp_dir, timeout=240, cuda=False,
+           nccl=False):
     """Run `cases` on `world` gloo ranks laid out as `mesh`, one process
     each, rendezvousing through a file in `tmp_dir`; returns {case name:
     [rank 0's results, ...]}. Every rank is killed once `timeout` seconds
-    have passed, and a rank that fails or is killed fails the call with
-    its output."""
+    have passed (15 s before, a rank still running prints every thread's
+    stack and exits), and a rank that fails or is killed fails the call
+    with its output. `nccl` (with `cuda`): an NCCL group, card = rank."""
     os.makedirs(tmp_dir, exist_ok=True)
     tag = "x".join(f"{a}{n}" for a, n in mesh.items())
     spec = {"world": world, "mesh": mesh, "out": tmp_dir, "cases": cases,
-            "cuda": cuda,
+            "cuda": cuda, "nccl": nccl,
             "rendezvous": os.path.join(tmp_dir, f"rendezvous.{tag}")}
     spec_path = os.path.join(tmp_dir, f"spec.{tag}.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=repo + os.pathsep
-               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1",
+               RANK_HANG_DUMP_S=str(max(timeout - 15, 5)))
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), spec_path, str(r)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -391,25 +398,34 @@ def main(spec_path, rank):
     import torch
 
     torch.set_num_threads(1)
+    if os.environ.get("RANK_HANG_DUMP_S"):
+        # a rank that hangs prints every thread's stack and exits before
+        # the launcher's kill
+        faulthandler.dump_traceback_later(
+            float(os.environ["RANK_HANG_DUMP_S"]), exit=True)
     from paddle_tpu_torch.parallel import distributed, mesh as pmesh
 
     with open(spec_path) as f:
         spec = json.load(f)
     cuda = spec.get("cuda", False)
+    nccl = cuda and spec.get("nccl", False)
+    card = rank if nccl else 0
     if cuda:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     distributed.initialize("file://" + spec["rendezvous"], spec["world"],
-                           rank, local_device_ids=[0] if cuda else None,
-                           backend="gloo")
+                           rank, local_device_ids=[card] if cuda else None,
+                           backend=None if nccl else "gloo")
     mesh = pmesh.make_mesh(spec["mesh"])
     kinds = {"pe": _pe, "embedding": _embedding, "shard_ops": _shard_ops}
     for case in spec["cases"]:
-        case = dict(case, mesh=spec["mesh"], cuda=cuda)
+        case = dict(case, mesh=spec["mesh"], cuda=cuda, card=card)
         res = kinds[case["kind"]](case, mesh, rank)
         np.savez(os.path.join(spec["out"], f"{case['name']}.{rank}.npz"),
                  **res)
-    torch.distributed.destroy_process_group()
+    # the executors (and their captured graphs) go before the group
+    gc.collect()
+    distributed.shutdown()
 
 
 if __name__ == "__main__":
